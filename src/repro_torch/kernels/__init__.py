@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+  ref       - plain PyTorch versions of every ported kernel (the CPU path
+              and the yardstick the kernels are held to on the card).
+  qmlp      - wrappers of the fused ADC + printed-MLP/SVM bank kernels
+              (csrc/qmlp_bank.cu), with launch counters.
+  envelope  - the Hopper shared-memory envelope of those kernels.
+  dispatch  - the kernel-or-plain decision and its record.
+  ops       - named entry points (classifier_bank, bespoke_mlp/svm).
+  _build    - nvcc build of csrc/*.cu at first CUDA use, ctypes binding.
+"""

@@ -1,0 +1,54 @@
+"""The Hopper envelope of the fused classifier bank kernels.
+
+The reference's limits (``repro/kernels/envelope.py``: ``MAX_UNROLL_BITS``,
+``MAX_CHANNELS``, ``VMEM_BUDGET_F32``) describe a TPU: how far a one-hot
+selection sum unrolls and what fits a VMEM tile. None of them binds the
+CUDA kernels, which gather from a table and stream one sample row per
+thread. What binds them on an H100 is that one block stages one design's
+resident operands in shared memory:
+
+    table (F, 2^N) + W1 (F, H) + b1 (H) + W2 (H, O) + b2 (O) + 2 range rows (F)
+
+for an MLP design (SVM: table + W (F, O) + b (O) + 2 rows), all float32.
+A block may use at most 227 KB (232,448 bytes) of shared memory; above
+48 KB only as dynamic shared memory after
+``cudaFuncAttributeMaxDynamicSharedMemorySize`` is raised (the launcher
+in csrc/qmlp_bank.cu does so). The design axis is the grid's y dimension,
+at most 65,535. Hidden and output widths of any size run in register
+chunks, and M is bounded only by 64-bit offsets.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+SMEM_MAX_BYTES = 232_448          # opt-in shared memory per block, sm_90
+SMEM_DEFAULT_BYTES = 48 * 1024    # above this the attribute must be raised
+MAX_DESIGNS = 65_535              # gridDim.y
+
+
+def resident_floats(kind: str, f: int, n: int, h: int, o: int) -> int:
+    """float32 words one block keeps in shared memory for one design
+    (``h`` is ignored for an SVM)."""
+    if kind == "mlp":
+        return f * n + f * h + h + h * o + o + 2 * f
+    if kind == "svm":
+        return f * n + f * o + o + 2 * f
+    raise ValueError(f"unknown classifier kind {kind!r}")
+
+
+def smem_bytes(kind: str, f: int, n: int, h: int, o: int) -> int:
+    return 4 * resident_floats(kind, f, n, h, o)
+
+
+def outside_envelope(kind: str, f: int, n: int, h: int, o: int,
+                     d: int) -> Optional[str]:
+    """None when the bank kernel takes this shape, else the limit it
+    breaks, named."""
+    need = smem_bytes(kind, f, n, h, o)
+    if need > SMEM_MAX_BYTES:
+        return (f"one {kind} design needs {need} bytes of shared memory "
+                f"(F={f}, 2^N={n}, H={h}, O={o}); the H100 limit per block "
+                f"is {SMEM_MAX_BYTES}")
+    if d > MAX_DESIGNS:
+        return f"D={d} designs exceed the grid's y limit of {MAX_DESIGNS}"
+    return None

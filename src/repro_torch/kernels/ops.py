@@ -1,0 +1,48 @@
+"""Named entry points of the fused classifier kernels. Counterpart of
+``repro/kernels/ops.py`` (the serving entries).
+
+``classifier_bank`` takes baked value tables, as deployment holds them;
+``bespoke_mlp`` / ``bespoke_svm`` take a pruned mask and bake its table
+first. Routing (kernel on a CUDA tensor inside the envelope, plain version
+on a CPU tensor, ValueError otherwise) is kernels/dispatch.resolve's,
+applied inside the qmlp wrappers.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.spec import AdcSpec, as_spec
+from repro_torch.kernels import qmlp
+
+
+def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,
+                    kind: str, spec: AdcSpec, rows=None) -> torch.Tensor:
+    """One shared (M, C) batch through a deployed multi-design bank.
+
+    tables: (D, C, 2^bits) baked value tables; weights: stacked
+    ``(w1, b1, w2, b2)`` for kind='mlp' or ``(w, b)`` for kind='svm'.
+    ``rows``: optional prebuilt (vmin, scale) range rows on x's device.
+    Returns (D, M, O) logits."""
+    spec = as_spec(spec)
+    if kind == "mlp":
+        return qmlp.bespoke_mlp_bank(x, tables, *weights, spec=spec,
+                                     rows=rows)
+    if kind == "svm":
+        return qmlp.bespoke_svm_bank(x, tables, *weights, spec=spec,
+                                     rows=rows)
+    raise ValueError(f"unknown classifier kind {kind!r}")
+
+
+def bespoke_mlp(x, mask, w1, b1, w2, b2, *, spec: AdcSpec) -> torch.Tensor:
+    """Fused ADC + 1-hidden-layer printed MLP on one design, from its
+    pruned mask (C, 2^bits). Returns (M, O)."""
+    spec = as_spec(spec)
+    table = spec.value_table(torch.as_tensor(mask, device=x.device))
+    return qmlp.bespoke_mlp(x, table, w1, b1, w2, b2, spec=spec)
+
+
+def bespoke_svm(x, mask, w, b, *, spec: AdcSpec) -> torch.Tensor:
+    """Fused ADC + linear SVM on one design, from its pruned mask."""
+    spec = as_spec(spec)
+    table = spec.value_table(torch.as_tensor(mask, device=x.device))
+    return qmlp.bespoke_svm(x, table, w, b, spec=spec)

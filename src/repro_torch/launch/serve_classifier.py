@@ -1,0 +1,219 @@
+"""Serving launcher for deployed ADC+classifier fronts, on the card.
+Counterpart of ``repro/launch/serve_classifier.py`` (its ``--driver
+batch`` path).
+
+The fixed-microbatch loop drains a request list into ``--batch``-row
+microbatches (a microbatch may span many small requests or a slice of one
+large request; the tail is padded), pushes each through the *whole*
+deployed front in one bank-kernel launch, and reports requests/s and
+samples/s. Every response carries all D designs' predictions. After
+serving, the front's served accuracies on the dataset's test split must
+equal each design's exported accuracy exactly.
+
+  # serve a front exported by either package, on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve_classifier \\
+      --front-dir tests/fixtures/fronts/cardio_mlp --dataset cardio \\
+      --requests 256 --request-size 8 --batch 1024
+  # the same through the plain PyTorch versions on the CPU:
+  ... --device cpu
+
+The reference's ``--driver async``, ``--sharded``, ``--smoke``,
+``--nonideal-*`` and ``--calibrate`` paths belong to later slices of the
+port; they are accepted here only to fail with a clear message.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import deploy
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def make_request_stream(x: np.ndarray, num_requests: int, request_size: int,
+                        seed: int = 0) -> List[Tuple[int, np.ndarray]]:
+    """Synthetic client traffic: ``num_requests`` requests of
+    ``request_size`` sample rows each, drawn (with replacement) from the
+    dataset, deterministic under ``seed`` (the reference's stream)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(x), size=(num_requests, request_size))
+    return [(rid, np.asarray(x[idx[rid]], np.float32))
+            for rid in range(num_requests)]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(designs: Sequence[deploy.DeployedClassifier],
+          requests: Sequence[Tuple[int, np.ndarray]], batch: int, *,
+          device: DeviceLike = None, bank_fn=None) -> Dict:
+    """Drain ``requests`` through the bank in fixed ``batch``-row
+    microbatches. Returns the throughput report plus per-request
+    responses ``{rid: (D, n_rows) predicted classes}``. ``bank_fn``
+    overrides the (M, C) -> (D, M, O) bank closure
+    (deploy.make_bank_fn by default)."""
+    dev = resolve_device(device)
+    fn = bank_fn if bank_fn is not None else deploy.make_bank_fn(
+        designs, device=dev)
+    channels = designs[0].channels
+    queue = deque(requests)
+    carry: Optional[Tuple[int, np.ndarray]] = None
+    responses: Dict[int, List[np.ndarray]] = {rid: [] for rid, _ in requests}
+    total_rows = sum(len(x) for _, x in requests)
+    batches = padded_rows = 0
+    # warm-up on a dummy batch through the whole per-microbatch path (the
+    # first CUDA call builds and loads the kernels), so the report times
+    # serving only
+    torch.argmax(fn(torch.zeros((batch, channels), dtype=torch.float32,
+                                device=dev)), dim=-1).cpu()
+    _sync(dev)
+    t0 = time.perf_counter()
+    while queue or carry:
+        rows, meta, filled = [], [], 0
+        while filled < batch and (queue or carry):
+            rid, x = carry if carry is not None else queue.popleft()
+            carry = None
+            take = min(batch - filled, len(x))
+            rows.append(x[:take])
+            meta.append((rid, take))
+            filled += take
+            if take < len(x):
+                carry = (rid, x[take:])
+        xb = np.concatenate(rows, axis=0)
+        pad = batch - len(xb)
+        if pad:
+            xb = np.pad(xb, ((0, pad), (0, 0)))
+            padded_rows += pad
+        logits = fn(torch.from_numpy(xb).to(dev))
+        preds = torch.argmax(logits, dim=-1).cpu().numpy()   # (D, batch)
+        off = 0
+        for rid, take in meta:
+            responses[rid].append(preds[:, off:off + take])
+            off += take
+        batches += 1
+    _sync(dev)
+    wall_s = time.perf_counter() - t0
+    out = {rid: np.concatenate(chunks, axis=1)
+           for rid, chunks in responses.items()}
+    return {
+        "device": str(dev),
+        "num_designs": len(designs),
+        "kind": designs[0].kind,
+        "bits": designs[0].bits,
+        "batch": batch,
+        "requests": len(requests),
+        "samples": total_rows,
+        "batches": batches,
+        "pad_fraction": padded_rows / max(batches * batch, 1),
+        "wall_s": wall_s,
+        "requests_per_s": len(requests) / wall_s,
+        "samples_per_s": total_rows / wall_s,
+        "responses": out,
+    }
+
+
+_LATER = {
+    "driver": "--driver async (the serving engine, ROADMAP A9)",
+    "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9)",
+    "smoke": "--smoke (needs the search, ROADMAP A3)",
+    "nonideal": "--nonideal-sigma/--fault-rate/--range-drift "
+                "(non-ideal hardware, ROADMAP A5)",
+    "calibrate": "--calibrate (fault tolerance, ROADMAP A6)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Serve an exported ADC+classifier front through the "
+                    "PyTorch/CUDA port.")
+    ap.add_argument("--front-dir", required=True,
+                    help="front saved by save_front (either package)")
+    ap.add_argument("--dataset", default="seeds",
+                    help="sample stream + labels for the parity check")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--request-size", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=128,
+                    help="microbatch rows (continuous batching)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda: the hand-written kernels; cpu: their plain "
+                         "PyTorch versions")
+    # reference options of later slices: accepted only to be refused
+    ap.add_argument("--driver", choices=("batch", "async"), default="batch")
+    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--nonideal-sigma", type=float, default=0.0)
+    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--range-drift", type=float, default=0.0)
+    ap.add_argument("--calibrate", action="store_true")
+    return ap
+
+
+def main(argv=None) -> Dict:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    asked = {"driver": args.driver == "async", "sharded": args.sharded,
+             "smoke": args.smoke,
+             "nonideal": (args.nonideal_sigma > 0 or args.fault_rate > 0
+                          or args.range_drift > 0),
+             "calibrate": args.calibrate}
+    for key, on in asked.items():
+        if on:
+            ap.error(f"{_LATER[key]} is not yet ported to repro_torch; "
+                     f"use the JAX package (python -m "
+                     f"repro.launch.serve_classifier)")
+
+    from repro_torch.data import tabular
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as exc:
+        ap.error(str(exc))
+    designs = deploy.load_front(args.front_dir)
+    trained_on = deploy.front_meta(args.front_dir).get("dataset")
+    if trained_on is not None and trained_on != args.dataset:
+        ap.error(f"front at {args.front_dir} was exported from dataset "
+                 f"{trained_on!r}; serving {args.dataset!r} traffic through "
+                 f"it would be wrong-domain (pass --dataset {trained_on})")
+    data = tabular.make_dataset(args.dataset)
+    if designs[0].channels != data["x_test"].shape[1]:
+        ap.error(f"front expects {designs[0].channels} sensor channels but "
+                 f"dataset {args.dataset!r} has {data['x_test'].shape[1]}")
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu (plain PyTorch versions)")
+    print(f"serve_classifier[repro_torch driver=batch D={len(designs)} "
+          f"{designs[0].kind} {designs[0].spec.describe()}] device={dev} "
+          f"({name})")
+
+    requests = make_request_stream(data["x_test"], args.requests,
+                                    args.request_size)
+    rep = serve(designs, requests, args.batch, device=dev)
+    print(f"  {rep['requests']} requests ({rep['samples']} samples) in "
+          f"{rep['wall_s']:.3f}s: {rep['requests_per_s']:.1f} req/s, "
+          f"{rep['samples_per_s']:.0f} samples/s "
+          f"({rep['batches']} batches of {rep['batch']}, "
+          f"{rep['pad_fraction'] * 100:.1f}% pad) on {name}")
+
+    # round-trip parity: the served front reproduces each design's
+    # export-time accuracy exactly
+    served = deploy.served_accuracies(designs, data["x_test"],
+                                      data["y_test"], device=dev)
+    exported = np.array([d.accuracy for d in designs])
+    for i, d in enumerate(designs):
+        print(f"  design {i}: area={d.area_tc:4d}T  dp={int(d.dp):+d}  "
+              f"acc exported={d.accuracy:.3f} served={served[i]:.3f}")
+    if not np.array_equal(served, exported):
+        raise SystemExit(f"served accuracies diverge from the exported "
+                         f"front: {served} != {exported}")
+    print("  parity OK: served == exported accuracy for every design")
+    rep["served_accuracies"] = [float(a) for a in served]
+    return rep
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,275 @@
+"""Port parity, the serving slice end to end: fronts exported and saved by
+the JAX package load in repro_torch and serve (on the CPU, through the
+plain versions) at exactly their exported accuracies, with logits bitwise
+equal to repro.core.deploy.serve_bank; fronts saved by the port load in
+the JAX package; the port's batch driver answers every request as
+repro.launch.serve_classifier does. Exported fronts have dyadic tables,
+power-of-two weights and fixed-point biases, so bitwise is the contract."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.checkpoint import manager as jmanager  # noqa: E402
+from repro.core import deploy as jdeploy  # noqa: E402
+from repro.core import search  # noqa: E402
+from repro.data import tabular as jtab  # noqa: E402
+from repro.launch import serve_classifier as jserve  # noqa: E402
+from repro_torch.checkpoint import manager as tmanager  # noqa: E402
+from repro_torch.core import deploy as tdeploy  # noqa: E402
+from repro_torch.data import tabular as ttab  # noqa: E402
+from repro_torch.launch import serve_classifier as tserve  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+FIXTURES = REPO / "tests" / "fixtures" / "fronts"
+SIZES = (7, 4, 3)
+KINDS = ["mlp", "svm"]
+
+
+@pytest.fixture(scope="module")
+def jax_fronts(tmp_path_factory):
+    """A small front per kind, searched, exported and saved by the JAX
+    package: {kind: (directory, designs)}, plus the seeds dataset."""
+    data = jtab.make_dataset("seeds")
+    fronts = {}
+    for kind in KINDS:
+        cfg = search.SearchConfig(bits=3, pop_size=6, generations=1,
+                                  train_steps=30, model=kind)
+        pg, _, _, trained = search.run_search(data, SIZES, cfg,
+                                              return_trained=True)
+        designs = jdeploy.export_front(pg, data, SIZES, cfg,
+                                       trained=trained)
+        out = tmp_path_factory.mktemp(f"front_{kind}")
+        jdeploy.save_front(out, designs, extra_meta={"dataset": "seeds"})
+        fronts[kind] = (out, designs)
+    return data, fronts
+
+
+def _assert_same_design(t, j):
+    assert (t.kind, t.bits, t.mode, t.vmin, t.vmax) == (
+        j.kind, j.bits, j.mode, j.vmin, j.vmax)
+    assert (t.dp, t.area_tc, t.accuracy, t.calibrated) == (
+        j.dp, j.area_tc, j.accuracy, j.calibrated)
+    np.testing.assert_array_equal(t.mask, j.mask)
+    np.testing.assert_array_equal(t.table, j.table)
+    assert t.table.dtype == np.float32
+    assert len(t.weights) == len(j.weights)
+    for a, b in zip(t.weights, j.weights):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_jax_front_serves_exactly_in_port(jax_fronts, kind):
+    data, fronts = jax_fronts
+    directory, jdesigns = fronts[kind]
+    designs = tdeploy.load_front(directory)
+    assert len(designs) == len(jdesigns)
+    for t, j in zip(designs, jdesigns):
+        _assert_same_design(t, j)
+    x, y = data["x_test"], data["y_test"]
+    served = tdeploy.served_accuracies(designs, x, y, device="cpu")
+    exported = np.array([d.accuracy for d in jdesigns])
+    assert served.dtype == np.float32
+    np.testing.assert_array_equal(served, exported)
+    got = tdeploy.serve_bank(designs, x, device="cpu").numpy()
+    np.testing.assert_array_equal(got, jdeploy.serve_bank(jdesigns, x))
+    d0, j0 = designs[0], jdesigns[0]
+    np.testing.assert_array_equal(d0.logits(x, device="cpu").numpy(),
+                                  j0.logits(x))
+    np.testing.assert_array_equal(d0.predict(x, device="cpu").numpy(),
+                                  j0.predict(x))
+    assert d0.accuracy_on(x, y, device="cpu") == j0.accuracy_on(x, y)
+    assert tdeploy.front_meta(directory) == jdeploy.front_meta(directory)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_weight_carry_from_numpy(jax_fronts, kind):
+    """from_numpy carries a JAX design's arrays into the port, checked."""
+    _, fronts = jax_fronts
+    j = fronts[kind][1][0]
+    meta = j.spec.to_meta()
+    t = tdeploy.from_numpy(kind, meta, j.table, j.weights, mask=j.mask,
+                           dp=j.dp, area_tc=j.area_tc, accuracy=j.accuracy)
+    _assert_same_design(t, j)
+    with pytest.raises(ValueError, match="float32"):
+        tdeploy.from_numpy(kind, meta, j.table.astype(np.float64), j.weights,
+                           mask=j.mask, dp=0, area_tc=0, accuracy=0)
+    with pytest.raises(ValueError, match="must be"):
+        tdeploy.from_numpy(kind, meta, j.table, (j.weights[0][:, :1],)
+                           + tuple(j.weights[1:]), mask=j.mask, dp=0,
+                           area_tc=0, accuracy=0)
+    with pytest.raises(ValueError, match="needs weights"):
+        tdeploy.from_numpy(kind, meta, j.table, j.weights[:1], mask=j.mask,
+                           dp=0, area_tc=0, accuracy=0)
+    with pytest.raises(ValueError, match="unknown classifier kind"):
+        tdeploy.from_numpy("tree", meta, j.table, j.weights, mask=j.mask,
+                           dp=0, area_tc=0, accuracy=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_port_saved_front_loads_in_jax(jax_fronts, kind, tmp_path):
+    data, fronts = jax_fronts
+    designs = tdeploy.load_front(fronts[kind][0])
+    tdeploy.save_front(tmp_path, designs, extra_meta={"dataset": "seeds"})
+    back = jdeploy.load_front(tmp_path)
+    for t, j in zip(designs, back):
+        _assert_same_design(t, j)
+    assert jdeploy.front_meta(tmp_path) == tdeploy.front_meta(tmp_path)
+    served = jdeploy.served_accuracies(back, data["x_test"], data["y_test"])
+    np.testing.assert_array_equal(served, [d.accuracy for d in designs])
+    again = tdeploy.load_front(tmp_path)
+    for a, b in zip(again, designs):
+        _assert_same_design(a, b)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_batch_driver_matches_reference_driver(jax_fronts, kind):
+    data, fronts = jax_fronts
+    directory, jdesigns = fronts[kind]
+    designs = tdeploy.load_front(directory)
+    reqs = tserve.make_request_stream(data["x_test"], 21, 5, seed=3)
+    jreqs = jserve.make_request_stream(data["x_test"], 21, 5, seed=3)
+    for (rt, xt), (rj, xj) in zip(reqs, jreqs):
+        assert rt == rj
+        np.testing.assert_array_equal(xt, xj)
+    rep = tserve.serve(designs, reqs, 16, device="cpu")
+    jrep = jserve.serve(jdesigns, jreqs, 16)
+    for key in ("num_designs", "kind", "bits", "batch", "requests",
+                "samples", "batches", "pad_fraction"):
+        assert rep[key] == jrep[key], key
+    assert rep["device"] == "cpu"
+    for rid, preds in jrep["responses"].items():
+        np.testing.assert_array_equal(rep["responses"][rid], preds)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fixture_fronts_serve_at_recorded_accuracies(kind):
+    """The committed cardio fronts (written by the JAX package through
+    tools/make_port_fixture_fronts.py) serve at their recorded accuracies
+    in both packages."""
+    directory = FIXTURES / f"cardio_{kind}"
+    meta = tdeploy.front_meta(directory)
+    assert meta["dataset"] == "cardio" and meta["kind"] == kind
+    assert meta["search_config"]["bits"] == 4
+    assert meta["search_config"]["pop_size"] == 16
+    data = ttab.make_dataset("cardio")
+    designs = tdeploy.load_front(directory)
+    assert designs[0].channels == ttab.SPECS["cardio"].features == 21
+    recorded = np.array([d.accuracy for d in designs])
+    np.testing.assert_array_equal(
+        tdeploy.served_accuracies(designs, data["x_test"], data["y_test"],
+                                  device="cpu"), recorded)
+    jdesigns = jdeploy.load_front(directory)
+    np.testing.assert_array_equal(
+        jdeploy.served_accuracies(jdesigns, data["x_test"], data["y_test"]),
+        recorded)
+
+
+def test_cli_serves_fixture_with_parity():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_classifier",
+         "--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset", "cardio",
+         "--requests", "32", "--batch", "64", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "parity OK: served == exported accuracy for every design" in \
+        out.stdout
+    rep = tserve.main(["--front-dir", str(FIXTURES / "cardio_svm"),
+                       "--dataset", "cardio", "--requests", "8",
+                       "--device", "cpu"])
+    assert rep["num_designs"] == 3 and len(rep["served_accuracies"]) == 3
+
+
+@pytest.mark.parametrize("extra", [["--driver", "async"], ["--sharded"],
+                                   ["--smoke"], ["--nonideal-sigma", "0.5"],
+                                   ["--fault-rate", "0.01"],
+                                   ["--range-drift", "0.1"],
+                                   ["--calibrate"]])
+def test_cli_refuses_later_slices(extra, capsys):
+    argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
+            "cardio", "--device", "cpu"] + extra
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(argv)
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_rejects_wrong_domain(capsys):
+    with pytest.raises(SystemExit):
+        tserve.main(["--front-dir", str(FIXTURES / "cardio_mlp"),
+                     "--dataset", "seeds", "--device", "cpu"])
+    assert "wrong-domain" in capsys.readouterr().err
+
+
+def test_mean_acc_is_jnp_mean():
+    """Every count 0..M at several M: the port's accuracy mean equals
+    jnp.mean's bitwise, while a true division differs for some counts
+    (the trap the reciprocal form avoids)."""
+    differs = 0
+    for m in (63, 210, 636, 638, 1000):
+        correct = np.arange(m + 1)[:, None] > np.arange(m)[None, :]
+        want = np.asarray(jnp.mean(jnp.asarray(correct), axis=-1))
+        got = tdeploy._mean_acc(torch.from_numpy(correct)).numpy()
+        np.testing.assert_array_equal(got, want)
+        true_div = (torch.from_numpy(correct).float().sum(-1) / m).numpy()
+        differs += int((true_div != want).sum())
+    assert differs > 0
+
+
+def test_streaming_front_is_left_to_a_later_slice(tmp_path):
+    meta = {"format": 1, "kind": "mlp", "bits": 2, "mode": "tree",
+            "vmin": 0.0, "vmax": 1.0, "num_designs": 0,
+            "feature": {"window": 8}}
+    tmanager.CheckpointManager(tmp_path).save(
+        0, {"meta": tmanager.pack_json(meta)})
+    with pytest.raises(NotImplementedError, match="streaming"):
+        tdeploy.load_front(tmp_path)
+
+
+def test_checkpoint_format_is_shared(tmp_path):
+    tree = {"meta": tmanager.pack_json({"a": [1, 2], "b": None}),
+            "design_000": {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+                           "acc": np.float64(0.125), "n": np.int64(7)},
+            "skip": None}
+    port = tmanager.CheckpointManager(tmp_path / "port")
+    port.save(1, {"stale": np.zeros(2)})
+    port.save(1, tree)                           # replaces the first save
+    assert not (tmp_path / "port" / "step_1.tmp").exists()
+    from_jax = jmanager.CheckpointManager(tmp_path / "port").restore_flat(1)
+    from_port = port.restore_flat(1)
+    assert sorted(from_jax) == sorted(from_port) == [
+        "design_000/acc", "design_000/n", "design_000/w", "meta"]
+    for k in from_port:
+        np.testing.assert_array_equal(from_port[k], from_jax[k])
+        assert from_port[k].dtype == from_jax[k].dtype
+    assert tmanager.unpack_json(from_port["meta"]) == {"a": [1, 2],
+                                                       "b": None}
+    jmanager.CheckpointManager(tmp_path / "jax").save(
+        0, {k: v for k, v in tree.items() if v is not None}, blocking=True)
+    back = tmanager.CheckpointManager(tmp_path / "jax").restore_flat(0)
+    for k in from_port:
+        np.testing.assert_array_equal(back[k], from_port[k])
+    meta = json.loads((tmp_path / "port" / "step_1" /
+                       "metadata.json").read_text())
+    assert meta["leaves"]["design_000/w"] == {"shape": [2, 3],
+                                              "dtype": "float32"}
+
+
+def test_tabular_copy_matches_reference():
+    assert ttab.SPECS == {k: ttab.TabularSpec(**vars(v))
+                          for k, v in jtab.SPECS.items()}
+    for name in ("seeds", "cardio"):
+        a, b = ttab.make_dataset(name, seed=1), jtab.make_dataset(name,
+                                                                  seed=1)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])

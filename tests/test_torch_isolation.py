@@ -1,0 +1,116 @@
+"""The port stands alone: src/repro_torch and chip_smoke.py import neither
+JAX nor the JAX package, entry points do not drift to the CPU when no
+card is present, and chip_smoke.py refuses to report without a card or
+outside a checkout."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ast  # noqa: E402
+import os  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FRONT = REPO / "tests" / "fixtures" / "fronts" / "cardio_mlp"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0 and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _modules()
+    assert "repro_torch.kernels.qmlp" in mods and len(mods) >= 15
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('isolated', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("isolated")
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core import deploy
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve_classifier
+    designs = deploy.load_front(FRONT)
+    x = np.zeros((4, designs[0].channels), np.float32)
+    calls = [lambda: resolve_device(),
+             lambda: resolve_device("cuda"),
+             lambda: deploy.make_bank_fn(designs),
+             lambda: deploy.serve_bank(designs, x),
+             lambda: deploy.served_accuracies(designs, x, np.zeros(4)),
+             lambda: designs[0].logits(x),
+             lambda: serve_classifier.serve(designs, [(0, x)], 8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(SystemExit) as exc:
+        serve_classifier.main(["--front-dir", str(FRONT), "--dataset",
+                               "cardio"])
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ))
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_without_a_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = _run_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "cuda" in out.stderr.lower()
