@@ -7,23 +7,45 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports neither JAX nor the JAX package ``repro``. Phases:
 
 1. header: the card (nvidia-smi name and power limit), the nvcc build of
-   the kernels with its time and ptxas report, and the TF32 state (off).
-2. kernels: each bank kernel (qmlp_mlp_bank, qmlp_svm_bank) is held
-   against its plain PyTorch version on the card: the fixture fronts'
-   shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O wider
-   than a register chunk, a design above 48 KB of shared memory, a
-   per-channel-range case and a wide D=64, M=65536 bank. Bitwise on
-   dyadic inputs (every exported front's); rtol=1e-5, atol=1e-6 where the
-   sums are not exact, because the kernel sums in another order. Then
-   each kernel and its plain version are timed with CUDA events over 200
-   launches after warm-up, beside the least time the card could take.
-3. serve (the main path): with every launch counter at 0, each committed
-   fixture front (tests/fixtures/fronts/cardio_{mlp,svm}, exported by the
-   JAX package) is loaded and served by the batch driver, 256 requests x 8
-   rows in microbatches of 1024, on cuda; the served accuracies must equal
-   the exported ones exactly, and each kernel must have launched. Then the
-   per-request predictions are held against the plain version's on the
-   card.
+   every kernel source (one nvcc each, started together) with its time
+   and ptxas report, and the TF32 state (off).
+2. kernels: each kernel is held against its plain PyTorch version on the
+   card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
+   fronts' shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O
+   wider than a register chunk, a design above 48 KB of shared memory, a
+   per-channel-range case and a wide D=64, M=65536 bank; bitwise on dyadic
+   inputs (every exported front's), rtol=1e-5, atol=1e-6 where the sums
+   are not exact. The population quantizer (adc_quantize_population):
+   the search's shapes (cardio train and test splits, P=16 and 32), P=1
+   (the adc_quantize entry), M not a multiple of the tile, bits 1/4/6,
+   per-channel ranges, a table above 48 KB and a wide P=64, M=65536 call;
+   bitwise everywhere (a gather copies table values). Then each kernel and
+   its plain version are timed with CUDA events over 200 launches after
+   warm-up and with torch.profiler, beside the least time the card could
+   take; the D=1 bank calls too.
+3. serve (the serving path): with every launch counter at 0, each
+   committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
+   exported by the JAX package) is loaded and served by the batch driver,
+   256 requests x 8 rows in microbatches of 1024, on cuda; the served
+   accuracies must equal the exported ones exactly, and each bank kernel
+   must have launched. The per-request predictions are then held against
+   the plain version's on the card.
+4. search (the main path): with every launch counter at 0, for the MLP
+   and the SVM on cardio at full width (21 features, hidden 5, 3 classes,
+   4-bit tree ADC; pop 16, 3 generations, 100 QAT steps, the fixture
+   fronts' config): run_search -> export_front -> verify_front_parity
+   (must be True) -> save_front -> load_front -> serve by the batch driver
+   -> served accuracies must equal the exported ones exactly. The
+   quantizer must have launched twice (train and test split) per
+   population evaluation: 2 x (generations + 1) for the search, 2 for
+   train_pareto_front and 2 for verify_front_parity; the bank kernels must
+   have launched in serving. A lane-purity probe re-trains the front
+   without padding to the fixed lane count and reports whether the lane
+   count changed any accuracy.
+5. generation: one generation at SearchConfig defaults (pop 32, 300 QAT
+   steps) per model, timed on the host clock around a synchronised call,
+   then traced with torch.profiler: device time of the quantizer, of
+   everything else, and the device's busy share.
 
 It prints one JSON line of kernel results and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
@@ -35,6 +57,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,12 +75,20 @@ WARMUP = 20
 KERNELS = {
     "qmlp_mlp_bank": {"replaces": "src/repro/kernels/qmlp.py:210",
                       "pallas": "bespoke_mlp_bank_pallas "
-                                "(+ bespoke_mlp_pallas as D=1)"},
+                                "(+ bespoke_mlp_pallas as D=1)",
+                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
     "qmlp_svm_bank": {"replaces": "src/repro/kernels/qmlp.py:250",
                       "pallas": "bespoke_svm_bank_pallas "
-                                "(+ bespoke_svm_pallas as D=1)"},
+                                "(+ bespoke_svm_pallas as D=1)",
+                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "adc_quantize_population": {
+        "replaces": "src/repro/kernels/adc_quantize.py:139",
+        "pallas": "adc_quantize_pallas_population "
+                  "(+ adc_quantize_pallas as P=1)",
+        "source": "src/repro_torch/kernels/csrc/adc_quantize.cu"},
 }
-SOURCE = "src/repro_torch/kernels/csrc/qmlp_bank.cu"
+# the search's main path: the fixture fronts' config at cardio's width
+SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 
 
 class SmokeFailure(Exception):
@@ -260,10 +291,12 @@ def phase_kernels(np, torch, dev, fronts, x_test):
     for kind, (designs, spec, tables, weights) in fronts.items():
         name = f"qmlp_{kind}_bank"
         kern, plain = wrappers[name]
-        shapes = {"serve batch": 1024, "wide bank": 65536}
-        for label, m in shapes.items():
-            tile = (np.arange(64) % len(designs) if label == "wide bank"
-                    else np.arange(len(designs)))
+        # the front at the serve batch; design 0 alone (the D=1 call that
+        # replaces bespoke_{mlp,svm}_pallas); a wide bank
+        shapes = {"serve batch": (1024, np.arange(len(designs))),
+                  "D=1": (1024, np.arange(1)),
+                  "wide bank": (65536, np.arange(64) % len(designs))}
+        for label, (m, tile) in shapes.items():
             xd = torch.as_tensor(
                 x_test[rng.integers(0, len(x_test), size=m)]).to(dev)
             td = torch.as_tensor(tables[tile]).to(dev).contiguous()
@@ -304,6 +337,127 @@ def _rows(spec, f):
     return range_rows_tensors(spec.bits, spec.vmin, spec.vmax, f)
 
 
+def quantize_bound(p, m, c, n):
+    """(bound_ms, bound_by, bytes, ops) of one population-quantizer call:
+    x read once, the tables and rows read once, P x M x C outputs written
+    once, against HBM; about five float operations per output (subtract,
+    multiply, floor, two clamps) against the float32 peak."""
+    nbytes = 4 * (m * c + p * c * n + 2 * c + p * m * c)
+    ops = 5 * p * m * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def random_masks(np, torch, rng, p, c, bits):
+    """Repaired pruned masks (P, C, 2^N), as genome decode gives them."""
+    from repro_torch.core.adc import repair_mask
+    return repair_mask(torch.from_numpy(
+        (rng.random((p, c, 2 ** bits)) < 0.5).astype(np.int32)))
+
+
+def phase_quantizer(np, torch, dev, data):
+    """adc_quantize_population against ref.adc_quantize_ref_population on
+    the card, bitwise, then timed at the search's shapes."""
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(2025)
+    x_tr, x_te = data["x_train"], data["x_test"]
+    c = x_tr.shape[1]
+    cases = []       # (label, spec, x, masks, via the P=1 entry)
+    for split, x in (("train", x_tr), ("test", x_te)):
+        for p in (16, 32):
+            cases.append((f"cardio {split} split M={len(x)} P={p}",
+                          AdcSpec(bits=4), x, random_masks(
+                              np, torch, rng, p, c, 4), False))
+    cases.append((f"P=1 (adc_quantize entry) M={len(x_te)}", AdcSpec(bits=4),
+                  x_te, random_masks(np, torch, rng, 1, c, 4)[0], True))
+    for m in (257, 1000):
+        x = rng.uniform(-0.1, 1.1, size=(m, c)).astype(np.float32)
+        cases.append((f"ragged M={m} P=5", AdcSpec(bits=4), x,
+                      random_masks(np, torch, rng, 5, c, 4), False))
+    for bits in (1, 4, 6):
+        x = rng.uniform(-0.1, 1.1, size=(999, c)).astype(np.float32)
+        cases.append((f"bits={bits} M=999 P=7", AdcSpec(bits=bits), x,
+                      random_masks(np, torch, rng, 7, c, bits), False))
+    lo = rng.uniform(-1.0, 0.5, size=c)
+    spec_pc = AdcSpec(bits=4, vmin=tuple(lo),
+                      vmax=tuple(lo + rng.uniform(0.5, 2.0, size=c)))
+    x = rng.uniform(lo - 0.2, lo + 2.2, size=(777, c)).astype(np.float32)
+    cases.append(("per-channel ranges M=777 P=6", spec_pc, x,
+                  random_masks(np, torch, rng, 6, c, 4), False))
+    x = rng.uniform(-0.1, 1.1, size=(600, 200)).astype(np.float32)
+    cases.append(("C=200 bits=6 (table > 48 KB) P=3", AdcSpec(bits=6), x,
+                  random_masks(np, torch, rng, 3, 200, 6), False))
+    wide_x = x_te[rng.integers(0, len(x_te), size=65536)]
+    cases.append(("wide P=64 M=65536", AdcSpec(bits=4), wide_x,
+                  random_masks(np, torch, rng, 64, c, 4), False))
+
+    name = "adc_quantize_population"
+    max_err = 0.0
+    print("phase kernels: adc_quantize_population vs plain version on the "
+          "card (bitwise)")
+    for label, spec, x, masks, single in cases:
+        xd = torch.as_tensor(x).to(dev).contiguous()
+        md = masks.to(dev)
+        tables = spec.value_table(md).contiguous()
+        if single:
+            got = ops.adc_quantize(xd, md, spec=spec)
+            want = ref.adc_quantize_ref(xd, tables, spec.bits, spec.vmin,
+                                        spec.vmax)
+        else:
+            got = ops.adc_quantize_population(xd, md, spec=spec)
+            want = ref.adc_quantize_ref_population(xd, tables, spec.bits,
+                                                   spec.vmin, spec.vmax)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape,
+              f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        ok = torch.equal(got, want)
+        print(f"  {name} {label:40s} shape={tuple(got.shape)} "
+              f"max_abs_err={err:.3e} [bitwise] {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{name} disagrees with its plain version on {label} "
+                  f"(max_abs_err {err:.3e}, bitwise)")
+        del got, want
+
+    timings = {}
+    spec = AdcSpec(bits=4)
+    shapes = {"search train P=16": (x_tr, 16), "search test P=16": (x_te, 16),
+              "search train P=32": (x_tr, 32), "P=1": (x_te, 1),
+              "wide P=64 M=65536": (wide_x, 64)}
+    for label, (x, p) in shapes.items():
+        xd = torch.as_tensor(x).to(dev).contiguous()
+        tables = spec.value_table(random_masks(np, torch, rng, p, c, 4)
+                                  .to(dev)).contiguous()
+        m, n = len(x), spec.levels
+        rows = tuple(t.to(dev) for t in _rows(spec, c))
+        k_fn = lambda: adcq.adc_quantize_population(  # noqa: E731
+            xd, tables, spec=spec, rows=rows)
+        p_fn = lambda: ref.adc_quantize_ref_population(  # noqa: E731
+            xd, tables, spec.bits, spec.vmin, spec.vmax)
+        p1 = cuda_ms(torch, p_fn)
+        k1 = cuda_ms(torch, k_fn)
+        k2 = cuda_ms(torch, k_fn)
+        p2 = cuda_ms(torch, p_fn)
+        dev_ms = device_kernel_ms(torch, k_fn, f"{name}_kernel")
+        b_ms, b_by, nbytes, nops = quantize_bound(p, m, c, n)
+        timings[label] = {"shape": {"P": p, "M": m, "C": c, "levels": n},
+                          "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                          "device_ms": dev_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "bytes": nbytes, "ops": nops}
+        dev_txt = ("not measured" if dev_ms is None
+                   else f"{dev_ms * 1e3:.2f} us")
+        print(f"  time {name} {label:18s}: kernel {k1 * 1e3:.2f}/"
+              f"{k2 * 1e3:.2f} us per call (profiler device time "
+              f"{dev_txt}), plain {p1 * 1e3:.2f}/{p2 * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
+    return max_err, timings
+
+
 def phase_serve(np, torch, dev, card, fronts, data):
     from repro_torch.core import deploy
     from repro_torch.kernels import qmlp, ref
@@ -311,9 +465,9 @@ def phase_serve(np, torch, dev, card, fronts, data):
                                                      serve)
     requests = make_request_stream(data["x_test"], 256, 8)
     reports = {}
-    print("phase serve: main path (load_front -> serve -> "
+    print("phase serve: the serving path (load_front -> serve -> "
           "served_accuracies) on cuda")
-    qmlp.reset_launches()
+    reset_all_launches()
     for kind in fronts:
         designs = deploy.load_front(FRONTS / f"cardio_{kind}")
         rep = serve(designs, requests, 1024, device=dev)
@@ -321,7 +475,7 @@ def phase_serve(np, torch, dev, card, fronts, data):
                                           data["y_test"], device=dev)
         exported = np.array([d.accuracy for d in designs])
         reports[kind] = (designs, rep, served, exported)
-    launches = dict(qmlp.launches)
+    launches = all_launches()
     print(f"  launch counters after the main path: {launches}")
 
     for kind, (designs, rep, served, exported) in reports.items():
@@ -366,9 +520,182 @@ def phase_serve(np, torch, dev, card, fronts, data):
               f"{long_rep['wall_s']:.4f} s: "
               f"{long_rep['requests_per_s']:.1f} req/s, "
               f"{long_rep['samples_per_s']:.0f} samples/s on {card}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    for name in ("qmlp_mlp_bank", "qmlp_svm_bank"):
+        check(launches[name] > 0, f"{name} never launched on the serving "
+                                  f"path")
     return launches
+
+
+def reset_all_launches():
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import qmlp
+    qmlp.reset_launches()
+    adcq.reset_launches()
+
+
+def all_launches():
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import qmlp
+    return {**qmlp.launches, **adcq.launches}
+
+
+def phase_search(np, torch, dev, card, data):
+    """The main path: the port searches, exports, checks, saves, loads and
+    serves its own front, for the MLP and the SVM."""
+    from repro_torch.core import deploy, search
+    from repro_torch.data import tabular
+    from repro_torch.launch.serve_classifier import (make_request_stream,
+                                                     serve)
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    requests = make_request_stream(data["x_test"], 256, 8)
+    evals = 2 * (SEARCH["generations"] + 1) + 2 + 2
+    print(f"phase search: the main path (run_search -> export_front -> "
+          f"verify_front_parity -> save_front -> load_front -> serve) on "
+          f"cuda, cardio sizes={sizes}, {SEARCH}")
+    out, fronts = {}, {}
+    for kind in ("mlp", "svm"):
+        cfg = search.SearchConfig(model=kind, **SEARCH)
+        marks = [time.perf_counter()]
+
+        def log(g, pop, fit):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            dt = marks[-1] - marks[-2]
+            print(f"  {kind} gen {g}: {dt:.3f} s/gen, "
+                  f"{cfg.pop_size / dt:.1f} individuals/s, best-acc "
+                  f"{1 - fit[:, 0].min():.4f}, min-area "
+                  f"{fit[:, 1].min():.4f}", flush=True)
+
+        reset_all_launches()
+        t0 = time.perf_counter()
+        pg, pf, _, trained = search.run_search(
+            data, sizes, cfg, log=log, return_trained=True, device=dev)
+        designs = deploy.export_front(pg, data, sizes, cfg, trained=trained,
+                                      device=dev)
+        parity = deploy.verify_front_parity(designs, pg, data, sizes, cfg,
+                                            device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            deploy.save_front(tmp, designs, extra_meta={
+                "dataset": DATASET, "sizes": list(sizes)})
+            loaded = deploy.load_front(tmp)
+        rep = serve(loaded, requests, 1024, device=dev)
+        served = deploy.served_accuracies(loaded, data["x_test"],
+                                          data["y_test"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        exported = np.array([d.accuracy for d in designs])
+        gen_s = [b - a for a, b in zip(marks[1:-1], marks[2:])]
+        for i, d in enumerate(designs):
+            print(f"  {kind} design {i}: area={d.area_tc}T dp={int(d.dp)} "
+                  f"exported={d.accuracy!r} served={float(served[i])!r}")
+        print(f"  {kind}: {len(designs)} designs; verify_front_parity="
+              f"{parity}; launch counters {launches}; main path "
+              f"{wall:.2f} s on {card}")
+        if gen_s:
+            print(f"  {kind}: steady generation {np.mean(gen_s):.3f} s "
+                  f"({cfg.pop_size / np.mean(gen_s):.1f} individuals/s) "
+                  f"over generations 1..{len(gen_s)} on {card}")
+        check(parity, f"{kind}: verify_front_parity is False")
+        # the front's re-train (train_pareto_front) reproduces the fitness
+        # each genome got in whichever generation evaluated it
+        refit = (1.0 - trained[0].astype(np.float32)).astype(np.float64)
+        check(np.array_equal(refit, pf[:, 0]),
+              f"{kind}: re-trained accuracies {trained[0]} do not give the "
+              f"search fitness {1 - pf[:, 0]}")
+        check(np.array_equal(served, exported),
+              f"{kind}: served accuracies {served} != exported {exported}")
+        check(launches["adc_quantize_population"] == evals,
+              f"{kind}: adc_quantize_population launched "
+              f"{launches['adc_quantize_population']} times, expected "
+              f"{evals} (2 per population evaluation)")
+        name = f"qmlp_{kind}_bank"
+        check(launches[name] == rep["batches"] + 2,
+              f"{name}: {launches[name]} launches for {rep['batches']} "
+              f"microbatches + warm-up + accuracy pass")
+        out[kind] = {"launches": launches, "designs": len(designs),
+                     "generation_s": gen_s, "wall_s": wall}
+        fronts[kind] = (pg, cfg)
+
+    # lane purity: the front re-trained as exactly its K lanes, without
+    # padding to the fixed lane count, against the padded result
+    dd = search.device_data(data, dev)
+    for kind, (pg, cfg) in fronts.items():
+        padded = search._fixed_lanes(pg, dd, sizes, cfg)["acc"]
+        k = len(pg)
+        free = search._train_and_score(
+            pg, search._stacked_init(k, sizes, cfg, dev), dd, sizes,
+            cfg)["acc"].cpu().numpy()
+        same = bool(np.array_equal(free, padded))
+        out[kind]["lane_count_free_equals_padded"] = same
+        print(f"  lane-purity probe {kind}: K={k} lanes unpadded vs padded "
+              f"to {cfg.pop_size}: {'equal' if same else 'DIFFERENT'} "
+              f"(max |diff| {float(np.abs(free - padded).max()):.3e})")
+    return out
+
+
+def phase_generation(np, torch, dev, card, data):
+    """One generation at SearchConfig defaults (pop 32, 300 QAT steps) per
+    model: host clock around a synchronised evaluate_population, then a
+    torch.profiler trace of the same call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import search
+    from repro_torch.data import tabular
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    dd = search.device_data(data, dev)
+    rng = np.random.default_rng(7)
+    print("phase generation: one generation at SearchConfig defaults")
+    out = {}
+    for kind in ("mlp", "svm"):
+        cfg = search.SearchConfig(bits=4, model=kind)
+        g = (rng.random((cfg.pop_size, search.genome_len(sizes[0], 4)))
+             < 0.5).astype(np.uint8)
+        search.evaluate_population(g[:2], dd, sizes, cfg)     # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            search.evaluate_population(g, dd, sizes, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search.evaluate_population(g, dd, sizes, cfg)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        quant_us = other_us = 0.0
+        launches_traced = 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) is None or not ev.count:
+                continue
+            if "DeviceType.CUDA" not in str(ev.device_type):
+                continue
+            total = getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+            if "adc_quantize_population_kernel" in ev.key:
+                quant_us += total
+            else:
+                other_us += total
+                launches_traced += ev.count
+        wall = min(walls)
+        busy = (quant_us + other_us) / 1e6 / traced_wall
+        out[kind] = {"generation_s": walls, "individuals_per_s":
+                     cfg.pop_size / wall, "traced_wall_s": traced_wall,
+                     "quantizer_device_ms": quant_us / 1e3,
+                     "other_device_ms": other_us / 1e3,
+                     "other_device_ops": launches_traced,
+                     "device_busy_share": busy}
+        print(f"  {kind} pop={cfg.pop_size} steps={cfg.train_steps}: "
+              f"{walls[0]:.3f}/{walls[1]:.3f} s per generation "
+              f"({cfg.pop_size / wall:.1f} individuals/s) on {card}; "
+              f"traced: wall {traced_wall:.3f} s, device time quantizer "
+              f"{quant_us / 1e3:.3f} ms, everything else "
+              f"{other_us / 1e3:.3f} ms over {launches_traced} device "
+              f"operations, device busy {busy * 100:.1f} %")
+    return out
 
 
 def main() -> int:
@@ -389,19 +716,22 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     try:
+        t_start = time.perf_counter()
         card = card_line()
         print(f"nvidia-smi: {card}")
         dev = resolve_device("cuda")
         kind_name = torch.cuda.get_device_name(0)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-              f"device 0: {kind_name}")
+              f"numpy {np.__version__} device 0: {kind_name}")
         t0 = time.perf_counter()
         built = _build.build_all()
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
-        for line in _build.build_log("qmlp_bank").splitlines():
-            if any(k in line for k in ("registers", "spill", "Compiling")):
-                print(f"  ptxas: {line.strip()}")
+        for src in _build.SOURCES:
+            for line in _build.build_log(src).splitlines():
+                if any(k in line for k in ("registers", "spill",
+                                           "Compiling")):
+                    print(f"  ptxas {src}: {line.strip()}")
         tf32 = tf32_state()
         print(f"tf32: {tf32}")
         check(not any(tf32.values()), "TF32 is on")
@@ -415,25 +745,47 @@ def main() -> int:
             fronts[kind] = (designs, designs[0].spec, tables, weights)
 
         max_err, timings = phase_kernels(np, torch, dev, fronts, x_test)
-        launches = phase_serve(np, torch, dev, card, fronts, data)
+        q_err, q_timings = phase_quantizer(np, torch, dev, data)
+        max_err["adc_quantize_population"] = q_err
+        serve_launches = phase_serve(np, torch, dev, card, fronts, data)
+        search_out = phase_search(np, torch, dev, card, data)
+        gen_out = phase_generation(np, torch, dev, card, data)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
                       or m == "repro" or m.startswith("repro."))
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
+        # launches on the main path: the search phase, both models
+        search_launches = {name: sum(search_out[k]["launches"][name]
+                                     for k in ("mlp", "svm"))
+                           for name in KERNELS}
         rows = []
         for name, meta in KERNELS.items():
-            t = timings[name]["serve batch"]
+            if name == "adc_quantize_population":
+                t = q_timings["search train P=16"]
+                extra = {"timings": q_timings}
+            else:
+                t = timings[name]["serve batch"]
+                extra = {"D=1": timings[name]["D=1"],
+                         "wide_bank": timings[name]["wide bank"]}
             rows.append({
-                "name": name, "route": "cuda", "source": SOURCE,
+                "name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"], "pallas": meta["pallas"],
-                "launches": launches[name], "max_abs_err": max_err[name],
+                "launches": search_launches[name],
+                "launches_by_path": {"serve": serve_launches[name],
+                                     "search": search_launches[name]},
+                "max_abs_err": max_err[name],
                 "ms": t["ms"], "kernel_ms": t["ms"],
                 "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None, "shape": t["shape"],
-                "wide_bank": timings[name]["wide bank"]})
+                "library_ms": None, "shape": t["shape"], **extra})
+        summary = {"search": {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "launches"}
+                              for k, v in search_out.items()},
+                   "generation_defaults": gen_out,
+                   "wall_s": time.perf_counter() - t_start}
+        print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -1,1 +1,2 @@
-"""ADC semantics (spec, pruned-tree LUTs) and deployment artifacts."""
+"""ADC semantics (spec, pruned-tree LUTs), the area model, NSGA-II, QAT,
+the search and deployment artifacts."""

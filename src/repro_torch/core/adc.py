@@ -1,14 +1,17 @@
 """Binary-search ADC semantics on tensors. Counterpart of
-``repro/core/adc.py`` (the serving slice: no STE, no ``adc_quantize``).
+``repro/core/adc.py``.
 
 An N-bit binary-search ADC partitions [vmin, vmax] into 2^N levels.
 Pruning keeps a subset of levels (a binary mask); the comparator tree then
 routes an input falling in a pruned level to the kept leaf the surviving
 comparator chain reaches (``tree`` mode), or to the nearest kept level
 (``nearest`` mode). Both are precomputed here as code->level lookup tables
-(LUTs), batched over any leading mask axes.
+(LUTs), batched over any leading mask axes. ``adc_quantize`` is the
+module form: gradients flow through a straight-through estimator (STE).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -134,6 +137,52 @@ def adc_codes(x: torch.Tensor, mask: torch.Tensor, *, bits: int,
     flat = code.reshape(mask.shape[0], -1, c)                    # (P, M, C)
     return torch.gather(lut.transpose(1, 2), 1, flat).reshape(
         code.shape).to(torch.int32)
+
+
+def _gather_values(values: torch.Tensor, level: torch.Tensor
+                   ) -> torch.Tensor:
+    """values (2^N,) shared or (C, 2^N) per-channel; level (..., C) int64
+    codes -> reconstruction values of level's shape."""
+    if values.ndim == 1:
+        return values[level]
+    c = values.shape[0]
+    flat = level.reshape(-1, c)
+    return torch.gather(values.T, 0, flat).reshape(level.shape)
+
+
+def adc_quantize(x: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                 bits: int, vmin=0.0, vmax=1.0, mode: str = "tree",
+                 ste: bool = True) -> torch.Tensor:
+    """Quantize ``x`` through a (possibly pruned) binary-search ADC.
+
+    mask: None (full ADC) | (2^bits,) shared | (C, 2^bits) per channel,
+    C == x.shape[-1] | (P, C, 2^bits) population batch with x (P, ..., C).
+    Per-channel ``vmin``/``vmax`` apply along the trailing axis. Returns
+    x's shape and dtype; with ``ste`` the forward value is
+    ``x + (xq - x)`` with the difference detached, so the gradient is the
+    identity (the reference's ``x + stop_gradient(xq - x)``)."""
+    values = level_values(bits, vmin, vmax).to(x.device)
+    code = encode(x.float(), bits, vmin, vmax)
+    if mask is None:
+        level = code
+    else:
+        mask = torch.as_tensor(mask).to(x.device)
+        if mask.ndim == 2 and mask.shape[0] != x.shape[-1]:
+            raise ValueError(f"per-channel mask C={mask.shape[0]} != last "
+                             f"dim {x.shape[-1]}")
+        if mask.ndim == 3 and (x.shape[0] != mask.shape[0]
+                               or x.shape[-1] != mask.shape[1]):
+            raise ValueError(f"population mask (P={mask.shape[0]}, "
+                             f"C={mask.shape[1]}) needs x (P, ..., C); got "
+                             f"x {tuple(x.shape)}")
+        if mask.ndim not in (1, 2, 3):
+            raise ValueError(f"mask ndim must be 1, 2 or 3, got {mask.ndim}")
+        level = adc_codes(x.float(), mask, bits=bits, mode=mode, vmin=vmin,
+                          vmax=vmax).to(torch.int64)
+    xq = _gather_values(values, level).to(x.dtype)
+    if ste:
+        xq = x + (xq - x).detach()
+    return xq
 
 
 def add_levels(mask: torch.Tensor, extra) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Deployment artifacts: a searched front as servable ADC+classifier
-designs. Counterpart of ``repro/core/deploy.py`` (the serving half:
-load, stack, serve; exporting a front needs the search, a later slice).
+designs. Counterpart of ``repro/core/deploy.py``: export a searched front,
+save, load, stack and serve it.
 
 A ``DeployedClassifier`` holds one frozen design: the baked (C, 2^N)
 code->value table, the power-of-two weights, the genome's ``dp``, the
 provenance mask, the exact transistor-count area and the export-time test
-accuracy. Fronts are stored in the reference's format
+accuracy, which is bit for bit the search-time fitness (``export_front``
+takes it from ``search.train_pareto_front``, and ``verify_front_parity``
+re-trains to check it). Fronts are stored in the reference's format
 (checkpoint/manager.py), so a front exported by the JAX package serves
 here at exactly its recorded accuracies, and a front saved here loads in
 the JAX package.
@@ -25,10 +27,13 @@ import torch
 
 from repro_torch.checkpoint.manager import (CheckpointManager, pack_json,
                                             unpack_json)
+from repro_torch.core import area, qat
 from repro_torch.core.adc import range_rows_tensors
+from repro_torch.core.search import SearchConfig, train_pareto_front
 from repro_torch.core.spec import AdcSpec, Range
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.mlp import mean_accuracy as _mean_acc
 
 FORMAT_VERSION = 1
 
@@ -125,6 +130,78 @@ def from_numpy(kind: str, spec_meta: Dict, table, weights, *, mask, dp,
         weights=weights, area_tc=int(area_tc), accuracy=float(accuracy),
         tmr=None if tmr is None else np.asarray(tmr, np.int32),
         calibrated=bool(calibrated))
+
+
+# -------------------------------------------------------- search -> artifact
+def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
+                 cfg: SearchConfig, trained=None, *,
+                 device: DeviceLike = None) -> List[DeployedClassifier]:
+    """Freeze (typically Pareto-front) genomes into deployable designs:
+    deterministic QAT re-train (``search.train_pareto_front``) on
+    ``device``, bake value tables, quantize the trained weights once with
+    each genome's dp, and attach the exact transistor-count area.
+
+    ``trained`` short-circuits the re-train: pass the (accs, params,
+    masks, dps) tuple already produced by ``train_pareto_front`` /
+    ``run_search(..., return_trained=True)`` for these same genomes. The
+    weights are quantized on ``device``, the device the QAT forward ran
+    on, so they are the numbers the fitness was measured with."""
+    if cfg.model == "mlp" and len(sizes) != 3:
+        raise ValueError(
+            f"the fused serving kernels cover the paper's 1-hidden-layer "
+            f"printed-MLP topology; got sizes={tuple(sizes)}")
+    dev = resolve_device(device)
+    accs, params, masks, dps = (
+        train_pareto_front(genomes, data, sizes, cfg, device=dev)
+        if trained is None else trained)
+    if len(accs) != len(genomes):
+        raise ValueError(f"trained tuple covers {len(accs)} individuals, "
+                         f"got {len(genomes)} genomes")
+    spec = cfg.adc_spec.validate_channels(sizes[0])
+    wb = cfg.weight_bits
+    designs = []
+    for k in range(len(accs)):
+        dp = float(dps[k])
+        if cfg.model == "svm":
+            w, b = (a[k] for a in params)
+            weights = (_po2(w, dp, wb, dev), _fixed(b, dp, wb, dev))
+        else:
+            (w1, b1), (w2, b2) = [(layer[0][k], layer[1][k])
+                                  for layer in params]
+            weights = (_po2(w1, dp, wb, dev), _fixed(b1, dp, wb, dev),
+                       _po2(w2, dp, wb, dev), _fixed(b2, dp, wb, dev))
+        mask = np.asarray(masks[k], np.int32)
+        designs.append(DeployedClassifier(
+            kind=cfg.model, bits=spec.bits, mode=spec.mode,
+            vmin=spec.vmin, vmax=spec.vmax, dp=dp, mask=mask,
+            table=spec.value_table(torch.from_numpy(mask)).numpy(),
+            weights=weights, area_tc=area.system_tc(mask, cfg.design),
+            accuracy=float(accs[k])))
+    return designs
+
+
+def verify_front_parity(designs: Sequence[DeployedClassifier],
+                        genomes: np.ndarray, data: Dict,
+                        sizes: Sequence[int], cfg: SearchConfig, *,
+                        device: DeviceLike = None) -> bool:
+    """Bit-for-bit contract check: re-train the given genomes through the
+    batched fitness path and compare against the accuracies the designs
+    report. Every QAT lane is a pure function of (genome, data, cfg), so
+    this must hold exactly; any drift means the purity contract broke."""
+    accs, _, _, _ = train_pareto_front(genomes, data, sizes, cfg,
+                                       device=device)
+    reported = np.array([d.accuracy for d in designs], np.float64)
+    return bool(np.array_equal(np.asarray(accs, np.float64), reported))
+
+
+def _po2(w, dp: float, weight_bits: int, device) -> np.ndarray:
+    t = torch.as_tensor(np.asarray(w, np.float32)).to(device)
+    return qat.quantize_po2(t, dp, weight_bits).cpu().numpy()
+
+
+def _fixed(b, dp: float, weight_bits: int, device) -> np.ndarray:
+    t = torch.as_tensor(np.asarray(b, np.float32)).to(device)
+    return qat.quantize_fixed(t, dp, weight_bits).cpu().numpy()
 
 
 # ----------------------------------------------------------------- save/load
@@ -242,13 +319,3 @@ def served_accuracies(designs: Sequence[DeployedClassifier], x, y, *,
     logits = serve_bank(designs, x, device=device)
     y = torch.as_tensor(np.asarray(y)).to(logits.device)
     return _mean_acc(torch.argmax(logits, dim=-1) == y[None, :]).cpu().numpy()
-
-
-def _mean_acc(correct: torch.Tensor) -> torch.Tensor:
-    """(..., M) correctness bools -> (...,) float32 accuracies, as the
-    reference's ``jnp.mean`` computes them: the float32 count times the
-    float32 reciprocal of M. A true division ``count / M`` differs in the
-    last ulp for some counts and would break served == exported."""
-    m = correct.shape[-1]
-    return correct.float().sum(-1) * torch.reciprocal(
-        torch.tensor(m, dtype=torch.float32))

@@ -1,0 +1,476 @@
+"""In-training ADC optimization (paper §3.2): NSGA-II over per-channel
+level masks + weight decimal positions, with quantization-aware training
+in the inner loop, minimizing {1 - accuracy, normalized ADC area}.
+Counterpart of ``repro/core/search.py`` (the batched and reference
+engines, two objectives).
+
+A generation is one batched program: genomes decode to a (P, C, 2^N)
+mask batch, the shared train and test batches each go through all P
+pruned ADC banks in one launch of the population quantizer
+(kernels/ops.adc_quantize_population, the hand-written kernel on the
+card), and the P QAT loops run side by side as explicit (P, ...)
+parameter stacks: the loss is the sum of the per-lane losses, so each
+lane's gradient is its own. ``evaluate_population_reference`` keeps the
+paper's per-individual path as the parity oracle.
+
+Lane purity. Every QAT lane must be a pure function of its genome:
+``train_pareto_front`` re-trains a front and must reproduce its search
+fitness bit for bit (``deploy.verify_front_parity``), and dedup changes
+how many distinct genomes a generation trains. On the card a reduction's
+split and a batched product's algorithm may depend on the lane count, so
+every QAT call here runs at one fixed lane count, ``cfg.pop_size``: a
+smaller batch is padded by repeating its first genome, a larger one is
+cut into chunks. A lane's result then never depends on how many other
+genomes were trained with it.
+
+Initial weights come from a ``torch.Generator`` seeded with ``cfg.seed``:
+a documented stream, different from the reference's ``jax.random`` one.
+Tests inject the reference's initial parameters through ``init_params``
+(``stacked_init_from_numpy``) so both packages start from one point.
+
+Genome layout per individual (C input channels, N-bit ADC):
+  [ C * 2^N mask bits | 4 bits decimal-point position (dp in [-8, 7]) ]
+
+Not in this slice, each refused with the ROADMAP item that ports it:
+the robustness objective (A5), fault tolerance (A6), the gradient engine
+and surrogate screening (A7), the streaming co-search (A8), the sharded
+engine (A9), and search checkpoint/resume.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import adc, area, nsga2
+from repro_torch.core.spec import AdcSpec, Range, normalize_range
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import svm as svm_lib
+from repro_torch.optim import adamw
+
+DP_BITS = 4
+
+_LATER = {
+    "sharded": "the sharded engine (multi-GPU population split) is not "
+               "ported yet: ROADMAP A9",
+    "gradient": "the gradient engine is not ported yet: ROADMAP A7",
+    "screen": "surrogate-screened NSGA-II (screen_factor > 1) is not "
+              "ported yet: ROADMAP A7",
+    "nonideal": "the robustness objective (nonideal, mc_samples) is not "
+                "ported yet: ROADMAP A5",
+    "faulttol": "the fault-tolerant co-search (faulttol) is not ported "
+                "yet: ROADMAP A6",
+    "frontend": "the streaming front-end co-search (frontend) is not "
+                "ported yet: ROADMAP A8",
+    "ckpt": "search checkpoint/resume is not ported yet (ROADMAP A3, "
+            "left out of the search slice)",
+}
+
+
+@dataclass(frozen=True)
+class SearchConfig:
+    bits: int = 4
+    pop_size: int = 32
+    generations: int = 16
+    train_steps: int = 300
+    lr: float = 5e-2
+    weight_bits: int = 8
+    min_levels: int = 2
+    seed: int = 0
+    mode: str = "tree"            # circuit-faithful pruned-ADC semantics
+    design: str = "ours"          # area model used in the fitness
+    model: str = "mlp"            # 'mlp' | 'svm'
+    engine: str = "batched"       # 'batched' | 'reference'
+    # exact-duplicate genome dedup before QAT (identical individuals in a
+    # generation share one lane; fitness bit-identical either way)
+    dedup: bool = True
+    # analog range: scalar or per-channel tuple
+    vmin: Range = 0.0
+    vmax: Range = 1.0
+    # reference options of later slices: only their defaults are taken
+    screen_factor: int = 1
+    nonideal: Optional[object] = None
+    mc_samples: int = 0
+    faulttol: Optional[object] = None
+    frontend: Optional[object] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "vmin", normalize_range(self.vmin))
+        object.__setattr__(self, "vmax", normalize_range(self.vmax))
+        if self.engine in ("sharded", "gradient"):
+            raise NotImplementedError(_LATER[self.engine])
+        if self.engine not in ("batched", "reference"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.screen_factor < 1:
+            raise ValueError(f"screen_factor must be >= 1, got "
+                             f"{self.screen_factor}")
+        if self.screen_factor > 1:
+            raise NotImplementedError(_LATER["screen"])
+        if self.nonideal is not None or self.mc_samples != 0:
+            raise NotImplementedError(_LATER["nonideal"])
+        if self.faulttol is not None:
+            raise NotImplementedError(_LATER["faulttol"])
+        if self.frontend is not None:
+            raise NotImplementedError(_LATER["frontend"])
+        if self.model not in ("mlp", "svm"):
+            raise ValueError(f"unknown model {self.model!r}")
+        if self.pop_size < 1:
+            raise ValueError(f"pop_size must be >= 1, got {self.pop_size}")
+
+    @property
+    def n_objectives(self) -> int:
+        return 2
+
+    @property
+    def adc_spec(self) -> AdcSpec:
+        """The ADC design point this search optimizes around."""
+        return AdcSpec(bits=self.bits, mode=self.mode, vmin=self.vmin,
+                       vmax=self.vmax)
+
+    @classmethod
+    def for_spec(cls, spec: AdcSpec, **kw) -> "SearchConfig":
+        """Build a config around an AdcSpec (the api entry path)."""
+        return cls(bits=spec.bits, mode=spec.mode, vmin=spec.vmin,
+                   vmax=spec.vmax, **kw)
+
+
+def genome_len(channels: int, bits: int) -> int:
+    return channels * 2 ** bits + DP_BITS
+
+
+def decode_population(genomes, channels: int, bits: int,
+                      min_levels: int = 2
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P, G) uint8 genomes -> (masks (P, C, 2^N) int32, dp (P,) float32),
+    on the CPU. Pure reshape and arithmetic; ``repair_mask`` is batched
+    over the population axis."""
+    g = torch.as_tensor(np.asarray(genomes, np.uint8))
+    p = g.shape[0]
+    n = 2 ** bits
+    masks = g[:, : channels * n].reshape(p, channels, n).to(torch.int32)
+    masks = adc.repair_mask(masks, min_levels)
+    dpb = g[:, channels * n: channels * n + DP_BITS].to(torch.int64)
+    dps = (dpb * (2 ** torch.arange(DP_BITS))[None, :]).sum(-1) - 8
+    return masks, dps.to(torch.float32)
+
+
+def decode_genome(genome, channels: int, bits: int, min_levels: int = 2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """genome (G,) uint8 -> (mask (C, 2^N) int32, dp 0-d float32)."""
+    masks, dps = decode_population(np.asarray(genome)[None], channels, bits,
+                                   min_levels)
+    return masks[0], dps[0]
+
+
+# ------------------------------------------------------------- QAT inner loop
+def _init_model(sizes, cfg: SearchConfig):
+    """Initial params for one individual, on the CPU: every individual
+    starts from the same seed (the genome only controls the ADC and dp).
+    Params are in the reference's layout: MLP [(W1, b1), (W2, b2)], SVM
+    (W, b)."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model == "svm":
+        return svm_lib.init_svm(gen, sizes[0], sizes[-1])
+    return mlp_lib.init_mlp(gen, sizes)
+
+
+def _tile(params, pop: int, device):
+    """P copies of one individual's params, stacked on a leading axis."""
+    tile = lambda a: torch.tensor(  # noqa: E731
+        np.asarray(a, np.float32)).to(device)[None].repeat(
+            (pop,) + (1,) * np.ndim(a))
+    if isinstance(params, tuple):                       # SVM (W, b)
+        return tuple(tile(a) for a in params)
+    return [(tile(w), tile(b)) for w, b in params]
+
+
+def _stacked_init(pop: int, sizes, cfg: SearchConfig, device):
+    """P copies of the shared initial params on ``device``."""
+    return _tile(_init_model(sizes, cfg), pop, device)
+
+
+def stacked_init_from_numpy(params_np, pop: int, device=None):
+    """The carry of initial weights from the reference: its
+    ``_init_model`` params as numpy arrays (MLP: a list of (W, b) pairs;
+    SVM: a (W, b) tuple) -> the port's (P, ...) initial stacks, so that
+    both packages train from one start point."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    if hasattr(params_np[0], "shape"):                  # SVM (W, b)
+        return _tile(tuple(params_np), pop, dev)
+    return _tile([tuple(layer) for layer in params_np], pop, dev)
+
+
+def _population_model(model: str, params) -> torch.nn.Module:
+    if model == "svm":
+        return svm_lib.PopulationSVM(params)
+    return mlp_lib.PopulationMLP(params)
+
+
+def _train_from_quantized(xq_tr, xq_te, y_tr, y_te, dps, params, sizes,
+                          cfg: SearchConfig, return_params: bool = False):
+    """QAT P lanes from their already-quantized inputs (xq_* (P, M, C),
+    dps (P,), params stacked over P): returns (P,) float32 test
+    accuracies, or ``(accuracies, trained params)`` with
+    ``return_params``. ``cfg.weight_bits`` flows into both the loss and
+    the accuracy, so the fitness is measured on the quantized forward the
+    exported artifact bakes. The loss is the sum of the lane losses, so
+    the gradient of lane p's parameters is lane p's own."""
+    model = _population_model(cfg.model, params)
+    leaves = model.leaves()
+    target = (y_tr if cfg.model == "svm"
+              else torch.nn.functional.one_hot(y_tr, sizes[-1]).float())
+    opt = adamw.init(leaves)
+    for _ in range(cfg.train_steps):
+        loss = model.loss(xq_tr, target, dps, cfg.weight_bits)
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        adamw.update_(leaves, grads, opt, lr=cfg.lr)
+    with torch.no_grad():
+        acc = model.accuracy(xq_te, y_te, dps, cfg.weight_bits)
+    if return_params:
+        return acc, model.params
+    return acc
+
+
+def _train_and_score(genomes: np.ndarray, params0, data: Dict, sizes,
+                     cfg: SearchConfig, return_params: bool = False) -> Dict:
+    """(P, G) genomes -> ``{'acc': (P,) test accuracies}`` as one batched
+    program on ``data``'s device; ``return_params=True`` adds the trained
+    parameter stacks under ``'params'``. The input quantization runs
+    before the QAT, one population-quantizer launch per split."""
+    spec = cfg.adc_spec
+    masks, dps = decode_population(genomes, sizes[0], cfg.bits,
+                                   cfg.min_levels)
+    dev = data["x_train"].device
+    masks, dps = masks.to(dev), dps.to(dev)
+    xq_tr = ops.adc_quantize_population(data["x_train"], masks, spec=spec)
+    xq_te = ops.adc_quantize_population(data["x_test"], masks, spec=spec)
+    out = _train_from_quantized(xq_tr, xq_te, data["y_train"],
+                                data["y_test"], dps, params0, sizes, cfg,
+                                return_params)
+    if return_params:
+        return {"acc": out[0], "params": out[1]}
+    return {"acc": out}
+
+
+def _to_numpy(params):
+    conv = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    if isinstance(params, tuple):
+        return tuple(conv(t) for t in params)
+    return [(conv(w), conv(b)) for w, b in params]
+
+
+def _take(params, n: int):
+    if isinstance(params, tuple):
+        return tuple(a[:n] for a in params)
+    return [(w[:n], b[:n]) for w, b in params]
+
+
+def _concat(chunks):
+    if isinstance(chunks[0], tuple):
+        return tuple(np.concatenate(parts) for parts in zip(*chunks))
+    return [(np.concatenate([c[i][0] for c in chunks]),
+             np.concatenate([c[i][1] for c in chunks]))
+            for i in range(len(chunks[0]))]
+
+
+def _fixed_lanes(genomes: np.ndarray, data: Dict, sizes, cfg: SearchConfig,
+                 init_params=None, return_params: bool = False) -> Dict:
+    """Train any number of genomes at the fixed lane count
+    ``cfg.pop_size`` (module docstring, lane purity): each chunk of at
+    most ``pop_size`` genomes is padded by repeating its first genome.
+    Returns numpy ``{'acc': (B,) float32}`` plus ``'params'`` (each leaf
+    (B, ...)) with ``return_params``."""
+    genomes = np.asarray(genomes, np.uint8)
+    lanes = cfg.pop_size
+    dev = data["x_train"].device
+    accs, params = [], []
+    for start in range(0, len(genomes), lanes):
+        chunk = genomes[start:start + lanes]
+        k = len(chunk)
+        if k < lanes:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[:1], lanes - k, axis=0)])
+        params0 = (_stacked_init(lanes, sizes, cfg, dev)
+                   if init_params is None
+                   else stacked_init_from_numpy(init_params, lanes, dev))
+        out = _train_and_score(chunk, params0, data, sizes, cfg,
+                               return_params)
+        accs.append(out["acc"][:k].cpu().numpy())
+        if return_params:
+            params.append(_to_numpy(_take(out["params"], k)))
+    result = {"acc": np.concatenate(accs)}
+    if return_params:
+        result["params"] = _concat(params)
+    return result
+
+
+def device_data(data: Dict, device: DeviceLike = None) -> Dict:
+    """The dataset dict as tensors on ``device`` (x float32, y int64),
+    moved once per search, not once per generation."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in data.items():
+        t = torch.as_tensor(np.asarray(v))
+        t = t.float() if k.startswith("x") else t.long()
+        out[k] = t.to(dev).contiguous()
+    return out
+
+
+def _as_device_data(data: Dict, device: DeviceLike) -> Dict:
+    """``data`` unchanged if it already holds tensors (``device_data``),
+    else moved to ``device``."""
+    if isinstance(data.get("x_train"), torch.Tensor):
+        return data
+    return device_data(data, device)
+
+
+def train_pareto_front(genomes: np.ndarray, data: Dict, sizes,
+                       cfg: SearchConfig, *, device: DeviceLike = None,
+                       init_params=None):
+    """Re-train the given (typically Pareto-front) genomes and keep what
+    the search-time fitness threw away: the trained parameter stacks.
+
+    Returns ``(accs (K,) f64, params, masks (K, C, 2^N) i32, dps (K,)
+    f32)`` with every ``params`` leaf a numpy (K, ...) stack. Each lane
+    is a pure function of (genome, data, cfg) at the fixed lane count, so
+    the accuracies reproduce the search-time fitness bit for bit."""
+    genomes = np.asarray(genomes, np.uint8)
+    data = _as_device_data(data, device)
+    out = _fixed_lanes(genomes, data, sizes, cfg, init_params,
+                       return_params=True)
+    masks, dps = decode_population(genomes, sizes[0], cfg.bits,
+                                   cfg.min_levels)
+    return (np.asarray(out["acc"], np.float64), out["params"],
+            masks.numpy(), dps.numpy())
+
+
+# ------------------------------------------------------------------- fitness
+def population_areas(genomes: np.ndarray, channels: int, cfg: SearchConfig
+                     ) -> np.ndarray:
+    """(P, G) genomes -> (P,) normalized ADC areas (vs the full flash
+    bank): mask decode and repair, then the exact-integer design-rule walk
+    in numpy per mask."""
+    n = 2 ** cfg.bits
+    g = np.asarray(genomes)
+    masks = torch.as_tensor(g[:, : channels * n].reshape(-1, channels, n)
+                            .astype(np.int32))
+    masks = adc.repair_mask(masks, cfg.min_levels).numpy()
+    flash_full = max(area.flash_full_tc(cfg.bits) * channels, 1)
+    return np.array([area.system_tc(m, cfg.design) for m in masks],
+                    np.float64) / flash_full
+
+
+def _eval_dedup(genomes: np.ndarray, cfg: SearchConfig, core) -> Dict:
+    """Exact-duplicate genome dedup around a population evaluation:
+    ``core`` maps a (B, G) uint8 batch to a dict of (B, ...) arrays.
+    Duplicates share one QAT lane and the results scatter back through
+    the inverse index. Bit-identical to evaluating the full population,
+    because every lane is a pure function of its own genome."""
+    genomes = np.asarray(genomes, np.uint8)
+    if not cfg.dedup or len(genomes) <= 1:
+        return core(genomes)
+    uniq, inverse = np.unique(genomes, axis=0, return_inverse=True)
+    if len(uniq) == len(genomes):
+        return core(genomes)
+    out = core(uniq)
+    inverse = np.asarray(inverse).reshape(-1)
+    return {k: np.asarray(v)[inverse] for k, v in out.items()}
+
+
+def evaluate_population(genomes: np.ndarray, data: Dict, sizes,
+                        cfg: SearchConfig, *, device: DeviceLike = None,
+                        init_params=None) -> np.ndarray:
+    """Batched engine. Full fitness: [1 - accuracy, normalized ADC area]
+    (both minimized), exact-duplicate genomes sharing one QAT lane
+    (``cfg.dedup``). ``init_params`` (numpy, the reference's layout)
+    replaces the seeded initial weights."""
+    data = _as_device_data(data, device)
+    out = _eval_dedup(genomes, cfg, lambda g: _fixed_lanes(
+        g, data, sizes, cfg, init_params))
+    return np.stack([1.0 - np.asarray(out["acc"]),
+                     population_areas(genomes, sizes[0], cfg)], axis=1)
+
+
+def _eval_one_acc(genome, data: Dict, sizes, cfg: SearchConfig,
+                  init_params=None) -> float:
+    """QAT one individual end to end (decode -> quantize -> train), one
+    lane: the paper-faithful sequential path. The quantization is the
+    module form (core/adc.adc_quantize) with ``ste=False``: inputs are
+    data, so no gradient flows to them."""
+    mask, dp = decode_genome(genome, sizes[0], cfg.bits, cfg.min_levels)
+    dev = data["x_train"].device
+    mask = mask.to(dev)
+    kw = dict(bits=cfg.bits, vmin=cfg.vmin, vmax=cfg.vmax, mode=cfg.mode,
+              ste=False)
+    xq_tr = adc.adc_quantize(data["x_train"], mask, **kw)[None]
+    xq_te = adc.adc_quantize(data["x_test"], mask, **kw)[None]
+    params0 = (_stacked_init(1, sizes, cfg, dev) if init_params is None
+               else stacked_init_from_numpy(init_params, 1, dev))
+    acc = _train_from_quantized(xq_tr, xq_te, data["y_train"],
+                                data["y_test"], dp.to(dev)[None], params0,
+                                sizes, cfg)
+    return acc.cpu().numpy()[0]
+
+
+def evaluate_population_reference(genomes: np.ndarray, data: Dict, sizes,
+                                  cfg: SearchConfig, *,
+                                  device: DeviceLike = None,
+                                  init_params=None) -> np.ndarray:
+    """Per-individual reference path (the paper's pymoo-style loop): the
+    same fitness as ``evaluate_population``, one QAT per individual."""
+    data = _as_device_data(data, device)
+    accs = np.array([float(_eval_one_acc(g, data, sizes, cfg, init_params))
+                     for g in np.asarray(genomes, np.uint8)])
+    return np.stack([1.0 - accs,
+                     population_areas(genomes, sizes[0], cfg)], axis=1)
+
+
+def make_eval_fn(data: Dict, sizes, cfg: SearchConfig, *,
+                 device: DeviceLike = None, init_params=None
+                 ) -> Callable[[np.ndarray], np.ndarray]:
+    """The (P, G) -> (P, 2) fitness function ``nsga2.evolve`` consumes,
+    dispatched on ``cfg.engine``. The dataset moves to the device once
+    here, not once per generation."""
+    dev_data = _as_device_data(data, device)
+    fn = (evaluate_population_reference if cfg.engine == "reference"
+          else evaluate_population)
+    return lambda pop: fn(pop, dev_data, sizes, cfg,
+                          init_params=init_params)
+
+
+def run_search(data: Dict, sizes, cfg: SearchConfig,
+               log: Optional[Callable] = None, ckpt=None,
+               resume: bool = False, return_trained: bool = False,
+               init: Optional[np.ndarray] = None, *,
+               device: DeviceLike = None, init_params=None):
+    """Full in-training optimization on ``device`` (default ``cuda``).
+    Returns (pareto_genomes, pareto_fit, decode) where fit columns are
+    [1-acc, normalized area]; with ``return_trained=True`` a fourth
+    element carries the final front's trained state,
+    ``train_pareto_front``'s (accs, params, masks, dps), which
+    ``core/deploy.export_front`` consumes.
+
+    ``init`` seeds the initial population ((pop_size, G) uint8) instead
+    of the random draw. ``ckpt``/``resume`` are refused: search
+    checkpointing is not ported yet."""
+    if ckpt is not None or resume:
+        raise NotImplementedError(_LATER["ckpt"])
+    c = sizes[0]
+    cfg.adc_spec.validate_channels(c)
+    dev_data = device_data(data, device)
+    g = genome_len(c, cfg.bits)
+    pop, fit = nsga2.evolve(
+        make_eval_fn(dev_data, sizes, cfg, init_params=init_params), g,
+        pop_size=cfg.pop_size, generations=cfg.generations, seed=cfg.seed,
+        init=init, log=log)
+    pg, pf = nsga2.pareto_front(pop, fit)
+    decode = lambda gg: decode_genome(gg, c, cfg.bits,  # noqa: E731
+                                      cfg.min_levels)
+    if return_trained:
+        return pg, pf, decode, train_pareto_front(
+            pg, dev_data, sizes, cfg, init_params=init_params)
+    return pg, pf, decode

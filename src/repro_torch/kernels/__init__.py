@@ -4,8 +4,11 @@
               and the yardstick the kernels are held to on the card).
   qmlp      - wrappers of the fused ADC + printed-MLP/SVM bank kernels
               (csrc/qmlp_bank.cu), with launch counters.
+  adc_quantize - wrapper of the population quantizer kernel
+              (csrc/adc_quantize.cu), with its launch counter.
   envelope  - the Hopper shared-memory envelope of those kernels.
   dispatch  - the kernel-or-plain decision and its record.
-  ops       - named entry points (classifier_bank, bespoke_mlp/svm).
+  ops       - named entry points (adc_quantize{,_population},
+              classifier_bank, bespoke_mlp/svm).
   _build    - nvcc build of csrc/*.cu at first CUDA use, ctypes binding.
 """

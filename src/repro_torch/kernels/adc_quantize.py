@@ -1,0 +1,110 @@
+"""Wrapper of the population ADC quantizer kernel (csrc/adc_quantize.cu).
+Counterpart of ``repro/kernels/adc_quantize.py``.
+
+* ``adc_quantize_population``: one shared sample batch x (M, C) through P
+  baked value tables (P, C, 2^N) -> (P, M, C), in one launch.
+* ``adc_quantize``: one table (C, 2^N), the P=1 call, (M, C) -> (M, C).
+
+A CPU tensor runs the plain version (kernels/ref.py). A CUDA tensor
+launches the kernel or raises: the wrapper checks device, dtype, shape and
+contiguity, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch reports an error, and adds one to
+``launches["adc_quantize_population"]``. There is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.adc import range_rows_tensors
+from repro_torch.core.spec import AdcSpec
+from repro_torch.kernels import _build, dispatch, ref
+
+ENTRY = "adc_quantize_population"
+
+# kernel launches since the last reset_launches(); only the launch site
+# below adds to it
+launches = {ENTRY: 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("adc_quantize")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.adc_quantize_population.argtypes = [ptr] * 5 + [ctypes.c_longlong] \
+        + [i32] * 3 + [ptr]
+    lib.adc_quantize_population.restype = i32
+    lib.adcq_error_string.argtypes = [i32]
+    lib.adcq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(spec: AdcSpec, x: torch.Tensor, tables: torch.Tensor
+           ) -> Tuple[int, int, int, int]:
+    """(P, M, C, 2^N) of a call, or ValueError."""
+    if x.ndim != 2 or tables.ndim != 3:
+        raise ValueError(f"need x (M, C) and tables (P, C, 2^N); got "
+                         f"{tuple(x.shape)} and {tuple(tables.shape)}")
+    m, c = x.shape
+    p, tc, n = tables.shape
+    if tc != c:
+        raise ValueError(f"tables have {tc} channels, x has {c}")
+    if n != spec.levels:
+        raise ValueError(f"tables have {n} levels, the spec {spec.levels}")
+    spec.validate_channels(c)
+    return p, m, c, n
+
+
+def adc_quantize_population(
+        x: torch.Tensor, tables: torch.Tensor, *, spec: AdcSpec,
+        rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> torch.Tensor:
+    """Shared x (M, C); tables (P, C, 2^N). Returns (P, M, C) float32:
+    ``out[p, m, c] = tables[p, c, code(x[m, c])]``. ``rows`` are the (C,)
+    ``(vmin, scale)`` range rows on x's device when the caller holds them
+    already; by default they are built from ``spec``."""
+    p, m, c, n = _check(spec, x, tables)
+    res = dispatch.resolve_quantize(ENTRY, x, tables)
+    if res.path == "plain":
+        return ref.adc_quantize_ref_population(x, tables, spec.bits,
+                                               spec.vmin, spec.vmax)
+    lo, scale = rows if rows is not None else range_rows_tensors(
+        spec.bits, spec.vmin, spec.vmax, c, x.device)
+    for i, t in enumerate((x, tables, lo, scale)):
+        if t.device != x.device:
+            raise ValueError(f"{ENTRY}: operand {i} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{ENTRY}: operand {i} is {t.dtype}, needs "
+                            f"float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{ENTRY}: operand {i} is not contiguous")
+    out = torch.empty((p, m, c), dtype=torch.float32, device=x.device)
+    if m == 0 or p == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().adc_quantize_population(
+            x.data_ptr(), tables.data_ptr(), lo.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, c, n, p, stream)
+    if err != 0:
+        msg = _lib().adcq_error_string(err).decode()
+        raise RuntimeError(f"{ENTRY} launch failed: CUDA error {err} "
+                           f"({msg})")
+    launches[ENTRY] += 1
+    return out
+
+
+def adc_quantize(x: torch.Tensor, table: torch.Tensor, *, spec: AdcSpec,
+                 rows=None) -> torch.Tensor:
+    """One bank: x (M, C), table (C, 2^N) -> (M, C). The P=1 call of the
+    population kernel."""
+    return adc_quantize_population(x, table[None], spec=spec, rows=rows)[0]

@@ -30,22 +30,42 @@ class Resolution:
         return dataclasses.asdict(self)
 
 
-def resolve(entry: str, kind: str, x: torch.Tensor, tables: torch.Tensor,
-            weights) -> Resolution:
-    """Decide how ``entry`` runs on (x, tables, *weights): shapes are read
-    from the bank operands (tables (D, F, 2^N); MLP weights
-    (D, F, H)...(D, O), SVM weights (D, F, O), (D, O))."""
+def _route(entry: str, x: torch.Tensor, why) -> Resolution:
+    """The three rules, with ``why()`` naming the envelope limit a CUDA
+    call breaks (None inside the envelope)."""
     dev = str(x.device)
     if x.device.type == "cpu":
         return Resolution(entry, "plain", dev, "CPU tensor: plain version")
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
-    d, f, n = tables.shape
-    h = weights[0].shape[2] if kind == "mlp" else 0
-    o = weights[-1].shape[-1]
-    why = envelope.outside_envelope(kind, f, n, h, o, d)
-    if why is not None:
+    reason = why()
+    if reason is not None:
         raise ValueError(f"{entry}: outside the Hopper kernel envelope: "
-                         f"{why}")
+                         f"{reason}")
     return Resolution(entry, "kernel", dev,
                       "CUDA tensor inside the Hopper envelope")
+
+
+def resolve(entry: str, kind: str, x: torch.Tensor, tables: torch.Tensor,
+            weights) -> Resolution:
+    """Decide how a bank entry runs on (x, tables, *weights): shapes are
+    read from the bank operands (tables (D, F, 2^N); MLP weights
+    (D, F, H)...(D, O), SVM weights (D, F, O), (D, O))."""
+    def why():
+        d, f, n = tables.shape
+        h = weights[0].shape[2] if kind == "mlp" else 0
+        o = weights[-1].shape[-1]
+        return envelope.outside_envelope(kind, f, n, h, o, d)
+
+    return _route(entry, x, why)
+
+
+def resolve_quantize(entry: str, x: torch.Tensor,
+                     tables: torch.Tensor) -> Resolution:
+    """Decide how the population quantizer runs on x (M, C) and tables
+    (P, C, 2^N)."""
+    def why():
+        p, c, n = tables.shape
+        return envelope.outside_quantize_envelope(c, n, p)
+
+    return _route(entry, x, why)

@@ -1,4 +1,5 @@
-"""The Hopper envelope of the fused classifier bank kernels.
+"""The Hopper envelope of the hand-written kernels: the fused classifier
+bank kernels and the population quantizer.
 
 The reference's limits (``repro/kernels/envelope.py``: ``MAX_UNROLL_BITS``,
 ``MAX_CHANNELS``, ``VMEM_BUDGET_F32``) describe a TPU: how far a one-hot
@@ -16,6 +17,11 @@ A block may use at most 227 KB (232,448 bytes) of shared memory; above
 in csrc/qmlp_bank.cu does so). The design axis is the grid's y dimension,
 at most 65,535. Hidden and output widths of any size run in register
 chunks, and M is bounded only by 64-bit offsets.
+
+The population quantizer (csrc/adc_quantize.cu) stages one individual's
+table (C, 2^N) and the two range rows (C) in shared memory, under the same
+227 KB limit (above 48 KB its launcher raises the attribute too); the
+population axis is the grid's y dimension, at most 65,535.
 """
 from __future__ import annotations
 
@@ -51,4 +57,22 @@ def outside_envelope(kind: str, f: int, n: int, h: int, o: int,
                 f"is {SMEM_MAX_BYTES}")
     if d > MAX_DESIGNS:
         return f"D={d} designs exceed the grid's y limit of {MAX_DESIGNS}"
+    return None
+
+
+def quantize_smem_bytes(c: int, n: int) -> int:
+    """Shared memory one quantizer block stages: the (C, 2^N) table and
+    the two (C,) range rows, float32."""
+    return 4 * (c * n + 2 * c)
+
+
+def outside_quantize_envelope(c: int, n: int, p: int) -> Optional[str]:
+    """None when the population quantizer takes this shape, else the
+    limit it breaks, named."""
+    need = quantize_smem_bytes(c, n)
+    if need > SMEM_MAX_BYTES:
+        return (f"one table needs {need} bytes of shared memory (C={c}, "
+                f"2^N={n}); the H100 limit per block is {SMEM_MAX_BYTES}")
+    if p > MAX_DESIGNS:
+        return f"P={p} individuals exceed the grid's y limit of {MAX_DESIGNS}"
     return None

@@ -1,18 +1,39 @@
-"""Named entry points of the fused classifier kernels. Counterpart of
-``repro/kernels/ops.py`` (the serving entries).
+"""Named entry points of the hand-written kernels. Counterpart of
+``repro/kernels/ops.py``.
 
-``classifier_bank`` takes baked value tables, as deployment holds them;
-``bespoke_mlp`` / ``bespoke_svm`` take a pruned mask and bake its table
-first. Routing (kernel on a CUDA tensor inside the envelope, plain version
-on a CPU tensor, ValueError otherwise) is kernels/dispatch.resolve's,
-applied inside the qmlp wrappers.
+``adc_quantize`` / ``adc_quantize_population`` take pruned masks, bake
+their value tables and run the population quantizer (the search's inner
+loop). ``classifier_bank`` takes baked value tables, as deployment holds
+them; ``bespoke_mlp`` / ``bespoke_svm`` take a pruned mask and bake its
+table first. Routing (kernel on a CUDA tensor inside the envelope, plain
+version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
+applied inside the kernel wrappers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.spec import AdcSpec, as_spec
+from repro_torch.kernels import adc_quantize as _adcq
 from repro_torch.kernels import qmlp
+
+
+def adc_quantize(x: torch.Tensor, mask, *, spec: AdcSpec) -> torch.Tensor:
+    """Quantize (M, C) samples through per-channel pruned binary-search
+    ADCs, mask (C, 2^bits). Returns (M, C)."""
+    spec = as_spec(spec)
+    table = spec.value_table(torch.as_tensor(mask, device=x.device))
+    return _adcq.adc_quantize(x, table.contiguous(), spec=spec)
+
+
+def adc_quantize_population(x: torch.Tensor, masks, *,
+                            spec: AdcSpec) -> torch.Tensor:
+    """Quantize one shared (M, C) sample batch through a whole population
+    of pruned ADC banks, masks (P, C, 2^bits), in one launch. Returns
+    (P, M, C)."""
+    spec = as_spec(spec)
+    tables = spec.value_table(torch.as_tensor(masks, device=x.device))
+    return _adcq.adc_quantize_population(x, tables.contiguous(), spec=spec)
 
 
 def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,

@@ -114,3 +114,43 @@ def test_chip_smoke_without_a_card_fails():
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "cuda" in out.stderr.lower()
+
+
+def test_search_entry_points_need_a_card_unless_asked_for_cpu(capsys):
+    """The search slice's entry points default to cuda as well: without a
+    card each raises 'no CUDA device', and each runs when asked for the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch import api
+    from repro_torch.core import deploy, search
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.data import tabular
+    from repro_torch.launch import train
+    data = tabular.make_dataset("seeds")
+    sizes = (7, 3, 3)
+    cfg = search.SearchConfig(bits=2, pop_size=2, generations=0,
+                              train_steps=1)
+    genomes = np.ones((1, search.genome_len(7, 2)), np.uint8)
+    calls = [lambda: search.run_search(data, sizes, cfg),
+             lambda: search.evaluate_population(genomes, data, sizes, cfg),
+             lambda: search.evaluate_population_reference(genomes, data,
+                                                          sizes, cfg),
+             lambda: search.train_pareto_front(genomes, data, sizes, cfg),
+             lambda: deploy.export_front(genomes, data, sizes, cfg),
+             lambda: api.search(AdcSpec(bits=2), data, sizes, pop_size=2,
+                                generations=0, train_steps=1),
+             lambda: api.quantize(data["x_test"], np.ones((7, 4)),
+                                  AdcSpec(bits=2))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--adc-search", "--dataset", "seeds", "--pop", "2",
+                    "--generations", "0", "--train-steps", "1"])
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    fit = search.evaluate_population(genomes, data, sizes, cfg, device="cpu")
+    assert fit.shape == (1, 2)
+    designs = deploy.export_front(genomes, data, sizes, cfg, device="cpu")
+    assert len(designs) == 1
