@@ -19,15 +19,24 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    the search's shapes (cardio train and test splits, P=16 and 32), P=1
    (the adc_quantize entry), M not a multiple of the tile, bits 1/4/6,
    per-channel ranges, a table above 48 KB and a wide P=64, M=65536 call;
-   bitwise everywhere (a gather copies table values). Then each kernel and
-   its plain version are timed with CUDA events over 200 launches after
-   warm-up and with torch.profiler, beside the least time the card could
-   take; the D=1 bank calls too.
+   bitwise everywhere (a gather copies table values). The Monte-Carlo
+   kernel's four entries (mc_adc_eval{,_cal}{,_population}): the search's
+   shapes (P=16, S=32, cardio test and train splits) under every
+   non-ideality spec (ideal, offset, drift, faults, fault_rate=1, all
+   three), P=1 and S=1, ragged M, bits 1/4/6, per-channel ranges, NaN,
+   +-inf and on-bound inputs, C=200 at 6 bits (155 KB of shared memory),
+   P*S above the grid's y limit, and a wide call writing 1.41 GB; bitwise
+   everywhere, and the operands and draws compiled on the card equal the
+   CPU's bitwise. Then each kernel and its plain version are timed with
+   CUDA events over 200 launches after warm-up (20 for the wide MC calls)
+   and with torch.profiler, beside the least time the card could take;
+   the single-design calls too.
 3. serve (the serving path): with every launch counter at 0, each
    committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
    exported by the JAX package) is loaded and served by the batch driver,
    256 requests x 8 rows in microbatches of 1024, on cuda; the served
-   accuracies must equal the exported ones exactly, and each bank kernel
+   accuracies must equal the exported ones exactly, design 0 served alone
+   (the D=1 entry) must give its exported accuracy, and each bank kernel
    must have launched. The per-request predictions are then held against
    the plain version's on the card.
 4. search (the main path): with every launch counter at 0, for the MLP
@@ -42,12 +51,31 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    have launched in serving. A lane-purity probe re-trains the front
    without padding to the fixed lane count and reports whether the lane
    count changed any accuracy.
-5. generation: one generation at SearchConfig defaults (pop 32, 300 QAT
+5. robust (the robustness path): with every launch counter at 0 per
+   model, the same search shape with 32 Monte-Carlo instances under
+   NonIdealSpec(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02): the
+   MLP with robust_objective='expected', the SVM with a FaultTolSpec and
+   'yield'. run_search -> export_front -> verify_front_parity ->
+   evaluate_robustness (must reproduce the searched third column
+   bitwise) -> save_front/save_robustness -> load. MLP: serving instances
+   0 and 31 through make_nonideal_bank_fn must give their listed instance
+   accuracies, zero sigma must give the exported accuracy on every
+   instance, and zero-sigma MC must equal the ideal quantizer. SVM:
+   calibrate_front and make_calibrated_bank_fn serve, the tmr/calibrated
+   leaves survive save -> load. The MC population entry must launch once
+   and the quantizer twice per evaluation. A few genomes through the
+   reference engine at one lane (the single-design MC entries) must equal
+   the batched engine at one lane. Then one robust evaluation and one
+   2-objective evaluation of the same genomes are timed in turns, and one
+   robust evaluation is traced (MC device time, device busy share).
+6. generation: one generation at SearchConfig defaults (pop 32, 300 QAT
    steps) per model, timed on the host clock around a synchronised call,
    then traced with torch.profiler: device time of the quantizer, of
    everything else, and the device's busy share.
 
-It prints one JSON line of kernel results and, last, the
+It prints one JSON line of kernel results, one entry per TPU kernel row it
+replaces (launches summed over the serve, search and robust paths, each
+counted from 0), and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
 that does not hold the port.
@@ -73,22 +101,49 @@ REPS = 200
 WARMUP = 20
 
 KERNELS = {
-    "qmlp_mlp_bank": {"replaces": "src/repro/kernels/qmlp.py:210",
-                      "pallas": "bespoke_mlp_bank_pallas "
-                                "(+ bespoke_mlp_pallas as D=1)",
-                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
-    "qmlp_svm_bank": {"replaces": "src/repro/kernels/qmlp.py:250",
-                      "pallas": "bespoke_svm_bank_pallas "
-                                "(+ bespoke_svm_pallas as D=1)",
-                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "adc_quantize": {"row": 1, "replaces": "src/repro/kernels/adc_quantize.py:101",
+                     "pallas": "adc_quantize_pallas (the P=1 call)",
+                     "source": "src/repro_torch/kernels/csrc/adc_quantize.cu"},
     "adc_quantize_population": {
-        "replaces": "src/repro/kernels/adc_quantize.py:139",
-        "pallas": "adc_quantize_pallas_population "
-                  "(+ adc_quantize_pallas as P=1)",
+        "row": 2, "replaces": "src/repro/kernels/adc_quantize.py:139",
+        "pallas": "adc_quantize_pallas_population",
         "source": "src/repro_torch/kernels/csrc/adc_quantize.cu"},
+    "bespoke_mlp": {"row": 3, "replaces": "src/repro/kernels/qmlp.py:140",
+                    "pallas": "bespoke_mlp_pallas (the D=1 call)",
+                    "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "bespoke_svm": {"row": 4, "replaces": "src/repro/kernels/qmlp.py:178",
+                    "pallas": "bespoke_svm_pallas (the D=1 call)",
+                    "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "qmlp_mlp_bank": {"row": 5, "replaces": "src/repro/kernels/qmlp.py:210",
+                      "pallas": "bespoke_mlp_bank_pallas",
+                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "qmlp_svm_bank": {"row": 6, "replaces": "src/repro/kernels/qmlp.py:250",
+                      "pallas": "bespoke_svm_bank_pallas",
+                      "source": "src/repro_torch/kernels/csrc/qmlp_bank.cu"},
+    "mc_adc_eval": {"row": 7, "replaces": "src/repro/kernels/mc_eval.py:92",
+                    "pallas": "mc_adc_eval_pallas (the P=1 call)",
+                    "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
+    "mc_adc_eval_population": {
+        "row": 8, "replaces": "src/repro/kernels/mc_eval.py:129",
+        "pallas": "mc_adc_eval_pallas_population",
+        "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
+    "mc_adc_eval_cal": {"row": 9,
+                        "replaces": "src/repro/kernels/mc_eval.py:194",
+                        "pallas": "mc_adc_eval_cal_pallas (the P=1 call)",
+                        "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
+    "mc_adc_eval_cal_population": {
+        "row": 10, "replaces": "src/repro/kernels/mc_eval.py:231",
+        "pallas": "mc_adc_eval_cal_pallas_population",
+        "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
 }
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
+# the robust path: the same shape with 32 Monte-Carlo instances
+ROBUST = dict(SEARCH, mc_samples=32)
+ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
+                 seed=0)
+# the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
+MC_WIDE = dict(P=64, S=32, M=8192)
 
 
 class SmokeFailure(Exception):
@@ -233,9 +288,9 @@ def phase_kernels(np, torch, dev, fronts, x_test):
         idx = rng.integers(0, len(x_test), size=1024)
         cases.append((f"fixture {kind} front, serve batch", name, spec,
                       x_test[idx], tables, weights, True))
-        cases.append((f"fixture {kind} design 0 (D=1)", name, spec,
-                      x_test, tables[:1], tuple(w[:1] for w in weights),
-                      True))
+        cases.append((f"fixture {kind} design 0 (D=1)", f"bespoke_{kind}",
+                      spec, x_test, tables[:1],
+                      tuple(w[:1] for w in weights), True))
         tile = np.arange(64) % len(designs)
         wide_x = x_test[rng.integers(0, len(x_test), size=65536)]
         cases.append((f"wide {kind} bank D=64 M=65536", name, spec, wide_x,
@@ -257,11 +312,20 @@ def phase_kernels(np, torch, dev, fronts, x_test):
         cases.append((f"{kind} per-channel ranges, float weights", name,
                       spec_p, x, t, w, False))
 
+    def single(fn):
+        """The single-design entry on a D=1 bank's operands, (1, M, O)."""
+        return lambda x, t, *w, spec, rows=None: fn(
+            x, t[0], *(a[0] for a in w), spec=spec, rows=rows)[None]
+
     wrappers = {"qmlp_mlp_bank": (qmlp.bespoke_mlp_bank,
                                   ref.bespoke_mlp_bank_ref),
                 "qmlp_svm_bank": (qmlp.bespoke_svm_bank,
-                                  ref.bespoke_svm_bank_ref)}
-    max_err = {k: 0.0 for k in KERNELS}
+                                  ref.bespoke_svm_bank_ref),
+                "bespoke_mlp": (single(qmlp.bespoke_mlp),
+                                ref.bespoke_mlp_bank_ref),
+                "bespoke_svm": (single(qmlp.bespoke_svm),
+                                ref.bespoke_svm_bank_ref)}
+    max_err = {k: 0.0 for k in wrappers}
     print("phase kernels: kernel vs plain version on the card")
     for label, name, spec, x, tables, weights, exact in cases:
         kern, plain = wrappers[name]
@@ -289,14 +353,15 @@ def phase_kernels(np, torch, dev, fronts, x_test):
 
     timings = {}
     for kind, (designs, spec, tables, weights) in fronts.items():
-        name = f"qmlp_{kind}_bank"
-        kern, plain = wrappers[name]
         # the front at the serve batch; design 0 alone (the D=1 call that
         # replaces bespoke_{mlp,svm}_pallas); a wide bank
         shapes = {"serve batch": (1024, np.arange(len(designs))),
                   "D=1": (1024, np.arange(1)),
                   "wide bank": (65536, np.arange(64) % len(designs))}
         for label, (m, tile) in shapes.items():
+            name = (f"bespoke_{kind}" if label == "D=1"
+                    else f"qmlp_{kind}_bank")
+            kern, plain = wrappers[name]
             xd = torch.as_tensor(
                 x_test[rng.integers(0, len(x_test), size=m)]).to(dev)
             td = torch.as_tensor(tables[tile]).to(dev).contiguous()
@@ -314,7 +379,7 @@ def phase_kernels(np, torch, dev, fronts, x_test):
             k1 = cuda_ms(torch, k_fn)
             k2 = cuda_ms(torch, k_fn)
             p2 = cuda_ms(torch, p_fn)
-            dev_ms = device_kernel_ms(torch, k_fn, f"{name}_kernel")
+            dev_ms = device_kernel_ms(torch, k_fn, f"qmlp_{kind}_bank_kernel")
             b_ms, b_by, nbytes, flops = bound(kind, d, m, f, n, h, o)
             row = {"shape": {"D": d, "M": m, "F": f, "levels": n, "H": h,
                              "O": o},
@@ -396,11 +461,11 @@ def phase_quantizer(np, torch, dev, data):
     cases.append(("wide P=64 M=65536", AdcSpec(bits=4), wide_x,
                   random_masks(np, torch, rng, 64, c, 4), False))
 
-    name = "adc_quantize_population"
-    max_err = 0.0
-    print("phase kernels: adc_quantize_population vs plain version on the "
-          "card (bitwise)")
+    max_err = {"adc_quantize_population": 0.0, "adc_quantize": 0.0}
+    print("phase kernels: adc_quantize{,_population} vs plain version on "
+          "the card (bitwise)")
     for label, spec, x, masks, single in cases:
+        name = "adc_quantize" if single else "adc_quantize_population"
         xd = torch.as_tensor(x).to(dev).contiguous()
         md = masks.to(dev)
         tables = spec.value_table(md).contiguous()
@@ -416,7 +481,7 @@ def phase_quantizer(np, torch, dev, data):
         check(got.shape == want.shape,
               f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         err = float((got - want).abs().max())
-        max_err = max(max_err, err)
+        max_err[name] = max(max_err[name], err)
         ok = torch.equal(got, want)
         print(f"  {name} {label:40s} shape={tuple(got.shape)} "
               f"max_abs_err={err:.3e} [bitwise] {'ok' if ok else 'MISMATCH'}")
@@ -429,14 +494,19 @@ def phase_quantizer(np, torch, dev, data):
     shapes = {"search train P=16": (x_tr, 16), "search test P=16": (x_te, 16),
               "search train P=32": (x_tr, 32), "P=1": (x_te, 1),
               "wide P=64 M=65536": (wide_x, 64)}
+    name = "adc_quantize_population"
     for label, (x, p) in shapes.items():
         xd = torch.as_tensor(x).to(dev).contiguous()
         tables = spec.value_table(random_masks(np, torch, rng, p, c, 4)
                                   .to(dev)).contiguous()
         m, n = len(x), spec.levels
         rows = tuple(t.to(dev) for t in _rows(spec, c))
-        k_fn = lambda: adcq.adc_quantize_population(  # noqa: E731
-            xd, tables, spec=spec, rows=rows)
+        if p == 1:                           # the adc_quantize entry
+            k_fn = lambda: adcq.adc_quantize(  # noqa: E731
+                xd, tables[0], spec=spec, rows=rows)
+        else:
+            k_fn = lambda: adcq.adc_quantize_population(  # noqa: E731
+                xd, tables, spec=spec, rows=rows)
         p_fn = lambda: ref.adc_quantize_ref_population(  # noqa: E731
             xd, tables, spec.bits, spec.vmin, spec.vmax)
         p1 = cuda_ms(torch, p_fn)
@@ -474,6 +544,12 @@ def phase_serve(np, torch, dev, card, fronts, data):
         served = deploy.served_accuracies(designs, data["x_test"],
                                           data["y_test"], device=dev)
         exported = np.array([d.accuracy for d in designs])
+        # one design served alone: the single-design entry (D=1)
+        alone = designs[0].accuracy_on(data["x_test"], data["y_test"],
+                                       device=dev)
+        check(alone == designs[0].accuracy,
+              f"{kind}: design 0 served alone gives {alone}, exported "
+              f"{designs[0].accuracy}")
         reports[kind] = (designs, rep, served, exported)
     launches = all_launches()
     print(f"  launch counters after the main path: {launches}")
@@ -520,23 +596,27 @@ def phase_serve(np, torch, dev, card, fronts, data):
               f"{long_rep['wall_s']:.4f} s: "
               f"{long_rep['requests_per_s']:.1f} req/s, "
               f"{long_rep['samples_per_s']:.0f} samples/s on {card}")
-    for name in ("qmlp_mlp_bank", "qmlp_svm_bank"):
+    for name in ("qmlp_mlp_bank", "qmlp_svm_bank", "bespoke_mlp",
+                 "bespoke_svm"):
         check(launches[name] > 0, f"{name} never launched on the serving "
                                   f"path")
+    print("  design 0 of each front served alone (the D=1 entry) at its "
+          "exported accuracy")
     return launches
 
 
 def reset_all_launches():
     from repro_torch.kernels import adc_quantize as adcq
-    from repro_torch.kernels import qmlp
+    from repro_torch.kernels import mc_eval, qmlp
     qmlp.reset_launches()
     adcq.reset_launches()
+    mc_eval.reset_launches()
 
 
 def all_launches():
     from repro_torch.kernels import adc_quantize as adcq
-    from repro_torch.kernels import qmlp
-    return {**qmlp.launches, **adcq.launches}
+    from repro_torch.kernels import mc_eval, qmlp
+    return {**qmlp.launches, **adcq.launches, **mc_eval.launches}
 
 
 def phase_search(np, torch, dev, card, data):
@@ -632,6 +712,511 @@ def phase_search(np, torch, dev, card, data):
         print(f"  lane-purity probe {kind}: K={k} lanes unpadded vs padded "
               f"to {cfg.pop_size}: {'equal' if same else 'DIFFERENT'} "
               f"(max |diff| {float(np.abs(free - padded).max()):.3e})")
+    return out
+
+
+def mc_bound(p, s, m, c, n, cal):
+    """(bound_ms, bound_by, bytes, ops) of one Monte-Carlo call: x read
+    once, lb and ub once, the values (C, 2^N) or, calibrated, (P, S, C,
+    2^N) once, the (S, C) rows once, P x S x M x C outputs written once,
+    against HBM; per output a subtract and a multiply, two compares per
+    leaf and one add, against the float32 peak."""
+    tab = p * s * c * n
+    nbytes = 4 * (m * c + 2 * tab + (tab if cal else c * n) + 2 * s * c
+                  + p * s * m * c)
+    ops = p * s * m * c * (3 + 2 * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+MC_SPECS = {"ideal": (0.0, 0.0, 0.0), "offset": (0.5, 0.0, 0.0),
+            "drift": (0.0, 0.01, 0.0), "faults": (0.0, 0.0, 0.05),
+            "all faulty": (0.0, 0.0, 1.0), "all three": (0.5, 0.01, 0.02)}
+
+
+def mc_operands_on(np, torch, dev, spec, ni, masks, s, cal, seed=0):
+    """The Monte-Carlo operands of (P, C, 2^N) masks (or one (C, 2^N)
+    mask), compiled on ``dev``: the nominal ones, or, with ``cal``, the
+    calibrated-table ones under random TMR and calibrate genes."""
+    from repro_torch.core import nonideal
+    from repro_torch.faulttol import calibrate, redundancy
+    c = masks.shape[-2]
+    if not cal:
+        return nonideal.mc_operands(spec, ni, masks, samples=s, device=dev)
+    rng = np.random.default_rng(seed)
+    lead = masks.shape[:-2]
+    tmr = (rng.random(lead + (c,)) < 0.5).astype(np.int32)
+    genes = (rng.random(lead) < 0.5).astype(np.int32)
+    rd = redundancy.draw_redundant(spec.bits, c, s, ni, dev)
+    return calibrate.mc_operands_ft(spec, ni, masks, tmr, genes, rd, dev)
+
+
+def on_bound_inputs(np, x, lb, lo, scale):
+    """Rows 0-2 of x become NaN, +inf and -inf; row 3 puts every channel
+    exactly on a finite lower bound of instance 0 of design 0 (x nudged
+    until (x - lo) * scale lands on it in float32)."""
+    x = np.array(x, np.float32)
+    x[0], x[1], x[2] = np.nan, np.inf, -np.inf
+    lb0 = lb.reshape((-1,) + lb.shape[-3:])[0, 0]          # (C, 2^N)
+    lo0, sc0 = lo[0], scale[0]
+    for ch in range(x.shape[1]):
+        ks = np.nonzero(np.isfinite(lb0[ch]) & (lb0[ch] > 0))[0]
+        if not len(ks):
+            continue
+        t = lb0[ch, ks[0]]
+        xv = np.float32(lo0[ch] + t / sc0[ch])
+        for _ in range(16):
+            u = np.float32(np.float32(xv - lo0[ch]) * sc0[ch])
+            if u == t:
+                break
+            xv = np.nextafter(xv, np.float32(np.inf if u < t else -np.inf))
+        x[3, ch] = xv
+    return x
+
+
+def phase_mc_kernels(np, torch, dev, data):
+    """The four Monte-Carlo entries against their plain versions on the
+    card, bitwise, then timed beside their bounds."""
+    from repro_torch.core import nonideal
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.kernels import mc_eval, ref
+    rng = np.random.default_rng(2026)
+    x_tr, x_te = data["x_train"], data["x_test"]
+    c = x_tr.shape[1]
+    all3 = nonideal.NonIdealSpec(*MC_SPECS["all three"], seed=1)
+    cases = []      # (label, spec, nonideal, x, masks, S, special, compare)
+    for sname, knobs in MC_SPECS.items():
+        ni = nonideal.NonIdealSpec(*knobs, seed=2)
+        cases.append((f"search test split P=16 S=32 M=636, {sname}",
+                      AdcSpec(bits=4), ni, x_te,
+                      random_masks(np, torch, rng, 16, c, 4), 32, False))
+    cases.append(("search train split P=16 S=32 M=1488", AdcSpec(bits=4),
+                  all3, x_tr, random_masks(np, torch, rng, 16, c, 4), 32,
+                  False))
+    cases.append(("P=1 (single-design entry) S=32 M=636", AdcSpec(bits=4),
+                  all3, x_te, random_masks(np, torch, rng, 1, c, 4)[0], 32,
+                  False))
+    cases.append(("S=1 P=16 M=636", AdcSpec(bits=4), all3, x_te,
+                  random_masks(np, torch, rng, 16, c, 4), 1, False))
+    cases.append(("P=1 S=1 M=636", AdcSpec(bits=4), all3, x_te,
+                  random_masks(np, torch, rng, 1, c, 4)[0], 1, False))
+    for m in (257, 1000):
+        x = rng.uniform(-0.1, 1.1, size=(m, c)).astype(np.float32)
+        cases.append((f"ragged M={m} P=5 S=7", AdcSpec(bits=4), all3, x,
+                      random_masks(np, torch, rng, 5, c, 4), 7, False))
+    for bits in (1, 4, 6):
+        x = rng.uniform(-0.1, 1.1, size=(999, c)).astype(np.float32)
+        cases.append((f"bits={bits} P=3 S=8 M=999", AdcSpec(bits=bits),
+                      all3, x, random_masks(np, torch, rng, 3, c, bits), 8,
+                      False))
+    lo = rng.uniform(-1.0, 0.5, size=c)
+    spec_pc = AdcSpec(bits=4, vmin=tuple(lo),
+                      vmax=tuple(lo + rng.uniform(0.5, 2.0, size=c)))
+    x = rng.uniform(lo - 0.2, lo + 2.2, size=(777, c)).astype(np.float32)
+    cases.append(("per-channel ranges P=6 S=8 M=777", spec_pc, all3, x,
+                  random_masks(np, torch, rng, 6, c, 4), 8, False))
+    cases.append(("NaN, +-inf and on-bound inputs P=4 S=8 M=636",
+                  AdcSpec(bits=4), all3, x_te,
+                  random_masks(np, torch, rng, 4, c, 4), 8, True))
+    x = rng.uniform(-0.1, 1.1, size=(300, 200)).astype(np.float32)
+    cases.append(("C=200 bits=6 (155 KB shared memory) P=2 S=3", AdcSpec(
+        bits=6), all3, x, random_masks(np, torch, rng, 2, 200, 6), 3, False))
+    x = rng.uniform(-0.1, 1.1, size=(16, 3)).astype(np.float32)
+    cases.append(("P*S = 2100*32 > 65535 (grid loop) C=3 M=16",
+                  AdcSpec(bits=4),
+                  all3, x, random_masks(np, torch, rng, 2100, 3, 4), 32,
+                  False))
+
+    plain = {"mc_adc_eval": ref.mc_adc_eval_ref,
+             "mc_adc_eval_population": ref.mc_adc_eval_ref_population,
+             "mc_adc_eval_cal": ref.mc_adc_eval_cal_ref,
+             "mc_adc_eval_cal_population":
+                 ref.mc_adc_eval_cal_ref_population}
+    max_err = {k: 0.0 for k in plain}
+    print("phase kernels: mc_adc_eval{,_cal}{,_population} vs plain "
+          "version on the card (bitwise); operands and draws compiled on "
+          "the card vs on the CPU (bitwise)")
+    d_cpu = nonideal.draw(4, c, 32, all3)
+    d_gpu = nonideal.draw(4, c, 32, all3, device=dev)
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(d_cpu, d_gpu)),
+          "the draws differ between the CPU and the card")
+    for label, spec, ni, x, masks, s, special in cases:
+        for cal in (False, True):
+            single = masks.ndim == 2
+            entry = ("mc_adc_eval" + ("_cal" if cal else "")
+                     + ("" if single else "_population"))
+            operands = mc_operands_on(np, torch, dev, spec, ni,
+                                      masks.to(dev), s, cal)
+            host = mc_operands_on(np, torch, "cpu", spec, ni, masks, s, cal)
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(operands, host))
+            check(same, f"{entry} operands on the card differ from the CPU's "
+                        f"on {label}")
+            xs = (on_bound_inputs(np, x, host[0].numpy(), host[3].numpy(),
+                                  host[4].numpy()) if special else x)
+            xd = torch.as_tensor(xs).to(dev).contiguous()
+            got = getattr(mc_eval, entry)(xd, *operands)
+            want = plain[entry](xd, *operands)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape,
+                  f"{entry} {label}: shape {tuple(got.shape)} != "
+                  f"{tuple(want.shape)}")
+            err = float((got - want).abs().max())
+            max_err[entry] = max(max_err[entry], err)
+            ok = torch.equal(got, want)
+            print(f"  {entry:27s} {label:45s} shape={tuple(got.shape)} "
+                  f"max_abs_err={err:.3e} [bitwise, operands ==] "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            check(ok, f"{entry} disagrees with its plain version on {label} "
+                      f"(max_abs_err {err:.3e}, bitwise)")
+            del got, want
+
+    # a wide call: P=64, S=32, M=8192, C=21 writes 1.41 GB
+    wp, ws, wm = MC_WIDE["P"], MC_WIDE["S"], MC_WIDE["M"]
+    wide_x = x_te[rng.integers(0, len(x_te), size=wm)]
+    wide_masks = random_masks(np, torch, rng, wp, c, 4).to(dev)
+    xd = torch.as_tensor(wide_x).to(dev).contiguous()
+    for cal in (False, True):
+        entry = "mc_adc_eval_cal_population" if cal else \
+            "mc_adc_eval_population"
+        operands = mc_operands_on(np, torch, dev, AdcSpec(bits=4), all3,
+                                  wide_masks, ws, cal)
+        got = getattr(mc_eval, entry)(xd, *operands)
+        want = plain[entry](xd, *operands)
+        torch.cuda.synchronize()
+        gb = got.numel() * 4 / 1e9
+        err = float((got - want).abs().max())
+        max_err[entry] = max(max_err[entry], err)
+        ok = torch.equal(got, want)
+        label = f"wide P={wp} S={ws} M={wm} ({gb:.2f} GB out)"
+        print(f"  {entry:27s} {label:45s} max_abs_err={err:.3e} [bitwise] "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok and gb >= 1.0,
+              f"{entry} wide call: bitwise {ok}, {gb:.2f} GB written")
+        del got, want, operands
+    torch.cuda.empty_cache()
+
+    timings = {}
+    shapes = {   # label: (entry, P, S, x, masks)
+        "search P=16 S=32 M=636": ("mc_adc_eval_population", 16, 32, x_te),
+        "evaluate_robustness D=6 S=32 M=636": ("mc_adc_eval_population", 6,
+                                               32, x_te),
+        f"wide P={wp} S={ws} M={wm}": ("mc_adc_eval_population", wp, ws,
+                                       wide_x),
+        "single S=32 M=636": ("mc_adc_eval", 1, 32, x_te),
+        "cal search P=16 S=32 M=636": ("mc_adc_eval_cal_population", 16, 32,
+                                       x_te),
+        f"cal wide P={wp} S={ws} M={wm}": ("mc_adc_eval_cal_population", wp,
+                                           ws, wide_x),
+        "cal single S=32 M=636": ("mc_adc_eval_cal", 1, 32, x_te)}
+    spec = AdcSpec(bits=4)
+    for label, (entry, p, s, x) in shapes.items():
+        cal = "_cal" in entry
+        single = not entry.endswith("_population")
+        masks = random_masks(np, torch, rng, p, c, 4).to(dev)
+        if single:
+            masks = masks[0]
+        operands = mc_operands_on(np, torch, dev, spec, all3, masks, s, cal)
+        xd = torch.as_tensor(x).to(dev).contiguous()
+        k_fn = lambda: getattr(mc_eval, entry)(xd, *operands)  # noqa: E731
+        p_fn = lambda: plain[entry](xd, *operands)  # noqa: E731
+        reps = 20 if "wide" in label else REPS
+        p1 = cuda_ms(torch, p_fn, reps)
+        k1 = cuda_ms(torch, k_fn, reps)
+        k2 = cuda_ms(torch, k_fn, reps)
+        p2 = cuda_ms(torch, p_fn, reps)
+        dev_ms = device_kernel_ms(torch, k_fn, "mc_eval_kernel", reps)
+        m = len(x)
+        b_ms, b_by, nbytes, nops = mc_bound(p, s, m, c, 16, cal)
+        timings.setdefault(entry, {})[label] = {
+            "shape": {"P": p, "S": s, "M": m, "C": c, "levels": 16},
+            "ms": min(k1, k2), "plain_ms": min(p1, p2), "device_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops}
+        dev_txt = ("not measured" if dev_ms is None
+                   else f"{dev_ms * 1e3:.2f} us")
+        print(f"  time {entry:27s} {label:36s}: kernel {k1 * 1e3:.2f}/"
+              f"{k2 * 1e3:.2f} us per call (profiler device time "
+              f"{dev_txt}), plain {p1 * 1e3:.2f}/{p2 * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
+        del operands
+        torch.cuda.empty_cache()
+    return max_err, timings
+
+
+def phase_robust(np, torch, dev, card, data, search_out):
+    """The robust path: with every launch counter at 0 per model, a
+    3-objective search on cardio at full width, export, the deployed
+    robustness report, save/load and serving through sampled (and, for
+    the fault-tolerant SVM, calibrated) hardware instances; then the
+    reference engine's single-design entries; then one robust generation
+    traced with torch.profiler."""
+    import dataclasses
+    from repro_torch.core import deploy, nonideal, search
+    from repro_torch.data import tabular
+    from repro_torch.faulttol import FaultTolSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_classifier import (make_request_stream,
+                                                     serve)
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    ni = nonideal.NonIdealSpec(**ROBUST_NI)
+    x_te, y_te = data["x_test"], data["y_test"]
+    y_dev = torch.as_tensor(y_te).to(dev)
+    requests = make_request_stream(x_te, 256, 8)
+    configs = {
+        "mlp": search.SearchConfig(model="mlp", nonideal=ni,
+                                   robust_objective="expected", **ROBUST),
+        "svm": search.SearchConfig(model="svm", nonideal=ni,
+                                   robust_objective="yield",
+                                   faulttol=FaultTolSpec(), **ROBUST)}
+    gens = ROBUST["generations"]
+    print(f"phase robust: the robust path (run_search -> export_front -> "
+          f"evaluate_robustness -> save_front -> load_front -> non-ideal / "
+          f"calibrated serving) on cuda, cardio sizes={sizes}, {ROBUST}, "
+          f"{ni.describe()}")
+    out = {}
+    for kind, cfg in configs.items():
+        pop_entry = ("mc_adc_eval_cal_population" if cfg.faulttol
+                     else "mc_adc_eval_population")
+        single_entry = "mc_adc_eval_cal" if cfg.faulttol else "mc_adc_eval"
+        marks = [time.perf_counter()]
+
+        def log(g, pop, fit):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            dt = marks[-1] - marks[-2]
+            print(f"  {kind} gen {g}: {dt:.3f} s/gen, best-acc "
+                  f"{1 - fit[:, 0].min():.4f}, min-area "
+                  f"{fit[:, 1].min():.4f}, best-robust "
+                  f"{fit[:, 2].min():.4f}", flush=True)
+
+        reset_all_launches()
+        t0 = time.perf_counter()
+        pg, pf, decode, trained = search.run_search(
+            data, sizes, cfg, log=log, return_trained=True, device=dev)
+        torch.cuda.synchronize()
+        after_search = all_launches()
+        designs = deploy.export_front(pg, data, sizes, cfg, trained=trained,
+                                      device=dev)
+        parity = deploy.verify_front_parity(designs, pg, data, sizes, cfg,
+                                            device=dev)
+        margins = (cfg.yield_margin, 0.05)
+        torch.cuda.synchronize()
+        t_rep = time.perf_counter()
+        rep = deploy.evaluate_robustness(designs, ni, x_te, y_te,
+                                         samples=cfg.mc_samples,
+                                         yield_margins=margins, device=dev)
+        t_rep = time.perf_counter() - t_rep
+        print(f"  {kind}: evaluate_robustness of {len(designs)} designs x "
+              f"{cfg.mc_samples} instances on the test split: {t_rep:.4f} s "
+              f"on {card}")
+        with tempfile.TemporaryDirectory() as tmp:
+            deploy.save_front(tmp, designs, extra_meta={
+                "dataset": DATASET, "sizes": list(sizes)})
+            deploy.save_robustness(tmp, rep)
+            loaded = deploy.load_front(tmp)
+            rep_loaded = deploy.load_robustness(tmp)
+        check(rep_loaded == json.loads(json.dumps(rep)),
+              f"{kind}: robustness.json does not round-trip")
+        served = {}
+        if cfg.faulttol is None:
+            for k in (0, cfg.mc_samples - 1):
+                fn = deploy.make_nonideal_bank_fn(
+                    loaded, ni, instance=k, samples=cfg.mc_samples,
+                    device=dev)
+                srep = serve(loaded, requests, 1024, device=dev, bank_fn=fn)
+                logits = fn(x_te)
+                served[k] = deploy._mean_acc(
+                    torch.argmax(logits, -1) == y_dev[None]).cpu().numpy()
+                print(f"  {kind}: served instance {k} of {cfg.mc_samples} "
+                      f"through make_nonideal_bank_fn: {srep['requests']} "
+                      f"requests in {srep['wall_s']:.4f} s, "
+                      f"{srep['requests_per_s']:.1f} req/s on {card}")
+            zero = deploy.evaluate_robustness(
+                designs, nonideal.NonIdealSpec(seed=3), x_te, y_te,
+                samples=cfg.mc_samples, device=dev)
+            xd = torch.as_tensor(x_te).to(dev)
+            mask = torch.from_numpy(designs[0].mask).to(dev)
+            ideal_q = ops.adc_quantize(xd, mask, spec=cfg.adc_spec)
+            mc_q = nonideal.mc_quantize(xd, mask, cfg.adc_spec,
+                                        nonideal.NonIdealSpec(), samples=2)
+            check(torch.equal(mc_q, ideal_q[None].expand_as(mc_q)),
+                  f"{kind}: zero-sigma MC != the ideal quantizer")
+        else:
+            cal = deploy.calibrate_front(loaded, ni, instance=0,
+                                         samples=cfg.mc_samples, device=dev)
+            cal_acc = deploy.served_accuracies(cal, x_te, y_te, device=dev)
+            cfn = deploy.make_calibrated_bank_fn(
+                loaded, ni, instance=0, samples=cfg.mc_samples, device=dev)
+            crep = serve(loaded, requests, 1024, device=dev, bank_fn=cfn)
+            clog = cfn(x_te)
+            check(bool(torch.isfinite(clog).all())
+                  and tuple(clog.shape) == (len(loaded), len(x_te), 3),
+                  f"{kind}: calibrated serving gave {tuple(clog.shape)} / "
+                  f"non-finite logits")
+            cal_served = deploy._mean_acc(
+                torch.argmax(clog, -1) == y_dev[None]).cpu().numpy()
+            print(f"  {kind}: calibrate_front(instance 0) served "
+                  f"accuracies {[float(a) for a in cal_acc]}; "
+                  f"make_calibrated_bank_fn {[float(a) for a in cal_served]};"
+                  f" {crep['requests']} requests in {crep['wall_s']:.4f} s, "
+                  f"{crep['requests_per_s']:.1f} req/s on {card}")
+            for a, b in zip(loaded, designs):
+                check(np.array_equal(a.tmr, b.tmr)
+                      and a.calibrated == b.calibrated,
+                      f"{kind}: tmr/calibrated leaves lost in save -> load")
+        # the reference engine: a few genomes, one lane each, against the
+        # batched engine at the same lane count (pop_size=1), so both QATs
+        # run the same shapes and the single-design MC entry is held
+        # against the population one
+        one = dataclasses.replace(cfg, pop_size=1)
+        g3 = pg[:3]
+        dd = search.device_data(data, dev)
+        before_ref = all_launches()[single_entry]
+        ref_fit = search.evaluate_population_reference(
+            g3, dd, sizes, dataclasses.replace(one, engine="reference"))
+        bat_fit = search.evaluate_population(g3, dd, sizes, one)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        wall = time.perf_counter() - t0
+        gen_s = [b - a for a, b in zip(marks[1:-1], marks[2:])]
+
+        col = np.array([
+            (1.0 - r["yield"][f"{cfg.yield_margin:g}"]) if cfg.faulttol
+            else r["expected_drop"] for r in rep["designs"]])
+        for i, d in enumerate(designs):
+            r = rep["designs"][i]
+            print(f"  {kind} design {i}: area={d.area_tc}T "
+                  f"exported={d.accuracy!r} mean={r['mean_accuracy']!r} "
+                  f"worst={r['worst_accuracy']!r} yield@0.01="
+                  f"{r['yield']['0.01']!r} column={pf[i, 2]!r} "
+                  f"report={col[i]!r}"
+                  + (f" tmr={int(d.tmr.sum())}/{d.channels} "
+                     f"calibrated={d.calibrated}" if d.tmr is not None
+                     else ""))
+        print(f"  {kind}: {len(designs)} designs; verify_front_parity="
+              f"{parity}; launches after the search {after_search}; after "
+              f"the whole path {launches}; path {wall:.2f} s on {card}")
+        check(parity, f"{kind}: verify_front_parity is False")
+        check(np.array_equal(col, pf[:, 2]),
+              f"{kind}: evaluate_robustness {col} != the searched third "
+              f"column {pf[:, 2]}")
+        if cfg.faulttol is None:
+            for k, acc in served.items():
+                want = np.array([r["instance_accuracies"][k]
+                                 for r in rep["designs"]], np.float32)
+                check(np.array_equal(acc, want),
+                      f"{kind}: serving instance {k} gave {acc}, the report "
+                      f"lists {want}")
+            for d, r in zip(designs, zero["designs"]):
+                check(r["instance_accuracies"] == [d.accuracy] * cfg.mc_samples,
+                      f"{kind}: zero-sigma instances {r['instance_accuracies']}"
+                      f" != exported {d.accuracy}")
+            print(f"  {kind}: report == searched column bitwise; instances 0 "
+                  f"and {cfg.mc_samples - 1} served at their listed "
+                  f"accuracies; zero sigma == exported for every instance")
+        else:
+            print(f"  {kind}: report (1 - yield@{cfg.yield_margin:g}) == "
+                  f"searched column bitwise; tmr/calibrated survive "
+                  f"save -> load")
+        evals = gens + 1
+        check(after_search[pop_entry] == evals,
+              f"{pop_entry}: {after_search[pop_entry]} launches in the "
+              f"search, expected {evals} (1 per population evaluation)")
+        check(after_search["adc_quantize_population"] == 2 * evals + 2,
+              f"adc_quantize_population: "
+              f"{after_search['adc_quantize_population']} launches in the "
+              f"search, expected {2 * evals + 2} (2 per evaluation, 2 for "
+              f"train_pareto_front)")
+        ref_launches = launches[single_entry] - before_ref
+        check(ref_launches == len(g3),
+              f"{single_entry}: {ref_launches} launches for {len(g3)} "
+              f"reference-engine genomes")
+        check(np.allclose(ref_fit, bat_fit, rtol=0, atol=1e-6)
+              and np.array_equal(ref_fit[:, 2], bat_fit[:, 2]),
+              f"{kind}: reference engine {ref_fit} vs batched {bat_fit}")
+        print(f"  {kind}: reference engine (single-design entry) == batched "
+              f"engine at one lane: max |diff| "
+              f"{float(np.abs(ref_fit - bat_fit).max()):.3e} (robust column "
+              f"bitwise)")
+        two_obj = search_out[kind]["generation_s"]
+        if gen_s and two_obj:
+            ratio = float(np.mean(gen_s) / np.mean(two_obj))
+            print(f"  {kind}: steady generation {np.mean(gen_s):.3f} s "
+                  f"robust vs {np.mean(two_obj):.3f} s 2-objective "
+                  f"(ratio {ratio:.3f}) on {card}; launches per evaluation: "
+                  f"{pop_entry} {after_search[pop_entry] / evals:g}, "
+                  f"adc_quantize_population "
+                  f"{(after_search['adc_quantize_population'] - 2) / evals:g}")
+        else:
+            ratio = None
+        out[kind] = {"launches": launches, "designs": len(designs),
+                     "evaluate_robustness_s": t_rep,
+                     "generation_s": gen_s, "two_objective_generation_s":
+                     two_obj, "ratio_to_two_objective": ratio,
+                     "wall_s": wall}
+
+    # one robust evaluation against the 2-objective one of the same shape
+    # on the same genomes, in turns (2-objective, robust, robust,
+    # 2-objective); then one robust evaluation traced: device busy share
+    # and MC device time
+    from torch.profiler import ProfilerActivity, profile
+    dd = search.device_data(data, dev)
+    rng = np.random.default_rng(11)
+    for kind, cfg in configs.items():
+        g = (rng.random((cfg.pop_size, search.genome_len(
+            sizes[0], cfg.bits, cfg.faulttol))) < 0.5).astype(np.uint8)
+        draws = search.search_draws(cfg, sizes[0], dev)
+        two = search.SearchConfig(model=kind, **SEARCH)
+        g2 = g[:, :search.genome_len(sizes[0], two.bits)]
+        turns = {"two": [], "robust": []}
+        for which in ("two", "robust", "robust", "two"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "two":
+                search.evaluate_population(g2, dd, sizes, two)
+            else:
+                search.evaluate_population(g, dd, sizes, cfg, draws=draws)
+            torch.cuda.synchronize()
+            turns[which].append(time.perf_counter() - t0)
+        paired = min(turns["robust"]) / min(turns["two"])
+        out[kind].update({"paired_two_objective_s": turns["two"],
+                          "paired_robust_s": turns["robust"],
+                          "paired_ratio": paired})
+        print(f"  {kind}: one evaluation of the same {cfg.pop_size} genomes,"
+              f" in turns: 2-objective {turns['two'][0]:.3f}/"
+              f"{turns['two'][1]:.3f} s, robust {turns['robust'][0]:.3f}/"
+              f"{turns['robust'][1]:.3f} s (ratio of the faster "
+              f"{paired:.3f}) on {card}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search.evaluate_population(g, dd, sizes, cfg, draws=draws)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        mc_us = other_us = 0.0
+        for ev in prof.key_averages():
+            if "DeviceType.CUDA" not in str(getattr(ev, "device_type", "")) \
+                    or not ev.count:
+                continue
+            total = getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+            if "mc_eval_kernel" in ev.key:
+                mc_us += total
+            else:
+                other_us += total
+        busy = (mc_us + other_us) / 1e6 / traced_wall
+        out[kind].update({"traced_wall_s": traced_wall,
+                          "mc_device_ms": mc_us / 1e3,
+                          "other_device_ms": other_us / 1e3,
+                          "device_busy_share": busy})
+        print(f"  {kind} robust generation traced: wall {traced_wall:.3f} s,"
+              f" device time MC kernel {mc_us / 1e3:.3f} ms, everything "
+              f"else {other_us / 1e3:.3f} ms, device busy "
+              f"{busy * 100:.1f} % on {card}")
     return out
 
 
@@ -746,9 +1331,12 @@ def main() -> int:
 
         max_err, timings = phase_kernels(np, torch, dev, fronts, x_test)
         q_err, q_timings = phase_quantizer(np, torch, dev, data)
-        max_err["adc_quantize_population"] = q_err
+        max_err.update(q_err)
+        mc_err, mc_timings = phase_mc_kernels(np, torch, dev, data)
+        max_err.update(mc_err)
         serve_launches = phase_serve(np, torch, dev, card, fronts, data)
         search_out = phase_search(np, torch, dev, card, data)
+        robust_out = phase_robust(np, torch, dev, card, data, search_out)
         gen_out = phase_generation(np, torch, dev, card, data)
 
         mods = sorted(m for m in sys.modules
@@ -756,33 +1344,57 @@ def main() -> int:
                       or m == "repro" or m.startswith("repro."))
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
-        # launches on the main path: the search phase, both models
-        search_launches = {name: sum(search_out[k]["launches"][name]
+        # launches on each path, both models: serve, search, robust
+        by_path = {"serve": serve_launches,
+                   "search": {n: sum(search_out[k]["launches"][n]
                                      for k in ("mlp", "svm"))
-                           for name in KERNELS}
+                              for n in KERNELS},
+                   "robust": {n: sum(robust_out[k]["launches"][n]
+                                     for k in ("mlp", "svm"))
+                              for n in KERNELS}}
+        main_timing = {
+            "adc_quantize": q_timings["P=1"],
+            "adc_quantize_population": q_timings["search train P=16"],
+            "bespoke_mlp": timings["bespoke_mlp"]["D=1"],
+            "bespoke_svm": timings["bespoke_svm"]["D=1"],
+            "qmlp_mlp_bank": timings["qmlp_mlp_bank"]["serve batch"],
+            "qmlp_svm_bank": timings["qmlp_svm_bank"]["serve batch"],
+            "mc_adc_eval": mc_timings["mc_adc_eval"]["single S=32 M=636"],
+            "mc_adc_eval_population":
+                mc_timings["mc_adc_eval_population"]["search P=16 S=32 M=636"],
+            "mc_adc_eval_cal":
+                mc_timings["mc_adc_eval_cal"]["cal single S=32 M=636"],
+            "mc_adc_eval_cal_population":
+                mc_timings["mc_adc_eval_cal_population"][
+                    "cal search P=16 S=32 M=636"]}
+        extra_timings = {"adc_quantize_population": q_timings,
+                         "qmlp_mlp_bank": timings["qmlp_mlp_bank"],
+                         "qmlp_svm_bank": timings["qmlp_svm_bank"],
+                         **mc_timings}
         rows = []
         for name, meta in KERNELS.items():
-            if name == "adc_quantize_population":
-                t = q_timings["search train P=16"]
-                extra = {"timings": q_timings}
-            else:
-                t = timings[name]["serve batch"]
-                extra = {"D=1": timings[name]["D=1"],
-                         "wide_bank": timings[name]["wide bank"]}
+            paths = {path: counts.get(name, 0)
+                     for path, counts in by_path.items()}
+            total = sum(paths.values())
+            check(total > 0, f"{name} (row {meta['row']}) never launched on "
+                             f"a path")
+            t = main_timing[name]
             rows.append({
                 "name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"], "pallas": meta["pallas"],
-                "launches": search_launches[name],
-                "launches_by_path": {"serve": serve_launches[name],
-                                     "search": search_launches[name]},
-                "max_abs_err": max_err[name],
+                "row": meta["row"], "launches": total,
+                "launches_by_path": paths, "max_abs_err": max_err[name],
                 "ms": t["ms"], "kernel_ms": t["ms"],
                 "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None, "shape": t["shape"], **extra})
+                "library_ms": None, "shape": t["shape"],
+                "timings": extra_timings.get(name)})
         summary = {"search": {k: {kk: vv for kk, vv in v.items()
                                   if kk != "launches"}
                               for k, v in search_out.items()},
+                   "robust": {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "launches"}
+                              for k, v in robust_out.items()},
                    "generation_defaults": gen_out,
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")

@@ -11,6 +11,14 @@
     api.save_front("front_dir", bank)
     bank = api.load_front("front_dir")           # bit-for-bit restore
 
+    ni = api.NonIdealSpec(sigma_offset=0.5, fault_rate=0.01)
+    rep = api.evaluate_robustness(bank, ni, x, y)     # MC yield report
+    api.robustness_curve(bank, x, y, [0, 0.5, 1.0])   # accuracy vs sigma
+    front = api.search(spec, data, sizes=(21, 5, 3), nonideal=ni,
+                       mc_samples=32, robust_objective="yield",
+                       faulttol=api.FaultTolSpec())   # 3 objectives
+    cal = api.calibrate(api.deploy(front), ni, instance=0)
+
 Every verb runs on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``. It is a thin composition of core/search,
 core/deploy and kernels/ops, so the search -> export -> load -> serve
@@ -28,20 +36,27 @@ import torch
 from repro_torch.core import deploy as _deploy
 from repro_torch.core import search as _search
 from repro_torch.core.deploy import DeployedClassifier
+from repro_torch.core.nonideal import NonIdealSpec
 from repro_torch.core.search import SearchConfig
 from repro_torch.core.spec import AdcSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.faulttol import FaultTolSpec
 from repro_torch.kernels import ops as _ops
 
 __all__ = [
     "AdcSpec",
     "Bank",
     "DeployedClassifier",
+    "FaultTolSpec",
     "Front",
+    "NonIdealSpec",
     "SearchConfig",
+    "calibrate",
     "deploy",
+    "evaluate_robustness",
     "load_front",
     "quantize",
+    "robustness_curve",
     "save_front",
     "search",
     "serve",
@@ -57,7 +72,8 @@ class Front:
     config: SearchConfig
     sizes: Tuple[int, ...]
     genomes: np.ndarray            # (K, G) uint8 Pareto genomes
-    fitness: np.ndarray            # (K, 2) [1-acc, normalized area]
+    fitness: np.ndarray            # (K, 2) [1-acc, normalized area], or
+                                   # (K, 3) with the robustness column
     trained: tuple                 # train_pareto_front's (accs, params,
                                    # masks, dps), the export short-circuit
     device: str = "cuda"           # where the QAT ran
@@ -99,6 +115,13 @@ class Bank:
         """(D,) served accuracies: bit for bit the exported (== search
         fitness) accuracies."""
         return _deploy.served_accuracies(self.designs, x, y, device=device)
+
+    def evaluate_robustness(self, nonideal: NonIdealSpec, x, y,
+                            samples: int = 32, **kw) -> Dict:
+        """Monte-Carlo yield/accuracy report of the whole bank under
+        ``nonideal`` hardware (module-level ``evaluate_robustness``)."""
+        return _deploy.evaluate_robustness(self.designs, nonideal, x, y,
+                                           samples, **kw)
 
 
 def search(spec: AdcSpec, data: Dict, sizes: Optional[Sequence[int]] = None,
@@ -169,6 +192,49 @@ def load_front(directory) -> Bank:
     """Inverse of ``save_front``: the reloaded bank serves bit for bit as
     the one exported."""
     return Bank(designs=tuple(_deploy.load_front(directory)))
+
+
+def _designs(bank) -> list:
+    return list(bank.designs if isinstance(bank, Bank) else bank)
+
+
+def evaluate_robustness(bank: Union[Bank, Sequence[DeployedClassifier]],
+                        nonideal: NonIdealSpec, x, y, samples: int = 32,
+                        **kw) -> Dict:
+    """Monte-Carlo robustness of a deployed bank under non-ideal hardware:
+    S perturbed instances of every design (comparator offsets,
+    reference-ladder drift, stuck-at faults per ``nonideal``) against the
+    shared (x, y) test set through the MC kernel. With an all-zero
+    ``NonIdealSpec`` it reproduces the exported accuracies, and for a
+    3-objective search it reproduces the robustness column, bit for
+    bit."""
+    return _deploy.evaluate_robustness(_designs(bank), nonideal, x, y,
+                                       samples, **kw)
+
+
+def calibrate(bank: Union[Bank, Sequence[DeployedClassifier]],
+              nonideal: NonIdealSpec, *, instance: int = 0,
+              samples: Optional[int] = None,
+              device: DeviceLike = None) -> Bank:
+    """Re-bake a deployed bank against ONE measured hardware instance
+    (instance ``instance`` of the ``samples``-sample stream of
+    ``nonideal``'s seed, as ``evaluate_robustness`` indexes it): value
+    tables become the measured reconstruction, ranges the drifted ones,
+    and the ideal serving path then reconstructs what the fabricated ADC
+    resolves."""
+    return Bank(designs=tuple(_deploy.calibrate_front(
+        _designs(bank), nonideal, instance=instance, samples=samples,
+        device=device)))
+
+
+def robustness_curve(bank: Union[Bank, Sequence[DeployedClassifier]], x, y,
+                     sigmas: Sequence[float], samples: int = 32,
+                     **kw) -> Dict:
+    """Accuracy-vs-sigma sweep over comparator-offset sigmas: one
+    ``evaluate_robustness`` report per point (persist with
+    ``core.deploy.save_robustness`` next to the front)."""
+    return _deploy.robustness_curve(_designs(bank), x, y, sigmas, samples,
+                                    **kw)
 
 
 def quantize(x, mask, spec: AdcSpec, *,

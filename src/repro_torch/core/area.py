@@ -1,9 +1,9 @@
 """Transistor-count area model for flash / baseline-binary / proposed-binary
 / pruned-binary ADCs, built from the paper's design rules (§3.1-3.2).
 A verbatim numpy copy of ``repro/core/area.py`` (the full-ADC and
-pruned-tree functions the search slice uses; the fault-tolerance and
-front-end pricing come with their slices). It is copied, not
-imported: ``repro.core`` pulls in JAX on import.
+pruned-tree functions and the fault-tolerance pricing; the front-end
+pricing comes with the streaming slice). It is copied, not imported:
+``repro.core`` pulls in JAX on import.
 
 Calibration anchors (all from the paper):
 * proposed 3-bit full design = 5 comparators + 2 inverters + 9 transistors
@@ -176,6 +176,67 @@ def pruned_baseline_tc(mask: np.ndarray) -> int:
     tc += AND_TC * needed[bits - 1]                   # r4: surviving ANDs
     tc += max(kept - 2, 0)                            # r1: switching trans
     return tc
+
+
+def pruned_comparator_count(mask: np.ndarray) -> int:
+    """Physical comparators of the bespoke pruned proposed design, the
+    units TMR triplicates: the root stage has COM0 only, middle live
+    stages two enable comparators and one output comparator, the last
+    live stage one output comparator."""
+    mask = np.asarray(mask).astype(bool)
+    if int(mask.sum()) <= 1:
+        return 0
+    n = mask.shape[0]
+    bits = n.bit_length() - 1
+    count = 0
+    for d, cnt in enumerate(_needed_tree(mask)):
+        if cnt == 0:
+            continue
+        count += 1 if (d == 0 or d > bits - 2) else 3
+    return count
+
+
+# --------------------------------------- fault-tolerance pricing
+# TMR triplicates every surviving comparator behind an N-type majority
+# voter (2-of-3: three 2-input NANDs + output stage ~ 4 T); calibration
+# adds a per-kept-level trim register cell plus a per-channel
+# measurement/readout harness.
+VOTER_TC = 4
+CALIBRATION_TC_FIXED = 4         # per-channel measurement/readout harness
+CALIBRATION_TC_PER_LEVEL = 2     # per kept level: value-trim register cell
+
+
+def tmr_tc(mask: np.ndarray) -> int:
+    """Extra transistors for triplicating one channel's surviving
+    comparators with majority voters: two more comparators plus one
+    voter per physical comparator."""
+    comps = pruned_comparator_count(mask)
+    return (2 * COMPARATOR_TC + VOTER_TC) * comps
+
+
+def calibration_tc(mask: np.ndarray) -> int:
+    """Extra transistors for per-instance value-table calibration of one
+    channel (a trim cell per kept level + the measurement harness)."""
+    mask = np.asarray(mask).astype(bool)
+    kept = int(mask.sum())
+    if kept <= 1:
+        return 0
+    return CALIBRATION_TC_FIXED + CALIBRATION_TC_PER_LEVEL * kept
+
+
+def faulttol_tc(masks: np.ndarray, tmr, calibrate) -> int:
+    """Total fault-tolerance surcharge of one design: per-channel masks
+    (C, 2^N) (spare levels already applied), per-channel TMR genes (C,)
+    {0,1}, and the global calibrate gene, in exact transistors on the
+    same budget axis as ``system_tc``."""
+    masks = np.asarray(masks)
+    if masks.ndim == 1:
+        masks = masks[None]
+    tmr = np.broadcast_to(np.asarray(tmr), (masks.shape[0],))
+    tc = sum(tmr_tc(m) for m, t in zip(masks, tmr) if t)
+    if calibrate:
+        tc += sum(calibration_tc(m) for m in masks)
+    return int(tc)
 
 
 def system_tc(masks: np.ndarray, design: str = "ours") -> int:

@@ -16,10 +16,23 @@ Serving stacks the front into one bank and pushes every batch through all
 D designs in one kernel launch (kernels/ops.classifier_bank): on a CUDA
 device through the hand-written bank kernels, on the CPU through their
 plain versions.
+
+Robustness: ``evaluate_robustness`` pushes the test split through S
+perturbed hardware instances of every design in one launch of the
+Monte-Carlo population kernel (the calibrated-table entry for a
+fault-tolerant front) and re-scores each view through
+``search.mc_accuracies``, the same forward the search's third column was
+measured with, from the same draw stream; the report's reductions are
+the search's host-side f64 ones, so a 3-objective front's third column
+is reproduced bit for bit. ``make_nonideal_bank_fn`` serves one sampled
+instance, ``calibrate_front`` / ``make_calibrated_bank_fn`` serve one
+measured instance through re-baked tables.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, replace as dataclass_replace
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,11 +41,18 @@ import torch
 from repro_torch.checkpoint.manager import (CheckpointManager, pack_json,
                                             unpack_json)
 from repro_torch.core import area, qat
+from repro_torch.core import nonideal as nonideal_lib
 from repro_torch.core.adc import range_rows_tensors
-from repro_torch.core.search import SearchConfig, train_pareto_front
+from repro_torch.core.nonideal import NonIdealSpec
+from repro_torch.core.search import (SearchConfig, decode_population_faulttol,
+                                     mc_accuracies, train_pareto_front)
 from repro_torch.core.spec import AdcSpec, Range
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.faulttol import calibrate as faulttol_cal
+from repro_torch.faulttol import redundancy as ft_redundancy
+from repro_torch.kernels import ops, qmlp
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import svm as svm_lib
 from repro_torch.models.mlp import mean_accuracy as _mean_acc
 
 FORMAT_VERSION = 1
@@ -59,8 +79,11 @@ class DeployedClassifier:
     weights: Tuple[np.ndarray, ...]  # po2-quantized, _WEIGHT_LEAVES order
     area_tc: int                     # exact transistor count
     accuracy: float                  # export-time test accuracy
-    # fault-tolerance provenance (per-channel TMR genes, calibrate gene),
-    # carried through save/load; serving does not read them
+    # fault-tolerance provenance: the per-channel TMR genes (None for
+    # plain designs; spare levels are already folded into ``mask``) and
+    # the calibrate gene. Robustness evaluation of such a front runs the
+    # redundant draw stream and per-instance calibrated tables; ideal
+    # serving does not read them
     tmr: Optional[np.ndarray] = None
     calibrated: bool = False
 
@@ -75,9 +98,15 @@ class DeployedClassifier:
         return int(self.table.shape[0])
 
     def logits(self, x, *, device: DeviceLike = None) -> torch.Tensor:
-        """Samples (M, C) -> (M, O) logits on ``device``, served as a
-        size-1 bank."""
-        return serve_bank([self], x, device=device)[0]
+        """Samples (M, C) -> (M, O) logits on ``device``, through the
+        single-design entry (the D=1 call of the bank kernel) with the
+        baked table."""
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
+        table = torch.from_numpy(self.table).to(dev)
+        weights = tuple(torch.from_numpy(w).to(dev) for w in self.weights)
+        single = qmlp.bespoke_mlp if self.kind == "mlp" else qmlp.bespoke_svm
+        return single(x, table, *weights, spec=self.spec)
 
     def predict(self, x, *, device: DeviceLike = None) -> torch.Tensor:
         return torch.argmax(self.logits(x, device=device), dim=-1)
@@ -159,9 +188,21 @@ def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
                          f"got {len(genomes)} genomes")
     spec = cfg.adc_spec.validate_channels(sizes[0])
     wb = cfg.weight_bits
+    if cfg.faulttol is not None:
+        # the masks from train_pareto_front already carry the spare
+        # levels; the TMR/calibrate genes price the voter and
+        # calibration-store overhead on the same budget axis
+        _, _, tmrs, _, cals = decode_population_faulttol(
+            genomes, sizes[0], cfg.bits, cfg.min_levels, cfg.faulttol)
     designs = []
     for k in range(len(accs)):
         dp = float(dps[k])
+        tmr, calibrated, ft_tc = None, False, 0
+        if cfg.faulttol is not None:
+            tmr = tmrs[k].numpy().astype(np.int32)
+            calibrated = bool(int(cals[k]))
+            ft_tc = area.faulttol_tc(np.asarray(masks[k], np.int32), tmr,
+                                     calibrated)
         if cfg.model == "svm":
             w, b = (a[k] for a in params)
             weights = (_po2(w, dp, wb, dev), _fixed(b, dp, wb, dev))
@@ -175,8 +216,9 @@ def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
             kind=cfg.model, bits=spec.bits, mode=spec.mode,
             vmin=spec.vmin, vmax=spec.vmax, dp=dp, mask=mask,
             table=spec.value_table(torch.from_numpy(mask)).numpy(),
-            weights=weights, area_tc=area.system_tc(mask, cfg.design),
-            accuracy=float(accs[k])))
+            weights=weights,
+            area_tc=area.system_tc(mask, cfg.design) + ft_tc,
+            accuracy=float(accs[k]), tmr=tmr, calibrated=calibrated))
     return designs
 
 
@@ -319,3 +361,303 @@ def served_accuracies(designs: Sequence[DeployedClassifier], x, y, *,
     logits = serve_bank(designs, x, device=device)
     y = torch.as_tensor(np.asarray(y)).to(logits.device)
     return _mean_acc(torch.argmax(logits, dim=-1) == y[None, :]).cpu().numpy()
+
+
+# ----------------------------------------------------------------- robustness
+def _stacked_model_params(designs: Sequence[DeployedClassifier], device):
+    """The front's baked weights as the model family's params with a
+    leading design axis, on ``device``: the structure
+    ``search.mc_accuracies`` consumes."""
+    w = tuple(torch.from_numpy(a).to(device)
+              for a in bank_arrays(designs)[1])
+    if designs[0].kind == "svm":
+        return (w[0], w[1])
+    return [(w[0], w[1]), (w[2], w[3])]
+
+
+def _is_faulttol(designs, draws) -> bool:
+    """A fault-tolerant front (TMR/calibrate provenance) or an explicit
+    ``RedundantDraws`` stream evaluates through the calibrated-table
+    entry."""
+    return (isinstance(draws, ft_redundancy.RedundantDraws)
+            or any(d.tmr is not None or d.calibrated for d in designs))
+
+
+def _front_masks(designs) -> torch.Tensor:
+    return torch.from_numpy(np.stack([np.asarray(d.mask, np.int32)
+                                      for d in designs]))
+
+
+def _front_genes(designs):
+    """(tmr (D, C), cal (D,)) int32 of a front; zeros where a design has
+    no TMR provenance."""
+    c = designs[0].channels
+    tmr = np.stack([np.zeros(c, np.int32) if d.tmr is None
+                    else np.asarray(d.tmr, np.int32) for d in designs])
+    cal = np.array([int(d.calibrated) for d in designs], np.int32)
+    return tmr, cal
+
+
+def _mc_views(designs, nonideal: NonIdealSpec, x: torch.Tensor, *,
+              draws=None, samples: Optional[int] = None) -> torch.Tensor:
+    """(D, S, M, C): the shared batch x through S perturbed instances of
+    every design, one launch of the MC population entry (the
+    calibrated-table one for a fault-tolerant front)."""
+    spec = designs[0].spec
+    masks = _front_masks(designs)
+    dev = x.device
+    c = masks.shape[1]
+    s = samples if samples else 32
+    if _is_faulttol(designs, draws):
+        draws = (ft_redundancy.draw_redundant(spec.bits, c, s, nonideal,
+                                              dev) if draws is None
+                 else ft_redundancy.as_redundant_draws(draws, dev))
+        tmr, cal = _front_genes(designs)
+        operands = faulttol_cal.mc_operands_ft(spec, nonideal, masks, tmr,
+                                               cal, draws, dev)
+        return ops.mc_eval_cal_population(x, *operands, spec=spec)
+    draws = (nonideal_lib.draw(spec.bits, c, s, nonideal, dev)
+             if draws is None
+             else nonideal_lib.as_draws(draws, dev, cls=nonideal_lib.Draws))
+    operands = nonideal_lib.mc_operands(spec, nonideal, masks, draws=draws,
+                                        device=dev)
+    return ops.mc_eval_population(x, *operands, spec=spec)
+
+
+def _mc_instance_accuracies(designs: Sequence[DeployedClassifier],
+                            nonideal: NonIdealSpec, x, y, *, draws=None,
+                            samples: Optional[int] = None,
+                            device: DeviceLike = None) -> np.ndarray:
+    """(D, S) float32 per-design, per-instance test accuracies of a
+    deployed front under ``nonideal``: the MC views re-scored by each
+    design's baked classifier through ``search.mc_accuracies``, the
+    forward the search's robustness column used (dp=None: the baked
+    weights are already quantized)."""
+    dev = resolve_device(device)
+    designs = list(designs)
+    xd = torch.as_tensor(np.asarray(x, np.float32)).to(dev).contiguous()
+    yd = torch.as_tensor(np.asarray(y)).to(dev)
+    xq_mc = _mc_views(designs, nonideal, xd, draws=draws, samples=samples)
+    acc = mc_accuracies(designs[0].kind, _stacked_model_params(designs, dev),
+                        None, xq_mc, yd)
+    return acc.cpu().numpy()
+
+
+def evaluate_robustness(designs: Sequence[DeployedClassifier],
+                        nonideal: NonIdealSpec, x, y, samples: int = 32, *,
+                        draws=None,
+                        yield_margins: Tuple[float, ...] = (0.01, 0.05),
+                        device: DeviceLike = None) -> Dict:
+    """Monte-Carlo robustness report of a deployed front: S perturbed
+    hardware instances of every design against the shared (x, y) test
+    set, on ``device`` (default ``cuda``). ``draws`` (numpy or tensors;
+    a ``RedundantDraws`` for a fault-tolerant front) replaces the
+    stream drawn from ``nonideal.seed``.
+
+    Returns a JSON-able report, field for field the reference's: per
+    design the exported accuracy, area, mean/worst/std over instances,
+    the two search objectives (``expected_drop``, ``worst_case_error``),
+    the yield at each of ``yield_margins`` and the per-instance
+    accuracies. The reductions are the search's host-side f64 ones on
+    the same instance accuracies, so a 3-objective front's third column
+    is reproduced bit for bit from the same ``NonIdealSpec``."""
+    designs = list(designs)
+    mc_accs = _mc_instance_accuracies(designs, nonideal, x, y, draws=draws,
+                                      samples=samples, device=device)
+    exported = np.array([d.accuracy for d in designs])
+    expected = nonideal_lib.robust_objective(exported, mc_accs, "expected")
+    worst = nonideal_lib.robust_objective(exported, mc_accs, "worst")
+    means = nonideal_lib.mc_mean_accuracy(mc_accs)
+    rows = []
+    for i, d in enumerate(designs):
+        inst = mc_accs[i]
+        rows.append({
+            "exported_accuracy": float(d.accuracy),
+            "area_tc": int(d.area_tc),
+            "mean_accuracy": float(means[i]),
+            "worst_accuracy": float(inst.min()),
+            "std_accuracy": float(np.asarray(inst, np.float64).std()),
+            "expected_drop": float(expected[i]),
+            "worst_case_error": float(worst[i]),
+            # the f64 count the search's 'yield' column reduces
+            "yield": {f"{m:g}": float(nonideal_lib.yield_fraction(
+                np.float64(d.accuracy), inst[None], m)[0])
+                for m in yield_margins},
+            "instance_accuracies": [float(a) for a in inst],
+        })
+    return {"nonideal": nonideal.to_meta(), "samples": int(mc_accs.shape[1]),
+            "yield_margins": [float(m) for m in yield_margins],
+            "kind": designs[0].kind, "num_designs": len(designs),
+            "designs": rows}
+
+
+def robustness_curve(designs: Sequence[DeployedClassifier], x, y,
+                     sigmas: Sequence[float], samples: int = 32, *,
+                     base: Optional[NonIdealSpec] = None,
+                     device: DeviceLike = None) -> Dict:
+    """Accuracy-vs-sigma sweep: one ``evaluate_robustness`` report per
+    comparator-offset sigma (other knobs from ``base``). The sigma=0
+    point of an all-zero ``base`` reproduces the exported accuracies."""
+    base = base if base is not None else NonIdealSpec()
+    points = [evaluate_robustness(designs, base.replace(sigma_offset=s), x,
+                                  y, samples, device=device)
+              for s in sigmas]
+    return {"sigma_offset": [float(s) for s in sigmas],
+            "samples": samples, "base": base.to_meta(),
+            "mean_accuracy": [[d["mean_accuracy"] for d in p["designs"]]
+                              for p in points],
+            "points": points}
+
+
+def save_robustness(directory, report: Dict) -> None:
+    """Persist a robustness report or curve next to the front artifact,
+    as ``<front-dir>/robustness.json``."""
+    path = Path(directory)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "robustness.json", "w") as f:
+        json.dump(report, f, indent=1)
+
+
+def load_robustness(directory) -> Dict:
+    with open(Path(directory) / "robustness.json") as f:
+        return json.load(f)
+
+
+def _instance_slice(draws, instance: int):
+    return type(draws)(*(a[instance:instance + 1] for a in draws))
+
+
+def _check_instance(instance: int, samples: Optional[int]) -> int:
+    samples = instance + 1 if samples is None else samples
+    if not 0 <= instance < samples:
+        raise ValueError(f"instance {instance} outside the "
+                         f"{samples}-sample MC stream")
+    return samples
+
+
+def _bank_forward(designs, device):
+    """(D, 1, M, C) perturbed views -> (D, M, O) logits through the
+    designs' baked classifiers, in the fixed-order forward the
+    robustness accuracies use."""
+    params = _stacked_model_params(designs, device)
+    apply = (svm_lib.apply_svm_fixed_order if designs[0].kind == "svm"
+             else mlp_lib.apply_mlp_fixed_order)
+    return lambda xq: apply(params, xq)[:, 0]
+
+
+def make_nonideal_bank_fn(designs: Sequence[DeployedClassifier],
+                          nonideal: NonIdealSpec, *, instance: int = 0,
+                          samples: Optional[int] = None,
+                          device: DeviceLike = None
+                          ) -> Callable[[object], torch.Tensor]:
+    """The serving closure through one *sampled non-ideal hardware
+    instance*: (M, C) samples -> (D, M, O) logits on ``device``, the
+    degraded twin of ``make_bank_fn``. The instance's interval tables and
+    drifted rows are built once, here. ``samples`` names the MC stream
+    ``instance`` indexes: pass a report's ``samples`` to serve exactly
+    the instance whose accuracy it lists (``instance_accuracies
+    [instance]``); None draws a minimal ``instance + 1``-sample stream."""
+    dev = resolve_device(device)
+    designs = list(designs)
+    spec = designs[0].spec
+    samples = _check_instance(instance, samples)
+    masks = _front_masks(designs)
+    draws = nonideal_lib.draw(spec.bits, masks.shape[1], samples, nonideal,
+                              dev)
+    operands = nonideal_lib.mc_operands(
+        spec, nonideal, masks, draws=_instance_slice(draws, instance),
+        device=dev)
+    forward = _bank_forward(designs, dev)
+
+    def fn(xb) -> torch.Tensor:
+        xb = torch.as_tensor(xb, dtype=torch.float32).to(dev).contiguous()
+        with torch.no_grad():
+            return forward(ops.mc_eval_population(xb, *operands, spec=spec))
+
+    return fn
+
+
+def _measured_instance(designs: Sequence[DeployedClassifier],
+                       nonideal: NonIdealSpec, instance: int,
+                       samples: Optional[int], device):
+    """The shared front half of the calibration paths: re-derive the
+    redundant MC stream (the one the search and ``evaluate_robustness``
+    consume, same ``samples`` semantics as ``make_nonideal_bank_fn``),
+    slice the measured ``instance`` and compile the calibrated-table
+    operands for the whole front with the calibrate action on."""
+    spec = designs[0].spec
+    samples = _check_instance(instance, samples)
+    masks = _front_masks(designs)
+    draws = ft_redundancy.draw_redundant(spec.bits, masks.shape[1],
+                                         samples, nonideal, device)
+    tmr, _ = _front_genes(designs)
+    cal = np.ones(len(designs), np.int32)
+    return spec, faulttol_cal.mc_operands_ft(
+        spec, nonideal, masks, tmr, cal, _instance_slice(draws, instance),
+        device)
+
+
+def calibrate_front(designs: Sequence[DeployedClassifier],
+                    nonideal: NonIdealSpec, *, instance: int = 0,
+                    samples: Optional[int] = None,
+                    device: DeviceLike = None) -> List[DeployedClassifier]:
+    """Re-bake a deployed front against ONE measured hardware instance:
+    each design's value table becomes the measured interval midpoints
+    (``faulttol.calibrated_value_rows``) and its range the instance's
+    drifted range, so the ideal serving path (``make_bank_fn``) then
+    reconstructs through calibrated values: code ``k``'s entry is the
+    calibrated value of the measured leaf interval holding that code's
+    midpoint. Residual comparator offsets still move leaf boundaries off
+    the integer grid; ``make_calibrated_bank_fn`` serves the instance's
+    exact interval walk. For an all-zero ``NonIdealSpec`` and an
+    unpruned design the re-bake gives back the nominal table. The
+    operands are compiled on ``device`` (default ``cuda``); the re-bake
+    itself is f64 numpy, as in the reference."""
+    dev = resolve_device(device)
+    designs = list(designs)
+    spec, (lb, ub, values, lo, scale) = _measured_instance(
+        designs, nonideal, instance, samples, dev)
+    lb, ub, values = (t.cpu().numpy() for t in (lb, ub, values))
+    n = 2 ** spec.bits
+    lo0 = lo.cpu().numpy().astype(np.float64)[0]                  # (C,)
+    scale0 = scale.cpu().numpy().astype(np.float64)[0]
+    vmin = tuple(float(v) for v in lo0)
+    vmax = tuple(float(v) for v in lo0 + n / scale0)
+    probes = np.arange(n, dtype=np.float64) + 0.5    # measured code units
+    out = []
+    for k, d in enumerate(designs):
+        lbk = np.asarray(lb[k, 0], np.float64)                     # (C, n)
+        ubk = np.asarray(ub[k, 0], np.float64)
+        vals = np.asarray(values[k, 0], np.float32)                # leaf values
+        # sel[c, code, leaf]: the probes partition over the measured leaf
+        # intervals, exactly one live term per code
+        sel = ((probes[None, :, None] >= lbk[:, None, :])
+               & (probes[None, :, None] < ubk[:, None, :]))
+        table = (sel * vals[:, None, :]).sum(-1).astype(np.float32)
+        out.append(dataclass_replace(d, table=table, vmin=vmin, vmax=vmax,
+                                     calibrated=True))
+    return out
+
+
+def make_calibrated_bank_fn(designs: Sequence[DeployedClassifier],
+                            nonideal: NonIdealSpec, *, instance: int = 0,
+                            samples: Optional[int] = None,
+                            device: DeviceLike = None
+                            ) -> Callable[[object], torch.Tensor]:
+    """The calibrated twin of ``make_nonideal_bank_fn``: (M, C) samples
+    -> (D, M, O) logits through a sampled instance's exact measured
+    interval walk with per-design re-baked value tables (the
+    ``mc_eval_cal_population`` entry)."""
+    dev = resolve_device(device)
+    designs = list(designs)
+    spec, operands = _measured_instance(designs, nonideal, instance,
+                                        samples, dev)
+    forward = _bank_forward(designs, dev)
+
+    def fn(xb) -> torch.Tensor:
+        xb = torch.as_tensor(xb, dtype=torch.float32).to(dev).contiguous()
+        with torch.no_grad():
+            return forward(ops.mc_eval_cal_population(xb, *operands,
+                                                      spec=spec))
+
+    return fn

@@ -28,13 +28,29 @@ a documented stream, different from the reference's ``jax.random`` one.
 Tests inject the reference's initial parameters through ``init_params``
 (``stacked_init_from_numpy``) so both packages start from one point.
 
-Genome layout per individual (C input channels, N-bit ADC):
-  [ C * 2^N mask bits | 4 bits decimal-point position (dp in [-8, 7]) ]
+Robustness (a ``NonIdealSpec`` and ``mc_samples > 0``) adds a third
+minimized column: after the QAT, the Monte-Carlo population kernel
+(kernels/mc_eval.py) pushes the test split through ``mc_samples``
+perturbed instances of every individual's ADC in one launch, the trained
+lanes re-score each perturbed view, and ``nonideal.robust_objective``
+reduces the (P, S) instance accuracies on the host in f64 ('expected'
+drop, 'worst'-case error or 1 - 'yield'@margin). The draw block is drawn
+once per run (``search_draws``), common to every individual and
+generation. A ``FaultTolSpec`` appends redundancy genes (per-channel TMR
+and spare levels, a global calibrate bit), folds TMR into the draws and
+calibration into per-design value tables, and runs the calibrated-table
+population entry instead. ``deploy.evaluate_robustness`` re-derives the
+same draws from the spec and scores through the same forward
+(``models.mlp.accuracy``), so a deployed report reproduces the searched
+third column bit for bit.
 
-Not in this slice, each refused with the ROADMAP item that ports it:
-the robustness objective (A5), fault tolerance (A6), the gradient engine
-and surrogate screening (A7), the streaming co-search (A8), the sharded
-engine (A9), and search checkpoint/resume.
+Genome layout per individual (C input channels, N-bit ADC):
+  [ C * 2^N mask bits | 4 bits decimal-point position (dp in [-8, 7])
+    | fault-tolerance genes, with a FaultTolSpec ]
+
+Not in this slice, each refused with the ROADMAP item that ports it: the
+gradient engine and surrogate screening (A7), the streaming co-search
+(A8), the sharded engine (A9), and search checkpoint/resume.
 """
 from __future__ import annotations
 
@@ -45,8 +61,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import adc, area, nsga2
+from repro_torch.core import nonideal as nonideal_lib
+from repro_torch.core.nonideal import NonIdealSpec
 from repro_torch.core.spec import AdcSpec, Range, normalize_range
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.faulttol import calibrate as faulttol_cal
+from repro_torch.faulttol import redundancy as ft_redundancy
+from repro_torch.faulttol.spec import FaultTolSpec
 from repro_torch.kernels import ops
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import svm as svm_lib
@@ -60,10 +81,6 @@ _LATER = {
     "gradient": "the gradient engine is not ported yet: ROADMAP A7",
     "screen": "surrogate-screened NSGA-II (screen_factor > 1) is not "
               "ported yet: ROADMAP A7",
-    "nonideal": "the robustness objective (nonideal, mc_samples) is not "
-                "ported yet: ROADMAP A5",
-    "faulttol": "the fault-tolerant co-search (faulttol) is not ported "
-                "yet: ROADMAP A6",
     "frontend": "the streaming front-end co-search (frontend) is not "
                 "ported yet: ROADMAP A8",
     "ckpt": "search checkpoint/resume is not ported yet (ROADMAP A3, "
@@ -91,11 +108,19 @@ class SearchConfig:
     # analog range: scalar or per-channel tuple
     vmin: Range = 0.0
     vmax: Range = 1.0
+    # robustness-aware search: with a NonIdealSpec and mc_samples > 0 the
+    # fitness grows a third minimized column over the MC instances
+    nonideal: Optional[NonIdealSpec] = None
+    mc_samples: int = 0
+    robust_objective: str = "expected"    # 'expected' | 'worst' | 'yield'
+    # the 'yield' column counts instances within yield_margin of the
+    # ideal accuracy (minimized as 1 - yield)
+    yield_margin: float = 0.01
+    # fault-tolerant search: redundancy/repair genes, routed through the
+    # calibrated-table MC entry; needs the robustness objective
+    faulttol: Optional[FaultTolSpec] = None
     # reference options of later slices: only their defaults are taken
     screen_factor: int = 1
-    nonideal: Optional[object] = None
-    mc_samples: int = 0
-    faulttol: Optional[object] = None
     frontend: Optional[object] = None
 
     def __post_init__(self):
@@ -110,10 +135,19 @@ class SearchConfig:
                              f"{self.screen_factor}")
         if self.screen_factor > 1:
             raise NotImplementedError(_LATER["screen"])
-        if self.nonideal is not None or self.mc_samples != 0:
-            raise NotImplementedError(_LATER["nonideal"])
-        if self.faulttol is not None:
-            raise NotImplementedError(_LATER["faulttol"])
+        nonideal_lib.robust_objective_name(self.robust_objective)
+        if self.mc_samples < 0:
+            raise ValueError(f"mc_samples must be >= 0, got "
+                             f"{self.mc_samples}")
+        if not 0.0 <= self.yield_margin < 1.0:
+            raise ValueError(f"yield_margin must be in [0, 1), got "
+                             f"{self.yield_margin}")
+        if self.faulttol is not None and not self.wants_robustness:
+            raise ValueError(
+                "fault-tolerant search needs the Monte-Carlo robustness "
+                "objective (a NonIdealSpec and mc_samples > 0): "
+                "redundancy genes only matter under the perturbed "
+                "instance stream")
         if self.frontend is not None:
             raise NotImplementedError(_LATER["frontend"])
         if self.model not in ("mlp", "svm"):
@@ -122,8 +156,14 @@ class SearchConfig:
             raise ValueError(f"pop_size must be >= 1, got {self.pop_size}")
 
     @property
+    def wants_robustness(self) -> bool:
+        """True when the search optimizes the third (robustness)
+        objective."""
+        return self.nonideal is not None and self.mc_samples > 0
+
+    @property
     def n_objectives(self) -> int:
-        return 2
+        return 3 if self.wants_robustness else 2
 
     @property
     def adc_spec(self) -> AdcSpec:
@@ -138,8 +178,52 @@ class SearchConfig:
                    vmax=spec.vmax, **kw)
 
 
-def genome_len(channels: int, bits: int) -> int:
-    return channels * 2 ** bits + DP_BITS
+def genome_len(channels: int, bits: int,
+               faulttol: Optional[FaultTolSpec] = None) -> int:
+    base = channels * 2 ** bits + DP_BITS
+    return base + (faulttol.gene_bits(channels)
+                   if faulttol is not None else 0)
+
+
+def _faulttol_genes(genomes, channels: int, bits: int, ft: FaultTolSpec):
+    """(..., G) genomes -> (tmr (..., C), spares (..., C), cal (...))
+    int32: the fault-tolerance genes after the dp bits."""
+    base = channels * 2 ** bits + DP_BITS
+    g = np.asarray(genomes, np.uint8)
+    return ft_redundancy.decode_genes(
+        g[..., base:base + ft.gene_bits(channels)], channels, ft)
+
+
+def decode_population_faulttol(genomes, channels: int, bits: int,
+                               min_levels: int, faulttol: FaultTolSpec):
+    """FT decode on the CPU: (P, G) -> (masks (P, C, 2^N) with the spare
+    levels applied after repair (``adc.add_levels``), dps (P,) float32,
+    tmr (P, C), spares (P, C), cal (P,)). The spare-augmented mask is
+    the one the fitness quantizes through and the area walk prices."""
+    masks, dps = decode_population(genomes, channels, bits, min_levels)
+    tmr, spares, cal = _faulttol_genes(genomes, channels, bits, faulttol)
+    return adc.add_levels(masks, spares), dps, tmr, spares, cal
+
+
+def decode_genome_faulttol(genome, channels: int, bits: int,
+                           min_levels: int, faulttol: FaultTolSpec):
+    """Single-genome FT decode -> (mask, dp, tmr, spares, cal)."""
+    masks, dps, tmr, spares, cal = decode_population_faulttol(
+        np.asarray(genome)[None], channels, bits, min_levels, faulttol)
+    return masks[0], dps[0], tmr[0], spares[0], cal[0]
+
+
+def _decode_masks(genomes, channels: int, cfg: "SearchConfig"):
+    """(masks, dps, tmr, cal) of a (P, G) batch under ``cfg``: the FT
+    decode (spare-applied masks) with a FaultTolSpec, else the plain one
+    with tmr/cal None."""
+    if cfg.faulttol is not None:
+        masks, dps, tmr, _, cal = decode_population_faulttol(
+            genomes, channels, cfg.bits, cfg.min_levels, cfg.faulttol)
+        return masks, dps, tmr, cal
+    masks, dps = decode_population(genomes, channels, cfg.bits,
+                                   cfg.min_levels)
+    return masks, dps, None, None
 
 
 def decode_population(genomes, channels: int, bits: int,
@@ -235,25 +319,67 @@ def _train_from_quantized(xq_tr, xq_te, y_tr, y_te, dps, params, sizes,
     return acc
 
 
+def mc_accuracies(model: str, params, dps, xq_mc: torch.Tensor, y,
+                  weight_bits: int = 8) -> torch.Tensor:
+    """(L, S) per-lane, per-instance test accuracies: lane l's params
+    (stacked over L; quantized with its ``dps[l]`` unless ``dps`` is
+    None, as baked export weights already are) score each of its S
+    perturbed views ``xq_mc[l, s]`` (L, S, M, C). The forward is the
+    batch-shape independent one of ``models.mlp.accuracy``, so a lane's
+    result does not depend on L or S, and at zero sigma it is its ideal
+    accuracy bit for bit. The search and deploy.evaluate_robustness both
+    score through here."""
+    acc = svm_lib.accuracy if model == "svm" else mlp_lib.accuracy
+    with torch.no_grad():
+        return acc(params, xq_mc, y, dps, weight_bits)
+
+
+def _mc_operands(masks, tmr, cal, cfg: SearchConfig, draws, device):
+    """The Monte-Carlo operand tuple of a (P, C, 2^N) mask batch (or one
+    (C, 2^N) mask): calibrated-table operands with a FaultTolSpec, the
+    nominal ones otherwise."""
+    spec = cfg.adc_spec
+    if cfg.faulttol is not None:
+        return faulttol_cal.mc_operands_ft(spec, cfg.nonideal, masks, tmr,
+                                           cal, draws, device)
+    return nonideal_lib.mc_operands(spec, cfg.nonideal, masks, draws=draws,
+                                    device=device)
+
+
 def _train_and_score(genomes: np.ndarray, params0, data: Dict, sizes,
-                     cfg: SearchConfig, return_params: bool = False) -> Dict:
+                     cfg: SearchConfig, return_params: bool = False,
+                     draws=None) -> Dict:
     """(P, G) genomes -> ``{'acc': (P,) test accuracies}`` as one batched
     program on ``data``'s device; ``return_params=True`` adds the trained
     parameter stacks under ``'params'``. The input quantization runs
-    before the QAT, one population-quantizer launch per split."""
+    before the QAT, one population-quantizer launch per split (through
+    the spare-augmented masks with a FaultTolSpec). A robustness config
+    with ``draws`` adds ``'mc_accs'``, the raw (P, S) per-instance
+    accuracies: one launch of the MC population entry (the
+    calibrated-table one with a FaultTolSpec) on the test split, and
+    ``mc_accuracies`` re-scoring each view."""
     spec = cfg.adc_spec
-    masks, dps = decode_population(genomes, sizes[0], cfg.bits,
-                                   cfg.min_levels)
+    masks, dps, tmr, cal = _decode_masks(genomes, sizes[0], cfg)
     dev = data["x_train"].device
     masks, dps = masks.to(dev), dps.to(dev)
     xq_tr = ops.adc_quantize_population(data["x_train"], masks, spec=spec)
     xq_te = ops.adc_quantize_population(data["x_test"], masks, spec=spec)
+    robust = cfg.wants_robustness and draws is not None
     out = _train_from_quantized(xq_tr, xq_te, data["y_train"],
                                 data["y_test"], dps, params0, sizes, cfg,
-                                return_params)
+                                return_params or robust)
+    acc, params = out if (return_params or robust) else (out, None)
+    result = {"acc": acc}
+    if robust:
+        mc = _mc_operands(masks, tmr, cal, cfg, draws, dev)
+        entry = (ops.mc_eval_cal_population if cfg.faulttol is not None
+                 else ops.mc_eval_population)
+        xq_mc = entry(data["x_test"], *mc, spec=spec)       # (P, S, M, C)
+        result["mc_accs"] = mc_accuracies(cfg.model, params, dps, xq_mc,
+                                          data["y_test"], cfg.weight_bits)
     if return_params:
-        return {"acc": out[0], "params": out[1]}
-    return {"acc": out}
+        result["params"] = params
+    return result
 
 
 def _to_numpy(params):
@@ -278,16 +404,19 @@ def _concat(chunks):
 
 
 def _fixed_lanes(genomes: np.ndarray, data: Dict, sizes, cfg: SearchConfig,
-                 init_params=None, return_params: bool = False) -> Dict:
+                 init_params=None, return_params: bool = False,
+                 draws=None) -> Dict:
     """Train any number of genomes at the fixed lane count
     ``cfg.pop_size`` (module docstring, lane purity): each chunk of at
     most ``pop_size`` genomes is padded by repeating its first genome.
-    Returns numpy ``{'acc': (B,) float32}`` plus ``'params'`` (each leaf
+    Returns numpy ``{'acc': (B,) float32}``, plus ``'mc_accs'`` (B, S)
+    for a robustness config with ``draws``, plus ``'params'`` (each leaf
     (B, ...)) with ``return_params``."""
     genomes = np.asarray(genomes, np.uint8)
     lanes = cfg.pop_size
     dev = data["x_train"].device
-    accs, params = [], []
+    cols: Dict[str, list] = {}
+    params = []
     for start in range(0, len(genomes), lanes):
         chunk = genomes[start:start + lanes]
         k = len(chunk)
@@ -298,11 +427,13 @@ def _fixed_lanes(genomes: np.ndarray, data: Dict, sizes, cfg: SearchConfig,
                    if init_params is None
                    else stacked_init_from_numpy(init_params, lanes, dev))
         out = _train_and_score(chunk, params0, data, sizes, cfg,
-                               return_params)
-        accs.append(out["acc"][:k].cpu().numpy())
+                               return_params, draws)
+        for key in ("acc", "mc_accs"):
+            if key in out:
+                cols.setdefault(key, []).append(out[key][:k].cpu().numpy())
         if return_params:
             params.append(_to_numpy(_take(out["params"], k)))
-    result = {"acc": np.concatenate(accs)}
+    result = {k: np.concatenate(v) for k, v in cols.items()}
     if return_params:
         result["params"] = _concat(params)
     return result
@@ -335,15 +466,15 @@ def train_pareto_front(genomes: np.ndarray, data: Dict, sizes,
     the search-time fitness threw away: the trained parameter stacks.
 
     Returns ``(accs (K,) f64, params, masks (K, C, 2^N) i32, dps (K,)
-    f32)`` with every ``params`` leaf a numpy (K, ...) stack. Each lane
-    is a pure function of (genome, data, cfg) at the fixed lane count, so
-    the accuracies reproduce the search-time fitness bit for bit."""
+    f32)`` with every ``params`` leaf a numpy (K, ...) stack; with a
+    FaultTolSpec the masks carry the spare levels. Each lane is a pure
+    function of (genome, data, cfg) at the fixed lane count, so the
+    accuracies reproduce the search-time fitness bit for bit."""
     genomes = np.asarray(genomes, np.uint8)
     data = _as_device_data(data, device)
     out = _fixed_lanes(genomes, data, sizes, cfg, init_params,
                        return_params=True)
-    masks, dps = decode_population(genomes, sizes[0], cfg.bits,
-                                   cfg.min_levels)
+    masks, dps, _, _ = _decode_masks(genomes, sizes[0], cfg)
     return (np.asarray(out["acc"], np.float64), out["params"],
             masks.numpy(), dps.numpy())
 
@@ -353,15 +484,67 @@ def population_areas(genomes: np.ndarray, channels: int, cfg: SearchConfig
                      ) -> np.ndarray:
     """(P, G) genomes -> (P,) normalized ADC areas (vs the full flash
     bank): mask decode and repair, then the exact-integer design-rule walk
-    in numpy per mask."""
-    n = 2 ** cfg.bits
-    g = np.asarray(genomes)
-    masks = torch.as_tensor(g[:, : channels * n].reshape(-1, channels, n)
-                            .astype(np.int32))
-    masks = adc.repair_mask(masks, cfg.min_levels).numpy()
+    in numpy per mask. With a FaultTolSpec: the spare-augmented masks
+    plus the exact voter/calibration surcharge (``area.faulttol_tc``) on
+    the same budget axis."""
+    g = np.asarray(genomes, np.uint8)
+    masks, _, tmr, cal = _decode_masks(g, channels, cfg)
+    masks = masks.numpy()
     flash_full = max(area.flash_full_tc(cfg.bits) * channels, 1)
-    return np.array([area.system_tc(m, cfg.design) for m in masks],
-                    np.float64) / flash_full
+    if cfg.faulttol is not None:
+        tc = [area.system_tc(m, cfg.design)
+              + area.faulttol_tc(m, t, bool(cv))
+              for m, t, cv in zip(masks, tmr.numpy(), cal.numpy())]
+    else:
+        tc = [area.system_tc(m, cfg.design) for m in masks]
+    return np.array(tc, np.float64) / flash_full
+
+
+def search_draws(cfg: SearchConfig, channels: int,
+                 device: DeviceLike = None):
+    """The search's Monte-Carlo draw block, on ``device`` (default the
+    CPU): one stream per run, fixed across generations and common to
+    every individual, a pure function of ``cfg.nonideal.seed``. None
+    without a robustness objective; a FaultTolSpec draws the 3-replica
+    ``RedundantDraws``. ``deploy.evaluate_robustness`` re-derives the
+    same stream from the same spec."""
+    if not cfg.wants_robustness:
+        return None
+    dev = None if device is None else torch.device(device)
+    if cfg.faulttol is not None:
+        return ft_redundancy.draw_redundant(cfg.bits, channels,
+                                            cfg.mc_samples, cfg.nonideal,
+                                            dev)
+    return nonideal_lib.draw(cfg.bits, channels, cfg.mc_samples,
+                             cfg.nonideal, dev)
+
+
+def _as_search_draws(draws, cfg: SearchConfig, channels: int, device):
+    """``draws`` (None: the config's own stream; or tensors or numpy
+    arrays in the field order, such as the reference's draws) on
+    ``device``, typed for the config (``RedundantDraws`` with a
+    FaultTolSpec)."""
+    if not cfg.wants_robustness:
+        return None
+    if draws is None:
+        return search_draws(cfg, channels, device)
+    if cfg.faulttol is not None:
+        return ft_redundancy.as_redundant_draws(draws, device)
+    return nonideal_lib.as_draws(draws, device, cls=nonideal_lib.Draws)
+
+
+def _fitness(genomes, out: Dict, channels: int,
+             cfg: SearchConfig) -> np.ndarray:
+    """The fitness matrix from an evaluation's raw columns: [1 - acc,
+    area] plus, with ``'mc_accs'``, the host-side f64 robustness
+    column."""
+    cols = [1.0 - np.asarray(out["acc"]),
+            population_areas(genomes, channels, cfg)]
+    if "mc_accs" in out:
+        cols.append(nonideal_lib.robust_objective(
+            np.asarray(out["acc"]), np.asarray(out["mc_accs"]),
+            cfg.robust_objective, margin=cfg.yield_margin))
+    return np.stack(cols, axis=1)
 
 
 def _eval_dedup(genomes: np.ndarray, cfg: SearchConfig, core) -> Dict:
@@ -383,63 +566,85 @@ def _eval_dedup(genomes: np.ndarray, cfg: SearchConfig, core) -> Dict:
 
 def evaluate_population(genomes: np.ndarray, data: Dict, sizes,
                         cfg: SearchConfig, *, device: DeviceLike = None,
-                        init_params=None) -> np.ndarray:
+                        init_params=None, draws=None) -> np.ndarray:
     """Batched engine. Full fitness: [1 - accuracy, normalized ADC area]
-    (both minimized), exact-duplicate genomes sharing one QAT lane
+    plus, for a robustness config, the Monte-Carlo column (all
+    minimized), exact-duplicate genomes sharing one QAT lane
     (``cfg.dedup``). ``init_params`` (numpy, the reference's layout)
-    replaces the seeded initial weights."""
+    replaces the seeded initial weights, ``draws`` (numpy or tensors)
+    the config's own draw stream."""
     data = _as_device_data(data, device)
+    draws = _as_search_draws(draws, cfg, sizes[0], data["x_test"].device)
     out = _eval_dedup(genomes, cfg, lambda g: _fixed_lanes(
-        g, data, sizes, cfg, init_params))
-    return np.stack([1.0 - np.asarray(out["acc"]),
-                     population_areas(genomes, sizes[0], cfg)], axis=1)
+        g, data, sizes, cfg, init_params, draws=draws))
+    return _fitness(genomes, out, sizes[0], cfg)
 
 
-def _eval_one_acc(genome, data: Dict, sizes, cfg: SearchConfig,
-                  init_params=None) -> float:
+def _eval_one(genome, data: Dict, sizes, cfg: SearchConfig,
+              init_params=None, draws=None) -> Dict:
     """QAT one individual end to end (decode -> quantize -> train), one
     lane: the paper-faithful sequential path. The quantization is the
     module form (core/adc.adc_quantize) with ``ste=False``: inputs are
-    data, so no gradient flows to them."""
-    mask, dp = decode_genome(genome, sizes[0], cfg.bits, cfg.min_levels)
+    data, so no gradient flows to them. With a robustness config and
+    ``draws`` the single-design MC entry (``ops.mc_eval``, or
+    ``ops.mc_eval_cal`` with a FaultTolSpec) gives ``'mc_accs'`` (S,).
+    Returns numpy ``{'acc': float32, ...}``."""
+    masks, dps, tmr, cal = _decode_masks(np.asarray(genome)[None],
+                                         sizes[0], cfg)
     dev = data["x_train"].device
-    mask = mask.to(dev)
+    mask, dp = masks[0].to(dev), dps.to(dev)
     kw = dict(bits=cfg.bits, vmin=cfg.vmin, vmax=cfg.vmax, mode=cfg.mode,
               ste=False)
     xq_tr = adc.adc_quantize(data["x_train"], mask, **kw)[None]
     xq_te = adc.adc_quantize(data["x_test"], mask, **kw)[None]
     params0 = (_stacked_init(1, sizes, cfg, dev) if init_params is None
                else stacked_init_from_numpy(init_params, 1, dev))
-    acc = _train_from_quantized(xq_tr, xq_te, data["y_train"],
-                                data["y_test"], dp.to(dev)[None], params0,
-                                sizes, cfg)
-    return acc.cpu().numpy()[0]
+    robust = cfg.wants_robustness and draws is not None
+    out = _train_from_quantized(xq_tr, xq_te, data["y_train"],
+                                data["y_test"], dp, params0, sizes, cfg,
+                                return_params=robust)
+    if not robust:
+        return {"acc": out.cpu().numpy()[0]}
+    acc, params = out
+    mc = _mc_operands(mask, None if tmr is None else tmr[0],
+                      None if cal is None else cal[0], cfg, draws, dev)
+    entry = ops.mc_eval_cal if cfg.faulttol is not None else ops.mc_eval
+    xq_mc = entry(data["x_test"], *mc, spec=cfg.adc_spec)       # (S, M, C)
+    mc_accs = mc_accuracies(cfg.model, params, dp, xq_mc[None],
+                            data["y_test"], cfg.weight_bits)
+    return {"acc": acc.cpu().numpy()[0], "mc_accs": mc_accs[0].cpu().numpy()}
 
 
 def evaluate_population_reference(genomes: np.ndarray, data: Dict, sizes,
                                   cfg: SearchConfig, *,
                                   device: DeviceLike = None,
-                                  init_params=None) -> np.ndarray:
+                                  init_params=None, draws=None
+                                  ) -> np.ndarray:
     """Per-individual reference path (the paper's pymoo-style loop): the
-    same fitness as ``evaluate_population``, one QAT per individual."""
+    same fitness as ``evaluate_population``, robustness column included,
+    one QAT and one single-design MC launch per individual."""
     data = _as_device_data(data, device)
-    accs = np.array([float(_eval_one_acc(g, data, sizes, cfg, init_params))
-                     for g in np.asarray(genomes, np.uint8)])
-    return np.stack([1.0 - accs,
-                     population_areas(genomes, sizes[0], cfg)], axis=1)
+    draws = _as_search_draws(draws, cfg, sizes[0], data["x_test"].device)
+    rows = [_eval_one(g, data, sizes, cfg, init_params, draws)
+            for g in np.asarray(genomes, np.uint8)]
+    out = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    out["acc"] = out["acc"].astype(np.float64)
+    return _fitness(genomes, out, sizes[0], cfg)
 
 
 def make_eval_fn(data: Dict, sizes, cfg: SearchConfig, *,
                  device: DeviceLike = None, init_params=None
                  ) -> Callable[[np.ndarray], np.ndarray]:
-    """The (P, G) -> (P, 2) fitness function ``nsga2.evolve`` consumes,
-    dispatched on ``cfg.engine``. The dataset moves to the device once
-    here, not once per generation."""
+    """The (P, G) -> (P, n_objectives) fitness function ``nsga2.evolve``
+    consumes, dispatched on ``cfg.engine``. The dataset, and the MC draw
+    block of a robustness config, move to the device once here, not once
+    per generation."""
     dev_data = _as_device_data(data, device)
+    draws = search_draws(cfg, sizes[0], dev_data["x_test"].device)
     fn = (evaluate_population_reference if cfg.engine == "reference"
           else evaluate_population)
     return lambda pop: fn(pop, dev_data, sizes, cfg,
-                          init_params=init_params)
+                          init_params=init_params, draws=draws)
 
 
 def run_search(data: Dict, sizes, cfg: SearchConfig,
@@ -449,10 +654,11 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
                device: DeviceLike = None, init_params=None):
     """Full in-training optimization on ``device`` (default ``cuda``).
     Returns (pareto_genomes, pareto_fit, decode) where fit columns are
-    [1-acc, normalized area]; with ``return_trained=True`` a fourth
-    element carries the final front's trained state,
-    ``train_pareto_front``'s (accs, params, masks, dps), which
-    ``core/deploy.export_front`` consumes.
+    [1-acc, normalized area] (plus the robustness column for a
+    robustness config); with ``return_trained=True`` a fourth element
+    carries the final front's trained state, ``train_pareto_front``'s
+    (accs, params, masks, dps), which ``core/deploy.export_front``
+    consumes.
 
     ``init`` seeds the initial population ((pop_size, G) uint8) instead
     of the random draw. ``ckpt``/``resume`` are refused: search
@@ -462,14 +668,18 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
     c = sizes[0]
     cfg.adc_spec.validate_channels(c)
     dev_data = device_data(data, device)
-    g = genome_len(c, cfg.bits)
+    g = genome_len(c, cfg.bits, cfg.faulttol)
     pop, fit = nsga2.evolve(
         make_eval_fn(dev_data, sizes, cfg, init_params=init_params), g,
         pop_size=cfg.pop_size, generations=cfg.generations, seed=cfg.seed,
         init=init, log=log)
     pg, pf = nsga2.pareto_front(pop, fit)
-    decode = lambda gg: decode_genome(gg, c, cfg.bits,  # noqa: E731
-                                      cfg.min_levels)
+    if cfg.faulttol is not None:
+        decode = lambda gg: decode_genome_faulttol(  # noqa: E731
+            gg, c, cfg.bits, cfg.min_levels, cfg.faulttol)
+    else:
+        decode = lambda gg: decode_genome(gg, c, cfg.bits,  # noqa: E731
+                                          cfg.min_levels)
     if return_trained:
         return pg, pf, decode, train_pareto_front(
             pg, dev_data, sizes, cfg, init_params=init_params)

@@ -6,9 +6,11 @@
               (csrc/qmlp_bank.cu), with launch counters.
   adc_quantize - wrapper of the population quantizer kernel
               (csrc/adc_quantize.cu), with its launch counter.
+  mc_eval   - wrappers of the Monte-Carlo non-ideal ADC kernel
+              (csrc/mc_eval.cu), four entries with launch counters.
   envelope  - the Hopper shared-memory envelope of those kernels.
   dispatch  - the kernel-or-plain decision and its record.
   ops       - named entry points (adc_quantize{,_population},
-              classifier_bank, bespoke_mlp/svm).
+              classifier_bank, bespoke_mlp/svm, mc_eval{,_cal}{,_population}).
   _build    - nvcc build of csrc/*.cu at first CUDA use, ctypes binding.
 """

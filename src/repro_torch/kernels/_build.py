@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmlp_bank": CSRC / "qmlp_bank.cu",
-           "adc_quantize": CSRC / "adc_quantize.cu"}
+           "adc_quantize": CSRC / "adc_quantize.cu",
+           "mc_eval": CSRC / "mc_eval.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

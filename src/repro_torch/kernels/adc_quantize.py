@@ -9,7 +9,9 @@ A CPU tensor runs the plain version (kernels/ref.py). A CUDA tensor
 launches the kernel or raises: the wrapper checks device, dtype, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
-``launches["adc_quantize_population"]``. There is no fallback.
+the count of the entry called (``launches["adc_quantize_population"]``
+or, for the P=1 call, ``launches["adc_quantize"]``). There is no
+fallback.
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ from repro_torch.kernels import _build, dispatch, ref
 
 ENTRY = "adc_quantize_population"
 
-# kernel launches since the last reset_launches(); only the launch site
-# below adds to it
-launches = {ENTRY: 0}
+# kernel launches since the last reset_launches(), per entry; only the
+# launch site below adds to them
+launches = {ENTRY: 0, "adc_quantize": 0}
 
 
 def reset_launches() -> None:
@@ -63,16 +65,10 @@ def _check(spec: AdcSpec, x: torch.Tensor, tables: torch.Tensor
     return p, m, c, n
 
 
-def adc_quantize_population(
-        x: torch.Tensor, tables: torch.Tensor, *, spec: AdcSpec,
-        rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-) -> torch.Tensor:
-    """Shared x (M, C); tables (P, C, 2^N). Returns (P, M, C) float32:
-    ``out[p, m, c] = tables[p, c, code(x[m, c])]``. ``rows`` are the (C,)
-    ``(vmin, scale)`` range rows on x's device when the caller holds them
-    already; by default they are built from ``spec``."""
+def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
+         rows) -> torch.Tensor:
     p, m, c, n = _check(spec, x, tables)
-    res = dispatch.resolve_quantize(ENTRY, x, tables)
+    res = dispatch.resolve_quantize(entry, x, tables)
     if res.path == "plain":
         return ref.adc_quantize_ref_population(x, tables, spec.bits,
                                                spec.vmin, spec.vmax)
@@ -80,13 +76,13 @@ def adc_quantize_population(
         spec.bits, spec.vmin, spec.vmax, c, x.device)
     for i, t in enumerate((x, tables, lo, scale)):
         if t.device != x.device:
-            raise ValueError(f"{ENTRY}: operand {i} is on {t.device}, x on "
+            raise ValueError(f"{entry}: operand {i} is on {t.device}, x on "
                              f"{x.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"{ENTRY}: operand {i} is {t.dtype}, needs "
+            raise TypeError(f"{entry}: operand {i} is {t.dtype}, needs "
                             f"float32")
         if not t.is_contiguous():
-            raise ValueError(f"{ENTRY}: operand {i} is not contiguous")
+            raise ValueError(f"{entry}: operand {i} is not contiguous")
     out = torch.empty((p, m, c), dtype=torch.float32, device=x.device)
     if m == 0 or p == 0:
         return out
@@ -97,14 +93,25 @@ def adc_quantize_population(
             out.data_ptr(), m, c, n, p, stream)
     if err != 0:
         msg = _lib().adcq_error_string(err).decode()
-        raise RuntimeError(f"{ENTRY} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({msg})")
-    launches[ENTRY] += 1
+    launches[entry] += 1
     return out
+
+
+def adc_quantize_population(
+        x: torch.Tensor, tables: torch.Tensor, *, spec: AdcSpec,
+        rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> torch.Tensor:
+    """Shared x (M, C); tables (P, C, 2^N). Returns (P, M, C) float32:
+    ``out[p, m, c] = tables[p, c, code(x[m, c])]``. ``rows`` are the (C,)
+    ``(vmin, scale)`` range rows on x's device when the caller holds them
+    already; by default they are built from ``spec``."""
+    return _run(ENTRY, x, tables, spec, rows)
 
 
 def adc_quantize(x: torch.Tensor, table: torch.Tensor, *, spec: AdcSpec,
                  rows=None) -> torch.Tensor:
     """One bank: x (M, C), table (C, 2^N) -> (M, C). The P=1 call of the
     population kernel."""
-    return adc_quantize_population(x, table[None], spec=spec, rows=rows)[0]
+    return _run("adc_quantize", x, table[None], spec, rows)[0]

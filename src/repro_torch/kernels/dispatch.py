@@ -69,3 +69,13 @@ def resolve_quantize(entry: str, x: torch.Tensor,
         return envelope.outside_quantize_envelope(c, n, p)
 
     return _route(entry, x, why)
+
+
+def resolve_mc(entry: str, x: torch.Tensor, lb: torch.Tensor) -> Resolution:
+    """Decide how a Monte-Carlo entry runs on x (M, C) and interval
+    tables lb (..., S, C, 2^N)."""
+    def why():
+        c, n = lb.shape[-2], lb.shape[-1]
+        return envelope.outside_mc_envelope(c, n)
+
+    return _route(entry, x, why)

@@ -1,5 +1,5 @@
 """The Hopper envelope of the hand-written kernels: the fused classifier
-bank kernels and the population quantizer.
+bank kernels, the population quantizer and the Monte-Carlo kernel.
 
 The reference's limits (``repro/kernels/envelope.py``: ``MAX_UNROLL_BITS``,
 ``MAX_CHANNELS``, ``VMEM_BUDGET_F32``) describe a TPU: how far a one-hot
@@ -22,6 +22,13 @@ The population quantizer (csrc/adc_quantize.cu) stages one individual's
 table (C, 2^N) and the two range rows (C) in shared memory, under the same
 227 KB limit (above 48 KB its launcher raises the attribute too); the
 population axis is the grid's y dimension, at most 65,535.
+
+The Monte-Carlo kernel (csrc/mc_eval.cu) stages, per (design, instance),
+the two interval tables and the value ladder (C, 2^N) and the two
+drifted range rows (C): ``4 * (3 * C * 2^N + 2 * C)`` bytes for both the
+nominal and the calibrated variant, under the same 227 KB limit (its
+launcher raises the attribute above 48 KB). The (design, instance) axis
+has no limit: where P*S exceeds the grid's y limit each block loops.
 """
 from __future__ import annotations
 
@@ -75,4 +82,21 @@ def outside_quantize_envelope(c: int, n: int, p: int) -> Optional[str]:
                 f"2^N={n}); the H100 limit per block is {SMEM_MAX_BYTES}")
     if p > MAX_DESIGNS:
         return f"P={p} individuals exceed the grid's y limit of {MAX_DESIGNS}"
+    return None
+
+
+def mc_smem_bytes(c: int, n: int) -> int:
+    """Shared memory one Monte-Carlo block stages: lb, ub and values
+    (C, 2^N) and the two (C,) drifted range rows, float32."""
+    return 4 * (3 * c * n + 2 * c)
+
+
+def outside_mc_envelope(c: int, n: int) -> Optional[str]:
+    """None when the Monte-Carlo kernel takes this shape, else the limit
+    it breaks, named."""
+    need = mc_smem_bytes(c, n)
+    if need > SMEM_MAX_BYTES:
+        return (f"one (design, instance) needs {need} bytes of shared "
+                f"memory (C={c}, 2^N={n}); the H100 limit per block is "
+                f"{SMEM_MAX_BYTES}")
     return None

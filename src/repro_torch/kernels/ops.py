@@ -5,7 +5,11 @@
 their value tables and run the population quantizer (the search's inner
 loop). ``classifier_bank`` takes baked value tables, as deployment holds
 them; ``bespoke_mlp`` / ``bespoke_svm`` take a pruned mask and bake its
-table first. Routing (kernel on a CUDA tensor inside the envelope, plain
+table first. ``mc_eval`` / ``mc_eval_population`` / ``mc_eval_cal`` /
+``mc_eval_cal_population`` take the operand tuple
+``(lb, ub, values, lo, scale)`` that core/nonideal.mc_operands (or
+faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
+kernel. Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
 applied inside the kernel wrappers.
 """
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.core.spec import AdcSpec, as_spec
 from repro_torch.kernels import adc_quantize as _adcq
+from repro_torch.kernels import mc_eval as _mc
 from repro_torch.kernels import qmlp
 
 
@@ -67,3 +72,33 @@ def bespoke_svm(x, mask, w, b, *, spec: AdcSpec) -> torch.Tensor:
     spec = as_spec(spec)
     table = spec.value_table(torch.as_tensor(mask, device=x.device))
     return qmlp.bespoke_svm(x, table, w, b, spec=spec)
+
+
+def mc_eval(x, lb, ub, values, lo, scale, *, spec: AdcSpec) -> torch.Tensor:
+    """S perturbed instances of one design: lb/ub (S, C, 2^N), values
+    (C, 2^N), lo/scale (S, C) -> (S, M, C)."""
+    as_spec(spec).validate_channels(x.shape[-1])
+    return _mc.mc_adc_eval(x, lb, ub, values, lo, scale)
+
+
+def mc_eval_population(x, lb, ub, values, lo, scale, *,
+                       spec: AdcSpec) -> torch.Tensor:
+    """S perturbed instances of P designs, draws shared: lb/ub
+    (P, S, C, 2^N) -> (P, S, M, C)."""
+    as_spec(spec).validate_channels(x.shape[-1])
+    return _mc.mc_adc_eval_population(x, lb, ub, values, lo, scale)
+
+
+def mc_eval_cal(x, lb, ub, values, lo, scale, *,
+                spec: AdcSpec) -> torch.Tensor:
+    """Calibrated tables, one design: values (S, C, 2^N) -> (S, M, C)."""
+    as_spec(spec).validate_channels(x.shape[-1])
+    return _mc.mc_adc_eval_cal(x, lb, ub, values, lo, scale)
+
+
+def mc_eval_cal_population(x, lb, ub, values, lo, scale, *,
+                           spec: AdcSpec) -> torch.Tensor:
+    """Calibrated tables, P designs: lb/ub/values (P, S, C, 2^N) ->
+    (P, S, M, C)."""
+    as_spec(spec).validate_channels(x.shape[-1])
+    return _mc.mc_adc_eval_cal_population(x, lb, ub, values, lo, scale)

@@ -10,7 +10,9 @@ A CPU tensor runs the plain version (kernels/ref.py). A CUDA tensor
 launches the kernel or raises: the wrapper checks device, dtype, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
-``launches[<kernel>]``. There is no fallback.
+the count of the entry called (``launches["qmlp_mlp_bank"]``, or
+``launches["bespoke_mlp"]`` for the D=1 call, and the same for the SVM).
+There is no fallback.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.kernels import _build, dispatch, ref
 
 # kernel launches since the last reset_launches(); only the launch sites
 # below add to them
-launches = {"qmlp_mlp_bank": 0, "qmlp_svm_bank": 0}
+launches = {"qmlp_mlp_bank": 0, "qmlp_svm_bank": 0, "bespoke_mlp": 0,
+            "bespoke_svm": 0}
 
 
 def reset_launches() -> None:
@@ -87,7 +90,7 @@ def _check_operands(name: str, x: torch.Tensor, operands: Sequence) -> None:
             raise ValueError(f"{name}: operand {i} is not contiguous")
 
 
-def _launch(name: str, fn, x: torch.Tensor, operands: Sequence,
+def _launch(entry: str, fn, x: torch.Tensor, operands: Sequence,
             dims: Sequence[int], out: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -95,8 +98,9 @@ def _launch(name: str, fn, x: torch.Tensor, operands: Sequence,
                  out.data_ptr(), *dims, stream)
     if err != 0:
         msg = _lib().qmlp_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-    launches[name] += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({msg})")
+    launches[entry] += 1
     return out
 
 
@@ -108,6 +112,44 @@ def _rows(spec: AdcSpec, f: int, x: torch.Tensor, rows):
     return rows
 
 
+def _mlp_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w1, b1, w2,
+              b2, spec: AdcSpec, rows) -> torch.Tensor:
+    weights = (w1, b1, w2, b2)
+    d, m, f, n, h, o = _check_shapes("mlp", spec, x, tables, weights)
+    res = dispatch.resolve(entry, "mlp", x, tables, weights)
+    if res.path == "plain":
+        spec.validate_channels(f)
+        return ref.bespoke_mlp_bank_ref(x, tables, spec.bits, w1, b1, w2, b2,
+                                        spec.vmin, spec.vmax)
+    lo, scale = _rows(spec, f, x, rows)
+    operands = (tables, lo, scale, w1, b1, w2, b2)
+    _check_operands(entry, x, operands)
+    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
+    if m == 0 or d == 0:
+        return out
+    return _launch(entry, _lib().qmlp_mlp_bank, x, operands,
+                   (m, f, n, h, o, d), out)
+
+
+def _svm_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w, b,
+              spec: AdcSpec, rows) -> torch.Tensor:
+    weights = (w, b)
+    d, m, f, n, _, o = _check_shapes("svm", spec, x, tables, weights)
+    res = dispatch.resolve(entry, "svm", x, tables, weights)
+    if res.path == "plain":
+        spec.validate_channels(f)
+        return ref.bespoke_svm_bank_ref(x, tables, spec.bits, w, b,
+                                        spec.vmin, spec.vmax)
+    lo, scale = _rows(spec, f, x, rows)
+    operands = (tables, lo, scale, w, b)
+    _check_operands(entry, x, operands)
+    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
+    if m == 0 or d == 0:
+        return out
+    return _launch(entry, _lib().qmlp_svm_bank, x, operands,
+                   (m, f, n, o, d), out)
+
+
 def bespoke_mlp_bank(x: torch.Tensor, tables: torch.Tensor, w1, b1, w2, b2,
                      *, spec: AdcSpec,
                      rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -117,21 +159,7 @@ def bespoke_mlp_bank(x: torch.Tensor, tables: torch.Tensor, w1, b1, w2, b2,
     (F,) ``(vmin, scale)`` range rows on x's device when the caller holds
     them already (core/deploy.make_bank_fn); by default they are built
     from ``spec``."""
-    weights = (w1, b1, w2, b2)
-    d, m, f, n, h, o = _check_shapes("mlp", spec, x, tables, weights)
-    res = dispatch.resolve("qmlp_mlp_bank", "mlp", x, tables, weights)
-    if res.path == "plain":
-        spec.validate_channels(f)
-        return ref.bespoke_mlp_bank_ref(x, tables, spec.bits, w1, b1, w2, b2,
-                                        spec.vmin, spec.vmax)
-    lo, scale = _rows(spec, f, x, rows)
-    operands = (tables, lo, scale, w1, b1, w2, b2)
-    _check_operands("qmlp_mlp_bank", x, operands)
-    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
-    if m == 0 or d == 0:
-        return out
-    return _launch("qmlp_mlp_bank", _lib().qmlp_mlp_bank, x, operands,
-                   (m, f, n, h, o, d), out)
+    return _mlp_bank("qmlp_mlp_bank", x, tables, w1, b1, w2, b2, spec, rows)
 
 
 def bespoke_svm_bank(x: torch.Tensor, tables: torch.Tensor, w, b, *,
@@ -140,32 +168,18 @@ def bespoke_svm_bank(x: torch.Tensor, tables: torch.Tensor, w, b, *,
                      ) -> torch.Tensor:
     """Shared x (M, F); tables (D, F, 2^N), w (D, F, O), b (D, O).
     Returns (D, M, O) float32."""
-    weights = (w, b)
-    d, m, f, n, _, o = _check_shapes("svm", spec, x, tables, weights)
-    res = dispatch.resolve("qmlp_svm_bank", "svm", x, tables, weights)
-    if res.path == "plain":
-        spec.validate_channels(f)
-        return ref.bespoke_svm_bank_ref(x, tables, spec.bits, w, b,
-                                        spec.vmin, spec.vmax)
-    lo, scale = _rows(spec, f, x, rows)
-    operands = (tables, lo, scale, w, b)
-    _check_operands("qmlp_svm_bank", x, operands)
-    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
-    if m == 0 or d == 0:
-        return out
-    return _launch("qmlp_svm_bank", _lib().qmlp_svm_bank, x, operands,
-                   (m, f, n, o, d), out)
+    return _svm_bank("qmlp_svm_bank", x, tables, w, b, spec, rows)
 
 
 def bespoke_mlp(x, table, w1, b1, w2, b2, *, spec: AdcSpec, rows=None):
     """One design: x (M, F), table (F, 2^N), w1 (F, H), b1 (H), w2 (H, O),
     b2 (O) -> (M, O). The D=1 call of the MLP bank kernel."""
-    return bespoke_mlp_bank(x, table[None], w1[None], b1[None], w2[None],
-                            b2[None], spec=spec, rows=rows)[0]
+    return _mlp_bank("bespoke_mlp", x, table[None], w1[None], b1[None],
+                     w2[None], b2[None], spec, rows)[0]
 
 
 def bespoke_svm(x, table, w, b, *, spec: AdcSpec, rows=None):
     """One design: x (M, F), table (F, 2^N), w (F, O), b (O) -> (M, O).
     The D=1 call of the SVM bank kernel."""
-    return bespoke_svm_bank(x, table[None], w[None], b[None], spec=spec,
-                            rows=rows)[0]
+    return _svm_bank("bespoke_svm", x, table[None], w[None], b[None], spec,
+                     rows)[0]

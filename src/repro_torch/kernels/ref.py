@@ -9,6 +9,11 @@ matmuls (no TF32, see device.py); their summation order differs from the
 kernels', so logits agree bitwise only where every partial sum is exact
 (dyadic tables, power-of-two weights, fixed-point biases, as exported
 fronts have).
+
+The Monte-Carlo versions (``mc_adc_eval*``) compute the code position
+``u = (x - lo) * scale`` from per-instance rows and select through
+interval tables (core/nonideal.py); their result is a copied table value,
+so kernel and plain version agree bitwise.
 """
 from __future__ import annotations
 
@@ -95,3 +100,61 @@ def bespoke_svm_bank_ref(x, tables, bits: int, w, b,
     Returns (D, M, O)."""
     xq = adc_quantize_ref_population(x, tables, bits, vmin, vmax)
     return torch.bmm(xq, w) + b[:, None, :]
+
+
+def _mc_select(u: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
+               values: torch.Tensor) -> torch.Tensor:
+    """The interval selection sum shared by the four MC plain versions.
+    u (S, M, C) code positions; lb/ub (..., S, C, 2^N); values
+    broadcastable to lb's shape. Returns (..., S, M, C):
+    ``sum_k values[..., s, c, k]`` over the k with ``lb <= u < ub``,
+    accumulated from 0.0 in k order, as the kernel does. The perturbed
+    tree walk partitions the line, so at most one term is live and the
+    sum is exact; where none is (NaN, +inf) it is 0.0."""
+    values = values.expand(lb.shape)
+    out = torch.zeros(lb.shape[:-3] + u.shape, dtype=torch.float32,
+                      device=u.device)
+    for k in range(lb.shape[-1]):
+        lo_k = lb[..., k].unsqueeze(-2)                   # (..., S, 1, C)
+        hi_k = ub[..., k].unsqueeze(-2)
+        sel = (u >= lo_k) & (u < hi_k)
+        out = out + torch.where(sel, values[..., k].unsqueeze(-2), 0.0)
+    return out
+
+
+def _mc_positions(x: torch.Tensor, lo: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """u (S, M, C) = (x - lo[s]) * scale[s], subtract then multiply, each
+    rounded once, as the kernel's ``__fsub_rn`` / ``__fmul_rn``."""
+    return (x[None, :, :] - lo[:, None, :]) * scale[:, None, :]
+
+
+def mc_adc_eval_ref(x, lb, ub, values, lo, scale) -> torch.Tensor:
+    """Monte-Carlo non-ideal ADC, one design: x (M, C) shared samples;
+    lb/ub (S, C, 2^N) per-instance interval tables in code units; values
+    (C, 2^N) nominal ladder; lo/scale (S, C) per-instance drifted range
+    rows. Returns (S, M, C): ``values[c, k]`` for the kept leaf k with
+    ``lb[s, c, k] <= (x[m, c] - lo[s, c]) * scale[s, c] < ub[s, c, k]``."""
+    return _mc_select(_mc_positions(x, lo, scale), lb, ub, values)
+
+
+def mc_adc_eval_ref_population(x, lb, ub, values, lo,
+                               scale) -> torch.Tensor:
+    """P designs at once: lb/ub (P, S, C, 2^N); values (C, 2^N) and
+    lo/scale (S, C) shared across designs (common random numbers).
+    Returns (P, S, M, C)."""
+    return _mc_select(_mc_positions(x, lo, scale), lb, ub, values)
+
+
+def mc_adc_eval_cal_ref(x, lb, ub, values, lo, scale) -> torch.Tensor:
+    """Calibrated tables, one design: as ``mc_adc_eval_ref`` with values
+    (S, C, 2^N), one re-baked ladder per instance. Returns (S, M, C)."""
+    return _mc_select(_mc_positions(x, lo, scale), lb, ub, values)
+
+
+def mc_adc_eval_cal_ref_population(x, lb, ub, values, lo,
+                                   scale) -> torch.Tensor:
+    """Calibrated tables, P designs: lb/ub/values (P, S, C, 2^N) (mixed
+    populations carry the nominal ladder in their uncalibrated rows);
+    lo/scale (S, C) shared. Returns (P, S, M, C)."""
+    return _mc_select(_mc_positions(x, lo, scale), lb, ub, values)

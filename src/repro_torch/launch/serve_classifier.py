@@ -17,9 +17,18 @@ equal each design's exported accuracy exactly.
   # the same through the plain PyTorch versions on the CPU:
   ... --device cpu
 
-The reference's ``--driver async``, ``--sharded``, ``--smoke``,
-``--nonideal-*`` and ``--calibrate`` paths belong to later slices of the
-port; they are accepted here only to fail with a clear message.
+``--nonideal-sigma/--fault-rate/--range-drift`` serve the front through
+ONE sampled non-ideal hardware instance (instance ``--nonideal-instance``
+of the ``--mc-samples``-sample stream of ``--nonideal-seed``) through the
+Monte-Carlo kernel: the report prints served-vs-exported degradation per
+design instead of the parity check, plus the yield over the instance
+stream (``--yield-margins``). ``--calibrate`` re-bakes the front against
+the sampled instance's measured non-idealities and serves through the
+calibrated tables, printing the recovered accuracy per design.
+
+The reference's ``--driver async`` (with or without ``--calibrate``),
+``--sharded`` and ``--smoke`` paths belong to later slices of the port;
+they are accepted here only to fail with a clear message.
 """
 from __future__ import annotations
 
@@ -120,12 +129,10 @@ def serve(designs: Sequence[deploy.DeployedClassifier],
 
 
 _LATER = {
-    "driver": "--driver async (the serving engine, ROADMAP A9)",
+    "driver": "--driver async (the serving engine, with its "
+              "calibrate-on-recovery path, ROADMAP A9)",
     "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9)",
     "smoke": "--smoke (needs the search, ROADMAP A3)",
-    "nonideal": "--nonideal-sigma/--fault-rate/--range-drift "
-                "(non-ideal hardware, ROADMAP A5)",
-    "calibrate": "--calibrate (fault tolerance, ROADMAP A6)",
 }
 
 
@@ -144,14 +151,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: the hand-written kernels; cpu: their plain "
                          "PyTorch versions")
+    ap.add_argument("--nonideal-sigma", type=float, default=0.0,
+                    help="serve through a sampled non-ideal instance: "
+                         "comparator offset sigma in LSBs")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="stuck-at-0/1 probability per comparator")
+    ap.add_argument("--range-drift", type=float, default=0.0,
+                    help="reference-ladder drift sigma (fraction of "
+                         "full scale)")
+    ap.add_argument("--nonideal-seed", type=int, default=0)
+    ap.add_argument("--nonideal-instance", type=int, default=0,
+                    help="which MC instance of the seed's stream to "
+                         "sample the served hardware from")
+    ap.add_argument("--mc-samples", type=int, default=0,
+                    help="the MC stream size --nonideal-instance indexes "
+                         "into: a robustness report's samples serves "
+                         "exactly the instance it lists (0: a minimal "
+                         "instance+1-sample stream)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="with --nonideal-*: calibrate the front against "
+                         "the sampled instance's measured non-idealities "
+                         "and serve through the calibrated tables")
+    ap.add_argument("--yield-margins", default="0.01,0.05",
+                    help="with --nonideal-*: comma list of accuracy-drop "
+                         "margins for the served front's yield summary")
     # reference options of later slices: accepted only to be refused
     ap.add_argument("--driver", choices=("batch", "async"), default="batch")
     ap.add_argument("--sharded", action="store_true")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--nonideal-sigma", type=float, default=0.0)
-    ap.add_argument("--fault-rate", type=float, default=0.0)
-    ap.add_argument("--range-drift", type=float, default=0.0)
-    ap.add_argument("--calibrate", action="store_true")
     return ap
 
 
@@ -159,15 +186,29 @@ def main(argv=None) -> Dict:
     ap = build_parser()
     args = ap.parse_args(argv)
     asked = {"driver": args.driver == "async", "sharded": args.sharded,
-             "smoke": args.smoke,
-             "nonideal": (args.nonideal_sigma > 0 or args.fault_rate > 0
-                          or args.range_drift > 0),
-             "calibrate": args.calibrate}
+             "smoke": args.smoke}
     for key, on in asked.items():
         if on:
             ap.error(f"{_LATER[key]} is not yet ported to repro_torch; "
                      f"use the JAX package (python -m "
                      f"repro.launch.serve_classifier)")
+    nonideal = None
+    if (args.nonideal_sigma > 0 or args.fault_rate > 0
+            or args.range_drift > 0):
+        from repro_torch.core.nonideal import NonIdealSpec
+        nonideal = NonIdealSpec(sigma_offset=args.nonideal_sigma,
+                                sigma_range=args.range_drift,
+                                fault_rate=args.fault_rate,
+                                seed=args.nonideal_seed)
+    if args.calibrate and nonideal is None:
+        ap.error("--calibrate re-bakes the front against a measured "
+                 "non-ideal instance; it needs --nonideal-sigma / "
+                 "--fault-rate / --range-drift")
+    from repro_torch.launch.train import parse_yield_margins
+    try:
+        yield_margins = parse_yield_margins(args.yield_margins)
+    except ValueError as exc:
+        ap.error(str(exc))
 
     from repro_torch.data import tabular
     try:
@@ -188,16 +229,36 @@ def main(argv=None) -> Dict:
             else "cpu (plain PyTorch versions)")
     print(f"serve_classifier[repro_torch driver=batch D={len(designs)} "
           f"{designs[0].kind} {designs[0].spec.describe()}] device={dev} "
-          f"({name})")
+          f"({name})"
+          + (f" nonideal=({nonideal.describe()} "
+             f"instance={args.nonideal_instance})" if nonideal else ""))
+
+    nonideal_fn = cal_fn = None
+    if nonideal is not None:
+        # built once: serve() drives it for throughput and the
+        # degradation report below reuses it
+        samples = args.mc_samples or None
+        nonideal_fn = deploy.make_nonideal_bank_fn(
+            designs, nonideal, instance=args.nonideal_instance,
+            samples=samples, device=dev)
+        if args.calibrate:
+            cal_fn = deploy.make_calibrated_bank_fn(
+                designs, nonideal, instance=args.nonideal_instance,
+                samples=samples, device=dev)
 
     requests = make_request_stream(data["x_test"], args.requests,
                                     args.request_size)
-    rep = serve(designs, requests, args.batch, device=dev)
+    rep = serve(designs, requests, args.batch, device=dev,
+                bank_fn=cal_fn if cal_fn is not None else nonideal_fn)
     print(f"  {rep['requests']} requests ({rep['samples']} samples) in "
           f"{rep['wall_s']:.3f}s: {rep['requests_per_s']:.1f} req/s, "
           f"{rep['samples_per_s']:.0f} samples/s "
           f"({rep['batches']} batches of {rep['batch']}, "
           f"{rep['pad_fraction'] * 100:.1f}% pad) on {name}")
+
+    if nonideal is not None:
+        return _report_nonideal(rep, designs, data, nonideal, nonideal_fn,
+                                cal_fn, yield_margins, args, dev)
 
     # round-trip parity: the served front reproduces each design's
     # export-time accuracy exactly
@@ -212,6 +273,53 @@ def main(argv=None) -> Dict:
                          f"front: {served} != {exported}")
     print("  parity OK: served == exported accuracy for every design")
     rep["served_accuracies"] = [float(a) for a in served]
+    return rep
+
+
+def _fn_accuracies(fn, data, dev) -> np.ndarray:
+    """(D,) float32 accuracies of a bank closure on the test split."""
+    logits = fn(data["x_test"])
+    y = torch.as_tensor(np.asarray(data["y_test"])).to(dev)
+    return deploy._mean_acc(torch.argmax(logits, -1)
+                            == y[None, :]).cpu().numpy()
+
+
+def _report_nonideal(rep, designs, data, nonideal, nonideal_fn, cal_fn,
+                     yield_margins, args, dev) -> Dict:
+    """The degraded-hardware report: the sampled instance's accuracy per
+    design against the exported one, the calibrated recovery with
+    ``--calibrate``, and the yield over the instance stream the served
+    instance was drawn from."""
+    exported = np.array([d.accuracy for d in designs])
+    served = _fn_accuracies(nonideal_fn, data, dev)
+    recovered = (_fn_accuracies(cal_fn, data, dev) if cal_fn is not None
+                 else None)
+    for i, d in enumerate(designs):
+        rec = (f" calibrated={recovered[i]:.3f} "
+               f"(recovered {recovered[i] - served[i]:+.3f})"
+               if recovered is not None else "")
+        print(f"  design {i}: area={d.area_tc:4d}T  acc "
+              f"exported={d.accuracy:.3f} served={served[i]:.3f} "
+              f"(drop {d.accuracy - served[i]:+.3f}){rec}")
+    print(f"  served a sampled non-ideal instance ({nonideal.describe()}):"
+          f" mean accuracy drop {float(np.mean(exported - served)):+.3f}"
+          + (f", calibrated recovery "
+             f"{float(np.mean(recovered - served)):+.3f}"
+             if recovered is not None else ""))
+    rob = deploy.evaluate_robustness(
+        designs, nonideal, data["x_test"], data["y_test"],
+        samples=args.mc_samples or args.nonideal_instance + 1,
+        yield_margins=yield_margins, device=dev)
+    for m in yield_margins:
+        ys = "  ".join(f"{row['yield'][f'{m:g}']:.2f}"
+                       for row in rob["designs"])
+        print(f"  yield@{m:g} over {rob['samples']} instances: {ys}")
+    rep["nonideal"] = nonideal.to_meta()
+    rep["served_accuracies"] = [float(a) for a in served]
+    if recovered is not None:
+        rep["calibrated_accuracies"] = [float(a) for a in recovered]
+    rep["yield_margins"] = [float(m) for m in yield_margins]
+    rep["yield"] = [row["yield"] for row in rob["designs"]]
     return rep
 
 

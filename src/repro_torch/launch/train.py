@@ -12,11 +12,18 @@ Add ``--export-front`` to freeze the searched Pareto front into deployable
 classifier artifacts under <ckpt-dir>/front, servable by
 ``repro_torch.launch.serve_classifier`` (and by the JAX package's).
 
-The reference's LM training (``--arch``), robustness (``--mc-samples``,
-``--nonideal-sigma``, ``--fault-rate``, ``--range-drift``), fault
-tolerance (``--faulttol``), the sharded and gradient engines,
-``--screen-factor`` and ``--resume`` belong to later slices; they are
-accepted here only to fail with the ROADMAP item that ports them.
+``--mc-samples S`` with a non-ideality knob (``--nonideal-sigma``,
+``--fault-rate``, ``--range-drift``; ``--nonideal-seed`` names the draw
+stream) adds the Monte-Carlo robustness objective
+(``--robust-objective expected|worst|yield``, ``--yield-margin``);
+``--faulttol`` (``--max-spares``) adds the fault-tolerance genome. With
+``--export-front`` the robustness report of the exported front is
+written next to it as ``robustness.json`` (yield at ``--yield-margins``).
+
+The reference's LM training (``--arch``), the sharded and gradient
+engines, ``--screen-factor`` and ``--resume`` belong to later slices;
+they are accepted here only to fail with the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -30,9 +37,6 @@ import numpy as np
 
 _LATER = {
     "arch": "--arch (LM training, ROADMAP A11)",
-    "nonideal": "--mc-samples/--nonideal-sigma/--fault-rate/--range-drift "
-                "(the robustness objective, ROADMAP A5)",
-    "faulttol": "--faulttol (fault-tolerant co-search, ROADMAP A6)",
     "screen": "--screen-factor (surrogate screening, ROADMAP A7)",
     "resume": "--resume (search checkpoint/resume, ROADMAP A3)",
 }
@@ -64,16 +68,89 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: the hand-written kernels; cpu: their plain "
                          "PyTorch versions")
+    ap.add_argument("--mc-samples", type=int, default=0,
+                    help="Monte-Carlo instances per design for the "
+                         "robustness objective (0 disables)")
+    ap.add_argument("--nonideal-sigma", type=float, default=0.0,
+                    help="per-comparator input-referred offset sigma, "
+                         "in LSBs")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="stuck-at-0/1 probability per surviving "
+                         "comparator")
+    ap.add_argument("--range-drift", type=float, default=0.0,
+                    help="reference-ladder drift sigma, as a fraction "
+                         "of each channel's full scale")
+    ap.add_argument("--nonideal-seed", type=int, default=0,
+                    help="MC draw stream seed (NonIdealSpec.seed)")
+    ap.add_argument("--robust-objective", default="expected",
+                    choices=("expected", "worst", "yield"),
+                    help="third objective: expected accuracy drop, "
+                         "worst-case error, or 1 - yield@margin over the "
+                         "MC instances")
+    ap.add_argument("--yield-margin", type=float, default=0.01,
+                    help="accuracy-drop margin of the 'yield' objective")
+    ap.add_argument("--yield-margins", default="0.01,0.05",
+                    help="comma list of margins the exported robustness "
+                         "report tabulates yield at (robustness.json)")
+    ap.add_argument("--faulttol", action="store_true",
+                    help="fault-tolerant search: per-channel TMR and "
+                         "spare-level genes and a calibrate gene; needs "
+                         "--mc-samples and a non-ideality knob")
+    ap.add_argument("--max-spares", type=int, default=2,
+                    help="per-channel spare-level gene range of "
+                         "--faulttol (0 disables the spare action)")
     # reference options of later slices: accepted only to be refused
     ap.add_argument("--arch")
-    ap.add_argument("--mc-samples", type=int, default=0)
-    ap.add_argument("--nonideal-sigma", type=float, default=0.0)
-    ap.add_argument("--fault-rate", type=float, default=0.0)
-    ap.add_argument("--range-drift", type=float, default=0.0)
-    ap.add_argument("--faulttol", action="store_true")
     ap.add_argument("--screen-factor", type=int, default=1)
     ap.add_argument("--resume", action="store_true")
     return ap
+
+
+def parse_yield_margins(text: str):
+    """'0.01,0.05' -> (0.01, 0.05): the accuracy-drop margins the exported
+    robustness report tabulates yield at."""
+    try:
+        margins = tuple(float(t) for t in str(text).split(",") if t.strip())
+    except ValueError:
+        margins = ()
+    if not margins or any(not 0.0 <= m < 1.0 for m in margins):
+        raise ValueError(f"--yield-margins must be a comma list of "
+                         f"fractions in [0, 1), got {text!r}")
+    return margins
+
+
+def robustness_config(args):
+    """argv -> (NonIdealSpec or None, FaultTolSpec or None), with the
+    reference's checks: a knob needs --mc-samples, --mc-samples needs a
+    knob, --faulttol needs both."""
+    from repro_torch.core.nonideal import NonIdealSpec
+    from repro_torch.faulttol import FaultTolSpec
+    knobs = (args.nonideal_sigma > 0 or args.fault_rate > 0
+             or args.range_drift > 0)
+    if knobs and args.mc_samples <= 0:
+        raise ValueError(
+            "--nonideal-sigma/--fault-rate/--range-drift need "
+            "--mc-samples > 0 to take effect; refusing to silently run "
+            "an ideal-hardware search")
+    if args.mc_samples > 0 and not knobs:
+        raise ValueError(
+            "--mc-samples without any non-ideality knob "
+            "(--nonideal-sigma/--fault-rate/--range-drift) would "
+            "Monte-Carlo ideal hardware; set at least one knob > 0")
+    ni = ft = None
+    if knobs:
+        ni = NonIdealSpec(sigma_offset=args.nonideal_sigma,
+                          sigma_range=args.range_drift,
+                          fault_rate=args.fault_rate,
+                          seed=args.nonideal_seed)
+    if args.faulttol:
+        if not knobs or args.mc_samples <= 0:
+            raise ValueError(
+                "--faulttol extends the robustness search; it needs "
+                "--mc-samples > 0 and at least one non-ideality knob")
+        ft = FaultTolSpec(max_spares=args.max_spares)
+    parse_yield_margins(args.yield_margins)
+    return ni, ft
 
 
 def run_adc_search(args) -> np.ndarray:
@@ -90,23 +167,37 @@ def run_adc_search(args) -> np.ndarray:
     data = tabular.make_dataset(args.dataset)
     sizes = (spec.features, spec.hidden, spec.classes)
     adc_spec = AdcSpec(bits=args.bits)
+    ni, ft = robustness_config(args)
     cfg = search.SearchConfig.for_spec(
         adc_spec, pop_size=args.pop, generations=args.generations,
         train_steps=args.train_steps, engine=args.engine, model=args.model,
-        seed=args.seed)
+        seed=args.seed, nonideal=ni, mc_samples=args.mc_samples if ni else 0,
+        robust_objective=args.robust_objective,
+        yield_margin=args.yield_margin, faulttol=ft)
     print(f"adc-search[repro_torch {cfg.engine} {cfg.model}] "
           f"dataset={args.dataset} adc=({adc_spec.describe()}) "
           f"pop={cfg.pop_size} gens={cfg.generations} "
           f"qat-steps={cfg.train_steps} device={dev}")
+    if cfg.wants_robustness:
+        margin = (f"@{cfg.yield_margin:g}"
+                  if cfg.robust_objective == "yield" else "")
+        print(f"  robustness objective [{cfg.robust_objective}{margin}] "
+              f"over {cfg.mc_samples} MC instances: "
+              f"{cfg.nonideal.describe()}")
+    if cfg.faulttol is not None:
+        print(f"  fault-tolerance genome: {cfg.faulttol.describe()} "
+              f"(+{cfg.faulttol.gene_bits(sizes[0])} genes)")
     marks = [time.perf_counter()]
 
     def log(g, pop, fit):
         marks.append(time.perf_counter())
         dt = marks[-1] - marks[-2]
+        extra = (f"  best-robust {fit[:, 2].min():.3f}"
+                 if fit.shape[1] > 2 else "")
         print(f"  gen {g:2d}: {dt:6.2f}s/gen "
               f"{cfg.pop_size / dt:7.1f} individuals/s  "
               f"best-acc {1 - fit[:, 0].min():.3f}  "
-              f"min-area {fit[:, 1].min():.3f}", flush=True)
+              f"min-area {fit[:, 1].min():.3f}{extra}", flush=True)
 
     out = search.run_search(data, sizes, cfg, log=log,
                             return_trained=args.export_front, device=dev)
@@ -141,6 +232,21 @@ def run_adc_search(args) -> np.ndarray:
             print(f"  design {i}: acc={d.accuracy:.3f}  area={d.area_tc}T  "
                   f"dp={int(d.dp)}  kept-levels="
                   f"{int(d.mask.sum())}/{d.mask.size}")
+        if cfg.wants_robustness:
+            # the report rides with the artifact: the same NonIdealSpec,
+            # hence the same draw stream, as the search's third objective
+            margins = parse_yield_margins(args.yield_margins)
+            rep = deploy.evaluate_robustness(
+                designs, cfg.nonideal, data["x_test"], data["y_test"],
+                samples=cfg.mc_samples, yield_margins=margins, device=dev)
+            deploy.save_robustness(front_dir, rep)
+            for i, row in enumerate(rep["designs"]):
+                ys = "  ".join(f"yield@{m:g} {row['yield'][f'{m:g}']:.2f}"
+                               for m in margins)
+                print(f"  design {i} robustness: mean "
+                      f"{row['mean_accuracy']:.3f}  worst "
+                      f"{row['worst_accuracy']:.3f}  {ys}")
+            print(f"robustness report -> {front_dir}/robustness.json")
         print(f"serve it:  PYTHONPATH=src python -m repro_torch.launch."
               f"serve_classifier --front-dir {front_dir} --dataset "
               f"{args.dataset} --device {dev.type}")
@@ -151,10 +257,7 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     asked = {"arch": args.arch is not None,
-             "nonideal": (args.mc_samples > 0 or args.nonideal_sigma > 0
-                          or args.fault_rate > 0 or args.range_drift > 0),
-             "faulttol": args.faulttol, "screen": args.screen_factor > 1,
-             "resume": args.resume}
+             "screen": args.screen_factor > 1, "resume": args.resume}
     for key, on in asked.items():
         if on:
             ap.error(f"{_LATER[key]} is not yet ported to repro_torch; use "
@@ -164,8 +267,9 @@ def main(argv=None):
                  "training is ROADMAP A11)")
     from repro_torch.device import resolve_device
     try:
+        robustness_config(args)
         resolve_device(args.device)
-    except RuntimeError as exc:
+    except (RuntimeError, ValueError) as exc:
         ap.error(str(exc))
     return run_adc_search(args)
 

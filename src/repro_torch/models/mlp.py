@@ -8,6 +8,16 @@ genome's decimal position ``dp``. Every function also takes
 population-stacked params (W (P, fan_in, fan_out), b (P, fan_out)) with
 x (P, M, F) and dp (P,): lane p is then the unstacked function of lane
 p's operands. ``PopulationMLP`` holds such stacks as an ``nn.Module``.
+
+``accuracy`` scores through ``apply_mlp_fixed_order``: every logit is the
+same sequence of float32 multiplies and adds over the input features in
+index order, whatever the batch shape, on the CPU and on the card. A
+batched product's summation order may depend on its shape (the lane
+count, the Monte-Carlo instance count), so an accuracy measured on P
+lanes of M samples and one measured on P x S perturbed views of them
+agree bit for bit only with a fixed order: the search's ideal column,
+its robustness column and the deployed robustness report all score
+through this one forward.
 """
 from __future__ import annotations
 
@@ -52,6 +62,39 @@ def apply_mlp(params: Params, x: torch.Tensor, dp=None,
     return h
 
 
+def affine_fixed_order(x: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` as explicit elementwise steps: ``sum_f x[.., f] *
+    w[.., f, :]`` accumulated in f order, then the bias. w (*L, F, H) and
+    b (*L, H) carry the lane axes *L; x (*L, *B, M, F) may add batch axes
+    *B after them (Monte-Carlo instances), which the weights broadcast
+    over. Each output element's arithmetic is independent of every
+    shape, so the result is the same on any batch and device."""
+    lead = w.ndim - 2
+    mid = x.ndim - 2 - lead
+    w = w.reshape(w.shape[:lead] + (1,) * mid + w.shape[lead:])
+    b = b.reshape(b.shape[:lead] + (1,) * (mid + 1) + b.shape[-1:])
+    acc = x[..., 0:1] * w[..., 0:1, :]
+    for f in range(1, x.shape[-1]):
+        acc = acc + x[..., f:f + 1] * w[..., f:f + 1, :]
+    return acc + b
+
+
+def apply_mlp_fixed_order(params: Params, x: torch.Tensor, dp=None,
+                          weight_bits: int = 8) -> torch.Tensor:
+    """``apply_mlp`` with every product in ``affine_fixed_order``."""
+    h = x
+    n = len(params)
+    for i, (w, b) in enumerate(params):
+        if dp is not None:
+            w = qat.quantize_po2(w, dp, weight_bits)
+            b = qat.quantize_fixed(b, dp, weight_bits)
+        h = affine_fixed_order(h, w, b)
+        if i < n - 1:
+            h = torch.relu(h)
+    return h
+
+
 def mean_accuracy(correct: torch.Tensor) -> torch.Tensor:
     """(..., M) correctness bools -> (...,) float32 accuracies, as the
     reference's ``jnp.mean`` computes them: the float32 count times the
@@ -64,7 +107,9 @@ def mean_accuracy(correct: torch.Tensor) -> torch.Tensor:
 
 def accuracy(params: Params, x, y, dp=None,
              weight_bits: int = 8) -> torch.Tensor:
-    logits = apply_mlp(params, x, dp, weight_bits)
+    """Test accuracy over the last sample axis of x (..., M, F): (P,)
+    for stacked params, (P, S) for x (P, S, M, F)."""
+    logits = apply_mlp_fixed_order(params, x, dp, weight_bits)
     return mean_accuracy(torch.argmax(logits, -1) == y)
 
 

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import qat
-from repro_torch.models.mlp import mean_accuracy
+from repro_torch.models.mlp import affine_fixed_order, mean_accuracy
 
 Params = Tuple[torch.Tensor, torch.Tensor]      # (W: (F, C), b: (C,))
 
@@ -32,6 +32,17 @@ def apply_svm(params: Params, x: torch.Tensor, dp=None,
     return torch.matmul(x, w) + b.unsqueeze(-2)
 
 
+def apply_svm_fixed_order(params: Params, x: torch.Tensor, dp=None,
+                          weight_bits: int = 8) -> torch.Tensor:
+    """``apply_svm`` through ``mlp.affine_fixed_order`` (the batch-shape
+    independent product the accuracies use)."""
+    w, b = params
+    if dp is not None:
+        w = qat.quantize_po2(w, dp, weight_bits)
+        b = qat.quantize_fixed(b, dp, weight_bits)
+    return affine_fixed_order(x, w, b)
+
+
 def svm_loss(params: Params, x, y, dp=None, margin: float = 1.0,
              l2: float = 1e-3, weight_bits: int = 8) -> torch.Tensor:
     """Multiclass squared hinge (one-vs-rest) plus an L2 penalty on the
@@ -46,8 +57,8 @@ def svm_loss(params: Params, x, y, dp=None, margin: float = 1.0,
 
 def accuracy(params: Params, x, y, dp=None,
              weight_bits: int = 8) -> torch.Tensor:
-    return mean_accuracy(
-        torch.argmax(apply_svm(params, x, dp, weight_bits), -1) == y)
+    return mean_accuracy(torch.argmax(
+        apply_svm_fixed_order(params, x, dp, weight_bits), -1) == y)
 
 
 class PopulationSVM(nn.Module):

@@ -191,10 +191,7 @@ def test_cli_serves_fixture_with_parity():
 
 
 @pytest.mark.parametrize("extra", [["--driver", "async"], ["--sharded"],
-                                   ["--smoke"], ["--nonideal-sigma", "0.5"],
-                                   ["--fault-rate", "0.01"],
-                                   ["--range-drift", "0.1"],
-                                   ["--calibrate"]])
+                                   ["--smoke"]])
 def test_cli_refuses_later_slices(extra, capsys):
     argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
             "cardio", "--device", "cpu"] + extra

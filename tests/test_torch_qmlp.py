@@ -135,7 +135,8 @@ def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing(kind):
              else ref.bespoke_svm_bank_ref)
     got = bank(xt, tables, *wt, spec=spec)
     assert torch.equal(got, plain(xt, tables, 2, *wt))
-    assert qmlp.launches == {"qmlp_mlp_bank": 0, "qmlp_svm_bank": 0}
+    assert qmlp.launches == {"qmlp_mlp_bank": 0, "qmlp_svm_bank": 0,
+                             "bespoke_mlp": 0, "bespoke_svm": 0}
     # each design row equals the single-design plain version
     single = ref.bespoke_mlp_ref if kind == "mlp" else ref.bespoke_svm_ref
     for d in range(2):

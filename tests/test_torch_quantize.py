@@ -99,7 +99,8 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_shapes():
     adc_quantize.reset_launches()
     got = adc_quantize.adc_quantize_population(xt, tables, spec=spec)
     assert torch.equal(got, ref.adc_quantize_ref_population(xt, tables, 3))
-    assert adc_quantize.launches == {"adc_quantize_population": 0}
+    assert adc_quantize.launches == {"adc_quantize_population": 0,
+                                     "adc_quantize": 0}
     assert adc_quantize.adc_quantize_population(
         xt[:0], tables, spec=spec).shape == (4, 0, 6)
     with pytest.raises(ValueError, match="channels"):

@@ -297,10 +297,8 @@ def test_cli_search_export_and_serve_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--arch", "gemma2-2b"], "A11"), (["--mc-samples", "4"], "A5"),
-    (["--nonideal-sigma", "0.5"], "A5"), (["--faulttol"], "A6"),
-    (["--screen-factor", "2"], "A7"), (["--resume"], "A3"),
-    ([], "--adc-search")])
+    (["--arch", "gemma2-2b"], "A11"), (["--screen-factor", "2"], "A7"),
+    (["--resume"], "A3"), ([], "--adc-search")])
 def test_cli_refuses_later_slices(argv, item, capsys):
     base = ["--adc-search"] if argv else []
     with pytest.raises(SystemExit) as exc:
@@ -311,9 +309,7 @@ def test_cli_refuses_later_slices(argv, item, capsys):
 
 @pytest.mark.parametrize("field, item", [
     (dict(engine="sharded"), "A9"), (dict(engine="gradient"), "A7"),
-    (dict(screen_factor=2), "A7"), (dict(nonideal=object()), "A5"),
-    (dict(mc_samples=8), "A5"), (dict(faulttol=object()), "A6"),
-    (dict(frontend=object()), "A8")])
+    (dict(screen_factor=2), "A7"), (dict(frontend=object()), "A8")])
 def test_config_refuses_later_slices(field, item):
     with pytest.raises(NotImplementedError, match=item):
         tsearch.SearchConfig(**field)
