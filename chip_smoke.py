@@ -30,7 +30,19 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    CPU's bitwise. Then each kernel and its plain version are timed with
    CUDA events over 200 launches after warm-up (20 for the wide MC calls)
    and with torch.profiler, beside the least time the card could take;
-   the single-design calls too.
+   the single-design calls too. The flash-attention kernel
+   (flash_attention): the JAX package's four test shapes in f32,
+   musicgen-medium's prefill (B=4, S=2048, H=KV=24, dh=64) in bf16 and
+   f32, gemma2's widths (H=8, KV=4, dh=256, window 1024, softcap 50,
+   S=4096) in bf16, ragged S=Sk=2049, key positions holding -1 (f32 and
+   bf16) and fully masked rows (exactly 0), on q, k ~ N(0, 1.5^2) and
+   v ~ N(1, 1) (a peaked softmax, outputs O(1)); rtol=atol=2e-5 in f32
+   (the JAX package's own test), two output ulps in bf16 (rtol 2^-6,
+   atol 2^-7) against the plain version in the working type, a limit
+   that must reject the plain version with one kv tile dropped and with
+   the wrong kv head. Timed at the musicgen, gemma2 and ragged shapes beside
+   its bound and, for the causal cases without window or softcap,
+   scaled_dot_product_attention (the yardstick; the port never calls it).
 3. serve (the serving path): with every launch counter at 0, each
    committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
    exported by the JAX package) is loaded and served by the batch driver,
@@ -72,16 +84,33 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    steps) per model, timed on the host clock around a synchronised call,
    then traced with torch.profiler: device time of the quantizer, of
    everything else, and the device's busy share.
+7. lm (the LM serving path): with every launch counter at 0,
+   repro_torch.launch.serve.main serves musicgen-medium at its full
+   published config (48 layers, d_model 1536, 24 heads, dh 64; random
+   seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
+   flash kernel must launch exactly 48 times (once per layer of the
+   prefill), the (4, 16) generated matrix and every logit must be finite;
+   prefill's last-position logits must equal logits_fn's (2e-2), and one
+   decode step after prefill(extra_slots=1) the forward over the ragged
+   2049-long sequence: 3e-2 in float32 activations, 1.25e-1 in the served
+   bf16 (twice its reading; each bf16 path is printed against the float32
+   forward, and the bf16 forward with the plain attention in place of the
+   kernel, as witnesses that the gap is rounding), a limit that must
+   reject a decode whose layers read the next layer's cache and one with
+   a 64-slot tile of the cache zeroed. Then a warm prefill and 16 warm
+   decode steps are timed, and one prefill and one decode step traced
+   (flash kernel device time, device operations, device busy share).
 
 It prints one JSON line of kernel results, one entry per TPU kernel row it
-replaces (launches summed over the serve, search and robust paths, each
-counted from 0), and, last, the
+replaces (launches summed over the serve, search, robust and lm paths,
+each counted from 0), and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
 that does not hold the port.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -135,6 +164,10 @@ KERNELS = {
         "row": 10, "replaces": "src/repro/kernels/mc_eval.py:231",
         "pallas": "mc_adc_eval_cal_pallas_population",
         "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
+    "flash_attention": {
+        "row": 11, "replaces": "src/repro/kernels/flash_attention.py:74",
+        "pallas": "flash_attention_pallas",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
@@ -144,6 +177,20 @@ ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
                  seed=0)
 # the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
 MC_WIDE = dict(P=64, S=32, M=8192)
+# the LM path: musicgen-medium at its full published config
+LM = dict(arch="musicgen-medium", requests=4, prompt_len=2048, gen=16)
+BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
+FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)   # the JAX package's own test
+# bf16: two ulps of the output at its magnitude (2^-6 relative), for the
+# output's rounding on both sides, plus one ulp at 1.0 (2^-7 absolute),
+# for p rounded to bf16 against different running maxima (the kernel's
+# online max, the plain version's row max) carried to an O(1) output.
+# The largest error seen, 1.56e-2 at an output below 1, is 0.97 of a
+# limit without that floor
+FLASH_BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
+FLASH_QK_STD = 1.5               # scores' std 2.25: a peaked softmax
+LM_TEACHER_F32_TOL = 3e-2        # tests/test_steps_lm.py's tolerance
+LM_TEACHER_BF16_ATOL = 1.25e-1   # 2x the largest sound bf16 reading
 
 
 class SmokeFailure(Exception):
@@ -607,16 +654,18 @@ def phase_serve(np, torch, dev, card, fronts, data):
 
 def reset_all_launches():
     from repro_torch.kernels import adc_quantize as adcq
-    from repro_torch.kernels import mc_eval, qmlp
+    from repro_torch.kernels import flash_attention, mc_eval, qmlp
     qmlp.reset_launches()
     adcq.reset_launches()
     mc_eval.reset_launches()
+    flash_attention.reset_launches()
 
 
 def all_launches():
     from repro_torch.kernels import adc_quantize as adcq
-    from repro_torch.kernels import mc_eval, qmlp
-    return {**qmlp.launches, **adcq.launches, **mc_eval.launches}
+    from repro_torch.kernels import flash_attention, mc_eval, qmlp
+    return {**qmlp.launches, **adcq.launches, **mc_eval.launches,
+            **flash_attention.launches}
 
 
 def phase_search(np, torch, dev, card, data):
@@ -1283,6 +1332,476 @@ def phase_generation(np, torch, dev, card, data):
     return out
 
 
+def flash_bound(torch, q, k, qpos, kpos, *, causal, window):
+    """(bound_ms, bound_by, bytes, flops) of one attention call: q, k, v
+    and positions read once and the output written once, against HBM;
+    2 flops per multiply-add of q.k and of p.v over the (query, key)
+    pairs these positions leave unmasked, against the peak of the inputs'
+    type (bf16 tensor cores, or float32 outside them)."""
+    qp = qpos.long()[:, None]
+    kp = kpos.long()[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (qp - kp >= 0)
+    if window:
+        ok = ok & (qp - kp < window)
+    pairs = int(ok.sum())
+    b, _, h, dh = q.shape
+    flops = 4 * b * h * dh * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + 4 * (qpos.numel() + kpos.numel())
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def flash_inputs(torch, gen, dev, b, s, sk, h, kv, dh, dt):
+    """q, k ~ N(0, FLASH_QK_STD^2) and v ~ N(1, 1), in dt: the scores'
+    standard deviation is FLASH_QK_STD^2 at any dh, so the softmax is
+    peaked (a few keys carry each row) and the outputs are O(1), where a
+    wrong key, tile or head moves them by O(1)."""
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev) * FLASH_QK_STD
+    k = torch.randn((b, sk, kv, dh), generator=gen, device=dev) \
+        * FLASH_QK_STD
+    v = torch.randn((b, sk, kv, dh), generator=gen, device=dev) + 1.0
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+def limit_share(got, want, tol) -> float:
+    """Largest |got - want| / (atol + rtol |want|): the share of the
+    allclose limit used (above 1 fails)."""
+    w = want.float()
+    return float(((got.float() - w).abs()
+                  / (tol["atol"] + tol["rtol"] * w.abs())).max())
+
+
+def flash_controls(torch, ref, made) -> None:
+    """The bf16 tolerance must reject the faults a kernel could make:
+    the plain version with one kv tile of 64 keys dropped (keys 1024..1087
+    masked), and with each query head reading the wrong kv head (the next
+    head for musicgen's H = KV; h % KV in place of h // (H / KV) under
+    gemma2's GQA), against the sound plain version. p left unrounded
+    before P.V (the plain version on float32 copies, rounded to bf16 at
+    the end) is printed: a rounding the limit is not meant to see."""
+    def rejected(label, bad, want, strict=True):
+        tol = FLASH_BF16_TOL
+        err = float((bad.float() - want.float()).abs().max())
+        fails = not torch.allclose(bad.float(), want.float(), **tol)
+        print(f"  control {label}: max_abs_err {err:.3e} "
+              f"({limit_share(bad, want, tol):.2f} of the limit): "
+              f"{'rejected' if fails else 'not rejected'}")
+        if strict:
+            check(fails, f"the bf16 tolerance does not reject {label} "
+                         f"({err:.3e})")
+
+    for label in ("musicgen prefill B=4 S=2048 H=KV=24 dh=64",
+                  "gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096"):
+        q, k, v, qpos, kpos, kw = made[label]
+        want = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw)
+        short = label.split()[0]
+        drop = kpos.clone()
+        drop[1024:1088] = -1
+        rejected(f"{short}, one kv tile dropped",
+                 ref.flash_attention_ref(q, k, v, qpos, drop, **kw), want)
+        h, kvh = q.shape[2], k.shape[2]
+        if h == kvh:
+            heads = (torch.arange(h, device=q.device) + 1) % kvh
+        else:
+            heads = torch.arange(h, device=q.device) % kvh
+        kw_, vw_ = k[:, :, heads].contiguous(), v[:, :, heads].contiguous()
+        rejected(f"{short}, wrong kv head",
+                 ref.flash_attention_ref(q, kw_, vw_, qpos, kpos, **kw), want)
+        unrounded = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                            qpos, kpos, **kw).to(q.dtype)
+        rejected(f"{short}, p unrounded", unrounded, want, strict=False)
+        del want, kw_, vw_, unrounded
+
+
+def timed_ms(torch, fn, reps, warmup=3) -> float:
+    """Mean time per call over ``reps`` back-to-back calls, CUDA events,
+    after ``warmup`` calls (the attention calls are long: few reps)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_flash_kernels(np, torch, dev, card):
+    """The flash-attention kernel against its plain version on the card:
+    the JAX package's four test shapes (f32), musicgen-medium's prefill
+    (bf16), gemma2's widths with GQA, a window and a softcap (bf16),
+    ragged S, empty key slots and fully masked rows; then times at the
+    musicgen, gemma2 and ragged shapes beside the bound and, for the
+    causal cases, scaled_dot_product_attention (the yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def arange(n, start=0):
+        return torch.arange(start, start + n, dtype=torch.int32, device=dev)
+
+    # label: (B, S, Sk, H, KV, dh, window, softcap, dtype, qpos, kpos)
+    cases = {}
+    for b, s, h, kv, dh, win, cap in ((1, 64, 4, 2, 16, 0, 0.0),
+                                      (2, 128, 4, 4, 32, 0, 30.0),
+                                      (1, 128, 8, 2, 16, 48, 0.0),
+                                      (1, 96, 2, 1, 8, 0, 0.0)):
+        cases[f"jax test B={b} S={s} H={h} KV={kv} dh={dh} win={win} "
+              f"cap={cap}"] = (b, s, s, h, kv, dh, win, cap, f32,
+                               arange(s), arange(s))
+    cases["musicgen prefill B=4 S=2048 H=KV=24 dh=64"] = (
+        4, 2048, 2048, 24, 24, 64, 0, 0.0, bf16, arange(2048), arange(2048))
+    cases["gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096"] = (
+        1, 4096, 4096, 8, 4, 256, 1024, 50.0, bf16, arange(4096),
+        arange(4096))
+    cases["ragged S=Sk=2049 (musicgen widths)"] = (
+        4, 2049, 2049, 24, 24, 64, 0, 0.0, bf16, arange(2049), arange(2049))
+    kp = arange(300)
+    kp[::5] = -1
+    cases["k_positions with -1 (every 5th) f32"] = (
+        2, 300, 300, 8, 2, 64, 0, 0.0, f32, arange(300), kp)
+    cases["k_positions with -1, ragged, bf16"] = (
+        2, 300, 300, 8, 2, 64, 100, 0.0, bf16, arange(300), kp)
+    cases["fully masked rows 0..99 (keys at 100..) f32"] = (
+        2, 256, 256, 4, 4, 64, 0, 0.0, f32, arange(256), arange(256, 100))
+
+    cases["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"] = (
+        4, 2048, 2048, 24, 24, 64, 0, 0.0, f32, arange(2048), arange(2048))
+
+    print(f"phase flash kernels: flash_attention vs plain version on the "
+          f"card ({card}); q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1)")
+    made, max_err = {}, 0.0
+    for label, (b, s, sk, h, kv, dh, win, cap, dt, qpos, kpos) in \
+            cases.items():
+        q, k, v = flash_inputs(torch, gen, dev, b, s, sk, h, kv, dh, dt)
+        kw = dict(causal=True, window=win, attn_softcap=cap)
+        got = fa.flash_attention(q, k, v, qpos, kpos, **kw)
+        want = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_F32_TOL if dt == f32 else FLASH_BF16_TOL
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"flash {label}: {tuple(got.shape)} {got.dtype} != "
+              f"{tuple(want.shape)} {want.dtype}")
+        check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
+        err = float((got.float() - want.float()).abs().max())
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        if "fully masked" in label:
+            ok = ok and bool((got[:, :100] == 0).all()) and bool(
+                (want[:, :100] == 0).all())
+        max_err = max(max_err, err)
+        seen = want.float()[want.float() != 0].abs()
+        print(f"  flash_attention {label:52s} {str(dt)[6:]:8s} "
+              f"max_abs_err={err:.3e} [rtol={tol['rtol']:g}, "
+              f"atol={tol['atol']:g}; {limit_share(got, want, tol):.3f} of "
+              f"the limit] |out| median "
+              f"{float(seen.median()):.3f} {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"flash_attention disagrees with its plain version on "
+                  f"{label} (max_abs_err {err:.3e})")
+        made[label] = (q, k, v, qpos, kpos, kw)
+    flash_controls(torch, ref, made)
+
+    timings = {}
+    for label in ("musicgen prefill B=4 S=2048 H=KV=24 dh=64",
+                  "gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096",
+                  "ragged S=Sk=2049 (musicgen widths)"):
+        q, k, v, qpos, kpos, kw = made[label]
+        k_fn = lambda: fa.flash_attention(q, k, v, qpos, kpos, **kw)  # noqa
+        p_fn = lambda: ref.flash_attention_ref(q, k, v, qpos,  # noqa: E731
+                                               kpos, **kw)
+        lib_ms = lib_err = None
+        if not kw["window"] and not kw["attn_softcap"]:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+            lib_out = l_fn().transpose(1, 2)
+            lib_err = float((lib_out.float() - p_fn().float()).abs().max())
+            check(lib_err < 5e-2, f"{label}: scaled_dot_product_attention "
+                                  f"is not the same function ({lib_err})")
+        # plain, kernel, kernel, plain (library between): one card, turns
+        p1 = timed_ms(torch, p_fn, 3, warmup=1)
+        k1 = timed_ms(torch, k_fn, 20)
+        if lib_err is not None:
+            lib_ms = min(timed_ms(torch, l_fn, 20), timed_ms(torch, l_fn, 20))
+        k2 = timed_ms(torch, k_fn, 20)
+        p2 = timed_ms(torch, p_fn, 3, warmup=1)
+        dev_ms = device_kernel_ms(torch, k_fn, "flash_attention_kernel",
+                                  reps=10)
+        b_ms, b_by, nbytes, flops = flash_bound(
+            torch, q, k, qpos, kpos, causal=True, window=kw["window"])
+        b, s, h, dh = q.shape
+        row = {"shape": {"B": b, "S": s, "Sk": k.shape[1], "H": h,
+                         "KV": k.shape[2], "dh": dh, "window": kw["window"],
+                         "softcap": kw["attn_softcap"],
+                         "dtype": str(q.dtype)[6:]},
+               "ms": min(k1, k2), "plain_ms": min(p1, p2),
+               "device_ms": dev_ms, "library_ms": lib_ms,
+               "library_max_abs_err": lib_err, "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": nbytes, "flops": flops,
+               "tflop_per_s": flops / (min(k1, k2) * 1e-3) / 1e12}
+        timings[label] = row
+        dev_txt = ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
+        lib_txt = ("n/a" if lib_ms is None else f"{lib_ms:.3f} ms")
+        print(f"  time flash_attention {label}: kernel {k1:.3f}/{k2:.3f} ms "
+              f"per call (profiler device time {dev_txt}; "
+              f"{row['tflop_per_s']:.2f} TFLOP/s), plain {p1:.3f}/{p2:.3f} "
+              f"ms, scaled_dot_product_attention {lib_txt}, bound "
+              f"{b_ms:.4f} ms ({b_by}) on {card}")
+    return {"flash_attention": max_err}, timings
+
+
+@contextlib.contextmanager
+def plain_attention(torch):
+    """models.layers.attention through the kernel's plain version in
+    place of the kernel, for a witness (never on the main path)."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def phase_lm(np, torch, dev, card):
+    """The LM serving path: musicgen-medium at its full published config
+    through repro_torch.launch.serve (4 requests, prompt 2048, 16 steps),
+    the launch counters at 0; then prefill == forward, decode == teacher
+    forcing over a ragged 2049-long sequence, a warm prefill and a traced
+    one (device busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    cfg = get_config(LM["arch"])
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (48, 1536, 24, 24, 64, 6144, 2048)
+          and cfg.dtype == "bfloat16",
+          f"{cfg.name} is not at its published widths")
+    b, s, n_gen = LM["requests"], LM["prompt_len"], LM["gen"]
+    print(f"phase lm: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads, dh "
+          f"{cfg.resolved_head_dim}, "
+          f"{cfg.param_counts()['total'] / 1e9:.3f} B parameters, "
+          f"{cfg.dtype} activations) through repro_torch.launch.serve on "
+          f"cuda ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    gen, info = serve.main(["--arch", LM["arch"], "--requests", str(b),
+                            "--prompt-len", str(s), "--gen", str(n_gen),
+                            "--device", "cuda", "--seed", "0"])
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launch counters after the main path: {launches}")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"the main path, expected {cfg.num_layers} (one per layer of the "
+          f"prefill)")
+    check(info["prefill_flash_launches"] == cfg.num_layers
+          and info["decode_flash_launches"] == 0,
+          f"launches by phase: prefill {info['prefill_flash_launches']}, "
+          f"decode {info['decode_flash_launches']}")
+    check(gen.shape == (b, n_gen), f"generated {gen.shape}")
+    check(len(info["logits"]) == n_gen + 1 and all(
+        lg.shape == (b, cfg.vocab_size) and np.isfinite(lg).all()
+        for lg in info["logits"]), "logits not finite or misshapen")
+    print(f"  serve.main: {b} x {s} prefill in {info['prefill_s']:.3f} s "
+          f"({info['prefill_tokens_per_s']:.0f} tokens/s, first call), "
+          f"{n_gen} decode steps in {info['decode_s']:.3f} s "
+          f"({info['decode_ms_per_token']:.2f} ms/token), whole call "
+          f"{wall:.2f} s (init included), peak {peak_gb:.2f} GB on {card}")
+
+    # the same weights (the port's seeded init) for the checks
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    batch = serve.make_batch(cfg, b, s, rng=np.random.default_rng(0),
+                             device=dev)
+    pre, _ = serving.prefill(params, batch, cfg)
+    full = transformer.logits_fn(params, batch, cfg)[:, -1]
+    err_c = float((pre - full).abs().max())
+    same = float(np.abs(pre.cpu().numpy() - info["logits"][0]).max())
+    print(f"  (c) prefill last-position logits vs logits_fn: max_abs_err "
+          f"{err_c:.3e} [rtol=atol=2e-2]; vs serve.main's prefill "
+          f"{same:.3e}")
+    check(torch.allclose(pre, full, rtol=2e-2, atol=2e-2),
+          f"prefill != forward at full width ({err_c:.3e})")
+    check(same <= 2e-2, f"re-initialised weights differ from the "
+                         f"launcher's ({same:.3e})")
+    ext = serve.make_batch(cfg, b, s + 1, rng=np.random.default_rng(1),
+                           device=dev)
+    head = {k: (t if k == "adc_mask" else t[:, :s]) for k, t in ext.items()}
+    tail = {k: (t if k == "adc_mask" else t[:, s:]) for k, t in ext.items()}
+    # (d) decode == teacher forcing at full width and depth, in float32
+    # activations (where a cache fault cannot hide in rounding) and in the
+    # served bf16. Witnesses that the bf16 gap is rounding: each bf16
+    # path's distance from the float32 forward (the truth), and the bf16
+    # forward with the plain attention in place of the kernel. Controls:
+    # the same decode with each layer reading the next layer's cache, and
+    # with one 64-slot tile of every layer's cache zeroed, must fail.
+    c32 = cfg.replace(dtype="float32")
+    _, cache = serving.prefill(params, head, c32, extra_slots=1)
+    got32, _ = serving.decode_step(params, tail, cache, c32)
+    want32 = transformer.logits_fn(params, ext, c32)[:, -1]
+    del cache
+    _, cache = serving.prefill(params, head, cfg, extra_slots=1)
+    clean = {k: t.clone() for k, t in cache.items()}
+    got16, _ = serving.decode_step(params, tail, cache, cfg)
+    want16 = transformer.logits_fn(params, ext, cfg)[:, -1]
+    with plain_attention(torch):
+        want16_plain = transformer.logits_fn(params, ext, cfg)[:, -1]
+    controls = {}
+    for label, edit in (
+            ("each layer reads the next layer's cache",
+             lambda t: torch.roll(t, 1, dims=0)),
+            ("cache slots 1024..1087 zeroed",
+             lambda t: t.index_fill(2, torch.arange(1024, 1088,
+                                                    device=dev), 0))):
+        bad = dict(clean, k=edit(clean["k"]), v=edit(clean["v"]),
+                   kpos=clean["kpos"].clone())
+        controls[label] = float(
+            (serving.decode_step(params, tail, bad, cfg)[0] - want16)
+            .abs().max())
+        del bad
+    del cache, clean
+
+    def dist(a, b_):
+        return float((a - b_).abs().max())
+
+    errs = {"float32": dist(got32, want32), cfg.dtype: dist(got16, want16)}
+    wit = {"bf16 decode vs float32 forward": dist(got16, want32),
+           "bf16 forward vs float32 forward": dist(want16, want32),
+           "bf16 forward, plain attention, vs float32 forward":
+               dist(want16_plain, want32),
+           "bf16 decode vs bf16 forward with plain attention":
+               dist(got16, want16_plain)}
+    print(f"  (d) decode after prefill(extra_slots=1) vs forward over "
+          f"S+1={s + 1} (ragged), last-position logits (float32 forward: "
+          f"std {float(want32.std()):.3f}, max |.| "
+          f"{float(want32.abs().max()):.3f}):")
+    print(f"      float32 activations: max_abs_err {errs['float32']:.3e} "
+          f"[rtol=atol={LM_TEACHER_F32_TOL:g}]")
+    print(f"      {cfg.dtype} activations: max_abs_err {errs[cfg.dtype]:.3e} "
+          f"[atol={LM_TEACHER_BF16_ATOL:g}]")
+    for label, val in wit.items():
+        print(f"      witness, {label}: {val:.3e}")
+    for label, val in controls.items():
+        verdict = ("rejected" if val > LM_TEACHER_BF16_ATOL
+                   else "not rejected")
+        print(f"      control, {label}: {val:.3e} ({verdict})")
+    check(torch.allclose(got32, want32, rtol=LM_TEACHER_F32_TOL,
+                         atol=LM_TEACHER_F32_TOL),
+          f"decode != teacher forcing at full width in float32 "
+          f"({errs['float32']:.3e})")
+    check(errs[cfg.dtype] <= LM_TEACHER_BF16_ATOL,
+          f"decode != teacher forcing at full width in {cfg.dtype} "
+          f"({errs[cfg.dtype]:.3e})")
+    check(all(val > LM_TEACHER_BF16_ATOL for val in controls.values()),
+          f"the {cfg.dtype} limit does not reject a cache fault: {controls}")
+    err_d = errs["float32"]
+    del full, got32, want32, got16, want16, want16_plain
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serving.prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serving.prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    flash_us = other_us = 0.0
+    flash_n = other_n = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is None or not ev.count:
+            continue
+        if "DeviceType.CUDA" not in str(ev.device_type):
+            continue
+        total = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if "flash_attention_kernel" in ev.key:
+            flash_us += total
+            flash_n += ev.count
+        else:
+            other_us += total
+            other_n += ev.count
+    busy = (flash_us + other_us) / 1e6 / traced_wall
+    warm = min(walls)
+
+    # warm decode: 16 steps after a fresh prefill (the launcher's loop, no
+    # sampling), then one traced step
+    _, cache = serving.prefill(params, batch, cfg)
+    rng = np.random.default_rng(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_gen):
+        step = serve.token_to_batch(cfg, None, s + i, b, rng, device=dev)
+        serving.decode_step(params, step, cache, cfg)
+    torch.cuda.synchronize()
+    decode_warm_ms = (time.perf_counter() - t0) / n_gen * 1e3
+    step = serve.token_to_batch(cfg, None, s + n_gen, b, rng, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serving.decode_step(params, step, cache, cfg)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+    dec_us, dec_n = 0.0, 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is None or not ev.count:
+            continue
+        if "DeviceType.CUDA" not in str(ev.device_type):
+            continue
+        dec_us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+        dec_n += ev.count
+    del cache
+    out = {"launches": launches, "prefill_s_first": info["prefill_s"],
+           "prefill_s_warm": walls, "prefill_tokens_per_s": b * s / warm,
+           "decode_ms_per_token": info["decode_ms_per_token"],
+           "decode_ms_per_token_warm": decode_warm_ms,
+           "decode_traced_wall_ms": dec_wall * 1e3,
+           "decode_device_ms": dec_us / 1e3, "decode_device_ops": dec_n,
+           "decode_busy_share": dec_us / 1e6 / dec_wall,
+           "peak_gb": peak_gb, "traced_wall_s": traced_wall,
+           "flash_device_ms": flash_us / 1e3, "flash_launches_traced":
+           flash_n, "other_device_ms": other_us / 1e3,
+           "other_device_ops": other_n, "device_busy_share": busy,
+           "prefill_vs_forward_err": err_c, "decode_vs_teacher_err": err_d,
+           "decode_vs_teacher_err_served_dtype": errs[cfg.dtype],
+           "decode_vs_teacher_witnesses": wit,
+           "decode_vs_teacher_controls": controls}
+    print(f"  warm prefill {walls[0]:.4f}/{walls[1]:.4f} s "
+          f"({b * s / warm:.0f} tokens/s); traced: wall {traced_wall:.4f} s, "
+          f"flash_attention {flash_us / 1e3:.3f} ms over {flash_n} launches "
+          f"({flash_us / 1e3 / max(flash_n, 1):.3f} ms each), everything "
+          f"else {other_us / 1e3:.3f} ms over {other_n} device operations, "
+          f"device busy {busy * 100:.1f} % on {card}")
+    print(f"  warm decode {decode_warm_ms:.2f} ms/token over {n_gen} steps; "
+          f"one traced step: wall {dec_wall * 1e3:.2f} ms, device "
+          f"{dec_us / 1e3:.3f} ms over {dec_n} device operations, busy "
+          f"{dec_us / 1e4 / dec_wall:.1f} % on {card}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -1334,24 +1853,28 @@ def main() -> int:
         max_err.update(q_err)
         mc_err, mc_timings = phase_mc_kernels(np, torch, dev, data)
         max_err.update(mc_err)
+        fa_err, fa_timings = phase_flash_kernels(np, torch, dev, card)
+        max_err.update(fa_err)
         serve_launches = phase_serve(np, torch, dev, card, fronts, data)
         search_out = phase_search(np, torch, dev, card, data)
         robust_out = phase_robust(np, torch, dev, card, data, search_out)
         gen_out = phase_generation(np, torch, dev, card, data)
+        lm_out = phase_lm(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
                       or m == "repro" or m.startswith("repro."))
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
-        # launches on each path, both models: serve, search, robust
+        # launches on each path, both models: serve, search, robust; lm
         by_path = {"serve": serve_launches,
                    "search": {n: sum(search_out[k]["launches"][n]
                                      for k in ("mlp", "svm"))
                               for n in KERNELS},
                    "robust": {n: sum(robust_out[k]["launches"][n]
                                      for k in ("mlp", "svm"))
-                              for n in KERNELS}}
+                              for n in KERNELS},
+                   "lm": lm_out["launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -1366,11 +1889,13 @@ def main() -> int:
                 mc_timings["mc_adc_eval_cal"]["cal single S=32 M=636"],
             "mc_adc_eval_cal_population":
                 mc_timings["mc_adc_eval_cal_population"][
-                    "cal search P=16 S=32 M=636"]}
+                    "cal search P=16 S=32 M=636"],
+            "flash_attention":
+                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64"]}
         extra_timings = {"adc_quantize_population": q_timings,
                          "qmlp_mlp_bank": timings["qmlp_mlp_bank"],
                          "qmlp_svm_bank": timings["qmlp_svm_bank"],
-                         **mc_timings}
+                         **mc_timings, "flash_attention": fa_timings}
         rows = []
         for name, meta in KERNELS.items():
             paths = {path: counts.get(name, 0)
@@ -1387,7 +1912,7 @@ def main() -> int:
                 "ms": t["ms"], "kernel_ms": t["ms"],
                 "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None, "shape": t["shape"],
+                "library_ms": t.get("library_ms"), "shape": t["shape"],
                 "timings": extra_timings.get(name)})
         summary = {"search": {k: {kk: vv for kk, vv in v.items()
                                   if kk != "launches"}
@@ -1396,6 +1921,8 @@ def main() -> int:
                                   if kk != "launches"}
                               for k, v in robust_out.items()},
                    "generation_defaults": gen_out,
+                   "lm": {k: v for k, v in lm_out.items()
+                          if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

@@ -8,9 +8,12 @@
               (csrc/adc_quantize.cu), with its launch counter.
   mc_eval   - wrappers of the Monte-Carlo non-ideal ADC kernel
               (csrc/mc_eval.cu), four entries with launch counters.
+  flash_attention - wrapper of the flash-attention kernel
+              (csrc/flash_attention.cu), with its launch counter.
   envelope  - the Hopper shared-memory envelope of those kernels.
   dispatch  - the kernel-or-plain decision and its record.
   ops       - named entry points (adc_quantize{,_population},
-              classifier_bank, bespoke_mlp/svm, mc_eval{,_cal}{,_population}).
+              classifier_bank, bespoke_mlp/svm, mc_eval{,_cal}{,_population},
+              flash_attention).
   _build    - nvcc build of csrc/*.cu at first CUDA use, ctypes binding.
 """

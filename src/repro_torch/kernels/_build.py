@@ -6,7 +6,8 @@ its first CUDA use into ``<repo>/build/repro_torch/`` (listed in
 an edited source rebuilds and an unchanged one loads as is. Several
 sources build in parallel, one nvcc each (``build_all``). A failed build
 raises; nothing falls back. No fast-math: the kernels' ``floorf`` code math
-must round exactly as the plain versions do. ``-Xptxas -v`` writes each
+must round exactly as the plain versions do, and the attention kernel's
+``expf``/``tanhf`` stay the accurate ones. ``-Xptxas -v`` writes each
 kernel's register and shared-memory use into a ``.log`` beside the library.
 """
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmlp_bank": CSRC / "qmlp_bank.cu",
            "adc_quantize": CSRC / "adc_quantize.cu",
-           "mc_eval": CSRC / "mc_eval.cu"}
+           "mc_eval": CSRC / "mc_eval.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

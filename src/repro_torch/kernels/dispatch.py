@@ -79,3 +79,12 @@ def resolve_mc(entry: str, x: torch.Tensor, lb: torch.Tensor) -> Resolution:
         return envelope.outside_mc_envelope(c, n)
 
     return _route(entry, x, why)
+
+
+def resolve_flash(entry: str, q: torch.Tensor) -> Resolution:
+    """Decide how the flash-attention kernel runs on q (B, S, H, dh)."""
+    def why():
+        b, _, h, dh = q.shape
+        return envelope.outside_flash_envelope(b, h, dh)
+
+    return _route(entry, q, why)

@@ -1,5 +1,6 @@
 """The Hopper envelope of the hand-written kernels: the fused classifier
-bank kernels, the population quantizer and the Monte-Carlo kernel.
+bank kernels, the population quantizer, the Monte-Carlo kernel and the
+flash-attention kernel.
 
 The reference's limits (``repro/kernels/envelope.py``: ``MAX_UNROLL_BITS``,
 ``MAX_CHANNELS``, ``VMEM_BUDGET_F32``) describe a TPU: how far a one-hot
@@ -29,6 +30,15 @@ drifted range rows (C): ``4 * (3 * C * 2^N + 2 * C)`` bytes for both the
 nominal and the calibrated variant, under the same 227 KB limit (its
 launcher raises the attribute above 48 KB). The (design, instance) axis
 has no limit: where P*S exceeds the grid's y limit each block loops.
+
+The flash-attention kernel (csrc/flash_attention.cu) stages a 64-row q
+tile and a 64-key K and V tile as float32 (q and K rows padded to dh + 1
+words), a 64 x 65 probability tile and 64 key positions:
+``4 * (64 (dh + 1) + 64 (dh + 1) + 64 dh + 64 * 65) + 4 * 64`` bytes,
+214,016 at dh = 256 (its launcher raises the attribute above 48 KB). Each
+thread keeps 4 rows x ceil(dh / 16) output columns in registers, compiled
+for dh <= 256 (gemma2's width). One block per (q tile, batch * head): B*H
+is the grid's y dimension, at most 65,535.
 """
 from __future__ import annotations
 
@@ -99,4 +109,31 @@ def outside_mc_envelope(c: int, n: int) -> Optional[str]:
         return (f"one (design, instance) needs {need} bytes of shared "
                 f"memory (C={c}, 2^N={n}); the H100 limit per block is "
                 f"{SMEM_MAX_BYTES}")
+    return None
+
+
+FLASH_BQ = 64                     # query rows per block
+FLASH_BK = 64                     # keys per kv tile
+FLASH_MAX_HEAD_DIM = 256          # register tile: 4 x ceil(dh / 16) columns
+
+
+def flash_smem_bytes(dh: int) -> int:
+    """Shared memory one flash-attention block stages at head width dh."""
+    return (4 * (FLASH_BQ * (dh + 1) + FLASH_BK * (dh + 1) + FLASH_BK * dh
+                 + FLASH_BQ * (FLASH_BK + 1)) + 4 * FLASH_BK)
+
+
+def outside_flash_envelope(b: int, h: int, dh: int) -> Optional[str]:
+    """None when the flash-attention kernel takes B batch rows of H heads
+    at head width dh, else the limit it breaks, named."""
+    if dh > FLASH_MAX_HEAD_DIM:
+        return (f"head_dim={dh} exceeds the kernel's register tile, "
+                f"compiled for head_dim <= {FLASH_MAX_HEAD_DIM}")
+    need = flash_smem_bytes(dh)
+    if need > SMEM_MAX_BYTES:
+        return (f"head_dim={dh} needs {need} bytes of shared memory; the "
+                f"H100 limit per block is {SMEM_MAX_BYTES}")
+    if b * h > MAX_DESIGNS:
+        return (f"B*H={b * h} exceeds the grid's y limit of "
+                f"{MAX_DESIGNS}")
     return None

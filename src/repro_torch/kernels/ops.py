@@ -9,7 +9,8 @@ table first. ``mc_eval`` / ``mc_eval_population`` / ``mc_eval_cal`` /
 ``mc_eval_cal_population`` take the operand tuple
 ``(lb, ub, values, lo, scale)`` that core/nonideal.mc_operands (or
 faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
-kernel. Routing (kernel on a CUDA tensor inside the envelope, plain
+kernel. ``flash_attention`` runs the attention kernel (the LM's prefill
+attention). Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
 applied inside the kernel wrappers.
 """
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core.spec import AdcSpec, as_spec
 from repro_torch.kernels import adc_quantize as _adcq
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mc_eval as _mc
 from repro_torch.kernels import qmlp
 
@@ -102,3 +104,13 @@ def mc_eval_cal_population(x, lb, ub, values, lo, scale, *,
     (P, S, M, C)."""
     as_spec(spec).validate_channels(x.shape[-1])
     return _mc.mc_adc_eval_cal_population(x, lb, ub, values, lo, scale)
+
+
+def flash_attention(q, k, v, q_positions, k_positions, *, causal=True,
+                    window: int = 0, attn_softcap: float = 0.0
+                    ) -> torch.Tensor:
+    """Causal / sliding-window / softcapped GQA attention: q (B, S, H, dh),
+    k/v (B, Sk, KV, dh), int32 positions (S,) / (Sk,) -> (B, S, H, dh)."""
+    return _fa.flash_attention(q, k, v, q_positions, k_positions,
+                               causal=causal, window=window,
+                               attn_softcap=attn_softcap)

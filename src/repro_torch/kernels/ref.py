@@ -14,8 +14,15 @@ The Monte-Carlo versions (``mc_adc_eval*``) compute the code position
 ``u = (x - lo) * scale`` from per-instance rows and select through
 interval tables (core/nonideal.py); their result is a copied table value,
 so kernel and plain version agree bitwise.
+
+``flash_attention_ref`` is the attention kernel's function (masks,
+guards and casts of ``flash_attention_pallas``) with the scores of one q
+block materialised at a time and a one-pass softmax; the kernel's online
+softmax rounds in another order, so the two agree to rounding only.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -158,3 +165,51 @@ def mc_adc_eval_cal_ref_population(x, lb, ub, values, lo,
     populations carry the nominal ladder in their uncalibrated rows);
     lo/scale (S, C) shared. Returns (P, S, M, C)."""
     return _mc_select(_mc_positions(x, lo, scale), lb, ub, values)
+
+
+FLASH_NEG = -1e30
+FLASH_Q_BLOCK = 512          # query rows whose scores are materialised at once
+
+
+def flash_attention_ref(q, k, v, q_positions, k_positions, *,
+                        causal: bool = True, window: int = 0,
+                        attn_softcap: float = 0.0) -> torch.Tensor:
+    """q (B, S, H, dh); k/v (B, Sk, KV, dh); positions (S,) / (Sk,) int.
+    Query head h reads kv head h // (H / KV). Scores accumulate in f32
+    (bf16 inputs are widened exactly), then the optional softcap, then
+    -1e30 where kpos < 0, (causal) qpos - kpos < 0 or (window > 0)
+    qpos - kpos >= window. p = 0 on a fully masked row; p is cast to v's
+    type before P.V (f32 accumulation); out = P.V / max(sum p, 1e-30) in
+    q's type. Returns (B, S, H, dh)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    if k.shape[1] == 0:                      # no keys: every row is masked
+        return torch.zeros_like(q)
+    rep = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    kf, vf = k.float(), v.float()
+    qpos = q_positions.to(torch.int32)
+    kpos = k_positions.to(torch.int32)
+    out = torch.empty_like(q)
+    for q0 in range(0, s, FLASH_Q_BLOCK):
+        qi = q[:, q0:q0 + FLASH_Q_BLOCK].float()
+        qb = qi.shape[1]
+        qi = qi.reshape(b, qb, kvh, rep, dh)
+        sc = torch.einsum("bqkrd,bskd->bkrqs", qi, kf) * scale
+        if attn_softcap:
+            sc = torch.tanh(sc / attn_softcap) * attn_softcap
+        dpos = qpos[q0:q0 + qb, None] - kpos[None, :]           # (qb, Sk)
+        ok = (kpos >= 0)[None, :].expand(qb, -1)
+        if causal:
+            ok = ok & (dpos >= 0)
+        if window:
+            ok = ok & (dpos < window)
+        sc = torch.where(ok, sc, FLASH_NEG)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(m <= FLASH_NEG, 0.0, torch.exp(sc - m))
+        denom = torch.clamp(p.sum(-1), min=1e-30)               # (b,kv,r,qb)
+        o = torch.einsum("bkrqs,bskd->bkrqd", p.to(v.dtype).float(), vf)
+        o = o / denom[..., None]
+        out[:, q0:q0 + qb] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, qb, h, dh).to(q.dtype)
+    return out

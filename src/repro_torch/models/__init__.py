@@ -1,1 +1,3 @@
-"""Printed classifiers: the MLP and the linear SVM the search trains."""
+"""Models: the printed classifiers the search trains (MLP, linear SVM)
+and the LM substrate's dense/audio decoder (layers, transformer, serving,
+steps)."""
