@@ -8,7 +8,9 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 
 1. header: the card (nvidia-smi name and power limit), the nvcc build of
    every kernel source (one nvcc each, started together) with its time
-   and ptxas report, and the TF32 state (off).
+   and ptxas report (registers and spills of every instantiation; the
+   five tensor-core attention instantiations must not spill), the SM
+   clock, and the TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
    card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
    fronts' shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O
@@ -30,18 +32,26 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    CPU's bitwise. Then each kernel and its plain version are timed with
    CUDA events over 200 launches after warm-up (20 for the wide MC calls)
    and with torch.profiler, beside the least time the card could take;
-   the single-design calls too. The flash-attention kernel
-   (flash_attention): the JAX package's four test shapes in f32,
-   musicgen-medium's prefill (B=4, S=2048, H=KV=24, dh=64) in bf16 and
-   f32, gemma2's widths (H=8, KV=4, dh=256, window 1024, softcap 50,
-   S=4096) in bf16, ragged S=Sk=2049, key positions holding -1 (f32 and
-   bf16) and fully masked rows (exactly 0), on q, k ~ N(0, 1.5^2) and
+   the single-design calls too. The flash-attention kernels, each call
+   on the route dispatch names and counted on that route's key:
+   flash_attention_tc (tensor cores, wgmma + TMA; bf16 at the configs'
+   head widths 64, 96, 112, 128, 256) and flash_attention (CUDA cores;
+   float32, and bf16 at other widths). The JAX package's four test shapes
+   in f32, musicgen-medium's prefill (B=4, S=2048, H=KV=24, dh=64) in
+   bf16 and f32, gemma2's widths (H=8, KV=4, dh=256, window 1024, softcap
+   50, S=4096), phi3's (dh=96, S=1030), kimi's (H=64, KV=8, dh=112,
+   window 512, S=1500) and llama4's (H=40, KV=8, dh=128, S=2047) in
+   bf16, ragged S=Sk=2049, key positions holding -1 (f32 and bf16), fully
+   masked rows (exactly 0) and bf16 at dh=32, on q, k ~ N(0, 1.5^2) and
    v ~ N(1, 1) (a peaked softmax, outputs O(1)); rtol=atol=2e-5 in f32
    (the JAX package's own test), two output ulps in bf16 (rtol 2^-6,
    atol 2^-7) against the plain version in the working type, a limit
    that must reject the plain version with one kv tile dropped and with
-   the wrong kv head. Timed at the musicgen, gemma2 and ragged shapes beside
-   its bound and, for the causal cases without window or softcap,
+   the wrong kv head; the built kernel's shared memory must equal the
+   envelope's. Timed at the musicgen (bf16 and f32), gemma2, ragged and
+   llama4 shapes beside the bound (the largest of the HBM, the tensor- or
+   CUDA-core and the ex2 times, the last at the SM clock read from the
+   card) and, for the causal cases without window or softcap,
    scaled_dot_product_attention (the yardstick; the port never calls it).
 3. serve (the serving path): with every launch counter at 0, each
    committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
@@ -88,11 +98,14 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    repro_torch.launch.serve.main serves musicgen-medium at its full
    published config (48 layers, d_model 1536, 24 heads, dh 64; random
    seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
-   flash kernel must launch exactly 48 times (once per layer of the
-   prefill), the (4, 16) generated matrix and every logit must be finite;
+   tensor-core flash kernel must launch exactly 48 times (once per layer
+   of the prefill) and the CUDA-core one never, the (4, 16) generated
+   matrix and every logit must be finite;
    prefill's last-position logits must equal logits_fn's (2e-2), and one
    decode step after prefill(extra_slots=1) the forward over the ragged
-   2049-long sequence: 3e-2 in float32 activations, 1.25e-1 in the served
+   2049-long sequence: 3e-2 in float32 activations (path lm_f32: that
+   prefill and decode step, counted from 0, must launch the CUDA-core
+   kernel 48 times and the tensor-core one never), 1.25e-1 in the served
    bf16 (twice its reading; each bf16 path is printed against the float32
    forward, and the bf16 forward with the plain attention in place of the
    kernel, as witnesses that the gap is rounding), a limit that must
@@ -101,9 +114,9 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    decode steps are timed, and one prefill and one decode step traced
    (flash kernel device time, device operations, device busy share).
 
-It prints one JSON line of kernel results, one entry per TPU kernel row it
-replaces (launches summed over the serve, search, robust and lm paths,
-each counted from 0), and, last, the
+It prints one JSON line of kernel results, one entry per kernel (row 11
+has two, one per route; launches summed over the serve, search, robust,
+lm and lm_f32 paths, each counted from 0), and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
 that does not hold the port.
@@ -164,11 +177,20 @@ KERNELS = {
         "row": 10, "replaces": "src/repro/kernels/mc_eval.py:231",
         "pallas": "mc_adc_eval_cal_pallas_population",
         "source": "src/repro_torch/kernels/csrc/mc_eval.cu"},
+    "flash_attention_tc": {
+        "row": 11, "replaces": "src/repro/kernels/flash_attention.py:74",
+        "pallas": "flash_attention_pallas (bf16 at the configs' head "
+                  "widths: the tensor-core route)",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu"},
     "flash_attention": {
         "row": 11, "replaces": "src/repro/kernels/flash_attention.py:74",
-        "pallas": "flash_attention_pallas",
+        "pallas": "flash_attention_pallas (float32, and bf16 at other head "
+                  "widths: the CUDA-core route)",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
+# the device kernel each launch counter counts, as torch.profiler names it
+FLASH_DEVICE_NAMES = {"flash_attention_tc": "flash_attention_tc_kernel",
+                      "flash_attention": "flash_attention_kernel"}
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 # the robust path: the same shape with 32 Monte-Carlo instances
@@ -180,6 +202,7 @@ MC_WIDE = dict(P=64, S=32, M=8192)
 # the LM path: musicgen-medium at its full published config
 LM = dict(arch="musicgen-medium", requests=4, prompt_len=2048, gen=16)
 BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
+EX2_PER_SM_PER_CLOCK = 16        # special-function unit exponentials
 FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)   # the JAX package's own test
 # bf16: two ulps of the output at its magnitude (2^-6 relative), for the
 # output's rounding on both sides, plus one ulp at 1.0 (2^-7 absolute),
@@ -208,6 +231,46 @@ def card_line() -> str:
                          text=True, timeout=60)
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def sm_clock(torch):
+    """(SM clock in Hz, its source, SM count) of card 0: the clock from
+    torch's device properties where they carry it, else nvidia-smi's
+    maximum SM clock."""
+    props = torch.cuda.get_device_properties(0)
+    khz = getattr(props, "clock_rate", None)
+    if khz:
+        return (khz * 1e3, "torch.cuda.get_device_properties(0).clock_rate",
+                props.multi_processor_count)
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return (float(res.stdout.strip().splitlines()[0]) * 1e6,
+            "nvidia-smi clocks.max.sm", props.multi_processor_count)
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from an
+    nvcc -Xptxas -v log, plus its performance warnings."""
+    import re
+    rows, name, spills, warn = [], None, (0, 0), []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            spills = (0, 0)
+        if "Potential Performance Loss" in line:
+            warn.append(line.strip())
+    return rows, warn
 
 
 # ---------------------------------------------------------------- inputs
@@ -1332,12 +1395,15 @@ def phase_generation(np, torch, dev, card, data):
     return out
 
 
-def flash_bound(torch, q, k, qpos, kpos, *, causal, window):
-    """(bound_ms, bound_by, bytes, flops) of one attention call: q, k, v
-    and positions read once and the output written once, against HBM;
-    2 flops per multiply-add of q.k and of p.v over the (query, key)
-    pairs these positions leave unmasked, against the peak of the inputs'
-    type (bf16 tensor cores, or float32 outside them)."""
+def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
+    """(bound_ms, bound_by, bytes, flops, floors) of one attention call,
+    the largest of three times: q, k, v and positions read once and the
+    output written once, against HBM; 2 flops per multiply-add of q.k and
+    of p.v over the (query, key) pairs these positions leave unmasked,
+    against the peak of the inputs' type (bf16 tensor cores, or float32
+    outside them); one exponential per such pair on the special-function
+    units, EX2_PER_SM_PER_CLOCK a clock on each SM at ``clock`` (Hz,
+    source, SM count). ``floors`` names each time."""
     qp = qpos.long()[:, None]
     kp = kpos.long()[None, :]
     ok = kp >= 0
@@ -1351,11 +1417,14 @@ def flash_bound(torch, q, k, qpos, kpos, *, causal, window):
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         + 4 * (qpos.numel() + kpos.numel())
     rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, flops
-    return t_ops, "operations", nbytes, flops
+    hz, _, sms = clock
+    floors = {"hbm": nbytes / HBM_BYTES_PER_S * 1e3,
+              "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores":
+                  flops / rate * 1e3,
+              "ex2": b * h * pairs / (sms * EX2_PER_SM_PER_CLOCK * hz) * 1e3}
+    unit = max(floors, key=floors.get)
+    return (floors[unit], "bytes" if unit == "hbm" else "operations",
+            nbytes, flops, dict(floors, binding=unit))
 
 
 def flash_inputs(torch, gen, dev, b, s, sk, h, kv, dh, dt):
@@ -1436,14 +1505,19 @@ def timed_ms(torch, fn, reps, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_flash_kernels(np, torch, dev, card):
-    """The flash-attention kernel against its plain version on the card:
-    the JAX package's four test shapes (f32), musicgen-medium's prefill
-    (bf16), gemma2's widths with GQA, a window and a softcap (bf16),
-    ragged S, empty key slots and fully masked rows; then times at the
-    musicgen, gemma2 and ragged shapes beside the bound and, for the
-    causal cases, scaled_dot_product_attention (the yardstick only)."""
+def phase_flash_kernels(np, torch, dev, card, clock):
+    """The flash-attention kernels against their plain version on the
+    card: the JAX package's four test shapes (f32), musicgen-medium's
+    prefill (bf16 and f32), gemma2's widths with GQA, a window and a
+    softcap (bf16), phi3's, kimi's and llama4's head widths (bf16, GQA,
+    ragged S, one with a window), ragged S, empty key slots, fully masked
+    rows and a bf16 width off the tensor-core list; each call on the route
+    dispatch names, counted on that route's key. Then times at the
+    musicgen (bf16: tensor cores; f32: CUDA cores), gemma2 and ragged
+    shapes beside the bound and, for the causal cases,
+    scaled_dot_product_attention (the yardstick only)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev)
@@ -1469,6 +1543,13 @@ def phase_flash_kernels(np, torch, dev, card):
         arange(4096))
     cases["ragged S=Sk=2049 (musicgen widths)"] = (
         4, 2049, 2049, 24, 24, 64, 0, 0.0, bf16, arange(2049), arange(2049))
+    cases["phi3 widths H=KV=32 dh=96 S=1030"] = (
+        1, 1030, 1030, 32, 32, 96, 0, 0.0, bf16, arange(1030), arange(1030))
+    cases["kimi widths H=64 KV=8 dh=112 win=512 S=1500"] = (
+        1, 1500, 1500, 64, 8, 112, 512, 0.0, bf16, arange(1500),
+        arange(1500))
+    cases["llama4 widths H=40 KV=8 dh=128 S=2047"] = (
+        1, 2047, 2047, 40, 8, 128, 0, 0.0, bf16, arange(2047), arange(2047))
     kp = arange(300)
     kp[::5] = -1
     cases["k_positions with -1 (every 5th) f32"] = (
@@ -1477,20 +1558,39 @@ def phase_flash_kernels(np, torch, dev, card):
         2, 300, 300, 8, 2, 64, 100, 0.0, bf16, arange(300), kp)
     cases["fully masked rows 0..99 (keys at 100..) f32"] = (
         2, 256, 256, 4, 4, 64, 0, 0.0, f32, arange(256), arange(256, 100))
+    cases["bf16 off the tensor-core widths dh=32"] = (
+        2, 200, 200, 4, 2, 32, 0, 0.0, bf16, arange(200), arange(200))
 
     cases["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"] = (
         4, 2048, 2048, 24, 24, 64, 0, 0.0, f32, arange(2048), arange(2048))
 
-    print(f"phase flash kernels: flash_attention vs plain version on the "
-          f"card ({card}); q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1)")
-    made, max_err = {}, 0.0
+    from repro_torch.kernels import envelope
+    for dh in envelope.FLASH_TC_HEAD_DIMS:
+        check(fa.tc_smem_bytes(dh) == envelope.flash_tc_smem_bytes(dh),
+              f"dh={dh}: the kernel asks for {fa.tc_smem_bytes(dh)} bytes of "
+              f"shared memory, the envelope says "
+              f"{envelope.flash_tc_smem_bytes(dh)}")
+    print(f"phase flash kernels: flash_attention_tc (tensor cores) and "
+          f"flash_attention (CUDA cores) vs the plain version on the card "
+          f"({card}); q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1)")
+    made, max_err, routes = {}, {key: 0.0 for key in FLASH_DEVICE_NAMES}, {}
     for label, (b, s, sk, h, kv, dh, win, cap, dt, qpos, kpos) in \
             cases.items():
         q, k, v = flash_inputs(torch, gen, dev, b, s, sk, h, kv, dh, dt)
         kw = dict(causal=True, window=win, attn_softcap=cap)
+        route = dispatch.resolve_flash(fa.ENTRY, q).route
+        key = fa.TC_ENTRY if route == "tensor_core" else fa.ENTRY
+        want_route = ("tensor_core" if dt == bf16
+                      and dh in envelope.FLASH_TC_HEAD_DIMS else "cuda_core")
+        check(route == want_route, f"flash {label}: route {route}, "
+                                   f"expected {want_route}")
+        before = dict(fa.launches)
         got = fa.flash_attention(q, k, v, qpos, kpos, **kw)
         want = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw)
         torch.cuda.synchronize()
+        check(fa.launches == dict(before, **{key: before[key] + 1}),
+              f"flash {label}: launches {before} -> {fa.launches}, "
+              f"expected one on {key}")
         tol = FLASH_F32_TOL if dt == f32 else FLASH_BF16_TOL
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"flash {label}: {tuple(got.shape)} {got.dtype} != "
@@ -1501,31 +1601,40 @@ def phase_flash_kernels(np, torch, dev, card):
         if "fully masked" in label:
             ok = ok and bool((got[:, :100] == 0).all()) and bool(
                 (want[:, :100] == 0).all())
-        max_err = max(max_err, err)
+        max_err[key] = max(max_err[key], err)
         seen = want.float()[want.float() != 0].abs()
-        print(f"  flash_attention {label:52s} {str(dt)[6:]:8s} "
+        print(f"  {key:18s} {label:52s} {str(dt)[6:]:8s} "
               f"max_abs_err={err:.3e} [rtol={tol['rtol']:g}, "
               f"atol={tol['atol']:g}; {limit_share(got, want, tol):.3f} of "
               f"the limit] |out| median "
               f"{float(seen.median()):.3f} {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"flash_attention disagrees with its plain version on "
+        check(ok, f"{key} disagrees with its plain version on "
                   f"{label} (max_abs_err {err:.3e})")
         made[label] = (q, k, v, qpos, kpos, kw)
+        routes[label] = key
+        del got, want
     flash_controls(torch, ref, made)
 
+    hz, hz_src, sms = clock
+    print(f"  ex2 floor: {sms} SMs x {EX2_PER_SM_PER_CLOCK} a clock x "
+          f"{hz / 1e6:.0f} MHz ({hz_src})")
     timings = {}
     for label in ("musicgen prefill B=4 S=2048 H=KV=24 dh=64",
                   "gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096",
-                  "ragged S=Sk=2049 (musicgen widths)"):
+                  "ragged S=Sk=2049 (musicgen widths)",
+                  "llama4 widths H=40 KV=8 dh=128 S=2047",
+                  "musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"):
         q, k, v, qpos, kpos, kw = made[label]
+        key = routes[label]
         k_fn = lambda: fa.flash_attention(q, k, v, qpos, kpos, **kw)  # noqa
         p_fn = lambda: ref.flash_attention_ref(q, k, v, qpos,  # noqa: E731
                                                kpos, **kw)
         lib_ms = lib_err = None
         if not kw["window"] and not kw["attn_softcap"]:
+            rep = q.shape[2] // k.shape[2]
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True)
+                qt, kt, vt, is_causal=True, enable_gqa=rep > 1)
             lib_out = l_fn().transpose(1, 2)
             lib_err = float((lib_out.float() - p_fn().float()).abs().max())
             check(lib_err < 5e-2, f"{label}: scaled_dot_product_attention "
@@ -1537,29 +1646,33 @@ def phase_flash_kernels(np, torch, dev, card):
             lib_ms = min(timed_ms(torch, l_fn, 20), timed_ms(torch, l_fn, 20))
         k2 = timed_ms(torch, k_fn, 20)
         p2 = timed_ms(torch, p_fn, 3, warmup=1)
-        dev_ms = device_kernel_ms(torch, k_fn, "flash_attention_kernel",
+        dev_ms = device_kernel_ms(torch, k_fn, FLASH_DEVICE_NAMES[key],
                                   reps=10)
-        b_ms, b_by, nbytes, flops = flash_bound(
-            torch, q, k, qpos, kpos, causal=True, window=kw["window"])
+        b_ms, b_by, nbytes, flops, floors = flash_bound(
+            torch, q, k, qpos, kpos, causal=True, window=kw["window"],
+            clock=clock)
         b, s, h, dh = q.shape
-        row = {"shape": {"B": b, "S": s, "Sk": k.shape[1], "H": h,
+        row = {"kernel": key,
+               "shape": {"B": b, "S": s, "Sk": k.shape[1], "H": h,
                          "KV": k.shape[2], "dh": dh, "window": kw["window"],
                          "softcap": kw["attn_softcap"],
                          "dtype": str(q.dtype)[6:]},
                "ms": min(k1, k2), "plain_ms": min(p1, p2),
                "device_ms": dev_ms, "library_ms": lib_ms,
                "library_max_abs_err": lib_err, "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": nbytes, "flops": flops,
+               "bound_by": b_by, "floors_ms": floors, "bytes": nbytes,
+               "flops": flops,
                "tflop_per_s": flops / (min(k1, k2) * 1e-3) / 1e12}
         timings[label] = row
-        dev_txt = ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
-        lib_txt = ("n/a" if lib_ms is None else f"{lib_ms:.3f} ms")
-        print(f"  time flash_attention {label}: kernel {k1:.3f}/{k2:.3f} ms "
-              f"per call (profiler device time {dev_txt}; "
+        dev_txt = ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+        lib_txt = ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms")
+        print(f"  time {key} {label}: kernel {k1:.4f}/{k2:.4f} ms per call "
+              f"(profiler device time {dev_txt}; "
               f"{row['tflop_per_s']:.2f} TFLOP/s), plain {p1:.3f}/{p2:.3f} "
               f"ms, scaled_dot_product_attention {lib_txt}, bound "
-              f"{b_ms:.4f} ms ({b_by}) on {card}")
-    return {"flash_attention": max_err}, timings
+              f"{b_ms:.4f} ms ({floors['binding']}; hbm "
+              f"{floors['hbm']:.4f}, ex2 {floors['ex2']:.4f} ms) on {card}")
+    return max_err, timings
 
 
 @contextlib.contextmanager
@@ -1609,10 +1722,12 @@ def phase_lm(np, torch, dev, card):
     launches = all_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launch counters after the main path: {launches}")
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"flash_attention launched {launches['flash_attention']} times in "
-          f"the main path, expected {cfg.num_layers} (one per layer of the "
-          f"prefill)")
+    check(launches["flash_attention_tc"] == cfg.num_layers
+          and launches["flash_attention"] == 0,
+          f"flash kernels launched {launches['flash_attention_tc']} times "
+          f"on the tensor-core route and {launches['flash_attention']} on "
+          f"the CUDA-core route in the main path, expected "
+          f"{cfg.num_layers} (one per layer of the prefill) and 0")
     check(info["prefill_flash_launches"] == cfg.num_layers
           and info["decode_flash_launches"] == 0,
           f"launches by phase: prefill {info['prefill_flash_launches']}, "
@@ -1653,9 +1768,21 @@ def phase_lm(np, torch, dev, card):
     # forward with the plain attention in place of the kernel. Controls:
     # the same decode with each layer reading the next layer's cache, and
     # with one 64-slot tile of every layer's cache zeroed, must fail.
+    # The float32 serving path (prefill, then one decode step, through
+    # models.serving): the CUDA-core route, counted from 0.
     c32 = cfg.replace(dtype="float32")
+    reset_all_launches()
     _, cache = serving.prefill(params, head, c32, extra_slots=1)
     got32, _ = serving.decode_step(params, tail, cache, c32)
+    torch.cuda.synchronize()
+    launches_f32 = all_launches()
+    print(f"  path lm_f32 (prefill over {s} + one decode step, float32 "
+          f"activations): launch counters {launches_f32}")
+    check(launches_f32["flash_attention"] == cfg.num_layers
+          and launches_f32["flash_attention_tc"] == 0,
+          f"float32 serving launched {launches_f32}, expected "
+          f"{cfg.num_layers} CUDA-core launches and none on the tensor "
+          f"cores")
     want32 = transformer.logits_fn(params, ext, c32)[:, -1]
     del cache
     _, cache = serving.prefill(params, head, cfg, extra_slots=1)
@@ -1737,7 +1864,7 @@ def phase_lm(np, torch, dev, card):
             continue
         total = getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))
-        if "flash_attention_kernel" in ev.key:
+        if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
             flash_us += total
             flash_n += ev.count
         else:
@@ -1774,7 +1901,8 @@ def phase_lm(np, torch, dev, card):
                           getattr(ev, "self_cuda_time_total", 0.0))
         dec_n += ev.count
     del cache
-    out = {"launches": launches, "prefill_s_first": info["prefill_s"],
+    out = {"launches": launches, "launches_f32": launches_f32,
+           "prefill_s_first": info["prefill_s"],
            "prefill_s_warm": walls, "prefill_tokens_per_s": b * s / warm,
            "decode_ms_per_token": info["decode_ms_per_token"],
            "decode_ms_per_token_warm": decode_warm_ms,
@@ -1832,10 +1960,18 @@ def main() -> int:
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
         for src in _build.SOURCES:
-            for line in _build.build_log(src).splitlines():
-                if any(k in line for k in ("registers", "spill",
-                                           "Compiling")):
-                    print(f"  ptxas {src}: {line.strip()}")
+            kernels, warnings = ptxas_report(_build.build_log(src))
+            for name, regs, st, ld in kernels:
+                print(f"  ptxas {src}: {name}: {regs} registers, spill "
+                      f"stores {st} B, spill loads {ld} B")
+            for line in warnings:
+                print(f"  ptxas {src}: {line}")
+            if src == "flash_attention_tc":
+                check(len(kernels) == 5 and all(
+                    st == 0 and ld == 0 for _, _, st, ld in kernels),
+                      f"the tensor-core instantiations spill or are "
+                      f"missing: {kernels}")
+        clock = sm_clock(torch)
         tf32 = tf32_state()
         print(f"tf32: {tf32}")
         check(not any(tf32.values()), "TF32 is on")
@@ -1853,7 +1989,7 @@ def main() -> int:
         max_err.update(q_err)
         mc_err, mc_timings = phase_mc_kernels(np, torch, dev, data)
         max_err.update(mc_err)
-        fa_err, fa_timings = phase_flash_kernels(np, torch, dev, card)
+        fa_err, fa_timings = phase_flash_kernels(np, torch, dev, card, clock)
         max_err.update(fa_err)
         serve_launches = phase_serve(np, torch, dev, card, fronts, data)
         search_out = phase_search(np, torch, dev, card, data)
@@ -1874,7 +2010,8 @@ def main() -> int:
                    "robust": {n: sum(robust_out[k]["launches"][n]
                                      for k in ("mlp", "svm"))
                               for n in KERNELS},
-                   "lm": lm_out["launches"]}
+                   "lm": lm_out["launches"],
+                   "lm_f32": lm_out["launches_f32"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -1890,12 +2027,15 @@ def main() -> int:
             "mc_adc_eval_cal_population":
                 mc_timings["mc_adc_eval_cal_population"][
                     "cal search P=16 S=32 M=636"],
+            "flash_attention_tc":
+                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64"],
             "flash_attention":
-                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64"]}
+                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"]}
         extra_timings = {"adc_quantize_population": q_timings,
                          "qmlp_mlp_bank": timings["qmlp_mlp_bank"],
                          "qmlp_svm_bank": timings["qmlp_svm_bank"],
-                         **mc_timings, "flash_attention": fa_timings}
+                         **mc_timings, "flash_attention": fa_timings,
+                         "flash_attention_tc": fa_timings}
         rows = []
         for name, meta in KERNELS.items():
             paths = {path: counts.get(name, 0)

@@ -6,7 +6,7 @@ its first CUDA use into ``<repo>/build/repro_torch/`` (listed in
 an edited source rebuilds and an unchanged one loads as is. Several
 sources build in parallel, one nvcc each (``build_all``). A failed build
 raises; nothing falls back. No fast-math: the kernels' ``floorf`` code math
-must round exactly as the plain versions do, and the attention kernel's
+must round exactly as the plain versions do, and the attention kernels'
 ``expf``/``tanhf`` stay the accurate ones. ``-Xptxas -v`` writes each
 kernel's register and shared-memory use into a ``.log`` beside the library.
 """
@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmlp_bank": CSRC / "qmlp_bank.cu",
            "adc_quantize": CSRC / "adc_quantize.cu",
            "mc_eval": CSRC / "mc_eval.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_tc": CSRC / "flash_attention_tc.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

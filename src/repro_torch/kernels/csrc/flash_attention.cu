@@ -1,8 +1,11 @@
 // Flash attention forward for Hopper (sm_90a), on the CUDA cores.
 //
 // Replaces (reference package): src/repro/kernels/flash_attention.py:74
-// flash_attention_pallas. The LM's prefill attention (models/layers.py::
-// attention) launches it once per layer on a CUDA tensor.
+// flash_attention_pallas, for float32 and for bf16 at head widths the
+// tensor-core kernel (csrc/flash_attention_tc.cu) has no instantiation
+// for (kernels/dispatch.py::resolve_flash). The LM's prefill attention
+// (models/layers.py::attention) launches it once per layer on a CUDA
+// tensor in float32 activations.
 //
 // What it computes, for q (B, S, H, dh), k/v (B, Sk, KV, dh), int32
 // positions qpos (S,) and kpos (Sk,), query head h reading kv head
@@ -40,13 +43,14 @@
 // Bound on an H100 SXM: operations. At the musicgen-medium prefill
 // (B=4, S=2048, H=KV=24, dh=64, bf16, causal) the pairs a query sees are
 // S(S+1)/2 per (b, h): 4 * B*H*dh * S(S+1)/2 = 5.2e10 flops, 52 us at the
-// 989 TFLOP/s bf16 tensor-core rate, against 50 MB of q, k, v and out
-// (15 us at 3.35 TB/s). This kernel runs its multiply-adds on the CUDA
+// 989 TFLOP/s bf16 tensor-core rate, against 100 MB of q, k, v and out
+// (30 us at 3.35 TB/s). This kernel runs its multiply-adds on the CUDA
 // cores in float32, whose peak is 67 TFLOP/s (0.8 ms for that call), and
 // each thread loads 8 shared-memory words per 16 multiply-adds, so it is
-// bound by shared-memory bandwidth at about half that rate at best.
-// Tensor cores (mma.sync / wgmma on bf16) and TMA staging are the later
-// redesign.
+// bound by shared-memory bandwidth at about half that rate at best. bf16
+// at the configs' head widths runs the tensor-core kernel instead; this
+// one keeps float32, which it holds at 2e-5 (neither bf16 nor TF32
+// products would).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

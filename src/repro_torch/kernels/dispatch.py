@@ -25,6 +25,7 @@ class Resolution:
     path: str                       # 'kernel' | 'plain'
     device: str
     reason: str
+    route: str = ""                 # which kernel, where an entry has two
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -82,9 +83,20 @@ def resolve_mc(entry: str, x: torch.Tensor, lb: torch.Tensor) -> Resolution:
 
 
 def resolve_flash(entry: str, q: torch.Tensor) -> Resolution:
-    """Decide how the flash-attention kernel runs on q (B, S, H, dh)."""
+    """Decide how flash attention runs on q (B, S, H, dh). A CUDA call
+    takes one of two kernels (``route``), by ``envelope.flash_route``:
+    'tensor_core' (csrc/flash_attention_tc.cu) for bf16 at a head width
+    of the repo's attention configs, 'cuda_core' (csrc/flash_attention.cu)
+    for float32 and for bf16 at any other width; each is held to its own
+    envelope. A CPU tensor takes the plain version (route 'plain')."""
+    b, _, h, dh = q.shape
+    route = envelope.flash_route(q.dtype == torch.bfloat16, dh)
+
     def why():
-        b, _, h, dh = q.shape
+        if route == "tensor_core":
+            return envelope.outside_flash_tc_envelope(b, h, dh)
         return envelope.outside_flash_envelope(b, h, dh)
 
-    return _route(entry, q, why)
+    res = _route(entry, q, why)
+    return dataclasses.replace(
+        res, route=route if res.path == "kernel" else "plain")

@@ -39,6 +39,19 @@ words), a 64 x 65 probability tile and 64 key positions:
 thread keeps 4 rows x ceil(dh / 16) output columns in registers, compiled
 for dh <= 256 (gemma2's width). One block per (q tile, batch * head): B*H
 is the grid's y dimension, at most 65,535.
+
+The tensor-core flash-attention kernel (csrc/flash_attention_tc.cu) takes
+bf16 at the head widths of the repo's attention configs (64, 96, 112, 128,
+256). It keeps a 128-row q tile resident and a ring of ``st`` K and V
+tiles (3 at dh = 64, else 2), bf16, in 64-column boxes under the 128-byte
+swizzle (dh padded to a multiple of 64), the ring's key positions and
+per-stage tile words, 1 + 2 st mbarriers and 1 KB of slack to align the
+tiles to the swizzle's 1 KB atom:
+``2 * dh_pad * (128 + 2 * st * BK) + st * (4 * BK + 8) + (1 + 2 st) * 8
++ 1024`` bytes, BK = 128 keys (64 at dh = 256): 117,328 at dh = 64,
+165,944 at dh = 96, 112 and 128, 198,200 at dh = 256 (its launcher
+raises the attribute). The route rule (``flash_route``) sends float32,
+and bf16 at any other width, to the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -130,6 +143,54 @@ def outside_flash_envelope(b: int, h: int, dh: int) -> Optional[str]:
         return (f"head_dim={dh} exceeds the kernel's register tile, "
                 f"compiled for head_dim <= {FLASH_MAX_HEAD_DIM}")
     need = flash_smem_bytes(dh)
+    if need > SMEM_MAX_BYTES:
+        return (f"head_dim={dh} needs {need} bytes of shared memory; the "
+                f"H100 limit per block is {SMEM_MAX_BYTES}")
+    if b * h > MAX_DESIGNS:
+        return (f"B*H={b * h} exceeds the grid's y limit of "
+                f"{MAX_DESIGNS}")
+    return None
+
+
+FLASH_TC_HEAD_DIMS = (64, 96, 112, 128, 256)   # the configs' head widths
+FLASH_TC_BQ = 128                 # query rows per block (two warpgroups)
+
+
+def flash_tc_bk(dh: int) -> int:
+    """Keys per kv tile of the tensor-core kernel at head width dh."""
+    return 64 if dh > 128 else 128
+
+
+def flash_tc_stages(dh: int) -> int:
+    """Depth of the tensor-core kernel's K/V ring at head width dh."""
+    return 3 if dh <= 64 else 2
+
+
+def flash_tc_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory one tensor-core flash block asks for at head
+    width dh (csrc/flash_attention_tc.cu, ``Cfg<DH>::kBytes``)."""
+    pad = 64 * -(-dh // 64)
+    bk, stages = flash_tc_bk(dh), flash_tc_stages(dh)
+    tiles = 2 * pad * (FLASH_TC_BQ + 2 * stages * bk)
+    return (tiles + stages * 4 * bk + stages * 8 + (1 + 2 * stages) * 8
+            + 1024)
+
+
+def flash_route(bf16: bool, dh: int) -> str:
+    """The flash-attention kernel a CUDA call takes: 'tensor_core' for
+    bf16 at a head width the tensor-core kernel is instantiated for,
+    'cuda_core' otherwise (float32 is held at 2e-5, which neither bf16
+    nor TF32 products meet)."""
+    return "tensor_core" if bf16 and dh in FLASH_TC_HEAD_DIMS else "cuda_core"
+
+
+def outside_flash_tc_envelope(b: int, h: int, dh: int) -> Optional[str]:
+    """None when the tensor-core flash kernel takes B batch rows of H
+    heads at head width dh, else the limit it breaks, named."""
+    if dh not in FLASH_TC_HEAD_DIMS:
+        return (f"head_dim={dh} has no tensor-core instantiation "
+                f"({FLASH_TC_HEAD_DIMS})")
+    need = flash_tc_smem_bytes(dh)
     if need > SMEM_MAX_BYTES:
         return (f"head_dim={dh} needs {need} bytes of shared memory; the "
                 f"H100 limit per block is {SMEM_MAX_BYTES}")

@@ -1,5 +1,4 @@
-"""Wrapper of the hand-written flash-attention kernel
-(csrc/flash_attention.cu). Counterpart of
+"""Wrapper of the hand-written flash-attention kernels. Counterpart of
 ``repro/kernels/flash_attention.py::flash_attention_pallas``.
 
 ``flash_attention(q, k, v, q_positions, k_positions, *, causal, window,
@@ -10,10 +9,17 @@ negative position is masked, a fully masked row is 0. Any S and Sk (the
 Pallas kernel's ``S % q_block`` assert is a TPU tiling limit).
 
 A CPU tensor runs the plain version (kernels/ref.py). A CUDA tensor
-launches the kernel or raises: the wrapper checks device, dtype, shape and
-contiguity, allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and adds one to
-``launches["flash_attention"]``. There is no fallback.
+launches one of two kernels or raises (``dispatch.resolve_flash`` names
+the route): bf16 at a head width of the repo's attention configs (64, 96,
+112, 128, 256) runs the tensor-core kernel (csrc/flash_attention_tc.cu,
+wgmma and TMA) and adds one to ``launches["flash_attention_tc"]``;
+float32, and bf16 at any other width, run the CUDA-core kernel
+(csrc/flash_attention.cu) and add one to ``launches["flash_attention"]``.
+The wrapper checks device, dtype, shape and contiguity, allocates the
+output with ``torch.empty``, launches on the current stream and raises if
+the launch reports an error. There is no fallback. The tensor-core
+kernel's TMA maps need 16-byte aligned bases: an operand whose view
+starts off that alignment is copied first.
 """
 from __future__ import annotations
 
@@ -26,16 +32,23 @@ import torch
 
 from repro_torch.kernels import _build, dispatch, ref
 
-ENTRY = "flash_attention"
+ENTRY = "flash_attention"             # the CUDA-core kernel's counter
+TC_ENTRY = "flash_attention_tc"       # the tensor-core kernel's counter
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches since the last reset_launches(); only the launch site
-# below adds to it
-launches = {ENTRY: 0}
+# kernel launches since the last reset_launches(), one key per route; only
+# the launch sites below add to them
+launches = {ENTRY: 0, TC_ENTRY: 0}
 
 
 def reset_launches() -> None:
-    launches[ENTRY] = 0
+    for key in launches:
+        launches[key] = 0
+
+
+def total_launches() -> int:
+    """Launches of either kernel since the last reset_launches()."""
+    return sum(launches.values())
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,6 +61,31 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_tc() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_tc")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_tc.argtypes = ([ptr] * 6 + [i32] * 6
+                                       + [f32, i32, i32, f32, ptr])
+    lib.flash_attention_tc.restype = i32
+    lib.flash_attention_tc_error_string.argtypes = [i32]
+    lib.flash_attention_tc_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_tc_smem_bytes.argtypes = [i32]
+    lib.flash_attention_tc_smem_bytes.restype = i32
+    return lib
+
+
+def tc_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory the built tensor-core kernel asks for at
+    head width dh (negative for a width it has no instantiation for)."""
+    return _lib_tc().flash_attention_tc_smem_bytes(dh)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy when its base is not 16-byte aligned (TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(q, k, v, q_positions, k_positions
@@ -102,17 +140,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    scale = 1.0 / math.sqrt(dh)
+    flags = (int(bool(causal)), int(window or 0), float(attn_softcap or 0.0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-            k_positions.data_ptr(), out.data_ptr(), b, s, sk, h, kvh, dh,
-            1.0 / math.sqrt(dh), int(bool(causal)), int(window or 0),
-            float(attn_softcap or 0.0), int(q.dtype == torch.bfloat16),
-            stream)
+        if res.route == "tensor_core":
+            q, k, v = (_aligned(t) for t in (q, k, v))
+            lib, key = _lib_tc(), TC_ENTRY
+            err = lib.flash_attention_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                q_positions.data_ptr(), k_positions.data_ptr(),
+                out.data_ptr(), b, s, sk, h, kvh, dh, scale, *flags, stream)
+            name = lib.flash_attention_tc_error_string
+        else:
+            lib, key = _lib(), ENTRY
+            err = lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                q_positions.data_ptr(), k_positions.data_ptr(),
+                out.data_ptr(), b, s, sk, h, kvh, dh, scale, *flags,
+                int(q.dtype == torch.bfloat16), stream)
+            name = lib.flash_attention_error_string
     if err != 0:
-        msg = _lib().flash_attention_error_string(err).decode()
-        raise RuntimeError(f"{ENTRY} launch failed: CUDA error {err} "
-                           f"({msg})")
-    launches[ENTRY] += 1
+        raise RuntimeError(f"{key} launch failed: error {err} "
+                           f"({name(err).decode()})")
+    launches[key] += 1
     return out

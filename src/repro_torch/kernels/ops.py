@@ -9,8 +9,9 @@ table first. ``mc_eval`` / ``mc_eval_population`` / ``mc_eval_cal`` /
 ``mc_eval_cal_population`` take the operand tuple
 ``(lb, ub, values, lo, scale)`` that core/nonideal.mc_operands (or
 faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
-kernel. ``flash_attention`` runs the attention kernel (the LM's prefill
-attention). Routing (kernel on a CUDA tensor inside the envelope, plain
+kernel. ``flash_attention`` runs an attention kernel (the LM's prefill
+attention; tensor cores for bf16 at the configs' head widths, CUDA cores
+otherwise). Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
 applied inside the kernel wrappers.
 """

@@ -81,22 +81,23 @@ def serve(cfg, params, *, requests: int, prompt_len: int, gen: int,
     """Prefill ``requests`` prompts of ``prompt_len``, then decode ``gen``
     tokens each. Returns the (requests, gen) generated matrix and a dict:
     prefill_s, decode_s (host clock around synchronised work),
-    prefill_tokens_per_s, decode_ms_per_token, the flash-attention kernel
-    launches of the prefill and of the decode loop, and the float32 logits
-    (prefill's last position, then one array per decode step)."""
+    prefill_tokens_per_s, decode_ms_per_token, the flash-attention kernels'
+    launches (either route) in the prefill and in the decode loop, and the
+    float32 logits (prefill's last position, then one array per decode
+    step)."""
     dev = torch.device(device) if device is not None else resolve_device()
     rng = np.random.default_rng(0)
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_decode_step(cfg)
     b, s = requests, prompt_len
     batch = make_batch(cfg, b, s, rng=rng, device=dev)
-    count0 = flash_attention.launches[flash_attention.ENTRY]
+    count0 = flash_attention.total_launches()
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    count1 = flash_attention.launches[flash_attention.ENTRY]
+    count1 = flash_attention.total_launches()
     gen_rng = torch.Generator(device=dev)
     gen_rng.manual_seed(seed + 1)
     toks, all_logits = [], [logits]
@@ -110,7 +111,7 @@ def serve(cfg, params, *, requests: int, prompt_len: int, gen: int,
         all_logits.append(logits)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    count2 = flash_attention.launches[flash_attention.ENTRY]
+    count2 = flash_attention.total_launches()
     out = (torch.stack(toks, 1).cpu().numpy() if toks
            else np.zeros((b, 0), np.int64))
     info = {"prefill_s": t_prefill, "decode_s": t_decode,

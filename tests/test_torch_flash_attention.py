@@ -32,6 +32,7 @@ from repro_torch.models import layers  # noqa: E402
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=8e-3, atol=8e-3)
 CARD_BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
+LOG2E = 1.4426950408889634        # the tensor-core kernel's exp2 factor
 
 # (b, s, h, kv, dh, window, softcap): the four cases of
 # tests/test_kernels.py::test_flash_kernel_matches_attention
@@ -167,7 +168,14 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     want = ref.flash_attention_ref(q, k, v, pos, pos, window=16,
                                    attn_softcap=10.0)
     assert torch.equal(got, want)
-    assert flash_attention.launches == {"flash_attention": 0}
+    # bf16 at a tensor-core head width: the plain version too, on the CPU
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _qkv(rng, 1, 40, 4, 2, 64))
+    got = flash_attention.flash_attention(qb, kb, vb, pos, pos)
+    assert torch.equal(got, ref.flash_attention_ref(qb, kb, vb, pos, pos))
+    assert flash_attention.launches == {"flash_attention": 0,
+                                        "flash_attention_tc": 0}
+    assert flash_attention.total_launches() == 0
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -186,9 +194,18 @@ def test_wrapper_rejects_bad_shapes():
             flash_attention.flash_attention(*args)
 
 
-def _fake_cuda(shape):
-    """Stand-in for a CUDA tensor: resolve_flash reads device and shape."""
-    return types.SimpleNamespace(device=torch.device("cuda", 0), shape=shape)
+def _fake_cuda(shape, dtype=torch.float32):
+    """Stand-in for a CUDA tensor: resolve_flash reads device, shape and
+    dtype."""
+    return types.SimpleNamespace(device=torch.device("cuda", 0), shape=shape,
+                                 dtype=dtype)
+
+
+def _config_head_dims():
+    """{arch: head width} of every attention config of the port."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    return {name: get_config(name).resolved_head_dim for name in ARCH_NAMES
+            if get_config(name).num_heads}
 
 
 def test_dispatch_rules():
@@ -207,6 +224,34 @@ def test_dispatch_rules():
                                _fake_cuda((65536, 16, 2, 64)))
     with pytest.raises(ValueError, match="unsupported device"):
         dispatch.resolve_flash("flash_attention", q.to("meta"))
+    # routes: float32 -> the CUDA-core kernel; bf16 at every config head
+    # width -> the tensor-core kernel; bf16 off that list -> CUDA cores
+    assert res.route == "cuda_core"
+    assert dispatch.resolve_flash("flash_attention", q).route == "plain"
+    widths = sorted(set(_config_head_dims().values()))
+    assert widths == list(envelope.FLASH_TC_HEAD_DIMS)
+    for dh in widths:
+        res = dispatch.resolve_flash(
+            "flash_attention", _fake_cuda((4, 2048, 8, dh), torch.bfloat16))
+        assert (res.path, res.route) == ("kernel", "tensor_core")
+        assert res.as_dict()["route"] == "tensor_core"
+        res = dispatch.resolve_flash("flash_attention",
+                                     _fake_cuda((4, 2048, 8, dh)))
+        assert (res.path, res.route) == ("kernel", "cuda_core")
+    for dh in (8, 16, 32, 80, 160, 192):
+        res = dispatch.resolve_flash(
+            "flash_attention", _fake_cuda((1, 64, 4, dh), torch.bfloat16))
+        assert (res.path, res.route) == ("kernel", "cuda_core")
+    cpu16 = dispatch.resolve_flash("flash_attention",
+                                   torch.zeros(1, 8, 2, 64,
+                                               dtype=torch.bfloat16))
+    assert (cpu16.path, cpu16.route) == ("plain", "plain")
+    with pytest.raises(ValueError, match="grid"):
+        dispatch.resolve_flash("flash_attention",
+                               _fake_cuda((65536, 16, 2, 64), torch.bfloat16))
+    assert envelope.flash_route(True, 64) == "tensor_core"
+    assert envelope.flash_route(False, 64) == "cuda_core"
+    assert envelope.flash_route(True, 72) == "cuda_core"
 
 
 def test_envelope_is_shared_memory_and_registers():
@@ -219,6 +264,22 @@ def test_envelope_is_shared_memory_and_registers():
     assert "register tile" in envelope.outside_flash_envelope(1, 8, 257)
     assert "grid" in envelope.outside_flash_envelope(
         1, envelope.MAX_DESIGNS + 1, 64)
+    # the tensor-core kernel: Cfg<DH>::kBytes of csrc/flash_attention_tc.cu
+    assert envelope.flash_tc_smem_bytes(64) == (
+        2 * 64 * (128 + 6 * 128) + 3 * 4 * 128 + 24 + 56 + 1024) == 117_328
+    assert envelope.flash_tc_smem_bytes(96) == 165_944
+    assert envelope.flash_tc_smem_bytes(112) == 165_944
+    assert envelope.flash_tc_smem_bytes(128) == 165_944
+    assert envelope.flash_tc_smem_bytes(256) == 198_200
+    assert envelope.flash_tc_bk(128) == 128 and envelope.flash_tc_bk(256) == 64
+    assert [envelope.flash_tc_stages(d) for d in (64, 128, 256)] == [3, 2, 2]
+    for arch, dh in _config_head_dims().items():
+        assert envelope.flash_tc_smem_bytes(dh) <= envelope.SMEM_MAX_BYTES, \
+            arch
+        assert envelope.outside_flash_tc_envelope(4, 64, dh) is None, arch
+    assert "no tensor-core" in envelope.outside_flash_tc_envelope(1, 8, 80)
+    assert "grid" in envelope.outside_flash_tc_envelope(
+        1, envelope.MAX_DESIGNS + 1, 64)
 
 
 def test_build_lists_the_source():
@@ -229,6 +290,17 @@ def test_build_lists_the_source():
     src = _build.SOURCES["flash_attention"].read_text()
     assert "flash_attention.py:74" in src       # what it replaces
     assert "cudaGetLastError" in src
+    tc = _build.SOURCES["flash_attention_tc"]
+    assert tc.name == "flash_attention_tc.cu" and tc.is_file()
+    assert _build.library_path("flash_attention_tc").name.startswith(
+        "libflash_attention_tc-")
+    src = tc.read_text()
+    assert "flash_attention.py:74" in src
+    assert "cudaGetLastError" in src
+    for word in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
+                 "cuTensorMapEncodeTiled", "__grid_constant__"):
+        assert word in src, word
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
 
 
 @pytest.mark.gpu
@@ -249,13 +321,118 @@ def test_kernel_matches_plain_on_card(dtype):
     qpos = torch.arange(3, 203, dtype=torch.int32, device=dev)
     kpos = torch.arange(203, dtype=torch.int32, device=dev)
     kpos[::7] = -1
-    before = flash_attention.launches["flash_attention"]
+    key = "flash_attention_tc" if dtype == "bfloat16" else "flash_attention"
+    before = flash_attention.launches[key]
     got = ops.flash_attention(q, k, v, qpos, kpos, window=50,
                               attn_softcap=30.0)
     want = ref.flash_attention_ref(q, k, v, qpos, kpos, window=50,
                                    attn_softcap=30.0)
     torch.cuda.synchronize()
-    assert flash_attention.launches["flash_attention"] == before + 1
+    assert flash_attention.launches[key] == before + 1
     tol = F32_TOL if dtype == "float32" else CARD_BF16_TOL
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 96, 112, 128, 256])
+def test_tensor_core_kernel_matches_plain_on_card(dh):
+    """On the card: the tensor-core kernel at each head width against the
+    plain version, GQA, ragged S and Sk, a window and empty key slots,
+    counted on its own key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(17 + dh)
+    dev = torch.device("cuda")
+    q = rng.normal(size=(2, 261, 8, dh)) * 1.5
+    k = rng.normal(size=(2, 300, 2, dh)) * 1.5
+    v = rng.normal(size=(2, 300, 2, dh)) + 1.0
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    qpos = torch.arange(39, 300, dtype=torch.int32, device=dev)
+    kpos = torch.arange(300, dtype=torch.int32, device=dev)
+    kpos[::11] = -1
+    before = dict(flash_attention.launches)
+    got = flash_attention.flash_attention(q, k, v, qpos, kpos, window=120)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, window=120)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention_tc"] == \
+        before["flash_attention_tc"] + 1
+    assert flash_attention.launches["flash_attention"] == \
+        before["flash_attention"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **CARD_BF16_TOL)
+
+
+def _tc_schedule(q, k, v, qpos, kpos, *, bk, causal=True, window=0, cap=0.0):
+    """float32/bf16 emulation of csrc/flash_attention_tc.cu's schedule at
+    its kv tile of ``bk`` keys: the softmax in log2 units (x = scores
+    times log2(e), p = exp2(x - m)), running max over the tiles, p
+    rounded to bf16 against the running max before P.V (f32
+    accumulation), corr rescale of acc and l, l summing the unrounded p,
+    out in bf16. q, k, v bf16 (B, S, H, dh), (B, Sk, KV, dh); positions
+    int32."""
+    b, s, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    kf = k.float().repeat_interleave(rep, dim=2)          # (B, Sk, H, dh)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    qf = q.float()
+    m = torch.full((b, h, s), ref.FLASH_NEG)
+    l = torch.zeros(b, h, s)
+    acc = torch.zeros(b, h, s, dh)
+    for k0 in range(0, sk, bk):
+        kt, vt = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        kp = kpos[k0:k0 + bk].long()
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * (1.0 / np.sqrt(dh))
+        if cap:
+            sc = torch.tanh(sc / cap) * cap
+        dpos = qpos.long()[:, None] - kp[None, :]
+        ok = (kp >= 0)[None, :].expand(s, -1)
+        if causal:
+            ok = ok & (dpos >= 0)
+        if window:
+            ok = ok & (dpos < window)
+        sc = torch.where(ok, sc * LOG2E, ref.FLASH_NEG)   # log2 units
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.where(m <= ref.FLASH_NEG, 0.0, torch.exp2(m - m_new))
+        p = torch.where((m_new <= ref.FLASH_NEG)[..., None], 0.0,
+                        torch.exp2(sc - m_new[..., None]))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,dh,win,cap", [
+    (1, 512, 512, 4, 2, 64, 0, 0.0),          # smoke-sized causal, BK 128
+    (2, 300, 300, 4, 2, 112, 100, 0.0),       # ragged, windowed, dh padded
+    (1, 260, 260, 2, 1, 256, 0, 50.0),        # gemma2's width, BK 64
+])
+def test_tensor_core_schedule_within_card_bf16_limit(b, s, sk, h, kv, dh,
+                                                     win, cap):
+    """Before any chip run: the tensor-core kernel's schedule at its own kv
+    tile (p rounded to bf16 against the online max of 64- or 128-key
+    tiles) stays inside chip_smoke.py's bf16 limit (rtol 2^-6, atol 2^-7)
+    of the plain version, on inputs drawn as chip_smoke.py draws them
+    (q, k ~ N(0, 1.5^2), v ~ N(1, 1)). The share of the limit is printed."""
+    rng = np.random.default_rng(31 + dh)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        torch.bfloat16)
+    q = bf(rng.normal(size=(b, s, h, dh)) * 1.5)
+    k = bf(rng.normal(size=(b, sk, kv, dh)) * 1.5)
+    v = bf(rng.normal(size=(b, sk, kv, dh)) + 1.0)
+    qpos = torch.arange(s, dtype=torch.int32)
+    kpos = torch.arange(sk, dtype=torch.int32)
+    kw = dict(causal=True, window=win, attn_softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw).float()
+    got = _tc_schedule(q, k, v, qpos, kpos, bk=envelope.flash_tc_bk(dh),
+                       causal=True, window=win, cap=cap).float()
+    share = float(((got - want).abs() / (CARD_BF16_TOL["atol"]
+                                        + CARD_BF16_TOL["rtol"] * want.abs())
+                   ).max())
+    print(f"tensor-core schedule dh={dh} bk={envelope.flash_tc_bk(dh)}: "
+          f"{share:.3f} of the card's bf16 limit")
+    assert share <= 1.0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **CARD_BF16_TOL)
