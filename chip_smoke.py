@@ -9,7 +9,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 1. header: the card (nvidia-smi name and power limit), the nvcc build of
    every kernel source (one nvcc each, started together) with its time
    and ptxas report (registers and spills of every instantiation; the
-   five tensor-core attention instantiations must not spill), the SM
+   five tensor-core attention instantiations must not spill, nor may the
+   eighteen CUDA-core ones compiled for head widths up to 128), the SM
    clock, and the TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
    card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
@@ -39,20 +40,23 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    float32, and bf16 at other widths). The JAX package's four test shapes
    in f32, musicgen-medium's prefill (B=4, S=2048, H=KV=24, dh=64) in
    bf16 and f32, gemma2's widths (H=8, KV=4, dh=256, window 1024, softcap
-   50, S=4096), phi3's (dh=96, S=1030), kimi's (H=64, KV=8, dh=112,
-   window 512, S=1500) and llama4's (H=40, KV=8, dh=128, S=2047) in
-   bf16, ragged S=Sk=2049, key positions holding -1 (f32 and bf16), fully
-   masked rows (exactly 0) and bf16 at dh=32, on q, k ~ N(0, 1.5^2) and
+   50, S=4096), phi3's (dh=96, S=1030) and llama4's (H=40, KV=8, dh=128,
+   S=2047) in bf16 and f32, kimi's (H=64, KV=8, dh=112, window 512,
+   S=1500) in bf16, ragged S=Sk=2049 (bf16 and f32), key positions
+   holding -1 (f32 and bf16), fully masked rows (exactly 0) and bf16 at
+   dh=32, on q, k ~ N(0, 1.5^2) and
    v ~ N(1, 1) (a peaked softmax, outputs O(1)); rtol=atol=2e-5 in f32
    (the JAX package's own test), two output ulps in bf16 (rtol 2^-6,
    atol 2^-7) against the plain version in the working type, a limit
    that must reject the plain version with one kv tile dropped and with
-   the wrong kv head; the built kernel's shared memory must equal the
-   envelope's. Timed at the musicgen (bf16 and f32), gemma2, ragged and
-   llama4 shapes beside the bound (the largest of the HBM, the tensor- or
-   CUDA-core and the ex2 times, the last at the SM clock read from the
-   card) and, for the causal cases without window or softcap,
-   scaled_dot_product_attention (the yardstick; the port never calls it).
+   the wrong kv head; each built kernel's shared memory must equal the
+   envelope's. Timed at the musicgen (bf16 and f32), gemma2 (bf16 and
+   f32), ragged and llama4 (bf16 and f32) shapes beside the bound (the
+   largest of the HBM, the tensor- or CUDA-core and the ex2 times, the
+   last at the SM clock read from the card) and, for the causal cases
+   without window or softcap, scaled_dot_product_attention (the
+   yardstick; the port never calls it), with the name of the device
+   kernel it ran.
 3. serve (the serving path): with every launch counter at 0, each
    committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
    exported by the JAX package) is loaded and served by the batch driver,
@@ -112,7 +116,10 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    reject a decode whose layers read the next layer's cache and one with
    a 64-slot tile of the cache zeroed. Then a warm prefill and 16 warm
    decode steps are timed, and one prefill and one decode step traced
-   (flash kernel device time, device operations, device busy share).
+   (flash kernel device time, device operations, device busy share); so
+   is the warm float32 prefill of the lm_f32 path (4 x 2048, 48 CUDA-core
+   launches), beside the stated baseline of the CUDA-core kernel this one
+   replaced (3.185 ms a call x 48 launches).
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route; launches summed over the serve, search, robust,
@@ -213,6 +220,10 @@ FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)   # the JAX package's own test
 FLASH_BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
 FLASH_QK_STD = 1.5               # scores' std 2.25: a peaked softmax
 LM_TEACHER_F32_TOL = 3e-2        # tests/test_steps_lm.py's tolerance
+# musicgen's float32 flash call on the CUDA-core kernel the 8 x 8 design
+# replaced (NVIDIA H100 80GB HBM3, 700.00 W): the lm_f32 prefill's
+# stated baseline
+BASELINE_CUDA_CORE_MS = 3.185
 LM_TEACHER_BF16_ATOL = 1.25e-1   # 2x the largest sound bf16 reading
 
 
@@ -365,6 +376,28 @@ def device_kernel_ms(torch, fn, name_part: str, reps=REPS):
             if total > 0:
                 return total / ev.count / 1000.0
     return None
+
+
+def top_device_kernel(torch, fn, reps=3):
+    """The name of the device kernel that takes most of ``fn``'s device
+    time, from torch.profiler; None when it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    best, best_us = None, 0.0
+    for ev in prof.key_averages():
+        if "DeviceType.CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        total = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if total > best_us:
+            best, best_us = ev.key, total
+    return best
 
 
 def bound(kind, d, m, f, n, h, o):
@@ -1563,6 +1596,16 @@ def phase_flash_kernels(np, torch, dev, card, clock):
 
     cases["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"] = (
         4, 2048, 2048, 24, 24, 64, 0, 0.0, f32, arange(2048), arange(2048))
+    # the configs' widths in float32, on the CUDA-core route
+    cases["gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096 f32"] = (
+        1, 4096, 4096, 8, 4, 256, 1024, 50.0, f32, arange(4096),
+        arange(4096))
+    cases["phi3 widths H=KV=32 dh=96 S=1030 f32"] = (
+        1, 1030, 1030, 32, 32, 96, 0, 0.0, f32, arange(1030), arange(1030))
+    cases["llama4 widths H=40 KV=8 dh=128 S=2047 f32"] = (
+        1, 2047, 2047, 40, 8, 128, 0, 0.0, f32, arange(2047), arange(2047))
+    cases["ragged S=Sk=2049 (musicgen widths) f32"] = (
+        4, 2049, 2049, 24, 24, 64, 0, 0.0, f32, arange(2049), arange(2049))
 
     from repro_torch.kernels import envelope
     for dh in envelope.FLASH_TC_HEAD_DIMS:
@@ -1570,6 +1613,11 @@ def phase_flash_kernels(np, torch, dev, card, clock):
               f"dh={dh}: the kernel asks for {fa.tc_smem_bytes(dh)} bytes of "
               f"shared memory, the envelope says "
               f"{envelope.flash_tc_smem_bytes(dh)}")
+    for dh in (8, 32, 64, 96, 128, 160, 256):
+        check(fa.smem_bytes(dh) == envelope.flash_smem_bytes(dh),
+              f"dh={dh}: the CUDA-core kernel asks for {fa.smem_bytes(dh)} "
+              f"bytes of shared memory, the envelope says "
+              f"{envelope.flash_smem_bytes(dh)}")
     print(f"phase flash kernels: flash_attention_tc (tensor cores) and "
           f"flash_attention (CUDA cores) vs the plain version on the card "
           f"({card}); q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1)")
@@ -1623,13 +1671,15 @@ def phase_flash_kernels(np, torch, dev, card, clock):
                   "gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096",
                   "ragged S=Sk=2049 (musicgen widths)",
                   "llama4 widths H=40 KV=8 dh=128 S=2047",
-                  "musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"):
+                  "musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32",
+                  "gemma2 widths H=8 KV=4 dh=256 win=1024 cap=50 S=4096 f32",
+                  "llama4 widths H=40 KV=8 dh=128 S=2047 f32"):
         q, k, v, qpos, kpos, kw = made[label]
         key = routes[label]
         k_fn = lambda: fa.flash_attention(q, k, v, qpos, kpos, **kw)  # noqa
         p_fn = lambda: ref.flash_attention_ref(q, k, v, qpos,  # noqa: E731
                                                kpos, **kw)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = lib_kernel = None
         if not kw["window"] and not kw["attn_softcap"]:
             rep = q.shape[2] // k.shape[2]
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1639,6 +1689,7 @@ def phase_flash_kernels(np, torch, dev, card, clock):
             lib_err = float((lib_out.float() - p_fn().float()).abs().max())
             check(lib_err < 5e-2, f"{label}: scaled_dot_product_attention "
                                   f"is not the same function ({lib_err})")
+            lib_kernel = top_device_kernel(torch, l_fn)
         # plain, kernel, kernel, plain (library between): one card, turns
         p1 = timed_ms(torch, p_fn, 3, warmup=1)
         k1 = timed_ms(torch, k_fn, 20)
@@ -1659,13 +1710,15 @@ def phase_flash_kernels(np, torch, dev, card, clock):
                          "dtype": str(q.dtype)[6:]},
                "ms": min(k1, k2), "plain_ms": min(p1, p2),
                "device_ms": dev_ms, "library_ms": lib_ms,
+               "library_kernel": lib_kernel,
                "library_max_abs_err": lib_err, "bound_ms": b_ms,
                "bound_by": b_by, "floors_ms": floors, "bytes": nbytes,
                "flops": flops,
                "tflop_per_s": flops / (min(k1, k2) * 1e-3) / 1e12}
         timings[label] = row
         dev_txt = ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
-        lib_txt = ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms")
+        lib_txt = ("n/a" if lib_ms is None
+                   else f"{lib_ms:.4f} ms (device kernel {lib_kernel})")
         print(f"  time {key} {label}: kernel {k1:.4f}/{k2:.4f} ms per call "
               f"(profiler device time {dev_txt}; "
               f"{row['tflop_per_s']:.2f} TFLOP/s), plain {p1:.3f}/{p2:.3f} "
@@ -1673,6 +1726,43 @@ def phase_flash_kernels(np, torch, dev, card, clock):
               f"{b_ms:.4f} ms ({floors['binding']}; hbm "
               f"{floors['hbm']:.4f}, ex2 {floors['ex2']:.4f} ms) on {card}")
     return max_err, timings
+
+
+def timed_prefill(torch, fn):
+    """Two warm runs of ``fn`` (a prefill), the host clock around a
+    synchronised call, then one traced with torch.profiler: (walls,
+    traced wall, flash device us, flash launches, other device us, other
+    device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    flash_us = other_us = 0.0
+    flash_n = other_n = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is None or not ev.count:
+            continue
+        if "DeviceType.CUDA" not in str(ev.device_type):
+            continue
+        total = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
+            flash_us += total
+            flash_n += ev.count
+        else:
+            other_us += total
+            other_n += ev.count
+    return walls, traced_wall, flash_us, flash_n, other_us, other_n
 
 
 @contextlib.contextmanager
@@ -1842,36 +1932,25 @@ def phase_lm(np, torch, dev, card):
     err_d = errs["float32"]
     del full, got32, want32, got16, want16, want16_plain
 
-    walls = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serving.prefill(params, batch, cfg)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serving.prefill(params, batch, cfg)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    flash_us = other_us = 0.0
-    flash_n = other_n = 0
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) is None or not ev.count:
-            continue
-        if "DeviceType.CUDA" not in str(ev.device_type):
-            continue
-        total = getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-        if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
-            flash_us += total
-            flash_n += ev.count
-        else:
-            other_us += total
-            other_n += ev.count
+    walls, traced_wall, flash_us, flash_n, other_us, other_n = \
+        timed_prefill(torch, lambda: serving.prefill(params, batch, cfg))
     busy = (flash_us + other_us) / 1e6 / traced_wall
     warm = min(walls)
+    # the float32 prefill (the lm_f32 path, 48 CUDA-core launches)
+    w32, tw32, f32_us, f32_n, o32_us, o32_n = timed_prefill(
+        torch, lambda: serving.prefill(params, batch, c32))
+    base_ms = BASELINE_CUDA_CORE_MS * cfg.num_layers
+    print(f"  warm float32 prefill {w32[0]:.4f}/{w32[1]:.4f} s "
+          f"({b * s / min(w32):.0f} tokens/s); traced: wall {tw32:.4f} s, "
+          f"flash_attention (CUDA cores) {f32_us / 1e3:.3f} ms over {f32_n} "
+          f"launches ({f32_us / 1e3 / max(f32_n, 1):.3f} ms each; the "
+          f"replaced kernel, the stated baseline: "
+          f"{BASELINE_CUDA_CORE_MS} ms x {cfg.num_layers} = {base_ms:.1f} "
+          f"ms), everything else "
+          f"{o32_us / 1e3:.3f} ms over {o32_n} device operations, device "
+          f"busy {(f32_us + o32_us) / 1e4 / tw32:.1f} % on {card}")
+    check(f32_n == cfg.num_layers, f"the traced float32 prefill launched "
+                                   f"the CUDA-core kernel {f32_n} times")
 
     # warm decode: 16 steps after a fresh prefill (the launcher's loop, no
     # sampling), then one traced step
@@ -1913,6 +1992,12 @@ def phase_lm(np, torch, dev, card):
            "flash_device_ms": flash_us / 1e3, "flash_launches_traced":
            flash_n, "other_device_ms": other_us / 1e3,
            "other_device_ops": other_n, "device_busy_share": busy,
+           "f32_prefill_s_warm": w32, "f32_traced_wall_s": tw32,
+           "f32_flash_device_ms": f32_us / 1e3,
+           "f32_flash_launches_traced": f32_n,
+           "f32_flash_baseline_ms": base_ms,
+           "f32_other_device_ms": o32_us / 1e3,
+           "f32_device_busy_share": (f32_us + o32_us) / 1e6 / tw32,
            "prefill_vs_forward_err": err_c, "decode_vs_teacher_err": err_d,
            "decode_vs_teacher_err_served_dtype": errs[cfg.dtype],
            "decode_vs_teacher_witnesses": wit,
@@ -1971,6 +2056,16 @@ def main() -> int:
                     st == 0 and ld == 0 for _, _, st, ld in kernels),
                       f"the tensor-core instantiations spill or are "
                       f"missing: {kernels}")
+            if src == "flash_attention":
+                # 3 layouts x softcap x (f32 cp.async, f32 and bf16
+                # through registers), 18; Narrow is dh <= 64, Wide<128>
+                # dh <= 128
+                narrow = [k for k in kernels
+                          if "Narrow" in k[0] or "WideILi128E" in k[0]]
+                check(len(kernels) == 18 and len(narrow) == 12 and all(
+                    st == 0 and ld == 0 for _, _, st, ld in narrow),
+                      f"the CUDA-core instantiations for head widths up "
+                      f"to 128 spill or are missing: {kernels}")
         clock = sm_clock(torch)
         tf32 = tf32_state()
         print(f"tf32: {tf32}")

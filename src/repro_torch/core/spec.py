@@ -128,6 +128,26 @@ class AdcSpec:
                    vmin=normalize_range(meta["vmin"]),
                    vmax=normalize_range(meta["vmax"]))
 
+    @classmethod
+    def from_data(cls, x, bits: int, *, pct: float = 0.5,
+                  mode: str = "tree") -> "AdcSpec":
+        """Derive per-channel analog ranges from training data: vmin/vmax
+        are the per-channel ``pct``/``100 - pct`` percentiles of ``x``
+        (any leading shape, channels last), in float64: the auto-range
+        path of the search CLI (``--auto-range``). A clipped tail
+        (``pct > 0``) spends the code range on the bulk of the
+        distribution instead of outliers. Constant channels widen by a
+        relative epsilon so the spec stays valid (vmax > vmin)."""
+        if not 0.0 <= pct < 50.0:
+            raise ValueError(f"pct must lie in [0, 50), got {pct}")
+        flat = np.asarray(x, np.float64).reshape(-1, np.shape(x)[-1])
+        lo = np.percentile(flat, pct, axis=0)
+        hi = np.percentile(flat, 100.0 - pct, axis=0)
+        eps = np.maximum(np.abs(lo) * 1e-6, 1e-6)
+        hi = np.where(hi <= lo, lo + eps, hi)
+        return cls(bits=bits, mode=mode, vmin=tuple(lo.tolist()),
+                   vmax=tuple(hi.tolist()))
+
     def describe(self) -> str:
         rng = (f"{self.channels}-channel ranges" if self.per_channel
                else f"[{self.vmin}, {self.vmax}]")

@@ -31,14 +31,23 @@ nominal and the calibrated variant, under the same 227 KB limit (its
 launcher raises the attribute above 48 KB). The (design, instance) axis
 has no limit: where P*S exceeds the grid's y limit each block loops.
 
-The flash-attention kernel (csrc/flash_attention.cu) stages a 64-row q
-tile and a 64-key K and V tile as float32 (q and K rows padded to dh + 1
-words), a 64 x 65 probability tile and 64 key positions:
-``4 * (64 (dh + 1) + 64 (dh + 1) + 64 dh + 64 * 65) + 4 * 64`` bytes,
-214,016 at dh = 256 (its launcher raises the attribute above 48 KB). Each
-thread keeps 4 rows x ceil(dh / 16) output columns in registers, compiled
-for dh <= 256 (gemma2's width). One block per (q tile, batch * head): B*H
-is the grid's y dimension, at most 65,535.
+The CUDA-core flash-attention kernel (csrc/flash_attention.cu) is
+compiled for dh padded to DHP = 64, 128 or 256 (``flash_head_pad``), up
+to gemma2's 256, with a BQ-row q tile, BK-key kv tiles and row groups of
+``lanes`` threads (``flash_tiles``: 256 x 64 and 8 lanes at DHP 64, 128 x
+32 and 16 lanes at DHP 128, 64 x 32 and 16 lanes at DHP 256; each thread
+keeps 16 BQ / 256 rows of BK / lanes scores and DHP / lanes output
+columns in registers). It stages, as float32, the q tile, two K and two
+V buffers, the BK x (BQ + 4) transposed probability tile and two ints
+(the block's live kv-tile range); K rows are padded to DHP + 4 words.
+At DHP 64 q is transposed (d-major, rows of BQ + 4 words):
+``4 * (64 (BQ + 4) + 2 BK (64 + 4) + 2 BK * 64 + BK (BQ + 4)) + 8``
+= 200,712 bytes; above it q is row-major with rows of DHP + 4 words:
+``4 * (BQ (DHP + 4) + 2 BK (DHP + 4) + 2 BK DHP + BK (BQ + 4)) + 8``
+= 151,048 at DHP 128 and 207,368 at 256 (its launcher raises the
+attribute; ``flash_attention_smem_bytes`` in the built library returns
+the same). One block per (q tile, batch * head): B*H is the grid's y
+dimension, at most 65,535.
 
 The tensor-core flash-attention kernel (csrc/flash_attention_tc.cu) takes
 bf16 at the head widths of the repo's attention configs (64, 96, 112, 128,
@@ -125,15 +134,31 @@ def outside_mc_envelope(c: int, n: int) -> Optional[str]:
     return None
 
 
-FLASH_BQ = 64                     # query rows per block
-FLASH_BK = 64                     # keys per kv tile
-FLASH_MAX_HEAD_DIM = 256          # register tile: 4 x ceil(dh / 16) columns
+FLASH_MAX_HEAD_DIM = 256          # the widest compiled head width (DHP)
+
+
+def flash_head_pad(dh: int) -> int:
+    """The head width DHP the CUDA-core kernel is compiled for at dh."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def flash_tiles(dh: int):
+    """(q rows per block, keys per kv tile, lanes per row group) of the
+    CUDA-core kernel at dh (csrc/flash_attention.cu's Narrow and Wide
+    layouts; 256 threads, 256 / lanes row groups)."""
+    dhp = flash_head_pad(dh)
+    if dhp == 64:
+        return 256, 64, 8
+    return (128 if dhp == 128 else 64), 32, 16
 
 
 def flash_smem_bytes(dh: int) -> int:
-    """Shared memory one flash-attention block stages at head width dh."""
-    return (4 * (FLASH_BQ * (dh + 1) + FLASH_BK * (dh + 1) + FLASH_BK * dh
-                 + FLASH_BQ * (FLASH_BK + 1)) + 4 * FLASH_BK)
+    """Dynamic shared memory one CUDA-core flash block asks for at head
+    width dh (csrc/flash_attention.cu, ``smem_of<Layout>``)."""
+    dhp = flash_head_pad(dh)
+    bq, bk, _ = flash_tiles(dh)
+    q = dhp * (bq + 4) if dhp == 64 else bq * (dhp + 4)  # q^T at DHP 64
+    return 4 * (q + 2 * bk * (dhp + 4) + 2 * bk * dhp + bk * (bq + 4)) + 8
 
 
 def outside_flash_envelope(b: int, h: int, dh: int) -> Optional[str]:

@@ -60,6 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_smem_bytes.argtypes = [i32]
+    lib.flash_attention_smem_bytes.restype = i32
     return lib
 
 
@@ -75,6 +77,12 @@ def _lib_tc() -> ctypes.CDLL:
     lib.flash_attention_tc_smem_bytes.argtypes = [i32]
     lib.flash_attention_tc_smem_bytes.restype = i32
     return lib
+
+
+def smem_bytes(dh: int) -> int:
+    """Dynamic shared memory the built CUDA-core kernel asks for at head
+    width dh (0 outside 1..256)."""
+    return _lib().flash_attention_smem_bytes(dh)
 
 
 def tc_smem_bytes(dh: int) -> int:

@@ -26,8 +26,15 @@ stream (``--yield-margins``). ``--calibrate`` re-bakes the front against
 the sampled instance's measured non-idealities and serves through the
 calibrated tables, printing the recovered accuracy per design.
 
-The reference's ``--driver async`` (with or without ``--calibrate``),
-``--sharded`` and ``--smoke`` paths belong to later slices of the port;
+``--smoke`` needs no front on disk: a tiny fixed-seed search of
+``--dataset`` (2-bit ADC, pop 6, one generation, 30 QAT steps) is
+exported and served, parity check included:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_classifier --smoke \\
+      --dataset seeds --device cpu
+
+The reference's ``--driver async`` (with or without ``--calibrate``) and
+``--sharded`` paths belong to a later slice of the port (ROADMAP A9);
 they are accepted here only to fail with a clear message.
 """
 from __future__ import annotations
@@ -128,11 +135,25 @@ def serve(designs: Sequence[deploy.DeployedClassifier],
     }
 
 
+def _smoke_front(dataset: str, device: DeviceLike = None):
+    """Tiny fixed-seed search + export of ``dataset`` (the reference's
+    smoke config), so ``--smoke`` needs no exported front on disk.
+    Returns (designs, data)."""
+    from repro_torch.core import search
+    from repro_torch.data import tabular
+    spec = tabular.SPECS[dataset]
+    data = tabular.make_dataset(dataset)
+    sizes = (spec.features, spec.hidden, spec.classes)
+    cfg = search.SearchConfig(bits=2, pop_size=6, generations=1,
+                              train_steps=30)
+    pg, _, _ = search.run_search(data, sizes, cfg, device=device)
+    return deploy.export_front(pg, data, sizes, cfg, device=device), data
+
+
 _LATER = {
     "driver": "--driver async (the serving engine, with its "
               "calibrate-on-recovery path, ROADMAP A9)",
     "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9)",
-    "smoke": "--smoke (needs the search, ROADMAP A3)",
 }
 
 
@@ -140,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Serve an exported ADC+classifier front through the "
                     "PyTorch/CUDA port.")
-    ap.add_argument("--front-dir", required=True,
-                    help="front saved by save_front (either package)")
+    ap.add_argument("--front-dir",
+                    help="front saved by save_front (either package); "
+                         "required unless --smoke")
     ap.add_argument("--dataset", default="seeds",
                     help="sample stream + labels for the parity check")
     ap.add_argument("--requests", type=int, default=64)
@@ -175,18 +197,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--yield-margins", default="0.01,0.05",
                     help="with --nonideal-*: comma list of accuracy-drop "
                          "margins for the served front's yield summary")
-    # reference options of later slices: accepted only to be refused
+    ap.add_argument("--smoke", action="store_true",
+                    help="search and export a tiny front of --dataset "
+                         "first (no --front-dir needed), then serve it "
+                         "with a short request stream")
+    # reference options of a later slice: accepted only to be refused
     ap.add_argument("--driver", choices=("batch", "async"), default="batch")
     ap.add_argument("--sharded", action="store_true")
-    ap.add_argument("--smoke", action="store_true")
     return ap
 
 
 def main(argv=None) -> Dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    asked = {"driver": args.driver == "async", "sharded": args.sharded,
-             "smoke": args.smoke}
+    asked = {"driver": args.driver == "async", "sharded": args.sharded}
     for key, on in asked.items():
         if on:
             ap.error(f"{_LATER[key]} is not yet ported to repro_torch; "
@@ -211,17 +235,26 @@ def main(argv=None) -> Dict:
         ap.error(str(exc))
 
     from repro_torch.data import tabular
+    if args.front_dir is None and not args.smoke:
+        ap.error("--front-dir is required unless --smoke is given")
     try:
         dev = resolve_device(args.device)
     except RuntimeError as exc:
         ap.error(str(exc))
-    designs = deploy.load_front(args.front_dir)
-    trained_on = deploy.front_meta(args.front_dir).get("dataset")
-    if trained_on is not None and trained_on != args.dataset:
-        ap.error(f"front at {args.front_dir} was exported from dataset "
-                 f"{trained_on!r}; serving {args.dataset!r} traffic through "
-                 f"it would be wrong-domain (pass --dataset {trained_on})")
-    data = tabular.make_dataset(args.dataset)
+    if args.smoke:
+        args.requests, args.request_size = 16, 4
+        args.batch = min(args.batch, 32)
+    if args.front_dir is not None:
+        designs = deploy.load_front(args.front_dir)
+        trained_on = deploy.front_meta(args.front_dir).get("dataset")
+        if trained_on is not None and trained_on != args.dataset:
+            ap.error(f"front at {args.front_dir} was exported from dataset "
+                     f"{trained_on!r}; serving {args.dataset!r} traffic "
+                     f"through it would be wrong-domain (pass --dataset "
+                     f"{trained_on})")
+        data = tabular.make_dataset(args.dataset)
+    else:
+        designs, data = _smoke_front(args.dataset, dev)
     if designs[0].channels != data["x_test"].shape[1]:
         ap.error(f"front expects {designs[0].channels} sensor channels but "
                  f"dataset {args.dataset!r} has {data['x_test'].shape[1]}")

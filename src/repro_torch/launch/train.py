@@ -12,6 +12,10 @@ Add ``--export-front`` to freeze the searched Pareto front into deployable
 classifier artifacts under <ckpt-dir>/front, servable by
 ``repro_torch.launch.serve_classifier`` (and by the JAX package's).
 
+``--vmin``/``--vmax`` take a scalar range or per-channel comma lists;
+``--auto-range`` (``--auto-range-pct``) derives per-channel ranges from
+the training data's percentiles (``AdcSpec.from_data``).
+
 ``--mc-samples S`` with a non-ideality knob (``--nonideal-sigma``,
 ``--fault-rate``, ``--range-drift``; ``--nonideal-seed`` names the draw
 stream) adds the Monte-Carlo robustness objective
@@ -49,6 +53,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the paper's in-training ADC optimization")
     ap.add_argument("--dataset", default="seeds")
     ap.add_argument("--bits", type=int, default=3)
+    ap.add_argument("--vmin", default="0.0",
+                    help="analog range minimum: scalar, or comma-separated "
+                         "per-channel list (heterogeneous sensors)")
+    ap.add_argument("--vmax", default="1.0",
+                    help="analog range maximum (same forms as --vmin)")
+    ap.add_argument("--auto-range", action="store_true",
+                    help="derive per-channel vmin/vmax from the training "
+                         "data's percentiles (AdcSpec.from_data) instead "
+                         "of --vmin/--vmax — heterogeneous sensors "
+                         "without hand-typed comma lists")
+    ap.add_argument("--auto-range-pct", type=float, default=0.5,
+                    help="percentile clip for --auto-range: range covers "
+                         "[pct, 100-pct] of each channel's distribution")
     ap.add_argument("--pop", type=int, default=16)
     ap.add_argument("--generations", type=int, default=4)
     ap.add_argument("--train-steps", type=int, default=100)
@@ -119,12 +136,32 @@ def parse_yield_margins(text: str):
     return margins
 
 
-def robustness_config(args):
-    """argv -> (NonIdealSpec or None, FaultTolSpec or None), with the
-    reference's checks: a knob needs --mc-samples, --mc-samples needs a
-    knob, --faulttol needs both."""
+def adc_search_config(args, channels: int, data=None):
+    """argv -> the search's (AdcSpec, SearchConfig) pair, with the
+    reference's checks: ``--auto-range`` derives per-channel vmin/vmax
+    from ``data["x_train"]`` (AdcSpec.from_data) and refuses an explicit
+    --vmin/--vmax beside it or a missing dataset; the spec must drive
+    ``channels`` sensor channels; a non-ideality knob needs
+    --mc-samples, --mc-samples needs a knob, --faulttol needs both."""
+    from repro_torch.core import search
     from repro_torch.core.nonideal import NonIdealSpec
+    from repro_torch.core.spec import AdcSpec, parse_range
     from repro_torch.faulttol import FaultTolSpec
+
+    if args.auto_range:
+        if args.vmin != "0.0" or args.vmax != "1.0":
+            raise ValueError(
+                "--auto-range derives vmin/vmax from the training data; "
+                "drop the explicit --vmin/--vmax (or drop --auto-range)")
+        if data is None:
+            raise ValueError("--auto-range needs the dataset to derive "
+                             "ranges from")
+        adc_spec = AdcSpec.from_data(data["x_train"], bits=args.bits,
+                                     pct=args.auto_range_pct)
+    else:
+        adc_spec = AdcSpec(bits=args.bits, vmin=parse_range(args.vmin),
+                           vmax=parse_range(args.vmax))
+    adc_spec.validate_channels(channels)
     knobs = (args.nonideal_sigma > 0 or args.fault_rate > 0
              or args.range_drift > 0)
     if knobs and args.mc_samples <= 0:
@@ -150,7 +187,13 @@ def robustness_config(args):
                 "--mc-samples > 0 and at least one non-ideality knob")
         ft = FaultTolSpec(max_spares=args.max_spares)
     parse_yield_margins(args.yield_margins)
-    return ni, ft
+    cfg = search.SearchConfig.for_spec(
+        adc_spec, pop_size=args.pop, generations=args.generations,
+        train_steps=args.train_steps, engine=args.engine, model=args.model,
+        seed=args.seed, nonideal=ni, mc_samples=args.mc_samples if ni else 0,
+        robust_objective=args.robust_objective,
+        yield_margin=args.yield_margin, faulttol=ft)
+    return adc_spec, cfg
 
 
 def run_adc_search(args) -> np.ndarray:
@@ -158,7 +201,6 @@ def run_adc_search(args) -> np.ndarray:
     population evaluation per generation, timed through the evolve log
     hook. Returns the Pareto fitness."""
     from repro_torch.core import area, search
-    from repro_torch.core.spec import AdcSpec
     from repro_torch.data import tabular
     from repro_torch.device import resolve_device
 
@@ -166,14 +208,7 @@ def run_adc_search(args) -> np.ndarray:
     spec = tabular.SPECS[args.dataset]
     data = tabular.make_dataset(args.dataset)
     sizes = (spec.features, spec.hidden, spec.classes)
-    adc_spec = AdcSpec(bits=args.bits)
-    ni, ft = robustness_config(args)
-    cfg = search.SearchConfig.for_spec(
-        adc_spec, pop_size=args.pop, generations=args.generations,
-        train_steps=args.train_steps, engine=args.engine, model=args.model,
-        seed=args.seed, nonideal=ni, mc_samples=args.mc_samples if ni else 0,
-        robust_objective=args.robust_objective,
-        yield_margin=args.yield_margin, faulttol=ft)
+    adc_spec, cfg = adc_search_config(args, spec.features, data=data)
     print(f"adc-search[repro_torch {cfg.engine} {cfg.model}] "
           f"dataset={args.dataset} adc=({adc_spec.describe()}) "
           f"pop={cfg.pop_size} gens={cfg.generations} "
@@ -265,9 +300,12 @@ def main(argv=None):
     if not args.adc_search:
         ap.error("repro_torch.launch.train runs only --adc-search (LM "
                  "training is ROADMAP A11)")
+    from repro_torch.data import tabular
     from repro_torch.device import resolve_device
     try:
-        robustness_config(args)
+        data = tabular.make_dataset(args.dataset) if args.auto_range else None
+        adc_search_config(args, tabular.SPECS[args.dataset].features,
+                          data=data)
         resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
         ap.error(str(exc))

@@ -190,15 +190,54 @@ def test_cli_serves_fixture_with_parity():
     assert rep["num_designs"] == 3 and len(rep["served_accuracies"]) == 3
 
 
-@pytest.mark.parametrize("extra", [["--driver", "async"], ["--sharded"],
-                                   ["--smoke"]])
+@pytest.mark.parametrize("extra", [["--driver", "async"], ["--sharded"]])
 def test_cli_refuses_later_slices(extra, capsys):
     argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
             "cardio", "--device", "cpu"] + extra
     with pytest.raises(SystemExit) as exc:
         tserve.main(argv)
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "ROADMAP A9" in err
+
+
+def test_cli_smoke_searches_exports_and_serves(capsys):
+    """--smoke needs no front on disk: the port searches and exports a
+    tiny front of the dataset, serves it, and served == exported."""
+    rep = tserve.main(["--smoke", "--dataset", "seeds", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "parity OK: served == exported accuracy for every design" in out
+    assert rep["requests"] == 16 and rep["samples"] == 64
+    assert rep["num_designs"] >= 1 and rep["bits"] == 2
+    assert len(rep["served_accuracies"]) == rep["num_designs"]
+
+
+def test_smoke_front_serves_in_the_reference(tmp_path):
+    """The port's smoke front (the reference's smoke config: 2 bits, pop
+    6, one generation, 30 QAT steps) saved by the port serves in the JAX
+    package at exactly its exported accuracies, with the same bank
+    logits."""
+    designs, data = tserve._smoke_front("seeds", "cpu")
+    cfg = search.SearchConfig(bits=2, pop_size=6, generations=1,
+                              train_steps=30)
+    assert designs[0].bits == cfg.bits and designs[0].spec.vmin == cfg.vmin
+    tdeploy.save_front(tmp_path, designs, extra_meta={"dataset": "seeds"})
+    jdesigns = jdeploy.load_front(tmp_path)
+    exported = np.array([d.accuracy for d in designs])
+    np.testing.assert_array_equal(
+        jdeploy.served_accuracies(jdesigns, data["x_test"], data["y_test"]),
+        exported)
+    np.testing.assert_array_equal(
+        tdeploy.served_accuracies(designs, data["x_test"], data["y_test"],
+                                  device="cpu"), exported)
+
+
+def test_cli_needs_a_front_or_smoke(capsys):
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(["--dataset", "seeds", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--front-dir is required unless --smoke" in \
+        capsys.readouterr().err
 
 
 def test_cli_rejects_wrong_domain(capsys):

@@ -255,8 +255,23 @@ def test_dispatch_rules():
 
 
 def test_envelope_is_shared_memory_and_registers():
+    # the CUDA-core kernel: smem_of<Layout> of csrc/flash_attention.cu,
+    # q, two K and two V buffers, p^T (BK x (BQ + 4)), two ints; at
+    # DHP 64 q^T (64 x (BQ + 4)) and K^T (64 x (BK + 4)) are d-major
     assert envelope.flash_smem_bytes(64) == 4 * (
-        64 * 65 + 64 * 65 + 64 * 64 + 64 * 65) + 4 * 64
+        64 * 260 + 2 * 64 * 68 + 2 * 64 * 64 + 64 * 260) + 8 == 200_712
+    assert envelope.flash_smem_bytes(128) == 4 * (
+        128 * 132 + 2 * 32 * 132 + 2 * 32 * 128 + 32 * 132) + 8 == 151_048
+    assert envelope.flash_smem_bytes(256) == 4 * (
+        64 * 260 + 2 * 32 * 260 + 2 * 32 * 256 + 32 * 68) + 8 == 207_368
+    assert [envelope.flash_head_pad(d) for d in (8, 64, 65, 96, 128, 129,
+                                                 256)] == [
+        64, 64, 128, 128, 128, 256, 256]
+    assert [envelope.flash_tiles(d) for d in (64, 128, 256)] == [
+        (256, 64, 8), (128, 32, 16), (64, 32, 16)]
+    for dh in (1, 16, 32, 64, 96, 112, 128, 160, 256):
+        assert envelope.flash_smem_bytes(dh) == envelope.flash_smem_bytes(
+            envelope.flash_head_pad(dh))
     assert envelope.flash_smem_bytes(256) <= envelope.SMEM_MAX_BYTES
     assert envelope.flash_smem_bytes(64) > envelope.SMEM_DEFAULT_BYTES
     assert envelope.outside_flash_envelope(4, 24, 64) is None
@@ -299,6 +314,10 @@ def test_build_lists_the_source():
     assert "cudaGetLastError" in src
     for word in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
                  "cuTensorMapEncodeTiled", "__grid_constant__"):
+        assert word in src, word
+    src = _build.SOURCES["flash_attention"].read_text()
+    for word in ("cp.async.cg.shared.global", "flash_attention_smem_bytes",
+                 "exp2f", "__syncwarp"):
         assert word in src, word
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
 
@@ -436,3 +455,157 @@ def test_tensor_core_schedule_within_card_bf16_limit(b, s, sk, h, kv, dh,
           f"{share:.3f} of the card's bf16 limit")
     assert share <= 1.0
     np.testing.assert_allclose(got.numpy(), want.numpy(), **CARD_BF16_TOL)
+
+
+def _ex2(x):
+    """ex2.approx.ftz: 2^x with results below 2^-126 flushed to 0."""
+    e = torch.exp2(x)
+    return torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)
+
+
+def _cuda_core_schedule(q, k, v, qpos, kpos, *, causal=True, window=0,
+                        cap=0.0):
+    """float32 emulation of csrc/flash_attention.cu's schedule: q tiles,
+    kv tiles and row groups of envelope.flash_tiles(dh); q scaled once by
+    scale * log2(e) in float32 (by scale under a softcap, log2(e) after
+    tanh); each kv tile classified from the q tile's min/max query
+    position (masked: skipped; full: no mask; partial: the per-element
+    rule; the kernel classifies per warp, which skips more tiles and
+    changes no value: a masked tile leaves a row as it was); the online
+    softmax in log2 units with ex2.approx.ftz, corr = ex2(m - m_new)
+    without a guard, p = ex2(x - m_new), or ex2(x - 1e30) on a row that
+    has seen no key; each lane tx of a row group summing p over its keys
+    tx + lanes j in key order, its share of l rescaled by corr, the
+    shares reduced at the end by the xor butterfly. Returns (out in
+    float32, the count of each tile kind)."""
+    b, s, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    bq, bk, lanes = envelope.flash_tiles(dh)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    scale = f32(1.0 / np.sqrt(dh))                       # ctypes c_float
+    qmul = scale if cap else scale * f32(LOG2E)
+    qs = (q.float() * qmul).permute(0, 2, 1, 3)           # (B, H, S, dh)
+    kf = k.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    n_tiles = -(-sk // bk)
+    kp_all = torch.full((n_tiles * bk,), -1, dtype=torch.int64)
+    kp_all[:sk] = kpos.long()
+    keys = torch.arange(bk)
+    lane_of = keys % lanes
+    # owned[tx] = the keys of lane tx in the order it sums them
+    owned = torch.stack([keys[lane_of == tx] for tx in range(lanes)])
+    out = torch.zeros(b, h, s, dh)
+    kinds = {"masked": 0, "full": 0, "partial": 0}
+    for q0 in range(0, s, bq):
+        qp = qpos[q0:q0 + bq].long()
+        rows = qp.shape[0]
+        qmin, qmax = int(qp.min()), int(qp.max())
+        m = torch.full((b, h, rows), ref.FLASH_NEG)
+        l_lane = torch.zeros(b, h, rows, lanes)
+        acc = torch.zeros(b, h, rows, dh)
+        for t in range(n_tiles):
+            kp = kp_all[t * bk:(t + 1) * bk]
+            live = kp >= 0
+            full = kp >= 0
+            if causal:
+                live, full = live & (kp <= qmax), full & (kp <= qmin)
+            if window > 0:
+                live = live & (qmin - kp < window)
+                full = full & (qmax - kp < window)
+            if not bool(live.any()):
+                kinds["masked"] += 1
+                continue
+            kind = "full" if bool(full.all()) else "partial"
+            kinds[kind] += 1
+            ks = slice(t * bk, min((t + 1) * bk, sk))
+            n = ks.stop - ks.start
+            x = torch.zeros(b, h, rows, bk)
+            x[..., :n] = torch.einsum("bhqd,bhkd->bhqk",
+                                      qs[:, :, q0:q0 + rows], kf[:, :, ks])
+            if cap:
+                x = torch.tanh(x / f32(cap)) * f32(cap) * f32(LOG2E)
+            if kind == "partial":
+                dpos = qp[:, None] - kp[None, :]
+                ok = (kp >= 0)[None, :].expand(rows, -1)
+                if causal:
+                    ok = ok & (dpos >= 0)
+                if window > 0:
+                    ok = ok & (dpos < window)
+                x = torch.where(ok, x, f32(ref.FLASH_NEG))
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = _ex2(m - m_new)
+            sub = torch.where(m_new <= ref.FLASH_NEG, f32(-ref.FLASH_NEG),
+                              m_new)
+            p = _ex2(x - sub[..., None])
+            share = torch.zeros(b, h, rows, lanes)
+            for j in range(owned.shape[1]):               # in key order
+                share = share + p[..., owned[:, j]]
+            l_lane = l_lane * corr[..., None] + share
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p[..., :n], vf[:, :, ks])
+            m = m_new
+        off = lanes // 2
+        while off:
+            l_lane = l_lane + l_lane[..., torch.arange(lanes) ^ off]
+            off //= 2
+        out[:, :, q0:q0 + rows] = acc / torch.clamp(
+            l_lane[..., :1], min=1e-30)
+    return out.permute(0, 2, 1, 3), kinds
+
+
+def _pallas_padded(q, k, v, qpos, kpos, *, window, cap):
+    """The JAX package's Pallas kernel (interpret mode, 32-row blocks) on
+    a ragged call: q rows and k/v keys padded to a multiple of 32, the
+    padded keys at position -1, the padded rows cut off."""
+    s, sk = q.shape[1], k.shape[1]
+    ps, psk = -(-s // 32) * 32, -(-sk // 32) * 32
+    pad = lambda a, n: np.concatenate(  # noqa: E731
+        [a, np.zeros((a.shape[0], n - a.shape[1]) + a.shape[2:], a.dtype)],
+        axis=1)
+    qp = np.concatenate([qpos, np.full(ps - s, qpos[-1], np.int32)])
+    kp = np.concatenate([kpos, np.full(psk - sk, -1, np.int32)])
+    return _pallas(pad(q, ps), pad(k, psk), pad(v, psk), qp, kp,
+                   window=window, cap=cap)[:, :s]
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,dh,win,cap,qstart,kstart,hole,kinds", [
+    # ragged causal at musicgen's width: 256 x 64 tiles, all three kinds
+    (1, 600, 600, 4, 2, 64, 0, 0.0, 0, 0, 0, "mfp"),
+    # softcap, Sk > S (queries at the end of the keys), MHA
+    (2, 300, 320, 4, 4, 32, 0, 30.0, 20, 0, 0, "fp"),
+    # GQA + sliding window: tiles before the window are masked
+    (1, 300, 300, 8, 2, 16, 48, 0.0, 0, 0, 0, "mp"),
+    # phi3's width (DHP 128: 128 x 32 tiles)
+    (1, 300, 300, 2, 1, 96, 0, 0.0, 0, 0, 0, "mfp"),
+    # gemma2's width (DHP 256: 64 x 32 tiles), window, softcap, empty slots
+    (1, 300, 300, 4, 2, 256, 150, 50.0, 0, 0, 97, "mfp"),
+    # fully masked rows (keys start at 100) and empty slots
+    (2, 192, 192, 4, 2, 64, 0, 0.0, 0, 100, 5, "mp"),
+])
+def test_cuda_core_schedule_within_f32_limit(b, s, sk, h, kv, dh, win, cap,
+                                             qstart, kstart, hole, kinds):
+    """Before any chip run: the CUDA-core kernel's float32 schedule (its
+    tiles, the three tile kinds, exp2 with log2(e) folded into the q
+    scale, per-lane row sums reduced by the butterfly) within rtol = atol
+    = 2e-5 of the plain version and of the JAX package's Pallas kernel in
+    interpret mode, on inputs drawn as chip_smoke.py draws them."""
+    rng = np.random.default_rng(7 * dh + s)
+    q = (rng.normal(size=(b, s, h, dh)) * 1.5).astype(np.float32)
+    k = (rng.normal(size=(b, sk, kv, dh)) * 1.5).astype(np.float32)
+    v = (rng.normal(size=(b, sk, kv, dh)) + 1.0).astype(np.float32)
+    qpos = np.arange(qstart, qstart + s, dtype=np.int32)
+    kpos = np.arange(kstart, kstart + sk, dtype=np.int32)
+    if hole:
+        kpos[::hole] = -1
+    t = torch.from_numpy
+    got, seen = _cuda_core_schedule(t(q), t(k), t(v), t(qpos), t(kpos),
+                                    window=win, cap=cap)
+    assert {key[0] for key, n in seen.items() if n} == set(kinds), seen
+    want = ref.flash_attention_ref(t(q), t(k), t(v), t(qpos), t(kpos),
+                                   window=win, attn_softcap=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    jax_out = _pallas_padded(q, k, v, qpos, kpos, window=win, cap=cap)
+    np.testing.assert_allclose(got.numpy(), jax_out, **F32_TOL)
+    if kstart:
+        assert not got[:, :kstart - qstart].any()

@@ -1,7 +1,8 @@
-"""The port stands alone: src/repro_torch and chip_smoke.py import neither
-JAX nor the JAX package, entry points do not drift to the CPU when no
-card is present, and chip_smoke.py refuses to report without a card or
-outside a checkout."""
+"""The port stands alone: src/repro_torch, chip_smoke.py and
+tools/flash_f32_ab.py import neither JAX nor the JAX package, entry points
+do not drift to the CPU when no card is present, and chip_smoke.py
+refuses to report without a card or outside a checkout (the A/B tool
+without a card)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,7 +22,8 @@ FRONT = REPO / "tests" / "fixtures" / "fronts" / "cardio_mlp"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tools" / "flash_f32_ab.py"]
 
 
 def _modules():
@@ -114,6 +116,20 @@ def test_chip_smoke_without_a_card_fails():
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "cuda" in out.stderr.lower()
+
+
+def test_flash_ab_tool_without_a_card_fails():
+    """tools/flash_f32_ab.py measures on a card only: without one it
+    exits 3 before building or printing a number."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(REPO / "tools" /
+                                              "flash_f32_ab.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ))
+    assert out.returncode == 3
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert "TFLOP" not in out.stdout and "ms" not in out.stdout
 
 
 def test_search_entry_points_need_a_card_unless_asked_for_cpu(capsys):
