@@ -10,8 +10,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    every kernel source (one nvcc each, started together) with its time
    and ptxas report (registers and spills of every instantiation; the
    five tensor-core attention instantiations must not spill, nor may the
-   eighteen CUDA-core ones compiled for head widths up to 128), the SM
-   clock, and the TF32 state (off).
+   eighteen CUDA-core ones compiled for head widths up to 128, nor the
+   twelve Monte-Carlo ones), the SM clock, and the TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
    card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
    fronts' shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O
@@ -26,11 +26,15 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    kernel's four entries (mc_adc_eval{,_cal}{,_population}): the search's
    shapes (P=16, S=32, cardio test and train splits) under every
    non-ideality spec (ideal, offset, drift, faults, fault_rate=1, all
-   three), P=1 and S=1, ragged M, bits 1/4/6, per-channel ranges, NaN,
-   +-inf and on-bound inputs, C=200 at 6 bits (155 KB of shared memory),
-   P*S above the grid's y limit, and a wide call writing 1.41 GB; bitwise
-   everywhere, and the operands and draws compiled on the card equal the
-   CPU's bitwise. Then each kernel and its plain version are timed with
+   three), P=1 and S=1, ragged M, bits 1/4/6/7, per-channel ranges, NaN,
+   +-inf and on-bound inputs, C=200 at 6 bits (150 KB of shared memory),
+   P*S above 65,535, and a wide call writing 1.41 GB; then interval
+   tables that are no partition (overlapping, empty and NaN intervals,
+   mixed-sign values) for all four entries at 2^N 16 and 128 and at
+   C=300, above a block's threads; bitwise everywhere, the operands and
+   draws compiled on the card equal the CPU's bitwise, and the built
+   kernel's launch geometry equals envelope.mc_geometry's. Then each
+   kernel and its plain version are timed with
    CUDA events over 200 launches after warm-up (20 for the wide MC calls)
    and with torch.profiler, beside the least time the card could take;
    the single-design calls too. The flash-attention kernels, each call
@@ -922,12 +926,40 @@ def on_bound_inputs(np, x, lb, lo, scale):
     return x
 
 
+def overlapping_operands(np, rng, lead, s, c, n, cal):
+    """Monte-Carlo operands (lb, ub, values, lo, scale) whose intervals
+    are no partition, as numpy arrays: lb/ub (*lead, S, C, 2^N) of random
+    position and width (0 to 3 codes wide, a sixth empty or reversed, a
+    few NaN), so that none, one or several leaves are live at a code
+    position; values of mixed signs with some -0.0, (C, 2^N) or, with
+    ``cal``, (*lead, S, C, 2^N); lo/scale (S, C) spreading x in [0, 1]
+    over the 2^N codes."""
+    shape = lead + (s, c, n)
+    lb = rng.uniform(-1.0, n + 1.0, size=shape).astype(np.float32)
+    ub = (lb + rng.uniform(-0.6, 3.0, size=shape)).astype(np.float32)
+    lb[rng.random(shape) < 0.02] = np.nan
+    ub[rng.random(shape) < 0.02] = np.nan
+    lb[..., 0], ub[..., -1] = -np.inf, np.inf
+    values = rng.uniform(-2.0, 2.0, size=shape if cal else (c, n)).astype(
+        np.float32)
+    values[rng.random(values.shape) < 0.1] = -0.0
+    lo = rng.uniform(-0.1, 0.1, size=(s, c)).astype(np.float32)
+    scale = (n * rng.uniform(0.9, 1.1, size=(s, c))).astype(np.float32)
+    return lb, ub, values, lo, scale
+
+
+def live_leaves(torch, x, lb, ub, values, lo, scale):
+    """How many leaves are live at each output: (..., S, M, C)."""
+    u = ((x[None] - lo[:, None]) * scale[:, None])[..., None]
+    return ((u >= lb.unsqueeze(-3)) & (u < ub.unsqueeze(-3))).sum(-1)
+
+
 def phase_mc_kernels(np, torch, dev, data):
     """The four Monte-Carlo entries against their plain versions on the
     card, bitwise, then timed beside their bounds."""
     from repro_torch.core import nonideal
     from repro_torch.core.spec import AdcSpec
-    from repro_torch.kernels import mc_eval, ref
+    from repro_torch.kernels import envelope, mc_eval, ref
     rng = np.random.default_rng(2026)
     x_tr, x_te = data["x_train"], data["x_test"]
     c = x_tr.shape[1]
@@ -967,13 +999,18 @@ def phase_mc_kernels(np, torch, dev, data):
                   AdcSpec(bits=4), all3, x_te,
                   random_masks(np, torch, rng, 4, c, 4), 8, True))
     x = rng.uniform(-0.1, 1.1, size=(300, 200)).astype(np.float32)
-    cases.append(("C=200 bits=6 (155 KB shared memory) P=2 S=3", AdcSpec(
+    cases.append(("C=200 bits=6 (150 KB shared memory) P=2 S=3", AdcSpec(
         bits=6), all3, x, random_masks(np, torch, rng, 2, 200, 6), 3, False))
     x = rng.uniform(-0.1, 1.1, size=(16, 3)).astype(np.float32)
     cases.append(("P*S = 2100*32 > 65535 (grid loop) C=3 M=16",
                   AdcSpec(bits=4),
                   all3, x, random_masks(np, torch, rng, 2100, 3, 4), 32,
                   False))
+    rng7 = np.random.default_rng(2027)      # leaves the cases above as they were
+    x = rng7.uniform(-0.1, 1.1, size=(999, 8)).astype(np.float32)
+    cases.append(("bits=7 C=8 (2^N=128, shared memory) P=3 S=8 M=999",
+                  AdcSpec(bits=7), all3, x,
+                  random_masks(np, torch, rng7, 3, 8, 7), 8, False))
 
     plain = {"mc_adc_eval": ref.mc_adc_eval_ref,
              "mc_adc_eval_population": ref.mc_adc_eval_ref_population,
@@ -988,6 +1025,29 @@ def phase_mc_kernels(np, torch, dev, data):
     d_gpu = nonideal.draw(4, c, 32, all3, device=dev)
     check(all(torch.equal(a, b.cpu()) for a, b in zip(d_cpu, d_gpu)),
           "the draws differ between the CPU and the card")
+    def held(entry, label, xd, operands, note):
+        got = getattr(mc_eval, entry)(xd, *operands)
+        want = plain[entry](xd, *operands)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape,
+              f"{entry} {label}: shape {tuple(got.shape)} != "
+              f"{tuple(want.shape)}")
+        lb = operands[0]
+        p, s = (1, lb.shape[0]) if lb.ndim == 3 else tuple(lb.shape[:2])
+        (m, c), n = xd.shape, lb.shape[-1]
+        mirror = tuple(envelope.mc_geometry(p, s, m, c, n))
+        built = mc_eval.geometry(p, s, m, c, n)
+        check(built == mirror, f"{entry} {label}: the built kernel's launch "
+                               f"geometry {built} != envelope's {mirror}")
+        err = float((got - want).abs().max())
+        max_err[entry] = max(max_err[entry], err)
+        ok = torch.equal(got, want)
+        print(f"  {entry:27s} {label:45s} shape={tuple(got.shape)} "
+              f"max_abs_err={err:.3e} [bitwise{note}, geometry ==] "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{entry} disagrees with its plain version on {label} "
+                  f"(max_abs_err {err:.3e}, bitwise)")
+
     for label, spec, ni, x, masks, s, special in cases:
         for cal in (False, True):
             single = masks.ndim == 2
@@ -1003,21 +1063,47 @@ def phase_mc_kernels(np, torch, dev, data):
             xs = (on_bound_inputs(np, x, host[0].numpy(), host[3].numpy(),
                                   host[4].numpy()) if special else x)
             xd = torch.as_tensor(xs).to(dev).contiguous()
-            got = getattr(mc_eval, entry)(xd, *operands)
-            want = plain[entry](xd, *operands)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape,
-                  f"{entry} {label}: shape {tuple(got.shape)} != "
-                  f"{tuple(want.shape)}")
-            err = float((got - want).abs().max())
-            max_err[entry] = max(max_err[entry], err)
-            ok = torch.equal(got, want)
-            print(f"  {entry:27s} {label:45s} shape={tuple(got.shape)} "
-                  f"max_abs_err={err:.3e} [bitwise, operands ==] "
-                  f"{'ok' if ok else 'MISMATCH'}")
-            check(ok, f"{entry} disagrees with its plain version on {label} "
-                      f"(max_abs_err {err:.3e}, bitwise)")
-            del got, want
+            held(entry, label, xd, operands, ", operands ==")
+
+    # no channels, and no leaves: an empty output, and zeros
+    for c_e, n_e in ((0, 16), (21, 0)):
+        ops_e = tuple(torch.zeros(shape, device=dev) for shape in (
+            (3, 4, c_e, n_e), (3, 4, c_e, n_e), (c_e, n_e), (4, c_e),
+            (4, c_e)))
+        xe = torch.zeros((50, c_e), device=dev)
+        before = dict(mc_eval.launches)
+        got = mc_eval.mc_adc_eval_population(xe, *ops_e)
+        torch.cuda.synchronize()
+        launched = mc_eval.launches != before
+        ok = (got.shape == (3, 4, 50, c_e) and not bool(got.any())
+              and launched == (c_e > 0))
+        print(f"  {'mc_adc_eval_population':27s} "
+              f"{f'C={c_e} 2^N={n_e} P=3 S=4 M=50':45s} shape="
+              f"{tuple(got.shape)} launched={launched} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"C={c_e}, 2^N={n_e}: shape {tuple(got.shape)}, "
+                  f"launched {launched}")
+
+    # interval tables that are no partition: overlapping, empty and NaN
+    # intervals, mixed-sign values; the sum must add every live leaf in k
+    # order, as the plain version does
+    for c_o, bits_o, m_o in ((21, 4, 1000), (8, 7, 333), (300, 2, 257)):
+        n_o = 2 ** bits_o
+        x = rng7.uniform(-0.1, 1.1, size=(m_o, c_o)).astype(np.float32)
+        x[0], x[1] = np.nan, np.inf
+        xd = torch.as_tensor(x).to(dev)
+        for entry in plain:
+            lead = () if entry in ("mc_adc_eval", "mc_adc_eval_cal") else (5,)
+            operands = tuple(torch.as_tensor(a).to(dev) for a in
+                             overlapping_operands(np, rng7, lead, 8, c_o, n_o,
+                                                  "_cal" in entry))
+            live = live_leaves(torch, xd, *operands)
+            share = float((live >= 2).float().mean())
+            check(share > 0.1 and int(live.max()) >= 3,
+                  f"the overlapping case at C={c_o} has too few outputs "
+                  f"with two live leaves ({share:.3f})")
+            held(entry, f"overlapping C={c_o} 2^N={n_o} S=8 M={m_o}", xd,
+                 operands, f", {100 * share:.0f} % with >= 2 live leaves")
 
     # a wide call: P=64, S=32, M=8192, C=21 writes 1.41 GB
     wp, ws, wm = MC_WIDE["P"], MC_WIDE["S"], MC_WIDE["M"]
@@ -2051,6 +2137,13 @@ def main() -> int:
                       f"stores {st} B, spill loads {ld} B")
             for line in warnings:
                 print(f"  ptxas {src}: {line}")
+            if src == "mc_eval":
+                # {nominal, calibrated} x {2^N = 2, 4, 8, 16, 32 in
+                # registers, the shared-memory route}
+                check(len(kernels) == 12 and all(
+                    st == 0 and ld == 0 for _, _, st, ld in kernels),
+                      f"the Monte-Carlo instantiations spill or are "
+                      f"missing: {kernels}")
             if src == "flash_attention_tc":
                 check(len(kernels) == 5 and all(
                     st == 0 and ld == 0 for _, _, st, ld in kernels),

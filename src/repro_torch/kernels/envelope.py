@@ -24,12 +24,15 @@ table (C, 2^N) and the two range rows (C) in shared memory, under the same
 227 KB limit (above 48 KB its launcher raises the attribute too); the
 population axis is the grid's y dimension, at most 65,535.
 
-The Monte-Carlo kernel (csrc/mc_eval.cu) stages, per (design, instance),
-the two interval tables and the value ladder (C, 2^N) and the two
-drifted range rows (C): ``4 * (3 * C * 2^N + 2 * C)`` bytes for both the
-nominal and the calibrated variant, under the same 227 KB limit (its
-launcher raises the attribute above 48 KB). The (design, instance) axis
-has no limit: where P*S exceeds the grid's y limit each block loops.
+The Monte-Carlo kernel (csrc/mc_eval.cu) stages, per (design,
+instance), its leaves (C, 2^N) in shared memory as keys, widths and
+values: ``12 * C * 2^N`` bytes for both the nominal and the calibrated
+variant (the two drifted range rows are read into registers), under the
+same 227 KB limit (its launcher raises the attribute above 48 KB).
+The (design, instance) axis is the grid's x dimension, M's chunks its y
+dimension, each looped beyond the grid's limit. ``mc_geometry`` gives its
+launch geometry (``mc_eval_geometry`` in the built library returns the
+same).
 
 The CUDA-core flash-attention kernel (csrc/flash_attention.cu) is
 compiled for dh padded to DHP = 64, 128 or 256 (``flash_head_pad``), up
@@ -64,7 +67,7 @@ and bf16 at any other width, to the CUDA-core kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 SMEM_MAX_BYTES = 232_448          # opt-in shared memory per block, sm_90
 SMEM_DEFAULT_BYTES = 48 * 1024    # above this the attribute must be raised
@@ -117,10 +120,58 @@ def outside_quantize_envelope(c: int, n: int, p: int) -> Optional[str]:
     return None
 
 
+MC_THREADS = 128                  # threads per Monte-Carlo block
+MC_BATCH = 8                      # rows a row lane carries at once
+MC_CHUNK_BYTES = 65536            # x bytes of a block's chunk of M
+MC_MIN_BLOCKS = 264               # two blocks an SM of an H100
+MC_MAX_GRID_X = 2 ** 31 - 1       # gridDim.x
+MC_REGISTER_LEAVES = (2, 4, 8, 16, 32)   # 2^N unrolled in registers
+
+
+class McGeometry(NamedTuple):
+    """The Monte-Carlo kernel's launch (csrc/mc_eval.cu, ``geometry_of``):
+    block (x, y) takes (p, s) = x, x + grid_x, ... and chunks y, y +
+    grid_y, ... of M, ``chunk_rows`` rows each; thread t takes channel
+    t % C (and t + threads, ... where C exceeds the threads) and row lane
+    t // C of ``row_lanes``, its rows r, r + row_lanes, ... of a chunk
+    ``MC_BATCH`` at a time; ``leaves`` is the unrolled leaf count, 0 for
+    the run-time leaf loop."""
+    threads: int
+    row_lanes: int
+    chunk_rows: int
+    chunks: int
+    grid_x: int
+    grid_y: int
+    leaves: int
+    smem_bytes: int
+
+
+def mc_geometry(p: int, s: int, m: int, c: int, n: int) -> McGeometry:
+    """The launch geometry of one Monte-Carlo call, M >= 1: M cut into
+    chunks whose x fits ``MC_CHUNK_BYTES`` (it stays in L1 while a block
+    walks it), and finer where P*S alone gives fewer than
+    ``MC_MIN_BLOCKS`` blocks; each chunk a whole number of batches of
+    ``MC_BATCH`` rows for every row lane."""
+    ceil = lambda a, b: -(-a // b)                      # noqa: E731
+    lanes = 1 if c >= MC_THREADS else MC_THREADS // c
+    batches = ceil(ceil(m, lanes), MC_BATCH)
+    batch_bytes = 4 * c * lanes * MC_BATCH
+    chunks = ceil(batches, MC_CHUNK_BYTES // batch_bytes
+                  if batch_bytes < MC_CHUNK_BYTES else 1)
+    chunks = max(chunks, min(ceil(MC_MIN_BLOCKS, p * s), batches))
+    chunk_rows = lanes * MC_BATCH * ceil(batches, chunks)
+    chunks = ceil(m, chunk_rows)
+    return McGeometry(MC_THREADS, lanes, chunk_rows, chunks,
+                      min(p * s, MC_MAX_GRID_X), min(chunks, MAX_DESIGNS),
+                      n if n in MC_REGISTER_LEAVES else 0,
+                      mc_smem_bytes(c, n))
+
+
 def mc_smem_bytes(c: int, n: int) -> int:
-    """Shared memory one Monte-Carlo block stages: lb, ub and values
-    (C, 2^N) and the two (C,) drifted range rows, float32."""
-    return 4 * (3 * c * n + 2 * c)
+    """Shared memory one Monte-Carlo block stages: one (design,
+    instance)'s leaves (C, 2^N) as keys, widths and values, 4 bytes
+    each."""
+    return 12 * c * n
 
 
 def outside_mc_envelope(c: int, n: int) -> Optional[str]:

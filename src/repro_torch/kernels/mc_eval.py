@@ -52,7 +52,17 @@ def _lib() -> ctypes.CDLL:
     lib.mc_eval.restype = i32
     lib.mc_eval_error_string.argtypes = [i32]
     lib.mc_eval_error_string.restype = ctypes.c_char_p
+    lib.mc_eval_geometry.argtypes = [ctypes.c_longlong] + [i32] * 4 + [ptr]
+    lib.mc_eval_geometry.restype = None
     return lib
+
+
+def geometry(p: int, s: int, m: int, c: int, n: int) -> Tuple[int, ...]:
+    """The launch geometry the built kernel takes for a call, in the
+    order of ``envelope.McGeometry``."""
+    got = (ctypes.c_longlong * 8)()
+    _lib().mc_eval_geometry(m, c, n, p, s, got)
+    return tuple(got)
 
 
 def _check(entry: str, x, lb, ub, values, lo, scale
@@ -100,7 +110,7 @@ def _run(entry: str, x: torch.Tensor, lb, ub, values, lo,
             raise ValueError(f"{entry}: operand {i} is not contiguous")
     shape = (s, m, c) if lb.ndim == 3 else (p, s, m, c)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    if m == 0 or s == 0 or p == 0:
+    if m == 0 or s == 0 or p == 0 or c == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -231,6 +231,53 @@ def _mc_case(rng, entry, bits=3, c=5, s=4, p=3, m=40, special=False):
     return x, lb, ub, values, lo, scale
 
 
+def _overlapping_case(rng, entry, bits=4, c=21, s=8, p=5, m=1000):
+    """Operands whose intervals are no partition: random lb/ub (0 to 3
+    codes wide, some empty or reversed, a few NaN), so that several leaves
+    are live at some code positions; values of mixed signs with some
+    -0.0; NaN and +inf rows in x."""
+    n = 2 ** bits
+    shape = (s, c, n) if entry in ("mc_adc_eval", "mc_adc_eval_cal") \
+        else (p, s, c, n)
+    lb = rng.uniform(-1.0, n + 1.0, size=shape).astype(np.float32)
+    ub = (lb + rng.uniform(-0.6, 3.0, size=shape)).astype(np.float32)
+    lb[rng.random(shape) < 0.02] = np.nan
+    ub[rng.random(shape) < 0.02] = np.nan
+    lb[..., 0], ub[..., -1] = -np.inf, np.inf
+    values = rng.uniform(-2.0, 2.0, size=shape if "_cal" in entry
+                         else (c, n)).astype(np.float32)
+    values[rng.random(values.shape) < 0.1] = -0.0
+    lo = rng.uniform(-0.1, 0.1, size=(s, c)).astype(np.float32)
+    scale = (n * rng.uniform(0.9, 1.1, size=(s, c))).astype(np.float32)
+    x = rng.uniform(-0.1, 1.1, size=(m, c)).astype(np.float32)
+    x[0], x[1] = np.nan, np.inf
+    return x, lb, ub, values, lo, scale
+
+
+@pytest.mark.parametrize("entry", list(PLAIN))
+def test_plain_selection_sum_is_in_order_on_overlapping_intervals(entry):
+    """The port's plain version (the kernel's yardstick on the card) on
+    interval tables that are no partition: from 0.0, each live value
+    added in k order, one float32 rounding an add, as a numpy loop."""
+    rng = np.random.default_rng(23)
+    x, lb, ub, values, lo, scale = _overlapping_case(rng, entry, bits=3,
+                                                     c=4, s=3, p=2, m=50)
+    got = getattr(mc_eval, entry)(*(torch.from_numpy(a) for a in (
+        x, lb, ub, values, lo, scale))).numpy()
+    u = (x[None] - lo[:, None]) * scale[:, None]                 # (S, M, C)
+    lead = lb.shape[:-3]
+    vals = np.broadcast_to(values, lb.shape)
+    want = np.zeros(lead + u.shape, np.float32)
+    live = np.zeros(lead + u.shape, np.int64)
+    for k in range(lb.shape[-1]):
+        sel = ((u >= lb[..., None, :, k]) & (u < ub[..., None, :, k]))
+        want = np.where(sel, want + vals[..., None, :, k], want)
+        live += sel
+    assert (live >= 2).any() and (live == 0).any()
+    np.testing.assert_array_equal(got, want)
+    assert not np.signbit(got[got == 0.0]).any()
+
+
 @pytest.mark.parametrize("special", [False, True])
 @pytest.mark.parametrize("entry", list(PLAIN))
 def test_plain_versions_match_reference(entry, special):
@@ -266,8 +313,8 @@ def test_wrapper_checks_shapes_and_envelope():
         mc_eval.mc_adc_eval(x, lb, ub, values, lo[:2], scale)
     assert mc_eval.mc_adc_eval(x[:0], lb, ub, values, lo, scale).shape == (
         lb.shape[0], 0, 5)
-    assert envelope.mc_smem_bytes(21, 16) == 4 * (3 * 21 * 16 + 2 * 21)
-    assert envelope.outside_mc_envelope(200, 64) is None      # 155 KB
+    assert envelope.mc_smem_bytes(21, 16) == 12 * 21 * 16
+    assert envelope.outside_mc_envelope(200, 64) is None      # 150 KB
     assert "232448" in envelope.outside_mc_envelope(400, 64)
     assert set(mc_eval.launches) == set(PLAIN)
 
@@ -635,14 +682,20 @@ def test_config_robustness_fields():
 
 # ------------------------------------------------------------- on the card
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["compiled", "overlapping",
+                                  "overlapping 2^N=128"])
 @pytest.mark.parametrize("entry", list(PLAIN))
-def test_kernel_matches_plain_version_on_card(entry):
+def test_kernel_matches_plain_version_on_card(entry, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(17)
     dev = torch.device("cuda")
-    ops_np = _mc_case(rng, entry, bits=4, c=21, s=8, p=5, m=1000,
-                      special=True)
+    if case == "compiled":
+        ops_np = _mc_case(rng, entry, bits=4, c=21, s=8, p=5, m=1000,
+                          special=True)
+    else:
+        bits, c = (7, 8) if "128" in case else (4, 21)
+        ops_np = _overlapping_case(rng, entry, bits=bits, c=c)
     operands = tuple(torch.from_numpy(np.array(a)).to(dev)
                      for a in ops_np)
     before = mc_eval.launches[entry]
