@@ -11,18 +11,25 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    and ptxas report (registers and spills of every instantiation; the
    five tensor-core attention instantiations must not spill, nor may the
    eighteen CUDA-core ones compiled for head widths up to 128, nor the
-   twelve Monte-Carlo ones), the SM clock, and the TF32 state (off).
+   twelve Monte-Carlo ones, the two quantizer ones or the four bank
+   ones), the SM clock, and the TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
    card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
    fronts' shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O
    wider than a register chunk, a design above 48 KB of shared memory, a
-   per-channel-range case and a wide D=64, M=65536 bank; bitwise on dyadic
-   inputs (every exported front's), rtol=1e-5, atol=1e-6 where the sums
-   are not exact. The population quantizer (adc_quantize_population):
+   per-channel-range case, one design at the shared-memory edge (the
+   kernels' unpadded layout) and a wide D=64, M=65536 bank; bitwise on
+   dyadic inputs (every exported front's), rtol=1e-5, atol=1e-6 where the
+   sums are not exact. The population quantizer (adc_quantize_population):
    the search's shapes (cardio train and test splits, P=16 and 32), P=1
    (the adc_quantize entry), M not a multiple of the tile, bits 1/4/6,
-   per-channel ranges, a table above 48 KB and a wide P=64, M=65536 call;
-   bitwise everywhere (a gather copies table values). The Monte-Carlo
+   per-channel ranges, a table above 48 KB, NaN, +-inf and x on every
+   code boundary (scalar and per-channel ranges), M*C odd (the kernel's
+   word walk) and a wide P=64, M=65536 call; bitwise everywhere (a gather
+   copies table values). For every bank and quantizer case the built
+   library's launch geometry must equal envelope.bank_geometry's or
+   envelope.quantize_geometry's, and every timed bank and quantizer call
+   must have a device time in torch.profiler. The Monte-Carlo
    kernel's four entries (mc_adc_eval{,_cal}{,_population}): the search's
    shapes (P=16, S=32, cardio test and train splits) under every
    non-ideality spec (ideal, offset, drift, faults, fault_rate=1, all
@@ -423,10 +430,11 @@ def bound(kind, d, m, f, n, h, o):
 
 
 # ---------------------------------------------------------------- phases
-def phase_kernels(np, torch, dev, fronts, x_test):
-    from repro_torch.kernels import qmlp, ref
-    rng = np.random.default_rng(2024)
-    cases = []      # (label, kernel name, spec, x, tables, weights, exact)
+def bank_cases(np, rng, fronts, x_test):
+    """The bank phase's cases: [(label, kernel name, spec, x, tables,
+    weights, exact)]; ``exact``: every partial sum is exact (dyadic), so
+    any summation order gives the same bits."""
+    cases = []
 
     for kind, (designs, spec, tables, weights) in fronts.items():
         name = f"qmlp_{kind}_bank"
@@ -458,6 +466,20 @@ def phase_kernels(np, torch, dev, fronts, x_test):
                                      per_channel=True)
         cases.append((f"{kind} per-channel ranges, float weights", name,
                       spec_p, x, t, w, False))
+    for kind, f in (("mlp", 840), ("svm", 860)):
+        # one design that leaves the kernel too little shared memory for
+        # padded weight rows and four rows a thread: its unpadded path;
+        # dyadic, so the 840-term sums are exact in any order
+        spec_e, x, t, w = dyadic_case(np, rng, kind, 2, 300, f, 1, 1, 6)
+        cases.append((f"dyadic {kind} F={f} bits=6 at the shared-memory "
+                      f"edge", f"qmlp_{kind}_bank", spec_e, x, t, w, True))
+    return cases
+
+
+def phase_kernels(np, torch, dev, fronts, x_test):
+    from repro_torch.kernels import envelope, qmlp, ref
+    rng = np.random.default_rng(2024)
+    cases = bank_cases(np, rng, fronts, x_test)
 
     def single(fn):
         """The single-design entry on a D=1 bank's operands, (1, M, O)."""
@@ -479,6 +501,16 @@ def phase_kernels(np, torch, dev, fronts, x_test):
         xd = torch.as_tensor(x).to(dev).contiguous()
         td = torch.as_tensor(tables).to(dev).contiguous()
         wd = tuple(torch.as_tensor(w).to(dev).contiguous() for w in weights)
+        kind = "svm" if "svm" in name else "mlp"
+        shape = (kind, td.shape[0], xd.shape[0], td.shape[1], td.shape[2],
+                 wd[0].shape[2] if kind == "mlp" else 0, wd[-1].shape[-1])
+        mirror = envelope.bank_geometry(*shape)
+        built = qmlp.geometry(*shape)
+        check(built == tuple(mirror), f"{name} {label}: the built kernel's "
+                                      f"geometry {built} != envelope's "
+                                      f"{mirror}")
+        check("edge" not in label or not mirror.padded,
+              f"{name} {label}: expected the unpadded layout, got {mirror}")
         got = kern(xd, td, *wd, spec=spec)
         want = plain(xd, td, spec.bits, *wd, spec.vmin, spec.vmax)
         torch.cuda.synchronize()
@@ -494,7 +526,8 @@ def phase_kernels(np, torch, dev, fronts, x_test):
             ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
             rule = "rtol=1e-5 atol=1e-6"
         print(f"  {name:14s} {label:45s} shape={tuple(got.shape)} "
-              f"max_abs_err={err:.3e} [{rule}] {'ok' if ok else 'MISMATCH'}")
+              f"max_abs_err={err:.3e} [{rule}, geometry ==] "
+              f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"{name} disagrees with its plain version on {label} "
                   f"(max_abs_err {err:.3e}, {rule})")
 
@@ -527,6 +560,8 @@ def phase_kernels(np, torch, dev, fronts, x_test):
             k2 = cuda_ms(torch, k_fn)
             p2 = cuda_ms(torch, p_fn)
             dev_ms = device_kernel_ms(torch, k_fn, f"qmlp_{kind}_bank_kernel")
+            check(dev_ms is not None, f"torch.profiler recorded no device "
+                                      f"time for qmlp_{kind}_bank_kernel")
             b_ms, b_by, nbytes, flops = bound(kind, d, m, f, n, h, o)
             row = {"shape": {"D": d, "M": m, "F": f, "levels": n, "H": h,
                              "O": o},
@@ -534,11 +569,9 @@ def phase_kernels(np, torch, dev, fronts, x_test):
                    "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "bytes": nbytes, "flops": flops}
             timings.setdefault(name, {})[label] = row
-            dev_txt = ("not measured" if dev_ms is None
-                       else f"{dev_ms * 1e3:.2f} us")
             print(f"  time {name:14s} {label:12s} D={d} M={m}: "
                   f"kernel {k1 * 1e3:.2f}/{k2 * 1e3:.2f} us per call "
-                  f"(profiler device time {dev_txt}), plain "
+                  f"(profiler device time {dev_ms * 1e3:.2f} us), plain "
                   f"{p1 * 1e3:.2f}/{p2 * 1e3:.2f} us, bound "
                   f"{b_ms * 1e3:.3f} us ({b_by})")
     return max_err, timings
@@ -563,6 +596,36 @@ def quantize_bound(p, m, c, n):
     return t_ops, "operations", nbytes, ops
 
 
+def code_edge_inputs(np, rng, spec, m, c):
+    """x (M, C) float32, uniform over each channel's range widened by a
+    tenth; rows 0-2 NaN, +inf and -inf, and rows 3 .. 2^(N+1) + 2 put
+    every channel on each code boundary k: x nudged, one float at a time
+    and at most 64 floats, to the least float32 whose code position
+    (x - lo) * scale reaches k in float32, and the float below it."""
+    from repro_torch.core.adc import range_rows
+    n = spec.levels
+    lo, sc = (r[0].astype(np.float64) for r in range_rows(
+        spec.bits, spec.vmin, spec.vmax, c))
+    width = n / sc
+    x = rng.uniform(lo - 0.1 * width, lo + 1.1 * width,
+                    size=(m, c)).astype(np.float32)
+    x[0], x[1], x[2] = np.nan, np.inf, -np.inf
+    lo32, sc32 = lo.astype(np.float32), sc.astype(np.float32)
+    for k in range(n):
+        for ch in range(c):
+            xv = np.float32(lo[ch] + k / sc[ch])
+            for _ in range(64):
+                u = np.float32(np.float32(xv - lo32[ch]) * sc32[ch])
+                if u >= k and np.float32(np.float32(np.nextafter(
+                        xv, np.float32(-np.inf)) - lo32[ch]) * sc32[ch]) < k:
+                    break
+                xv = np.nextafter(xv, np.float32(np.inf if u < k
+                                                 else -np.inf))
+            x[3 + 2 * k, ch] = xv
+            x[4 + 2 * k, ch] = np.nextafter(xv, np.float32(-np.inf))
+    return x
+
+
 def random_masks(np, torch, rng, p, c, bits):
     """Repaired pruned masks (P, C, 2^N), as genome decode gives them."""
     from repro_torch.core.adc import repair_mask
@@ -570,16 +633,13 @@ def random_masks(np, torch, rng, p, c, bits):
         (rng.random((p, c, 2 ** bits)) < 0.5).astype(np.int32)))
 
 
-def phase_quantizer(np, torch, dev, data):
-    """adc_quantize_population against ref.adc_quantize_ref_population on
-    the card, bitwise, then timed at the search's shapes."""
+def quantizer_cases(np, torch, rng, data):
+    """The quantizer phase's cases: [(label, spec, x, masks, via the P=1
+    entry)]."""
     from repro_torch.core.spec import AdcSpec
-    from repro_torch.kernels import adc_quantize as adcq
-    from repro_torch.kernels import ops, ref
-    rng = np.random.default_rng(2025)
     x_tr, x_te = data["x_train"], data["x_test"]
     c = x_tr.shape[1]
-    cases = []       # (label, spec, x, masks, via the P=1 entry)
+    cases = []
     for split, x in (("train", x_tr), ("test", x_te)):
         for p in (16, 32):
             cases.append((f"cardio {split} split M={len(x)} P={p}",
@@ -607,6 +667,30 @@ def phase_quantizer(np, torch, dev, data):
     wide_x = x_te[rng.integers(0, len(x_te), size=65536)]
     cases.append(("wide P=64 M=65536", AdcSpec(bits=4), wide_x,
                   random_masks(np, torch, rng, 64, c, 4), False))
+    for spec_e in (AdcSpec(bits=4), spec_pc):
+        x = code_edge_inputs(np, rng, spec_e, 999, c)
+        cases.append((f"NaN, +-inf, on code boundaries M=999 P=9"
+                      f"{' per-channel' if spec_e is spec_pc else ''}",
+                      spec_e, x, random_masks(np, torch, rng, 9, c, 4),
+                      False))
+    x = code_edge_inputs(np, rng, AdcSpec(bits=4), 635, c)    # M*C odd
+    cases.append(("word walk (M*C odd), edges M=635 P=16", AdcSpec(bits=4),
+                  x, random_masks(np, torch, rng, 16, c, 4), False))
+    return cases
+
+
+def phase_quantizer(np, torch, dev, data):
+    """adc_quantize_population against ref.adc_quantize_ref_population on
+    the card, bitwise, then timed at the search's shapes."""
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import envelope, ops, ref
+    rng = np.random.default_rng(2025)
+    x_tr, x_te = data["x_train"], data["x_test"]
+    c = x_tr.shape[1]
+    cases = quantizer_cases(np, torch, rng, data)
+    wide_x = next(x for label, _, x, _, _ in cases
+                  if label.startswith("wide"))
 
     max_err = {"adc_quantize_population": 0.0, "adc_quantize": 0.0}
     print("phase kernels: adc_quantize{,_population} vs plain version on "
@@ -616,6 +700,12 @@ def phase_quantizer(np, torch, dev, data):
         xd = torch.as_tensor(x).to(dev).contiguous()
         md = masks.to(dev)
         tables = spec.value_table(md).contiguous()
+        shape = (1 if single else tables.shape[0], x.shape[0], x.shape[1],
+                 tables.shape[-1])
+        built, mirror = adcq.geometry(*shape), tuple(
+            envelope.quantize_geometry(*shape))
+        check(built == mirror, f"{label}: the built kernel's geometry "
+                               f"{built} != envelope's {mirror}")
         if single:
             got = ops.adc_quantize(xd, md, spec=spec)
             want = ref.adc_quantize_ref(xd, tables, spec.bits, spec.vmin,
@@ -631,7 +721,8 @@ def phase_quantizer(np, torch, dev, data):
         max_err[name] = max(max_err[name], err)
         ok = torch.equal(got, want)
         print(f"  {name} {label:40s} shape={tuple(got.shape)} "
-              f"max_abs_err={err:.3e} [bitwise] {'ok' if ok else 'MISMATCH'}")
+              f"max_abs_err={err:.3e} [bitwise, geometry ==] "
+              f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"{name} disagrees with its plain version on {label} "
                   f"(max_abs_err {err:.3e}, bitwise)")
         del got, want
@@ -661,17 +752,18 @@ def phase_quantizer(np, torch, dev, data):
         k2 = cuda_ms(torch, k_fn)
         p2 = cuda_ms(torch, p_fn)
         dev_ms = device_kernel_ms(torch, k_fn, f"{name}_kernel")
+        check(dev_ms is not None, f"torch.profiler recorded no device time "
+                                  f"for {name}_kernel")
         b_ms, b_by, nbytes, nops = quantize_bound(p, m, c, n)
         timings[label] = {"shape": {"P": p, "M": m, "C": c, "levels": n},
                           "ms": min(k1, k2), "plain_ms": min(p1, p2),
                           "device_ms": dev_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "bytes": nbytes, "ops": nops}
-        dev_txt = ("not measured" if dev_ms is None
-                   else f"{dev_ms * 1e3:.2f} us")
         print(f"  time {name} {label:18s}: kernel {k1 * 1e3:.2f}/"
               f"{k2 * 1e3:.2f} us per call (profiler device time "
-              f"{dev_txt}), plain {p1 * 1e3:.2f}/{p2 * 1e3:.2f} us, bound "
-              f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
+              f"{dev_ms * 1e3:.2f} us), plain {p1 * 1e3:.2f}/"
+              f"{p2 * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}, "
+              f"{nbytes} bytes)")
     return max_err, timings
 
 
@@ -2137,6 +2229,14 @@ def main() -> int:
                       f"stores {st} B, spill loads {ld} B")
             for line in warnings:
                 print(f"  ptxas {src}: {line}")
+            if src in ("adc_quantize", "qmlp_bank"):
+                # quantizer: 16-byte and word walks; banks: {MLP, SVM} x
+                # {padded, unpadded} weight rows
+                want = 2 if src == "adc_quantize" else 4
+                check(len(kernels) == want and all(
+                    st == 0 and ld == 0 for _, _, st, ld in kernels),
+                      f"the {src} instantiations spill or are missing: "
+                      f"{kernels}")
             if src == "mc_eval":
                 # {nominal, calibrated} x {2^N = 2, 4, 8, 16, 32 in
                 # registers, the shared-memory route}

@@ -69,10 +69,13 @@ def level_values(bits: int, vmin=0.0, vmax=1.0) -> torch.Tensor:
 
 def encode(x: torch.Tensor, bits: int, vmin=0.0, vmax=1.0) -> torch.Tensor:
     """Full (unpruned) ADC transfer function: analog -> int64 code.
-    Per-channel ranges apply along the trailing (channel) axis of x."""
+    Per-channel ranges apply along the trailing (channel) axis of x. A NaN
+    input has code 0, as in the reference, whose float-to-int conversion
+    (XLA's) turns NaN into 0; torch's cast leaves it undefined, so it is
+    made 0 before the cast. +-inf clamp to the end codes."""
     lo, scale = range_rows_tensors(bits, vmin, vmax, x.shape[-1], x.device)
-    code = torch.floor((x - lo) * scale)
-    return code.clamp(0, 2 ** bits - 1).to(torch.int64)
+    code = torch.floor((x - lo) * scale).clamp(0, 2 ** bits - 1)
+    return torch.nan_to_num(code, nan=0.0).to(torch.int64)
 
 
 def tree_lut(mask: torch.Tensor) -> torch.Tensor:

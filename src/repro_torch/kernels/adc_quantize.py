@@ -12,6 +12,10 @@ current stream, raises if the launch reports an error, and adds one to
 the count of the entry called (``launches["adc_quantize_population"]``
 or, for the P=1 call, ``launches["adc_quantize"]``). There is no
 fallback.
+
+The range rows a call needs are built once per (bits, vmin, vmax, C,
+device) and kept (``range_rows``): building them copies two host arrays
+to the card, and each copy waits for the stream.
 """
 from __future__ import annotations
 
@@ -46,7 +50,33 @@ def _lib() -> ctypes.CDLL:
     lib.adc_quantize_population.restype = i32
     lib.adcq_error_string.argtypes = [i32]
     lib.adcq_error_string.restype = ctypes.c_char_p
+    lib.adc_quantize_geometry.argtypes = [ctypes.c_longlong] + [i32] * 3 \
+        + [ptr]
+    lib.adc_quantize_geometry.restype = None
     return lib
+
+
+def geometry(p: int, m: int, c: int, n: int) -> Tuple[int, ...]:
+    """The launch geometry the built kernel takes for a call, in the
+    order of ``envelope.QuantizeGeometry``."""
+    got = (ctypes.c_longlong * 8)()
+    _lib().adc_quantize_geometry(m, c, n, p, got)
+    return tuple(got)
+
+
+@functools.lru_cache(maxsize=64)
+def _range_rows(bits: int, vmin, vmax, c: int, device: torch.device):
+    return range_rows_tensors(bits, vmin, vmax, c, device)
+
+
+def range_rows(spec: AdcSpec, c: int, device) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """The (C,) ``(vmin, scale)`` range rows of ``spec`` on ``device``,
+    equal to ``core.adc.range_rows_tensors``'s, built once per (bits,
+    vmin, vmax, C, device) and shared by every later call: callers must
+    not write to them."""
+    return _range_rows(spec.bits, spec.vmin, spec.vmax, c,
+                       torch.device(device))
 
 
 def _check(spec: AdcSpec, x: torch.Tensor, tables: torch.Tensor
@@ -72,8 +102,7 @@ def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
     if res.path == "plain":
         return ref.adc_quantize_ref_population(x, tables, spec.bits,
                                                spec.vmin, spec.vmax)
-    lo, scale = rows if rows is not None else range_rows_tensors(
-        spec.bits, spec.vmin, spec.vmax, c, x.device)
+    lo, scale = rows if rows is not None else range_rows(spec, c, x.device)
     for i, t in enumerate((x, tables, lo, scale)):
         if t.device != x.device:
             raise ValueError(f"{entry}: operand {i} is on {t.device}, x on "
@@ -106,7 +135,8 @@ def adc_quantize_population(
     """Shared x (M, C); tables (P, C, 2^N). Returns (P, M, C) float32:
     ``out[p, m, c] = tables[p, c, code(x[m, c])]``. ``rows`` are the (C,)
     ``(vmin, scale)`` range rows on x's device when the caller holds them
-    already; by default they are built from ``spec``."""
+    already; by default they are built from ``spec`` (once, see
+    ``range_rows``)."""
     return _run(ENTRY, x, tables, spec, rows)
 
 

@@ -5,13 +5,16 @@ flash-attention kernel.
 The reference's limits (``repro/kernels/envelope.py``: ``MAX_UNROLL_BITS``,
 ``MAX_CHANNELS``, ``VMEM_BUDGET_F32``) describe a TPU: how far a one-hot
 selection sum unrolls and what fits a VMEM tile. None of them binds the
-CUDA kernels, which gather from a table and stream one sample row per
-thread. What binds them on an H100 is that one block stages one design's
-resident operands in shared memory:
+CUDA kernels, which gather from tables in shared memory. What binds the
+bank kernels on an H100 is that a block stages at least one design's
+operands and its codes in shared memory; a shape is admitted where the
+first bank kernel's footprint fits,
 
     table (F, 2^N) + W1 (F, H) + b1 (H) + W2 (H, O) + b2 (O) + 2 range rows (F)
 
-for an MLP design (SVM: table + W (F, O) + b (O) + 2 rows), all float32.
+for an MLP design (SVM: table + W (F, O) + b (O) + 2 rows), all float32,
+so that the envelope never narrows (the kernel needs the operands and F
+words of codes a row).
 A block may use at most 227 KB (232,448 bytes) of shared memory; above
 48 KB only as dynamic shared memory after
 ``cudaFuncAttributeMaxDynamicSharedMemorySize`` is raised (the launcher
@@ -19,10 +22,19 @@ in csrc/qmlp_bank.cu does so). The design axis is the grid's y dimension,
 at most 65,535. Hidden and output widths of any size run in register
 chunks, and M is bounded only by 64-bit offsets.
 
-The population quantizer (csrc/adc_quantize.cu) stages one individual's
-table (C, 2^N) and the two range rows (C) in shared memory, under the same
-227 KB limit (above 48 KB its launcher raises the attribute too); the
-population axis is the grid's y dimension, at most 65,535.
+The bank kernels' launch (``bank_geometry``; ``qmlp_bank_geometry`` in
+the built library returns the same): a block takes R sample rows and a
+group of G designs, and stages the group's operands (weight rows padded to
+16 bytes) and the R x F codes; one design at the limit runs unpadded with
+R cut to what is left, so every shape ``smem_bytes`` admits still runs.
+
+The population quantizer (csrc/adc_quantize.cu) stages the tables of a
+group of G individuals (one where a table needs more than 48 KB) and the
+two range rows (C) in shared memory, under the same 227 KB limit (above
+48 KB its launcher raises the attribute too); the group axis is the
+grid's y dimension, at most 65,535 (P itself is held to that).
+``quantize_geometry`` gives its launch (``adc_quantize_geometry`` in the
+built library returns the same).
 
 The Monte-Carlo kernel (csrc/mc_eval.cu) stages, per (design,
 instance), its leaves (C, 2^N) in shared memory as keys, widths and
@@ -102,9 +114,161 @@ def outside_envelope(kind: str, f: int, n: int, h: int, o: int,
     return None
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(v: int) -> int:
+    return _ceil(v, 4) * 4
+
+
+BANK_THREADS = 256                # threads per bank block
+BANK_ROWS_PER_THREAD = 4          # rows a thread carries (padded layout)
+BANK_MAX_ROWS = 256               # rows a bank block takes at most
+BANK_CODE_WORDS = 8192            # codes of a block's x tile, R > 4
+BANK_GROUP_BYTES = 65536          # a group's design operands, G > 1
+BANK_MAX_GROUP = 16               # designs a bank block serves
+BANK_O_CHUNK = 4                  # logits in registers at once
+BANK_WARP_RUN = 32 * BANK_ROWS_PER_THREAD * BANK_O_CHUNK   # staged logits
+BANK_MIN_BLOCKS = 132             # one block an SM of an H100
+MAX_GRID_X = 2 ** 31 - 1          # gridDim.x
+
+
+class BankGeometry(NamedTuple):
+    """The bank kernels' launch (csrc/qmlp_bank.cu, ``geometry_of``):
+    block (x, y) takes tiles x, x + grid_x, ... of ``rows`` sample rows
+    and designs y * group .. y * group + group - 1; all ``threads`` load
+    and stage, and thread t < (rows / per_thread) * lanes takes rows
+    per_thread * (t % (rows / per_thread)) + 0 .. per_thread - 1 and
+    design lane t // (rows / per_thread), its designs lane, lane + lanes,
+    ... of the group. ``padded``: weight rows padded to 16 bytes (and
+    ``per_thread`` 4); unpadded only where that would not fit (one row a
+    thread). ``staged``: each warp (32 consecutive units of one design)
+    writes its logits through a run in shared memory (O <= 4)."""
+    threads: int
+    rows: int
+    per_thread: int
+    lanes: int
+    group: int
+    groups: int
+    tiles: int
+    grid_x: int
+    grid_y: int
+    padded: int
+    staged: int
+    smem_bytes: int
+
+
+def bank_operand_words(kind: str, pad: bool, g: int, f: int, n: int, h: int,
+                       o: int) -> int:
+    """float32 words of g designs' staged operands, one region each;
+    padded: weight rows and regions rounded up to 4 words."""
+    region = _round4 if pad else (lambda w: w)
+    op = _round4(o) if pad else o
+    if kind == "svm":
+        return region(g * f * n) + region(g * f * op) + region(g * o)
+    if kind != "mlp":
+        raise ValueError(f"unknown classifier kind {kind!r}")
+    hp = _round4(h) if pad else h
+    return (region(g * f * n) + region(g * f * hp) + region(g * h)
+            + region(g * h * op) + region(g * o))
+
+
+def bank_geometry(kind: str, d: int, m: int, f: int, n: int, h: int,
+                  o: int) -> BankGeometry:
+    """The launch of one bank call, M, D >= 1 (``h`` is ignored for an
+    SVM): G designs whose operands fit ``BANK_GROUP_BYTES`` (at most
+    ``BANK_MAX_GROUP``), the largest such G that still leaves
+    ``BANK_MIN_BLOCKS`` blocks of full tiles (``BANK_MAX_ROWS`` rows), 1
+    where none does, D split evenly; R rows, a multiple of 4, so that
+    the tiles times the groups give ``BANK_MIN_BLOCKS`` wherever M allows
+    (at most ``BANK_MAX_ROWS`` and ``BANK_CODE_WORDS // F``); L = min(G,
+    threads / (R / 4)) design lanes. One design at the limit: unpadded,
+    one row a thread, R cut to the shared memory left."""
+    h = h if kind == "mlp" else 0
+    fit = BANK_GROUP_BYTES // (4 * bank_operand_words(kind, True, 1, f, n,
+                                                      h, o))
+    fit = min(fit, BANK_MAX_GROUP, d)
+    full = max(1, m // BANK_MAX_ROWS)
+    while fit > 1 and _ceil(d, fit) * full < BANK_MIN_BLOCKS:
+        fit -= 1
+    fit = max(1, fit)
+    groups = _ceil(d, fit)
+    group = _ceil(d, groups)
+    by_fill = m * groups // BANK_MIN_BLOCKS
+    rpt = BANK_ROWS_PER_THREAD
+    rows = min(BANK_MAX_ROWS, BANK_CODE_WORDS // f, by_fill, _round4(m))
+    rows = max(rpt, rows // rpt * rpt)
+    pad = True
+    staged = o <= BANK_O_CHUNK and (rows // rpt) % 32 == 0
+    words = (bank_operand_words(kind, True, group, f, n, h, o) + rows * f
+             + (BANK_THREADS // 32 * BANK_WARP_RUN if staged else 0))
+    if 4 * words > SMEM_MAX_BYTES:
+        pad, rpt, staged = False, 1, False
+        one = bank_operand_words(kind, False, 1, f, n, h, o)
+        rows = max(1, min(BANK_MAX_ROWS, BANK_CODE_WORDS // f, by_fill, m,
+                          (SMEM_MAX_BYTES // 4 - one) // f))
+        words = one + rows * f
+    lanes = min(group, BANK_THREADS // (rows // rpt))
+    tiles = _ceil(m, rows)
+    return BankGeometry(BANK_THREADS, rows, rpt, lanes, group, groups, tiles,
+                        min(tiles, MAX_GRID_X), groups, int(pad), int(staged),
+                        4 * words)
+
+
+Q_THREADS = 256                   # threads per quantizer block
+Q_CHUNKS = 4                      # chunks of 4 elements a thread carries
+Q_SPAN_MAX = Q_THREADS * 4 * Q_CHUNKS   # elements of x a block takes
+Q_SPAN_FULL = Q_THREADS * 4       # a span of one chunk a thread
+Q_GROUP_BYTES = 49152             # a group's tables, G > 1
+Q_MAX_GROUP = 32                  # individuals a quantizer block serves
+Q_MIN_BLOCKS = 264                # two blocks an SM of an H100
+
+
+class QuantizeGeometry(NamedTuple):
+    """The population quantizer's launch (csrc/adc_quantize.cu,
+    ``geometry_of``): x is one flat array of M*C elements; block (x, y)
+    takes spans x, x + grid_x, ... of ``span`` elements and individuals
+    y * group .. y * group + group - 1; thread t takes the chunks of 4
+    elements at 4 (t + k * threads), k < ``Q_CHUNKS``, of a span."""
+    threads: int
+    group: int
+    groups: int
+    span: int
+    spans: int
+    grid_x: int
+    grid_y: int
+    smem_bytes: int
+
+
+def quantize_geometry(p: int, m: int, c: int, n: int) -> QuantizeGeometry:
+    """The launch of one quantizer call, P, M >= 1: G tables fit
+    ``Q_GROUP_BYTES`` beside the range rows (at most ``Q_MAX_GROUP``),
+    the largest such G that still leaves ``Q_MIN_BLOCKS`` blocks of full
+    spans (``Q_SPAN_FULL`` elements), 1 where none does, P split evenly;
+    the flat x cut into spans, a multiple of 4 elements, at most
+    ``Q_SPAN_MAX``, and enough of them that the groups times the spans
+    give ``Q_MIN_BLOCKS`` wherever M*C allows."""
+    total = m * c
+    fit = min((Q_GROUP_BYTES - 8 * c) // (4 * c * n), Q_MAX_GROUP, p)
+    full = max(1, total // Q_SPAN_FULL)
+    while fit > 1 and _ceil(p, fit) * full < Q_MIN_BLOCKS:
+        fit -= 1
+    fit = max(1, fit)
+    groups = _ceil(p, fit)
+    group = _ceil(p, groups)
+    spans = max(_ceil(total, Q_SPAN_MAX), _ceil(Q_MIN_BLOCKS, groups))
+    span = max(4, _ceil(total, spans) // 4 * 4)
+    spans = _ceil(total, span)
+    return QuantizeGeometry(Q_THREADS, group, groups, span, spans,
+                            min(spans, MAX_GRID_X), groups,
+                            4 * (group * c * n + 2 * c))
+
+
 def quantize_smem_bytes(c: int, n: int) -> int:
-    """Shared memory one quantizer block stages: the (C, 2^N) table and
-    the two (C,) range rows, float32."""
+    """Shared memory a quantizer block of one individual stages (G = 1,
+    the envelope's case): the (C, 2^N) table and the two (C,) range rows,
+    float32."""
     return 4 * (c * n + 2 * c)
 
 
@@ -124,7 +288,7 @@ MC_THREADS = 128                  # threads per Monte-Carlo block
 MC_BATCH = 8                      # rows a row lane carries at once
 MC_CHUNK_BYTES = 65536            # x bytes of a block's chunk of M
 MC_MIN_BLOCKS = 264               # two blocks an SM of an H100
-MC_MAX_GRID_X = 2 ** 31 - 1       # gridDim.x
+MC_MAX_GRID_X = MAX_GRID_X
 MC_REGISTER_LEAVES = (2, 4, 8, 16, 32)   # 2^N unrolled in registers
 
 

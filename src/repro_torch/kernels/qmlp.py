@@ -22,9 +22,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.adc import range_rows_tensors
 from repro_torch.core.spec import AdcSpec
 from repro_torch.kernels import _build, dispatch, ref
+from repro_torch.kernels.adc_quantize import range_rows
 
 # kernel launches since the last reset_launches(); only the launch sites
 # below add to them
@@ -49,7 +49,20 @@ def _lib() -> ctypes.CDLL:
     lib.qmlp_svm_bank.restype = i32
     lib.qmlp_error_string.argtypes = [i32]
     lib.qmlp_error_string.restype = ctypes.c_char_p
+    lib.qmlp_bank_geometry.argtypes = [i32, ctypes.c_longlong] + [i32] * 5 \
+        + [ptr]
+    lib.qmlp_bank_geometry.restype = None
     return lib
+
+
+def geometry(kind: str, d: int, m: int, f: int, n: int, h: int,
+             o: int) -> Tuple[int, ...]:
+    """The launch geometry the built kernel takes for a bank call, in the
+    order of ``envelope.BankGeometry`` (``h`` is ignored for an SVM)."""
+    got = (ctypes.c_longlong * 12)()
+    _lib().qmlp_bank_geometry(int(kind == "mlp"), m, f, n,
+                              h if kind == "mlp" else 0, o, d, got)
+    return tuple(got)
 
 
 def _check_shapes(kind: str, spec: AdcSpec, x, tables, weights
@@ -106,10 +119,7 @@ def _launch(entry: str, fn, x: torch.Tensor, operands: Sequence,
 
 def _rows(spec: AdcSpec, f: int, x: torch.Tensor, rows):
     spec.validate_channels(f)
-    if rows is None:
-        return range_rows_tensors(spec.bits, spec.vmin, spec.vmax, f,
-                                  x.device)
-    return rows
+    return range_rows(spec, f, x.device) if rows is None else rows
 
 
 def _mlp_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w1, b1, w2,

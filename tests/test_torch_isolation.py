@@ -1,8 +1,8 @@
-"""The port stands alone: src/repro_torch, chip_smoke.py and
-tools/flash_f32_ab.py import neither JAX nor the JAX package, entry points
-do not drift to the CPU when no card is present, and chip_smoke.py
-refuses to report without a card or outside a checkout (the A/B tool
-without a card)."""
+"""The port stands alone: src/repro_torch, chip_smoke.py and the A/B
+tools (tools/flash_f32_ab.py, mc_eval_ab.py, adc_bank_ab.py) import
+neither JAX nor the JAX package, entry points do not drift to the CPU when
+no card is present, and chip_smoke.py refuses to report without a card or
+outside a checkout (the A/B tools without a card)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,8 +22,9 @@ FRONT = REPO / "tests" / "fixtures" / "fronts" / "cardio_mlp"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "tools" / "flash_f32_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "flash_f32_ab.py",
+        REPO / "tools" / "mc_eval_ab.py", REPO / "tools" / "adc_bank_ab.py"]
 
 
 def _modules():
@@ -130,6 +131,20 @@ def test_flash_ab_tool_without_a_card_fails():
     assert out.returncode == 3
     assert "torch.cuda.is_available() is false" in out.stderr
     assert "TFLOP" not in out.stdout and "ms" not in out.stdout
+
+
+def test_adc_bank_ab_tool_without_a_card_fails():
+    """tools/adc_bank_ab.py measures on a card only: without one it exits
+    3 before building or printing a number."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(REPO / "tools" /
+                                              "adc_bank_ab.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ))
+    assert out.returncode == 3
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert "us" not in out.stdout and "{" not in out.stdout
 
 
 def test_search_entry_points_need_a_card_unless_asked_for_cpu(capsys):

@@ -71,6 +71,38 @@ def test_plain_quantizer_matches_pallas_interpret(bits, per_channel):
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
+def test_plain_quantizer_matches_reference_on_nan_and_inf(per_channel):
+    """NaN has code 0 and +-inf the end codes in the reference's oracle
+    (XLA casts NaN to 0); the port's plain quantizer and its codes agree,
+    bitwise, with x also on both sides of every code boundary."""
+    from repro.core import adc as jadc
+    from repro.kernels import ref as jref
+    from repro_torch.core import adc as tadc
+    rng = np.random.default_rng(5 + per_channel)
+    x, masks, vmin, vmax = _inputs(rng, 3, 40, 5, 3, per_channel)
+    spec = AdcSpec(bits=3, vmin=vmin, vmax=vmax)
+    lo, scale = tadc.range_rows(3, spec.vmin, spec.vmax, 5)
+    x[0], x[1], x[2] = np.nan, np.inf, -np.inf
+    x[3, :2] = np.nan
+    for k in range(8):                 # the floats around each boundary
+        edge = (lo[0] + np.float32(k) / scale[0]).astype(np.float32)
+        x[4 + 2 * k] = edge
+        x[5 + 2 * k] = np.nextafter(edge, np.float32(-np.inf))
+    tables = spec.value_table(torch.from_numpy(masks))
+    xt = torch.from_numpy(x)
+    want = np.asarray(jref.adc_quantize_ref_population(
+        jnp.asarray(x), jnp.asarray(tables.numpy()), 3, spec.vmin,
+        spec.vmax))
+    got = adc_quantize.adc_quantize_population(xt, tables, spec=spec)
+    np.testing.assert_array_equal(got.numpy(), want)
+    codes = tadc.encode(xt, 3, spec.vmin, spec.vmax)
+    assert codes[0].eq(0).all() and codes[1].eq(7).all()
+    np.testing.assert_array_equal(
+        codes.numpy(), np.asarray(jadc.encode(jnp.asarray(x), 3, spec.vmin,
+                                              spec.vmax)))
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
 def test_mask_entries_match_reference_ops(per_channel):
     """ops.adc_quantize{,_population} bake the tables from masks as the
     reference's ops do (the registry routes the reference side)."""
