@@ -109,7 +109,42 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    steps) per model, timed on the host clock around a synchronised call,
    then traced with torch.profiler: device time of the quantizer, of
    everything else, and the device's busy share.
-7. lm (the LM serving path): with every launch counter at 0,
+7. baseline (the paper's Table 5 "Baseline" column): with every launch
+   counter at 0 per model, full_adc_baseline for the MLP and the SVM at
+   the search path's config: the full ADC at dp = -3 through one
+   fixed-lane QAT chunk (2 quantizer launches), its accuracy equal to
+   evaluate_population_acc of the same genome bitwise, and the flash,
+   binary and proposed full areas equal to 21 x area.flash_full_tc(4),
+   baseline_binary_tc(4) and ours_full_tc(4); the Table 5 row printed.
+8. resume (search checkpoint/resume): with every launch counter at 0,
+   the MLP search (pop 16, 3 generations, 100 QAT steps) checkpointing
+   to a temporary directory, once whole and once killed after
+   generation 1 (the save hook raises) and resumed: the final
+   checkpoint (population, fitness, Generator state and, screened, the
+   surrogate's leaves) and the front must equal the uninterrupted run's
+   bitwise; then the same with screen_factor=2, whose front must
+   re-train (train_pareto_front) to its fitness bitwise. The quantizer
+   must have launched twice per QAT chunk of the phase.
+9. gradient (the gradient engine): with every launch counter at 0,
+   run_gradient_search for the MLP and the SVM, cut in depth from the
+   reference's grad_* defaults (64 lanes, 800 gate-train steps in 4
+   chunks, 2 polish rounds of at most 192 exact evaluations): the MLP to
+   32 lanes, the SVM to 16 lanes, 400 steps and one polish round (the
+   cuts printed), each -> export_front ->
+   verify_front_parity (True) -> save_front -> load_front -> serve
+   through the bank kernel, served accuracies equal to the exported ones
+   and the front re-training to its fitness bitwise. The MLP's gate
+   train killed after chunk 1 (that chunk traced: device time,
+   operations, busy share) and resumed must give the uninterrupted
+   run's snapshot genomes bitwise, and the backward of its per-code
+   table lookup (the one-hot product) must be bitwise equal over five
+   runs (a plain gather's, a scatter of float atomics, is printed
+   beside it). Printed with the card: gate-train seconds
+   per step, pool size and exact evaluations, re-score, polish and total
+   seconds, launches of the quantizer and the banks. The quantizer must
+   have launched twice per QAT chunk (counted around
+   search._train_and_score), and each bank at least once.
+10. lm (the LM serving path): with every launch counter at 0,
    repro_torch.launch.serve.main serves musicgen-medium at its full
    published config (48 layers, d_model 1536, 24 heads, dh 64; random
    seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
@@ -134,7 +169,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route; launches summed over the serve, search, robust,
-lm and lm_f32 paths, each counted from 0), and, last, the
+baseline, resume, gradient, lm and lm_f32 paths, each counted from 0),
+then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
 that does not hold the port.
@@ -213,6 +249,12 @@ FLASH_DEVICE_NAMES = {"flash_attention_tc": "flash_attention_tc_kernel",
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 # the robust path: the same shape with 32 Monte-Carlo instances
 ROBUST = dict(SEARCH, mc_samples=32)
+# the gradient path's cuts of depth (the reference's grad_* defaults: 64
+# lanes, 800 gate-train steps in 4 chunks, 2 polish rounds of at most 192
+# exact evaluations), to keep the phase near 90 s on a host-bound card
+GRADIENT_CUTS = {"mlp": dict(grad_points=32),
+                 "svm": dict(grad_points=16, grad_train_steps=400,
+                             grad_polish_rounds=1)}
 ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
                  seed=0)
 # the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
@@ -1606,6 +1648,385 @@ def phase_generation(np, torch, dev, card, data):
     return out
 
 
+
+@contextlib.contextmanager
+def qat_chunks(search):
+    """Counts the fixed-lane QAT chunks (``search._train_and_score``
+    calls, each one train and one test quantizer launch) run inside."""
+    orig = search._train_and_score
+    count = [0]
+
+    def counted(*args, **kw):
+        count[0] += 1
+        return orig(*args, **kw)
+
+    search._train_and_score = counted
+    try:
+        yield count
+    finally:
+        search._train_and_score = orig
+
+
+@contextlib.contextmanager
+def gradient_record(torch, search, grad_gates):
+    """Records, inside, what the gradient engine ran, from its own
+    returns: the gate train's ``diag`` and its end, and the genome count
+    and end of every exact evaluation (``search.evaluate_population``:
+    the pool's re-score first, then one call a polish round). Times are
+    seconds from entry, the card synchronized."""
+    rec = {"t0": time.perf_counter(), "diag": None, "gate_end": None,
+           "evals": []}
+    train, evaluate = (grad_gates.train_gate_family,
+                       search.evaluate_population)
+
+    def trained(*args, **kw):
+        snaps, diag = train(*args, **kw)
+        torch.cuda.synchronize()
+        rec["diag"], rec["gate_end"] = diag, time.perf_counter() - rec["t0"]
+        return snaps, diag
+
+    def evaluated(genomes, *args, **kw):
+        fit = evaluate(genomes, *args, **kw)
+        torch.cuda.synchronize()
+        rec["evals"].append((len(genomes), time.perf_counter() - rec["t0"]))
+        return fit
+
+    grad_gates.train_gate_family = trained
+    search.evaluate_population = evaluated
+    try:
+        yield rec
+    finally:
+        grad_gates.train_gate_family = train
+        search.evaluate_population = evaluate
+
+
+class Killed(RuntimeError):
+    pass
+
+
+def killing_save(ckpt, after_step: int):
+    """Make ``ckpt.save`` raise once it has saved ``after_step``: a run
+    killed there, with its checkpoint on disk."""
+    orig = ckpt.save
+
+    def save(step, tree):
+        orig(step, tree)
+        if step == after_step:
+            ckpt.save = orig
+            raise Killed()
+
+    ckpt.save = save
+
+
+def phase_baseline(np, torch, dev, card, data):
+    """The Table 5 baseline: the full ADC at dp = -3 with QAT, and the
+    three full-design areas, for the MLP and the SVM."""
+    from repro_torch.core import area, search
+    from repro_torch.data import tabular
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    c, bits = sizes[0], SEARCH["bits"]
+    print(f"phase baseline: full_adc_baseline (the paper's Table 5 "
+          f"'Baseline' column) on cuda, cardio sizes={sizes}, {SEARCH}")
+    out = {}
+    for kind in ("mlp", "svm"):
+        cfg = search.SearchConfig(model=kind, **SEARCH)
+        reset_all_launches()
+        with qat_chunks(search) as chunks:
+            t0 = time.perf_counter()
+            row = search.full_adc_baseline(data, sizes, cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = all_launches()
+        print(f"  Table 5 baseline {kind}: accuracy {row['accuracy']!r}, "
+              f"flash {row['area_flash_tc']} T, binary "
+              f"{row['area_binary_baseline_tc']} T, ours "
+              f"{row['area_binary_ours_tc']} T; {wall:.3f} s on {card}")
+        want = {"area_flash_tc": c * area.flash_full_tc(bits),
+                "area_binary_baseline_tc": c * area.baseline_binary_tc(bits),
+                "area_binary_ours_tc": c * area.ours_full_tc(bits)}
+        for key, value in want.items():
+            check(row[key] == value, f"{kind}: baseline {key} {row[key]} != "
+                                     f"{c} x its full-design area {value}")
+        genome = np.ones((1, search.genome_len(c, bits)), np.uint8)
+        genome[0, c * 2 ** bits:c * 2 ** bits + search.DP_BITS] = [1, 0, 1, 0]
+        acc = search.evaluate_population_acc(genome, data, sizes, cfg,
+                                             device=dev)
+        check(row["accuracy"] == 1.0 - float(np.float32(1.0) - acc[0]),
+              f"{kind}: baseline accuracy {row['accuracy']!r} is not "
+              f"evaluate_population_acc's {acc[0]!r} of the same genome")
+        check(launches["adc_quantize_population"] == 2 * chunks[0] == 2,
+              f"{kind}: adc_quantize_population launched "
+              f"{launches['adc_quantize_population']} times for "
+              f"{chunks[0]} QAT chunk(s), expected 2")
+        out[kind] = dict(row, wall_s=wall, launches=launches)
+    return out
+
+
+def phase_resume(np, torch, dev, card, data):
+    """A search killed after generation 1 and resumed equals the
+    uninterrupted one bitwise, plain and surrogate-screened."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import search
+    from repro_torch.data import tabular
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    print(f"phase resume: run_search(ckpt=...) killed after generation 1 "
+          f"and resumed, against the uninterrupted run, on cuda, MLP, "
+          f"{SEARCH}")
+    out = {}
+    reset_all_launches()
+    with qat_chunks(search) as chunks, \
+            tempfile.TemporaryDirectory() as tmp:
+        for screen in (1, 2):
+            cfg = dataclasses.replace(
+                search.SearchConfig(model="mlp", **SEARCH),
+                screen_factor=screen)
+            name = "screened" if screen > 1 else "plain"
+            whole = CheckpointManager(Path(tmp) / f"{name}_whole", keep=2)
+            t0 = time.perf_counter()
+            pg, pf, _ = search.run_search(data, sizes, cfg, ckpt=whole,
+                                          device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            parted = CheckpointManager(Path(tmp) / f"{name}_parted", keep=2)
+            killing_save(parted, 1)
+            try:
+                search.run_search(data, sizes, cfg, ckpt=parted, device=dev)
+                check(False, f"{name}: the killed run was not killed")
+            except Killed:
+                pass
+            check(parted.latest_step() == 1,
+                  f"{name}: the killed run left step "
+                  f"{parted.latest_step()}, expected 1")
+            rg, rf, _ = search.run_search(data, sizes, cfg, ckpt=parted,
+                                          resume=True, device=dev)
+            last = SEARCH["generations"]
+            a, b = whole.restore_flat(last), parted.restore_flat(last)
+            check(sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in a),
+                  f"{name}: the resumed run's final state (population, "
+                  f"fitness, Generator, surrogate) differs from the "
+                  f"uninterrupted run's")
+            check(np.array_equal(rg, pg) and np.array_equal(rf, pf),
+                  f"{name}: the resumed front differs from the "
+                  f"uninterrupted one")
+            row = {"wall_s": wall, "front": len(pf),
+                   "state_leaves": len(a)}
+            if screen > 1:
+                accs = search.train_pareto_front(pg, data, sizes, cfg,
+                                                 device=dev)[0]
+                refit = (1.0 - accs.astype(np.float32)).astype(np.float64)
+                check(np.array_equal(refit, pf[:, 0]),
+                      f"screened: the front re-trains to {accs}, not its "
+                      f"fitness {1 - pf[:, 0]}")
+            print(f"  {name}: {len(pf)} front points; killed after "
+                  f"generation 1, resumed to {last}: population, fitness, "
+                  f"Generator and {len(a) - 4} surrogate leaves equal "
+                  f"bitwise; uninterrupted run {wall:.2f} s on {card}")
+            out[name] = row
+        launches = all_launches()
+    check(launches["adc_quantize_population"] == 2 * chunks[0],
+          f"resume: adc_quantize_population launched "
+          f"{launches['adc_quantize_population']} times for {chunks[0]} "
+          f"QAT chunks")
+    print(f"  resume: {chunks[0]} QAT chunks, launch counters {launches}")
+    out["launches"] = launches
+    out["qat_chunks"] = chunks[0]
+    return out
+
+
+def phase_gradient(np, torch, dev, card, data):
+    """The gradient engine: gate train -> exact re-score -> polish ->
+    front -> export -> verify -> save -> load -> serve, for the MLP and
+    (cut) the SVM; the MLP's gate train killed after chunk 1 and resumed;
+    one chunk traced."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import deploy, grad_gates, search
+    from repro_torch.data import tabular
+    from repro_torch.launch.serve_classifier import (make_request_stream,
+                                                     serve)
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    requests = make_request_stream(data["x_test"], 256, 8)
+    print(f"phase gradient: run_gradient_search -> export_front -> "
+          f"verify_front_parity -> save_front -> load_front -> serve on "
+          f"cuda, cardio sizes={sizes}, {SEARCH}")
+    for kind, cut in GRADIENT_CUTS.items():
+        print(f"  cut: the {kind.upper()} runs with {cut} (the reference's "
+              f"defaults: 64 lanes, 800 gate-train steps in 4 chunks, 2 "
+              f"polish rounds of at most 192 exact evaluations)")
+    out = {}
+    reset_all_launches()
+    with qat_chunks(search) as chunks, tempfile.TemporaryDirectory() as tmp:
+        for kind in ("mlp", "svm"):
+            cfg = search.SearchConfig(model=kind, engine="gradient",
+                                      **SEARCH, **GRADIENT_CUTS[kind])
+            ckpt = CheckpointManager(Path(tmp) / f"{kind}_gate", keep=2)
+            first = chunks[0]
+            with gradient_record(torch, search, grad_gates) as rec:
+                pg, pf, _, trained = search.run_gradient_search(
+                    data, sizes, cfg, ckpt=ckpt, return_trained=True,
+                    progress=lambda msg: print(f"  {kind}: {msg}",
+                                               flush=True), device=dev)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - rec["t0"]
+            designs = deploy.export_front(pg, data, sizes, cfg,
+                                          trained=trained, device=dev)
+            parity = deploy.verify_front_parity(designs, pg, data, sizes,
+                                                cfg, device=dev)
+            with tempfile.TemporaryDirectory() as fdir:
+                deploy.save_front(fdir, designs, extra_meta={
+                    "dataset": DATASET, "sizes": list(sizes)})
+                loaded = deploy.load_front(fdir)
+            rep = serve(loaded, requests, 1024, device=dev)
+            served = deploy.served_accuracies(loaded, data["x_test"],
+                                              data["y_test"], device=dev)
+            exported = np.array([d.accuracy for d in designs])
+            check(parity, f"gradient {kind}: verify_front_parity is False")
+            refit = (1.0 - trained[0].astype(np.float32)).astype(np.float64)
+            check(np.array_equal(refit, pf[:, 0]),
+                  f"gradient {kind}: the front re-trains to {trained[0]}, "
+                  f"not its fitness {1 - pf[:, 0]}")
+            check(np.array_equal(served, exported),
+                  f"gradient {kind}: served accuracies {served} != "
+                  f"exported {exported}")
+            diag, gate_s = rec["diag"], rec["gate_end"]
+            (pool, t_rescore), polish_runs = rec["evals"][0], rec["evals"][1:]
+            polish = [n for n, _ in polish_runs]
+            row = {"lanes": diag["lanes"], "gate_steps": diag["steps"],
+                   "gate_chunks": diag["chunks"],
+                   "gate_train_s": gate_s,
+                   "gate_s_per_step": gate_s / diag["steps"],
+                   "pool": pool, "polish_evals": polish,
+                   "exact_evals": pool + sum(polish),
+                   "rescore_s": t_rescore - gate_s,
+                   "polish_s": (polish_runs[-1][1] - t_rescore
+                                if polish else 0.0),
+                   "total_s": total, "front": len(pf),
+                   "qat_chunks": chunks[0] - first,
+                   "served": served.tolist()}
+            for i, d in enumerate(designs):
+                print(f"  gradient {kind} design {i}: area={d.area_tc}T "
+                      f"dp={int(d.dp)} exported={d.accuracy!r} "
+                      f"served={float(served[i])!r}")
+            print(f"  gradient {kind}: {row['lanes']} lanes, "
+                  f"{row['gate_steps']} gate-train steps "
+                  f"{row['gate_s_per_step'] * 1e3:.2f} ms/step "
+                  f"({row['gate_train_s']:.2f} s); pool {pool} genomes, "
+                  f"{row['exact_evals']} exact evaluations in "
+                  f"{row['qat_chunks']} QAT chunks; re-score "
+                  f"{row['rescore_s']:.2f} s, polish {row['polish_s']:.2f} "
+                  f"s, total {total:.2f} s; verify_front_parity={parity} "
+                  f"on {card}")
+            if kind == "mlp":
+                row.update(gate_resume_traced(np, torch, card, data, sizes,
+                                              cfg, diag, ckpt,
+                                              Path(tmp) / "mlp_parted", dev))
+                row["gate_backward_bitwise"] = gate_backward_repeats(
+                    torch, dev, data, sizes, cfg, diag["lanes"])
+            out[kind] = row
+        launches = all_launches()
+    check(launches["adc_quantize_population"] == 2 * chunks[0],
+          f"gradient: adc_quantize_population launched "
+          f"{launches['adc_quantize_population']} times for {chunks[0]} "
+          f"QAT chunks (2 per chunk)")
+    for kind in ("mlp", "svm"):
+        check(launches[f"qmlp_{kind}_bank"] > 0,
+              f"gradient: qmlp_{kind}_bank never launched")
+    print(f"  gradient: {chunks[0]} QAT chunks; launches of row 2 "
+          f"(adc_quantize_population) {launches['adc_quantize_population']}"
+          f", of the banks {launches['qmlp_mlp_bank']} / "
+          f"{launches['qmlp_svm_bank']} on {card}")
+    out["launches"] = launches
+    out["qat_chunks"] = chunks[0]
+    return out
+
+
+def gate_backward_repeats(torch, dev, data, sizes, cfg, lanes, runs=5):
+    """The gate train's backward (``grad_gates.lane_losses``, its table
+    lookup a one-hot product: tools/lookup_backward_ab.py holds it
+    against a gather) taken ``runs`` times on the same inputs from the
+    seeded start: the gradients must be bitwise the same every time, or
+    a resumed gate train could not repeat the uninterrupted one."""
+    from repro_torch.core import grad_gates
+    state = grad_gates.init_lanes(sizes, cfg, lanes, dev)
+    onehot, target, values = grad_gates.train_inputs(data, sizes, cfg, dev)
+    lams = torch.from_numpy(grad_gates.lambda_sweep(cfg, lanes)).to(dev)
+    tau = grad_gates.tau_schedule(cfg, 2)[0].to(dev)
+    trained = state.leaves()[1:]                # dp gets no gradient
+    for t in trained:
+        t.requires_grad_(True)
+
+    def grads():
+        loss = grad_gates.lane_losses(state, lams, tau, onehot, target,
+                                      values, cfg).sum()
+        return torch.autograd.grad(loss, trained)
+
+    first = grads()
+    same = all(all(torch.equal(a, b) for a, b in zip(first, grads()))
+               for _ in range(runs - 1))
+    check(same, "the gate train's backward differs between runs on the "
+                "same inputs")
+    print(f"  gradient mlp: the gate train's backward, {runs} runs on the "
+          f"same inputs: bitwise equal {same}")
+    return same
+
+
+def gate_resume_traced(np, torch, card, data, sizes, cfg, diag, whole,
+                       directory, dev):
+    """The gate train killed after chunk 1 (its first chunk traced with
+    torch.profiler: device time and operations, the device's busy share
+    of the chunk's wall time) and resumed: its snapshot genomes must be
+    the uninterrupted run's (``whole``'s last step) bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import grad_gates
+    snaps = whole.restore_flat(whole.latest_step())["snap_genomes"]
+    parted = CheckpointManager(directory, keep=2)
+    killing_save(parted, 1)
+    lanes = diag["lanes"]
+    steps = int(grad_gates._chunk_bounds(diag["steps"], diag["chunks"])[1])
+    # device activity only: a host trace of the chunk's ~0.5 M operator
+    # events costs more to record and to reduce than the chunk itself
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        try:
+            grad_gates.train_gate_family(data, sizes, cfg, lanes=lanes,
+                                         ckpt=parted, device=dev)
+            check(False, "the killed gate train was not killed")
+        except Killed:
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    again, _ = grad_gates.train_gate_family(data, sizes, cfg, lanes=lanes,
+                                            ckpt=parted, resume=True,
+                                            device=dev)
+    check(np.array_equal(again, snaps),
+          "the gate train resumed after chunk 1 gives other snapshot "
+          "genomes than the uninterrupted one")
+    print(f"  gradient mlp: gate train killed after chunk 1 and resumed: "
+          f"{len(again)} snapshot genomes equal bitwise")
+    dev_us, ops = 0.0, 0
+    for ev in prof.events():
+        if "DeviceType.CUDA" in str(getattr(ev, "device_type", "")):
+            dev_us += ev.time_range.elapsed_us()
+            ops += 1
+    check(dev_us > 0, "torch.profiler recorded no device time for the "
+                      "gate-train chunk")
+    busy = dev_us / 1e6 / wall
+    print(f"  gradient mlp: the killed run's one chunk of {steps} steps, "
+          f"traced: wall {wall:.3f} s ({wall / steps * 1e3:.2f} ms/step, "
+          f"with the operands' set-up and the save), device "
+          f"{dev_us / 1e3:.2f} ms over {ops} device operations "
+          f"({ops / steps:.0f} a step), device busy {busy * 100:.1f} % on "
+          f"{card}")
+    return {"traced_steps": steps, "traced_wall_s": wall,
+            "traced_device_ms": dev_us / 1e3, "traced_device_ops": ops,
+            "device_busy_share": busy}
+
+
 def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     """(bound_ms, bound_by, bytes, flops, floors) of one attention call,
     the largest of three times: q, k, v and positions read once and the
@@ -2283,6 +2704,18 @@ def main() -> int:
         search_out = phase_search(np, torch, dev, card, data)
         robust_out = phase_robust(np, torch, dev, card, data, search_out)
         gen_out = phase_generation(np, torch, dev, card, data)
+        marks = [time.perf_counter()]
+        baseline_out = phase_baseline(np, torch, dev, card, data)
+        marks.append(time.perf_counter())
+        resume_out = phase_resume(np, torch, dev, card, data)
+        marks.append(time.perf_counter())
+        gradient_out = phase_gradient(np, torch, dev, card, data)
+        marks.append(time.perf_counter())
+        phase_s = dict(zip(("baseline", "resume", "gradient"),
+                           np.diff(marks).tolist()))
+        print(f"phases baseline / resume / gradient: "
+              f"{' / '.join(f'{v:.2f}' for v in phase_s.values())} s, "
+              f"{marks[-1] - marks[0]:.2f} s in all on {card}")
         lm_out = phase_lm(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
@@ -2290,14 +2723,17 @@ def main() -> int:
                       or m == "repro" or m.startswith("repro."))
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
-        # launches on each path, both models: serve, search, robust; lm
+        # launches on each path, both models: serve, search, robust,
+        # baseline, resume, gradient; lm
+        both = lambda res: {n: sum(res[k]["launches"][n]  # noqa: E731
+                                   for k in ("mlp", "svm"))
+                            for n in KERNELS}
         by_path = {"serve": serve_launches,
-                   "search": {n: sum(search_out[k]["launches"][n]
-                                     for k in ("mlp", "svm"))
-                              for n in KERNELS},
-                   "robust": {n: sum(robust_out[k]["launches"][n]
-                                     for k in ("mlp", "svm"))
-                              for n in KERNELS},
+                   "search": both(search_out),
+                   "robust": both(robust_out),
+                   "baseline": both(baseline_out),
+                   "resume": resume_out["launches"],
+                   "gradient": gradient_out["launches"],
                    "lm": lm_out["launches"],
                    "lm_f32": lm_out["launches_f32"]}
         main_timing = {
@@ -2349,6 +2785,14 @@ def main() -> int:
                                   if kk != "launches"}
                               for k, v in robust_out.items()},
                    "generation_defaults": gen_out,
+                   "baseline": {k: {kk: vv for kk, vv in v.items()
+                                    if kk != "launches"}
+                                for k, v in baseline_out.items()},
+                   "resume": {k: v for k, v in resume_out.items()
+                              if k != "launches"},
+                   "gradient": {k: v for k, v in gradient_out.items()
+                                if k != "launches"},
+                   "phase_s": phase_s,
                    "lm": {k: v for k, v in lm_out.items()
                           if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}

@@ -6,6 +6,8 @@
     spec = api.AdcSpec(bits=4)
     front = api.search(spec, data, sizes=(21, 5, 3), pop_size=16,
                        generations=8)           # NSGA-II x batched QAT
+    front = api.search_gradient(spec, data, sizes=(21, 5, 3),
+                                pop_size=16)    # one gate train + re-score
     bank = api.deploy(front)                     # frozen classifiers
     logits = api.serve(bank, x)                  # fused bank kernel
     api.save_front("front_dir", bank)
@@ -59,6 +61,7 @@ __all__ = [
     "robustness_curve",
     "save_front",
     "search",
+    "search_gradient",
     "serve",
 ]
 
@@ -128,15 +131,18 @@ def search(spec: AdcSpec, data: Dict, sizes: Optional[Sequence[int]] = None,
            *, model: str = "mlp", pop_size: int = 32, generations: int = 16,
            train_steps: int = 300, engine: str = "batched", seed: int = 0,
            weight_bits: int = 8, hidden: int = 4, log=None,
-           device: DeviceLike = None, **cfg_kw) -> Front:
+           ckpt=None, resume: bool = False, device: DeviceLike = None,
+           **cfg_kw) -> Front:
     """Run the paper's in-training ADC optimization around ``spec``.
 
     data: dict with x_train/y_train/x_test/y_test (data.tabular layout).
     sizes: (features, hidden, classes); inferred from the data (with
     ``hidden`` hidden units) when omitted. Remaining kwargs mirror
-    core/search.SearchConfig; ``engine`` picks batched | reference.
-    Returns a ``Front`` carrying the Pareto genomes, their fitness, and
-    the trained parameter stacks ``deploy`` reuses."""
+    core/search.SearchConfig; ``engine`` picks batched | reference |
+    gradient, ``ckpt``/``resume`` checkpoint the search and restart it
+    (``checkpoint.manager.CheckpointManager``). Returns a ``Front``
+    carrying the Pareto genomes, their fitness, and the trained
+    parameter stacks ``deploy`` reuses."""
     dev = resolve_device(device)
     if sizes is None:
         features = int(np.asarray(data["x_train"]).shape[-1])
@@ -150,11 +156,33 @@ def search(spec: AdcSpec, data: Dict, sizes: Optional[Sequence[int]] = None,
                                 seed=seed, weight_bits=weight_bits,
                                 **cfg_kw)
     pg, pf, _, trained = _search.run_search(data, sizes, cfg, log=log,
+                                            ckpt=ckpt, resume=resume,
                                             return_trained=True, device=dev)
     return Front(spec=spec, config=cfg, sizes=sizes,
                  genomes=np.asarray(pg, np.uint8),
                  fitness=np.asarray(pf, np.float64), trained=trained,
                  device=str(dev))
+
+
+def search_gradient(spec: AdcSpec, data: Dict,
+                    sizes: Optional[Sequence[int]] = None, *,
+                    model: str = "mlp", pop_size: int = 32,
+                    train_steps: int = 300, seed: int = 0,
+                    weight_bits: int = 8, hidden: int = 4, log=None,
+                    ckpt=None, resume: bool = False,
+                    device: DeviceLike = None, **cfg_kw) -> Front:
+    """The gradient engine behind the same ``Front`` contract as
+    ``search``: one gate train over ``4 * pop_size`` lanes (override
+    with ``grad_points=...``) with a log-spaced area-weight sweep, its
+    snapshots snapped to genomes and re-scored through the exact fitness
+    path, then surrogate-screened polish; the returned front re-trains
+    to its fitness bit for bit. ``ckpt``/``resume`` checkpoint the gate
+    train's chunks."""
+    return search(spec, data, sizes, model=model, pop_size=pop_size,
+                  generations=0, train_steps=train_steps,
+                  engine="gradient", seed=seed, weight_bits=weight_bits,
+                  hidden=hidden, log=log, ckpt=ckpt, resume=resume,
+                  device=device, **cfg_kw)
 
 
 def deploy(front: Front, data: Optional[Dict] = None) -> Bank:

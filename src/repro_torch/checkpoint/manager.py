@@ -7,7 +7,13 @@ either package loads in the other:
   ``design_000__w1.npy``), plus ``metadata.json`` whose ``leaves`` map
   lists every leaf with its shape and dtype;
 * a save writes ``step_<N>.tmp`` and renames it into place, so a crash
-  mid-save never leaves a half-written step.
+  mid-save never leaves a half-written step;
+* keep-N retention: after each save only the ``keep`` newest steps stay,
+  and ``latest_step`` names the one a restart resumes from.
+
+Saves are synchronous: a search state is a few KB, so the reference's
+background writer thread would buy nothing, and the rename has landed
+when ``save`` returns.
 
 Non-array state rides as a uint8 leaf of packed JSON (``pack_json``).
 """
@@ -18,7 +24,7 @@ import os
 import shutil
 import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -51,9 +57,10 @@ def _leaf_file(directory: Path, key: str) -> Path:
 
 
 class CheckpointManager:
-    def __init__(self, directory):
+    def __init__(self, directory, keep: int = 3):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
 
     def save(self, step: int, tree: Dict) -> None:
         """Write ``tree`` (a nested dict of arrays) as step ``step``,
@@ -73,6 +80,29 @@ class CheckpointManager:
         if final.exists():
             shutil.rmtree(final)
         os.replace(tmp, final)
+        self._gc()
+
+    def _gc(self) -> None:
+        """Delete all but the ``keep`` newest steps."""
+        steps = self.all_steps()
+        for s in steps[: max(len(steps) - self.keep, 0)]:
+            shutil.rmtree(self.dir / f"step_{s}", ignore_errors=True)
+
+    def all_steps(self) -> List[int]:
+        """Committed steps in ascending order (``.tmp`` leftovers of an
+        interrupted save are not steps)."""
+        out = []
+        for p in self.dir.glob("step_*"):
+            if p.is_dir() and not p.name.endswith(".tmp"):
+                try:
+                    out.append(int(p.name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
 
     def restore_flat(self, step: int) -> Dict[str, np.ndarray]:
         """Every leaf saved at ``step`` as a numpy array, keyed by its

@@ -188,6 +188,15 @@ def adc_quantize(x: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
     return xq
 
 
+def init_full_mask(bits: int, channels: Optional[int] = None
+                   ) -> torch.Tensor:
+    """The unpruned mask: every level kept, (2^bits,) or (C, 2^bits)
+    int32."""
+    n = 2 ** bits
+    shape = (n,) if channels is None else (channels, n)
+    return torch.ones(shape, dtype=torch.int32)
+
+
 def add_levels(mask: torch.Tensor, extra) -> torch.Tensor:
     """Turn on ``extra`` more kept levels along the trailing axis, lowest
     pruned index first. ``extra`` broadcasts against ``mask.shape[:-1]``;

@@ -17,8 +17,7 @@ fitness, completed-generation counter, RNG) plus a pure-ish transition
 (``evolve_step``), so a caller can checkpoint after every generation and
 resume a killed run bit-identically: the restored Generator replays the
 exact random stream the uninterrupted run would have drawn
-(the reference's core/search.run_search wires this through its
-checkpoint manager; the port's search checkpoint is a later slice).
+(core/search.run_search wires this through checkpoint/manager.py).
 """
 from __future__ import annotations
 

@@ -44,13 +44,25 @@ same draws from the spec and scores through the same forward
 (``models.mlp.accuracy``), so a deployed report reproduces the searched
 third column bit for bit.
 
+Search state checkpoints through checkpoint/manager.py: genomes, fitness
+matrix, the numpy Generator's state, the generation counter and, for a
+screened search, the surrogate's leaves, in the reference's format, so a
+killed search resumes bit-identically (``run_search(..., ckpt=...,
+resume=True)``) and either package restores the other's steps.
+
+``screen_factor > 1`` oversamples each generation's offspring and lets
+the online surrogate (core/surrogate.py) pick which ``pop_size`` pay the
+exact evaluation. ``engine='gradient'`` (``run_gradient_search``) trains
+a family of gated designs in one run (core/grad_gates.py) and re-scores
+its snapped genomes through the exact path. ``full_adc_baseline`` gives
+the paper's Table 5 "Baseline" column.
+
 Genome layout per individual (C input channels, N-bit ADC):
   [ C * 2^N mask bits | 4 bits decimal-point position (dp in [-8, 7])
     | fault-tolerance genes, with a FaultTolSpec ]
 
 Not in this slice, each refused with the ROADMAP item that ports it: the
-gradient engine and surrogate screening (A7), the streaming co-search
-(A8), the sharded engine (A9), and search checkpoint/resume.
+streaming co-search (A8) and the sharded engine (A9).
 """
 from __future__ import annotations
 
@@ -60,8 +72,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import adc, area, nsga2
+from repro_torch.checkpoint import manager
+from repro_torch.core import adc, area, grad_gates, nsga2
 from repro_torch.core import nonideal as nonideal_lib
+from repro_torch.core import surrogate as surrogate_lib
 from repro_torch.core.nonideal import NonIdealSpec
 from repro_torch.core.spec import AdcSpec, Range, normalize_range
 from repro_torch.device import DeviceLike, resolve_device
@@ -78,13 +92,8 @@ DP_BITS = 4
 _LATER = {
     "sharded": "the sharded engine (multi-GPU population split) is not "
                "ported yet: ROADMAP A9",
-    "gradient": "the gradient engine is not ported yet: ROADMAP A7",
-    "screen": "surrogate-screened NSGA-II (screen_factor > 1) is not "
-              "ported yet: ROADMAP A7",
     "frontend": "the streaming front-end co-search (frontend) is not "
                 "ported yet: ROADMAP A8",
-    "ckpt": "search checkpoint/resume is not ported yet (ROADMAP A3, "
-            "left out of the search slice)",
 }
 
 
@@ -101,10 +110,37 @@ class SearchConfig:
     mode: str = "tree"            # circuit-faithful pruned-ADC semantics
     design: str = "ours"          # area model used in the fitness
     model: str = "mlp"            # 'mlp' | 'svm'
-    engine: str = "batched"       # 'batched' | 'reference'
+    engine: str = "batched"       # 'batched' | 'reference' | 'gradient'
     # exact-duplicate genome dedup before QAT (identical individuals in a
     # generation share one lane; fitness bit-identical either way)
     dedup: bool = True
+    # surrogate-screened NSGA-II: > 1 oversamples each generation's
+    # offspring by this factor and keeps the pop_size candidates a tiny
+    # online-trained fitness predictor ranks best; 1 leaves the
+    # evolutionary stream as it is
+    screen_factor: int = 1
+    surrogate_steps: int = 64     # predictor train steps per observation
+    surrogate_hidden: int = 32
+    # gradient engine: lane count (0 -> 4 * pop_size), the log-spaced
+    # area-weight sweep across lanes, the gate temperature anneal, the
+    # soft value table's sharpness, and the per-chunk snapshot count
+    # (also the checkpoint granularity)
+    grad_points: int = 0
+    grad_train_steps: int = 0     # gate-train budget; 0 -> 8 * train_steps
+    grad_lambda_lo: float = 3e-2
+    grad_lambda_hi: float = 10.0
+    grad_tau0: float = 4.0
+    grad_tau1: float = 0.25
+    grad_beta: float = 2.0
+    grad_snapshots: int = 4
+    # surrogate-screened exact polish after the re-score: each round
+    # flips every single gene of the elite (Pareto set plus the
+    # grad_polish_beam most accurate rows), the surrogate ranks the
+    # unseen neighbours (accuracy predicted, area exact), and the best
+    # grad_polish_evals go through the exact evaluation
+    grad_polish_rounds: int = 2
+    grad_polish_beam: int = 4
+    grad_polish_evals: int = 192
     # analog range: scalar or per-channel tuple
     vmin: Range = 0.0
     vmax: Range = 1.0
@@ -119,22 +155,26 @@ class SearchConfig:
     # fault-tolerant search: redundancy/repair genes, routed through the
     # calibrated-table MC entry; needs the robustness objective
     faulttol: Optional[FaultTolSpec] = None
-    # reference options of later slices: only their defaults are taken
-    screen_factor: int = 1
+    # the reference's option of a later slice: only its default is taken
     frontend: Optional[object] = None
 
     def __post_init__(self):
         object.__setattr__(self, "vmin", normalize_range(self.vmin))
         object.__setattr__(self, "vmax", normalize_range(self.vmax))
-        if self.engine in ("sharded", "gradient"):
+        if self.engine == "sharded":
             raise NotImplementedError(_LATER[self.engine])
-        if self.engine not in ("batched", "reference"):
+        if self.engine not in ("batched", "reference", "gradient"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.screen_factor < 1:
             raise ValueError(f"screen_factor must be >= 1, got "
                              f"{self.screen_factor}")
-        if self.screen_factor > 1:
-            raise NotImplementedError(_LATER["screen"])
+        if self.grad_lambda_lo <= 0 or self.grad_lambda_hi <= 0:
+            raise ValueError("grad_lambda_lo/hi must be > 0 (log-spaced "
+                             "sweep)")
+        if self.grad_polish_rounds < 0 or self.grad_polish_beam < 1 \
+                or self.grad_polish_evals < 1:
+            raise ValueError("grad_polish_rounds must be >= 0 and "
+                             "grad_polish_beam/evals >= 1")
         nonideal_lib.robust_objective_name(self.robust_objective)
         if self.mc_samples < 0:
             raise ValueError(f"mc_samples must be >= 0, got "
@@ -552,7 +592,10 @@ def _eval_dedup(genomes: np.ndarray, cfg: SearchConfig, core) -> Dict:
     ``core`` maps a (B, G) uint8 batch to a dict of (B, ...) arrays.
     Duplicates share one QAT lane and the results scatter back through
     the inverse index. Bit-identical to evaluating the full population,
-    because every lane is a pure function of its own genome."""
+    because every lane is a pure function of its own genome. The unique
+    set is not padded to the reference's power-of-two bucket
+    (``_dedup_bucket``, which bounds its recompiles): ``_fixed_lanes``
+    already runs every batch at the one lane count ``cfg.pop_size``."""
     genomes = np.asarray(genomes, np.uint8)
     if not cfg.dedup or len(genomes) <= 1:
         return core(genomes)
@@ -578,6 +621,16 @@ def evaluate_population(genomes: np.ndarray, data: Dict, sizes,
     out = _eval_dedup(genomes, cfg, lambda g: _fixed_lanes(
         g, data, sizes, cfg, init_params, draws=draws))
     return _fitness(genomes, out, sizes[0], cfg)
+
+
+def evaluate_population_acc(genomes: np.ndarray, data: Dict, sizes,
+                            cfg: SearchConfig, *,
+                            device: DeviceLike = None,
+                            init_params=None) -> np.ndarray:
+    """(P, G) genomes -> (P,) float32 test accuracies, each genome's own
+    QAT lane at the fixed lane count (``_fixed_lanes``), no dedup."""
+    data = _as_device_data(data, device)
+    return _fixed_lanes(genomes, data, sizes, cfg, init_params)["acc"]
 
 
 def _eval_one(genome, data: Dict, sizes, cfg: SearchConfig,
@@ -639,12 +692,84 @@ def make_eval_fn(data: Dict, sizes, cfg: SearchConfig, *,
     consumes, dispatched on ``cfg.engine``. The dataset, and the MC draw
     block of a robustness config, move to the device once here, not once
     per generation."""
+    if cfg.engine == "gradient":
+        raise ValueError("the gradient engine is not a per-generation "
+                         "eval_fn: run it through run_search / "
+                         "run_gradient_search")
     dev_data = _as_device_data(data, device)
     draws = search_draws(cfg, sizes[0], dev_data["x_test"].device)
     fn = (evaluate_population_reference if cfg.engine == "reference"
           else evaluate_population)
     return lambda pop: fn(pop, dev_data, sizes, cfg,
                           init_params=init_params, draws=draws)
+
+
+# --------------------------------------------------- search-state checkpoint
+def search_state_tree(state: nsga2.EvolveState,
+                      surrogate_state=None) -> Dict[str, np.ndarray]:
+    """EvolveState -> the flat tree the checkpoint manager persists, in
+    the reference's keys and dtypes: genomes (uint8), the fitness matrix
+    (float64), the numpy Generator's bit_generator state (JSON packed to
+    uint8: PCG64's words exceed int64) and the completed-generation
+    counter (int64). A screened search adds the surrogate's leaves as
+    ``surrogate_{i}``, so a resumed run screens with the same
+    predictor."""
+    tree = {
+        "genomes": np.asarray(state.pop, np.uint8),
+        "fitness": np.asarray(state.fit, np.float64),
+        "rng_state": manager.pack_json(state.rng.bit_generator.state),
+        "generation": np.asarray(state.generation, np.int64),
+    }
+    if surrogate_state is not None:
+        for i, leaf in enumerate(surrogate_lib.leaves(surrogate_state)):
+            tree[f"surrogate_{i}"] = leaf
+    return tree
+
+
+def restore_search_state(ckpt, step: int, pop_size: int, glen: int,
+                         n_obj: int = 2, surrogate_like=None):
+    """Inverse of ``search_state_tree``: the EvolveState saved at
+    ``step``, or with ``surrogate_like`` (a surrogate state on the
+    device the search runs on) ``(EvolveState, restored surrogate)``.
+    Refuses a checkpoint whose genomes or fitness do not fit the current
+    config (``n_obj`` is 3 for a robustness search)."""
+    tree = ckpt.restore_flat(step)
+    if tuple(tree["genomes"].shape) != (pop_size, glen):
+        raise ValueError(
+            f"checkpoint at step {step} holds genomes of shape "
+            f"{tree['genomes'].shape}, but the current config expects "
+            f"({pop_size}, {glen}): resuming with changed --pop/--bits/"
+            f"dataset would silently corrupt the search")
+    if tuple(tree["fitness"].shape) != (pop_size, n_obj):
+        raise ValueError(
+            f"checkpoint at step {step} holds a fitness of shape "
+            f"{tree['fitness'].shape}, but the current config expects "
+            f"({pop_size}, {n_obj})")
+    rng = np.random.default_rng()
+    rng.bit_generator.state = manager.unpack_json(tree["rng_state"])
+    state = nsga2.EvolveState(np.asarray(tree["genomes"], np.uint8),
+                              np.asarray(tree["fitness"], np.float64),
+                              int(tree["generation"]), rng)
+    if surrogate_like is None:
+        return state
+    count = len(surrogate_lib.leaves(surrogate_like))
+    missing = [i for i in range(count) if f"surrogate_{i}" not in tree]
+    if missing:
+        raise ValueError(f"checkpoint at step {step} holds no surrogate "
+                         f"state: it was not written by a screened "
+                         f"search (screen_factor > 1)")
+    restored = surrogate_lib.state_from_numpy(
+        [tree[f"surrogate_{i}"] for i in range(count)],
+        surrogate_like.device)
+    return state, restored
+
+
+def _decoder(channels: int, cfg: SearchConfig):
+    """genome -> its decode (mask, dp[, tmr, spares, cal])."""
+    if cfg.faulttol is not None:
+        return lambda gg: decode_genome_faulttol(
+            gg, channels, cfg.bits, cfg.min_levels, cfg.faulttol)
+    return lambda gg: decode_genome(gg, channels, cfg.bits, cfg.min_levels)
 
 
 def run_search(data: Dict, sizes, cfg: SearchConfig,
@@ -660,27 +785,199 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
     (accs, params, masks, dps), which ``core/deploy.export_front``
     consumes.
 
+    ``ckpt`` (a ``checkpoint.manager.CheckpointManager``) saves the
+    search state after the initial evaluation and after every
+    generation; with ``resume=True`` the latest step restarts the run,
+    and a killed-and-resumed search equals an uninterrupted one bit for
+    bit.
+
+    ``cfg.engine == 'gradient'`` routes to ``run_gradient_search`` (the
+    same return contract, no generations). ``cfg.screen_factor > 1``
+    turns on surrogate-screened offspring oversampling.
+
     ``init`` seeds the initial population ((pop_size, G) uint8) instead
-    of the random draw. ``ckpt``/``resume`` are refused: search
-    checkpointing is not ported yet."""
-    if ckpt is not None or resume:
-        raise NotImplementedError(_LATER["ckpt"])
+    of the random draw."""
+    if cfg.engine == "gradient":
+        return run_gradient_search(data, sizes, cfg, log=log, ckpt=ckpt,
+                                   resume=resume,
+                                   return_trained=return_trained,
+                                   device=device, init_params=init_params)
     c = sizes[0]
     cfg.adc_spec.validate_channels(c)
     dev_data = device_data(data, device)
     g = genome_len(c, cfg.bits, cfg.faulttol)
+    screened = cfg.screen_factor > 1
+    sur = [surrogate_lib.init(g, cfg.n_objectives,
+                              hidden=cfg.surrogate_hidden, seed=cfg.seed,
+                              device=dev_data["x_train"].device)
+           if screened else None]
+    state = None
+    if ckpt is not None and resume:
+        step = ckpt.latest_step()
+        if step is not None:
+            restored = restore_search_state(
+                ckpt, step, cfg.pop_size, g, n_obj=cfg.n_objectives,
+                surrogate_like=sur[0])
+            if screened:
+                state, sur[0] = restored
+            else:
+                state = restored
+    on_gen = None
+    if ckpt is not None:
+        on_gen = lambda st: ckpt.save(  # noqa: E731
+            st.generation, search_state_tree(st, sur[0]))
+    screen_fn = on_eval = None
+    if screened:
+        def on_eval(genomes, fitness):
+            sur[0] = surrogate_lib.observe(sur[0], genomes, fitness,
+                                           steps=cfg.surrogate_steps)
+
+        def screen_fn(cands):
+            return surrogate_lib.screen(sur[0], cands, cfg.pop_size)
     pop, fit = nsga2.evolve(
         make_eval_fn(dev_data, sizes, cfg, init_params=init_params), g,
         pop_size=cfg.pop_size, generations=cfg.generations, seed=cfg.seed,
-        init=init, log=log)
+        init=init, log=log, state=state, on_generation=on_gen,
+        offspring_factor=cfg.screen_factor, screen_fn=screen_fn,
+        on_evaluated=on_eval)
     pg, pf = nsga2.pareto_front(pop, fit)
-    if cfg.faulttol is not None:
-        decode = lambda gg: decode_genome_faulttol(  # noqa: E731
-            gg, c, cfg.bits, cfg.min_levels, cfg.faulttol)
-    else:
-        decode = lambda gg: decode_genome(gg, c, cfg.bits,  # noqa: E731
-                                          cfg.min_levels)
     if return_trained:
-        return pg, pf, decode, train_pareto_front(
+        return pg, pf, _decoder(c, cfg), train_pareto_front(
             pg, dev_data, sizes, cfg, init_params=init_params)
-    return pg, pf, decode
+    return pg, pf, _decoder(c, cfg)
+
+
+def _dp_code(dp: float) -> np.ndarray:
+    """The 4 dp genes (LSB first) of an integer decimal position."""
+    return (np.int64(int(dp) + 8) >> np.arange(DP_BITS)) & 1
+
+
+def run_gradient_search(data: Dict, sizes, cfg: SearchConfig,
+                        log: Optional[Callable] = None, ckpt=None,
+                        resume: bool = False, return_trained: bool = False,
+                        progress: Optional[Callable[[str], None]] = None, *,
+                        device: DeviceLike = None, init_params=None):
+    """The gradient engine on ``device`` (default ``cuda``): one gate
+    train (``grad_gates.train_gate_family``) sweeps an area-weight family
+    of lanes along the accuracy/area front and snapshots each lane's
+    snapped genome after every chunk; every snapshot is re-scored at
+    each ``grad_gates.DP_INIT_GRID`` decimal position, with two anchors
+    (the full design, and the full design at dp = -3), through the
+    exact fitness path (``evaluate_population``: ``_fixed_lanes``, chunks
+    of ``pop_size`` lanes). So the returned fitness keeps the
+    pure-function-of-genome contract: re-training any returned genome
+    reproduces it bit for bit. Then ``cfg.grad_polish_rounds`` rounds of
+    surrogate-screened polish: every one-gene flip of the elite (the
+    Pareto set plus the ``grad_polish_beam`` most accurate rows) that
+    was not evaluated yet is ranked by the online surrogate (accuracy
+    predicted, area exact) and the best ``grad_polish_evals`` pay an
+    exact evaluation. Same return shape as ``run_search``;
+    ``ckpt``/``resume`` checkpoint the gate train's chunks. With a
+    FaultTolSpec the redundancy genes start zeroed and the anchors stay
+    plain full-ADC designs; the exact polish flips them from there."""
+    c = sizes[0]
+    cfg.adc_spec.validate_channels(c)
+    ft = cfg.faulttol
+    g = genome_len(c, cfg.bits, ft)
+    dp_lo = c * 2 ** cfg.bits                       # the dp genes start here
+    dev_data = _as_device_data(data, device)
+    draws = search_draws(cfg, c, dev_data["x_test"].device)
+    evaluate = lambda genomes: evaluate_population(  # noqa: E731
+        genomes, dev_data, sizes, cfg, init_params=init_params, draws=draws)
+    # 4 lanes per requested front point: the λ sweep, the dp grid and the
+    # density strata each need room along their axis
+    lanes = cfg.grad_points if cfg.grad_points > 0 else 4 * cfg.pop_size
+    snaps, _ = grad_gates.train_gate_family(
+        dev_data, tuple(sizes), cfg, lanes=lanes, ckpt=ckpt, resume=resume,
+        progress=progress)
+    snaps = np.asarray(snaps, np.uint8)
+    if ft is not None:
+        snaps = np.concatenate(
+            [snaps, np.zeros((len(snaps), ft.gene_bits(c)), np.uint8)],
+            axis=1)
+    # the dp is combinatorial (the gate train does not move it), so each
+    # snapped mask re-scores at every grid dp
+    variants = []
+    for dpv in grad_gates.DP_INIT_GRID:
+        v = snaps.copy()
+        v[:, dp_lo:dp_lo + DP_BITS] = _dp_code(dpv)
+        variants.append(v)
+    anchors = np.ones((2, g), np.uint8)
+    anchors[1, dp_lo:dp_lo + DP_BITS] = _dp_code(-3)
+    if ft is not None:
+        anchors[:, dp_lo + DP_BITS:] = 0          # no redundancy overhead
+    pool = np.unique(np.concatenate(variants + [anchors]), axis=0)
+    fit = evaluate(pool)
+    if progress is not None:
+        progress(f"exact re-score: {len(pool)} unique genomes")
+    seen_g, seen_f = pool, fit
+    sur = None
+    if cfg.grad_polish_rounds > 0:
+        sur = surrogate_lib.init(g, cfg.n_objectives,
+                                 hidden=cfg.surrogate_hidden, seed=cfg.seed,
+                                 device=dev_data["x_train"].device)
+        sur = surrogate_lib.observe(sur, seen_g, seen_f,
+                                    steps=cfg.surrogate_steps)
+    # polish flips every gene but the dp's: dp stays on the re-scored grid
+    flip_pos = np.concatenate([np.arange(dp_lo),
+                               np.arange(dp_lo + DP_BITS, g)])
+    for rnd in range(cfg.grad_polish_rounds):
+        front_g, _ = nsga2.pareto_front(seen_g, seen_f)
+        elite = seen_g[np.argsort(seen_f[:, 0],
+                                  kind="stable")[:cfg.grad_polish_beam]]
+        beam = np.unique(np.concatenate([np.unique(front_g, axis=0),
+                                         elite]), axis=0)
+        flips = np.repeat(beam, len(flip_pos), axis=0)
+        j = np.tile(flip_pos, len(beam))
+        flips[np.arange(len(flips)), j] ^= 1
+        cand = np.unique(flips, axis=0)
+        # unseen neighbours only: every exact evaluation is spent once
+        comb = np.concatenate([seen_g, cand])
+        _, first = np.unique(comb, axis=0, return_index=True)
+        cand = comb[np.sort(first[first >= len(seen_g)])]
+        if not len(cand):
+            break
+        if len(cand) > cfg.grad_polish_evals:
+            keep = surrogate_lib.screen(
+                sur, cand, cfg.grad_polish_evals,
+                override_cols={1: population_areas(cand, c, cfg)})
+            cand = cand[np.sort(np.asarray(keep))]
+        cfit = evaluate(cand)
+        if progress is not None:
+            progress(f"polish round {rnd + 1}/{cfg.grad_polish_rounds}: "
+                     f"{len(cand)} exact evals")
+        seen_g = np.concatenate([seen_g, cand])
+        seen_f = np.concatenate([seen_f, cfit])
+        sur = surrogate_lib.observe(sur, cand, cfit,
+                                    steps=cfg.surrogate_steps)
+    if log is not None:
+        log(0, seen_g, seen_f)
+    pg, pf = nsga2.pareto_front(seen_g, seen_f)
+    if return_trained:
+        return pg, pf, _decoder(c, cfg), train_pareto_front(
+            pg, dev_data, sizes, cfg, init_params=init_params)
+    return pg, pf, _decoder(c, cfg)
+
+
+def full_adc_baseline(data: Dict, sizes, cfg: SearchConfig, *,
+                      device: DeviceLike = None,
+                      init_params=None) -> Dict[str, float]:
+    """The paper's Table 5 "Baseline" column: the full (unpruned) ADC at
+    dp = -3 with QAT, through the exact fitness path (FaultTolSpec genes
+    zeroed: no redundancy), plus the three full-design areas in
+    transistors (flash, the binary baseline and the proposed design)."""
+    c = sizes[0]
+    g = genome_len(c, cfg.bits, cfg.faulttol)
+    dp_lo = c * 2 ** cfg.bits
+    genome = np.ones((1, g), np.uint8)
+    genome[0, dp_lo:dp_lo + DP_BITS] = _dp_code(-3)
+    if cfg.faulttol is not None:
+        genome[0, dp_lo + DP_BITS:] = 0
+    fit = evaluate_population(genome, data, sizes, cfg, device=device,
+                              init_params=init_params)
+    return {
+        "accuracy": 1.0 - float(fit[0, 0]),
+        "area_flash_tc": area.flash_full_tc(cfg.bits) * c,
+        "area_binary_baseline_tc": area.baseline_binary_tc(cfg.bits) * c,
+        "area_binary_ours_tc": area.ours_full_tc(cfg.bits) * c,
+    }

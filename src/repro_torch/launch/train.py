@@ -24,26 +24,32 @@ stream) adds the Monte-Carlo robustness objective
 ``--export-front`` the robustness report of the exported front is
 written next to it as ``robustness.json`` (yield at ``--yield-margins``).
 
-The reference's LM training (``--arch``), the sharded and gradient
-engines, ``--screen-factor`` and ``--resume`` belong to later slices;
-they are accepted here only to fail with the ROADMAP item that ports
-them.
+``--engine gradient`` trains one family of gated designs and re-scores
+its snapped genomes exactly (one timing line, no generations);
+``--screen-factor K`` (K > 1) oversamples each generation's offspring K
+times and lets the online surrogate pick which are evaluated.
+
+The search state is saved after every generation (the gradient engine:
+after every gate-train chunk) under <ckpt-dir>/adc_search, keeping the
+two newest steps; ``--resume`` restarts a killed run from the latest one,
+bit-identically. A run without ``--resume`` deletes that directory
+first, so a stale step cannot hijack a later resume.
+
+The reference's LM training (``--arch``) belongs to a later slice; it is
+accepted here only to fail with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
-_LATER = {
-    "arch": "--arch (LM training, ROADMAP A11)",
-    "screen": "--screen-factor (surrogate screening, ROADMAP A7)",
-    "resume": "--resume (search checkpoint/resume, ROADMAP A3)",
-}
+_LATER = {"arch": "--arch (LM training, ROADMAP A11)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,14 +76,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--generations", type=int, default=4)
     ap.add_argument("--train-steps", type=int, default=100)
     ap.add_argument("--engine", default="batched",
-                    choices=("batched", "reference"))
+                    choices=("batched", "reference", "gradient"),
+                    help="'gradient': one gate-logit train sweeps the "
+                         "accuracy/area family, then re-scores through "
+                         "the exact batched path")
+    ap.add_argument("--screen-factor", type=int, default=1,
+                    help="surrogate-screened NSGA-II: oversample "
+                         "offspring by this factor and let the online "
+                         "fitness predictor pick which pay the exact QAT "
+                         "evaluation (1 = off)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart the search from its latest checkpoint "
+                         "under <ckpt-dir>/adc_search (bit-identical "
+                         "continuation)")
     ap.add_argument("--model", default="mlp", choices=("mlp", "svm"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"),
-                    help="--export-front writes the front to "
-                         "<ckpt-dir>/front")
+                    help="search checkpoints go to "
+                         "<ckpt-dir>/adc_search, --export-front writes "
+                         "the front to <ckpt-dir>/front")
     ap.add_argument("--export-front", action="store_true",
                     help="freeze the Pareto front into deployable "
                          "classifiers (baked value tables + po2 weights + "
@@ -116,10 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-spares", type=int, default=2,
                     help="per-channel spare-level gene range of "
                          "--faulttol (0 disables the spare action)")
-    # reference options of later slices: accepted only to be refused
+    # the reference's option of a later slice: accepted only to be refused
     ap.add_argument("--arch")
-    ap.add_argument("--screen-factor", type=int, default=1)
-    ap.add_argument("--resume", action="store_true")
     return ap
 
 
@@ -190,16 +207,21 @@ def adc_search_config(args, channels: int, data=None):
     cfg = search.SearchConfig.for_spec(
         adc_spec, pop_size=args.pop, generations=args.generations,
         train_steps=args.train_steps, engine=args.engine, model=args.model,
-        seed=args.seed, nonideal=ni, mc_samples=args.mc_samples if ni else 0,
+        seed=args.seed, screen_factor=args.screen_factor, nonideal=ni,
+        mc_samples=args.mc_samples if ni else 0,
         robust_objective=args.robust_objective,
         yield_margin=args.yield_margin, faulttol=ft)
     return adc_spec, cfg
 
 
 def run_adc_search(args) -> np.ndarray:
-    """Drive the batched (or reference) search on the chosen device, one
-    population evaluation per generation, timed through the evolve log
-    hook. Returns the Pareto fitness."""
+    """Drive the search on the chosen device: one population evaluation
+    per generation, timed through the evolve log hook (the gradient
+    engine: one gate train and its exact re-score, timed whole). The
+    search state is saved after every generation under
+    <ckpt-dir>/adc_search; ``--resume`` restarts from the latest step.
+    Returns the Pareto fitness."""
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import area, search
     from repro_torch.data import tabular
     from repro_torch.device import resolve_device
@@ -209,6 +231,14 @@ def run_adc_search(args) -> np.ndarray:
     data = tabular.make_dataset(args.dataset)
     sizes = (spec.features, spec.hidden, spec.classes)
     adc_spec, cfg = adc_search_config(args, spec.features, data=data)
+    ckpt_dir = Path(args.ckpt_dir) / "adc_search"
+    if not args.resume and ckpt_dir.exists():
+        # a fresh start: a stale higher-numbered step would outlive this
+        # run's in the keep-N retention and hijack a later --resume
+        shutil.rmtree(ckpt_dir)
+    ckpt = CheckpointManager(ckpt_dir, keep=2)
+    if args.resume and ckpt.latest_step() is not None:
+        print(f"resuming from step {ckpt.latest_step()} ({ckpt.dir})")
     print(f"adc-search[repro_torch {cfg.engine} {cfg.model}] "
           f"dataset={args.dataset} adc=({adc_spec.describe()}) "
           f"pop={cfg.pop_size} gens={cfg.generations} "
@@ -222,6 +252,9 @@ def run_adc_search(args) -> np.ndarray:
     if cfg.faulttol is not None:
         print(f"  fault-tolerance genome: {cfg.faulttol.describe()} "
               f"(+{cfg.faulttol.gene_bits(sizes[0])} genes)")
+    if cfg.screen_factor > 1:
+        print(f"  surrogate screening: {cfg.screen_factor}x offspring, "
+              f"{cfg.pop_size} evaluated per generation")
     marks = [time.perf_counter()]
 
     def log(g, pop, fit):
@@ -234,11 +267,19 @@ def run_adc_search(args) -> np.ndarray:
               f"best-acc {1 - fit[:, 0].min():.3f}  "
               f"min-area {fit[:, 1].min():.3f}{extra}", flush=True)
 
-    out = search.run_search(data, sizes, cfg, log=log,
+    out = search.run_search(data, sizes, cfg, log=log, ckpt=ckpt,
+                            resume=args.resume,
                             return_trained=args.export_front, device=dev)
     pg, pf = out[0], out[1]
     gen_s = [b - a for a, b in zip(marks[:-1], marks[1:])]
-    if gen_s:
+    if cfg.engine == "gradient":
+        # one gate train and one exact re-score (and polish), no
+        # generations
+        total = marks[-1] - marks[0]
+        print(f"pareto points: {len(pf)}; gate family + exact re-score "
+              f"in {total:.2f}s ({cfg.pop_size / total:.1f} "
+              f"individuals/s incl. the kernel build)")
+    elif gen_s:
         # the first interval also holds the initial population's
         # evaluation and the kernel build; steady state is the tail
         steady = gen_s[1:] or gen_s
@@ -291,12 +332,9 @@ def run_adc_search(args) -> np.ndarray:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    asked = {"arch": args.arch is not None,
-             "screen": args.screen_factor > 1, "resume": args.resume}
-    for key, on in asked.items():
-        if on:
-            ap.error(f"{_LATER[key]} is not yet ported to repro_torch; use "
-                     f"the JAX package (python -m repro.launch.train)")
+    if args.arch is not None:
+        ap.error(f"{_LATER['arch']} is not yet ported to repro_torch; use "
+                 f"the JAX package (python -m repro.launch.train)")
     if not args.adc_search:
         ap.error("repro_torch.launch.train runs only --adc-search (LM "
                  "training is ROADMAP A11)")

@@ -144,12 +144,13 @@ def test_flags_and_defaults_are_the_reference():
             (ja.default, ja.help, type(ja)), flag
 
 
-def test_cli_auto_range_search_on_cpu(capsys):
+def test_cli_auto_range_search_on_cpu(tmp_path, capsys):
     """--auto-range on cardio: the search runs on the data-derived
     21-channel spec, not the scalar [0, 1]."""
     pf = ttrain.main(["--adc-search", "--dataset", "cardio", "--auto-range",
                       "--bits", "2", "--pop", "3", "--generations", "1",
-                      "--train-steps", "4", "--device", "cpu"])
+                      "--train-steps", "4", "--device", "cpu",
+                      "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "2-bit tree ADC, 21-channel ranges" in out
     assert pf.ndim == 2 and pf.shape[1] == 2

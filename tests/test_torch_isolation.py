@@ -1,5 +1,6 @@
 """The port stands alone: src/repro_torch, chip_smoke.py and the A/B
-tools (tools/flash_f32_ab.py, mc_eval_ab.py, adc_bank_ab.py) import
+tools (tools/flash_f32_ab.py, mc_eval_ab.py, adc_bank_ab.py,
+lookup_backward_ab.py) import
 neither JAX nor the JAX package, entry points do not drift to the CPU when
 no card is present, and chip_smoke.py refuses to report without a card or
 outside a checkout (the A/B tools without a card)."""
@@ -24,7 +25,8 @@ FRONT = REPO / "tests" / "fixtures" / "fronts" / "cardio_mlp"
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "flash_f32_ab.py",
-        REPO / "tools" / "mc_eval_ab.py", REPO / "tools" / "adc_bank_ab.py"]
+        REPO / "tools" / "mc_eval_ab.py", REPO / "tools" / "adc_bank_ab.py",
+        REPO / "tools" / "lookup_backward_ab.py"]
 
 
 def _modules():
@@ -145,6 +147,76 @@ def test_adc_bank_ab_tool_without_a_card_fails():
     assert out.returncode == 3
     assert "torch.cuda.is_available() is false" in out.stderr
     assert "us" not in out.stdout and "{" not in out.stdout
+
+
+def test_lookup_backward_tool_without_a_card_fails():
+    """tools/lookup_backward_ab.py measures on a card only: without one it
+    exits 3 before printing a number."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(REPO / "tools" /
+                                              "lookup_backward_ab.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ))
+    assert out.returncode == 3
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert "ms" not in out.stdout and "{" not in out.stdout
+
+
+def _gradient_slice_calls():
+    """The gradient slice's entry points and state helpers, each called
+    with no device."""
+    from repro_torch import api
+    from repro_torch.core import grad_gates, search
+    from repro_torch.core import surrogate
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.data import tabular
+    data = tabular.make_dataset("seeds")
+    sizes = (7, 3, 3)
+    cfg = search.SearchConfig(bits=2, pop_size=2, generations=0,
+                              train_steps=1, engine="gradient",
+                              grad_train_steps=2, grad_polish_rounds=0)
+    leaves = surrogate.leaves(surrogate.init(10, 2, device="cpu"))
+    lanes = grad_gates.init_lanes(sizes, cfg, 2, "cpu")
+    bundle = {"dp": lanes.dp.numpy(), "logits": lanes.logits.numpy(),
+              "params": [tuple(t.numpy() for t in layer)
+                         for layer in lanes.params]}
+    zeros = {k: (np.zeros_like(v) if k != "params" else
+                 [tuple(np.zeros_like(t) for t in layer) for layer in v])
+             for k, v in bundle.items()}
+    return {
+        "surrogate.init": lambda: surrogate.init(10, 2),
+        "surrogate.state_from_numpy":
+            lambda: surrogate.state_from_numpy(leaves),
+        "grad_gates.init_lanes":
+            lambda: grad_gates.init_lanes(sizes, cfg, 2),
+        "grad_gates.lanes_from_numpy": lambda: grad_gates.lanes_from_numpy(
+            bundle, (np.zeros(2, np.int32), zeros, zeros)),
+        "grad_gates.train_gate_family":
+            lambda: grad_gates.train_gate_family(data, sizes, cfg, lanes=2),
+        "search.run_gradient_search":
+            lambda: search.run_gradient_search(data, sizes, cfg),
+        "search.full_adc_baseline":
+            lambda: search.full_adc_baseline(data, sizes, cfg),
+        "api.search_gradient": lambda: api.search_gradient(
+            AdcSpec(bits=2), data, sizes, pop_size=2, train_steps=1,
+            grad_train_steps=2, grad_polish_rounds=0)}
+
+
+@pytest.mark.parametrize("name", [
+    "surrogate.init", "surrogate.state_from_numpy", "grad_gates.init_lanes",
+    "grad_gates.lanes_from_numpy", "grad_gates.train_gate_family",
+    "search.run_gradient_search", "search.full_adc_baseline",
+    "api.search_gradient"])
+def test_gradient_slice_defaults_to_the_card(name):
+    """The gradient slice's entry points and its state helpers resolve
+    ``device=None`` to cuda like the rest of the port: without a card
+    each raises 'no CUDA device' and none puts its state on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    call = _gradient_slice_calls()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_search_entry_points_need_a_card_unless_asked_for_cpu(capsys):

@@ -292,13 +292,12 @@ def test_cli_search_export_and_serve_on_cpu(tmp_path, capsys):
     ttrain.main(["--adc-search", "--dataset", "seeds", "--bits", "2",
                  "--pop", "3", "--generations", "1", "--train-steps", "4",
                  "--engine", "reference", "--model", "svm",
-                 "--device", "cpu"])
+                 "--device", "cpu", "--ckpt-dir", str(tmp_path / "svm")])
     assert "reference svm" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--arch", "gemma2-2b"], "A11"), (["--screen-factor", "2"], "A7"),
-    (["--resume"], "A3"), ([], "--adc-search")])
+    (["--arch", "gemma2-2b"], "A11"), ([], "--adc-search")])
 def test_cli_refuses_later_slices(argv, item, capsys):
     base = ["--adc-search"] if argv else []
     with pytest.raises(SystemExit) as exc:
@@ -308,8 +307,7 @@ def test_cli_refuses_later_slices(argv, item, capsys):
 
 
 @pytest.mark.parametrize("field, item", [
-    (dict(engine="sharded"), "A9"), (dict(engine="gradient"), "A7"),
-    (dict(screen_factor=2), "A7"), (dict(frontend=object()), "A8")])
+    (dict(engine="sharded"), "A9"), (dict(frontend=object()), "A8")])
 def test_config_refuses_later_slices(field, item):
     with pytest.raises(NotImplementedError, match=item):
         tsearch.SearchConfig(**field)
@@ -326,9 +324,3 @@ def test_config_checks_and_checkpoint_refused(seeds):
     assert cfg.vmin == (0.0,) * 7 and cfg.adc_spec.channels == 7
     assert tsearch.SearchConfig.for_spec(AdcSpec(bits=2), pop_size=3
                                          ).adc_spec == AdcSpec(bits=2)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tsearch.run_search(seeds, SIZES, tsearch.SearchConfig(),
-                           ckpt=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tsearch.run_search(seeds, SIZES, tsearch.SearchConfig(),
-                           resume=True, device="cpu")
