@@ -144,7 +144,40 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    seconds, launches of the quantizer and the banks. The quantizer must
    have launched twice per QAT chunk (counted around
    search._train_and_score), and each bank at least once.
-10. lm (the LM serving path): with every launch counter at 0,
+10. cosearch (the streaming co-design path): with every launch counter
+   at 0, at the reference benchmark's configuration (cosearch_stream:
+   bits 3, hidden 4, pop 16, 4 generations, 60 QAT steps, seed 0),
+   nothing cut: the MLP on the stress stream (FeatureSpec(4, 32): 495 /
+   225 windows, 16 feature channels) and the SVM on the vitals stream
+   (FeatureSpec(6, 24): 24 feature channels, a window that is no power
+   of two). Each: build_search_inputs (featurize on the card, the
+   per-channel AdcSpec auto-ranged over the variant stack), the ADC-only
+   search on variant 0, embed_adc_only, the co-search seeded with it;
+   the embedded front must re-score to its ADC-only accuracies bitwise
+   and the co-search front must ε-dominate the union front (1e-9);
+   export_front -> verify_front_parity (True) -> served accuracies on
+   raw test windows equal to the exported ones bitwise -> design 0
+   alone (the D=1 entry) -> save_front / load_front (the FeatureSpec
+   and the served accuracies kept) -> raw windows through the batch
+   driver in 1024-window microbatches. The same for the stress MLP at
+   the benchmark's --smoke configuration (150 / 80 windows, 2 bits, pop
+   8, 2 generations, 30 steps; row 2 at 2^N=4; its 0.9375 is the
+   majority share of its test cut, not learning). Then the gradient
+   engine with a frontend on the stress MLP and on the vitals SVM, cut
+   to 32 lanes (printed): export, verify, serve; the vitals SVM learns,
+   so its best accuracy must beat the test split's majority share. The
+   quantizer must have launched twice per QAT chunk and rows 3-6 at
+   least once. After the path: featurize on the card equal to the
+   CPU's at every factor, row 2 bitwise against its plain version at
+   every co-search shape the path gave it (each (stream, spec, windows,
+   pop_size): the whole (V*M, C) stack of each split; timed at the
+   train stack beside its bound), rows 3-6 against theirs on every
+   exported front per
+   subsample group, bitwise. Printed with the card: seconds
+   per generation of the baseline and the co-search, the gradient
+   engine's seconds to a front, windows/s of raw-window serving and
+   featurize's share of it, row 2's device time, the launches.
+11. lm (the LM serving path): with every launch counter at 0,
    repro_torch.launch.serve.main serves musicgen-medium at its full
    published config (48 layers, d_model 1536, 24 heads, dh 64; random
    seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
@@ -169,7 +202,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route; launches summed over the serve, search, robust,
-baseline, resume, gradient, lm and lm_f32 paths, each counted from 0),
+baseline, resume, gradient, cosearch, lm and lm_f32 paths, each counted
+from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -255,6 +289,31 @@ ROBUST = dict(SEARCH, mc_samples=32)
 GRADIENT_CUTS = {"mlp": dict(grad_points=32),
                  "svm": dict(grad_points=16, grad_train_steps=400,
                              grad_polish_rounds=1)}
+# the co-search path: the reference benchmark's configuration
+# (benchmarks/run.py, cosearch_stream without --smoke), nothing cut; the
+# MLP on the stress stream, the SVM on the vitals stream
+COSEARCH = dict(bits=3, hidden=4, pop_size=16, generations=4,
+                train_steps=60, seed=0)
+COSEARCH_STREAMS = {"stress": ("mlp", dict(channels=4, window=32)),
+                    "vitals": ("svm", dict(channels=6, window=24))}
+# the same benchmark's --smoke configuration (the stress stream cut to 150
+# train / 80 test windows, 2 bits, pop 8, 2 generations, 30 steps): row 2
+# at 2^N = 4 and banks of several designs. Its test cut is 75 of 80
+# windows of one class, so its 0.9375 is that majority share, not
+# learning; the vitals SVM is the front that learns
+COSEARCH_SMOKE = dict(bits=2, hidden=4, pop_size=8, generations=2,
+                      train_steps=30, seed=0)
+COSEARCH_SMOKE_WINDOWS = (150, 80)
+COSEARCH_EPS = 1e-9              # the benchmark's ε-dominance slack
+# the gradient engine with a frontend, cut in depth as phase gradient's
+# MLP is (the reference's defaults: 4 x pop_size = 64 lanes), on both
+# streams at the full configuration; the vitals SVM learns there, so its
+# front must beat the test split's majority share (the stress MLP scores
+# chance on every genome in both packages, ROADMAP §C)
+COSEARCH_GRADIENT_CUT = dict(grad_points=32)
+COSEARCH_GRADIENT_LEARNS = ("vitals",)
+# raw-window serving: 8 microbatches of 1024 windows, 8-window requests
+COSEARCH_SERVE = dict(batch=1024, request_size=8, batches=8)
 ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
                  seed=0)
 # the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
@@ -2027,6 +2086,425 @@ def gate_resume_traced(np, torch, card, data, sizes, cfg, diag, whole,
             "device_busy_share": busy}
 
 
+def _log_marks(torch, marks):
+    """An nsga2 ``log`` hook that records the time of each call (the
+    initial evaluation, then one per generation), the card synchronized."""
+    def log(g, pop, fit):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    return log
+
+
+def _per_generation(np, marks) -> float:
+    """Mean seconds between consecutive generations (after the initial
+    evaluation)."""
+    return float(np.mean(np.diff(marks))) if len(marks) > 1 else 0.0
+
+
+def serve_windows(np, torch, dev, designs, x, batches):
+    """Raw windows through the batch driver in microbatches of
+    COSEARCH_SERVE['batch'] windows, and the same microbatches through
+    the front's featurize callables alone: (driver report, featurize
+    seconds)."""
+    from repro_torch.core import deploy
+    from repro_torch.launch.serve_classifier import (make_request_stream,
+                                                     serve)
+    from repro_torch.timeseries import feature as feature_lib
+    batch, size = COSEARCH_SERVE["batch"], COSEARCH_SERVE["request_size"]
+    requests = make_request_stream(x, batch * batches // size, size)
+    rep = serve(designs, requests, batch, device=dev)
+    feats = [feature_lib.featurize_fn(designs[idx[0]].feature)
+             for idx in deploy._feature_groups(designs).values()]
+    xbs = [torch.from_numpy(np.concatenate(
+        [r for _, r in requests[i:i + batch // size]])).to(dev)
+        for i in range(0, len(requests), batch // size)]
+    for feat in feats:                                    # warm-up
+        feat(xbs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for xb in xbs:
+        for feat in feats:
+            feat(xb)
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def cosearch_stream(np, torch, dev, card, name, kind, fe, conf=None,
+                    windows=None):
+    """One stream at the reference benchmark's configuration (``conf``,
+    default COSEARCH; ``windows`` cuts the splits to (train, test)
+    windows): the ADC-only search on variant 0, its front embedded, the
+    co-search seeded with it; the exact embedding and ε-dominance;
+    export, verify, serve raw windows, save, load."""
+    from repro_torch.core import deploy, nsga2, search
+    from repro_torch.timeseries import cosearch
+    from repro_torch.timeseries.feature import FeatureSpec
+    from repro_torch.timeseries.stream import make_stream
+    conf = COSEARCH if conf is None else conf
+    data = make_stream(name)
+    if windows is not None:
+        n_tr, n_te = windows
+        data = {"x_train": data["x_train"][:n_tr],
+                "y_train": data["y_train"][:n_tr],
+                "x_test": data["x_test"][:n_te],
+                "y_test": data["y_test"][:n_te]}
+    bits, hidden = conf["bits"], conf["hidden"]
+    kw = {k: v for k, v in conf.items() if k not in ("bits", "hidden")}
+    t0 = time.perf_counter()
+    vdata, sizes, spec = cosearch.build_search_inputs(
+        data, fe, bits=bits, hidden=hidden, device=dev)
+    data0 = {"x_train": vdata["x_train"][0], "y_train": vdata["y_train"],
+             "x_test": vdata["x_test"][0], "y_test": vdata["y_test"]}
+    cfg_b = search.SearchConfig.for_spec(spec, model=kind, **kw)
+    base_marks = [time.perf_counter()]
+    bpg, bpf, _ = search.run_search(data0, sizes, cfg_b,
+                                    log=_log_marks(torch, base_marks),
+                                    device=dev)
+    emb = cosearch.embed_adc_only(bpg, fe.base())
+    co_marks = [time.perf_counter()]
+    pg, pf, _, trained, cfg_c, vdata, sizes, spec = cosearch.run(
+        data, fe, bits=bits, hidden=hidden, init=emb, device=dev,
+        log=_log_marks(torch, co_marks), model=kind, **kw)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter()
+    ef = search.evaluate_population(emb, vdata, sizes, cfg_c, device=dev)
+    embed_ok = bool(np.array_equal(ef[:, 0], bpf[:, 0]))
+    _, uf = nsga2.pareto_front(np.concatenate([emb, pg]),
+                               np.concatenate([ef, pf]))
+    dominance_ok = all(any(c[0] <= u[0] + COSEARCH_EPS
+                           and c[1] <= u[1] + COSEARCH_EPS for c in pf)
+                       for u in uf)
+    designs = deploy.export_front(pg, vdata, sizes, cfg_c, trained=trained,
+                                  device=dev)
+    parity = deploy.verify_front_parity(designs, pg, vdata, sizes, cfg_c,
+                                        device=dev)
+    xw, y = data["x_test"], data["y_test"]
+    served = deploy.served_accuracies(designs, xw, y, device=dev)
+    exported = np.array([d.accuracy for d in designs])
+    alone = designs[0].accuracy_on(xw, y, device=dev)     # rows 3 / 4
+    with tempfile.TemporaryDirectory() as tmp:
+        deploy.save_front(tmp, designs, extra_meta={"dataset": name,
+                                                    "sizes": list(sizes)})
+        meta = deploy.front_meta(tmp)
+        loaded = deploy.load_front(tmp)
+    reloaded = deploy.served_accuracies(loaded, xw, y, device=dev)
+    rep, feat_s = serve_windows(np, torch, dev, loaded, xw,
+                                COSEARCH_SERVE["batches"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    refit = (1.0 - trained[0].astype(np.float32)).astype(np.float64)
+    for i, d in enumerate(designs):
+        print(f"  {name} {kind} design {i}: sub={d.feature.subsample} "
+              f"alloc-off={d.feature.alloc.count(0)} area={d.area_tc}T "
+              f"dp={int(d.dp)} exported={d.accuracy!r} "
+              f"served={float(served[i])!r}")
+    row = {"stream": name, "kind": kind, "config": dict(conf),
+           "sizes": list(sizes),
+           "train_windows": int(len(data["x_train"])),
+           "test_windows": int(len(xw)),
+           "baseline_s_per_generation": _per_generation(np, base_marks[1:]),
+           "baseline_s": base_marks[-1] - base_marks[0],
+           "cosearch_s_per_generation": _per_generation(np, co_marks[1:]),
+           "cosearch_s": co_marks[-1] - co_marks[0],
+           "search_s": t_search - t0, "wall_s": wall,
+           "baseline_front": len(bpg), "front": len(pg),
+           "best_accuracy": float(1 - pf[:, 0].min()),
+           "baseline_best_accuracy": float(1 - bpf[:, 0].min()),
+           "min_area": float(pf[:, 1].min()),
+           "embedding_exact": embed_ok, "eps_dominance": dominance_ok,
+           "verify_front_parity": parity,
+           "served": served.tolist(),
+           "windows_per_s": rep["samples_per_s"],
+           "serve_batches": rep["batches"], "serve_s": rep["wall_s"],
+           "featurize_s": feat_s,
+           "featurize_share": feat_s / rep["wall_s"]}
+    print(f"  {name} {kind}: baseline {row['baseline_s_per_generation']:.3f}"
+          f" s/generation ({row['baseline_s']:.2f} s), co-search "
+          f"{row['cosearch_s_per_generation']:.3f} s/generation "
+          f"({row['cosearch_s']:.2f} s); fronts {len(bpg)} -> {len(pg)}, "
+          f"best accuracy {row['baseline_best_accuracy']:.4f} -> "
+          f"{row['best_accuracy']:.4f}; embedding exact {embed_ok}, "
+          f"ε-dominance {dominance_ok}, verify_front_parity {parity}; "
+          f"raw-window serving {row['windows_per_s']:.0f} windows/s in "
+          f"{rep['batches']} microbatches of {COSEARCH_SERVE['batch']}, "
+          f"featurize {feat_s:.4f} of {rep['wall_s']:.4f} s "
+          f"({100 * row['featurize_share']:.1f} %); on {card}")
+    check(embed_ok, f"{name}: the embedded ADC-only front re-scores to "
+                    f"{1 - ef[:, 0]}, not its fitness {1 - bpf[:, 0]}")
+    check(dominance_ok, f"{name}: the co-search front does not "
+                        f"ε-dominate the union front")
+    check(parity, f"{name}: verify_front_parity is False")
+    check(np.array_equal(refit, pf[:, 0]),
+          f"{name}: re-trained accuracies {trained[0]} do not give the "
+          f"search fitness {1 - pf[:, 0]}")
+    check(np.array_equal(served, exported),
+          f"{name}: served accuracies {served} != exported {exported}")
+    check(alone == float(np.float32(exported[0])),
+          f"{name}: design 0 alone (D=1) {alone!r} != its exported "
+          f"accuracy {exported[0]!r}")
+    check(FeatureSpec.from_meta(meta["feature"]) == fe.base()
+          and [d.feature for d in loaded] == [d.feature for d in designs]
+          and np.array_equal(reloaded, served),
+          f"{name}: save_front/load_front lost the FeatureSpec or the "
+          f"served accuracies")
+    return row, designs, data, spec
+
+
+def cosearch_gradient(np, torch, dev, card, name):
+    """The gradient engine with a frontend on stream ``name`` (its
+    COSEARCH_STREAMS classifier), cut in depth: export, verify, serve raw
+    windows; on a stream in COSEARCH_GRADIENT_LEARNS the best accuracy
+    must beat the test split's majority share."""
+    from repro_torch.core import deploy, grad_gates, search
+    from repro_torch.timeseries import cosearch
+    from repro_torch.timeseries.feature import FeatureSpec
+    from repro_torch.timeseries.stream import make_stream
+    kind, fe_kw = COSEARCH_STREAMS[name]
+    fe = FeatureSpec(**fe_kw)
+    data = make_stream(name)
+    kw = {k: v for k, v in COSEARCH.items()
+          if k not in ("bits", "hidden", "generations")}
+    print(f"  cut: the gradient engine on {name} runs with "
+          f"{COSEARCH_GRADIENT_CUT} (the reference's defaults: "
+          f"{4 * COSEARCH['pop_size']} lanes, {8 * COSEARCH['train_steps']} "
+          f"gate-train steps in 4 chunks, 2 polish rounds of at most 192 "
+          f"exact evaluations)")
+    with gradient_record(torch, search, grad_gates) as rec:
+        pg, pf, _, trained, cfg, vdata, sizes, _ = cosearch.run(
+            data, fe, bits=COSEARCH["bits"], hidden=COSEARCH["hidden"],
+            device=dev, model=kind, engine="gradient", **kw,
+            **COSEARCH_GRADIENT_CUT)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - rec["t0"]
+    designs = deploy.export_front(pg, vdata, sizes, cfg, trained=trained,
+                                  device=dev)
+    parity = deploy.verify_front_parity(designs, pg, vdata, sizes, cfg,
+                                        device=dev)
+    served = deploy.served_accuracies(designs, data["x_test"],
+                                      data["y_test"], device=dev)
+    exported = np.array([d.accuracy for d in designs])
+    refit = (1.0 - trained[0].astype(np.float32)).astype(np.float64)
+    majority = float(np.bincount(data["y_test"]).max() / len(data["y_test"]))
+    diag, gate_s = rec["diag"], rec["gate_end"]
+    (pool, t_rescore), polish_runs = rec["evals"][0], rec["evals"][1:]
+    row = {"stream": name, "kind": kind,
+           "lanes": diag["lanes"], "gate_steps": diag["steps"],
+           "gate_train_s": gate_s, "pool": pool,
+           "polish_evals": [n for n, _ in polish_runs],
+           "rescore_s": t_rescore - gate_s,
+           "polish_s": (polish_runs[-1][1] - t_rescore
+                        if polish_runs else 0.0),
+           "total_s": total, "front": len(pg),
+           "best_accuracy": float(1 - pf[:, 0].min()),
+           "majority_share": majority,
+           "subsamples": sorted({d.feature.subsample for d in designs}),
+           "verify_front_parity": parity,
+           "served_best": float(served.max())}
+    print(f"  gradient {name} {kind}: {row['lanes']} lanes, "
+          f"{row['gate_steps']} gate-train steps ({gate_s:.2f} s), pool "
+          f"{pool} genomes, polish {row['polish_evals']}; {total:.2f} s to "
+          f"a front of {len(pg)} (subsample factors {row['subsamples']}), "
+          f"best accuracy {row['best_accuracy']:.4f} (majority share "
+          f"{majority:.4f}); verify_front_parity {parity} on {card}")
+    check(parity, f"gradient co-search {name}: verify_front_parity is False")
+    check(np.array_equal(refit, pf[:, 0]),
+          f"gradient co-search {name}: the front re-trains to {trained[0]}, "
+          f"not its fitness {1 - pf[:, 0]}")
+    check(np.array_equal(served, exported),
+          f"gradient co-search {name}: served {served} != exported "
+          f"{exported}")
+    if name in COSEARCH_GRADIENT_LEARNS:
+        check(row["best_accuracy"] > majority,
+              f"gradient co-search {name}: best accuracy "
+              f"{row['best_accuracy']} does not beat the majority share "
+              f"{majority}")
+    return row, designs, data
+
+
+def cosearch_kernel_checks(np, torch, dev, card, fronts):
+    """Rows 2-6 against their plain versions on the card at the
+    co-search's shapes, the card's featurize against the CPU's, and row
+    2's time at each co-search shape beside its bound. ``fronts``:
+    [(label, designs, raw data, spec, the search's pop_size)]; featurize
+    and row 2 run once per (stream, spec, windows, pop_size), so every
+    shape the path gave row 2 is held and timed."""
+    from repro_torch.core.adc import repair_mask
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import envelope, ops, qmlp, ref
+    from repro_torch.timeseries import feature as feature_lib
+    rng = np.random.default_rng(2026)
+    max_err = {}
+    timings = {}
+    seen = set()
+    for label, designs, data, spec, pop in fronts:
+        fe = designs[0].feature.base()
+        stream_name = label.split()[0]
+        shape_key = (stream_name, spec, len(data["x_train"]),
+                     len(data["x_test"]), pop)
+        if shape_key not in seen:
+            seen.add(shape_key)
+            for split in ("x_train", "x_test"):
+                for s in fe.sub_grid:
+                    fn = feature_lib.featurize_fn(fe, s)
+                    got = fn(data[split], device=dev).cpu()
+                    want = fn(data[split], device="cpu")
+                    check(torch.equal(got, want),
+                          f"{stream_name} {split}: featurize on the card "
+                          f"differs from the CPU's at factor {s}")
+            print(f"  featurize {label}: card == CPU bitwise on both "
+                  f"splits at factors {fe.sub_grid}")
+            # row 2 at the co-search shape: the (V*M, C) train stack
+            for split in ("x_train", "x_test"):
+                xv = feature_lib.stack_variants(data[split], fe, device=dev)
+                v, m, c = xv.shape
+                xd = torch.from_numpy(xv).to(dev)
+                masks = repair_mask(torch.from_numpy(
+                    (rng.random((pop, c, spec.levels))
+                     < 0.5).astype(np.int32))).to(dev)
+                tables = spec.value_table(masks).contiguous()
+                p, n = tables.shape[0], spec.levels
+                shape = (p, v * m, c, n)
+                check(adcq.geometry(*shape) == tuple(
+                    envelope.quantize_geometry(*shape)),
+                      f"{stream_name}: row 2's geometry != the envelope's "
+                      f"at {shape}")
+                got = ops.adc_quantize_variants(xd, masks, spec=spec)
+                flat = xd.reshape(v * m, c)
+                want = ref.adc_quantize_ref_population(
+                    flat, tables, spec.bits, spec.vmin, spec.vmax
+                ).reshape(p, v, m, c)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                max_err["adc_quantize_population"] = max(
+                    max_err.get("adc_quantize_population", 0.0), err)
+                ok = torch.equal(got, want)
+                print(f"  adc_quantize_population {stream_name} {split} "
+                      f"P={p} M={v}x{m} C={c} 2^N={n}: max_abs_err "
+                      f"{err:.3e} [bitwise, geometry ==] "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                check(ok, f"row 2 disagrees with its plain version at "
+                          f"{stream_name} {split}")
+                if split != "x_train":
+                    continue
+                rows = tuple(t.to(dev) for t in _rows(spec, c))
+                k_fn = lambda: adcq.adc_quantize_population(  # noqa: E731
+                    flat, tables, spec=spec, rows=rows)
+                p_fn = lambda: ref.adc_quantize_ref_population(  # noqa
+                    flat, tables, spec.bits, spec.vmin, spec.vmax)
+                p1, k1, k2, p2 = (cuda_ms(torch, p_fn), cuda_ms(torch, k_fn),
+                                  cuda_ms(torch, k_fn), cuda_ms(torch, p_fn))
+                dev_ms = device_kernel_ms(torch, k_fn,
+                                          "adc_quantize_population_kernel")
+                check(dev_ms is not None, "torch.profiler recorded no "
+                                          "device time for row 2")
+                b_ms, b_by, nbytes, nops = quantize_bound(p, v * m, c, n)
+                key = (f"cosearch {stream_name} P={p} M={v * m} C={c} "
+                       f"2^N={n}")
+                timings[key] = {
+                    "shape": {"P": p, "M": v * m, "C": c, "levels": n},
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "device_ms": dev_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "bytes": nbytes, "ops": nops}
+                print(f"  time adc_quantize_population {key}: device "
+                      f"{dev_ms * 1e3:.2f} us per launch (call "
+                      f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f} us), plain "
+                      f"{p1 * 1e3:.2f}/{p2 * 1e3:.2f} us, bound "
+                      f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes) on "
+                      f"{card}")
+        # rows 5/6 per subsample group, rows 3/4 on each group's first
+        from repro_torch.core import deploy
+        kind = designs[0].kind
+        bank, plain = ((qmlp.bespoke_mlp_bank, ref.bespoke_mlp_bank_ref)
+                       if kind == "mlp" else
+                       (qmlp.bespoke_svm_bank, ref.bespoke_svm_bank_ref))
+        single = qmlp.bespoke_mlp if kind == "mlp" else qmlp.bespoke_svm
+        for sub, idx in deploy._feature_groups(designs).items():
+            grp = [designs[i] for i in idx]
+            x = feature_lib.featurize_fn(grp[0].feature)(data["x_test"],
+                                                         device=dev)
+            tables, weights = deploy.bank_arrays(grp)
+            td = torch.from_numpy(tables).to(dev)
+            wd = tuple(torch.from_numpy(w).to(dev) for w in weights)
+            for name, got in ((f"qmlp_{kind}_bank",
+                               bank(x, td, *wd, spec=spec)),
+                              (f"bespoke_{kind}", single(
+                                  x, td[0], *(w[0] for w in wd),
+                                  spec=spec)[None])):
+                want = plain(x, td[:len(got)], spec.bits,
+                             *(w[:len(got)] for w in wd), spec.vmin,
+                             spec.vmax)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                max_err[name] = max(max_err.get(name, 0.0), err)
+                ok = torch.equal(got, want)
+                print(f"  {name} {label} sub={sub} D={len(got)} "
+                      f"M={x.shape[0]} F={x.shape[1]}: max_abs_err "
+                      f"{err:.3e} [bitwise] {'ok' if ok else 'MISMATCH'}")
+                check(ok, f"{name} disagrees with its plain version on "
+                          f"{label} sub={sub} (max_abs_err {err:.3e}, "
+                          f"bitwise)")
+    return max_err, timings
+
+
+def phase_cosearch(np, torch, dev, card):
+    """The streaming co-search path: stress MLP and vitals SVM at the
+    reference benchmark's configuration, the gradient engine with a
+    frontend (cut), then the kernel checks at the path's shapes."""
+    from repro_torch.core import search
+    from repro_torch.timeseries.feature import FeatureSpec
+    print(f"phase cosearch: build_search_inputs -> ADC-only search on "
+          f"variant 0 -> embed_adc_only -> cosearch.run -> export_front -> "
+          f"verify_front_parity -> serve raw windows -> save_front -> "
+          f"load_front on cuda, {COSEARCH}, streams {COSEARCH_STREAMS}")
+    out = {}
+    fronts = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with qat_chunks(search) as chunks:
+        for name, (kind, fe_kw) in COSEARCH_STREAMS.items():
+            row, designs, data, spec = cosearch_stream(
+                np, torch, dev, card, name, kind, FeatureSpec(**fe_kw))
+            out[name] = row
+            fronts.append((f"{name} {kind} front", designs, data, spec,
+                           COSEARCH["pop_size"]))
+        kind, fe_kw = COSEARCH_STREAMS["stress"]
+        print(f"  the benchmark's --smoke configuration: {COSEARCH_SMOKE}, "
+              f"stress cut to {COSEARCH_SMOKE_WINDOWS} windows")
+        row, designs, data, spec = cosearch_stream(
+            np, torch, dev, card, "stress", kind, FeatureSpec(**fe_kw),
+            COSEARCH_SMOKE, COSEARCH_SMOKE_WINDOWS)
+        out["stress_smoke"] = row
+        fronts.append((f"stress {kind} smoke front", designs, data, spec,
+                       COSEARCH_SMOKE["pop_size"]))
+        for name in COSEARCH_STREAMS:
+            row, designs, data = cosearch_gradient(np, torch, dev, card,
+                                                   name)
+            out[f"gradient_{name}"] = row
+            fronts.append((f"{name} gradient front", designs, data,
+                           designs[0].spec, COSEARCH["pop_size"]))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = all_launches()
+    print(f"  cosearch: {chunks[0]} QAT chunks; launches on this path: row "
+          f"2 (adc_quantize_population) "
+          f"{launches['adc_quantize_population']}, row 3 (bespoke_mlp) "
+          f"{launches['bespoke_mlp']}, row 4 (bespoke_svm) "
+          f"{launches['bespoke_svm']}, row 5 (qmlp_mlp_bank) "
+          f"{launches['qmlp_mlp_bank']}, row 6 (qmlp_svm_bank) "
+          f"{launches['qmlp_svm_bank']}; path {path_s:.2f} s on {card}")
+    check(launches["adc_quantize_population"] == 2 * chunks[0],
+          f"cosearch: adc_quantize_population launched "
+          f"{launches['adc_quantize_population']} times for {chunks[0]} "
+          f"QAT chunks (2 per chunk)")
+    for name in ("bespoke_mlp", "bespoke_svm", "qmlp_mlp_bank",
+                 "qmlp_svm_bank"):
+        check(launches[name] > 0, f"cosearch: {name} never launched")
+    max_err, timings = cosearch_kernel_checks(np, torch, dev, card, fronts)
+    out.update(launches=launches, qat_chunks=chunks[0], path_s=path_s,
+               max_err=max_err, timings=timings)
+    return out
+
+
 def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     """(bound_ms, bound_by, bytes, flops, floors) of one attention call,
     the largest of three times: q, k, v and positions read once and the
@@ -2711,9 +3189,14 @@ def main() -> int:
         marks.append(time.perf_counter())
         gradient_out = phase_gradient(np, torch, dev, card, data)
         marks.append(time.perf_counter())
-        phase_s = dict(zip(("baseline", "resume", "gradient"),
+        cosearch_out = phase_cosearch(np, torch, dev, card)
+        marks.append(time.perf_counter())
+        for name, err in cosearch_out["max_err"].items():
+            max_err[name] = max(max_err[name], err)
+        q_timings.update(cosearch_out["timings"])
+        phase_s = dict(zip(("baseline", "resume", "gradient", "cosearch"),
                            np.diff(marks).tolist()))
-        print(f"phases baseline / resume / gradient: "
+        print(f"phases baseline / resume / gradient / cosearch: "
               f"{' / '.join(f'{v:.2f}' for v in phase_s.values())} s, "
               f"{marks[-1] - marks[0]:.2f} s in all on {card}")
         lm_out = phase_lm(np, torch, dev, card)
@@ -2734,6 +3217,7 @@ def main() -> int:
                    "baseline": both(baseline_out),
                    "resume": resume_out["launches"],
                    "gradient": gradient_out["launches"],
+                   "cosearch": cosearch_out["launches"],
                    "lm": lm_out["launches"],
                    "lm_f32": lm_out["launches_f32"]}
         main_timing = {
@@ -2792,6 +3276,8 @@ def main() -> int:
                               if k != "launches"},
                    "gradient": {k: v for k, v in gradient_out.items()
                                 if k != "launches"},
+                   "cosearch": {k: v for k, v in cosearch_out.items()
+                                if k not in ("launches", "timings")},
                    "phase_s": phase_s,
                    "lm": {k: v for k, v in lm_out.items()
                           if k != "launches"},

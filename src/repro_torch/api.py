@@ -1,5 +1,5 @@
 """repro_torch.api: the paper's pipeline as one facade. Counterpart of
-``repro/api.py`` (the verbs of the search slice)::
+``repro/api.py`` (the verbs of the ported slices)::
 
     from repro_torch import api
 
@@ -20,6 +20,11 @@
                        mc_samples=32, robust_objective="yield",
                        faulttol=api.FaultTolSpec())   # 3 objectives
     cal = api.calibrate(api.deploy(front), ni, instance=0)
+
+    stream = timeseries.make_stream("stress")   # raw (M, W, C_raw) windows
+    front = api.cosearch(stream, api.FeatureSpec(channels=4, window=32),
+                         bits=3, pop_size=16, generations=4)
+    api.serve(api.deploy(front), stream["x_test"])   # raw windows in
 
 Every verb runs on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``. It is a thin composition of core/search,
@@ -44,16 +49,19 @@ from repro_torch.core.spec import AdcSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faulttol import FaultTolSpec
 from repro_torch.kernels import ops as _ops
+from repro_torch.timeseries.feature import FeatureSpec
 
 __all__ = [
     "AdcSpec",
     "Bank",
     "DeployedClassifier",
     "FaultTolSpec",
+    "FeatureSpec",
     "Front",
     "NonIdealSpec",
     "SearchConfig",
     "calibrate",
+    "cosearch",
     "deploy",
     "evaluate_robustness",
     "load_front",
@@ -107,8 +115,9 @@ class Bank:
         return self.designs[0].spec
 
     def logits(self, x, *, device: DeviceLike = None) -> torch.Tensor:
-        """(M, C) samples -> (D, M, O) logits through the fused
-        multi-design bank kernel."""
+        """(M, C) samples (raw (M, W, C_raw) windows for a feature-baked
+        bank) -> (D, M, O) logits through the fused multi-design bank
+        kernel."""
         return _deploy.serve_bank(self.designs, x, device=device)
 
     def predict(self, x, **kw) -> torch.Tensor:
@@ -185,6 +194,37 @@ def search_gradient(spec: AdcSpec, data: Dict,
                   device=device, **cfg_kw)
 
 
+def cosearch(data: Dict, feature: FeatureSpec, *, bits: int = 3,
+             pct: float = 0.5, model: str = "mlp", pop_size: int = 32,
+             generations: int = 16, train_steps: int = 300,
+             engine: str = "batched", seed: int = 0, weight_bits: int = 8,
+             hidden: int = 4, init=None, device: DeviceLike = None, log=None,
+             **cfg_kw) -> Front:
+    """Streaming sensor -> feature -> ADC -> classifier co-design.
+
+    data: raw sliding-window splits (``timeseries.make_stream`` layout,
+    x_* of shape (M, W, C_raw)). ``feature`` names the analog front-end
+    design space (subsample grid, feature kinds, allocation ladder); the
+    genome grows feature genes and the engine searches front end and ADC
+    jointly, the front end's transistors on the same area axis. The
+    per-channel ``AdcSpec`` is auto-ranged over every featurized variant
+    (``AdcSpec.from_data``, clip ``pct``). Returns the same ``Front`` as
+    ``search``: ``deploy`` bakes each design's FeatureSpec, and the bank
+    then serves raw windows. ``init`` seeds the population, e.g. an
+    ADC-only front lifted by ``timeseries.cosearch.embed_adc_only``."""
+    from repro_torch.timeseries import cosearch as _cosearch
+    dev = resolve_device(device)
+    pg, pf, _, trained, cfg, _, sizes, spec = _cosearch.run(
+        data, feature, bits=bits, pct=pct, hidden=hidden, init=init,
+        log=log, device=dev, model=model, pop_size=pop_size,
+        generations=generations, train_steps=train_steps, engine=engine,
+        seed=seed, weight_bits=weight_bits, **cfg_kw)
+    return Front(spec=spec, config=cfg, sizes=tuple(sizes),
+                 genomes=np.asarray(pg, np.uint8),
+                 fitness=np.asarray(pf, np.float64), trained=trained,
+                 device=str(dev))
+
+
 def deploy(front: Front, data: Optional[Dict] = None) -> Bank:
     """Freeze a searched ``Front`` into a servable ``Bank``: baked value
     tables, po2-quantized weights, exact transistor-count area, export
@@ -202,8 +242,9 @@ def deploy(front: Front, data: Optional[Dict] = None) -> Bank:
 
 def serve(bank: Union[Bank, Sequence[DeployedClassifier]], x, *,
           device: DeviceLike = None) -> torch.Tensor:
-    """One shared (M, C) sample batch through the whole deployed bank:
-    (D, M, O) logits through the fused multi-design kernel."""
+    """One shared (M, C) sample batch (raw (M, W, C_raw) windows for a
+    feature-baked bank) through the whole deployed bank: (D, M, O)
+    logits through the fused multi-design kernel."""
     designs = bank.designs if isinstance(bank, Bank) else tuple(bank)
     return _deploy.serve_bank(designs, x, device=device)
 

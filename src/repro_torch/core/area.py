@@ -1,8 +1,8 @@
 """Transistor-count area model for flash / baseline-binary / proposed-binary
 / pruned-binary ADCs, built from the paper's design rules (§3.1-3.2).
 A verbatim numpy copy of ``repro/core/area.py`` (the full-ADC and
-pruned-tree functions and the fault-tolerance pricing; the front-end
-pricing comes with the streaming slice). It is copied, not imported:
+pruned-tree functions, the fault-tolerance pricing and the analog
+feature front end's). It is copied, not imported:
 ``repro.core`` pulls in JAX on import.
 
 Calibration anchors (all from the paper):
@@ -249,3 +249,47 @@ def system_tc(masks: np.ndarray, design: str = "ours") -> int:
     fn = {"ours": pruned_binary_tc, "flash": pruned_flash_tc,
           "baseline": pruned_baseline_tc}[design]
     return int(sum(fn(m) for m in masks))
+
+
+# ------------------------------------------- analog feature front end (§14)
+# Switched-capacitor temporal-feature circuits of the streaming co-design
+# (DESIGN.md §14): per raw channel an analog window buffer of W/s
+# sample-hold cells feeds the feature circuits, so a larger subsample
+# factor s shrinks the buffer. Exact integers on the same transistor-count
+# axis as the ADC models above.
+SAMPLE_HOLD_TC = 1               # per stored sample of the window buffer
+FEATURE_TC = {"mean": 8,         # switched-cap integrator + scale
+              "min": 10,         # peak detector (diode-connected follower)
+              "max": 10,
+              "slope": 12}       # first/last S&H pair + differencer
+
+
+def frontend_tc(feature_kinds, channels: int, window: int,
+                subsample: int, alloc=None) -> int:
+    """Exact transistor count of one analog front-end design point.
+
+    ``feature_kinds``: the per-kind circuit list (feature channel
+    k * channels + r computes kind k of raw channel r); ``alloc``: the
+    per-feature-channel allocation genes, where 0 means the feature
+    channel is OFF (its circuit, and the raw channel's window buffer if
+    no sibling survives, disappears). ``alloc=None`` prices the
+    all-active reference design."""
+    kinds = tuple(feature_kinds)
+    if window % subsample:
+        raise ValueError(f"window {window} not divisible by subsample "
+                         f"{subsample}")
+    n_feat = len(kinds) * channels
+    active = ([True] * n_feat if alloc is None
+              else [int(a) > 0 for a in alloc])
+    if len(active) != n_feat:
+        raise ValueError(f"alloc length {len(active)} != feature channels "
+                         f"{n_feat}")
+    tc = 0
+    buf = SAMPLE_HOLD_TC * (window // subsample)
+    for r in range(channels):
+        live = [k for k in range(len(kinds)) if active[k * channels + r]]
+        if not live:
+            continue
+        tc += buf                               # shared analog window buffer
+        tc += sum(FEATURE_TC[kinds[k]] for k in live)
+    return tc

@@ -17,6 +17,12 @@ D designs in one kernel launch (kernels/ops.classifier_bank): on a CUDA
 device through the hand-written bank kernels, on the CPU through their
 plain versions.
 
+A design of the streaming co-search carries a baked ``FeatureSpec``
+(``feature``): it serves raw (M, W, C_raw) windows, featurized by
+``timeseries.feature.featurize_fn``, the same callable the search data
+was built with. A front of such designs serves one bank per baked
+subsample factor and scatters the logits back into front order.
+
 Robustness: ``evaluate_robustness`` pushes the test split through S
 perturbed hardware instances of every design in one launch of the
 Monte-Carlo population kernel (the calibrated-table entry for a
@@ -44,7 +50,8 @@ from repro_torch.core import area, qat
 from repro_torch.core import nonideal as nonideal_lib
 from repro_torch.core.adc import range_rows_tensors
 from repro_torch.core.nonideal import NonIdealSpec
-from repro_torch.core.search import (SearchConfig, decode_population_faulttol,
+from repro_torch.core.search import (SearchConfig, decode_population_cosearch,
+                                     decode_population_faulttol,
                                      mc_accuracies, train_pareto_front)
 from repro_torch.core.spec import AdcSpec, Range
 from repro_torch.device import DeviceLike, resolve_device
@@ -54,15 +61,13 @@ from repro_torch.kernels import ops, qmlp
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import svm as svm_lib
 from repro_torch.models.mlp import mean_accuracy as _mean_acc
+from repro_torch.timeseries import feature as feature_lib
+from repro_torch.timeseries.feature import FeatureSpec
 
 FORMAT_VERSION = 1
 
 # weight leaf names per classifier family, in ops.classifier_bank order
 _WEIGHT_LEAVES = {"mlp": ("w1", "b1", "w2", "b2"), "svm": ("w", "b")}
-
-_STREAMING_LATER = ("fronts with a baked FeatureSpec (streaming "
-                    "co-design) are not served by this port yet: the "
-                    "streaming slice (ROADMAP A8) ports them")
 
 
 @dataclass(frozen=True)
@@ -79,6 +84,10 @@ class DeployedClassifier:
     weights: Tuple[np.ndarray, ...]  # po2-quantized, _WEIGHT_LEAVES order
     area_tc: int                     # exact transistor count
     accuracy: float                  # export-time test accuracy
+    # baked analog front end of a streaming co-searched design: None for
+    # tabular (M, C) designs, a subsample/alloc-baked FeatureSpec for
+    # designs that consume raw (M, W, C_raw) windows
+    feature: Optional[FeatureSpec] = None
     # fault-tolerance provenance: the per-channel TMR genes (None for
     # plain designs; spare levels are already folded into ``mask``) and
     # the calibrate gene. Robustness evaluation of such a front runs the
@@ -94,14 +103,27 @@ class DeployedClassifier:
 
     @property
     def channels(self) -> int:
-        """ADC input channel count C."""
+        """ADC input channel count C (feature channels for a co-searched
+        design)."""
         return int(self.table.shape[0])
+
+    @property
+    def sample_shape(self) -> Tuple[int, ...]:
+        """Shape of ONE raw sample this design serves: (C,) for tabular
+        designs, (window, raw_channels) for streaming ones."""
+        if self.feature is not None:
+            return (self.feature.window, self.feature.channels)
+        return (self.channels,)
 
     def logits(self, x, *, device: DeviceLike = None) -> torch.Tensor:
         """Samples (M, C) -> (M, O) logits on ``device``, through the
         single-design entry (the D=1 call of the bank kernel) with the
-        baked table."""
+        baked table. A feature-baked design takes raw (M, W, C_raw)
+        windows through ``feature.featurize_fn``; already featurized
+        (M, C) input goes straight to the kernel."""
         dev = resolve_device(device)
+        if self.feature is not None and np.ndim(x) == 3:
+            x = feature_lib.featurize_fn(self.feature)(x, device=dev)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
         table = torch.from_numpy(self.table).to(dev)
         weights = tuple(torch.from_numpy(w).to(dev) for w in self.weights)
@@ -118,13 +140,15 @@ class DeployedClassifier:
 
 
 def from_numpy(kind: str, spec_meta: Dict, table, weights, *, mask, dp,
-               area_tc, accuracy, tmr=None, calibrated: bool = False
+               area_tc, accuracy, tmr=None, calibrated: bool = False,
+               feature: Optional[FeatureSpec] = None
                ) -> DeployedClassifier:
     """Carry one design's arrays (as the JAX package exports and saves
     them) into a port ``DeployedClassifier``, checking kind, spec, dtypes
     and shapes: ``table`` (C, 2^N) float32; ``weights`` in
     ``_WEIGHT_LEAVES[kind]`` order ((C, H), (H,), (H, O), (O,) for an MLP;
-    (C, O), (O,) for an SVM); ``mask`` (C, 2^N)."""
+    (C, O), (O,) for an SVM); ``mask`` (C, 2^N); a baked ``feature``
+    must produce C feature channels."""
     if kind not in _WEIGHT_LEAVES:
         raise ValueError(f"unknown classifier kind {kind!r}")
     spec = AdcSpec.from_meta(spec_meta)
@@ -153,10 +177,15 @@ def from_numpy(kind: str, spec_meta: Dict, table, weights, *, mask, dp,
     if mask.shape != table.shape:
         raise ValueError(f"mask {mask.shape} does not match table "
                          f"{table.shape}")
+    if feature is not None and (feature.subsample is None
+                                or feature.feature_channels != c):
+        raise ValueError(f"feature must be baked and produce {c} feature "
+                         f"channels; got {feature.describe()}")
     return DeployedClassifier(
         kind=kind, bits=spec.bits, mode=spec.mode, vmin=spec.vmin,
         vmax=spec.vmax, dp=float(dp), mask=mask, table=table,
         weights=weights, area_tc=int(area_tc), accuracy=float(accuracy),
+        feature=feature,
         tmr=None if tmr is None else np.asarray(tmr, np.int32),
         calibrated=bool(calibrated))
 
@@ -168,7 +197,9 @@ def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
     """Freeze (typically Pareto-front) genomes into deployable designs:
     deterministic QAT re-train (``search.train_pareto_front``) on
     ``device``, bake value tables, quantize the trained weights once with
-    each genome's dp, and attach the exact transistor-count area.
+    each genome's dp, and attach the exact transistor-count area. With a
+    frontend each design bakes its genome's (subsample, alloc) into a
+    ``FeatureSpec`` and its area adds the front end's transistors.
 
     ``trained`` short-circuits the re-train: pass the (accs, params,
     masks, dps) tuple already produced by ``train_pareto_front`` /
@@ -194,9 +225,21 @@ def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
         # calibration-store overhead on the same budget axis
         _, _, tmrs, _, cals = decode_population_faulttol(
             genomes, sizes[0], cfg.bits, cfg.min_levels, cfg.faulttol)
+    fe = cfg.frontend
+    if fe is not None:
+        # the masks from train_pareto_front already carry the alloc
+        # ladder, so the baked table is the one the fitness measured
+        _, _, subs, allocs = decode_population_cosearch(
+            genomes, sizes[0], cfg.bits, cfg.min_levels, fe)
     designs = []
     for k in range(len(accs)):
         dp = float(dps[k])
+        feature, fe_tc = None, 0
+        if fe is not None:
+            sub_f = fe.sub_grid[int(subs[k])]
+            alloc_t = tuple(int(a) for a in allocs[k].tolist())
+            feature = fe.bake(sub_f, alloc_t)
+            fe_tc = feature_lib.frontend_tc(fe, sub_f, alloc_t)
         tmr, calibrated, ft_tc = None, False, 0
         if cfg.faulttol is not None:
             tmr = tmrs[k].numpy().astype(np.int32)
@@ -217,8 +260,9 @@ def export_front(genomes: np.ndarray, data: Dict, sizes: Sequence[int],
             vmin=spec.vmin, vmax=spec.vmax, dp=dp, mask=mask,
             table=spec.value_table(torch.from_numpy(mask)).numpy(),
             weights=weights,
-            area_tc=area.system_tc(mask, cfg.design) + ft_tc,
-            accuracy=float(accs[k]), tmr=tmr, calibrated=calibrated))
+            area_tc=area.system_tc(mask, cfg.design) + fe_tc + ft_tc,
+            accuracy=float(accs[k]), feature=feature, tmr=tmr,
+            calibrated=calibrated))
     return designs
 
 
@@ -250,22 +294,32 @@ def _fixed(b, dp: float, weight_bits: int, device) -> np.ndarray:
 def save_front(directory, designs: Sequence[DeployedClassifier],
                extra_meta: Optional[Dict] = None) -> None:
     """Persist a front under ``directory`` as step 0, in the reference's
-    leaf layout (atomic commit, one .npy per leaf)."""
+    leaf layout (atomic commit, one .npy per leaf). A co-searched front
+    carries its shared base FeatureSpec in the meta and each design's
+    baked (subsample, alloc) as leaves."""
     if not designs:
         raise ValueError("refusing to save an empty front")
     kinds = {d.kind for d in designs}
     specs = {d.spec for d in designs}
-    if len(kinds) != 1 or len(specs) != 1:
+    feats = {None if d.feature is None else d.feature.base()
+             for d in designs}
+    if len(kinds) != 1 or len(specs) != 1 or len(feats) != 1:
         raise ValueError(f"mixed fronts unsupported: kinds={kinds} "
-                         f"specs={specs}")
+                         f"specs={specs} features={feats}")
     meta = {"format": FORMAT_VERSION, "kind": designs[0].kind,
             **designs[0].spec.to_meta(),
             "num_designs": len(designs), **(extra_meta or {})}
+    fe = next(iter(feats))
+    if fe is not None:
+        meta["feature"] = fe.to_meta()
     tree = {"meta": pack_json(meta)}
     for i, d in enumerate(designs):
         leaf = {"mask": d.mask.astype(np.int32), "table": d.table,
                 "dp": np.float32(d.dp), "acc": np.float64(d.accuracy),
                 "area_tc": np.int64(d.area_tc)}
+        if d.feature is not None:
+            leaf["subsample"] = np.int64(d.feature.subsample)
+            leaf["alloc"] = np.asarray(d.feature.alloc, np.int32)
         if d.tmr is not None:
             leaf["tmr"] = np.asarray(d.tmr, np.int32)
         if d.tmr is not None or d.calibrated:
@@ -289,19 +343,24 @@ def load_front(directory) -> List[DeployedClassifier]:
     meta = unpack_json(flat["meta"])
     if meta["format"] != FORMAT_VERSION:
         raise ValueError(f"unknown front format {meta['format']}")
-    if meta.get("feature") is not None:
-        raise NotImplementedError(_STREAMING_LATER)
+    fe = (FeatureSpec.from_meta(meta["feature"])
+          if meta.get("feature") is not None else None)
     kind = meta["kind"]
     designs = []
     for i in range(meta["num_designs"]):
         p = f"design_{i:03d}/"
+        feature = None
+        if fe is not None:
+            feature = fe.bake(int(flat[p + "subsample"]),
+                              tuple(int(a) for a in flat[p + "alloc"]))
         designs.append(from_numpy(
             kind, meta, flat[p + "table"],
             tuple(flat[p + n] for n in _WEIGHT_LEAVES[kind]),
             mask=flat[p + "mask"], dp=flat[p + "dp"],
             area_tc=flat[p + "area_tc"], accuracy=flat[p + "acc"],
             tmr=flat.get(p + "tmr"),
-            calibrated=bool(int(flat.get(p + "calibrated", 0)))))
+            calibrated=bool(int(flat.get(p + "calibrated", 0))),
+            feature=feature))
     return designs
 
 
@@ -319,30 +378,90 @@ def bank_arrays(designs: Sequence[DeployedClassifier]
     return tables, weights
 
 
-def make_bank_fn(designs: Sequence[DeployedClassifier], *,
-                 device: DeviceLike = None
-                 ) -> Callable[[object], torch.Tensor]:
-    """The serving hot path: a closure (M, C) batch -> (D, M, O) logits
-    over the whole front. Tables, weights and range rows move to
-    ``device`` once, here, not once per microbatch; each call moves only
-    the batch."""
-    dev = resolve_device(device)
-    designs = list(designs)
+def _bank_closure(designs: Sequence[DeployedClassifier], dev):
+    """One bank call closed over ``designs``' tables, weights and range
+    rows, moved to ``dev`` once: a featurized (M, C) tensor on ``dev``
+    -> (D, M, O) logits."""
     specs = {d.spec for d in designs}
     if len(specs) != 1:
         raise ValueError(f"bank needs one AdcSpec, got {specs}")
     tables, weights = bank_arrays(designs)
     tables_t = torch.from_numpy(tables).to(dev)
     weights_t = tuple(torch.from_numpy(w).to(dev) for w in weights)
-    d0 = designs[0]
-    spec = d0.spec
+    kind, spec = designs[0].kind, designs[0].spec
     rows = range_rows_tensors(spec.bits, spec.vmin, spec.vmax,
                               tables.shape[1], dev)
+    return lambda xb: ops.classifier_bank(xb, tables_t, weights_t,
+                                          kind=kind, spec=spec, rows=rows)
+
+
+def make_bank_fn(designs: Sequence[DeployedClassifier], *,
+                 device: DeviceLike = None
+                 ) -> Callable[[object], torch.Tensor]:
+    """The serving hot path: a closure (M, C) batch -> (D, M, O) logits
+    over the whole front. Tables, weights and range rows move to
+    ``device`` once, here, not once per microbatch; each call moves only
+    the batch. A feature-baked front takes raw (M, W, C_raw) windows
+    (``_make_feature_bank_fn``)."""
+    dev = resolve_device(device)
+    designs = list(designs)
+    if any(d.feature is not None for d in designs):
+        return _make_feature_bank_fn(designs, dev)
+    bank = _bank_closure(designs, dev)
 
     def fn(xb) -> torch.Tensor:
         xb = torch.as_tensor(xb, dtype=torch.float32).to(dev).contiguous()
-        return ops.classifier_bank(xb, tables_t, weights_t, kind=d0.kind,
-                                   spec=spec, rows=rows)
+        return bank(xb)
+
+    return fn
+
+
+def _feature_groups(designs: Sequence[DeployedClassifier]) -> Dict:
+    """{subsample -> design indices} of a feature-baked front. The bank
+    kernels take ONE shared sample batch, but co-searched designs can
+    bake different subsample factors (different featurized views of the
+    same windows), so serving runs one bank per subsample group. Mixed
+    feature/tabular fronts and fronts of several base FeatureSpecs are
+    refused."""
+    withf = {d.feature is not None for d in designs}
+    if len(withf) != 1:
+        raise ValueError("mixed feature/tabular fronts unsupported")
+    bases = {d.feature.base() for d in designs}
+    if len(bases) != 1:
+        raise ValueError(f"bank needs one base FeatureSpec, got {bases}")
+    groups: Dict = {}
+    for i, d in enumerate(designs):
+        groups.setdefault(int(d.feature.subsample), []).append(i)
+    return dict(sorted(groups.items()))
+
+
+def _make_feature_bank_fn(designs: Sequence[DeployedClassifier], dev
+                          ) -> Callable[[object], torch.Tensor]:
+    """The streaming twin of ``make_bank_fn``: (M, W, C_raw) windows ->
+    (D, M, O) logits on ``dev``. Designs group by baked subsample
+    factor; each group serves its own bank (operands on the device once)
+    over ``feature.featurize_fn`` of its factor, the callable the search
+    data was built with, so served accuracies reproduce the search
+    fitness bit for bit; the group logits scatter back into front
+    order on the device."""
+    groups = _feature_groups(designs)
+    sub_banks = []
+    for idx in groups.values():
+        grp = [designs[i] for i in idx]
+        sub_banks.append((torch.tensor(idx, device=dev),
+                          feature_lib.featurize_fn(grp[0].feature),
+                          _bank_closure(grp, dev)))
+
+    def fn(xb) -> torch.Tensor:
+        xb = feature_lib.as_windows(xb, dev)
+        out = None
+        for idx, feat, bank in sub_banks:
+            lg = bank(feat(xb))
+            if out is None:
+                out = torch.empty((len(designs),) + tuple(lg.shape[1:]),
+                                  dtype=lg.dtype, device=dev)
+            out[idx] = lg
+        return out
 
     return fn
 
@@ -350,14 +469,16 @@ def make_bank_fn(designs: Sequence[DeployedClassifier], *,
 def serve_bank(designs: Sequence[DeployedClassifier], x, *,
                device: DeviceLike = None) -> torch.Tensor:
     """One shared sample batch through the whole front: (D, M, O)
-    logits on ``device``."""
+    logits on ``device``. A feature-baked front takes raw (M, W, C_raw)
+    windows and serves per subsample group."""
     return make_bank_fn(designs, device=device)(x)
 
 
 def served_accuracies(designs: Sequence[DeployedClassifier], x, y, *,
                       device: DeviceLike = None) -> np.ndarray:
-    """(D,) float32 test accuracies of the served front: the round-trip
-    check against each design's exported ``accuracy``."""
+    """(D,) float32 test accuracies of the served front (raw windows for
+    a feature-baked one): the round-trip check against each design's
+    exported ``accuracy``."""
     logits = serve_bank(designs, x, device=device)
     y = torch.as_tensor(np.asarray(y)).to(logits.device)
     return _mean_acc(torch.argmax(logits, dim=-1) == y[None, :]).cpu().numpy()

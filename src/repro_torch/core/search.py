@@ -59,13 +59,26 @@ the paper's Table 5 "Baseline" column.
 
 Genome layout per individual (C input channels, N-bit ADC):
   [ C * 2^N mask bits | 4 bits decimal-point position (dp in [-8, 7])
-    | fault-tolerance genes, with a FaultTolSpec ]
+    | fault-tolerance genes, with a FaultTolSpec
+    | feature genes, with a frontend ]
 
-Not in this slice, each refused with the ROADMAP item that ports it: the
-streaming co-search (A8) and the sharded engine (A9).
+Sensor -> feature -> ADC -> classifier co-search: a config with
+``frontend`` (a ``timeseries.feature.FeatureSpec``) appends a
+subsample-grid index and a 2-bit allocation gene per feature channel
+after the dp bits, and the data dict stacks one featurized variant per
+subsample factor ((V, M, C) instead of (M, C)). Every engine searches
+the joint space: the batched one quantizes the whole variant stack in
+one launch per split (``ops.adc_quantize_variants``) and each lane then
+gathers its own variant, the reference one gathers and then quantizes.
+A frontend and the Monte-Carlo objective exclude each other, as in the
+reference.
+
+Not in this slice, refused with the ROADMAP item that ports it: the
+sharded engine (A9).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -86,14 +99,14 @@ from repro_torch.kernels import ops
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import svm as svm_lib
 from repro_torch.optim import adamw
+from repro_torch.timeseries import feature as feature_lib
+from repro_torch.timeseries.feature import ALLOC_BITS, FULL_ALLOC, FeatureSpec
 
 DP_BITS = 4
 
 _LATER = {
     "sharded": "the sharded engine (multi-GPU population split) is not "
                "ported yet: ROADMAP A9",
-    "frontend": "the streaming front-end co-search (frontend) is not "
-                "ported yet: ROADMAP A8",
 }
 
 
@@ -155,8 +168,10 @@ class SearchConfig:
     # fault-tolerant search: redundancy/repair genes, routed through the
     # calibrated-table MC entry; needs the robustness objective
     faulttol: Optional[FaultTolSpec] = None
-    # the reference's option of a later slice: only its default is taken
-    frontend: Optional[object] = None
+    # sensor -> feature -> ADC -> classifier co-search: a FeatureSpec
+    # appends feature genes to the genome and switches the data contract
+    # to stacked featurized variants (V, M, C_feat)
+    frontend: Optional[FeatureSpec] = None
 
     def __post_init__(self):
         object.__setattr__(self, "vmin", normalize_range(self.vmin))
@@ -179,6 +194,12 @@ class SearchConfig:
         if self.mc_samples < 0:
             raise ValueError(f"mc_samples must be >= 0, got "
                              f"{self.mc_samples}")
+        if self.frontend is not None and self.mc_samples > 0:
+            raise ValueError(
+                "the feature-frontend co-search and the Monte-Carlo "
+                "robustness objective are mutually exclusive: the MC "
+                "kernel family consumes flat (M, C) test batches, not "
+                "the co-search's stacked (V, M, C) variant data")
         if not 0.0 <= self.yield_margin < 1.0:
             raise ValueError(f"yield_margin must be in [0, 1), got "
                              f"{self.yield_margin}")
@@ -188,8 +209,6 @@ class SearchConfig:
                 "objective (a NonIdealSpec and mc_samples > 0): "
                 "redundancy genes only matter under the perturbed "
                 "instance stream")
-        if self.frontend is not None:
-            raise NotImplementedError(_LATER["frontend"])
         if self.model not in ("mlp", "svm"):
             raise ValueError(f"unknown model {self.model!r}")
         if self.pop_size < 1:
@@ -219,8 +238,14 @@ class SearchConfig:
 
 
 def genome_len(channels: int, bits: int,
-               faulttol: Optional[FaultTolSpec] = None) -> int:
+               faulttol: Optional[FaultTolSpec] = None, *,
+               frontend: Optional[FeatureSpec] = None) -> int:
+    """Genome length: masks and dp, then the feature genes of a
+    ``frontend``, then the fault-tolerance genes (the reference's
+    ``genome_len(channels, bits, frontend, faulttol)``; here ``faulttol``
+    stays third and ``frontend`` is keyword-only)."""
     base = channels * 2 ** bits + DP_BITS
+    base += frontend.gene_bits if frontend is not None else 0
     return base + (faulttol.gene_bits(channels)
                    if faulttol is not None else 0)
 
@@ -253,17 +278,81 @@ def decode_genome_faulttol(genome, channels: int, bits: int,
     return masks[0], dps[0], tmr[0], spares[0], cal[0]
 
 
+def _frontend_genes(genomes, channels: int, bits: int,
+                    frontend: FeatureSpec
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P, G) genomes -> (sub (P,) int32 indices into frontend.sub_grid,
+    alloc (P, C) int32 in [0, FULL_ALLOC]), on the CPU. Feature genes sit
+    after the dp bits, LSB first: the layout feature.encode_genes
+    writes."""
+    g = torch.as_tensor(np.asarray(genomes, np.uint8))
+    base = channels * 2 ** bits + DP_BITS
+    sb = frontend.sub_bits
+    if sb:
+        subb = g[:, base:base + sb].to(torch.int64)
+        sub = (subb * (2 ** torch.arange(sb))[None, :]).sum(-1)
+    else:
+        sub = torch.zeros(g.shape[0], dtype=torch.int64)
+    ab = g[:, base + sb:base + sb + channels * ALLOC_BITS].to(torch.int64)
+    ab = ab.reshape(-1, channels, ALLOC_BITS)
+    alloc = (ab * (2 ** torch.arange(ALLOC_BITS))[None, None, :]).sum(-1)
+    return sub.to(torch.int32), alloc.to(torch.int32)
+
+
+def _alloc_masks(masks: torch.Tensor, alloc: torch.Tensor, bits: int,
+                 min_levels: int) -> torch.Tensor:
+    """Apply the per-channel resolution-allocation ladder to repaired
+    masks (P, C, 2^N): alloc a in [1, FULL_ALLOC] keeps every
+    2^(FULL_ALLOC - a)-th level (then repairs again, so min_levels still
+    holds); a = 0 turns the channel off, a one-hot level-0 mask (a
+    constant input, zero comparators). The off override comes after the
+    repair, which would otherwise re-enable levels on a dead channel."""
+    n = 2 ** bits
+    idx = torch.arange(n)
+    stride = torch.pow(2, FULL_ALLOC - alloc.clamp(1, FULL_ALLOC))
+    allowed = (idx[None, None, :] % stride[..., None]) == 0     # (P, C, n)
+    laddered = adc.repair_mask(masks * allowed.to(torch.int32), min_levels)
+    onehot0 = torch.zeros(n, dtype=torch.int32)
+    onehot0[0] = 1
+    return torch.where((alloc == 0)[..., None], onehot0[None, None, :],
+                       laddered)
+
+
+def decode_population_cosearch(genomes, channels: int, bits: int,
+                               min_levels: int, frontend: FeatureSpec):
+    """Co-search decode on the CPU: (P, G) -> (masks (P, C, 2^N) with the
+    allocation ladder applied, dps (P,) float32, sub (P,) variant
+    indices, alloc (P, C))."""
+    masks, dps = decode_population(genomes, channels, bits, min_levels)
+    sub, alloc = _frontend_genes(genomes, channels, bits, frontend)
+    return _alloc_masks(masks, alloc, bits, min_levels), dps, sub, alloc
+
+
+def decode_genome_cosearch(genome, channels: int, bits: int,
+                           min_levels: int, frontend: FeatureSpec):
+    """Single-genome co-search decode -> (mask, dp, sub, alloc)."""
+    masks, dps, sub, alloc = decode_population_cosearch(
+        np.asarray(genome)[None], channels, bits, min_levels, frontend)
+    return masks[0], dps[0], sub[0], alloc[0]
+
+
 def _decode_masks(genomes, channels: int, cfg: "SearchConfig"):
-    """(masks, dps, tmr, cal) of a (P, G) batch under ``cfg``: the FT
-    decode (spare-applied masks) with a FaultTolSpec, else the plain one
-    with tmr/cal None."""
+    """(masks, dps, tmr, cal, sub, alloc) of a (P, G) batch under
+    ``cfg``: the FT decode (spare-applied masks) with a FaultTolSpec, the
+    co-search decode (alloc-applied masks) with a frontend, else the
+    plain one; tmr/cal None without a FaultTolSpec, sub/alloc None
+    without a frontend."""
+    if cfg.frontend is not None:
+        masks, dps, sub, alloc = decode_population_cosearch(
+            genomes, channels, cfg.bits, cfg.min_levels, cfg.frontend)
+        return masks, dps, None, None, sub, alloc
     if cfg.faulttol is not None:
         masks, dps, tmr, _, cal = decode_population_faulttol(
             genomes, channels, cfg.bits, cfg.min_levels, cfg.faulttol)
-        return masks, dps, tmr, cal
+        return masks, dps, tmr, cal, None, None
     masks, dps = decode_population(genomes, channels, cfg.bits,
                                    cfg.min_levels)
-    return masks, dps, None, None
+    return masks, dps, None, None, None, None
 
 
 def decode_population(genomes, channels: int, bits: int,
@@ -393,17 +482,32 @@ def _train_and_score(genomes: np.ndarray, params0, data: Dict, sizes,
     program on ``data``'s device; ``return_params=True`` adds the trained
     parameter stacks under ``'params'``. The input quantization runs
     before the QAT, one population-quantizer launch per split (through
-    the spare-augmented masks with a FaultTolSpec). A robustness config
+    the spare-augmented masks with a FaultTolSpec; over the whole
+    (V, M, C) variant stack with a frontend, each lane then gathering
+    the variant its subsample gene picks). A robustness config
     with ``draws`` adds ``'mc_accs'``, the raw (P, S) per-instance
     accuracies: one launch of the MC population entry (the
     calibrated-table one with a FaultTolSpec) on the test split, and
     ``mc_accuracies`` re-scoring each view."""
     spec = cfg.adc_spec
-    masks, dps, tmr, cal = _decode_masks(genomes, sizes[0], cfg)
+    masks, dps, tmr, cal, sub, _ = _decode_masks(genomes, sizes[0], cfg)
     dev = data["x_train"].device
     masks, dps = masks.to(dev), dps.to(dev)
-    xq_tr = ops.adc_quantize_population(data["x_train"], masks, spec=spec)
-    xq_te = ops.adc_quantize_population(data["x_test"], masks, spec=spec)
+    if sub is not None:
+        # quantize-then-gather: the lane's variant is picked after the
+        # whole stack went through the banks, so the gather sees the
+        # padded chunk's lanes exactly as the quantizer laid them out
+        lane = torch.arange(len(sub), device=dev)
+        sub = sub.to(dev, torch.int64)
+        xq_tr = ops.adc_quantize_variants(data["x_train"], masks,
+                                          spec=spec)[lane, sub]
+        xq_te = ops.adc_quantize_variants(data["x_test"], masks,
+                                          spec=spec)[lane, sub]
+    else:
+        xq_tr = ops.adc_quantize_population(data["x_train"], masks,
+                                            spec=spec)
+        xq_te = ops.adc_quantize_population(data["x_test"], masks,
+                                            spec=spec)
     robust = cfg.wants_robustness and draws is not None
     out = _train_from_quantized(xq_tr, xq_te, data["y_train"],
                                 data["y_test"], dps, params0, sizes, cfg,
@@ -507,14 +611,15 @@ def train_pareto_front(genomes: np.ndarray, data: Dict, sizes,
 
     Returns ``(accs (K,) f64, params, masks (K, C, 2^N) i32, dps (K,)
     f32)`` with every ``params`` leaf a numpy (K, ...) stack; with a
-    FaultTolSpec the masks carry the spare levels. Each lane is a pure
-    function of (genome, data, cfg) at the fixed lane count, so the
-    accuracies reproduce the search-time fitness bit for bit."""
+    FaultTolSpec the masks carry the spare levels, with a frontend the
+    allocation ladder. Each lane is a pure function of (genome, data,
+    cfg) at the fixed lane count, so the accuracies reproduce the
+    search-time fitness bit for bit."""
     genomes = np.asarray(genomes, np.uint8)
     data = _as_device_data(data, device)
     out = _fixed_lanes(genomes, data, sizes, cfg, init_params,
                        return_params=True)
-    masks, dps, _, _ = _decode_masks(genomes, sizes[0], cfg)
+    masks, dps, *_ = _decode_masks(genomes, sizes[0], cfg)
     return (np.asarray(out["acc"], np.float64), out["params"],
             masks.numpy(), dps.numpy())
 
@@ -526,10 +631,20 @@ def population_areas(genomes: np.ndarray, channels: int, cfg: SearchConfig
     bank): mask decode and repair, then the exact-integer design-rule walk
     in numpy per mask. With a FaultTolSpec: the spare-augmented masks
     plus the exact voter/calibration surcharge (``area.faulttol_tc``) on
-    the same budget axis."""
+    the same budget axis. With a frontend: the alloc-applied masks plus
+    the exact front-end count of (subsample, alloc), normalized by the
+    full flash bank plus the full-rate, all-features front end."""
     g = np.asarray(genomes, np.uint8)
-    masks, _, tmr, cal = _decode_masks(g, channels, cfg)
+    masks, _, tmr, cal, sub, alloc = _decode_masks(g, channels, cfg)
     masks = masks.numpy()
+    fe = cfg.frontend
+    if fe is not None:
+        denom = max(area.flash_full_tc(cfg.bits) * channels
+                    + feature_lib.frontend_full_tc(fe), 1)
+        tc = [area.system_tc(m, cfg.design)
+              + feature_lib.frontend_tc(fe, fe.sub_grid[int(s)], a)
+              for m, s, a in zip(masks, sub.numpy(), alloc.numpy())]
+        return np.array(tc, np.float64) / denom
     flash_full = max(area.flash_full_tc(cfg.bits) * channels, 1)
     if cfg.faulttol is not None:
         tc = [area.system_tc(m, cfg.design)
@@ -641,15 +756,21 @@ def _eval_one(genome, data: Dict, sizes, cfg: SearchConfig,
     data, so no gradient flows to them. With a robustness config and
     ``draws`` the single-design MC entry (``ops.mc_eval``, or
     ``ops.mc_eval_cal`` with a FaultTolSpec) gives ``'mc_accs'`` (S,).
-    Returns numpy ``{'acc': float32, ...}``."""
-    masks, dps, tmr, cal = _decode_masks(np.asarray(genome)[None],
-                                         sizes[0], cfg)
+    With a frontend the subsample gene picks the genome's variant before
+    the quantization (gather-then-quantize: the quantizer is elementwise,
+    so this equals the batched engine's quantize-then-gather bit for
+    bit). Returns numpy ``{'acc': float32, ...}``."""
+    genome = np.asarray(genome)[None]
+    masks, dps, tmr, cal, sub, _ = _decode_masks(genome, sizes[0], cfg)
     dev = data["x_train"].device
     mask, dp = masks[0].to(dev), dps.to(dev)
+    x_tr, x_te = data["x_train"], data["x_test"]
+    if sub is not None:
+        x_tr, x_te = x_tr[int(sub[0])], x_te[int(sub[0])]
     kw = dict(bits=cfg.bits, vmin=cfg.vmin, vmax=cfg.vmax, mode=cfg.mode,
               ste=False)
-    xq_tr = adc.adc_quantize(data["x_train"], mask, **kw)[None]
-    xq_te = adc.adc_quantize(data["x_test"], mask, **kw)[None]
+    xq_tr = adc.adc_quantize(x_tr, mask, **kw)[None]
+    xq_te = adc.adc_quantize(x_te, mask, **kw)[None]
     params0 = (_stacked_init(1, sizes, cfg, dev) if init_params is None
                else stacked_init_from_numpy(init_params, 1, dev))
     robust = cfg.wants_robustness and draws is not None
@@ -764,8 +885,32 @@ def restore_search_state(ckpt, step: int, pop_size: int, glen: int,
     return state, restored
 
 
+def _validate_frontend(data: Dict, sizes, cfg: SearchConfig) -> None:
+    """Co-search data contract: sizes[0] counts FEATURE channels and the
+    x arrays stack one featurized variant per sub_grid factor."""
+    fe = cfg.frontend
+    if fe is None:
+        return
+    if fe.feature_channels != sizes[0]:
+        raise ValueError(
+            f"frontend produces {fe.feature_channels} feature channels "
+            f"({fe.channels} raw x {len(fe.features)} features) but "
+            f"sizes[0] is {sizes[0]}")
+    xt = tuple(np.shape(data["x_train"]))
+    if len(xt) != 3 or xt[0] != len(fe.sub_grid):
+        raise ValueError(
+            f"co-search data must stack one featurized variant per "
+            f"sub_grid factor — expected x_train of shape "
+            f"(V={len(fe.sub_grid)}, M, {fe.feature_channels}), got "
+            f"{xt} (build it with timeseries.feature.stack_variants)")
+
+
 def _decoder(channels: int, cfg: SearchConfig):
-    """genome -> its decode (mask, dp[, tmr, spares, cal])."""
+    """genome -> its decode (mask, dp[, tmr, spares, cal] or
+    [, sub, alloc])."""
+    if cfg.frontend is not None:
+        return lambda gg: decode_genome_cosearch(
+            gg, channels, cfg.bits, cfg.min_levels, cfg.frontend)
     if cfg.faulttol is not None:
         return lambda gg: decode_genome_faulttol(
             gg, channels, cfg.bits, cfg.min_levels, cfg.faulttol)
@@ -796,7 +941,8 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
     turns on surrogate-screened offspring oversampling.
 
     ``init`` seeds the initial population ((pop_size, G) uint8) instead
-    of the random draw."""
+    of the random draw, e.g. an ADC-only front lifted into the co-search
+    space (``timeseries.cosearch.embed_adc_only``)."""
     if cfg.engine == "gradient":
         return run_gradient_search(data, sizes, cfg, log=log, ckpt=ckpt,
                                    resume=resume,
@@ -804,8 +950,9 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
                                    device=device, init_params=init_params)
     c = sizes[0]
     cfg.adc_spec.validate_channels(c)
+    _validate_frontend(data, sizes, cfg)
     dev_data = device_data(data, device)
-    g = genome_len(c, cfg.bits, cfg.faulttol)
+    g = genome_len(c, cfg.bits, cfg.faulttol, frontend=cfg.frontend)
     screened = cfg.screen_factor > 1
     sur = [surrogate_lib.init(g, cfg.n_objectives,
                               hidden=cfg.surrogate_hidden, seed=cfg.seed,
@@ -874,11 +1021,17 @@ def run_gradient_search(data: Dict, sizes, cfg: SearchConfig,
     exact evaluation. Same return shape as ``run_search``;
     ``ckpt``/``resume`` checkpoint the gate train's chunks. With a
     FaultTolSpec the redundancy genes start zeroed and the anchors stay
-    plain full-ADC designs; the exact polish flips them from there."""
+    plain full-ADC designs; the exact polish flips them from there. With
+    a frontend the gate train runs on the full-rate variant (index 0)
+    without the frontend, the snapshots take full allocation and the
+    subsample grid cycled over their rows, and the anchors embed the
+    full-rate, full-allocation front end; the polish flips the feature
+    genes from there."""
     c = sizes[0]
     cfg.adc_spec.validate_channels(c)
-    ft = cfg.faulttol
-    g = genome_len(c, cfg.bits, ft)
+    _validate_frontend(data, sizes, cfg)
+    fe, ft = cfg.frontend, cfg.faulttol
+    g = genome_len(c, cfg.bits, ft, frontend=fe)
     dp_lo = c * 2 ** cfg.bits                       # the dp genes start here
     dev_data = _as_device_data(data, device)
     draws = search_draws(cfg, c, dev_data["x_test"].device)
@@ -887,11 +1040,23 @@ def run_gradient_search(data: Dict, sizes, cfg: SearchConfig,
     # 4 lanes per requested front point: the λ sweep, the dp grid and the
     # density strata each need room along their axis
     lanes = cfg.grad_points if cfg.grad_points > 0 else 4 * cfg.pop_size
+    gate_cfg, gate_data = cfg, dev_data
+    if fe is not None:
+        # the relaxation differentiates masks, not the combinatorial
+        # feature genes: train the gates on the full-rate variant
+        gate_cfg = dataclasses.replace(cfg, frontend=None)
+        gate_data = dict(dev_data, x_train=dev_data["x_train"][0],
+                         x_test=dev_data["x_test"][0])
     snaps, _ = grad_gates.train_gate_family(
-        dev_data, tuple(sizes), cfg, lanes=lanes, ckpt=ckpt, resume=resume,
-        progress=progress)
+        gate_data, tuple(sizes), gate_cfg, lanes=lanes, ckpt=ckpt,
+        resume=resume, progress=progress)
     snaps = np.asarray(snaps, np.uint8)
-    if ft is not None:
+    if fe is not None:
+        ext = np.ones((len(snaps), g - dp_lo - DP_BITS), np.uint8)
+        subs = np.arange(len(snaps)) % len(fe.sub_grid)
+        ext[:, :fe.sub_bits] = (subs[:, None] >> np.arange(fe.sub_bits)) & 1
+        snaps = np.concatenate([snaps, ext], axis=1)
+    elif ft is not None:
         snaps = np.concatenate(
             [snaps, np.zeros((len(snaps), ft.gene_bits(c)), np.uint8)],
             axis=1)
@@ -904,7 +1069,10 @@ def run_gradient_search(data: Dict, sizes, cfg: SearchConfig,
         variants.append(v)
     anchors = np.ones((2, g), np.uint8)
     anchors[1, dp_lo:dp_lo + DP_BITS] = _dp_code(-3)
-    if ft is not None:
+    if fe is not None:
+        # sub index 0; the all-ones alloc genes already mean FULL_ALLOC
+        anchors[:, dp_lo + DP_BITS:dp_lo + DP_BITS + fe.sub_bits] = 0
+    elif ft is not None:
         anchors[:, dp_lo + DP_BITS:] = 0          # no redundancy overhead
     pool = np.unique(np.concatenate(variants + [anchors]), axis=0)
     fit = evaluate(pool)
@@ -964,14 +1132,19 @@ def full_adc_baseline(data: Dict, sizes, cfg: SearchConfig, *,
                       init_params=None) -> Dict[str, float]:
     """The paper's Table 5 "Baseline" column: the full (unpruned) ADC at
     dp = -3 with QAT, through the exact fitness path (FaultTolSpec genes
-    zeroed: no redundancy), plus the three full-design areas in
+    zeroed: no redundancy; a frontend at full rate and full
+    allocation), plus the three full-design areas in
     transistors (flash, the binary baseline and the proposed design)."""
     c = sizes[0]
-    g = genome_len(c, cfg.bits, cfg.faulttol)
+    g = genome_len(c, cfg.bits, cfg.faulttol, frontend=cfg.frontend)
     dp_lo = c * 2 ** cfg.bits
     genome = np.ones((1, g), np.uint8)
     genome[0, dp_lo:dp_lo + DP_BITS] = _dp_code(-3)
-    if cfg.faulttol is not None:
+    if cfg.frontend is not None:
+        # full-rate (sub index 0), full-allocation front end
+        genome[0, dp_lo + DP_BITS:
+               dp_lo + DP_BITS + cfg.frontend.sub_bits] = 0
+    elif cfg.faulttol is not None:
         genome[0, dp_lo + DP_BITS:] = 0
     fit = evaluate_population(genome, data, sizes, cfg, device=device,
                               init_params=init_params)

@@ -3,9 +3,10 @@
 
 ``adc_quantize`` / ``adc_quantize_population`` take pruned masks, bake
 their value tables and run the population quantizer (the search's inner
-loop). ``classifier_bank`` takes baked value tables, as deployment holds
-them; ``bespoke_mlp`` / ``bespoke_svm`` take a pruned mask and bake its
-table first. ``mc_eval`` / ``mc_eval_population`` / ``mc_eval_cal`` /
+loop); ``adc_quantize_variants`` runs it over the streaming co-search's
+(V, M, C) variant stack in one launch. ``classifier_bank`` takes baked
+value tables, as deployment holds them; ``bespoke_mlp`` /
+``bespoke_svm`` take a pruned mask and bake its table first. ``mc_eval`` / ``mc_eval_population`` / ``mc_eval_cal`` /
 ``mc_eval_cal_population`` take the operand tuple
 ``(lb, ub, values, lo, scale)`` that core/nonideal.mc_operands (or
 faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
@@ -42,6 +43,20 @@ def adc_quantize_population(x: torch.Tensor, masks, *,
     spec = as_spec(spec)
     tables = spec.value_table(torch.as_tensor(masks, device=x.device))
     return _adcq.adc_quantize_population(x, tables.contiguous(), spec=spec)
+
+
+def adc_quantize_variants(xv: torch.Tensor, masks, *,
+                          spec: AdcSpec) -> torch.Tensor:
+    """``adc_quantize_population`` over a variant-stacked sample batch:
+    xv (V, M, C), one featurized variant per subsample factor of the
+    streaming co-search, through a population of pruned banks, masks
+    (P, C, 2^bits). Returns (P, V, M, C); the caller gathers each
+    individual's variant. The ADC is elementwise over samples, so (V, M)
+    reshaped into one flat sample axis is one launch of the population
+    quantizer, and quantize-then-gather equals gather-then-quantize."""
+    v, m, c = xv.shape
+    q = adc_quantize_population(xv.reshape(v * m, c), masks, spec=spec)
+    return q.reshape(q.shape[0], v, m, c)
 
 
 def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,

@@ -74,11 +74,13 @@ def serve(designs: Sequence[deploy.DeployedClassifier],
     microbatches. Returns the throughput report plus per-request
     responses ``{rid: (D, n_rows) predicted classes}``. ``bank_fn``
     overrides the (M, C) -> (D, M, O) bank closure
-    (deploy.make_bank_fn by default)."""
+    (deploy.make_bank_fn by default). Request rows are samples of the
+    front's ``sample_shape``: (C,) rows, or raw (W, C_raw) windows for a
+    feature-baked front."""
     dev = resolve_device(device)
     fn = bank_fn if bank_fn is not None else deploy.make_bank_fn(
         designs, device=dev)
-    channels = designs[0].channels
+    sample_shape = designs[0].sample_shape
     queue = deque(requests)
     carry: Optional[Tuple[int, np.ndarray]] = None
     responses: Dict[int, List[np.ndarray]] = {rid: [] for rid, _ in requests}
@@ -87,8 +89,9 @@ def serve(designs: Sequence[deploy.DeployedClassifier],
     # warm-up on a dummy batch through the whole per-microbatch path (the
     # first CUDA call builds and loads the kernels), so the report times
     # serving only
-    torch.argmax(fn(torch.zeros((batch, channels), dtype=torch.float32,
-                                device=dev)), dim=-1).cpu()
+    torch.argmax(fn(torch.zeros((batch,) + sample_shape,
+                                dtype=torch.float32, device=dev)),
+                 dim=-1).cpu()
     _sync(dev)
     t0 = time.perf_counter()
     while queue or carry:
@@ -105,7 +108,7 @@ def serve(designs: Sequence[deploy.DeployedClassifier],
         xb = np.concatenate(rows, axis=0)
         pad = batch - len(xb)
         if pad:
-            xb = np.pad(xb, ((0, pad), (0, 0)))
+            xb = np.pad(xb, ((0, pad),) + ((0, 0),) * len(sample_shape))
             padded_rows += pad
         logits = fn(torch.from_numpy(xb).to(dev))
         preds = torch.argmax(logits, dim=-1).cpu().numpy()   # (D, batch)

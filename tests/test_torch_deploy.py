@@ -262,14 +262,52 @@ def test_mean_acc_is_jnp_mean():
     assert differs > 0
 
 
-def test_streaming_front_is_left_to_a_later_slice(tmp_path):
-    meta = {"format": 1, "kind": "mlp", "bits": 2, "mode": "tree",
-            "vmin": 0.0, "vmax": 1.0, "num_designs": 0,
-            "feature": {"window": 8}}
-    tmanager.CheckpointManager(tmp_path).save(
-        0, {"meta": tmanager.pack_json(meta)})
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tdeploy.load_front(tmp_path)
+def test_streaming_front_is_left_to_a_later_slice(jax_fronts, tmp_path):
+    """The streaming slice is ported now: a front in the reference's
+    streaming format (the base FeatureSpec in the meta, each design's
+    baked subsample/alloc as leaves), saved by the JAX package, loads in
+    the port and serves raw windows as the JAX package serves them; a
+    front mixing feature-baked and tabular designs, or two base
+    FeatureSpecs, is refused with the reference's messages. The name is
+    the one this test had while it held the refusal of streaming fronts,
+    kept so the test's record runs on unbroken."""
+    import dataclasses
+
+    from repro.timeseries.feature import FeatureSpec as JFeatureSpec
+    from repro_torch.timeseries.feature import FeatureSpec
+    data, fronts = jax_fronts
+    _, jdesigns = fronts["mlp"]
+    fe = JFeatureSpec(channels=7, window=8, features=("mean",),
+                      sub_grid=(1, 2))
+    baked = [dataclasses.replace(d, feature=fe.bake(1 + i % 2, [3] * 7))
+             for i, d in enumerate(jdesigns)]
+    jdeploy.save_front(tmp_path, baked, extra_meta={"dataset": "seeds"})
+    designs = tdeploy.load_front(tmp_path)
+    assert [d.feature.to_meta() for d in designs] == [
+        d.feature.to_meta() for d in baked]
+    assert designs[0].sample_shape == (8, 7)
+    rng = np.random.default_rng(0)
+    x = np.asarray(data["x_test"], np.float32)
+    windows = (x[:, None, :] + rng.normal(0.0, 0.02, (len(x), 8, 7))
+               ).astype(np.float32)
+    want = jdeploy.served_accuracies(baked, windows, data["y_test"])
+    got = tdeploy.served_accuracies(designs, windows, data["y_test"],
+                                    device="cpu")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(
+        tdeploy.serve_bank(designs, windows, device="cpu").numpy(),
+        np.asarray(jdeploy.serve_bank(baked, windows)), rtol=1e-6,
+        atol=1e-6)
+    tabular = tdeploy.load_front(fronts["mlp"][0])
+    with pytest.raises(ValueError, match="mixed feature/tabular"):
+        tdeploy.make_bank_fn([designs[0], tabular[0]], device="cpu")
+    with pytest.raises(ValueError, match="mixed fronts unsupported"):
+        tdeploy.save_front(tmp_path / "mixed", [designs[0], tabular[0]])
+    other = dataclasses.replace(designs[0], feature=FeatureSpec(
+        channels=7, window=16, features=("mean",), sub_grid=(1, 2)).bake(
+            1, [3] * 7))
+    with pytest.raises(ValueError, match="one base FeatureSpec"):
+        tdeploy.serve_bank([designs[0], other], windows, device="cpu")
 
 
 def test_checkpoint_format_is_shared(tmp_path):

@@ -57,6 +57,9 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_importing_every_port_module_loads_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.qmlp" in mods and len(mods) >= 15
+    assert {"repro_torch.timeseries", "repro_torch.timeseries.stream",
+            "repro_torch.timeseries.feature",
+            "repro_torch.timeseries.cosearch"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

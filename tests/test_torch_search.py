@@ -33,6 +33,7 @@ from repro.core import deploy as jdeploy  # noqa: E402
 from repro.core import nsga2 as jnsga2  # noqa: E402
 from repro.core import search as jsearch  # noqa: E402
 from repro.data import tabular as jtab  # noqa: E402
+from repro.timeseries import feature as jfeature  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import area as tarea  # noqa: E402
 from repro_torch.core import deploy as tdeploy  # noqa: E402
@@ -41,6 +42,7 @@ from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.core.spec import AdcSpec  # noqa: E402
 from repro_torch.launch import serve_classifier as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.timeseries.feature import FeatureSpec  # noqa: E402
 
 SIZES = (7, 3, 3)        # seeds: 7 features, hidden 3, 3 classes
 KINDS = ["mlp", "svm"]
@@ -307,10 +309,25 @@ def test_cli_refuses_later_slices(argv, item, capsys):
 
 
 @pytest.mark.parametrize("field, item", [
-    (dict(engine="sharded"), "A9"), (dict(frontend=object()), "A8")])
+    (dict(engine="sharded"), "A9"),
+    (dict(frontend=FeatureSpec(channels=4, window=32), mc_samples=4), "A8")],
+    ids=["field0-A9", "field1-A8"])
 def test_config_refuses_later_slices(field, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The sharded engine (A9) is refused as a later slice; the streaming
+    co-search (A8) is ported, and a frontend with the Monte-Carlo
+    objective is refused with the reference's ValueError."""
+    if item == "A9":
+        with pytest.raises(NotImplementedError, match=item):
+            tsearch.SearchConfig(**field)
+        return
+    jfield = dict(field, frontend=jfeature.FeatureSpec(channels=4,
+                                                       window=32))
+    with pytest.raises(ValueError) as want:
+        jsearch.SearchConfig(**jfield)
+    with pytest.raises(ValueError) as got:
         tsearch.SearchConfig(**field)
+    assert str(got.value) == str(want.value)
+    assert "mutually exclusive" in str(got.value)
 
 
 def test_config_checks_and_checkpoint_refused(seeds):
