@@ -177,7 +177,32 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    per generation of the baseline and the co-search, the gradient
    engine's seconds to a front, windows/s of raw-window serving and
    featurize's share of it, row 2's device time, the launches.
-11. lm (the LM serving path): with every launch counter at 0,
+11. async (the serving engine): with every launch counter at 0,
+   serving_engine.run_workload on cuda at the reference serve_scale
+   cell's shape, nothing cut (bursty traffic, 256 requests of 8 rows per
+   tenant, deadline 500 ms, target 25 ms, max_batch 256, at 200, 800
+   and 3,200 req/s per tenant, for D = 1 and the whole front), with
+   three tenants in one engine: the cardio MLP and SVM fixture fronts
+   and the vitals SVM front phase cosearch exports (raw (24, 6)
+   windows, one bank per subsample group); then a device loss at bank
+   launch 1 on a pool [cuda:0, cuda:0] (deadlines 30 s: one recovery,
+   every request completed), the cardio SVM tenant calibrated
+   (NonIdealSpec(sigma_offset=0.3, fault_rate=0.05)) through the same
+   loss (two calibrations), and the loss of a one-entry pool's last
+   entry (must raise). Every response must equal the direct
+   make_bank_fn prediction on the plain route (the CPU) bitwise; the
+   calibrated tenant's trace arrives at 0, so the requests of launch 0
+   must equal instance 0's and the rest instance 1's, and the two
+   instances must differ on both sides. Rows 5 and 6 are held against
+   their plain versions on the card at every ladder size (32-256) on
+   engine-padded batches (one request then zeros, and full), per
+   subsample group for the vitals tenant: bitwise, and for the
+   calibrated tables rtol=1e-5 atol=1e-6. Every tenant's served
+   accuracies must equal its exported ones, and rows 5 and 6 must
+   have launched. Printed per cell with the card: p50 /
+   p95 / p99, req/s, samples/s, shed, batches, pad fraction and the
+   ladder; the device's busy share over one traced cell.
+12. lm (the LM serving path): with every launch counter at 0,
    repro_torch.launch.serve.main serves musicgen-medium at its full
    published config (48 layers, d_model 1536, 24 heads, dh 64; random
    seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
@@ -202,8 +227,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route; launches summed over the serve, search, robust,
-baseline, resume, gradient, cosearch, lm and lm_f32 paths, each counted
-from 0),
+baseline, resume, gradient, cosearch, async, lm and lm_f32 paths, each
+counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -314,6 +339,21 @@ COSEARCH_GRADIENT_CUT = dict(grad_points=32)
 COSEARCH_GRADIENT_LEARNS = ("vitals",)
 # raw-window serving: 8 microbatches of 1024 windows, 8-window requests
 COSEARCH_SERVE = dict(batch=1024, request_size=8, batches=8)
+# the async serving path: the reference serve_scale cell's shape
+# (benchmarks/run.py, bench_serve_scale without --smoke), nothing cut:
+# bursty traffic, 256 requests of 8 rows per tenant, deadline 500 ms,
+# target 25 ms, max_batch 256, at each offered rate per tenant, for D = 1
+# and the whole front; three tenants in one engine (the cardio fixture
+# fronts and the vitals SVM front phase cosearch exports, raw windows)
+ASYNC = dict(requests=256, request_size=8, deadline_ms=500.0,
+             target_latency_ms=25.0, max_batch=256, shape="bursty")
+ASYNC_RATES = (200.0, 800.0, 3200.0)
+ASYNC_TRACED = ("front", 800.0)  # the cell traced with torch.profiler
+# a device loss at bank launch 1 on a pool of two entries of the card,
+# deadlines far beyond the recovery stall
+ASYNC_FAILOVER = dict(requests=64, rate=800.0, deadline_ms=30000.0,
+                      fail_at=1)
+ASYNC_CAL_NI = dict(sigma_offset=0.3, fault_rate=0.05, seed=0)
 ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
                  seed=0)
 # the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
@@ -2465,6 +2505,8 @@ def phase_cosearch(np, torch, dev, card):
             row, designs, data, spec = cosearch_stream(
                 np, torch, dev, card, name, kind, FeatureSpec(**fe_kw))
             out[name] = row
+            if name == "vitals":
+                out["async_tenant"] = (designs, data)
             fronts.append((f"{name} {kind} front", designs, data, spec,
                            COSEARCH["pop_size"]))
         kind, fe_kw = COSEARCH_STREAMS["stress"]
@@ -2502,6 +2544,325 @@ def phase_cosearch(np, torch, dev, card):
     max_err, timings = cosearch_kernel_checks(np, torch, dev, card, fronts)
     out.update(launches=launches, qat_chunks=chunks[0], path_s=path_s,
                max_err=max_err, timings=timings)
+    return out
+
+
+def phase_async(np, torch, dev, card, fronts, data, vitals):
+    """The async serving path: the serving engine on the card at the
+    reference serve_scale cell's shape (ASYNC), three tenants in one
+    engine per cell, then a failover on [cuda:0, cuda:0], a calibrated
+    tenant's calibrate-on-recovery and the pool's exhaustion. Every
+    response must equal the direct make_bank_fn prediction on the plain
+    route bitwise, rows 5/6 their plain versions at every ladder size the
+    engine dispatches, and every tenant's served accuracies its exported
+    ones."""
+    import asyncio
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import deploy
+    from repro_torch.core.nonideal import NonIdealSpec
+    from repro_torch.kernels import envelope, qmlp, ref
+    from repro_torch.launch import loadgen
+    from repro_torch.launch import serving_engine as se
+    from repro_torch.timeseries import feature as feature_lib
+    sources = {"cardio_mlp": (fronts["mlp"][0], data),
+               "cardio_svm": (fronts["svm"][0], data),
+               "vitals_svm": vitals}
+    sizes = {"1": 1, "front": None}
+    print(f"phase async: serving_engine.run_workload on cuda, tenants "
+          f"{ {n: (len(d), d[0].sample_shape) for n, (d, _) in sources.items()} }, "
+          f"{ASYNC}, rates {ASYNC_RATES} req/s per tenant")
+
+    def workload(rate, requests, deadline_ms, names=tuple(sources)):
+        return loadgen.merge_workloads(*(
+            loadgen.make_workload(sources[n][1]["x_test"], requests,
+                                  tenant=n, rate_rps=rate,
+                                  request_size=ASYNC["request_size"],
+                                  deadline_ms=deadline_ms,
+                                  shape=ASYNC["shape"], seed=i)
+            for i, n in enumerate(names)))
+
+    def tenants(d, names=tuple(sources), nonideal=None):
+        return [se.Tenant(n, sources[n][0][:sizes[d]],
+                          parity_data=(sources[n][1]["x_test"],
+                                       sources[n][1]["y_test"]),
+                          nonideal=nonideal) for n in names]
+
+    fail = ASYNC_FAILOVER
+    cal_ni = NonIdealSpec(**ASYNC_CAL_NI)
+    fail_at = lambda b: 0 if b == fail["fail_at"] else None  # noqa: E731
+
+    def serve(tenant_list, wl, devices, inject=None):
+        """One engine over ``tenant_list`` replaying ``wl``; the report
+        gains the median of the engine's batch wall times (its step
+        watchdog's window: the last 50 batches)."""
+        engine = se.ServingEngine(
+            tenant_list, devices=devices,
+            target_latency_ms=ASYNC["target_latency_ms"],
+            max_batch=ASYNC["max_batch"])
+        rep = asyncio.run(engine.serve(wl, inject_device_failure=inject))
+        rep["batch_ms_median"] = float(
+            np.median(engine.watchdog.durations)) * 1e3
+        return rep
+
+    reset_all_launches()
+    marks = [time.perf_counter()]
+    cells = {}
+    for d in sizes:
+        for rate in ASYNC_RATES:
+            wl = workload(rate, ASYNC["requests"], ASYNC["deadline_ms"])
+            if (d, rate) != ASYNC_TRACED:
+                cells[(d, rate)] = (wl, serve(tenants(d), wl, [dev]))
+                continue
+            # device activity only (the engine's host threads are not
+            # traced); busy share of the traced call's wall time
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tw = time.perf_counter()
+                cells[(d, rate)] = (wl, serve(tenants(d), wl, [dev]))
+                torch.cuda.synchronize()
+                traced_wall = time.perf_counter() - tw
+    marks.append(time.perf_counter())
+    fo_wl = workload(fail["rate"], fail["requests"], fail["deadline_ms"])
+    fo_rep = serve(tenants("front"), fo_wl, [dev, dev], fail_at)
+    marks.append(time.perf_counter())
+    # every request at 0: the trace is queued before launch 0, which
+    # then serves exactly the first quantum's rows on instance 0
+    cal_wl = [dataclasses.replace(r, arrival_s=0.0,
+                                  deadline_s=fail["deadline_ms"] / 1e3)
+              for r in workload(fail["rate"], fail["requests"],
+                                fail["deadline_ms"], names=("cardio_svm",))]
+    cal_rep = serve(tenants("front", ("cardio_svm",), cal_ni), cal_wl,
+                    [dev, dev], fail_at)
+    marks.append(time.perf_counter())
+    exhausted = None
+    try:
+        serve(tenants("1"), cal_wl[:4], [dev], lambda b: 0)
+    except RuntimeError as exc:
+        exhausted = str(exc)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    path_s = marks[-1] - marks[0]
+    steps_s = dict(zip(("cells", "failover", "calibrated", "exhaustion"),
+                       np.diff(marks).tolist()))
+    launches = all_launches()
+    print(f"  async: launches on this path: row 5 (qmlp_mlp_bank) "
+          f"{launches['qmlp_mlp_bank']}, row 6 (qmlp_svm_bank) "
+          f"{launches['qmlp_svm_bank']}; others "
+          f"{ {k: v for k, v in launches.items() if v and 'bank' not in k} }; "
+          f"path {path_s:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in steps_s.items())}) "
+          f"on {card}")
+    for name in ("qmlp_mlp_bank", "qmlp_svm_bank"):
+        check(launches[name] > 0, f"async: {name} never launched")
+
+    banks, preds = {}, {}
+
+    def want(name, d, x, designs=None):
+        """The direct make_bank_fn prediction for one request's rows, on
+        the plain route (the CPU), so the served kernel is held against
+        another path."""
+        bank = (name, d, id(designs))
+        key = bank + (x.tobytes(),)
+        if key not in preds:
+            if bank not in banks:
+                banks[bank] = deploy.make_bank_fn(
+                    designs if designs is not None
+                    else sources[name][0][:sizes[d]], device="cpu")
+            preds[key] = torch.argmax(banks[bank](x), dim=-1).numpy()
+        return preds[key]
+
+    max_err = {"qmlp_mlp_bank": 0.0, "qmlp_svm_bank": 0.0}
+
+    def ladder_check(label, designs, ladder, reqs, exact):
+        """Rows 5/6 against their plain versions on the card, on the same
+        operands, at every ladder size the engine can dispatch, on
+        batches padded as the engine pads them (one request's rows then
+        zeros, and a full batch), per subsample group after featurize
+        for a raw-window front. Bitwise for the dyadic fronts; for the
+        calibrated tables (not dyadic) phase kernels' float rule."""
+        kind, spec = designs[0].kind, designs[0].spec
+        bank, plain = ((qmlp.bespoke_mlp_bank, ref.bespoke_mlp_bank_ref)
+                       if kind == "mlp" else
+                       (qmlp.bespoke_svm_bank, ref.bespoke_svm_bank_ref))
+        groups = (deploy._feature_groups(designs)
+                  if designs[0].feature is not None
+                  else {None: list(range(len(designs)))})
+        rows = np.concatenate([r.x for r in reqs])
+        errs = []
+        for size in ladder:
+            one = np.pad(reqs[0].x, ((0, size - reqs[0].rows),)
+                         + ((0, 0),) * (rows.ndim - 1))
+            for fill, xb in (("one request", one), ("full", rows[:size])):
+                x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
+                for sub, idx in groups.items():
+                    grp = [designs[i] for i in idx]
+                    xg = (x if sub is None else
+                          feature_lib.featurize_fn(grp[0].feature)(x))
+                    tables, weights = deploy.bank_arrays(grp)
+                    td = torch.from_numpy(tables).to(dev)
+                    wd = tuple(torch.from_numpy(w).to(dev) for w in weights)
+                    shape = (kind, td.shape[0], xg.shape[0], td.shape[1],
+                             td.shape[2],
+                             wd[0].shape[2] if kind == "mlp" else 0,
+                             wd[-1].shape[-1])
+                    where = (f"async {label} M={size} ({fill}"
+                             f"{'' if sub is None else f', sub={sub}'})")
+                    check(qmlp.geometry(*shape)
+                          == tuple(envelope.bank_geometry(*shape)),
+                          f"{where}: the built kernel's geometry differs "
+                          f"from envelope's")
+                    got = bank(xg, td, *wd, spec=spec)
+                    plain_out = plain(xg, td, spec.bits, *wd, spec.vmin,
+                                      spec.vmax)
+                    torch.cuda.synchronize()
+                    err = float((got - plain_out).abs().max())
+                    ok = (torch.equal(got, plain_out) if exact else
+                          torch.allclose(got, plain_out, rtol=1e-5,
+                                         atol=1e-6))
+                    check(ok, f"{where}: qmlp_{kind}_bank disagrees with "
+                              f"its plain version (max_abs_err {err:.3e})")
+                    errs.append(err)
+        name = f"qmlp_{kind}_bank"
+        max_err[name] = max(max_err[name], max(errs))
+        print(f"  {name} {label}: M {ladder} x (one request, full)"
+              f"{f' x {len(groups)} subsample groups' if len(groups) > 1 else ''}"
+              f", max_abs_err {max(errs):.3e} "
+              f"[{'bitwise' if exact else 'rtol=1e-5 atol=1e-6'}, "
+              f"geometry ==] ok")
+
+    def responses_ok(wl, rep, d, label):
+        for req in wl:
+            got = rep["responses"][req.rid]
+            if got is not None:
+                check(np.array_equal(got, want(req.tenant, d, req.x)),
+                      f"async {label}: request {req.rid} ({req.tenant}) "
+                      f"differs from the direct bank's prediction")
+
+    reached = {name: sorted({s for _, rep in cells.values()
+                             for s in rep["batch_sizes"][name]["ladder"]})
+               for name in sources}
+    traced_wl = cells[ASYNC_TRACED][0]
+    for d in sizes:
+        for name, (designs, _) in sources.items():
+            ladder_check(f"{name} D={d}", designs[:sizes[d]],
+                         reached[name],
+                         [r for r in traced_wl if r.tenant == name], True)
+    out = {"cells": {}}
+    for (d, rate), (wl, rep) in cells.items():
+        label = f"D={d},rate={rate:g}"
+        responses_ok(wl, rep, d, label)
+        offered = loadgen.describe(wl)
+        row = {"offered_rps": offered["offered_rps"],
+               "span_s": offered["span_s"], "wall_s": rep["wall_s"],
+               "batches": rep["batches"],
+               "batch_ms_median": rep["batch_ms_median"],
+               "pad_fraction": rep["pad_fraction"],
+               "stragglers": rep["stragglers"], "tenants": {}}
+        for name, slo in sorted(rep["tenants"].items()):
+            check(slo["completed"] + slo["shed"] == ASYNC["requests"]
+                  and slo["rejected"] == 0,
+                  f"async {label}: {name} accounts for {slo}")
+            bs = rep["batch_sizes"][name]
+            row["tenants"][name] = {
+                k: slo[k] for k in ("p50_ms", "p95_ms", "p99_ms",
+                                    "requests_per_s", "samples_per_s",
+                                    "completed", "shed")}
+            row["tenants"][name].update(
+                ladder=bs["ladder"], final=bs["final"],
+                trajectory_tail=bs["trajectory_tail"])
+            print(f"  {label} {name}: p50 {slo['p50_ms']:.3f} ms, p95 "
+                  f"{slo['p95_ms']:.3f} ms, p99 {slo['p99_ms']:.3f} ms, "
+                  f"{slo['requests_per_s']:.1f} req/s, "
+                  f"{slo['samples_per_s']:.0f} samples/s, shed "
+                  f"{slo['shed']}; ladder {bs['ladder']} final "
+                  f"{bs['final']} tail {bs['trajectory_tail']}")
+        print(f"  {label}: offered {offered['offered_rps']:.1f} req/s "
+              f"over {offered['span_s']:.4f} s (all tenants), "
+              f"{rep['batches']} batches (median "
+              f"{rep['batch_ms_median']:.3f} ms each), pad fraction "
+              f"{rep['pad_fraction']:.4f}, stragglers {rep['stragglers']}, "
+              f"wall {rep['wall_s']:.4f} s on {card}")
+        out["cells"][label] = row
+    for d in sizes:
+        for name, (designs, split) in sources.items():
+            served = deploy.served_accuracies(
+                designs[:sizes[d]], split["x_test"], split["y_test"],
+                device=dev)
+            exported = np.array([x.accuracy for x in designs[:sizes[d]]])
+            check(np.array_equal(served, exported),
+                  f"async D={d} {name}: served {served} != exported "
+                  f"{exported}")
+    print("  every response == the direct make_bank_fn prediction on the "
+          "plain route; served "
+          "== exported for every tenant at D=1 and the whole front")
+
+    dev_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if "DeviceType.CUDA" in str(getattr(ev, "device_type", "")))
+    check(dev_us > 0, "torch.profiler recorded no device time for the "
+                      "traced async cell")
+    busy = dev_us / 1e6 / traced_wall
+    traced = f"D={ASYNC_TRACED[0]},rate={ASYNC_TRACED[1]:g}"
+    print(f"  {traced} traced: wall {traced_wall:.4f} s, device "
+          f"{dev_us / 1e3:.3f} ms, device busy {busy * 100:.2f} % on {card}")
+    out["traced"] = {"cell": traced, "wall_s": traced_wall,
+                     "device_ms": dev_us / 1e3, "device_busy_share": busy}
+
+    responses_ok(fo_wl, fo_rep, "front", "failover")
+    fo_done = {n: s["completed"] for n, s in fo_rep["tenants"].items()}
+    print(f"  failover on [{dev}, {dev}] at launch {fail['fail_at']}: "
+          f"recoveries {fo_rep['recoveries']}, devices "
+          f"{fo_rep['devices']}, completed {fo_done} of "
+          f"{fail['requests']} each, responses bitwise")
+    check(fo_rep["recoveries"] == 1
+          and fo_rep["devices"] == {"alive": 1, "lost": 1, "sharded": False},
+          f"async failover: {fo_rep['recoveries']} recoveries, "
+          f"{fo_rep['devices']}")
+    check(all(v == fail["requests"] for v in fo_done.values())
+          and all(s["shed"] == 0 for s in fo_rep["tenants"].values()),
+          f"async failover: completed {fo_done}")
+    cal = [deploy.calibrate_front(sources["cardio_svm"][0], cal_ni,
+                                  instance=k, samples=k + 1, device=dev)
+           for k in (0, 1)]
+    # launch 0 served the first quantum's requests on instance 0; the
+    # failing launch 1 and every later one serve instance 1
+    first = (cal_rep["batch_sizes"]["cardio_svm"]["quantum"]
+             // ASYNC["request_size"])
+    cal_preds = [[want("cardio_svm", "front", req.x, c) for req in cal_wl]
+                 for c in cal]
+    for i, req in enumerate(cal_wl):
+        got = cal_rep["responses"][req.rid]
+        k = int(i >= first)
+        check(got is not None and np.array_equal(got, cal_preds[k][i]),
+              f"async calibrated: request {req.rid} is not instance {k}'s "
+              f"prediction")
+    differ = [sum(not np.array_equal(a, b) for a, b in
+                  zip(cal_preds[0][part], cal_preds[1][part]))
+              for part in (slice(0, first), slice(first, None))]
+    check(all(differ), f"async calibrated: instances 0 and 1 answer "
+                       f"{differ} requests differently before/after the "
+                       f"loss; the check cannot tell them apart")
+    for k, c in enumerate(cal):
+        ladder_check(f"cardio_svm calibrated instance {k}", c,
+                     cal_rep["batch_sizes"]["cardio_svm"]["ladder"],
+                     cal_wl, False)
+    print(f"  calibrated cardio_svm ({cal_ni.describe()}): calibrations "
+          f"{cal_rep['calibrations']}, recoveries {cal_rep['recoveries']}; "
+          f"requests 0-{first - 1} == instance 0, the rest == instance 1 "
+          f"(plain route); the instances differ on {differ} of them")
+    check(cal_rep["calibrations"] == {"cardio_svm": 2}
+          and cal_rep["recoveries"] == 1,
+          f"async calibrated: {cal_rep['calibrations']}, "
+          f"{cal_rep['recoveries']} recoveries")
+    check(exhausted is not None and "exhausted" in exhausted,
+          f"async: losing the last pool entry gave {exhausted!r}")
+    print(f"  losing the last entry of [{dev}] raises: {exhausted}")
+    out.update(launches=launches, path_s=path_s, steps_s=steps_s,
+               failover={"recoveries": fo_rep["recoveries"],
+                         "completed": fo_done,
+                         "tenants": {n: {k: s[k] for k in ("p50_ms",
+                                                           "p99_ms")}
+                                     for n, s in fo_rep["tenants"].items()}},
+               calibrations=cal_rep["calibrations"], max_err=max_err)
     return out
 
 
@@ -3194,9 +3555,14 @@ def main() -> int:
         for name, err in cosearch_out["max_err"].items():
             max_err[name] = max(max_err[name], err)
         q_timings.update(cosearch_out["timings"])
-        phase_s = dict(zip(("baseline", "resume", "gradient", "cosearch"),
-                           np.diff(marks).tolist()))
-        print(f"phases baseline / resume / gradient / cosearch: "
+        async_out = phase_async(np, torch, dev, card, fronts, data,
+                                cosearch_out.pop("async_tenant"))
+        for name, err in async_out.pop("max_err").items():
+            max_err[name] = max(max_err[name], err)
+        marks.append(time.perf_counter())
+        phase_s = dict(zip(("baseline", "resume", "gradient", "cosearch",
+                            "async"), np.diff(marks).tolist()))
+        print(f"phases baseline / resume / gradient / cosearch / async: "
               f"{' / '.join(f'{v:.2f}' for v in phase_s.values())} s, "
               f"{marks[-1] - marks[0]:.2f} s in all on {card}")
         lm_out = phase_lm(np, torch, dev, card)
@@ -3207,7 +3573,7 @@ def main() -> int:
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
         # launches on each path, both models: serve, search, robust,
-        # baseline, resume, gradient; lm
+        # baseline, resume, gradient; cosearch, async, lm
         both = lambda res: {n: sum(res[k]["launches"][n]  # noqa: E731
                                    for k in ("mlp", "svm"))
                             for n in KERNELS}
@@ -3218,6 +3584,7 @@ def main() -> int:
                    "resume": resume_out["launches"],
                    "gradient": gradient_out["launches"],
                    "cosearch": cosearch_out["launches"],
+                   "async": async_out["launches"],
                    "lm": lm_out["launches"],
                    "lm_f32": lm_out["launches_f32"]}
         main_timing = {
@@ -3278,6 +3645,8 @@ def main() -> int:
                                 if k != "launches"},
                    "cosearch": {k: v for k, v in cosearch_out.items()
                                 if k not in ("launches", "timings")},
+                   "async": {k: v for k, v in async_out.items()
+                             if k != "launches"},
                    "phase_s": phase_s,
                    "lm": {k: v for k, v in lm_out.items()
                           if k != "launches"},

@@ -26,6 +26,10 @@
                          bits=3, pop_size=16, generations=4)
     api.serve(api.deploy(front), stream["x_test"])   # raw windows in
 
+    trace = api.make_workload(x, 256, tenant="cardio", rate_rps=800.0,
+                              shape="bursty", deadline_ms=500.0)
+    rep = api.serve_stream(bank, trace)   # asyncio engine: SLOs, shedding
+
 Every verb runs on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``. It is a thin composition of core/search,
 core/deploy and kernels/ops, so the search -> export -> load -> serve
@@ -65,12 +69,14 @@ __all__ = [
     "deploy",
     "evaluate_robustness",
     "load_front",
+    "make_workload",
     "quantize",
     "robustness_curve",
     "save_front",
     "search",
     "search_gradient",
     "serve",
+    "serve_stream",
 ]
 
 
@@ -247,6 +253,61 @@ def serve(bank: Union[Bank, Sequence[DeployedClassifier]], x, *,
     logits through the fused multi-design kernel."""
     designs = bank.designs if isinstance(bank, Bank) else tuple(bank)
     return _deploy.serve_bank(designs, x, device=device)
+
+
+def make_workload(x, num_requests: int, *, tenant: str = "default",
+                  rate_rps: float = 200.0, shape: str = "uniform",
+                  **kw):
+    """A seeded open-loop request trace for ``serve_stream`` (DESIGN.md
+    §12): ``num_requests`` small requests drawn from ``x``, arriving per
+    a shaped Poisson process (``uniform`` | ``bursty`` | ``diurnal``,
+    mean rate ``rate_rps``), each with a deadline. Deterministic under
+    ``seed``, bit for bit the reference's trace; full knob set in
+    ``repro_torch.launch.loadgen.make_workload``."""
+    from repro_torch.launch import loadgen
+    return loadgen.make_workload(x, num_requests, tenant=tenant,
+                                 rate_rps=rate_rps, shape=shape, **kw)
+
+
+def serve_stream(bank: Union[Bank, Sequence[DeployedClassifier], Dict],
+                 workload, *, parity_data=None,
+                 nonideal: Optional[NonIdealSpec] = None,
+                 **engine_kw) -> Dict:
+    """Serve an open-loop request trace through the serving engine
+    (DESIGN.md §12): asyncio ingestion with deadlines and counted
+    shedding, adaptive microbatching, per-tenant p50/p95/p99 SLO
+    snapshot, device-pool recovery.
+
+    ``bank`` is one deployed bank (single tenant, named by the
+    workload's requests) or a ``{tenant_name: bank}`` dict for
+    multi-tenant serving; ``parity_data`` ((x, y) or a per-tenant dict of
+    them) arms the post-recovery bit-for-bit parity re-assert. Returns
+    the structured metrics snapshot (``tenants`` SLO stats, batching
+    counters, device-pool state, per-request ``responses``). Engine
+    knobs (``devices``, ``target_latency_ms``, ``max_batch``,
+    ``inject_device_failure``, ...) pass through; ``devices=None`` serves
+    on ``cuda``. ``nonideal`` marks the hardware as carrying measured
+    non-idealities: every tenant then serves calibrated tables and
+    re-calibrates after each device-loss recovery (DESIGN.md §15)."""
+    from repro_torch.launch import serving_engine
+
+    if isinstance(bank, dict):
+        banks = {name: tuple(_designs(b)) for name, b in bank.items()}
+    else:
+        names = {r.tenant for r in workload}
+        if len(names) != 1:
+            raise ValueError(
+                f"single-bank serve_stream needs a single-tenant workload; "
+                f"got tenants {sorted(names)}; pass a {{tenant: bank}} "
+                f"dict to route")
+        banks = {next(iter(names)): tuple(_designs(bank))}
+    if parity_data is not None and not isinstance(parity_data, dict):
+        parity_data = {name: parity_data for name in banks}
+    tenants = [serving_engine.Tenant(
+        name=name, designs=designs,
+        parity_data=(parity_data or {}).get(name), nonideal=nonideal)
+        for name, designs in banks.items()]
+    return serving_engine.run_workload(tenants, workload, **engine_kw)
 
 
 def save_front(directory, bank: Union[Bank, Sequence[DeployedClassifier]],

@@ -1,14 +1,30 @@
 """Serving launcher for deployed ADC+classifier fronts, on the card.
-Counterpart of ``repro/launch/serve_classifier.py`` (its ``--driver
-batch`` path).
+Counterpart of ``repro/launch/serve_classifier.py``. Two drivers:
 
-The fixed-microbatch loop drains a request list into ``--batch``-row
-microbatches (a microbatch may span many small requests or a slice of one
-large request; the tail is padded), pushes each through the *whole*
-deployed front in one bank-kernel launch, and reports requests/s and
-samples/s. Every response carries all D designs' predictions. After
-serving, the front's served accuracies on the dataset's test split must
-equal each design's exported accuracy exactly.
+* ``--driver batch`` (default; DESIGN.md §8): the fixed-microbatch loop
+  drains a request list into ``--batch``-row microbatches (a microbatch
+  may span many small requests or a slice of one large request; the tail
+  is padded), pushes each through the *whole* deployed front in one
+  bank-kernel launch, and reports requests/s and samples/s.
+* ``--driver async`` (DESIGN.md §12): the serving engine
+  (``launch/serving_engine.py``): an open-loop load trace
+  (``launch/loadgen.py``: ``--rate``, ``--traffic
+  uniform|bursty|diurnal``) with per-request deadlines
+  (``--deadline-ms``) and counted shedding, per-tenant p50/p95/p99,
+  adaptive microbatch sizes (``--target-latency-ms``, ``--max-batch``)
+  and multi-tenant routing: repeat ``--front-dir`` to make several
+  fronts resident, each named by its ``front_meta`` dataset.
+  ``--fail-device-at N`` injects a device loss at bank launch N; the
+  pool holds the one ``--device``, so the run ends in the pool's
+  exhaustion error (``api.serve_stream(devices=...)`` takes a larger
+  pool). With ``--nonideal-*`` the async driver needs ``--calibrate``:
+  every tenant then serves calibrated tables and re-calibrates after a
+  recovery.
+
+Every response carries all D designs' predictions. After serving, the
+front's served accuracies on the dataset's test split must equal each
+design's exported accuracy exactly (per tenant under ``--driver
+async``).
 
   # serve a front exported by either package, on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve_classifier \\
@@ -16,6 +32,8 @@ equal each design's exported accuracy exactly.
       --requests 256 --request-size 8 --batch 1024
   # the same through the plain PyTorch versions on the CPU:
   ... --device cpu
+  # the serving engine, bursty open-loop traffic at 800 req/s:
+  ... --driver async --rate 800 --traffic bursty --deadline-ms 500
 
 ``--nonideal-sigma/--fault-rate/--range-drift`` serve the front through
 ONE sampled non-ideal hardware instance (instance ``--nonideal-instance``
@@ -31,11 +49,10 @@ calibrated tables, printing the recovered accuracy per design.
 exported and served, parity check included:
 
   PYTHONPATH=src python -m repro_torch.launch.serve_classifier --smoke \\
-      --dataset seeds --device cpu
+      --dataset seeds --device cpu    # --driver async: the engine
 
-The reference's ``--driver async`` (with or without ``--calibrate``) and
-``--sharded`` paths belong to a later slice of the port (ROADMAP A9);
-they are accepted here only to fail with a clear message.
+The reference's ``--sharded`` path belongs to a later slice of the port
+(ROADMAP A9b); it is accepted here only to fail with a clear message.
 """
 from __future__ import annotations
 
@@ -153,10 +170,75 @@ def _smoke_front(dataset: str, device: DeviceLike = None):
     return deploy.export_front(pg, data, sizes, cfg, device=device), data
 
 
+def _serve_async(fronts, args, dev: torch.device, nonideal=None) -> Dict:
+    """The --driver async path: one Tenant per loaded front, an open-loop
+    load trace per tenant, merged into one stream through the engine on
+    the pool ``[dev]``. With ``nonideal`` (--calibrate) every tenant
+    serves calibrated tables and re-calibrates on device-loss recovery
+    (DESIGN.md §15)."""
+    from repro_torch.launch import loadgen, serving_engine
+
+    tenants, traces = [], []
+    for name, designs, data in fronts:
+        tenants.append(serving_engine.Tenant(
+            name=name, designs=designs,
+            parity_data=(data["x_test"], data["y_test"]),
+            nonideal=nonideal))
+        traces.append(loadgen.make_workload(
+            data["x_test"], args.requests, tenant=name,
+            rate_rps=args.rate, request_size=args.request_size,
+            deadline_ms=args.deadline_ms, shape=args.traffic,
+            seed=args.seed))
+    workload = loadgen.merge_workloads(*traces)
+    print(f"  load: {loadgen.describe(workload)}")
+
+    inject = None
+    if args.fail_device_at is not None:
+        fail_at = args.fail_device_at
+        inject = lambda b: 0 if b == fail_at else None   # noqa: E731
+
+    rep = serving_engine.run_workload(
+        tenants, workload, devices=[dev],
+        target_latency_ms=args.target_latency_ms,
+        max_batch=args.max_batch, inject_device_failure=inject)
+    for name, slo in sorted(rep["tenants"].items()):
+        print(f"  tenant {name}: {slo['completed']}/{slo['requests']} ok "
+              f"({slo['shed']} shed, {slo['rejected']} rejected)  "
+              f"p50={slo['p50_ms']:.1f}ms p95={slo['p95_ms']:.1f}ms "
+              f"p99={slo['p99_ms']:.1f}ms  "
+              f"{slo['requests_per_s']:.1f} req/s "
+              f"{slo['samples_per_s']:.0f} samples/s")
+    bs = rep["batch_sizes"]
+    print(f"  {rep['batches']} batches "
+          f"({rep['pad_fraction'] * 100:.1f}% pad, "
+          f"{rep['stragglers']} stragglers); batch ladders: "
+          + ", ".join(f"{n}: quantum {v['quantum']} ({v['quantum_source']})"
+                      f" -> final {v['final']}" for n, v in sorted(bs.items())))
+    dv = rep["devices"]
+    print(f"  devices: {dv['alive']} alive, {dv['lost']} lost, "
+          f"{rep['recoveries']} recoveries (sharded={dv['sharded']})")
+    if rep.get("calibrations"):
+        print("  calibrations: " + ", ".join(
+            f"{n}: {c}" for n, c in sorted(rep["calibrations"].items())))
+    if args.fail_device_at is not None and rep["recoveries"] < 1:
+        raise SystemExit("requested --fail-device-at but no recovery ran "
+                         "(stream ended before the failing batch?)")
+    # post-run parity: the served front reproduces each tenant's export
+    # bit for bit
+    for name, designs, data in fronts:
+        served = deploy.served_accuracies(designs, data["x_test"],
+                                          data["y_test"], device=dev)
+        exported = np.array([d.accuracy for d in designs])
+        if not np.array_equal(served, exported):
+            raise SystemExit(f"tenant {name}: served accuracies diverge "
+                             f"from the exported front: {served} != "
+                             f"{exported}")
+    print("  parity OK: served == exported accuracy for every tenant")
+    return rep
+
+
 _LATER = {
-    "driver": "--driver async (the serving engine, with its "
-              "calibrate-on-recovery path, ROADMAP A9)",
-    "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9)",
+    "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9b)",
 }
 
 
@@ -164,15 +246,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Serve an exported ADC+classifier front through the "
                     "PyTorch/CUDA port.")
-    ap.add_argument("--front-dir",
+    ap.add_argument("--front-dir", action="append",
                     help="front saved by save_front (either package); "
-                         "required unless --smoke")
+                         "required unless --smoke; repeat with --driver "
+                         "async for multi-tenant serving")
     ap.add_argument("--dataset", default="seeds",
                     help="sample stream + labels for the parity check")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--request-size", type=int, default=8)
     ap.add_argument("--batch", type=int, default=128,
                     help="microbatch rows (continuous batching)")
+    ap.add_argument("--driver", choices=("batch", "async"), default="batch",
+                    help="batch: fixed-microbatch loop (§8); async: the "
+                         "serving engine (§12)")
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="[async] offered load, requests/s (open loop)")
+    ap.add_argument("--traffic", choices=("uniform", "bursty", "diurnal"),
+                    default="uniform", help="[async] arrival-rate envelope")
+    ap.add_argument("--deadline-ms", type=float, default=100.0,
+                    help="[async] per-request deadline budget")
+    ap.add_argument("--target-latency-ms", type=float, default=50.0,
+                    help="[async] adaptive batcher's latency target")
+    ap.add_argument("--max-batch", type=int, default=512,
+                    help="[async] batch-ladder ceiling")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="[async] load-generator seed")
+    ap.add_argument("--fail-device-at", type=int, default=None,
+                    help="[async] simulate losing device 0 at this "
+                         "bank-launch index (the pool is the one "
+                         "--device, so this ends in its exhaustion error)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: the hand-written kernels; cpu: their plain "
                          "PyTorch versions")
@@ -204,8 +306,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="search and export a tiny front of --dataset "
                          "first (no --front-dir needed), then serve it "
                          "with a short request stream")
-    # reference options of a later slice: accepted only to be refused
-    ap.add_argument("--driver", choices=("batch", "async"), default="batch")
+    # a reference option of a later slice: accepted only to be refused
     ap.add_argument("--sharded", action="store_true")
     return ap
 
@@ -213,12 +314,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    asked = {"driver": args.driver == "async", "sharded": args.sharded}
-    for key, on in asked.items():
-        if on:
-            ap.error(f"{_LATER[key]} is not yet ported to repro_torch; "
-                     f"use the JAX package (python -m "
-                     f"repro.launch.serve_classifier)")
+    if args.sharded:
+        ap.error(f"{_LATER['sharded']} is not yet ported to repro_torch; "
+                 f"use the JAX package (python -m "
+                 f"repro.launch.serve_classifier)")
     nonideal = None
     if (args.nonideal_sigma > 0 or args.fault_rate > 0
             or args.range_drift > 0):
@@ -227,6 +326,11 @@ def main(argv=None) -> Dict:
                                 sigma_range=args.range_drift,
                                 fault_rate=args.fault_rate,
                                 seed=args.nonideal_seed)
+    if args.driver == "async" and nonideal is not None and not args.calibrate:
+        ap.error("--driver async serves the ideal-hardware parity "
+                 "contract; --nonideal-* needs --driver batch, or add "
+                 "--calibrate to serve calibrated tables with "
+                 "calibrate-on-recovery")
     if args.calibrate and nonideal is None:
         ap.error("--calibrate re-bakes the front against a measured "
                  "non-ideal instance; it needs --nonideal-sigma / "
@@ -240,6 +344,10 @@ def main(argv=None) -> Dict:
     from repro_torch.data import tabular
     if args.front_dir is None and not args.smoke:
         ap.error("--front-dir is required unless --smoke is given")
+    if (args.front_dir and args.driver == "batch"
+            and len(args.front_dir) > 1):
+        ap.error("--driver batch serves one front; repeat --front-dir "
+                 "only with --driver async (multi-tenant routing)")
     try:
         dev = resolve_device(args.device)
     except RuntimeError as exc:
@@ -247,27 +355,41 @@ def main(argv=None) -> Dict:
     if args.smoke:
         args.requests, args.request_size = 16, 4
         args.batch = min(args.batch, 32)
-    if args.front_dir is not None:
-        designs = deploy.load_front(args.front_dir)
-        trained_on = deploy.front_meta(args.front_dir).get("dataset")
-        if trained_on is not None and trained_on != args.dataset:
-            ap.error(f"front at {args.front_dir} was exported from dataset "
+        args.rate = min(args.rate, 400.0)
+    fronts = []          # (tenant name, designs, data) per resident front
+    for fdir in args.front_dir or ():
+        designs = deploy.load_front(fdir)
+        trained_on = deploy.front_meta(fdir).get("dataset")
+        # --driver async routes by front provenance: the tenant IS the
+        # front's dataset; the batch driver checks it against --dataset
+        name = trained_on or args.dataset
+        if (args.driver == "batch" and trained_on is not None
+                and trained_on != args.dataset):
+            ap.error(f"front at {fdir} was exported from dataset "
                      f"{trained_on!r}; serving {args.dataset!r} traffic "
                      f"through it would be wrong-domain (pass --dataset "
                      f"{trained_on})")
-        data = tabular.make_dataset(args.dataset)
-    else:
+        data = tabular.make_dataset(name if args.driver == "async"
+                                    else args.dataset)
+        if designs[0].channels != data["x_test"].shape[1]:
+            ap.error(f"front expects {designs[0].channels} sensor channels "
+                     f"but dataset {name!r} has {data['x_test'].shape[1]}")
+        fronts.append((name, designs, data))
+    if not fronts:
         designs, data = _smoke_front(args.dataset, dev)
-    if designs[0].channels != data["x_test"].shape[1]:
-        ap.error(f"front expects {designs[0].channels} sensor channels but "
-                 f"dataset {args.dataset!r} has {data['x_test'].shape[1]}")
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        fronts.append((args.dataset, designs, data))
+    designs, data = fronts[0][1], fronts[0][2]
+    card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (plain PyTorch versions)")
-    print(f"serve_classifier[repro_torch driver=batch D={len(designs)} "
+    print(f"serve_classifier[repro_torch driver={args.driver} "
+          f"tenants={[f[0] for f in fronts]} D={len(designs)} "
           f"{designs[0].kind} {designs[0].spec.describe()}] device={dev} "
-          f"({name})"
+          f"({card})"
           + (f" nonideal=({nonideal.describe()} "
              f"instance={args.nonideal_instance})" if nonideal else ""))
+    if args.driver == "async":
+        return _serve_async(fronts, args, dev,
+                            nonideal=nonideal if args.calibrate else None)
 
     nonideal_fn = cal_fn = None
     if nonideal is not None:
@@ -290,7 +412,7 @@ def main(argv=None) -> Dict:
           f"{rep['wall_s']:.3f}s: {rep['requests_per_s']:.1f} req/s, "
           f"{rep['samples_per_s']:.0f} samples/s "
           f"({rep['batches']} batches of {rep['batch']}, "
-          f"{rep['pad_fraction'] * 100:.1f}% pad) on {name}")
+          f"{rep['pad_fraction'] * 100:.1f}% pad) on {card}")
 
     if nonideal is not None:
         return _report_nonideal(rep, designs, data, nonideal, nonideal_fn,

@@ -22,6 +22,7 @@ from repro.checkpoint import manager as jmanager  # noqa: E402
 from repro.core import deploy as jdeploy  # noqa: E402
 from repro.core import search  # noqa: E402
 from repro.data import tabular as jtab  # noqa: E402
+from repro.launch import loadgen as jloadgen  # noqa: E402
 from repro.launch import serve_classifier as jserve  # noqa: E402
 from repro_torch.checkpoint import manager as tmanager  # noqa: E402
 from repro_torch.core import deploy as tdeploy  # noqa: E402
@@ -190,7 +191,7 @@ def test_cli_serves_fixture_with_parity():
     assert rep["num_designs"] == 3 and len(rep["served_accuracies"]) == 3
 
 
-@pytest.mark.parametrize("extra", [["--driver", "async"], ["--sharded"]])
+@pytest.mark.parametrize("extra", [["--sharded"]])
 def test_cli_refuses_later_slices(extra, capsys):
     argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
             "cardio", "--device", "cpu"] + extra
@@ -198,7 +199,66 @@ def test_cli_refuses_later_slices(extra, capsys):
         tserve.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP A9" in err
+    assert "not yet ported" in err and "ROADMAP A9b" in err
+
+
+def test_cli_async_smoke_prints_parity(capsys):
+    """--driver async --smoke: the tiny front served through the engine,
+    16 requests of 4 rows, parity per tenant."""
+    rep = tserve.main(["--driver", "async", "--smoke", "--dataset", "seeds",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "parity OK: served == exported accuracy for every tenant" in out
+    assert "driver=async tenants=['seeds']" in out
+    slo = rep["tenants"]["seeds"]
+    assert slo["completed"] + slo["shed"] == 16 and slo["rejected"] == 0
+    assert rep["batch_sizes"]["seeds"]["quantum"] == 32
+
+
+def test_cli_async_serves_two_fronts_as_two_tenants(jax_fronts, capsys):
+    """Two --front-dir: one tenant per front, named by its front_meta
+    dataset, each answered through its own bank; the batch driver still
+    refuses a second front."""
+    _, fronts = jax_fronts
+    argv = ["--front-dir", str(FIXTURES / "cardio_svm"), "--front-dir",
+            str(fronts["mlp"][0]), "--device", "cpu", "--requests", "6",
+            "--rate", "2000", "--traffic", "bursty", "--deadline-ms",
+            "5000", "--max-batch", "64", "--seed", "3"]
+    rep = tserve.main(argv + ["--driver", "async"])
+    out = capsys.readouterr().out
+    assert "tenants=['cardio', 'seeds']" in out
+    assert "parity OK: served == exported accuracy for every tenant" in out
+    assert {n: s["completed"] + s["shed"]
+            for n, s in rep["tenants"].items()} == {"cardio": 6, "seeds": 6}
+    wl = jloadgen.merge_workloads(*(
+        jloadgen.make_workload(jtab.make_dataset(n)["x_test"], 6, tenant=n,
+                               rate_rps=2000.0, deadline_ms=5000.0,
+                               shape="bursty", seed=3)
+        for n in ("cardio", "seeds")))
+    banks = {"cardio": tdeploy.load_front(FIXTURES / "cardio_svm"),
+             "seeds": tdeploy.load_front(fronts["mlp"][0])}
+    for req in wl:
+        got = rep["responses"][req.rid]
+        if got is not None:
+            want = tdeploy.serve_bank(banks[req.tenant], req.x,
+                                      device="cpu").argmax(-1).numpy()
+            np.testing.assert_array_equal(got, want)
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(argv)
+    assert exc.value.code == 2
+    assert "--driver batch serves one front" in capsys.readouterr().err
+
+
+def test_cli_async_fail_device_needs_a_second_entry(capsys):
+    """The CLI's pool is the one --device: a loss there exhausts it (the
+    reference's error on one device), and a loss after the stream ends
+    is refused as a recovery that never ran."""
+    argv = ["--driver", "async", "--front-dir", str(FIXTURES / "cardio_mlp"),
+            "--device", "cpu", "--requests", "8", "--rate", "2000"]
+    with pytest.raises(RuntimeError, match="device pool exhausted"):
+        tserve.main(argv + ["--fail-device-at", "1"])
+    with pytest.raises(SystemExit, match="no recovery ran"):
+        tserve.main(argv + ["--fail-device-at", "100000"])
 
 
 def test_cli_smoke_searches_exports_and_serves(capsys):

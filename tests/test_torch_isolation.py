@@ -60,6 +60,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert {"repro_torch.timeseries", "repro_torch.timeseries.stream",
             "repro_torch.timeseries.feature",
             "repro_torch.timeseries.cosearch"} <= set(mods)
+    assert {"repro_torch.launch.loadgen", "repro_torch.launch.serving_engine",
+            "repro_torch.distributed", "repro_torch.distributed.fault"
+            } <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

@@ -639,9 +639,35 @@ def test_serve_cli_refuses(capsys):
         tserve.main(base + ["--calibrate"])
     assert "needs --nonideal-sigma" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        tserve.main(base + ["--driver", "async", "--nonideal-sigma", "0.5",
-                            "--calibrate"])
-    assert "A9" in capsys.readouterr().err
+        tserve.main(base + ["--driver", "async", "--nonideal-sigma", "0.5"])
+    assert "--nonideal-* needs --driver batch, or add --calibrate" in \
+        capsys.readouterr().err
+
+
+def test_serve_cli_async_calibrates_every_tenant(cardio, capsys):
+    """--driver async with --nonideal-* --calibrate: the tenant serves the
+    calibrated tables of measured instance 0 (one calibration, no
+    recovery), and the post-run parity of the exported front holds."""
+    rep = tserve.main(["--front-dir", str(FIXTURES / "cardio_svm"),
+                       "--driver", "async", "--device", "cpu",
+                       "--requests", "6", "--rate", "2000",
+                       "--nonideal-sigma", "0.3", "--fault-rate", "0.05",
+                       "--calibrate"])
+    out = capsys.readouterr().out
+    assert "calibrations: cardio: 1" in out and "parity OK" in out
+    assert rep["calibrations"] == {"cardio": 1} and rep["recoveries"] == 0
+    designs = tdeploy.calibrate_front(
+        tdeploy.load_front(FIXTURES / "cardio_svm"),
+        tni.NonIdealSpec(sigma_offset=0.3, fault_rate=0.05), instance=0,
+        device="cpu")
+    from repro_torch.launch import loadgen
+    wl = loadgen.make_workload(cardio["x_test"], 6, tenant="cardio",
+                               rate_rps=2000.0)
+    for req in wl:
+        got = rep["responses"][req.rid]
+        if got is not None:
+            want = tdeploy.serve_bank(designs, req.x, device="cpu")
+            np.testing.assert_array_equal(got, want.argmax(-1).numpy())
 
 
 @pytest.mark.parametrize("call", ["evaluate_robustness", "robustness_curve",
