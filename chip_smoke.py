@@ -202,7 +202,38 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    have launched. Printed per cell with the card: p50 /
    p95 / p99, req/s, samples/s, shed, batches, pad fraction and the
    ladder; the device's busy share over one traced cell.
-12. lm (the LM serving path): with every launch counter at 0,
+12. sharded (the sharded search and banks, ROADMAP A9b): the batched
+   engine's fitness and the unsharded inputs are taken first; then, with
+   every launch counter at 0, on a mesh of [cuda:0] (one trivial shard)
+   and of [cuda:0, cuda:0] (two shards on the one card) at the search
+   path's width (cardio, hidden 5, 4-bit tree ADC, pop 16, 100 steps):
+   evaluate_population_sharded must equal the batched engine's fitness
+   bitwise for the MLP, the SVM, the robust MLP (32 instances,
+   ROBUST_NI), the FT SVM ('yield') and the vitals co-search SVM, on 16
+   genomes with 2 duplicates, and for the MLP and SVM on 15 unique
+   genomes on [cuda:0, cuda:0] (the size-1 'model' rule) and on a
+   one-axis ('data',) mesh no rule divides (the batched fallback), with
+   one QAT chunk per shard (2 row-2 launches each, and 1 of row 8 or 10
+   for the robust configs); run_search(engine='sharded', mesh=[cuda:0,
+   cuda:0]) for 2 generations -> export_front -> verify_front_parity ->
+   served_accuracies(mesh=) == exported bitwise, and killed after
+   generation 1 and resumed == uninterrupted bitwise;
+   adc_quantize_population_sharded == the plain quantizer bitwise;
+   classifier_bank_sharded on the fixture fronts (on both meshes and on
+   the one-axis mesh, where the SVM's D=3 divides nothing) and on the
+   wide D=64, M=65536 banks == the unsharded bank == the plain version
+   bitwise, one launch per shard; the batch driver's per-request
+   predictions on [cuda:0, cuda:0] == the plain route's, and one
+   serve_classifier --sharded call on the default mesh; the serving
+   engine on a sharded pool [cuda:0, cuda:0] (a live mesh before the
+   loss at launch 1, none after it, one recovery, every response == the
+   plain route's), a calibrated SVM tenant tiled to D=6 through the same
+   loss (instance 0 then 1), and the loss of a one-entry pool's last
+   entry (must raise). Rows 2, 5, 6, 8 and 10 must have launched. After
+   the count: one pop-16 MLP generation batched and sharded on both
+   meshes, in turns, and make_bank_fn per call at the serve batch
+   (M=1024), unsharded and on [cuda:0, cuda:0], printed with the card.
+13. lm (the LM serving path): with every launch counter at 0,
    repro_torch.launch.serve.main serves musicgen-medium at its full
    published config (48 layers, d_model 1536, 24 heads, dh 64; random
    seeded weights) on cuda: 4 requests, prompt 2048, 16 decode steps. The
@@ -227,8 +258,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route; launches summed over the serve, search, robust,
-baseline, resume, gradient, cosearch, async, lm and lm_f32 paths, each
-counted from 0),
+baseline, resume, gradient, cosearch, async, sharded, lm and lm_f32
+paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -2547,6 +2578,83 @@ def phase_cosearch(np, torch, dev, card):
     return out
 
 
+def bank_check(np, torch, dev, where, designs, batches, exact, max_err):
+    """Rows 5/6 (``qmlp.bespoke_{mlp,svm}_bank``) against their plain
+    versions on the card, on the same operands: ``designs``' bank on each
+    of ``batches`` (``[(label, numpy rows)]``), per subsample group after
+    featurize for a raw-window front, the built geometry ==
+    ``envelope.bank_geometry``. Bitwise for the dyadic fronts
+    (``exact``); for calibrated tables (not dyadic) phase kernels' float
+    rule. The largest error feeds ``max_err`` and is returned."""
+    from repro_torch.core import deploy
+    from repro_torch.kernels import envelope, qmlp, ref
+    from repro_torch.timeseries import feature as feature_lib
+    kind, spec = designs[0].kind, designs[0].spec
+    bank, plain = ((qmlp.bespoke_mlp_bank, ref.bespoke_mlp_bank_ref)
+                   if kind == "mlp" else
+                   (qmlp.bespoke_svm_bank, ref.bespoke_svm_bank_ref))
+    groups = (deploy._feature_groups(designs)
+              if designs[0].feature is not None
+              else {None: list(range(len(designs)))})
+    errs = []
+    for fill, xb in batches:
+        x = torch.from_numpy(np.ascontiguousarray(xb, np.float32)).to(dev)
+        for sub, idx in groups.items():
+            grp = [designs[i] for i in idx]
+            xg = (x if sub is None else
+                  feature_lib.featurize_fn(grp[0].feature)(x))
+            tables, weights = deploy.bank_arrays(grp)
+            td = torch.from_numpy(tables).to(dev)
+            wd = tuple(torch.from_numpy(w).to(dev) for w in weights)
+            shape = (kind, td.shape[0], xg.shape[0], td.shape[1],
+                     td.shape[2], wd[0].shape[2] if kind == "mlp" else 0,
+                     wd[-1].shape[-1])
+            at = (f"{where} M={len(xb)} ({fill}"
+                  f"{'' if sub is None else f', sub={sub}'})")
+            check(qmlp.geometry(*shape)
+                  == tuple(envelope.bank_geometry(*shape)),
+                  f"{at}: the built kernel's geometry differs from "
+                  f"envelope's")
+            got = bank(xg, td, *wd, spec=spec)
+            plain_out = plain(xg, td, spec.bits, *wd, spec.vmin, spec.vmax)
+            torch.cuda.synchronize()
+            err = float((got - plain_out).abs().max())
+            ok = (torch.equal(got, plain_out) if exact else
+                  torch.allclose(got, plain_out, rtol=1e-5, atol=1e-6))
+            check(ok, f"{at}: qmlp_{kind}_bank disagrees with its plain "
+                      f"version (max_abs_err {err:.3e})")
+            errs.append(err)
+    name = f"qmlp_{kind}_bank"
+    max_err[name] = max(max_err[name], max(errs))
+    return max(errs)
+
+
+def engine_batches(np, ladder, reqs):
+    """The batches the serving engine can dispatch at each ``ladder``
+    size: one request's rows then zeros (a thin queue), a full batch,
+    and the warm-up's zeros."""
+    rows = np.concatenate([r.x for r in reqs])
+    out = []
+    for size in ladder:
+        one = np.pad(reqs[0].x, ((0, size - reqs[0].rows),)
+                     + ((0, 0),) * (rows.ndim - 1))
+        out += [("one request", one), ("full", rows[:size]),
+                ("warm-up zeros", np.zeros_like(one))]
+    return out
+
+
+def driver_batches(np, requests, batch):
+    """The microbatches ``serve_classifier.serve`` forms from
+    ``requests``: their rows in order, cut into ``batch`` rows, the last
+    zero-padded, after its zeros warm-up batch."""
+    rows = np.concatenate([x for _, x in requests])
+    rows = np.pad(rows, ((0, -len(rows) % batch),)
+                  + ((0, 0),) * (rows.ndim - 1))
+    return ([("warm-up zeros", np.zeros_like(rows[:batch]))]
+            + [(f"microbatch {i // batch}", rows[i:i + batch])
+               for i in range(0, len(rows), batch)])
+
+
 def phase_async(np, torch, dev, card, fronts, data, vitals):
     """The async serving path: the serving engine on the card at the
     reference serve_scale cell's shape (ASYNC), three tenants in one
@@ -2562,10 +2670,8 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import deploy
     from repro_torch.core.nonideal import NonIdealSpec
-    from repro_torch.kernels import envelope, qmlp, ref
     from repro_torch.launch import loadgen
     from repro_torch.launch import serving_engine as se
-    from repro_torch.timeseries import feature as feature_lib
     sources = {"cardio_mlp": (fronts["mlp"][0], data),
                "cardio_svm": (fronts["svm"][0], data),
                "vitals_svm": vitals}
@@ -2674,59 +2780,17 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
     max_err = {"qmlp_mlp_bank": 0.0, "qmlp_svm_bank": 0.0}
 
     def ladder_check(label, designs, ladder, reqs, exact):
-        """Rows 5/6 against their plain versions on the card, on the same
-        operands, at every ladder size the engine can dispatch, on
-        batches padded as the engine pads them (one request's rows then
-        zeros, and a full batch), per subsample group after featurize
-        for a raw-window front. Bitwise for the dyadic fronts; for the
-        calibrated tables (not dyadic) phase kernels' float rule."""
-        kind, spec = designs[0].kind, designs[0].spec
-        bank, plain = ((qmlp.bespoke_mlp_bank, ref.bespoke_mlp_bank_ref)
-                       if kind == "mlp" else
-                       (qmlp.bespoke_svm_bank, ref.bespoke_svm_bank_ref))
-        groups = (deploy._feature_groups(designs)
-                  if designs[0].feature is not None
-                  else {None: list(range(len(designs)))})
-        rows = np.concatenate([r.x for r in reqs])
-        errs = []
-        for size in ladder:
-            one = np.pad(reqs[0].x, ((0, size - reqs[0].rows),)
-                         + ((0, 0),) * (rows.ndim - 1))
-            for fill, xb in (("one request", one), ("full", rows[:size])):
-                x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
-                for sub, idx in groups.items():
-                    grp = [designs[i] for i in idx]
-                    xg = (x if sub is None else
-                          feature_lib.featurize_fn(grp[0].feature)(x))
-                    tables, weights = deploy.bank_arrays(grp)
-                    td = torch.from_numpy(tables).to(dev)
-                    wd = tuple(torch.from_numpy(w).to(dev) for w in weights)
-                    shape = (kind, td.shape[0], xg.shape[0], td.shape[1],
-                             td.shape[2],
-                             wd[0].shape[2] if kind == "mlp" else 0,
-                             wd[-1].shape[-1])
-                    where = (f"async {label} M={size} ({fill}"
-                             f"{'' if sub is None else f', sub={sub}'})")
-                    check(qmlp.geometry(*shape)
-                          == tuple(envelope.bank_geometry(*shape)),
-                          f"{where}: the built kernel's geometry differs "
-                          f"from envelope's")
-                    got = bank(xg, td, *wd, spec=spec)
-                    plain_out = plain(xg, td, spec.bits, *wd, spec.vmin,
-                                      spec.vmax)
-                    torch.cuda.synchronize()
-                    err = float((got - plain_out).abs().max())
-                    ok = (torch.equal(got, plain_out) if exact else
-                          torch.allclose(got, plain_out, rtol=1e-5,
-                                         atol=1e-6))
-                    check(ok, f"{where}: qmlp_{kind}_bank disagrees with "
-                              f"its plain version (max_abs_err {err:.3e})")
-                    errs.append(err)
-        name = f"qmlp_{kind}_bank"
-        max_err[name] = max(max_err[name], max(errs))
-        print(f"  {name} {label}: M {ladder} x (one request, full)"
-              f"{f' x {len(groups)} subsample groups' if len(groups) > 1 else ''}"
-              f", max_abs_err {max(errs):.3e} "
+        """Rows 5/6 against their plain versions at every ladder size the
+        engine can dispatch, on batches padded as the engine pads them
+        (``bank_check``, ``engine_batches``)."""
+        err = bank_check(np, torch, dev, f"async {label}", designs,
+                         engine_batches(np, ladder, reqs), exact, max_err)
+        groups = (len(deploy._feature_groups(designs))
+                  if designs[0].feature is not None else 1)
+        print(f"  qmlp_{designs[0].kind}_bank {label}: M {ladder} x (one "
+              f"request, full, warm-up zeros)"
+              f"{f' x {groups} subsample groups' if groups > 1 else ''}"
+              f", max_abs_err {err:.3e} "
               f"[{'bitwise' if exact else 'rtol=1e-5 atol=1e-6'}, "
               f"geometry ==] ok")
 
@@ -2864,6 +2928,472 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
                                      for n, s in fo_rep["tenants"].items()}},
                calibrations=cal_rep["calibrations"], max_err=max_err)
     return out
+
+
+# ------------------------------------------------------------ sharded path
+def launch_delta(before):
+    """Launch counts since ``before`` (an ``all_launches()`` snapshot),
+    nonzero entries only."""
+    now = all_launches()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v - before.get(k, 0)}
+
+
+def phase_sharded(np, torch, dev, card, fronts, data):
+    """The sharded path (ROADMAP A9b) on a mesh of [cuda:0] (one trivial
+    shard) and of [cuda:0, cuda:0] (two shards on the one card): the
+    sharded engine's fitness against the batched engine's, bitwise, for
+    the MLP, the SVM, the robust MLP, the FT SVM and the vitals
+    co-search, with duplicates and with a unique count no rule divides;
+    a sharded search to serving, killed and resumed; the sharded
+    quantizer and banks against the unsharded entries and the plain
+    versions; the batch driver and one --sharded CLI call; the serving
+    engine on a sharded pool of [cuda:0, cuda:0] through a device loss,
+    a calibrated tenant included. Launches are counted from 0 over all
+    of it; the batched references are taken before the count starts and
+    the timings after it ends."""
+    import asyncio
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import deploy, search
+    from repro_torch.core.nonideal import NonIdealSpec
+    from repro_torch.data import tabular
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.faulttol import FaultTolSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import loadgen, serve_classifier
+    from repro_torch.launch import serving_engine as se
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.timeseries import cosearch
+    from repro_torch.timeseries.feature import FeatureSpec
+    from repro_torch.timeseries.stream import make_stream
+    spec = tabular.SPECS[DATASET]
+    sizes = (spec.features, spec.hidden, spec.classes)
+    axes = ("data", "model")
+    meshes = {"[cuda:0]": make_mesh((1, 1), axes, devices=[dev]),
+              "[cuda:0, cuda:0]": make_mesh((2, 1), axes,
+                                            devices=[dev, dev])}
+    two = meshes["[cuda:0, cuda:0]"]
+    # one 'data' axis of 2: an odd leading axis divides no rule
+    odd = make_mesh((2,), ("data",), devices=[dev, dev])
+    ni = NonIdealSpec(**ROBUST_NI)
+    print(f"phase sharded: the sharded engine, search, quantizer, banks, "
+          f"batch driver and serving pool on meshes {list(meshes)} on "
+          f"cuda, cardio sizes={sizes}, {SEARCH}")
+    t_phase = time.perf_counter()
+
+    # -- the configs and their inputs; the batched references first
+    fe = FeatureSpec(**COSEARCH_STREAMS["vitals"][1])
+    vdata, vsizes, vspec = cosearch.build_search_inputs(
+        make_stream("vitals"), fe, bits=COSEARCH["bits"],
+        hidden=COSEARCH["hidden"], device=dev)
+    dd = search.device_data(data, dev)
+    configs = {
+        "mlp": (search.SearchConfig(model="mlp", **SEARCH), dd, sizes),
+        "svm": (search.SearchConfig(model="svm", **SEARCH), dd, sizes),
+        "robust mlp": (search.SearchConfig(
+            model="mlp", nonideal=ni, robust_objective="expected",
+            **ROBUST), dd, sizes),
+        "ft svm": (search.SearchConfig(
+            model="svm", nonideal=ni, robust_objective="yield",
+            faulttol=FaultTolSpec(), **ROBUST), dd, sizes),
+        "vitals cosearch svm": (search.SearchConfig.for_spec(
+            vspec, frontend=fe.base(), model="svm",
+            pop_size=COSEARCH["pop_size"],
+            train_steps=COSEARCH["train_steps"], seed=COSEARCH["seed"]),
+            search.device_data(vdata, dev), vsizes)}
+    rng = np.random.default_rng(22)
+    cases = {}
+    for name, (cfg, d, sz) in configs.items():
+        glen = search.genome_len(sz[0], cfg.bits, cfg.faulttol,
+                                 frontend=cfg.frontend)
+        g = (rng.random((cfg.pop_size, glen)) < 0.5).astype(np.uint8)
+        g[0] = 1
+        g[-2:] = g[1:3]                     # duplicates: 14 unique
+        pops = {"duplicates": g}
+        if name in ("mlp", "svm"):
+            odd_g = (rng.random((15, glen)) < 0.5).astype(np.uint8)
+            pops["no duplicates"] = odd_g
+        cases[name] = {label: (p, search.evaluate_population(p, d, sz, cfg))
+                       for label, p in pops.items()}
+    tables_wide = {}
+    bank_rng = np.random.default_rng(2025)
+    x_serve = data["x_test"][bank_rng.integers(0, len(data["x_test"]),
+                                               size=1024)]
+    for kind in ("mlp", "svm"):
+        designs, bspec, tables, weights = fronts[kind]
+        tile = np.arange(64) % len(designs)
+        wide_x = data["x_test"][bank_rng.integers(0, len(data["x_test"]),
+                                                  size=65536)]
+        tables_wide[kind] = (bspec, wide_x, tables[tile],
+                             tuple(w[tile] for w in weights))
+    torch.cuda.synchronize()
+    t_refs = time.perf_counter()
+
+    reset_all_launches()
+    # -- fitness: sharded == batched, bitwise; launches per shard
+    per_eval = {}
+    with qat_chunks(search) as chunks:
+        for name, (cfg, d, sz) in configs.items():
+            for label, (pop, want) in cases[name].items():
+                runs = ([(m, meshes[m]) for m in meshes]
+                        if label == "duplicates" else
+                        [("[cuda:0, cuda:0]", two), ("odd 'data' axis", odd)])
+                for mname, mesh in runs:
+                    before, c0 = all_launches(), chunks[0]
+                    got = search.evaluate_population_sharded(pop, d, sz, cfg,
+                                                             mesh)
+                    torch.cuda.synchronize()
+                    delta, n_chunks = launch_delta(before), chunks[0] - c0
+                    uniq = len(np.unique(pop, axis=0))
+                    rule = sharding.population_axes(mesh, uniq)
+                    shards = len(sharding.shard_plan(mesh, rule, uniq))
+                    check(np.array_equal(got, want),
+                          f"sharded {name} ({label}) on {mname}: fitness "
+                          f"differs from the batched engine's "
+                          f"(max |diff| {np.abs(got - want).max():.3e})")
+                    check(n_chunks == shards
+                          and delta.get("adc_quantize_population", 0)
+                          == 2 * n_chunks,
+                          f"sharded {name} ({label}) on {mname}: {n_chunks}"
+                          f" QAT chunks for {shards} shards, launches "
+                          f"{delta}")
+                    mc = ("mc_adc_eval_cal_population" if cfg.faulttol
+                          else "mc_adc_eval_population"
+                          if cfg.wants_robustness else None)
+                    if mc is not None:
+                        check(delta.get(mc, 0) == n_chunks,
+                              f"sharded {name} on {mname}: {mc} launched "
+                              f"{delta.get(mc, 0)} times for {n_chunks} "
+                              f"chunks")
+                    per_eval[f"{name} {label} {mname}"] = {
+                        "unique": uniq, "rule": rule, "shards": shards,
+                        "launches": delta}
+                    print(f"  {name} ({label}, {uniq} unique) on {mname}: "
+                          f"rule {rule}, {shards} shard(s), launches "
+                          f"{delta} == batched fitness bitwise")
+
+    # -- a sharded search to serving, killed after generation 1 and resumed
+    s_cfg = search.SearchConfig(model="mlp", engine="sharded",
+                                **dict(SEARCH, generations=2))
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = CheckpointManager(Path(tmp) / "whole", keep=2)
+        t0 = time.perf_counter()
+        pg, pf, _, trained = search.run_search(
+            data, sizes, s_cfg, ckpt=whole, return_trained=True, mesh=two)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        designs = deploy.export_front(pg, data, sizes, s_cfg,
+                                      trained=trained, device=dev)
+        parity = deploy.verify_front_parity(designs, pg, data, sizes, s_cfg,
+                                            device=dev)
+        exported = np.array([d.accuracy for d in designs])
+        served = deploy.served_accuracies(designs, data["x_test"],
+                                          data["y_test"], mesh=two)
+        served_wide = deploy.served_accuracies(
+            designs * 2, data["x_test"], data["y_test"], mesh=two)
+        parted = CheckpointManager(Path(tmp) / "parted", keep=2)
+        killing_save(parted, 1)
+        try:
+            search.run_search(data, sizes, s_cfg, ckpt=parted, mesh=two)
+            check(False, "sharded: the killed search was not killed")
+        except Killed:
+            pass
+        rg, rf, _ = search.run_search(data, sizes, s_cfg, ckpt=parted,
+                                      resume=True, mesh=two)
+        last = s_cfg.generations
+        a, b = whole.restore_flat(last), parted.restore_flat(last)
+    refit = (1.0 - trained[0].astype(np.float32)).astype(np.float64)
+    check(parity, "sharded search: verify_front_parity is False")
+    check(np.array_equal(refit, pf[:, 0]),
+          f"sharded search: the front re-trains to {trained[0]}, not its "
+          f"fitness {1 - pf[:, 0]}")
+    check(np.array_equal(served, exported)
+          and np.array_equal(served_wide, np.concatenate([exported] * 2)),
+          f"sharded search: served (mesh) {served} != exported {exported}")
+    check(sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                         for k in a)
+          and np.array_equal(rg, pg) and np.array_equal(rf, pf),
+          "sharded search: the resumed run differs from the "
+          "uninterrupted one")
+    print(f"  run_search(engine='sharded', mesh=[cuda:0, cuda:0]) "
+          f"{s_cfg.generations} generations: {len(pf)} front points in "
+          f"{search_s:.2f} s; export, verify_front_parity, "
+          f"served_accuracies(mesh=) (D={len(designs)} and "
+          f"{2 * len(designs)}) == exported bitwise; killed after "
+          f"generation 1 and resumed == uninterrupted bitwise on {card}")
+
+    # -- the sharded quantizer and banks, outputs kept for the checks
+    x_tr = dd["x_train"]
+    masks = search.decode_population(cases["mlp"]["duplicates"][0],
+                                     sizes[0], SEARCH["bits"])[0]
+    q_spec = configs["mlp"][0].adc_spec
+    q_got = ops.adc_quantize_population_sharded(x_tr, masks, mesh=two,
+                                                spec=q_spec)
+    bank_out = []
+    for kind in ("mlp", "svm"):
+        designs_k, bspec, tables, weights = fronts[kind]
+        x_te = torch.from_numpy(data["x_test"]).to(dev)
+        for label, mesh, t, w, x in (
+                ("fixture front", two, tables, weights, x_te),
+                ("fixture front", meshes["[cuda:0]"], tables, weights, x_te),
+                ("fixture front", odd, tables, weights, x_te),
+                ("wide", two, *tables_wide[kind][2:],
+                 torch.from_numpy(tables_wide[kind][1]).to(dev))):
+            before = all_launches()
+            got = ops.classifier_bank_sharded(x, t, w, mesh=mesh, kind=kind,
+                                              spec=bspec)
+            bank_out.append((kind, label, mesh, t, w, x, got,
+                             launch_delta(before)))
+
+    # -- the batch driver on [cuda:0, cuda:0] and one --sharded CLI call
+    requests = serve_classifier.make_request_stream(data["x_test"], 256, 8)
+    driver = {kind: serve_classifier.serve(fronts[kind][0], requests, 1024,
+                                           mesh=two)
+              for kind in ("mlp", "svm")}
+    cli = serve_classifier.main(["--front-dir", str(FRONTS / "cardio_mlp"),
+                                 "--dataset", DATASET, "--sharded",
+                                 "--requests", "64"])
+
+    # -- the serving engine on a sharded pool through a device loss
+    fail_at = lambda b: 0 if b == 1 else None  # noqa: E731
+    tenants = [se.Tenant(f"cardio_{k}", fronts[k][0],
+                         parity_data=(data["x_test"], data["y_test"]))
+               for k in ("mlp", "svm")]
+    wl = loadgen.merge_workloads(*(
+        loadgen.make_workload(data["x_test"], ASYNC_FAILOVER["requests"],
+                              tenant=t.name, rate_rps=ASYNC_FAILOVER["rate"],
+                              request_size=ASYNC["request_size"],
+                              deadline_ms=ASYNC_FAILOVER["deadline_ms"],
+                              shape=ASYNC["shape"], seed=i)
+        for i, t in enumerate(tenants)))
+    engine = se.ServingEngine(tenants, devices=[dev, dev], sharded=True,
+                              target_latency_ms=ASYNC["target_latency_ms"],
+                              max_batch=ASYNC["max_batch"])
+    live_mesh = engine.pool.mesh()
+    fo_rep = asyncio.run(engine.serve(wl, inject_device_failure=fail_at))
+    cal_ni = NonIdealSpec(**ASYNC_CAL_NI)
+    cal_designs = list(fronts["svm"][0]) * 2        # D=6: two shards
+    cal_wl = [dataclasses.replace(r, arrival_s=0.0,
+                                  deadline_s=ASYNC_FAILOVER["deadline_ms"]
+                                  / 1e3)
+              for r in loadgen.make_workload(
+                  data["x_test"], ASYNC_FAILOVER["requests"],
+                  tenant="cardio_svm", rate_rps=ASYNC_FAILOVER["rate"],
+                  request_size=ASYNC["request_size"], seed=0)]
+    cal_rep = se.run_workload(
+        [se.Tenant("cardio_svm", cal_designs,
+                   parity_data=(data["x_test"], data["y_test"]),
+                   nonideal=cal_ni)], cal_wl, devices=[dev, dev],
+        sharded=True, target_latency_ms=ASYNC["target_latency_ms"],
+        max_batch=ASYNC["max_batch"], inject_device_failure=fail_at)
+    exhausted = None
+    try:
+        se.run_workload(tenants[1:], cal_wl[:4], devices=[dev],
+                        sharded=True, inject_device_failure=lambda b: 0)
+    except RuntimeError as exc:
+        exhausted = str(exc)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    path_s = time.perf_counter() - t_refs
+
+    # -- checks against the unsharded entries and the plain versions
+    q_want = ref.adc_quantize_ref_population(
+        x_tr, q_spec.value_table(masks.to(dev)).contiguous(), q_spec.bits,
+        q_spec.vmin, q_spec.vmax)
+    check(torch.equal(q_got, q_want),
+          "adc_quantize_population_sharded on [cuda:0, cuda:0] differs "
+          "from the plain quantizer")
+    max_err = {"adc_quantize_population": 0.0, "qmlp_mlp_bank": 0.0,
+               "qmlp_svm_bank": 0.0}
+    for kind, label, mesh, t, w, x, got, delta in bank_out:
+        bspec = fronts[kind][1]
+        td = torch.from_numpy(t).to(dev)
+        wd = tuple(torch.from_numpy(a).to(dev) for a in w)
+        unsharded = ops.classifier_bank(x, td, wd, kind=kind, spec=bspec)
+        plain = (ref.bespoke_mlp_bank_ref if kind == "mlp"
+                 else ref.bespoke_svm_bank_ref)(x, td, bspec.bits, *wd,
+                                                bspec.vmin, bspec.vmax)
+        rule = sharding.design_bank_axes(mesh, len(t))
+        shards = len(sharding.shard_plan(mesh, rule, len(t)))
+        name = f"qmlp_{kind}_bank"
+        err = float((got - plain).abs().max())
+        max_err[name] = max(max_err[name], err)
+        check(torch.equal(got, unsharded) and torch.equal(got, plain),
+              f"classifier_bank_sharded {kind} {label} (D={len(t)}) "
+              f"differs from the unsharded bank or the plain version "
+              f"(max_abs_err {err:.3e})")
+        check(delta == {name: shards},
+              f"classifier_bank_sharded {kind} {label}: launches {delta}, "
+              f"expected {shards} of {name}")
+        print(f"  classifier_bank_sharded {kind} {label} D={len(t)} "
+              f"M={x.shape[0]} on {mesh.shape}: rule {rule}, {shards} "
+              f"launch(es); == unsharded bank == plain version bitwise")
+    for kind, rep in driver.items():
+        plain_rep = serve_classifier.serve(fronts[kind][0], requests, 1024,
+                                           device="cpu")
+        check(all(np.array_equal(rep["responses"][rid],
+                                 plain_rep["responses"][rid])
+                  for rid, _ in requests),
+              f"batch driver {kind} on [cuda:0, cuda:0]: predictions "
+              f"differ from the plain route's")
+    check(cli["served_accuracies"] == [d.accuracy for d in fronts["mlp"][0]],
+          f"--sharded CLI: served {cli['served_accuracies']}")
+
+    def shard_check(label, designs, mesh, batches, exact=True):
+        """Rows 5/6 on each shard's slice of ``designs`` (the split
+        ``make_bank_fn(mesh=)`` makes) against their plain versions on
+        the card, on ``batches`` (``bank_check``)."""
+        designs = list(designs)
+        plan = sharding.shard_plan(
+            mesh, sharding.design_bank_axes(mesh, len(designs)),
+            len(designs))
+        errs = [bank_check(np, torch, dev,
+                           f"sharded {label} shard {k + 1}/{len(plan)}",
+                           designs[sl], batches, exact, max_err)
+                for k, (_, sl) in enumerate(plan)]
+        rows = sorted({len(xb) for _, xb in batches})
+        print(f"  qmlp_{designs[0].kind}_bank {label}: {len(plan)} shard(s) "
+              f"of D={len(designs) // len(plan)}, M {rows} x "
+              f"{len(batches)} batches, max_abs_err {max(errs):.3e} "
+              f"[{'bitwise' if exact else 'rtol=1e-5 atol=1e-6'}, "
+              f"geometry ==] ok")
+
+    # every (D, M) the path gave rows 5/6, each shard's slice against the
+    # plain version on the same operands
+    x_te_np = np.asarray(data["x_test"], np.float32)
+    for kind in ("mlp", "svm"):
+        shard_check(f"batch driver {kind}", fronts[kind][0], two,
+                    driver_batches(np, requests, 1024))
+    cli_requests = serve_classifier.make_request_stream(data["x_test"], 64,
+                                                        8)
+    cli_mesh = search.default_search_mesh(dev)
+    shard_check("--sharded CLI", fronts["mlp"][0], cli_mesh,
+                driver_batches(np, cli_requests, 128)
+                + [("x_test", x_te_np)])
+    for label, front in (("served search front", designs),
+                         ("served search front x2", designs * 2)):
+        shard_check(label, front, two, [("x_test", x_te_np)])
+    pool_mesh = elastic.bank_pool_mesh([dev, dev])
+    for t in tenants:
+        batches = engine_batches(
+            np, fo_rep["batch_sizes"][t.name]["ladder"],
+            [r for r in wl if r.tenant == t.name])
+        shard_check(f"sharded pool {t.name} (before the loss)", t.designs,
+                    pool_mesh, batches)
+        shard_check(f"sharded pool {t.name} (after the loss)", t.designs,
+                    make_mesh((1,), ("data",), devices=[dev]), batches)
+    print(f"  batch driver on [cuda:0, cuda:0]: {len(requests)} requests "
+          f"per front == the plain route's; serve_classifier --sharded "
+          f"(default mesh, {torch.cuda.device_count()} card(s)): parity OK")
+
+    plain_banks = {}
+
+    def want(designs, x):
+        """The plain route's prediction (make_bank_fn on the CPU)."""
+        if id(designs) not in plain_banks:
+            plain_banks[id(designs)] = deploy.make_bank_fn(designs,
+                                                           device="cpu")
+        return torch.argmax(plain_banks[id(designs)](x), dim=-1).numpy()
+
+    by_name = {t.name: t.designs for t in tenants}
+    for req in wl:
+        check(np.array_equal(fo_rep["responses"][req.rid],
+                             want(by_name[req.tenant], req.x)),
+              f"sharded pool: request {req.rid} ({req.tenant}) differs "
+              f"from the plain route's")
+    check(live_mesh is not None and live_mesh.size == 2
+          and fo_rep["recoveries"] == 1
+          and fo_rep["devices"] == {"alive": 1, "lost": 1,
+                                    "sharded": False},
+          f"sharded pool: mesh before the loss {live_mesh}, after it "
+          f"{fo_rep['devices']}, {fo_rep['recoveries']} recoveries")
+    check(all(s["completed"] == ASYNC_FAILOVER["requests"]
+              for s in fo_rep["tenants"].values()),
+          f"sharded pool: {fo_rep['tenants']}")
+    cal = [deploy.calibrate_front(cal_designs, cal_ni, instance=k,
+                                  samples=k + 1, device=dev) for k in (0, 1)]
+    first = (cal_rep["batch_sizes"]["cardio_svm"]["quantum"]
+             // ASYNC["request_size"])
+    for i, req in enumerate(cal_wl):
+        check(np.array_equal(cal_rep["responses"][req.rid],
+                             want(cal[int(i >= first)], req.x)),
+              f"sharded pool, calibrated: request {req.rid} is not "
+              f"instance {int(i >= first)}'s plain-route prediction")
+    check(cal_rep["calibrations"] == {"cardio_svm": 2}
+          and cal_rep["recoveries"] == 1,
+          f"sharded pool, calibrated: {cal_rep['calibrations']}, "
+          f"{cal_rep['recoveries']} recoveries")
+    cal_batches = engine_batches(
+        np, cal_rep["batch_sizes"]["cardio_svm"]["ladder"], cal_wl)
+    shard_check("sharded pool calibrated instance 0 (before the loss)",
+                cal[0], pool_mesh, cal_batches, exact=False)
+    shard_check("sharded pool calibrated instance 1 (after the loss)",
+                cal[1], make_mesh((1,), ("data",), devices=[dev]),
+                cal_batches, exact=False)
+    check(exhausted is not None and "exhausted" in exhausted,
+          f"sharded pool: losing the last entry gave {exhausted!r}")
+    print(f"  sharded pool [cuda:0, cuda:0]: mesh {live_mesh.shape} before "
+          f"the loss at launch 1, {fo_rep['devices']} after it, "
+          f"{fo_rep['recoveries']} recovery, every response == the plain "
+          f"route's; calibrated cardio_svm (D={len(cal_designs)}): "
+          f"calibrations {cal_rep['calibrations']}, requests 0-{first - 1} "
+          f"== instance 0, the rest == instance 1; last entry: {exhausted}")
+    for name in ("adc_quantize_population", "qmlp_mlp_bank",
+                 "qmlp_svm_bank", "mc_adc_eval_population",
+                 "mc_adc_eval_cal_population"):
+        check(launches[name] > 0, f"sharded: {name} never launched")
+    print(f"  sharded: launches on this path {launches}; path "
+          f"{path_s:.2f} s on {card}")
+
+    # -- timings, after the count: a generation and a bank call, in turns
+    cfg = configs["mlp"][0]
+    g16 = (rng.random((cfg.pop_size, search.genome_len(sizes[0],
+                                                       cfg.bits)))
+           < 0.5).astype(np.uint8)
+    runs = {"batched": lambda: search.evaluate_population(g16, dd, sizes,
+                                                          cfg),
+            "sharded [cuda:0]": lambda: search.evaluate_population_sharded(
+                g16, dd, sizes, cfg, meshes["[cuda:0]"]),
+            "sharded [cuda:0, cuda:0]": lambda: (
+                search.evaluate_population_sharded(g16, dd, sizes, cfg,
+                                                   two))}
+    gen_s = {k: [] for k in runs}
+    for k in list(runs) + list(reversed(runs)):
+        t0 = time.perf_counter()
+        runs[k]()
+        torch.cuda.synchronize()
+        gen_s[k].append(time.perf_counter() - t0)
+    for kind in ("mlp", "svm"):
+        shard_check(f"make_bank_fn timing {kind} front x2",
+                    fronts[kind][0] * 2, two, [("serve batch", x_serve)])
+    xb = torch.from_numpy(x_serve).to(dev)
+    bank_ms = {}
+    for kind in ("mlp", "svm"):
+        designs_k = fronts[kind][0]
+        wide = designs_k * 2                      # D even: two shards
+        for label, front in (("front", designs_k), ("front x2", wide)):
+            plain_fn = deploy.make_bank_fn(front, device=dev)
+            shard_fn = deploy.make_bank_fn(front, mesh=two)
+            bank_ms[f"{kind} {label} D={len(front)}"] = {
+                "unsharded": cuda_ms(torch, lambda: plain_fn(xb)),
+                "[cuda:0, cuda:0]": cuda_ms(torch, lambda: shard_fn(xb))}
+    for k, v in gen_s.items():
+        print(f"  generation pop={cfg.pop_size} steps={cfg.train_steps} "
+              f"MLP, {k}: {' / '.join(f'{s:.3f}' for s in v)} s on {card}")
+    for k, v in bank_ms.items():
+        print(f"  make_bank_fn call at the serve batch (M=1024) {k}: "
+              f"unsharded {v['unsharded'] * 1e3:.2f} us, mesh "
+              f"[cuda:0, cuda:0] {v['[cuda:0, cuda:0]'] * 1e3:.2f} us on "
+              f"{card}")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase sharded: {wall:.2f} s on {card}")
+    return {"launches": launches, "per_eval": {
+                k: dict(v, rule=None if v["rule"] is None
+                        else list(v["rule"])) for k, v in per_eval.items()},
+            "generation_s": gen_s, "bank_call_ms": bank_ms,
+            "search_s": search_s, "path_s": path_s, "wall_s": wall,
+            "max_err": max_err}
 
 
 def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
@@ -3560,9 +4090,14 @@ def main() -> int:
         for name, err in async_out.pop("max_err").items():
             max_err[name] = max(max_err[name], err)
         marks.append(time.perf_counter())
+        sharded_out = phase_sharded(np, torch, dev, card, fronts, data)
+        for name, err in sharded_out.pop("max_err").items():
+            max_err[name] = max(max_err[name], err)
+        marks.append(time.perf_counter())
         phase_s = dict(zip(("baseline", "resume", "gradient", "cosearch",
-                            "async"), np.diff(marks).tolist()))
-        print(f"phases baseline / resume / gradient / cosearch / async: "
+                            "async", "sharded"), np.diff(marks).tolist()))
+        print(f"phases baseline / resume / gradient / cosearch / async / "
+              f"sharded: "
               f"{' / '.join(f'{v:.2f}' for v in phase_s.values())} s, "
               f"{marks[-1] - marks[0]:.2f} s in all on {card}")
         lm_out = phase_lm(np, torch, dev, card)
@@ -3573,7 +4108,7 @@ def main() -> int:
         check(not mods, f"JAX or the JAX package was imported: {mods}")
 
         # launches on each path, both models: serve, search, robust,
-        # baseline, resume, gradient; cosearch, async, lm
+        # baseline, resume, gradient; cosearch, async, sharded, lm
         both = lambda res: {n: sum(res[k]["launches"][n]  # noqa: E731
                                    for k in ("mlp", "svm"))
                             for n in KERNELS}
@@ -3585,6 +4120,7 @@ def main() -> int:
                    "gradient": gradient_out["launches"],
                    "cosearch": cosearch_out["launches"],
                    "async": async_out["launches"],
+                   "sharded": sharded_out["launches"],
                    "lm": lm_out["launches"],
                    "lm_f32": lm_out["launches_f32"]}
         main_timing = {
@@ -3647,6 +4183,8 @@ def main() -> int:
                                 if k not in ("launches", "timings")},
                    "async": {k: v for k, v in async_out.items()
                              if k != "launches"},
+                   "sharded": {k: v for k, v in sharded_out.items()
+                               if k != "launches"},
                    "phase_s": phase_s,
                    "lm": {k: v for k, v in lm_out.items()
                           if k != "launches"},

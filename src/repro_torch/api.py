@@ -30,11 +30,19 @@
                               shape="bursty", deadline_ms=500.0)
     rep = api.serve_stream(bank, trace)   # asyncio engine: SLOs, shedding
 
+    mesh = make_mesh((2, 1), ("data", "model"))   # launch/mesh.py
+    front = api.search(spec, data, engine="sharded", mesh=mesh)
+    api.serve(bank, x, mesh=mesh)          # D/2 designs per shard
+    api.serve_stream(bank, trace, devices=["cuda:0", "cuda:1"],
+                     sharded=True)         # re-meshed on a device loss
+
 Every verb runs on the card (``device=None`` means ``cuda``) unless the
-caller passes ``device="cpu"``. It is a thin composition of core/search,
-core/deploy and kernels/ops, so the search -> export -> load -> serve
-contract holds through the facade: ``bank.accuracies(x_test, y_test)``
-equals the search-time fitness exactly.
+caller passes ``device="cpu"``; a ``mesh`` (``launch.mesh.make_mesh``,
+e.g. over ``["cpu", "cpu"]``) places the work on its devices instead.
+It is a thin composition of core/search, core/deploy and kernels/ops,
+so the search -> export -> load -> serve contract holds through the
+facade: ``bank.accuracies(x_test, y_test)`` equals the search-time
+fitness exactly.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.core.spec import AdcSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faulttol import FaultTolSpec
 from repro_torch.kernels import ops as _ops
+from repro_torch.launch.mesh import Mesh
 from repro_torch.timeseries.feature import FeatureSpec
 
 __all__ = [
@@ -120,19 +129,22 @@ class Bank:
     def spec(self) -> AdcSpec:
         return self.designs[0].spec
 
-    def logits(self, x, *, device: DeviceLike = None) -> torch.Tensor:
+    def logits(self, x, *, device: DeviceLike = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
         """(M, C) samples (raw (M, W, C_raw) windows for a feature-baked
         bank) -> (D, M, O) logits through the fused multi-design bank
-        kernel."""
-        return _deploy.serve_bank(self.designs, x, device=device)
+        kernel (design-sharded over ``mesh`` if given)."""
+        return _deploy.serve_bank(self.designs, x, device=device, mesh=mesh)
 
     def predict(self, x, **kw) -> torch.Tensor:
         return torch.argmax(self.logits(x, **kw), dim=-1)
 
-    def accuracies(self, x, y, *, device: DeviceLike = None) -> np.ndarray:
-        """(D,) served accuracies: bit for bit the exported (== search
-        fitness) accuracies."""
-        return _deploy.served_accuracies(self.designs, x, y, device=device)
+    def accuracies(self, x, y, *, device: DeviceLike = None,
+                   mesh: Optional[Mesh] = None) -> np.ndarray:
+        """(D,) served accuracies (design-sharded over ``mesh`` if given):
+        bit for bit the exported (== search fitness) accuracies."""
+        return _deploy.served_accuracies(self.designs, x, y, device=device,
+                                         mesh=mesh)
 
     def evaluate_robustness(self, nonideal: NonIdealSpec, x, y,
                             samples: int = 32, **kw) -> Dict:
@@ -147,18 +159,20 @@ def search(spec: AdcSpec, data: Dict, sizes: Optional[Sequence[int]] = None,
            train_steps: int = 300, engine: str = "batched", seed: int = 0,
            weight_bits: int = 8, hidden: int = 4, log=None,
            ckpt=None, resume: bool = False, device: DeviceLike = None,
-           **cfg_kw) -> Front:
+           mesh: Optional[Mesh] = None, **cfg_kw) -> Front:
     """Run the paper's in-training ADC optimization around ``spec``.
 
     data: dict with x_train/y_train/x_test/y_test (data.tabular layout).
     sizes: (features, hidden, classes); inferred from the data (with
     ``hidden`` hidden units) when omitted. Remaining kwargs mirror
-    core/search.SearchConfig; ``engine`` picks batched | reference |
-    gradient, ``ckpt``/``resume`` checkpoint the search and restart it
-    (``checkpoint.manager.CheckpointManager``). Returns a ``Front``
-    carrying the Pareto genomes, their fitness, and the trained
-    parameter stacks ``deploy`` reuses."""
-    dev = resolve_device(device)
+    core/search.SearchConfig; ``engine`` picks batched | sharded |
+    reference | gradient (``mesh`` feeds 'sharded': default
+    ``search.default_search_mesh(device)``, and the front's QAT then
+    runs on its first device), ``ckpt``/``resume`` checkpoint the
+    search and restart it (``checkpoint.manager.CheckpointManager``).
+    Returns a ``Front`` carrying the Pareto genomes, their fitness, and
+    the trained parameter stacks ``deploy`` reuses."""
+    dev = _search.search_device(engine, device, mesh)
     if sizes is None:
         features = int(np.asarray(data["x_train"]).shape[-1])
         classes = int(np.asarray(data["y_train"]).max()) + 1
@@ -172,7 +186,8 @@ def search(spec: AdcSpec, data: Dict, sizes: Optional[Sequence[int]] = None,
                                 **cfg_kw)
     pg, pf, _, trained = _search.run_search(data, sizes, cfg, log=log,
                                             ckpt=ckpt, resume=resume,
-                                            return_trained=True, device=dev)
+                                            return_trained=True, device=dev,
+                                            mesh=mesh)
     return Front(spec=spec, config=cfg, sizes=sizes,
                  genomes=np.asarray(pg, np.uint8),
                  fitness=np.asarray(pf, np.float64), trained=trained,
@@ -205,7 +220,7 @@ def cosearch(data: Dict, feature: FeatureSpec, *, bits: int = 3,
              generations: int = 16, train_steps: int = 300,
              engine: str = "batched", seed: int = 0, weight_bits: int = 8,
              hidden: int = 4, init=None, device: DeviceLike = None, log=None,
-             **cfg_kw) -> Front:
+             mesh: Optional[Mesh] = None, **cfg_kw) -> Front:
     """Streaming sensor -> feature -> ADC -> classifier co-design.
 
     data: raw sliding-window splits (``timeseries.make_stream`` layout,
@@ -217,12 +232,13 @@ def cosearch(data: Dict, feature: FeatureSpec, *, bits: int = 3,
     (``AdcSpec.from_data``, clip ``pct``). Returns the same ``Front`` as
     ``search``: ``deploy`` bakes each design's FeatureSpec, and the bank
     then serves raw windows. ``init`` seeds the population, e.g. an
-    ADC-only front lifted by ``timeseries.cosearch.embed_adc_only``."""
+    ADC-only front lifted by ``timeseries.cosearch.embed_adc_only``.
+    ``mesh`` feeds ``engine='sharded'`` as in ``search``."""
     from repro_torch.timeseries import cosearch as _cosearch
-    dev = resolve_device(device)
+    dev = _search.search_device(engine, device, mesh)
     pg, pf, _, trained, cfg, _, sizes, spec = _cosearch.run(
         data, feature, bits=bits, pct=pct, hidden=hidden, init=init,
-        log=log, device=dev, model=model, pop_size=pop_size,
+        log=log, device=dev, mesh=mesh, model=model, pop_size=pop_size,
         generations=generations, train_steps=train_steps, engine=engine,
         seed=seed, weight_bits=weight_bits, **cfg_kw)
     return Front(spec=spec, config=cfg, sizes=tuple(sizes),
@@ -247,12 +263,15 @@ def deploy(front: Front, data: Optional[Dict] = None) -> Bank:
 
 
 def serve(bank: Union[Bank, Sequence[DeployedClassifier]], x, *,
-          device: DeviceLike = None) -> torch.Tensor:
+          device: DeviceLike = None,
+          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One shared (M, C) sample batch (raw (M, W, C_raw) windows for a
     feature-baked bank) through the whole deployed bank: (D, M, O)
-    logits through the fused multi-design kernel."""
+    logits through the fused multi-design kernel; with ``mesh`` the
+    design axis is split over the mesh, one bank launch per shard, the
+    logits gathered on its first device."""
     designs = bank.designs if isinstance(bank, Bank) else tuple(bank)
-    return _deploy.serve_bank(designs, x, device=device)
+    return _deploy.serve_bank(designs, x, device=device, mesh=mesh)
 
 
 def make_workload(x, num_requests: int, *, tenant: str = "default",
@@ -284,11 +303,13 @@ def serve_stream(bank: Union[Bank, Sequence[DeployedClassifier], Dict],
     them) arms the post-recovery bit-for-bit parity re-assert. Returns
     the structured metrics snapshot (``tenants`` SLO stats, batching
     counters, device-pool state, per-request ``responses``). Engine
-    knobs (``devices``, ``target_latency_ms``, ``max_batch``,
-    ``inject_device_failure``, ...) pass through; ``devices=None`` serves
-    on ``cuda``. ``nonideal`` marks the hardware as carrying measured
-    non-idealities: every tenant then serves calibrated tables and
-    re-calibrates after each device-loss recovery (DESIGN.md §15)."""
+    knobs (``devices``, ``sharded``, ``target_latency_ms``,
+    ``max_batch``, ``inject_device_failure``, ...) pass through;
+    ``devices=None`` serves on ``cuda``; ``sharded=True`` splits every
+    bank over a mesh of the pool's survivors while two are alive.
+    ``nonideal`` marks the hardware as carrying measured non-idealities:
+    every tenant then serves calibrated tables and re-calibrates after
+    each device-loss recovery (DESIGN.md §15)."""
     from repro_torch.launch import serving_engine
 
     if isinstance(bank, dict):

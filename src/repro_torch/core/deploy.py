@@ -15,7 +15,9 @@ the JAX package.
 Serving stacks the front into one bank and pushes every batch through all
 D designs in one kernel launch (kernels/ops.classifier_bank): on a CUDA
 device through the hand-written bank kernels, on the CPU through their
-plain versions.
+plain versions. With a ``launch.mesh.Mesh`` (``mesh=`` on
+``make_bank_fn``, ``serve_bank`` and ``served_accuracies``) the design
+axis is split over the mesh, one bank launch per shard.
 
 A design of the streaming co-search carries a baked ``FeatureSpec``
 (``feature``): it serves raw (M, W, C_raw) windows, featurized by
@@ -58,6 +60,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faulttol import calibrate as faulttol_cal
 from repro_torch.faulttol import redundancy as ft_redundancy
 from repro_torch.kernels import ops, qmlp
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import svm as svm_lib
 from repro_torch.models.mlp import mean_accuracy as _mean_acc
@@ -378,17 +381,24 @@ def bank_arrays(designs: Sequence[DeployedClassifier]
     return tables, weights
 
 
-def _bank_closure(designs: Sequence[DeployedClassifier], dev):
+def _bank_closure(designs: Sequence[DeployedClassifier], dev, mesh=None):
     """One bank call closed over ``designs``' tables, weights and range
     rows, moved to ``dev`` once: a featurized (M, C) tensor on ``dev``
-    -> (D, M, O) logits."""
+    -> (D, M, O) logits. With ``mesh`` the operands are placed once per
+    shard instead (``ops.bank_shards``: the D axis split by
+    ``design_bank_axes``, or whole on the first device when nothing
+    divides D) and each call launches one bank per shard."""
     specs = {d.spec for d in designs}
     if len(specs) != 1:
         raise ValueError(f"bank needs one AdcSpec, got {specs}")
     tables, weights = bank_arrays(designs)
+    kind, spec = designs[0].kind, designs[0].spec
+    if mesh is not None:
+        shards = ops.bank_shards(tables, weights, mesh=mesh)
+        return lambda xb: ops.classifier_bank_shards(xb, shards, kind=kind,
+                                                     spec=spec)
     tables_t = torch.from_numpy(tables).to(dev)
     weights_t = tuple(torch.from_numpy(w).to(dev) for w in weights)
-    kind, spec = designs[0].kind, designs[0].spec
     rows = range_rows_tensors(spec.bits, spec.vmin, spec.vmax,
                               tables.shape[1], dev)
     return lambda xb: ops.classifier_bank(xb, tables_t, weights_t,
@@ -396,18 +406,22 @@ def _bank_closure(designs: Sequence[DeployedClassifier], dev):
 
 
 def make_bank_fn(designs: Sequence[DeployedClassifier], *,
-                 device: DeviceLike = None
+                 device: DeviceLike = None, mesh=None
                  ) -> Callable[[object], torch.Tensor]:
     """The serving hot path: a closure (M, C) batch -> (D, M, O) logits
     over the whole front. Tables, weights and range rows move to
     ``device`` once, here, not once per microbatch; each call moves only
-    the batch. A feature-baked front takes raw (M, W, C_raw) windows
-    (``_make_feature_bank_fn``)."""
-    dev = resolve_device(device)
+    the batch. With ``mesh`` (a ``launch.mesh.Mesh``) the design axis is
+    split D/n over the mesh (``ops.classifier_bank_sharded``'s rule),
+    the batch replicates and the logits gather on the mesh's first
+    device (``device``, if also given, must be that device). A
+    feature-baked front
+    takes raw (M, W, C_raw) windows (``_make_feature_bank_fn``)."""
+    dev = mesh_lib.work_device(device, mesh)
     designs = list(designs)
     if any(d.feature is not None for d in designs):
-        return _make_feature_bank_fn(designs, dev)
-    bank = _bank_closure(designs, dev)
+        return _make_feature_bank_fn(designs, dev, mesh)
+    bank = _bank_closure(designs, dev, mesh)
 
     def fn(xb) -> torch.Tensor:
         xb = torch.as_tensor(xb, dtype=torch.float32).to(dev).contiguous()
@@ -435,22 +449,25 @@ def _feature_groups(designs: Sequence[DeployedClassifier]) -> Dict:
     return dict(sorted(groups.items()))
 
 
-def _make_feature_bank_fn(designs: Sequence[DeployedClassifier], dev
-                          ) -> Callable[[object], torch.Tensor]:
+def _make_feature_bank_fn(designs: Sequence[DeployedClassifier], dev,
+                          mesh=None) -> Callable[[object], torch.Tensor]:
     """The streaming twin of ``make_bank_fn``: (M, W, C_raw) windows ->
     (D, M, O) logits on ``dev``. Designs group by baked subsample
     factor; each group serves its own bank (operands on the device once)
     over ``feature.featurize_fn`` of its factor, the callable the search
     data was built with, so served accuracies reproduce the search
     fitness bit for bit; the group logits scatter back into front
-    order on the device."""
+    order on the device. With ``mesh`` each group's bank is split within
+    the group (its D_g designs by ``design_bank_axes``; a group nothing
+    divides serves whole on the first device), featurize runs on
+    ``dev``, the mesh's first device."""
     groups = _feature_groups(designs)
     sub_banks = []
     for idx in groups.values():
         grp = [designs[i] for i in idx]
         sub_banks.append((torch.tensor(idx, device=dev),
                           feature_lib.featurize_fn(grp[0].feature),
-                          _bank_closure(grp, dev)))
+                          _bank_closure(grp, dev, mesh)))
 
     def fn(xb) -> torch.Tensor:
         xb = feature_lib.as_windows(xb, dev)
@@ -467,19 +484,20 @@ def _make_feature_bank_fn(designs: Sequence[DeployedClassifier], dev
 
 
 def serve_bank(designs: Sequence[DeployedClassifier], x, *,
-               device: DeviceLike = None) -> torch.Tensor:
+               device: DeviceLike = None, mesh=None) -> torch.Tensor:
     """One shared sample batch through the whole front: (D, M, O)
-    logits on ``device``. A feature-baked front takes raw (M, W, C_raw)
+    logits on ``device`` (with ``mesh``: design-sharded, gathered on the
+    mesh's first device). A feature-baked front takes raw (M, W, C_raw)
     windows and serves per subsample group."""
-    return make_bank_fn(designs, device=device)(x)
+    return make_bank_fn(designs, device=device, mesh=mesh)(x)
 
 
 def served_accuracies(designs: Sequence[DeployedClassifier], x, y, *,
-                      device: DeviceLike = None) -> np.ndarray:
+                      device: DeviceLike = None, mesh=None) -> np.ndarray:
     """(D,) float32 test accuracies of the served front (raw windows for
-    a feature-baked one): the round-trip check against each design's
-    exported ``accuracy``."""
-    logits = serve_bank(designs, x, device=device)
+    a feature-baked one; design-sharded over ``mesh`` if given): the
+    round-trip check against each design's exported ``accuracy``."""
+    logits = serve_bank(designs, x, device=device, mesh=mesh)
     y = torch.as_tensor(np.asarray(y)).to(logits.device)
     return _mean_acc(torch.argmax(logits, dim=-1) == y[None, :]).cpu().numpy()
 

@@ -73,8 +73,17 @@ gathers its own variant, the reference one gathers and then quantizes.
 A frontend and the Monte-Carlo objective exclude each other, as in the
 reference.
 
-Not in this slice, refused with the ROADMAP item that ports it: the
-sharded engine (A9).
+The sharded engine (``engine='sharded'``,
+``evaluate_population_sharded``) splits each generation's unique genomes
+over a ``launch.mesh.Mesh`` by ``distributed/sharding.population_axes``.
+Each shard trains its slice through ``_fixed_lanes`` on its own device,
+padded to ``cfg.pop_size`` lanes like any other batch, so the sharded
+fitness equals the batched engine's bit for bit; the price is a full
+QAT chunk per shard. The dataset and the Monte-Carlo draw block are
+copied once per distinct mesh device per search and never sliced
+(common random numbers stay common across shards). When no rule divides
+the unique count, one shard runs on the mesh's first device. The batched
+engine is this engine on a mesh of one entry.
 """
 from __future__ import annotations
 
@@ -92,10 +101,12 @@ from repro_torch.core import surrogate as surrogate_lib
 from repro_torch.core.nonideal import NonIdealSpec
 from repro_torch.core.spec import AdcSpec, Range, normalize_range
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.faulttol import calibrate as faulttol_cal
 from repro_torch.faulttol import redundancy as ft_redundancy
 from repro_torch.faulttol.spec import FaultTolSpec
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import svm as svm_lib
 from repro_torch.optim import adamw
@@ -103,11 +114,6 @@ from repro_torch.timeseries import feature as feature_lib
 from repro_torch.timeseries.feature import ALLOC_BITS, FULL_ALLOC, FeatureSpec
 
 DP_BITS = 4
-
-_LATER = {
-    "sharded": "the sharded engine (multi-GPU population split) is not "
-               "ported yet: ROADMAP A9",
-}
 
 
 @dataclass(frozen=True)
@@ -123,7 +129,8 @@ class SearchConfig:
     mode: str = "tree"            # circuit-faithful pruned-ADC semantics
     design: str = "ours"          # area model used in the fitness
     model: str = "mlp"            # 'mlp' | 'svm'
-    engine: str = "batched"       # 'batched' | 'reference' | 'gradient'
+    # 'batched' | 'sharded' | 'reference' | 'gradient'
+    engine: str = "batched"
     # exact-duplicate genome dedup before QAT (identical individuals in a
     # generation share one lane; fitness bit-identical either way)
     dedup: bool = True
@@ -176,9 +183,8 @@ class SearchConfig:
     def __post_init__(self):
         object.__setattr__(self, "vmin", normalize_range(self.vmin))
         object.__setattr__(self, "vmax", normalize_range(self.vmax))
-        if self.engine == "sharded":
-            raise NotImplementedError(_LATER[self.engine])
-        if self.engine not in ("batched", "reference", "gradient"):
+        if self.engine not in ("batched", "sharded", "reference",
+                               "gradient"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.screen_factor < 1:
             raise ValueError(f"screen_factor must be >= 1, got "
@@ -730,12 +736,12 @@ def evaluate_population(genomes: np.ndarray, data: Dict, sizes,
     minimized), exact-duplicate genomes sharing one QAT lane
     (``cfg.dedup``). ``init_params`` (numpy, the reference's layout)
     replaces the seeded initial weights, ``draws`` (numpy or tensors)
-    the config's own draw stream."""
+    the config's own draw stream. It is the sharded engine on a mesh of
+    one entry, the data's device."""
     data = _as_device_data(data, device)
-    draws = _as_search_draws(draws, cfg, sizes[0], data["x_test"].device)
-    out = _eval_dedup(genomes, cfg, lambda g: _fixed_lanes(
-        g, data, sizes, cfg, init_params, draws=draws))
-    return _fitness(genomes, out, sizes[0], cfg)
+    return evaluate_population_sharded(
+        genomes, data, sizes, cfg, _one_device_mesh(data["x_train"].device),
+        init_params=init_params, draws=draws)
 
 
 def evaluate_population_acc(genomes: np.ndarray, data: Dict, sizes,
@@ -806,23 +812,134 @@ def evaluate_population_reference(genomes: np.ndarray, data: Dict, sizes,
     return _fitness(genomes, out, sizes[0], cfg)
 
 
+# ------------------------------------------------------------ sharded engine
+def default_search_mesh(device: DeviceLike = None) -> mesh_lib.Mesh:
+    """Every visible device of ``device``'s type on a (n, 1) ('data',
+    'model') mesh: all CUDA cards by default (raising without one), one
+    CPU entry for ``device='cpu'``. GA individuals are embarrassingly
+    parallel, so every device takes population slices; a caller with a
+    2D mesh passes it in and ``population_axes`` folds both axes into
+    the split."""
+    devs = mesh_lib.visible_devices(device)
+    return mesh_lib.make_mesh((len(devs), 1), ("data", "model"),
+                              devices=devs)
+
+
+def _one_device_mesh(device) -> mesh_lib.Mesh:
+    """The batched engine's mesh: one ('data', 'model') entry."""
+    return mesh_lib.make_mesh((1, 1), ("data", "model"), devices=[device])
+
+
+def search_mesh(engine: str, device: DeviceLike = None,
+                mesh: Optional[mesh_lib.Mesh] = None
+                ) -> Optional[mesh_lib.Mesh]:
+    """The sharded engine's mesh: ``mesh``, or
+    ``default_search_mesh(device)``. None for every other engine, which
+    ignores ``mesh``."""
+    if engine != "sharded":
+        return None
+    return default_search_mesh(device) if mesh is None else mesh
+
+
+def search_device(engine: str, device: DeviceLike = None,
+                  mesh: Optional[mesh_lib.Mesh] = None) -> torch.device:
+    """Where a search's data, NSGA-II bookkeeping, surrogate and
+    ``train_pareto_front`` run: the sharded engine's mesh's first device
+    (``mesh_lib.work_device``: a ``device`` beside an explicit mesh must
+    be that device), else ``device``."""
+    if engine != "sharded":
+        return resolve_device(device)
+    if mesh is None:
+        return default_search_mesh(device).first_device
+    return mesh_lib.work_device(device, mesh)
+
+
+def _mesh_replicas(data: Dict, draws, cfg: SearchConfig, channels: int,
+                   mesh: mesh_lib.Mesh) -> Dict:
+    """``{device: (data, draws)}`` for each distinct device of ``mesh``:
+    the dataset and the search's draw block (``draws``, or the config's
+    own stream) on the mesh's first device, copied once to every other
+    device. Both replicate whole: common random numbers must be common
+    across shards."""
+    first = mesh.first_device
+    base = _as_device_data(data, first)
+    base_draws = _as_search_draws(draws, cfg, channels, first)
+    replicas: Dict = {}
+    for dev in mesh.devices.reshape(-1):
+        if dev not in replicas:
+            replicas[dev] = (
+                {k: t.to(dev) for k, t in base.items()},
+                _as_search_draws(base_draws, cfg, channels, dev))
+    return replicas
+
+
+def _evaluate_sharded(genomes: np.ndarray, replicas: Dict, sizes,
+                      cfg: SearchConfig, mesh: mesh_lib.Mesh,
+                      init_params=None) -> np.ndarray:
+    """The sharded engine on placed ``replicas`` (``_mesh_replicas``):
+    dedup, then the unique genomes split over
+    ``sharding.population_axes``; shard k trains its slice through
+    ``_fixed_lanes`` on its device (padded to ``cfg.pop_size`` lanes),
+    the shards run in mesh order and their columns gather in shard
+    order. No dividing rule: one batched evaluation on the first
+    device."""
+    def core(g):
+        parts = []
+        for dev, sl in sharding.shard_plan(
+                mesh, sharding.population_axes(mesh, len(g)), len(g)):
+            dev_data, dev_draws = replicas[dev]
+            parts.append(_fixed_lanes(g[sl], dev_data, sizes, cfg,
+                                      init_params, draws=dev_draws))
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    out = _eval_dedup(genomes, cfg, core)
+    return _fitness(genomes, out, sizes[0], cfg)
+
+
+def evaluate_population_sharded(genomes: np.ndarray, data: Dict, sizes,
+                                cfg: SearchConfig,
+                                mesh: Optional[mesh_lib.Mesh] = None, *,
+                                init_params=None, draws=None
+                                ) -> np.ndarray:
+    """Sharded engine: the population split over ``mesh`` (default
+    ``default_search_mesh()``, every CUDA card); the batched engine
+    (``evaluate_population``) is this on a mesh of one entry, and each
+    shard pads to the same lane count, so the two agree bit for bit.
+    Exact-duplicate dedup runs before the split; a unique count no rule
+    divides runs as one shard on the mesh's first device.
+    ``init_params`` and ``draws`` as in ``evaluate_population``."""
+    mesh = default_search_mesh() if mesh is None else mesh
+    replicas = _mesh_replicas(data, draws, cfg, sizes[0], mesh)
+    return _evaluate_sharded(genomes, replicas, sizes, cfg, mesh,
+                             init_params)
+
+
 def make_eval_fn(data: Dict, sizes, cfg: SearchConfig, *,
-                 device: DeviceLike = None, init_params=None
+                 device: DeviceLike = None, init_params=None,
+                 mesh: Optional[mesh_lib.Mesh] = None
                  ) -> Callable[[np.ndarray], np.ndarray]:
     """The (P, G) -> (P, n_objectives) fitness function ``nsga2.evolve``
     consumes, dispatched on ``cfg.engine``. The dataset, and the MC draw
     block of a robustness config, move to the device once here, not once
-    per generation."""
+    per generation; for the sharded engine, once to each distinct device
+    of ``mesh`` (default ``default_search_mesh(device)``). The batched
+    engine is the sharded one on a mesh of one entry."""
     if cfg.engine == "gradient":
         raise ValueError("the gradient engine is not a per-generation "
                          "eval_fn: run it through run_search / "
                          "run_gradient_search")
-    dev_data = _as_device_data(data, device)
-    draws = search_draws(cfg, sizes[0], dev_data["x_test"].device)
-    fn = (evaluate_population_reference if cfg.engine == "reference"
-          else evaluate_population)
-    return lambda pop: fn(pop, dev_data, sizes, cfg,
-                          init_params=init_params, draws=draws)
+    if cfg.engine == "reference":
+        dev_data = _as_device_data(data, device)
+        draws = search_draws(cfg, sizes[0], dev_data["x_test"].device)
+        return lambda pop: evaluate_population_reference(
+            pop, dev_data, sizes, cfg, init_params=init_params, draws=draws)
+    m = search_mesh(cfg.engine, device, mesh)
+    if m is None:
+        data = _as_device_data(data, device)
+        m = _one_device_mesh(data["x_train"].device)
+    replicas = _mesh_replicas(data, None, cfg, sizes[0], m)
+    return lambda pop: _evaluate_sharded(pop, replicas, sizes, cfg, m,
+                                         init_params)
 
 
 # --------------------------------------------------- search-state checkpoint
@@ -921,7 +1038,8 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
                log: Optional[Callable] = None, ckpt=None,
                resume: bool = False, return_trained: bool = False,
                init: Optional[np.ndarray] = None, *,
-               device: DeviceLike = None, init_params=None):
+               device: DeviceLike = None, init_params=None,
+               mesh: Optional[mesh_lib.Mesh] = None):
     """Full in-training optimization on ``device`` (default ``cuda``).
     Returns (pareto_genomes, pareto_fit, decode) where fit columns are
     [1-acc, normalized area] (plus the robustness column for a
@@ -940,6 +1058,11 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
     same return contract, no generations). ``cfg.screen_factor > 1``
     turns on surrogate-screened offspring oversampling.
 
+    ``cfg.engine == 'sharded'`` evaluates each generation over ``mesh``
+    (default ``default_search_mesh(device)``); everything else (NSGA-II,
+    the surrogate, ``train_pareto_front``) runs on the mesh's first
+    device. Other engines ignore ``mesh``.
+
     ``init`` seeds the initial population ((pop_size, G) uint8) instead
     of the random draw, e.g. an ADC-only front lifted into the co-search
     space (``timeseries.cosearch.embed_adc_only``)."""
@@ -951,6 +1074,8 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
     c = sizes[0]
     cfg.adc_spec.validate_channels(c)
     _validate_frontend(data, sizes, cfg)
+    device = search_device(cfg.engine, device, mesh)
+    mesh = search_mesh(cfg.engine, device, mesh)
     dev_data = device_data(data, device)
     g = genome_len(c, cfg.bits, cfg.faulttol, frontend=cfg.frontend)
     screened = cfg.screen_factor > 1
@@ -982,7 +1107,8 @@ def run_search(data: Dict, sizes, cfg: SearchConfig,
         def screen_fn(cands):
             return surrogate_lib.screen(sur[0], cands, cfg.pop_size)
     pop, fit = nsga2.evolve(
-        make_eval_fn(dev_data, sizes, cfg, init_params=init_params), g,
+        make_eval_fn(dev_data, sizes, cfg, init_params=init_params,
+                     mesh=mesh), g,
         pop_size=cfg.pop_size, generations=cfg.generations, seed=cfg.seed,
         init=init, log=log, state=state, on_generation=on_gen,
         offspring_factor=cfg.screen_factor, screen_fn=screen_fn,

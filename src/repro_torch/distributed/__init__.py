@@ -1,4 +1,5 @@
-"""Fault tolerance for the port's serving tier. Counterpart of
+"""Fault tolerance and sharding for the port. Counterpart of
 ``repro/distributed``: ``fault`` (device-loss signalling, the step
-watchdog and retry-from-checkpoint recovery). Sharding and elastic
-meshes (``sharding.py``, ``elastic.py``) belong to ROADMAP A9b."""
+watchdog and retry-from-checkpoint recovery), ``sharding`` (the
+population and design-bank axis rules) and ``elastic`` (meshes over the
+surviving devices)."""

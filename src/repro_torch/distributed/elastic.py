@@ -1,0 +1,73 @@
+"""Elastic meshes: rebuild the mesh from the devices that are alive.
+Counterpart of ``repro/distributed/elastic.py``.
+
+**What the classifier serving engine uses** (launch/serving_engine.py):
+``bank_pool_mesh``. A sharded ``DevicePool`` re-meshes the design bank
+over the survivors after a device loss, down to unsharded serving on one
+device, and the bit-for-bit served == exported parity is re-asserted
+before serving resumes.
+
+``plan_mesh`` / ``make_elastic_mesh`` are the TP-pinned (pod, data,
+model) degradation policy of large pod jobs, copied; the classifier bank
+has no TP axis, so serving does not use them. ``reshard_state`` restores
+an LM train state against a shrunken mesh and belongs to ROADMAP A11.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from repro_torch.launch import mesh as mesh_lib
+
+
+def bank_pool_mesh(devices: Sequence) -> mesh_lib.Mesh:
+    """A (n, 1) ('data', 'model') mesh over an explicit list of surviving
+    devices: the serving engine's re-shard target. The design-bank rules
+    (distributed/sharding.design_bank_axes) split the bank's D axis over
+    'data' when it divides, else the bank serves unsharded."""
+    devices = list(devices)
+    if not devices:
+        raise ValueError("bank_pool_mesh needs at least one device")
+    return mesh_lib.make_mesh((len(devices), 1), ("data", "model"),
+                              devices=devices)
+
+
+def plan_mesh(n_devices: int, *, model: int = 16, chips_per_pod: int = 256):
+    """Largest (pod, data, model) grid using <= n_devices devices. The pod
+    count follows physical pods (256 chips each); capacity loss inside a
+    pod shrinks 'data'; TP degrades last (to a power of two) only when
+    fewer than ``model`` devices survive."""
+    if n_devices < model:
+        m = 1
+        while m * 2 <= n_devices:
+            m *= 2
+        return (1, max(n_devices // m, 1), m)
+    rest = n_devices // model
+    pods = max(n_devices // chips_per_pod, 1)
+    while pods > 1 and rest % pods:
+        pods -= 1
+    return (pods, rest // pods, model)
+
+
+def make_elastic_mesh(devices: Optional[Sequence] = None, *,
+                      model: int = 16) -> mesh_lib.Mesh:
+    """Mesh over surviving devices (default: every visible CUDA card,
+    raising without one). Drops remainder devices that do not fill the
+    grid (they rejoin at the next restart boundary)."""
+    devices = list(devices if devices is not None
+                   else mesh_lib.visible_devices())
+    pods, data, tp = plan_mesh(len(devices), model=model)
+    n = pods * data * tp
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    shape = (pods, data, tp) if pods > 1 else (data, tp)
+    axes = ("pod", "data", "model") if pods > 1 else ("data", "model")
+    return mesh_lib.Mesh(arr.reshape(shape), axes)
+
+
+def reshard_state(ckpt, step: int, state_like, new_mesh, cfg):
+    """Restore an LM train state against a new mesh: not in the port."""
+    raise NotImplementedError(
+        "reshard_state (restoring an LM train state against a shrunken "
+        "mesh) is not ported to repro_torch: ROADMAP A11")

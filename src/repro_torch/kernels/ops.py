@@ -15,12 +15,22 @@ attention; tensor cores for bf16 at the configs' head widths, CUDA cores
 otherwise). Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
 applied inside the kernel wrappers.
+
+``adc_quantize_population_sharded`` / ``classifier_bank_sharded`` split
+the leading population or design axis over a ``launch.mesh.Mesh``
+(``distributed/sharding``'s rules and ``shard_plan``): x replicates, one
+copy per distinct device; each shard gets only its slice, launches the
+same kernel on its own device, in mesh order from the calling thread;
+the outputs gather in shard order onto the mesh's first device. When no
+rule divides the leading axis the unsharded entry runs on the first
+device, with the same results. They add no kernel: they place work.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.spec import AdcSpec, as_spec
+from repro_torch.distributed import sharding
 from repro_torch.kernels import adc_quantize as _adcq
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mc_eval as _mc
@@ -57,6 +67,71 @@ def adc_quantize_variants(xv: torch.Tensor, masks, *,
     v, m, c = xv.shape
     q = adc_quantize_population(xv.reshape(v * m, c), masks, spec=spec)
     return q.reshape(q.shape[0], v, m, c)
+
+
+def adc_quantize_population_sharded(x: torch.Tensor, masks, *, mesh,
+                                    spec: AdcSpec, axes=None
+                                    ) -> torch.Tensor:
+    """``adc_quantize_population`` with the population axis split over
+    ``mesh``: each shard receives only its (P/n, C, 2^bits) mask slice,
+    bakes value tables for that slice alone and launches the population
+    quantizer on its device. ``axes`` defaults to
+    ``sharding.population_axes``. Returns (P, M, C) on the mesh's first
+    device."""
+    spec = as_spec(spec)
+    masks = torch.as_tensor(masks)
+    p = masks.shape[0]
+    plan = sharding.shard_plan(
+        mesh, sharding.population_axes(mesh, p) if axes is None else axes, p)
+    return _gather([adc_quantize_population(x.to(dev), masks[sl].to(dev),
+                                            spec=spec) for dev, sl in plan])
+
+
+def _gather(outs) -> torch.Tensor:
+    """Per-shard outputs concatenated in shard order on the first
+    shard's device (the mesh's first device)."""
+    if len(outs) == 1:
+        return outs[0]
+    first = outs[0].device
+    return torch.cat([o.to(first) for o in outs])
+
+
+def bank_shards(tables, weights, *, mesh, axes=None) -> list:
+    """A bank's operands placed for ``mesh``: ``[(device, tables_k,
+    weights_k), ...]`` in shard order, each slice contiguous on its
+    device; one entry holding the whole bank on the first device when
+    no rule divides D. ``axes`` defaults to
+    ``sharding.design_bank_axes``."""
+    tables = torch.as_tensor(tables)
+    weights = tuple(torch.as_tensor(w) for w in weights)
+    d = tables.shape[0]
+    plan = sharding.shard_plan(
+        mesh, sharding.design_bank_axes(mesh, d) if axes is None else axes,
+        d)
+    return [(dev, tables[sl].to(dev).contiguous(),
+             tuple(w[sl].to(dev).contiguous() for w in weights))
+            for dev, sl in plan]
+
+
+def classifier_bank_shards(x: torch.Tensor, shards, *, kind: str,
+                           spec: AdcSpec) -> torch.Tensor:
+    """One shared (M, C) batch through a bank placed by ``bank_shards``:
+    one bank launch per shard on its device, the (D_k, M, O) logits
+    gathered in shard order onto the first shard's device."""
+    return _gather([classifier_bank(x.to(dev), t, w, kind=kind, spec=spec)
+                    for dev, t, w in shards])
+
+
+def classifier_bank_sharded(x: torch.Tensor, tables, weights, *, mesh,
+                            kind: str, spec: AdcSpec, axes=None
+                            ) -> torch.Tensor:
+    """``classifier_bank`` with the design axis split over ``mesh``: each
+    shard holds only its (D/n, ...) slice of tables and weights and
+    serves the shared batch against it. Returns (D, M, O) on the mesh's
+    first device."""
+    return classifier_bank_shards(
+        x, bank_shards(tables, weights, mesh=mesh, axes=axes), kind=kind,
+        spec=spec)
 
 
 def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,

@@ -15,11 +15,19 @@ Counterpart of ``repro/launch/serve_classifier.py``. Two drivers:
   and multi-tenant routing: repeat ``--front-dir`` to make several
   fronts resident, each named by its ``front_meta`` dataset.
   ``--fail-device-at N`` injects a device loss at bank launch N; the
-  pool holds the one ``--device``, so the run ends in the pool's
+  pool holds the one ``--device`` (with ``--sharded``, every visible
+  device of its type), so on one card the run ends in the pool's
   exhaustion error (``api.serve_stream(devices=...)`` takes a larger
   pool). With ``--nonideal-*`` the async driver needs ``--calibrate``:
   every tenant then serves calibrated tables and re-calibrates after a
   recovery.
+
+``--sharded`` splits the design bank D/n over the devices: the batch
+driver serves through ``make_bank_fn(mesh=search.default_search_mesh(
+--device))`` (every visible card; one entry on the CPU), the async
+driver's pool is made sharded (a mesh over its survivors while at least
+two are alive). ``--sharded`` with ``--nonideal-*`` is refused under the
+batch driver, as in the reference.
 
 Every response carries all D designs' predictions. After serving, the
 front's served accuracies on the dataset's test split must equal each
@@ -50,9 +58,6 @@ exported and served, parity check included:
 
   PYTHONPATH=src python -m repro_torch.launch.serve_classifier --smoke \\
       --dataset seeds --device cpu    # --driver async: the engine
-
-The reference's ``--sharded`` path belongs to a later slice of the port
-(ROADMAP A9b); it is accepted here only to fail with a clear message.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ import torch
 
 from repro_torch.core import deploy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_lib
 
 
 def make_request_stream(x: np.ndarray, num_requests: int, request_size: int,
@@ -86,17 +92,22 @@ def _sync(device: torch.device) -> None:
 
 def serve(designs: Sequence[deploy.DeployedClassifier],
           requests: Sequence[Tuple[int, np.ndarray]], batch: int, *,
-          device: DeviceLike = None, bank_fn=None) -> Dict:
+          device: DeviceLike = None, mesh=None, bank_fn=None) -> Dict:
     """Drain ``requests`` through the bank in fixed ``batch``-row
     microbatches. Returns the throughput report plus per-request
     responses ``{rid: (D, n_rows) predicted classes}``. ``bank_fn``
     overrides the (M, C) -> (D, M, O) bank closure
-    (deploy.make_bank_fn by default). Request rows are samples of the
-    front's ``sample_shape``: (C,) rows, or raw (W, C_raw) windows for a
-    feature-baked front."""
-    dev = resolve_device(device)
+    (deploy.make_bank_fn by default); ``mesh`` splits the default bank's
+    design axis over a mesh (``launch.mesh.work_device``: the work runs
+    on its first device, which ``device``, if given, must be).
+    Request rows are samples of the front's ``sample_shape``: (C,) rows,
+    or raw (W, C_raw) windows for a feature-baked front."""
+    if bank_fn is not None and mesh is not None:
+        raise ValueError("a custom bank_fn (non-ideal serving) and "
+                         "--sharded are mutually exclusive")
+    dev = mesh_lib.work_device(device, mesh)
     fn = bank_fn if bank_fn is not None else deploy.make_bank_fn(
-        designs, device=dev)
+        designs, device=dev, mesh=mesh)
     sample_shape = designs[0].sample_shape
     queue = deque(requests)
     carry: Optional[Tuple[int, np.ndarray]] = None
@@ -173,10 +184,12 @@ def _smoke_front(dataset: str, device: DeviceLike = None):
 def _serve_async(fronts, args, dev: torch.device, nonideal=None) -> Dict:
     """The --driver async path: one Tenant per loaded front, an open-loop
     load trace per tenant, merged into one stream through the engine on
-    the pool ``[dev]``. With ``nonideal`` (--calibrate) every tenant
+    the pool ``[dev]`` (with --sharded: every visible device of its type,
+    the pool sharded). With ``nonideal`` (--calibrate) every tenant
     serves calibrated tables and re-calibrates on device-loss recovery
     (DESIGN.md §15)."""
     from repro_torch.launch import loadgen, serving_engine
+    from repro_torch.launch.mesh import visible_devices
 
     tenants, traces = [], []
     for name, designs, data in fronts:
@@ -198,9 +211,11 @@ def _serve_async(fronts, args, dev: torch.device, nonideal=None) -> Dict:
         inject = lambda b: 0 if b == fail_at else None   # noqa: E731
 
     rep = serving_engine.run_workload(
-        tenants, workload, devices=[dev],
+        tenants, workload,
+        devices=visible_devices(dev) if args.sharded else [dev],
         target_latency_ms=args.target_latency_ms,
-        max_batch=args.max_batch, inject_device_failure=inject)
+        max_batch=args.max_batch, sharded=args.sharded,
+        inject_device_failure=inject)
     for name, slo in sorted(rep["tenants"].items()):
         print(f"  tenant {name}: {slo['completed']}/{slo['requests']} ok "
               f"({slo['shed']} shed, {slo['rejected']} rejected)  "
@@ -235,11 +250,6 @@ def _serve_async(fronts, args, dev: torch.device, nonideal=None) -> Dict:
                              f"{exported}")
     print("  parity OK: served == exported accuracy for every tenant")
     return rep
-
-
-_LATER = {
-    "sharded": "--sharded (multi-GPU design sharding, ROADMAP A9b)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -306,18 +316,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="search and export a tiny front of --dataset "
                          "first (no --front-dir needed), then serve it "
                          "with a short request stream")
-    # a reference option of a later slice: accepted only to be refused
-    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the design bank D/n over every visible "
+                         "device of --device's type (batch driver), or "
+                         "shard the async engine's device pool")
     return ap
 
 
 def main(argv=None) -> Dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.sharded:
-        ap.error(f"{_LATER['sharded']} is not yet ported to repro_torch; "
-                 f"use the JAX package (python -m "
-                 f"repro.launch.serve_classifier)")
     nonideal = None
     if (args.nonideal_sigma > 0 or args.fault_rate > 0
             or args.range_drift > 0):
@@ -352,6 +360,12 @@ def main(argv=None) -> Dict:
         dev = resolve_device(args.device)
     except RuntimeError as exc:
         ap.error(str(exc))
+    mesh = None
+    if args.sharded and args.driver == "batch":
+        if nonideal is not None:
+            ap.error("--sharded and --nonideal-* are mutually exclusive")
+        from repro_torch.core import search
+        mesh = search.default_search_mesh(dev)
     if args.smoke:
         args.requests, args.request_size = 16, 4
         args.batch = min(args.batch, 32)
@@ -384,7 +398,7 @@ def main(argv=None) -> Dict:
     print(f"serve_classifier[repro_torch driver={args.driver} "
           f"tenants={[f[0] for f in fronts]} D={len(designs)} "
           f"{designs[0].kind} {designs[0].spec.describe()}] device={dev} "
-          f"({card})"
+          f"({card}) sharded={args.sharded}"
           + (f" nonideal=({nonideal.describe()} "
              f"instance={args.nonideal_instance})" if nonideal else ""))
     if args.driver == "async":
@@ -406,7 +420,7 @@ def main(argv=None) -> Dict:
 
     requests = make_request_stream(data["x_test"], args.requests,
                                     args.request_size)
-    rep = serve(designs, requests, args.batch, device=dev,
+    rep = serve(designs, requests, args.batch, device=dev, mesh=mesh,
                 bank_fn=cal_fn if cal_fn is not None else nonideal_fn)
     print(f"  {rep['requests']} requests ({rep['samples']} samples) in "
           f"{rep['wall_s']:.3f}s: {rep['requests_per_s']:.1f} req/s, "
@@ -421,7 +435,7 @@ def main(argv=None) -> Dict:
     # round-trip parity: the served front reproduces each design's
     # export-time accuracy exactly
     served = deploy.served_accuracies(designs, data["x_test"],
-                                      data["y_test"], device=dev)
+                                      data["y_test"], device=dev, mesh=mesh)
     exported = np.array([d.accuracy for d in designs])
     for i, d in enumerate(designs):
         print(f"  design {i}: area={d.area_tc:4d}T  dp={int(d.dp):+d}  "

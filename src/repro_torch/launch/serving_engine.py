@@ -30,10 +30,15 @@ table (ROADMAP A10) would change speed, never values.
 
 **The device pool.** ``DevicePool`` holds ``torch.device`` entries,
 ``[cuda]`` by default (raising without a card). Every tenant's bank is
-``deploy.make_bank_fn(designs, device=pool.devices[0])``, rebuilt from
-the host arrays after each recovery; a CPU entry serves through the
-plain versions, a CUDA entry through the kernels. ``sharded=True``
-(design banks partitioned over a mesh) belongs to ROADMAP A9b.
+``deploy.make_bank_fn(designs, device=pool.devices[0],
+mesh=pool.mesh())``, rebuilt from the host arrays after each recovery; a
+CPU entry serves through the plain versions, a CUDA entry through the
+kernels. A pool made with ``sharded=True`` owns a mesh over its
+survivors (``distributed/elastic.bank_pool_mesh``) while at least two
+are alive: each bank's design axis is split over it, one bank launch
+per shard, and a device loss re-meshes over the survivors, down to
+unsharded serving on the last one. The report's ``devices.sharded`` is
+true while a mesh is live.
 
 **What a two-entry pool proves.** A device loss is injected as
 ``fault.DeviceLoss`` inside a bank launch. With a pool of two entries of
@@ -76,8 +81,9 @@ import torch
 
 from repro_torch.core import deploy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import fault
+from repro_torch.distributed import elastic, fault
 from repro_torch.distributed.fault import DeviceLoss
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.loadgen import Request
 from repro_torch.models.mlp import mean_accuracy
 
@@ -221,15 +227,14 @@ def bank_quantum(designs: Sequence[deploy.DeployedClassifier],
 
 # ------------------------------------------------------------- device pool
 class DevicePool:
-    """The serving devices, survivors only. ``fail()`` simulates a device
-    loss; the engine then rebuilds every bank on ``devices[0]``."""
+    """The serving devices, survivors only, and in sharded mode the mesh
+    the design banks split over. ``fail()`` simulates a device loss; the
+    engine then rebuilds every bank on ``devices[0]`` and, sharded, over
+    the survivors' mesh."""
 
     def __init__(self, devices: Optional[Sequence[DeviceLike]] = None, *,
                  sharded: bool = False) -> None:
-        if sharded:
-            raise ValueError(
-                "sharded serving (design banks partitioned over a mesh) "
-                "is not yet ported to repro_torch (ROADMAP A9b)")
+        self.sharded = bool(sharded)
         self.devices: List[torch.device] = [
             resolve_device(d) for d in (devices if devices is not None
                                         else [None])]
@@ -252,9 +257,12 @@ class DevicePool:
                                "rebuild the bank on")
 
     def mesh(self):
-        """Always None: every bank serves unsharded on ``devices[0]``
-        (a mesh over the survivors is ROADMAP A9b)."""
-        return None
+        """A mesh over the surviving devices, or None when the banks
+        serve unsharded (the pool is not sharded, or one survivor is
+        left)."""
+        if not self.sharded or len(self.devices) < 2:
+            return None
+        return elastic.bank_pool_mesh(self.devices)
 
 
 # ------------------------------------------------------------------ tenants
@@ -321,14 +329,18 @@ class _TenantState:
                  "(calibration %d)", self.tenant.name, instance,
                  self.calibrations)
 
-    def build_bank(self, device: torch.device) -> None:
-        self.bank_fn = deploy.make_bank_fn(self.designs, device=device)
+    def build_bank(self, device: torch.device, mesh=None) -> None:
+        """The live bank on ``device``, design-sharded over ``mesh`` (the
+        pool's, whose first device is ``device``) when one is live."""
+        self.bank_fn = deploy.make_bank_fn(self.designs, device=device,
+                                           mesh=mesh)
 
     def assert_parity(self, device: torch.device) -> None:
-        """Re-assert the bit-for-bit contract on the rebuilt bank, the
-        recovery protocol's exit criterion: the live bank's accuracies
-        equal the exported ones, or, for a calibrated tenant, the
-        calibrated front's reference accuracies."""
+        """Re-assert the bit-for-bit contract on the rebuilt bank (on
+        the new mesh, if the pool is sharded), the recovery protocol's
+        exit criterion: the live bank's accuracies equal the exported
+        ones, or, for a calibrated tenant, the calibrated front's
+        reference accuracies."""
         if self.tenant.parity_data is None:
             return
         x, y = self.tenant.parity_data
@@ -381,13 +393,13 @@ class ServingEngine:
         self.dispatched_rows = 0
         self._gather_s = (gather_window_s if gather_window_s is not None
                           else min(target_latency_ms / 4e3, 0.005))
-        dev = self.pool.devices[0]
+        dev, mesh = self.pool.devices[0], self.pool.mesh()
         self._tenants: Dict[str, _TenantState] = {
             t.name: _TenantState(t, target_latency_s=target_latency_ms / 1e3,
                                  max_batch=max_batch, device=dev)
             for t in tenants}
         for ts in self._tenants.values():
-            ts.build_bank(dev)
+            ts.build_bank(dev, mesh)
         self._work: Optional[asyncio.Event] = None        # set per run
         self._draining = False
         self._inject: Optional[Callable[[int], Optional[int]]] = None
@@ -493,26 +505,28 @@ class ServingEngine:
     def _recover(self, e: DeviceLoss) -> None:
         """The fault.py recovery contract, serving flavor: drop the lost
         device, rebuild every tenant's bank from its host arrays on the
-        survivor, and re-assert the bit-for-bit parity contract before
-        serving resumes (the caller re-dispatches the interrupted
-        microbatch)."""
+        survivor (re-meshed over the survivors for a sharded pool), and
+        re-assert the bit-for-bit parity contract before serving resumes
+        (the caller re-dispatches the interrupted microbatch)."""
         self.recoveries += 1
         if self.recoveries > self.max_recoveries:
             raise RuntimeError(
                 f"{self.recoveries} device losses exceed "
                 f"max_recoveries={self.max_recoveries}") from e
         self.pool.fail(e.device_index)
-        dev = self.pool.devices[0]
+        dev, mesh = self.pool.devices[0], self.pool.mesh()
         log.warning("device %d lost mid-stream; rebuilding %d tenant "
-                    "bank(s) on %s (%d survivor(s), recovery %d/%d)",
+                    "bank(s) on %s (%d survivor(s), %s, recovery %d/%d)",
                     e.device_index, len(self._tenants), dev,
-                    self.pool.alive, self.recoveries, self.max_recoveries)
+                    self.pool.alive,
+                    "unsharded" if mesh is None else mesh_lib.describe(mesh),
+                    self.recoveries, self.max_recoveries)
         for ts in self._tenants.values():
             if ts.tenant.nonideal is not None:
                 # the replacement hardware is a fresh measured instance:
                 # re-bake the front before serving resumes (§15)
                 ts.calibrate(instance=self.recoveries, device=dev)
-            ts.build_bank(dev)
+            ts.build_bank(dev, mesh)
             ts.assert_parity(dev)
         self._warmup()
         log.info("recovery complete: parity re-asserted for %d tenant(s)",

@@ -24,8 +24,11 @@ stream) adds the Monte-Carlo robustness objective
 ``--export-front`` the robustness report of the exported front is
 written next to it as ``robustness.json`` (yield at ``--yield-margins``).
 
-``--engine gradient`` trains one family of gated designs and re-scores
-its snapped genomes exactly (one timing line, no generations);
+``--engine sharded`` splits each generation's population over
+``search.default_search_mesh(--device)``: every visible card (one entry
+on the CPU), fitness bitwise the batched engine's. ``--engine gradient``
+trains one family of gated designs and re-scores its snapped genomes
+exactly (one timing line, no generations);
 ``--screen-factor K`` (K > 1) oversamples each generation's offspring K
 times and lets the online surrogate pick which are evaluated.
 
@@ -76,10 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--generations", type=int, default=4)
     ap.add_argument("--train-steps", type=int, default=100)
     ap.add_argument("--engine", default="batched",
-                    choices=("batched", "reference", "gradient"),
-                    help="'gradient': one gate-logit train sweeps the "
-                         "accuracy/area family, then re-scores through "
-                         "the exact batched path")
+                    choices=("batched", "sharded", "reference",
+                             "gradient"),
+                    help="'sharded': the population split over every "
+                         "visible device of --device's type; 'gradient': "
+                         "one gate-logit train sweeps the accuracy/area "
+                         "family, then re-scores through the exact "
+                         "batched path")
     ap.add_argument("--screen-factor", type=int, default=1,
                     help="surrogate-screened NSGA-II: oversample "
                          "offspring by this factor and let the online "
@@ -225,12 +231,15 @@ def run_adc_search(args) -> np.ndarray:
     from repro_torch.core import area, search
     from repro_torch.data import tabular
     from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as mesh_lib
 
     dev = resolve_device(args.device)
     spec = tabular.SPECS[args.dataset]
     data = tabular.make_dataset(args.dataset)
     sizes = (spec.features, spec.hidden, spec.classes)
     adc_spec, cfg = adc_search_config(args, spec.features, data=data)
+    mesh = (search.default_search_mesh(dev) if cfg.engine == "sharded"
+            else None)
     ckpt_dir = Path(args.ckpt_dir) / "adc_search"
     if not args.resume and ckpt_dir.exists():
         # a fresh start: a stale higher-numbered step would outlive this
@@ -242,7 +251,8 @@ def run_adc_search(args) -> np.ndarray:
     print(f"adc-search[repro_torch {cfg.engine} {cfg.model}] "
           f"dataset={args.dataset} adc=({adc_spec.describe()}) "
           f"pop={cfg.pop_size} gens={cfg.generations} "
-          f"qat-steps={cfg.train_steps} device={dev}")
+          f"qat-steps={cfg.train_steps} device={dev}"
+          + (f" {mesh_lib.describe(mesh)}" if mesh is not None else ""))
     if cfg.wants_robustness:
         margin = (f"@{cfg.yield_margin:g}"
                   if cfg.robust_objective == "yield" else "")
@@ -269,7 +279,8 @@ def run_adc_search(args) -> np.ndarray:
 
     out = search.run_search(data, sizes, cfg, log=log, ckpt=ckpt,
                             resume=args.resume,
-                            return_trained=args.export_front, device=dev)
+                            return_trained=args.export_front, device=dev,
+                            mesh=mesh)
     pg, pf = out[0], out[1]
     gen_s = [b - a for a, b in zip(marks[:-1], marks[1:])]
     if cfg.engine == "gradient":

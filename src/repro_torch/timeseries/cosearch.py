@@ -63,19 +63,23 @@ def embed_adc_only(genomes: np.ndarray, fe: FeatureSpec) -> np.ndarray:
 
 def run(data: Dict, fe: FeatureSpec, *, bits: int = 3, pct: float = 0.5,
         hidden: int = 4, init: Optional[np.ndarray] = None, log=None,
-        device: DeviceLike = None, **cfg_kw):
+        device: DeviceLike = None, mesh=None, **cfg_kw):
     """End-to-end streaming co-search on ``device`` (default ``cuda``):
     build the variant inputs, run the configured engine over the
     extended genome, return ``(pareto_genomes, fitness, decode, trained,
     cfg, vdata, sizes, spec)``, everything ``core.deploy.export_front``
     and the facade need. ``cfg_kw`` mirrors SearchConfig (pop_size,
     generations, train_steps, engine, seed, ...); ``init`` seeds the
-    population (e.g. an ``embed_adc_only`` front)."""
+    population (e.g. an ``embed_adc_only`` front); ``mesh`` feeds the
+    sharded engine (``engine='sharded'``), whose inputs are built on the
+    mesh's first device."""
+    device = search_lib.search_device(cfg_kw.get("engine", "batched"),
+                                      device, mesh)
     vdata, sizes, spec = build_search_inputs(data, fe, bits=bits, pct=pct,
                                              hidden=hidden, device=device)
     cfg = search_lib.SearchConfig.for_spec(spec, frontend=fe.base(),
                                            **cfg_kw)
     pg, pf, decode, trained = search_lib.run_search(
         vdata, sizes, cfg, log=log, return_trained=True, init=init,
-        device=device)
+        device=device, mesh=mesh)
     return pg, pf, decode, trained, cfg, vdata, sizes, spec

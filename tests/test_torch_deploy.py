@@ -191,15 +191,42 @@ def test_cli_serves_fixture_with_parity():
     assert rep["num_designs"] == 3 and len(rep["served_accuracies"]) == 3
 
 
-@pytest.mark.parametrize("extra", [["--sharded"]])
-def test_cli_refuses_later_slices(extra, capsys):
+@pytest.mark.parametrize("driver", ["batch", "async"])
+def test_cli_sharded_serves_at_parity(driver, capsys):
+    """--sharded on both drivers: the batch driver serves through
+    default_search_mesh (one CPU entry here), the async engine's pool is
+    sharded (one entry: no live mesh); the answers are the unsharded
+    run's, with the parity printed."""
     argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
-            "cardio", "--device", "cpu"] + extra
+            "cardio", "--device", "cpu", "--requests", "16", "--driver",
+            driver]
+    plain = tserve.main(argv)
+    rep = tserve.main(argv + ["--sharded"])
+    out = capsys.readouterr().out
+    assert "sharded=True" in out and "parity OK" in out
+    assert rep["responses"].keys() == plain["responses"].keys()
+    for rid, got in rep["responses"].items():
+        np.testing.assert_array_equal(got, plain["responses"][rid])
+    if driver == "async":
+        assert rep["devices"]["sharded"] is False
+    else:
+        assert rep["served_accuracies"] == plain["served_accuracies"]
+
+
+def test_cli_refuses_sharded_with_nonideal(capsys):
+    """The reference's refusal: the batch driver's --sharded and a
+    sampled non-ideal instance are mutually exclusive."""
+    argv = ["--front-dir", str(FIXTURES / "cardio_mlp"), "--dataset",
+            "cardio", "--device", "cpu", "--sharded", "--nonideal-sigma",
+            "0.5"]
     with pytest.raises(SystemExit) as exc:
         tserve.main(argv)
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP A9b" in err
+    assert "--sharded and --nonideal-* are mutually exclusive" in \
+        capsys.readouterr().err
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tserve.serve(tdeploy.load_front(FIXTURES / "cardio_mlp"), [], 8,
+                     mesh=object(), bank_fn=lambda xb: xb)
 
 
 def test_cli_async_smoke_prints_parity(capsys):

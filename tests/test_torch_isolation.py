@@ -63,6 +63,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert {"repro_torch.launch.loadgen", "repro_torch.launch.serving_engine",
             "repro_torch.distributed", "repro_torch.distributed.fault"
             } <= set(mods)
+    assert {"repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.elastic"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -263,3 +265,50 @@ def test_search_entry_points_need_a_card_unless_asked_for_cpu(capsys):
     assert fit.shape == (1, 2)
     designs = deploy.export_front(genomes, data, sizes, cfg, device="cpu")
     assert len(designs) == 1
+
+
+def test_sharded_slice_defaults_to_the_card(capsys):
+    """The sharded slice's default meshes are every visible CUDA card:
+    without one, each entry that builds a mesh by default raises 'no
+    CUDA device'; asked for the CPU, each gets a one-entry CPU mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch import api
+    from repro_torch.core import search
+    from repro_torch.core.spec import AdcSpec
+    from repro_torch.data import tabular
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import mesh, serve_classifier, train
+    data = tabular.make_dataset("seeds")
+    sizes = (7, 3, 3)
+    cfg = search.SearchConfig(bits=2, pop_size=2, generations=0,
+                              train_steps=1, engine="sharded")
+    genomes = np.ones((2, search.genome_len(7, 2)), np.uint8)
+    calls = [lambda: mesh.make_mesh((1, 1), ("data", "model")),
+             lambda: mesh.make_host_mesh(),
+             lambda: elastic.make_elastic_mesh(),
+             lambda: search.default_search_mesh(),
+             lambda: search.evaluate_population_sharded(genomes, data,
+                                                        sizes, cfg),
+             lambda: search.make_eval_fn(data, sizes, cfg),
+             lambda: search.run_search(data, sizes, cfg),
+             lambda: api.search(AdcSpec(bits=2), data, sizes, pop_size=2,
+                                generations=0, train_steps=1,
+                                engine="sharded")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for argv, main in (
+            (["--adc-search", "--dataset", "seeds", "--pop", "2",
+              "--generations", "0", "--train-steps", "1", "--engine",
+              "sharded"], train.main),
+            (["--front-dir", str(FRONT), "--dataset", "cardio",
+              "--sharded"], serve_classifier.main)):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+        assert "no CUDA device" in capsys.readouterr().err
+    cpu = search.default_search_mesh("cpu")
+    assert list(cpu.devices.reshape(-1)) == [torch.device("cpu")]
+    fit = search.evaluate_population_sharded(genomes, data, sizes, cfg, cpu)
+    assert fit.shape == (2, 2)

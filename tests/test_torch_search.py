@@ -309,17 +309,11 @@ def test_cli_refuses_later_slices(argv, item, capsys):
 
 
 @pytest.mark.parametrize("field, item", [
-    (dict(engine="sharded"), "A9"),
     (dict(frontend=FeatureSpec(channels=4, window=32), mc_samples=4), "A8")],
-    ids=["field0-A9", "field1-A8"])
+    ids=["field1-A8"])
 def test_config_refuses_later_slices(field, item):
-    """The sharded engine (A9) is refused as a later slice; the streaming
-    co-search (A8) is ported, and a frontend with the Monte-Carlo
-    objective is refused with the reference's ValueError."""
-    if item == "A9":
-        with pytest.raises(NotImplementedError, match=item):
-            tsearch.SearchConfig(**field)
-        return
+    """The streaming co-search (A8) is ported, and a frontend with the
+    Monte-Carlo objective is refused with the reference's ValueError."""
     jfield = dict(field, frontend=jfeature.FeatureSpec(channels=4,
                                                        window=32))
     with pytest.raises(ValueError) as want:
@@ -328,6 +322,36 @@ def test_config_refuses_later_slices(field, item):
         tsearch.SearchConfig(**field)
     assert str(got.value) == str(want.value)
     assert "mutually exclusive" in str(got.value)
+
+
+@pytest.mark.parametrize("engine", ["sharded", "batched", "reference",
+                                    "gradient"])
+def test_config_takes_every_reference_engine(engine):
+    """The sharded engine (A9b) is ported: every engine the reference's
+    config takes, the port's takes; an unknown one is refused by both."""
+    assert tsearch.SearchConfig(engine=engine).engine == \
+        jsearch.SearchConfig(engine=engine).engine == engine
+    assert tsearch.SearchConfig(engine=engine) == \
+        tsearch.SearchConfig(engine=engine)
+
+
+def test_cli_sharded_engine_on_cpu(tmp_path, capsys):
+    """train --engine sharded --device cpu: the one-entry CPU mesh, the
+    batched run's front bitwise, exported and served at parity."""
+    argv = ["--adc-search", "--dataset", "seeds", "--bits", "3", "--pop",
+            "6", "--generations", "1", "--train-steps", "10", "--device",
+            "cpu"]
+    sharded = ttrain.main(argv + ["--engine", "sharded", "--export-front",
+                                  "--ckpt-dir", str(tmp_path / "s")])
+    batched = ttrain.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+    out = capsys.readouterr().out
+    assert "adc-search[repro_torch sharded mlp]" in out
+    assert "mesh(shape={'data': 1, 'model': 1}, devices=1)" in out
+    np.testing.assert_array_equal(sharded, batched)
+    rep = tserve.main(["--front-dir", str(tmp_path / "s" / "front"),
+                       "--dataset", "seeds", "--device", "cpu",
+                       "--sharded", "--requests", "8"])
+    assert len(rep["served_accuracies"]) == len(sharded)
 
 
 def test_config_checks_and_checkpoint_refused(seeds):

@@ -423,10 +423,25 @@ def test_calibrate_on_recovery(fronts, cardio, monkeypatch, calibration):
         _same_responses(rep["responses"], jrep["responses"])
 
 
-def test_run_with_recovery_matches_the_reference():
+def test_run_with_recovery_matches_the_reference(monkeypatch):
     """The training-loop recovery contract against an in-memory
     checkpoint: the same failures replay from the same checkpoints to
-    the same state, in both packages."""
+    the same state, in both packages. The step watchdog times each step
+    on the wall clock, where a microsecond step's scheduler jitter alone
+    can flag a straggler in one package and not the other; both run on
+    one fake clock instead, each step lasting exactly 1 s (the watchdog
+    itself is held against the reference by the next test)."""
+
+    class Clock:
+        def __init__(self):
+            self.now = 0.0
+
+        def time(self):
+            self.now += 1.0
+            return self.now
+
+    for mod in (tfault, jfault):
+        monkeypatch.setattr(mod, "time", Clock())
 
     class MemCkpt:
         def __init__(self):
@@ -576,12 +591,127 @@ def test_api_serve_stream_facade(fronts, cardio):
     assert {"make_workload", "serve_stream"} <= set(api.__all__)
 
 
-def test_sharded_serving_is_refused_naming_a9b(fronts):
-    with pytest.raises(ValueError, match="ROADMAP A9b"):
-        tse.DevicePool([CPU], sharded=True)
-    with pytest.raises(ValueError, match="ROADMAP A9b"):
-        tse.ServingEngine([tse.Tenant("cardio", fronts["mlp"][0])],
-                          devices=[CPU], sharded=True)
+# ----------------------------------------------------------- sharded pool
+def test_sharded_pool_meshes_over_its_survivors():
+    """A sharded pool owns a (n, 1) mesh over its survivors while two are
+    alive, as the reference's does; an unsharded pool never has one."""
+    pool = tse.DevicePool([CPU] * 3, sharded=True)
+    assert pool.sharded and pool.mesh().shape == {"data": 3, "model": 1}
+    pool.fail(0)
+    assert pool.mesh().shape == {"data": 2, "model": 1}
+    assert list(pool.mesh().devices.reshape(-1)) == [torch.device(CPU)] * 2
+    pool.fail(0)
+    assert pool.alive == 1 and pool.mesh() is None
+    assert tse.DevicePool(POOL2).mesh() is None
+    assert tse.DevicePool([CPU], sharded=True).mesh() is None
+
+
+def _bank_launches(monkeypatch):
+    """Count the bank entry's calls (one per shard) and the D of each."""
+    calls = []
+    orig = tdeploy.ops.classifier_bank
+
+    def spy(x, tables, weights, **kw):
+        assert tables.device == x.device
+        calls.append(tables.shape[0])
+        return orig(x, tables, weights, **kw)
+
+    monkeypatch.setattr(tdeploy.ops, "classifier_bank", spy)
+    return calls
+
+
+@pytest.mark.parametrize("pool, shards", [(POOL2, [2, 1]),
+                                          ([CPU] * 3, [3, 2])],
+                         ids=["two-entries", "three-entries"])
+def test_sharded_pool_re_meshes_on_a_device_loss(fronts, cardio, pool,
+                                                 shards, monkeypatch):
+    """The MLP fixture front (D=6) on a sharded pool: every launch runs
+    one bank per shard (``shards[0]`` before the loss at launch 1,
+    ``shards[1]`` after it), the recovery re-meshes over the survivors
+    and re-asserts parity, and every response equals the plain route's
+    and the unsharded engine's."""
+    designs = fronts["mlp"][0]
+    parity = (cardio["x_test"], cardio["y_test"])
+    wl = tloadgen.make_workload(_x(cardio), 24, tenant="cardio",
+                                rate_rps=400.0, request_size=8,
+                                deadline_ms=30000.0, shape="bursty", seed=0)
+    engine = tse.ServingEngine([tse.Tenant("cardio", designs, parity)],
+                               devices=pool, sharded=True,
+                               target_latency_ms=25.0)
+    assert engine.pool.mesh().size == len(pool)
+    calls = _bank_launches(monkeypatch)
+    rep = tse.asyncio.run(engine.serve(
+        wl, inject_device_failure=lambda b: 0 if b == 1 else None))
+    assert rep["recoveries"] == 1
+    assert rep["devices"] == {"alive": len(pool) - 1, "lost": 1,
+                              "sharded": shards[1] > 1}
+    # the warm-up before the loss, the last launch after it
+    assert calls[:shards[0]] == [6 // shards[0]] * shards[0]
+    assert calls[-shards[1]:] == [6 // shards[1]] * shards[1]
+    assert sum(calls) % 6 == 0
+    assert rep["tenants"]["cardio"]["completed"] == len(wl)
+    plain = tse.run_workload([tse.Tenant("cardio", designs, parity)], wl,
+                             devices=POOL2, target_latency_ms=25.0,
+                             inject_device_failure=lambda b: (
+                                 0 if b == 1 else None))
+    _same_responses(rep["responses"], plain["responses"])
+    for req in wl:
+        np.testing.assert_array_equal(rep["responses"][req.rid],
+                                      _direct(designs, req.x))
+
+
+def test_calibrated_tenant_through_a_sharded_pool(fronts, cardio):
+    """Calibrate-on-recovery on a sharded pool of three entries (the SVM
+    front tiled to D=6 so the mesh splits it): instance 0 before the
+    loss, 1 after, parity held against the plain route's accuracies of
+    the calibrated front (not dyadic), every response the plain
+    route's."""
+    designs = list(fronts["svm"][0]) * 2
+    ni = NonIdealSpec(sigma_offset=0.3, fault_rate=0.05, seed=0)
+    parity = (cardio["x_test"], cardio["y_test"])
+    first = 32 // 4
+    wl = [dataclasses.replace(r, arrival_s=0.0, deadline_s=5.0)
+          for r in tloadgen.make_workload(_x(cardio), 16, tenant="cardio",
+                                          rate_rps=400.0, request_size=4,
+                                          seed=0)]
+    rep = tse.run_workload(
+        [tse.Tenant("cardio", designs, parity, nonideal=ni)], wl,
+        devices=[CPU] * 3, sharded=True, target_latency_ms=25.0,
+        max_batch=64, inject_device_failure=lambda b: 0 if b == 1 else None)
+    assert rep["recoveries"] == 1 and rep["calibrations"] == {"cardio": 2}
+    assert rep["devices"]["sharded"] is True
+    cal = [tdeploy.calibrate_front(designs, ni, instance=k, samples=k + 1,
+                                   device=CPU) for k in (0, 1)]
+    for i, req in enumerate(wl):
+        np.testing.assert_array_equal(rep["responses"][req.rid],
+                                      _direct(cal[i >= first], req.x))
+
+
+def test_sharded_raw_window_tenant_and_facade(windows, fronts, cardio):
+    """A feature-baked tenant (one bank per subsample group, each split
+    within its group) beside a tabular one through api.serve_stream on a
+    sharded pool of two entries, with a loss at launch 2."""
+    designs, cut = windows
+    wl = tloadgen.merge_workloads(
+        tloadgen.make_workload(cut["x_test"], 10, tenant="stress",
+                               rate_rps=3000.0, request_size=7,
+                               deadline_ms=5000.0, seed=2),
+        tloadgen.make_workload(_x(cardio), 6, tenant="cardio",
+                               rate_rps=3000.0, request_size=4,
+                               deadline_ms=5000.0, seed=3))
+    parity = {"stress": (cut["x_test"], cut["y_test"]),
+              "cardio": (cardio["x_test"], cardio["y_test"])}
+    rep = api.serve_stream({"stress": designs, "cardio": fronts["mlp"][0]},
+                           wl, parity_data=parity, devices=POOL2,
+                           sharded=True, max_batch=32, gather_window_s=0.0,
+                           inject_device_failure=lambda b: (
+                               0 if b == 2 else None))
+    assert rep["recoveries"] == 1
+    assert rep["devices"] == {"alive": 1, "lost": 1, "sharded": False}
+    for req in wl:
+        want = designs if req.tenant == "stress" else fronts["mlp"][0]
+        np.testing.assert_array_equal(rep["responses"][req.rid],
+                                      _direct(want, req.x))
 
 
 def test_engine_needs_a_card_unless_asked_for_cpu(fronts, cardio):
