@@ -67,7 +67,23 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    last at the SM clock read from the card) and, for the causal cases
    without window or softcap, scaled_dot_product_attention (the
    yardstick; the port never calls it), with the name of the device
-   kernel it ran.
+   kernel it ran. Each kernel's bound comes from the port's cost model
+   (repro_torch.perf.cost_model; attention's from flash_bound).
+   Between the Monte-Carlo and the attention kernels, phase autotune
+   (the perf layer, ROADMAP A10), at the shapes of
+   perf/autotune.default_workloads() (rows 1-10 at the paths' shapes,
+   14 shape classes): for every entry every candidate tile's built
+   geometry (the C exports) == envelope's, a tile the kernel cannot take
+   refused by the build, every candidate's output bitwise == the
+   heuristic tile's and == the plain version's on random floats (the
+   banks also on dyadic operands: bitwise there, rtol=1e-5 atol=1e-6 on
+   floats, where the plain matmuls sum in another order); then
+   autotune.tune times every candidate (CUDA events over 100 launches
+   queued behind a spin, so device time) and prints tuned and heuristic
+   us side by side, with the bound and the waves; the table is written
+   to a temporary path and loads back, and the committed
+   kernels/tuned_tables.json must load on this card (not stale) with
+   every default shape class. Every later phase runs under that table.
 3. serve (the serving path): with every launch counter at 0, each
    committed fixture front (tests/fixtures/fronts/cardio_{mlp,svm},
    exported by the JAX package) is loaded and served by the batch driver,
@@ -191,10 +207,14 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    loss (two calibrations), and the loss of a one-entry pool's last
    entry (must raise). Every response must equal the direct
    make_bank_fn prediction on the plain route (the CPU) bitwise; the
-   calibrated tenant's trace arrives at 0, so the requests of launch 0
-   must equal instance 0's and the rest instance 1's, and the two
-   instances must differ on both sides. Rows 5 and 6 are held against
-   their plain versions on the card at every ladder size (32-256) on
+   calibrated tenant's trace arrives at 0 and its device is lost at the
+   first launch after 32 rows (launch 1 at the off-table quantum 32),
+   so the rows served before the loss must equal instance 0's and the
+   rest instance 1's, row by row, and the two instances must differ on
+   both sides. The ladder's quantum is the tuned bank tile where the
+   committed table has the tenant's shape class at max_batch (the
+   cardio fronts), else 32. Rows 5 and 6 are held against their plain
+   versions on the card at every ladder size (the quantum to 256) on
    engine-padded batches (one request then zeros, and full), per
    subsample group for the vitals tenant: bitwise, and for the
    calibrated tables rtol=1e-5 atol=1e-6. Every tenant's served
@@ -280,11 +300,9 @@ SRC = ROOT / "src"
 FRONTS = ROOT / "tests" / "fixtures" / "fronts"
 DATASET = "cardio"
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12           # float32 outside the tensor cores
 REPS = 200
 WARMUP = 20
+AUTOTUNE_REPS = 100              # launches timed per candidate tile
 
 KERNELS = {
     "adc_quantize": {"row": 1, "replaces": "src/repro/kernels/adc_quantize.py:101",
@@ -385,6 +403,9 @@ ASYNC_TRACED = ("front", 800.0)  # the cell traced with torch.profiler
 ASYNC_FAILOVER = dict(requests=64, rate=800.0, deadline_ms=30000.0,
                       fail_at=1)
 ASYNC_CAL_NI = dict(sigma_offset=0.3, fault_rate=0.05, seed=0)
+# the calibrated tenant loses its device at the first launch after this
+# many rows (the off-table quantum: launch 1 there, as before tuning)
+ASYNC_CAL_SPLIT_ROWS = 32
 ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
                  seed=0)
 # the wide Monte-Carlo call: 64 x 32 x 8192 x 21 float32 outputs, 1.41 GB
@@ -583,22 +604,17 @@ def top_device_kernel(torch, fn, reps=3):
     return best
 
 
-def bound(kind, d, m, f, n, h, o):
-    """(bound_ms, bound_by, bytes, flops) of one bank call: each input read
-    once and the output written once, against HBM; the multiply-adds
-    against the float32 peak."""
-    if kind == "mlp":
-        resident = f * n + f * h + h + h * o + o
-        flops = 2 * d * m * (f * h + h * o)
-    else:
-        resident = f * n + f * o + o
-        flops = 2 * d * m * f * o
-    nbytes = 4 * (m * f + d * m * o + d * resident + 2 * f)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, flops
-    return t_ops, "operations", nbytes, flops
+def kernel_bound(entry, m, c, n, **axes):
+    """(bound_ms, bound_by, bytes, operations) of one launch of a
+    non-attention entry (``repro_torch.perf.workload.ENTRIES``) at M
+    rows, C channels and 2^N = n levels, from the port's cost model
+    (``repro_torch.perf.cost_model.bound``): each input read once and
+    each output written once against the card's memory rate, the
+    operations against its float32 peak (the H100 data sheet)."""
+    from repro_torch.perf import Workload, cost_model
+    b = cost_model.bound(Workload(entry, m=m, c=c, bits=n.bit_length() - 1,
+                                  **axes))
+    return b["bound_s"] * 1e3, b["bound_by"], int(b["bytes"]), int(b["flops"])
 
 
 # ---------------------------------------------------------------- phases
@@ -734,7 +750,8 @@ def phase_kernels(np, torch, dev, fronts, x_test):
             dev_ms = device_kernel_ms(torch, k_fn, f"qmlp_{kind}_bank_kernel")
             check(dev_ms is not None, f"torch.profiler recorded no device "
                                       f"time for qmlp_{kind}_bank_kernel")
-            b_ms, b_by, nbytes, flops = bound(kind, d, m, f, n, h, o)
+            b_ms, b_by, nbytes, flops = kernel_bound(
+                f"classifier_bank_{kind}", m, f, n, d=d, h=h, o=o)
             row = {"shape": {"D": d, "M": m, "F": f, "levels": n, "H": h,
                              "O": o},
                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
@@ -752,20 +769,6 @@ def phase_kernels(np, torch, dev, fronts, x_test):
 def _rows(spec, f):
     from repro_torch.core.adc import range_rows_tensors
     return range_rows_tensors(spec.bits, spec.vmin, spec.vmax, f)
-
-
-def quantize_bound(p, m, c, n):
-    """(bound_ms, bound_by, bytes, ops) of one population-quantizer call:
-    x read once, the tables and rows read once, P x M x C outputs written
-    once, against HBM; about five float operations per output (subtract,
-    multiply, floor, two clamps) against the float32 peak."""
-    nbytes = 4 * (m * c + p * c * n + 2 * c + p * m * c)
-    ops = 5 * p * m * c
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
 
 
 def code_edge_inputs(np, rng, spec, m, c):
@@ -926,7 +929,8 @@ def phase_quantizer(np, torch, dev, data):
         dev_ms = device_kernel_ms(torch, k_fn, f"{name}_kernel")
         check(dev_ms is not None, f"torch.profiler recorded no device time "
                                   f"for {name}_kernel")
-        b_ms, b_by, nbytes, nops = quantize_bound(p, m, c, n)
+        b_ms, b_by, nbytes, nops = kernel_bound(
+            "adc_quantize_population", m, c, n, p=p)
         timings[label] = {"shape": {"P": p, "M": m, "C": c, "levels": n},
                           "ms": min(k1, k2), "plain_ms": min(p1, p2),
                           "device_ms": dev_ms, "bound_ms": b_ms,
@@ -1126,23 +1130,6 @@ def phase_search(np, torch, dev, card, data):
               f"to {cfg.pop_size}: {'equal' if same else 'DIFFERENT'} "
               f"(max |diff| {float(np.abs(free - padded).max()):.3e})")
     return out
-
-
-def mc_bound(p, s, m, c, n, cal):
-    """(bound_ms, bound_by, bytes, ops) of one Monte-Carlo call: x read
-    once, lb and ub once, the values (C, 2^N) or, calibrated, (P, S, C,
-    2^N) once, the (S, C) rows once, P x S x M x C outputs written once,
-    against HBM; per output a subtract and a multiply, two compares per
-    leaf and one add, against the float32 peak."""
-    tab = p * s * c * n
-    nbytes = 4 * (m * c + 2 * tab + (tab if cal else c * n) + 2 * s * c
-                  + p * s * m * c)
-    ops = p * s * m * c * (3 + 2 * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
 
 
 MC_SPECS = {"ideal": (0.0, 0.0, 0.0), "offset": (0.5, 0.0, 0.0),
@@ -1425,7 +1412,9 @@ def phase_mc_kernels(np, torch, dev, data):
         p2 = cuda_ms(torch, p_fn, reps)
         dev_ms = device_kernel_ms(torch, k_fn, "mc_eval_kernel", reps)
         m = len(x)
-        b_ms, b_by, nbytes, nops = mc_bound(p, s, m, c, 16, cal)
+        b_ms, b_by, nbytes, nops = kernel_bound(
+            "mc_eval_cal_population" if cal else "mc_eval_population", m,
+            c, 16, p=p, s=s)
         timings.setdefault(entry, {})[label] = {
             "shape": {"P": p, "S": s, "M": m, "C": c, "levels": 16},
             "ms": min(k1, k2), "plain_ms": min(p1, p2), "device_ms": dev_ms,
@@ -1439,6 +1428,187 @@ def phase_mc_kernels(np, torch, dev, data):
         del operands
         torch.cuda.empty_cache()
     return max_err, timings
+
+
+def built_geometry(w, block_m):
+    """The built kernel's launch geometry for workload ``w`` at tile
+    ``block_m`` (None: the heuristic), from its C export; a tile the
+    kernel refuses raises ValueError."""
+    from repro_torch.kernels import adc_quantize as adcq
+    from repro_torch.kernels import mc_eval, qmlp
+    from repro_torch.perf import cost_model
+    fam, n = cost_model.family(w.entry), w.levels
+    if fam == "quantize":
+        return adcq.geometry(w.p, w.m, w.c, n, block_m)
+    if fam == "mc":
+        return mc_eval.geometry(w.p, w.s, w.m, w.c, n, block_m)
+    kind = "mlp" if w.entry.endswith("mlp") else "svm"
+    return qmlp.geometry(kind, w.d, w.m, w.c, n, w.h, w.o, block_m)
+
+
+def refused_tile(w):
+    """One tile the kernel of ``w`` cannot take: the padded bank's rows
+    not a multiple of 4, a Monte-Carlo chunk one row past whole batches,
+    a quantizer span one row past Q_SPAN_MAX."""
+    from repro_torch.kernels import envelope
+    from repro_torch.perf import cost_model
+    fam = cost_model.family(w.entry)
+    if fam == "quantize":
+        return envelope.Q_SPAN_MAX // w.c + 1
+    if fam == "mc":
+        return envelope.mc_row_lanes(w.c) * envelope.MC_BATCH + 1
+    return 6
+
+
+def autotune_cases(np, rng, w, dev):
+    """[(label, operands, spec, bitwise against the plain version)] for
+    one workload: random floats (autotune.tuning_operands), and for the
+    bank entries also dyadic operands, where every partial sum is exact
+    and the plain version's matmul order gives the same bits."""
+    import torch
+    from repro_torch.perf import autotune, cost_model
+    ops, spec = autotune.tuning_operands(w, seed=0, device=dev)
+    bank = cost_model.family(w.entry) == "bank"
+    cases = [("random floats", ops, spec, not bank)]
+    if bank:
+        kind = "mlp" if w.entry.endswith("mlp") else "svm"
+        spec_d, x, t, ws = dyadic_case(np, rng, kind, w.d, w.m, w.c,
+                                       max(w.h, 1), w.o, w.bits)
+        if w.entry.startswith("bespoke"):       # the D=1 entry's shapes
+            t, ws = t[0], tuple(a[0] for a in ws)
+        ops_d = tuple(torch.as_tensor(a).to(dev).contiguous()
+                      for a in (x, t, *ws))
+        cases.append(("dyadic", ops_d, spec_d, True))
+    return cases
+
+
+def phase_autotune(np, torch, dev, card):
+    """The perf layer on the card: at perf/autotune.default_workloads()'
+    shapes, for each of the ten entries, every candidate tile's built
+    geometry == envelope's (and a tile the kernel cannot take refused by
+    the build too), every candidate's output bitwise == the heuristic
+    tile's and == the plain version's (the banks: bitwise on dyadic
+    operands, rtol 1e-5 / atol 1e-6 on random floats, as phase kernels),
+    then autotune.tune times every candidate on the card; the table goes
+    to a temporary path, loads back, and the committed table
+    (kernels/tuned_tables.json) must load on this card, not stale, with
+    every default workload's shape class."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.perf import autotune, cost_model, shape_class
+    t0 = time.perf_counter()
+    workloads = autotune.default_workloads()
+    check({w.entry for w in workloads} == set(dispatch.entries()),
+          "autotune: default_workloads() does not cover every entry")
+    rng = np.random.default_rng(2028)
+    print("phase autotune: every candidate tile of the ten entries at "
+          "autotune.default_workloads(): built geometry == envelope's, "
+          "output bitwise == the heuristic tile's and the plain version's, "
+          "timed on the card")
+    out = {"workloads": {}}
+    heuristic_us = {}
+    dispatch.set_tuned_policy(None)      # block_m=None: the kernels' own
+    try:
+        for w in workloads:
+            entry = dispatch.get(w.entry)
+            key = f"{w.entry}[{shape_class(w)}]"
+            cands = autotune.candidate_block_ms(w)
+            heur = cost_model.heuristic_block_m(w)
+            check(heur in cands, f"autotune {key}: the heuristic tile {heur} "
+                                 f"is not among the candidates {cands}")
+            for bm in (None,) + cands:
+                built = built_geometry(w, bm)
+                mirror = tuple(cost_model.geometry(w, bm))
+                check(built == mirror, f"autotune {key} block_m={bm}: the "
+                                       f"built geometry {built} != "
+                                       f"envelope's {mirror}")
+            bad = refused_tile(w)
+            try:
+                built_geometry(w, bad)
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused, f"autotune {key}: the built kernel took the "
+                           f"invalid tile {bad}")
+            rules = []
+            for label, (x, t, *ws), spec, exact in autotune_cases(
+                    np, rng, w, dev):
+                base = entry.kernel(x, t, *ws, spec=spec)
+                plain = entry.plain(x, t, *ws, spec=spec)
+                for bm in cands:
+                    got = entry.kernel(x, t, *ws, spec=spec, block_m=bm)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, base)
+                    near = (torch.equal(got, plain) if exact else
+                            torch.allclose(got, plain, rtol=1e-5, atol=1e-6))
+                    check(same and near,
+                          f"autotune {key} {label} block_m={bm}: == heuristic "
+                          f"tile {same}, == plain version {near} (max_abs_err "
+                          f"{float((got - plain).abs().max()):.3e})")
+                rules.append(f"{label} {'bitwise' if exact else 'rtol=1e-5'}")
+                if label == "random floats":
+                    heuristic_us[key] = autotune.device_us(
+                        lambda: entry.kernel(x, t, *ws, spec=spec),
+                        AUTOTUNE_REPS)
+            print(f"  {key}: {len(cands)} tiles {list(cands)} (heuristic "
+                  f"{heur}), refused {bad}; every tile == the heuristic "
+                  f"tile bitwise and == plain ({', '.join(rules)}); geometry "
+                  f"== envelope's")
+        t1 = time.perf_counter()
+        table = autotune.tune(workloads, reps=AUTOTUNE_REPS)
+        t2 = time.perf_counter()
+    finally:
+        dispatch.reset_tuned_policy()    # later phases: the committed table
+    for w in workloads:
+        key = f"{w.entry}[{shape_class(w)}]"
+        rec = table["entries"][w.entry][shape_class(w)]
+        b_ms = cost_model.bound(w)["bound_s"] * 1e3
+        waves = {bm: cost_model.roofline_estimate(w, int(bm))["waves"]
+                 for bm in rec["candidates_us"]}
+        xs = np.array([waves[bm] for bm in rec["candidates_us"]], float)
+        ys = np.array(list(rec["candidates_us"].values()))
+        slope = (float(np.polyfit(xs, ys, 1)[0]) if len(set(xs)) > 1
+                 else None)
+        out["workloads"][key] = {
+            "heuristic_block_m": rec["heuristic_block_m"],
+            "heuristic_us": rec["heuristic_us"],
+            "heuristic_geometry_us": heuristic_us[key],
+            "block_m": rec["block_m"], "us": rec["us"],
+            "candidates_us": rec["candidates_us"], "waves": waves,
+            "us_per_wave": slope, "bound_us": b_ms * 1e3}
+        by_tile = ", ".join(f"{k}: {v:.2f}"
+                            for k, v in rec["candidates_us"].items())
+        print(f"  {key}: tuned block_m={rec['block_m']} {rec['us']:.2f} us, "
+              f"heuristic {rec['heuristic_block_m']} "
+              f"{rec['heuristic_us']:.2f} us (its own geometry "
+              f"{heuristic_us[key]:.2f} us), bound {b_ms * 1e3:.3f} us; "
+              f"us by tile {{{by_tile}}}; "
+              f"waves {waves}, slope "
+              f"{'n/a' if slope is None else f'{slope:.3f}'} us/wave "
+              f"on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = autotune.save_table(table, Path(tmp) / "tuned_tables.json")
+        loaded = autotune.load_table(path)
+        check(loaded == json.loads(json.dumps(table)),
+              "autotune: the table written to a temporary path does not "
+              "load back")
+    committed = autotune.load_table(autotune.DEFAULT_TABLE_PATH)
+    check(committed is not None, f"autotune: the committed table "
+                                 f"{autotune.DEFAULT_TABLE_PATH} is missing "
+                                 f"or stale on this card")
+    missing = [f"{w.entry}[{shape_class(w)}]" for w in workloads
+               if shape_class(w) not in committed["entries"].get(w.entry, {})]
+    check(not missing, f"autotune: the committed table lacks {missing}")
+    out.update(phase_s=time.perf_counter() - t0, tune_s=t2 - t1,
+               table_device=table["device"],
+               committed_device=committed["device"],
+               committed={f"{e}[{k}]": r["block_m"]
+                          for e, per in committed["entries"].items()
+                          for k, r in per.items()})
+    print(f"  committed table ({committed['device']}) loads on this card, "
+          f"not stale: {out['committed']}")
+    print(f"phase autotune: {out['phase_s']:.2f} s (tune {out['tune_s']:.2f} "
+          f"s) on {card}")
+    return out
 
 
 def phase_robust(np, torch, dev, card, data, search_out):
@@ -2468,7 +2638,8 @@ def cosearch_kernel_checks(np, torch, dev, card, fronts):
                                           "adc_quantize_population_kernel")
                 check(dev_ms is not None, "torch.profiler recorded no "
                                           "device time for row 2")
-                b_ms, b_by, nbytes, nops = quantize_bound(p, v * m, c, n)
+                b_ms, b_by, nbytes, nops = kernel_bound(
+                    "adc_quantize_population", v * m, c, n, p=p)
                 key = (f"cosearch {stream_name} P={p} M={v * m} C={c} "
                        f"2^N={n}")
                 timings[key] = {
@@ -2697,17 +2868,34 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
 
     fail = ASYNC_FAILOVER
     cal_ni = NonIdealSpec(**ASYNC_CAL_NI)
-    fail_at = lambda b: 0 if b == fail["fail_at"] else None  # noqa: E731
+    fail_at = lambda engine: (  # noqa: E731
+        lambda b: 0 if b == fail["fail_at"] else None)
+    cal_split = {}
+
+    def fail_after_rows(engine):
+        """The loss at the first launch after ASYNC_CAL_SPLIT_ROWS rows
+        were served (whatever the quantum), the rows served before it
+        kept in ``cal_split``."""
+        def inject(b):
+            if "rows" not in cal_split and \
+                    engine.dispatched_rows >= ASYNC_CAL_SPLIT_ROWS:
+                cal_split["rows"] = engine.dispatched_rows
+                return 0
+            return None
+        return inject
 
     def serve(tenant_list, wl, devices, inject=None):
-        """One engine over ``tenant_list`` replaying ``wl``; the report
-        gains the median of the engine's batch wall times (its step
-        watchdog's window: the last 50 batches)."""
+        """One engine over ``tenant_list`` replaying ``wl``, its device-loss
+        hook ``inject(engine)`` where given; the report gains the median
+        of the engine's batch wall times (its step watchdog's window: the
+        last 50 batches)."""
         engine = se.ServingEngine(
             tenant_list, devices=devices,
             target_latency_ms=ASYNC["target_latency_ms"],
             max_batch=ASYNC["max_batch"])
-        rep = asyncio.run(engine.serve(wl, inject_device_failure=inject))
+        rep = asyncio.run(engine.serve(
+            wl, inject_device_failure=None if inject is None
+            else inject(engine)))
         rep["batch_ms_median"] = float(
             np.median(engine.watchdog.durations)) * 1e3
         return rep
@@ -2732,18 +2920,19 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
     fo_wl = workload(fail["rate"], fail["requests"], fail["deadline_ms"])
     fo_rep = serve(tenants("front"), fo_wl, [dev, dev], fail_at)
     marks.append(time.perf_counter())
-    # every request at 0: the trace is queued before launch 0, which
-    # then serves exactly the first quantum's rows on instance 0
+    # every request at 0: the trace is queued before launch 0, so the
+    # launches serve its rows in order; those before the loss (at least
+    # ASYNC_CAL_SPLIT_ROWS) on instance 0
     cal_wl = [dataclasses.replace(r, arrival_s=0.0,
                                   deadline_s=fail["deadline_ms"] / 1e3)
               for r in workload(fail["rate"], fail["requests"],
                                 fail["deadline_ms"], names=("cardio_svm",))]
     cal_rep = serve(tenants("front", ("cardio_svm",), cal_ni), cal_wl,
-                    [dev, dev], fail_at)
+                    [dev, dev], fail_after_rows)
     marks.append(time.perf_counter())
     exhausted = None
     try:
-        serve(tenants("1"), cal_wl[:4], [dev], lambda b: 0)
+        serve(tenants("1"), cal_wl[:4], [dev], lambda e: lambda b: 0)
     except RuntimeError as exc:
         exhausted = str(exc)
     torch.cuda.synchronize()
@@ -2887,32 +3076,39 @@ def phase_async(np, torch, dev, card, fronts, data, vitals):
     cal = [deploy.calibrate_front(sources["cardio_svm"][0], cal_ni,
                                   instance=k, samples=k + 1, device=dev)
            for k in (0, 1)]
-    # launch 0 served the first quantum's requests on instance 0; the
-    # failing launch 1 and every later one serve instance 1
-    first = (cal_rep["batch_sizes"]["cardio_svm"]["quantum"]
-             // ASYNC["request_size"])
+    # the rows served before the loss came from instance 0; the failing
+    # launch and every later one serve instance 1: row by row, in the
+    # trace's order
+    first = cal_split.get("rows", 0)
     cal_preds = [[want("cardio_svm", "front", req.x, c) for req in cal_wl]
                  for c in cal]
+    row0 = np.cumsum([0] + [req.rows for req in cal_wl])
     for i, req in enumerate(cal_wl):
         got = cal_rep["responses"][req.rid]
-        k = int(i >= first)
-        check(got is not None and np.array_equal(got, cal_preds[k][i]),
-              f"async calibrated: request {req.rid} is not instance {k}'s "
-              f"prediction")
-    differ = [sum(not np.array_equal(a, b) for a, b in
-                  zip(cal_preds[0][part], cal_preds[1][part]))
-              for part in (slice(0, first), slice(first, None))]
-    check(all(differ), f"async calibrated: instances 0 and 1 answer "
-                       f"{differ} requests differently before/after the "
-                       f"loss; the check cannot tell them apart")
+        before = np.arange(row0[i], row0[i + 1]) < first
+        expect = np.where(before, cal_preds[0][i], cal_preds[1][i])
+        check(got is not None and np.array_equal(got, expect),
+              f"async calibrated: request {req.rid} is not instance 0's "
+              f"prediction on its rows before row {first} and instance "
+              f"1's after")
+    rows_differ = np.concatenate([np.any(a != b, axis=0) for a, b in
+                                  zip(cal_preds[0], cal_preds[1])])
+    differ = [int(rows_differ[:first].sum()),
+              int(rows_differ[first:].sum())]
+    check(first >= ASYNC_CAL_SPLIT_ROWS and all(differ),
+          f"async calibrated: the loss came after {first} rows; instances "
+          f"0 and 1 answer {differ} rows differently before/after it; the "
+          f"check cannot tell them apart")
     for k, c in enumerate(cal):
         ladder_check(f"cardio_svm calibrated instance {k}", c,
                      cal_rep["batch_sizes"]["cardio_svm"]["ladder"],
                      cal_wl, False)
     print(f"  calibrated cardio_svm ({cal_ni.describe()}): calibrations "
           f"{cal_rep['calibrations']}, recoveries {cal_rep['recoveries']}; "
-          f"requests 0-{first - 1} == instance 0, the rest == instance 1 "
-          f"(plain route); the instances differ on {differ} of them")
+          f"rows 0-{first - 1} (quantum "
+          f"{cal_rep['batch_sizes']['cardio_svm']['quantum']}) == instance "
+          f"0, the rest == instance 1 (plain route); the instances differ "
+          f"on {differ} of those rows")
     check(cal_rep["calibrations"] == {"cardio_svm": 2}
           and cal_rep["recoveries"] == 1,
           f"async calibrated: {cal_rep['calibrations']}, "
@@ -3417,9 +3613,11 @@ def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     flops = 4 * b * h * dh * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         + 4 * (qpos.numel() + kpos.numel())
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    from repro_torch.perf import cost_model
+    card = cost_model.machine_model("cuda")     # the H100 data sheet's row
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else card.peak_flops
     hz, _, sms = clock
-    floors = {"hbm": nbytes / HBM_BYTES_PER_S * 1e3,
+    floors = {"hbm": nbytes / card.hbm_bw * 1e3,
               "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores":
                   flops / rate * 1e3,
               "ex2": b * h * pairs / (sms * EX2_PER_SM_PER_CLOCK * hz) * 1e3}
@@ -4067,6 +4265,7 @@ def main() -> int:
         max_err.update(q_err)
         mc_err, mc_timings = phase_mc_kernels(np, torch, dev, data)
         max_err.update(mc_err)
+        autotune_out = phase_autotune(np, torch, dev, card)
         fa_err, fa_timings = phase_flash_kernels(np, torch, dev, card, clock)
         max_err.update(fa_err)
         serve_launches = phase_serve(np, torch, dev, card, fronts, data)
@@ -4165,7 +4364,8 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), "shape": t["shape"],
                 "timings": extra_timings.get(name)})
-        summary = {"search": {k: {kk: vv for kk, vv in v.items()
+        summary = {"autotune": autotune_out,
+                   "search": {k: {kk: vv for kk, vv in v.items()
                                   if kk != "launches"}
                               for k, v in search_out.items()},
                    "robust": {k: {kk: vv for kk, vv in v.items()

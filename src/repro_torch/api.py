@@ -36,6 +36,9 @@
     api.serve_stream(bank, trace, devices=["cuda:0", "cuda:1"],
                      sharded=True)         # re-meshed on a device loss
 
+    api.autotune()      # time every kernel tile on the card, write and
+                        # activate kernels/tuned_tables.json
+
 Every verb runs on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``; a ``mesh`` (``launch.mesh.make_mesh``,
 e.g. over ``["cpu", "cpu"]``) places the work on its devices instead.
@@ -73,6 +76,7 @@ __all__ = [
     "Front",
     "NonIdealSpec",
     "SearchConfig",
+    "autotune",
     "calibrate",
     "cosearch",
     "deploy",
@@ -386,6 +390,22 @@ def robustness_curve(bank: Union[Bank, Sequence[DeployedClassifier]], x, y,
     ``core.deploy.save_robustness`` next to the front)."""
     return _deploy.robustness_curve(_designs(bank), x, y, sigmas, samples,
                                     **kw)
+
+
+def autotune(workloads=None, *, write: bool = True, path=None,
+             **kw) -> Dict:
+    """Time every candidate tile of every hand kernel on the card (or of
+    the given ``repro_torch.perf.Workload`` list; default
+    ``perf.autotune.default_workloads()``, the paths' shapes), persist the
+    winners as the tuned table next to the dispatch layer
+    (kernels/tuned_tables.json by default) and activate them in-process:
+    later kernel resolutions take the tuned tile for matching shape
+    classes and log it; everything else keeps the heuristic. Tuning
+    changes speed only, never values. Needs a CUDA device unless
+    ``measure_fn`` is passed. Returns the tuned table; ``write=False``
+    measures without persisting."""
+    from repro_torch.perf import autotune as _autotune
+    return _autotune.autotune(workloads, write=write, path=path, **kw)
 
 
 def quantize(x, mask, spec: AdcSpec, *,

@@ -16,6 +16,12 @@ fallback.
 The range rows a call needs are built once per (bits, vmin, vmax, C,
 device) and kept (``range_rows``): building them copies two host arrays
 to the card, and each copy waits for the stream.
+
+The tile (``block_m`` sample rows: a span of block_m * C elements,
+envelope.quantize_geometry) is the caller's where given, else the tuned
+table's for the call's shape class (kernels/dispatch.py), else the
+kernel's heuristic. A tile the kernel cannot take raises ValueError
+naming the limit, on any device. No tile changes a bit of the output.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 
 from repro_torch.core.adc import range_rows_tensors
 from repro_torch.core.spec import AdcSpec
-from repro_torch.kernels import _build, dispatch, ref
+from repro_torch.kernels import _build, dispatch, envelope, ref
 
 ENTRY = "adc_quantize_population"
 
@@ -45,22 +51,27 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("adc_quantize")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.adc_quantize_population.argtypes = [ptr] * 5 + [ctypes.c_longlong] \
-        + [i32] * 3 + [ptr]
+    i64 = ctypes.c_longlong
+    lib.adc_quantize_population.argtypes = [ptr] * 5 + [i64] + [i32] * 3 \
+        + [i64, ptr]
     lib.adc_quantize_population.restype = i32
     lib.adcq_error_string.argtypes = [i32]
     lib.adcq_error_string.restype = ctypes.c_char_p
-    lib.adc_quantize_geometry.argtypes = [ctypes.c_longlong] + [i32] * 3 \
-        + [ptr]
-    lib.adc_quantize_geometry.restype = None
+    lib.adc_quantize_geometry.argtypes = [i64] + [i32] * 3 + [i64, ptr]
+    lib.adc_quantize_geometry.restype = i32
     return lib
 
 
-def geometry(p: int, m: int, c: int, n: int) -> Tuple[int, ...]:
-    """The launch geometry the built kernel takes for a call, in the
-    order of ``envelope.QuantizeGeometry``."""
+def geometry(p: int, m: int, c: int, n: int,
+             block_m: Optional[int] = None) -> Tuple[int, ...]:
+    """The launch geometry the built kernel takes for a call at tile
+    ``block_m`` (None: the heuristic), in the order of
+    ``envelope.QuantizeGeometry``. A tile the kernel refuses raises
+    ValueError with the kernel's reason."""
     got = (ctypes.c_longlong * 8)()
-    _lib().adc_quantize_geometry(m, c, n, p, got)
+    err = _lib().adc_quantize_geometry(m, c, n, p, block_m or 0, got)
+    if err != 0:
+        raise ValueError(_lib().adcq_error_string(err).decode())
     return tuple(got)
 
 
@@ -96,9 +107,12 @@ def _check(spec: AdcSpec, x: torch.Tensor, tables: torch.Tensor
 
 
 def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
-         rows) -> torch.Tensor:
+         rows, block_m: Optional[int]) -> torch.Tensor:
     p, m, c, n = _check(spec, x, tables)
     res = dispatch.resolve_quantize(entry, x, tables)
+    if block_m is not None and min(p, m, c) > 0:  # raises on any device
+        envelope.quantize_geometry(p, m, c, n, block_m)
+    tile = block_m if block_m is not None else res.block_m or 0
     if res.path == "plain":
         return ref.adc_quantize_ref_population(x, tables, spec.bits,
                                                spec.vmin, spec.vmax)
@@ -119,29 +133,29 @@ def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().adc_quantize_population(
             x.data_ptr(), tables.data_ptr(), lo.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, c, n, p, stream)
+            out.data_ptr(), m, c, n, p, tile, stream)
     if err != 0:
         msg = _lib().adcq_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"{entry} launch failed: error {err} ({msg})")
     launches[entry] += 1
     return out
 
 
 def adc_quantize_population(
         x: torch.Tensor, tables: torch.Tensor, *, spec: AdcSpec,
-        rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-) -> torch.Tensor:
+        rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        block_m: Optional[int] = None) -> torch.Tensor:
     """Shared x (M, C); tables (P, C, 2^N). Returns (P, M, C) float32:
     ``out[p, m, c] = tables[p, c, code(x[m, c])]``. ``rows`` are the (C,)
     ``(vmin, scale)`` range rows on x's device when the caller holds them
     already; by default they are built from ``spec`` (once, see
-    ``range_rows``)."""
-    return _run(ENTRY, x, tables, spec, rows)
+    ``range_rows``). ``block_m``: the tile (None: tuned, else
+    heuristic)."""
+    return _run(ENTRY, x, tables, spec, rows, block_m)
 
 
 def adc_quantize(x: torch.Tensor, table: torch.Tensor, *, spec: AdcSpec,
-                 rows=None) -> torch.Tensor:
+                 rows=None, block_m: Optional[int] = None) -> torch.Tensor:
     """One bank: x (M, C), table (C, 2^N) -> (M, C). The P=1 call of the
     population kernel."""
-    return _run("adc_quantize", x, table[None], spec, rows)[0]
+    return _run("adc_quantize", x, table[None], spec, rows, block_m)[0]

@@ -46,7 +46,11 @@
 // 32-bit, the span's base and out[p]'s are 64-bit. The launch bounds ask
 // for two blocks an SM: without them ptxas spilled at 48 registers.
 // envelope.quantize_geometry mirrors the geometry and adc_quantize_geometry
-// below returns it.
+// below returns it. The tile knob (block_m sample rows, the reference's
+// Pallas M-tile) sets the span to block_m * C rounded up to a multiple of
+// 4, at most kSpanMax; a tile the kernel cannot take is refused with a
+// negative code, never clamped. A span decides which block copies which
+// elements, so every tile gives the same bits.
 //
 // Exactness. The code math uses the same f32 lo/scale rows as the plain
 // version (computed on the host in f64, cast once) and rounds the subtract
@@ -83,8 +87,16 @@ struct Geometry {
   size_t smem;     // G tables and the two range rows
 };
 
-Geometry geometry_of(int64_t m, int c, int n, int p) {
-  Geometry g;
+// Tiles the kernel cannot take (envelope.quantize_tile_error names the same
+// limits); returned by the geometry export and the launcher.
+constexpr int kTileBelowOne = -1;
+constexpr int kTileAboveSpanMax = -2;
+
+// The launch of a call; block_m > 0 (the tile knob, sample rows) sets the
+// span to block_m * C rounded up to a multiple of 4 and nothing else,
+// block_m = 0 keeps the heuristic. Returns 0, or a kTile* code for a tile
+// the kernel cannot take (never clamped).
+int geometry_of(int64_t m, int c, int n, int p, int64_t block_m, Geometry& g) {
   const int64_t total = m * c;
   int64_t fit = (kGroupBytes - int64_t{8} * c) / (int64_t{4} * c * n);
   if (fit > kMaxGroup) fit = kMaxGroup;
@@ -96,16 +108,25 @@ Geometry geometry_of(int64_t m, int c, int n, int p) {
   if (fit < 1) fit = 1;
   g.groups = ceil_div(p, fit);
   g.group = static_cast<int>(ceil_div(p, g.groups));
-  int64_t spans = ceil_div(total, kSpanMax);
-  const int64_t fill = ceil_div(kMinBlocks, g.groups);
-  if (spans < fill) spans = fill;
-  int64_t span = ceil_div(total, spans) / 4 * 4;
-  if (span < 4) span = 4;
+  int64_t span;
+  if (block_m > 0) {
+    if (block_m > kSpanMax) return kTileAboveSpanMax;   // block_m * C below overflows
+    span = ceil_div(block_m * c, 4) * 4;
+    if (span > kSpanMax) return kTileAboveSpanMax;
+  } else if (block_m < 0) {
+    return kTileBelowOne;
+  } else {
+    int64_t spans = ceil_div(total, kSpanMax);
+    const int64_t fill = ceil_div(kMinBlocks, g.groups);
+    if (spans < fill) spans = fill;
+    span = ceil_div(total, spans) / 4 * 4;
+    if (span < 4) span = 4;
+  }
   g.span = static_cast<int>(span);
   g.spans = ceil_div(total, span);
   g.grid_x = g.spans < kMaxGridX ? g.spans : kMaxGridX;
   g.smem = sizeof(float) * (static_cast<size_t>(g.group) * c * n + 2 * static_cast<size_t>(c));
-  return g;
+  return 0;
 }
 
 // (a + b) mod c for a, b < c
@@ -265,14 +286,24 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 extern "C" {
 
 const char* adcq_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case kTileBelowOne: return "quantizer tile: block_m below 1 row";
+    case kTileAboveSpanMax:
+      return "quantizer tile: block_m * C above kSpanMax (4096) elements a block takes";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
-// The launch geometry of a call with m, c, n, p >= 1, as
-// envelope.quantize_geometry computes it: out[0..7] = threads, group,
-// groups, span, spans, grid x, grid y, dynamic shared memory bytes.
-void adc_quantize_geometry(long long m, int c, int n, int p, long long* out) {
-  const Geometry g = geometry_of(m, c, n, p);
+// The launch geometry of a call with m, c, n, p >= 1 at tile block_m (0:
+// the heuristic), as envelope.quantize_geometry computes it: out[0..7] =
+// threads, group, groups, span, spans, grid x, grid y, dynamic shared
+// memory bytes. Returns 0, or the kTile* code of a tile the kernel cannot
+// take (out untouched).
+int adc_quantize_geometry(long long m, int c, int n, int p, long long block_m,
+                          long long* out) {
+  Geometry g;
+  const int err = geometry_of(m, c, n, p, block_m, g);
+  if (err != 0) return err;
   out[0] = kThreads;
   out[1] = g.group;
   out[2] = g.groups;
@@ -281,13 +312,16 @@ void adc_quantize_geometry(long long m, int c, int n, int p, long long* out) {
   out[5] = g.grid_x;
   out[6] = g.groups;
   out[7] = static_cast<long long>(g.smem);
+  return 0;
 }
 
 int adc_quantize_population(const float* x, const float* tables, const float* lo,
                             const float* scale, float* out, long long m, int c,
-                            int n, int p, void* stream) {
+                            int n, int p, long long block_m, void* stream) {
   if (m <= 0 || c <= 0 || p <= 0) return 0;
-  const Geometry g = geometry_of(m, c, n, p);
+  Geometry g;
+  const int err = geometry_of(m, c, n, p, block_m, g);
+  if (err != 0) return err;
   const int64_t total = static_cast<int64_t>(m) * c;
   auto st = static_cast<cudaStream_t>(stream);
   const bool vec = total % 4 == 0 && aligned16(x) && aligned16(out);

@@ -52,9 +52,14 @@
 // M is cut finer where P*S alone gives fewer than kMinBlocks blocks. 128 threads, 64 KB chunks and batches of 8 rows were the
 // fastest of the variants timed (PERF.md, findings). (p, s) and chunks loop
 // beyond the grid's limits. envelope.mc_geometry mirrors the geometry and
-// mc_eval_geometry below returns it. Any other leaf count (2^N = 64, 128,
-// ...) runs the same kernel with a run-time leaf loop over the staged
-// leaves, each shared-memory read serving the batch's 8 rows.
+// mc_eval_geometry below returns it. The tile knob (block_m, the
+// reference's Pallas M-tile) sets a chunk's rows, a whole number of row
+// lanes x kBatch; a tile the kernel cannot take is refused with a negative
+// code, never clamped. A chunk decides which block computes which rows,
+// never an output's sum order, so every tile gives the same bits. Any
+// other leaf count (2^N = 64, 128, ...) runs the same kernel with a
+// run-time leaf loop over the staged leaves, each shared-memory read
+// serving the batch's 8 rows.
 //
 // Exactness. u rounds the subtract and the multiply separately
 // (__fsub_rn, __fmul_rn), as the plain version's two PyTorch operations
@@ -81,6 +86,7 @@ constexpr int64_t kMinBlocks = 264;        // two blocks an SM of an H100
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int64_t kMaxGridX = 2147483647;
 constexpr int64_t kMaxGridY = 65535;
+constexpr int64_t kMaxChunkRows = int64_t{1} << 30;  // a chunk's rows fit 32-bit ints
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
@@ -94,23 +100,39 @@ struct Geometry {
   size_t smem;         // dynamic shared memory a block asks for
 };
 
-Geometry geometry_of(int64_t m, int c, int n, int64_t ps_total) {
-  Geometry g;
+// Tiles the kernel cannot take (envelope.mc_tile_error names the same
+// limits); returned by the geometry export and the launcher.
+constexpr int kTileBelowOne = -1;
+constexpr int kTileNotWholeBatches = -2;
+constexpr int kTileAboveMaxChunkRows = -3;
+
+// The launch of a call; block_m > 0 (the tile knob) sets the chunk's rows
+// and nothing else, block_m = 0 keeps the heuristic. Returns 0, or a
+// kTile* code for a tile the kernel cannot take (never clamped).
+int geometry_of(int64_t m, int c, int n, int64_t ps_total, int64_t block_m, Geometry& g) {
   g.row_lanes = c >= kThreads ? 1 : kThreads / c;
-  const int64_t batches = ceil_div(ceil_div(m, g.row_lanes), kBatch);  // a lane's
-  const int64_t batch_bytes = int64_t{4} * c * g.row_lanes * kBatch;   // of x
-  int64_t chunks = ceil_div(batches, batch_bytes < kChunkBytes ? kChunkBytes / batch_bytes : 1);
-  int64_t fill = ceil_div(kMinBlocks, ps_total);
-  if (fill > batches) fill = batches;
-  if (chunks < fill) chunks = fill;
-  g.chunk_rows = int64_t{g.row_lanes} * kBatch * ceil_div(batches, chunks);
+  if (block_m > 0) {
+    if (block_m % (int64_t{g.row_lanes} * kBatch) != 0) return kTileNotWholeBatches;
+    if (block_m > kMaxChunkRows) return kTileAboveMaxChunkRows;
+    g.chunk_rows = block_m;
+  } else if (block_m < 0) {
+    return kTileBelowOne;
+  } else {
+    const int64_t batches = ceil_div(ceil_div(m, g.row_lanes), kBatch);  // a lane's
+    const int64_t batch_bytes = int64_t{4} * c * g.row_lanes * kBatch;   // of x
+    int64_t chunks = ceil_div(batches, batch_bytes < kChunkBytes ? kChunkBytes / batch_bytes : 1);
+    int64_t fill = ceil_div(kMinBlocks, ps_total);
+    if (fill > batches) fill = batches;
+    if (chunks < fill) chunks = fill;
+    g.chunk_rows = int64_t{g.row_lanes} * kBatch * ceil_div(batches, chunks);
+  }
   g.chunks = ceil_div(m, g.chunk_rows);
   g.grid_x = ps_total < kMaxGridX ? ps_total : kMaxGridX;
   g.grid_y = g.chunks < kMaxGridY ? g.chunks : kMaxGridY;
   const bool unrolled = n == 2 || n == 4 || n == 8 || n == 16 || n == 32;
   g.leaves = unrolled ? n : 0;
   g.smem = sizeof(float) * 3 * static_cast<size_t>(c) * n;
-  return g;
+  return 0;
 }
 
 // A float's place in float order as an int: f1 < f2 exactly where
@@ -200,8 +222,8 @@ mc_eval_kernel(const float* __restrict__ x, const float* __restrict__ lb,
         const int64_t last = m < start + chunk_rows ? m : start + chunk_rows;
         const int64_t first = start + lane;
         // the lane's rows of the chunk are first + r for r = 0, R, 2R, ...
-        // < rows; a chunk's x is at most kChunkBytes (or one batch), so r
-        // and the offsets below fit an int
+        // < rows; a chunk has at most kMaxChunkRows rows, so r and the
+        // offsets below fit an int
         const int rows = first < last ? static_cast<int>(last - first) : 0;
         const float* xp = x + first * c + ch;
         float* op = out + (ps * m + first) * c + ch;
@@ -293,15 +315,25 @@ int dispatch(const Geometry& g, const float* x, const float* lb, const float* ub
 extern "C" {
 
 const char* mc_eval_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case kTileBelowOne: return "Monte-Carlo tile: block_m below 1 row";
+    case kTileNotWholeBatches:
+      return "Monte-Carlo tile: block_m not a whole number of row lanes x kBatch rows";
+    case kTileAboveMaxChunkRows: return "Monte-Carlo tile: block_m above kMaxChunkRows (2^30)";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
-// The launch geometry of a call with m, c, p, s >= 1, as
-// envelope.mc_geometry computes it: out[0..7] = threads, row lanes, chunk
-// rows, chunks, grid x, grid y, unrolled leaf count (0: run-time leaf
-// loop), dynamic shared memory bytes.
-void mc_eval_geometry(long long m, int c, int n, int p, int s, long long* out) {
-  const Geometry g = geometry_of(m, c, n, static_cast<int64_t>(p) * s);
+// The launch geometry of a call with m, c, p, s >= 1 at tile block_m (0:
+// the heuristic), as envelope.mc_geometry computes it: out[0..7] =
+// threads, row lanes, chunk rows, chunks, grid x, grid y, unrolled leaf
+// count (0: run-time leaf loop), dynamic shared memory bytes. Returns 0,
+// or the kTile* code of a tile the kernel cannot take (out untouched).
+int mc_eval_geometry(long long m, int c, int n, int p, int s, long long block_m,
+                     long long* out) {
+  Geometry g;
+  const int err = geometry_of(m, c, n, static_cast<int64_t>(p) * s, block_m, g);
+  if (err != 0) return err;
   out[0] = kThreads;
   out[1] = g.row_lanes;
   out[2] = g.chunk_rows;
@@ -310,14 +342,17 @@ void mc_eval_geometry(long long m, int c, int n, int p, int s, long long* out) {
   out[5] = g.grid_y;
   out[6] = g.leaves;
   out[7] = static_cast<long long>(g.smem);
+  return 0;
 }
 
 int mc_eval(const float* x, const float* lb, const float* ub, const float* values,
             const float* lo, const float* scale, float* out, long long m, int c,
-            int n, int p, int s, int per_instance_values, void* stream) {
+            int n, int p, int s, int per_instance_values, long long block_m, void* stream) {
   if (m <= 0 || c <= 0 || p <= 0 || s <= 0) return 0;
   const int64_t ps_total = static_cast<int64_t>(p) * s;
-  const Geometry g = geometry_of(m, c, n, ps_total);
+  Geometry g;
+  const int err = geometry_of(m, c, n, ps_total, block_m, g);
+  if (err != 0) return err;
   auto st = static_cast<cudaStream_t>(stream);
   return per_instance_values
              ? dispatch<true>(g, x, lb, ub, values, lo, scale, out, m, c, n, ps_total, s, st)

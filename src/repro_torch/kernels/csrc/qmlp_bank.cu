@@ -57,7 +57,12 @@
 // serve shapes' few threads store directly. One design at the edge of
 // the envelope runs the same body unpadded, one row a thread.
 // envelope.bank_geometry mirrors the geometry and qmlp_bank_geometry
-// below returns it.
+// below returns it. The tile knob (block_m, the reference's Pallas M-tile)
+// sets R alone, the group and the layout staying the heuristic's; a tile
+// the kernel cannot take is refused with a negative code, never clamped.
+// R decides which block computes which rows, never an output's order, so
+// every tile gives the same bits (kernels/dispatch.py picks it from the
+// tuned table, perf/autotune.py).
 //
 // Exactness. The code math uses the same f32 lo/scale rows as the plain
 // version (computed on the host in f64, cast once) and rounds the subtract
@@ -120,8 +125,30 @@ struct Geometry {
   size_t smem;
 };
 
-Geometry geometry_of(bool mlp, int64_t m, int f, int n, int h, int o, int d) {
-  Geometry g;
+// a warp of 32 units of one design stages its logits (O <= kOChunk)
+bool staged_of(bool pad, int64_t rows, int o) {
+  return pad && o <= kOChunk && (rows / kRowsPerThread) % 32 == 0;
+}
+
+// float words of shared memory a block of g designs and `rows` rows stages
+int64_t block_words(bool mlp, bool pad, int64_t g, int64_t rows, int f, int n, int h, int o) {
+  return operand_words(mlp, pad, g, f, n, h, o) + rows * f +
+         (staged_of(pad, rows, o) ? (kThreads / 32) * kWarpRun : 0);
+}
+
+// Tiles the kernel cannot take (envelope.bank_tile_error names the same
+// limits); returned by the geometry export and the launchers.
+constexpr int kTileBelowOne = -1;
+constexpr int kTileAboveMaxRows = -2;
+constexpr int kTileAboveCodeWords = -3;
+constexpr int kTileNotWholeRowGroups = -4;
+constexpr int kTileAboveSmem = -5;
+
+// The launch of a call; block_m > 0 sets R (the tile knob) and nothing
+// else, block_m = 0 keeps the heuristic. Returns 0, or a kTile* code for a
+// tile the kernel cannot take (never clamped).
+int geometry_of(bool mlp, int64_t m, int f, int n, int h, int o, int d, int64_t block_m,
+                Geometry& g) {
   int64_t fit = kGroupBytes / (4 * operand_words(mlp, true, 1, f, n, h, o));
   if (fit > kMaxGroup) fit = kMaxGroup;
   if (fit > d) fit = d;
@@ -141,15 +168,10 @@ Geometry geometry_of(bool mlp, int64_t m, int f, int n, int h, int o, int d) {
   if (rows < kRowsPerThread) rows = kRowsPerThread;
   g.pad = true;
   g.per_thread = kRowsPerThread;
-  // a warp of 32 units of one design stages its logits (O <= kOChunk)
-  g.staged = o <= kOChunk && (rows / kRowsPerThread) % 32 == 0;
-  int64_t words = operand_words(mlp, true, g.group, f, n, h, o) + rows * f +
-                  (g.staged ? (kThreads / 32) * kWarpRun : 0);
-  if (4 * words > kSmemMax) {
+  if (4 * block_words(mlp, true, g.group, rows, f, n, h, o) > kSmemMax) {
     // one design near the limit (G = 1): unpadded rows, one row a thread,
     // R cut to what is left (the envelope leaves 2*F words, so R >= 2)
     g.pad = false;
-    g.staged = false;
     g.per_thread = 1;
     const int64_t one = operand_words(mlp, false, 1, f, n, h, o);
     rows = kMaxRows;
@@ -158,15 +180,26 @@ Geometry geometry_of(bool mlp, int64_t m, int f, int n, int h, int o, int d) {
     if (rows > m) rows = m;
     if (rows > (kSmemMax / 4 - one) / f) rows = (kSmemMax / 4 - one) / f;
     if (rows < 1) rows = 1;
-    words = one + rows * f;
   }
+  if (block_m > 0) {
+    const int64_t by_codes = kCodeWords / f > g.per_thread ? kCodeWords / f : g.per_thread;
+    if (block_m > kMaxRows) return kTileAboveMaxRows;
+    if (block_m > by_codes) return kTileAboveCodeWords;
+    if (block_m % g.per_thread != 0) return kTileNotWholeRowGroups;
+    if (4 * block_words(mlp, g.pad, g.group, block_m, f, n, h, o) > kSmemMax)
+      return kTileAboveSmem;
+    rows = block_m;
+  } else if (block_m < 0) {
+    return kTileBelowOne;
+  }
+  g.staged = staged_of(g.pad, rows, o);
   g.rows = static_cast<int>(rows);
   const int units = g.rows / g.per_thread;
   g.lanes = g.group < kThreads / units ? g.group : kThreads / units;
   g.tiles = ceil_div(m, rows);
   g.grid_x = g.tiles < kMaxGridX ? g.tiles : kMaxGridX;
-  g.smem = sizeof(float) * static_cast<size_t>(words);
-  return g;
+  g.smem = sizeof(float) * static_cast<size_t>(block_words(mlp, g.pad, g.group, rows, f, n, h, o));
+  return 0;
 }
 
 // (a + b) mod c for a, b < c
@@ -516,17 +549,28 @@ BankArgs args_of(const Geometry& g, const float* x, const float* tables, const f
 extern "C" {
 
 const char* qmlp_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case kTileBelowOne: return "bank tile: block_m below 1 row";
+    case kTileAboveMaxRows: return "bank tile: block_m above kMaxRows (256) rows";
+    case kTileAboveCodeWords: return "bank tile: block_m above kCodeWords / F rows";
+    case kTileNotWholeRowGroups:
+      return "bank tile: block_m not a multiple of kRowsPerThread (4) in the padded layout";
+    case kTileAboveSmem: return "bank tile: block_m needs more than kSmemMax bytes of shared memory";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 // The launch geometry of a call with m, f, n, o, d >= 1 (h >= 1 for an
-// MLP), as envelope.bank_geometry computes it: out[0..11] = threads, rows,
-// rows a thread carries, lanes, group, groups, tiles, grid x, grid y,
-// weight rows padded (0/1), logits staged (0/1), dynamic shared memory
-// bytes.
-void qmlp_bank_geometry(int mlp, long long m, int f, int n, int h, int o, int d,
-                        long long* out) {
-  const Geometry g = geometry_of(mlp != 0, m, f, n, h, o, d);
+// MLP) at tile block_m (0: the heuristic), as envelope.bank_geometry
+// computes it: out[0..11] = threads, rows, rows a thread carries, lanes,
+// group, groups, tiles, grid x, grid y, weight rows padded (0/1), logits
+// staged (0/1), dynamic shared memory bytes. Returns 0, or the kTile* code
+// of a tile the kernel cannot take (out untouched).
+int qmlp_bank_geometry(int mlp, long long m, int f, int n, int h, int o, int d,
+                       long long block_m, long long* out) {
+  Geometry g;
+  const int err = geometry_of(mlp != 0, m, f, n, h, o, d, block_m, g);
+  if (err != 0) return err;
   out[0] = kThreads;
   out[1] = g.rows;
   out[2] = g.per_thread;
@@ -539,14 +583,17 @@ void qmlp_bank_geometry(int mlp, long long m, int f, int n, int h, int o, int d,
   out[9] = g.pad ? 1 : 0;
   out[10] = g.staged ? 1 : 0;
   out[11] = static_cast<long long>(g.smem);
+  return 0;
 }
 
 int qmlp_mlp_bank(const float* x, const float* tables, const float* lo,
                   const float* scale, const float* w1, const float* b1,
                   const float* w2, const float* b2, float* out, long long m,
-                  int f, int n, int h, int o, int d, void* stream) {
+                  int f, int n, int h, int o, int d, long long block_m, void* stream) {
   if (m <= 0 || f <= 0 || o <= 0 || d <= 0) return 0;
-  const Geometry g = geometry_of(true, m, f, n, h, o, d);
+  Geometry g;
+  const int err = geometry_of(true, m, f, n, h, o, d, block_m, g);
+  if (err != 0) return err;
   const BankArgs a = args_of(g, x, tables, lo, scale, w1, b1, w2, b2, out, m, f, n, h, o, d);
   return launch(g.pad ? qmlp_mlp_bank_kernel : qmlp_mlp_bank_kernel_unpadded, g, a,
                 static_cast<cudaStream_t>(stream));
@@ -554,9 +601,11 @@ int qmlp_mlp_bank(const float* x, const float* tables, const float* lo,
 
 int qmlp_svm_bank(const float* x, const float* tables, const float* lo,
                   const float* scale, const float* w, const float* b, float* out,
-                  long long m, int f, int n, int o, int d, void* stream) {
+                  long long m, int f, int n, int o, int d, long long block_m, void* stream) {
   if (m <= 0 || f <= 0 || o <= 0 || d <= 0) return 0;
-  const Geometry g = geometry_of(false, m, f, n, 0, o, d);
+  Geometry g;
+  const int err = geometry_of(false, m, f, n, 0, o, d, block_m, g);
+  if (err != 0) return err;
   const BankArgs a = args_of(g, x, tables, lo, scale, w, b, nullptr, nullptr, out, m, f, n, 0,
                              o, d);
   return launch(g.pad ? qmlp_svm_bank_kernel : qmlp_svm_bank_kernel_unpadded, g, a,

@@ -46,6 +46,15 @@ dimension, each looped beyond the grid's limit. ``mc_geometry`` gives its
 launch geometry (``mc_eval_geometry`` in the built library returns the
 same).
 
+Each of these three families takes a tile (``block_m``, sample rows, the
+reference's Pallas M-tile; perf/autotune.py tunes it): the bank kernels'
+R, the quantizer's span of block_m * C elements, the Monte-Carlo
+kernel's chunk. ``*_geometry(..., block_m)`` mirror the kernels' launch
+at a tile, ``bank_tile_error`` / ``quantize_tile_error`` /
+``mc_tile_error`` name the limit a tile breaks (the kernels refuse the
+same ones), and None or 0 is the heuristic. A tile decides which block
+computes which rows, never an output's bits.
+
 The CUDA-core flash-attention kernel (csrc/flash_attention.cu) is
 compiled for dh padded to DHP = 64, 128 or 256 (``flash_head_pad``), up
 to gemma2's 256, with a BQ-row q tile, BK-key kv tiles and row groups of
@@ -174,8 +183,49 @@ def bank_operand_words(kind: str, pad: bool, g: int, f: int, n: int, h: int,
             + region(g * h * op) + region(g * o))
 
 
+def _bank_staged(pad: bool, rows: int, o: int) -> bool:
+    """Whether each warp writes its logits through a run in shared memory:
+    the padded layout, O <= ``BANK_O_CHUNK`` and warps of 32 units."""
+    return (pad and o <= BANK_O_CHUNK
+            and (rows // BANK_ROWS_PER_THREAD) % 32 == 0)
+
+
+def bank_words(kind: str, pad: bool, g: int, rows: int, f: int, n: int,
+               h: int, o: int) -> int:
+    """float32 words of shared memory a bank block of ``g`` designs and
+    ``rows`` sample rows stages: the operands, the R x F codes and, where
+    staged, the warps' runs of logits."""
+    run = BANK_THREADS // 32 * BANK_WARP_RUN if _bank_staged(pad, rows,
+                                                              o) else 0
+    return bank_operand_words(kind, pad, g, f, n, h, o) + rows * f + run
+
+
+def bank_tile_error(kind: str, pad: bool, group: int, f: int, n: int, h: int,
+                    o: int, block_m: int) -> Optional[str]:
+    """None when a bank block takes a tile of ``block_m`` sample rows in
+    this layout, else the limit the tile breaks, named (csrc/qmlp_bank.cu
+    refuses the same tiles)."""
+    rpt = BANK_ROWS_PER_THREAD if pad else 1
+    by_codes = max(rpt, BANK_CODE_WORDS // f)
+    if block_m < 1:
+        return "a bank tile takes at least one row"
+    if block_m > BANK_MAX_ROWS:
+        return f"above BANK_MAX_ROWS = {BANK_MAX_ROWS} rows a bank block takes"
+    if block_m > by_codes:
+        return (f"above BANK_CODE_WORDS // F = {by_codes} rows (the codes of "
+                f"a block's x tile, {BANK_CODE_WORDS} words at F={f})")
+    if block_m % rpt:
+        return (f"not a multiple of BANK_ROWS_PER_THREAD = {rpt} rows (the "
+                f"padded layout's rows a thread)")
+    need = 4 * bank_words(kind, pad, group, block_m, f, n, h, o)
+    if need > SMEM_MAX_BYTES:
+        return (f"needs {need} bytes of shared memory; the H100 limit per "
+                f"block is {SMEM_MAX_BYTES}")
+    return None
+
+
 def bank_geometry(kind: str, d: int, m: int, f: int, n: int, h: int,
-                  o: int) -> BankGeometry:
+                  o: int, block_m: Optional[int] = None) -> BankGeometry:
     """The launch of one bank call, M, D >= 1 (``h`` is ignored for an
     SVM): G designs whose operands fit ``BANK_GROUP_BYTES`` (at most
     ``BANK_MAX_GROUP``), the largest such G that still leaves
@@ -184,7 +234,12 @@ def bank_geometry(kind: str, d: int, m: int, f: int, n: int, h: int,
     the tiles times the groups give ``BANK_MIN_BLOCKS`` wherever M allows
     (at most ``BANK_MAX_ROWS`` and ``BANK_CODE_WORDS // F``); L = min(G,
     threads / (R / 4)) design lanes. One design at the limit: unpadded,
-    one row a thread, R cut to the shared memory left."""
+    one row a thread, R cut to the shared memory left.
+
+    ``block_m`` (the tile knob; None or 0: the heuristic above) sets R and
+    nothing else: the group and the layout stay the heuristic's. A tile
+    the kernel cannot take raises ValueError naming the limit
+    (``bank_tile_error``); it is never clamped."""
     h = h if kind == "mlp" else 0
     fit = BANK_GROUP_BYTES // (4 * bank_operand_words(kind, True, 1, f, n,
                                                       h, o))
@@ -200,20 +255,23 @@ def bank_geometry(kind: str, d: int, m: int, f: int, n: int, h: int,
     rows = min(BANK_MAX_ROWS, BANK_CODE_WORDS // f, by_fill, _round4(m))
     rows = max(rpt, rows // rpt * rpt)
     pad = True
-    staged = o <= BANK_O_CHUNK and (rows // rpt) % 32 == 0
-    words = (bank_operand_words(kind, True, group, f, n, h, o) + rows * f
-             + (BANK_THREADS // 32 * BANK_WARP_RUN if staged else 0))
-    if 4 * words > SMEM_MAX_BYTES:
-        pad, rpt, staged = False, 1, False
+    if 4 * bank_words(kind, True, group, rows, f, n, h, o) > SMEM_MAX_BYTES:
+        pad, rpt = False, 1
         one = bank_operand_words(kind, False, 1, f, n, h, o)
         rows = max(1, min(BANK_MAX_ROWS, BANK_CODE_WORDS // f, by_fill, m,
                           (SMEM_MAX_BYTES // 4 - one) // f))
-        words = one + rows * f
+    if block_m:
+        why = bank_tile_error(kind, pad, group, f, n, h, o, block_m)
+        if why is not None:
+            raise ValueError(f"bank tile block_m={block_m} (F={f}, "
+                             f"2^N={n}, H={h}, O={o}, G={group}): {why}")
+        rows = block_m
     lanes = min(group, BANK_THREADS // (rows // rpt))
     tiles = _ceil(m, rows)
+    words = bank_words(kind, pad, group, rows, f, n, h, o)
     return BankGeometry(BANK_THREADS, rows, rpt, lanes, group, groups, tiles,
-                        min(tiles, MAX_GRID_X), groups, int(pad), int(staged),
-                        4 * words)
+                        min(tiles, MAX_GRID_X), groups, int(pad),
+                        int(_bank_staged(pad, rows, o)), 4 * words)
 
 
 Q_THREADS = 256                   # threads per quantizer block
@@ -241,14 +299,35 @@ class QuantizeGeometry(NamedTuple):
     smem_bytes: int
 
 
-def quantize_geometry(p: int, m: int, c: int, n: int) -> QuantizeGeometry:
+def quantize_tile_error(c: int, block_m: int) -> Optional[str]:
+    """None when a quantizer block takes a tile of ``block_m`` rows at C
+    channels (a span of block_m * C elements rounded up to a multiple of
+    4), else the limit the tile breaks, named (csrc/adc_quantize.cu
+    refuses the same tiles)."""
+    if block_m < 1:
+        return "a tile takes at least one row"
+    span = _round4(block_m * c)
+    if span > Q_SPAN_MAX:
+        return (f"{span} elements at C={c}, above Q_SPAN_MAX = {Q_SPAN_MAX} "
+                f"elements a quantizer block takes ({Q_THREADS} threads x "
+                f"{Q_CHUNKS} chunks of 4)")
+    return None
+
+
+def quantize_geometry(p: int, m: int, c: int, n: int,
+                      block_m: Optional[int] = None) -> QuantizeGeometry:
     """The launch of one quantizer call, P, M >= 1: G tables fit
     ``Q_GROUP_BYTES`` beside the range rows (at most ``Q_MAX_GROUP``),
     the largest such G that still leaves ``Q_MIN_BLOCKS`` blocks of full
     spans (``Q_SPAN_FULL`` elements), 1 where none does, P split evenly;
     the flat x cut into spans, a multiple of 4 elements, at most
     ``Q_SPAN_MAX``, and enough of them that the groups times the spans
-    give ``Q_MIN_BLOCKS`` wherever M*C allows."""
+    give ``Q_MIN_BLOCKS`` wherever M*C allows.
+
+    ``block_m`` (the tile knob; None or 0: the heuristic above) sets the
+    span to block_m * C rounded up to a multiple of 4 and nothing else; a
+    tile the kernel cannot take raises ValueError naming the limit
+    (``quantize_tile_error``)."""
     total = m * c
     fit = min((Q_GROUP_BYTES - 8 * c) // (4 * c * n), Q_MAX_GROUP, p)
     full = max(1, total // Q_SPAN_FULL)
@@ -257,8 +336,14 @@ def quantize_geometry(p: int, m: int, c: int, n: int) -> QuantizeGeometry:
     fit = max(1, fit)
     groups = _ceil(p, fit)
     group = _ceil(p, groups)
-    spans = max(_ceil(total, Q_SPAN_MAX), _ceil(Q_MIN_BLOCKS, groups))
-    span = max(4, _ceil(total, spans) // 4 * 4)
+    if block_m:
+        why = quantize_tile_error(c, block_m)
+        if why is not None:
+            raise ValueError(f"quantizer tile block_m={block_m}: {why}")
+        span = _round4(block_m * c)
+    else:
+        spans = max(_ceil(total, Q_SPAN_MAX), _ceil(Q_MIN_BLOCKS, groups))
+        span = max(4, _ceil(total, spans) // 4 * 4)
     spans = _ceil(total, span)
     return QuantizeGeometry(Q_THREADS, group, groups, span, spans,
                             min(spans, MAX_GRID_X), groups,
@@ -289,6 +374,7 @@ MC_BATCH = 8                      # rows a row lane carries at once
 MC_CHUNK_BYTES = 65536            # x bytes of a block's chunk of M
 MC_MIN_BLOCKS = 264               # two blocks an SM of an H100
 MC_MAX_GRID_X = MAX_GRID_X
+MC_MAX_CHUNK_ROWS = 1 << 30       # a chunk's rows, counted in 32-bit ints
 MC_REGISTER_LEAVES = (2, 4, 8, 16, 32)   # 2^N unrolled in registers
 
 
@@ -310,20 +396,52 @@ class McGeometry(NamedTuple):
     smem_bytes: int
 
 
-def mc_geometry(p: int, s: int, m: int, c: int, n: int) -> McGeometry:
+def mc_row_lanes(c: int) -> int:
+    """Rows a Monte-Carlo block walks side by side at C channels."""
+    return 1 if c >= MC_THREADS else MC_THREADS // c
+
+
+def mc_tile_error(c: int, block_m: int) -> Optional[str]:
+    """None when a Monte-Carlo block takes a chunk of ``block_m`` rows at
+    C channels, else the limit the chunk breaks, named (csrc/mc_eval.cu
+    refuses the same tiles)."""
+    unit = mc_row_lanes(c) * MC_BATCH
+    if block_m < 1:
+        return "a chunk takes at least one row"
+    if block_m % unit:
+        return (f"not a whole number of row lanes x MC_BATCH = "
+                f"{mc_row_lanes(c)} x {MC_BATCH} = {unit} rows at C={c}")
+    if block_m > MC_MAX_CHUNK_ROWS:
+        return (f"above MC_MAX_CHUNK_ROWS = {MC_MAX_CHUNK_ROWS} rows (the "
+                f"kernel counts a chunk's rows in 32-bit ints)")
+    return None
+
+
+def mc_geometry(p: int, s: int, m: int, c: int, n: int,
+                block_m: Optional[int] = None) -> McGeometry:
     """The launch geometry of one Monte-Carlo call, M >= 1: M cut into
     chunks whose x fits ``MC_CHUNK_BYTES`` (it stays in L1 while a block
     walks it), and finer where P*S alone gives fewer than
     ``MC_MIN_BLOCKS`` blocks; each chunk a whole number of batches of
-    ``MC_BATCH`` rows for every row lane."""
+    ``MC_BATCH`` rows for every row lane.
+
+    ``block_m`` (the tile knob; None or 0: the heuristic above) sets the
+    chunk's rows and nothing else; a chunk the kernel cannot take raises
+    ValueError naming the limit (``mc_tile_error``)."""
     ceil = lambda a, b: -(-a // b)                      # noqa: E731
-    lanes = 1 if c >= MC_THREADS else MC_THREADS // c
-    batches = ceil(ceil(m, lanes), MC_BATCH)
-    batch_bytes = 4 * c * lanes * MC_BATCH
-    chunks = ceil(batches, MC_CHUNK_BYTES // batch_bytes
-                  if batch_bytes < MC_CHUNK_BYTES else 1)
-    chunks = max(chunks, min(ceil(MC_MIN_BLOCKS, p * s), batches))
-    chunk_rows = lanes * MC_BATCH * ceil(batches, chunks)
+    lanes = mc_row_lanes(c)
+    if block_m:
+        why = mc_tile_error(c, block_m)
+        if why is not None:
+            raise ValueError(f"Monte-Carlo tile block_m={block_m}: {why}")
+        chunk_rows = block_m
+    else:
+        batches = ceil(ceil(m, lanes), MC_BATCH)
+        batch_bytes = 4 * c * lanes * MC_BATCH
+        chunks = ceil(batches, MC_CHUNK_BYTES // batch_bytes
+                      if batch_bytes < MC_CHUNK_BYTES else 1)
+        chunks = max(chunks, min(ceil(MC_MIN_BLOCKS, p * s), batches))
+        chunk_rows = lanes * MC_BATCH * ceil(batches, chunks)
     chunks = ceil(m, chunk_rows)
     return McGeometry(MC_THREADS, lanes, chunk_rows, chunks,
                       min(p * s, MC_MAX_GRID_X), min(chunks, MAX_DESIGNS),

@@ -15,16 +15,22 @@ wrapper checks device, dtype, shape and contiguity, allocates the output
 with ``torch.empty``, launches on the current stream, raises if the
 launch reports an error, and adds one to ``launches[<entry>]``. There is
 no fallback.
+
+The tile (``block_m``: the rows of a block's chunk of M,
+envelope.mc_geometry) is the caller's where given, else the tuned
+table's for the call's shape class (kernels/dispatch.py), else the
+kernel's heuristic. A tile the kernel cannot take raises ValueError
+naming the limit, on any device. No tile changes a bit of the output.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, dispatch, ref
+from repro_torch.kernels import _build, dispatch, envelope, ref
 
 ENTRIES = ("mc_adc_eval", "mc_adc_eval_population", "mc_adc_eval_cal",
            "mc_adc_eval_cal_population")
@@ -47,21 +53,26 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mc_eval")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mc_eval.argtypes = [ptr] * 7 + [ctypes.c_longlong] + [i32] * 5 \
-        + [ptr]
+    i64 = ctypes.c_longlong
+    lib.mc_eval.argtypes = [ptr] * 7 + [i64] + [i32] * 5 + [i64, ptr]
     lib.mc_eval.restype = i32
     lib.mc_eval_error_string.argtypes = [i32]
     lib.mc_eval_error_string.restype = ctypes.c_char_p
-    lib.mc_eval_geometry.argtypes = [ctypes.c_longlong] + [i32] * 4 + [ptr]
-    lib.mc_eval_geometry.restype = None
+    lib.mc_eval_geometry.argtypes = [i64] + [i32] * 4 + [i64, ptr]
+    lib.mc_eval_geometry.restype = i32
     return lib
 
 
-def geometry(p: int, s: int, m: int, c: int, n: int) -> Tuple[int, ...]:
-    """The launch geometry the built kernel takes for a call, in the
-    order of ``envelope.McGeometry``."""
+def geometry(p: int, s: int, m: int, c: int, n: int,
+             block_m: Optional[int] = None) -> Tuple[int, ...]:
+    """The launch geometry the built kernel takes for a call at tile
+    ``block_m`` (None: the heuristic), in the order of
+    ``envelope.McGeometry``. A tile the kernel refuses raises ValueError
+    with the kernel's reason."""
     got = (ctypes.c_longlong * 8)()
-    _lib().mc_eval_geometry(m, c, n, p, s, got)
+    err = _lib().mc_eval_geometry(m, c, n, p, s, block_m or 0, got)
+    if err != 0:
+        raise ValueError(_lib().mc_eval_error_string(err).decode())
     return tuple(got)
 
 
@@ -92,10 +103,13 @@ def _check(entry: str, x, lb, ub, values, lo, scale
     return p, s, m, c, n
 
 
-def _run(entry: str, x: torch.Tensor, lb, ub, values, lo,
-         scale) -> torch.Tensor:
+def _run(entry: str, x: torch.Tensor, lb, ub, values, lo, scale,
+         block_m: Optional[int]) -> torch.Tensor:
     p, s, m, c, n = _check(entry, x, lb, ub, values, lo, scale)
     res = dispatch.resolve_mc(entry, x, lb)
+    if block_m is not None and c > 0:           # raises on any device
+        envelope.mc_geometry(p, s, m, c, n, block_m)
+    tile = block_m if block_m is not None else res.block_m or 0
     if res.path == "plain":
         return _PLAIN[entry](x, lb, ub, values, lo, scale)
     operands = (x, lb, ub, values, lo, scale)
@@ -117,36 +131,39 @@ def _run(entry: str, x: torch.Tensor, lb, ub, values, lo,
         err = _lib().mc_eval(
             x.data_ptr(), lb.data_ptr(), ub.data_ptr(), values.data_ptr(),
             lo.data_ptr(), scale.data_ptr(), out.data_ptr(), m, c, n, p, s,
-            int("_cal" in entry), stream)
+            int("_cal" in entry), tile, stream)
     if err != 0:
         msg = _lib().mc_eval_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"{entry} launch failed: error {err} ({msg})")
     launches[entry] += 1
     return out
 
 
-def mc_adc_eval(x, lb, ub, values, lo, scale) -> torch.Tensor:
+def mc_adc_eval(x, lb, ub, values, lo, scale, *,
+                block_m: Optional[int] = None) -> torch.Tensor:
     """One design: x (M, C); lb/ub (S, C, 2^N); values (C, 2^N);
     lo/scale (S, C). Returns (S, M, C)."""
-    return _run("mc_adc_eval", x, lb, ub, values, lo, scale)
+    return _run("mc_adc_eval", x, lb, ub, values, lo, scale, block_m)
 
 
-def mc_adc_eval_population(x, lb, ub, values, lo, scale) -> torch.Tensor:
+def mc_adc_eval_population(x, lb, ub, values, lo, scale, *,
+                           block_m: Optional[int] = None) -> torch.Tensor:
     """P designs: lb/ub (P, S, C, 2^N); values (C, 2^N) and lo/scale
     (S, C) shared. Returns (P, S, M, C)."""
-    return _run("mc_adc_eval_population", x, lb, ub, values, lo, scale)
+    return _run("mc_adc_eval_population", x, lb, ub, values, lo, scale,
+                block_m)
 
 
-def mc_adc_eval_cal(x, lb, ub, values, lo, scale) -> torch.Tensor:
+def mc_adc_eval_cal(x, lb, ub, values, lo, scale, *,
+                    block_m: Optional[int] = None) -> torch.Tensor:
     """One design, calibrated: lb/ub/values (S, C, 2^N). Returns
     (S, M, C)."""
-    return _run("mc_adc_eval_cal", x, lb, ub, values, lo, scale)
+    return _run("mc_adc_eval_cal", x, lb, ub, values, lo, scale, block_m)
 
 
-def mc_adc_eval_cal_population(x, lb, ub, values, lo,
-                               scale) -> torch.Tensor:
+def mc_adc_eval_cal_population(x, lb, ub, values, lo, scale, *,
+                               block_m: Optional[int] = None) -> torch.Tensor:
     """P designs, calibrated: lb/ub/values (P, S, C, 2^N); lo/scale
     (S, C) shared. Returns (P, S, M, C)."""
     return _run("mc_adc_eval_cal_population", x, lb, ub, values, lo,
-                scale)
+                scale, block_m)

@@ -14,7 +14,9 @@ kernel. ``flash_attention`` runs an attention kernel (the LM's prefill
 attention; tensor cores for bf16 at the configs' head widths, CUDA cores
 otherwise). Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
-applied inside the kernel wrappers.
+applied inside the kernel wrappers. Each kernel entry takes an optional
+``block_m``, the kernel's tile (kernels/envelope.py); None leaves it to
+the tuned table and the heuristic (kernels/dispatch.py).
 
 ``adc_quantize_population_sharded`` / ``classifier_bank_sharded`` split
 the leading population or design axis over a ``launch.mesh.Mesh``
@@ -37,22 +39,25 @@ from repro_torch.kernels import mc_eval as _mc
 from repro_torch.kernels import qmlp
 
 
-def adc_quantize(x: torch.Tensor, mask, *, spec: AdcSpec) -> torch.Tensor:
+def adc_quantize(x: torch.Tensor, mask, *, spec: AdcSpec,
+                 block_m=None) -> torch.Tensor:
     """Quantize (M, C) samples through per-channel pruned binary-search
     ADCs, mask (C, 2^bits). Returns (M, C)."""
     spec = as_spec(spec)
     table = spec.value_table(torch.as_tensor(mask, device=x.device))
-    return _adcq.adc_quantize(x, table.contiguous(), spec=spec)
+    return _adcq.adc_quantize(x, table.contiguous(), spec=spec,
+                              block_m=block_m)
 
 
-def adc_quantize_population(x: torch.Tensor, masks, *,
-                            spec: AdcSpec) -> torch.Tensor:
+def adc_quantize_population(x: torch.Tensor, masks, *, spec: AdcSpec,
+                            block_m=None) -> torch.Tensor:
     """Quantize one shared (M, C) sample batch through a whole population
     of pruned ADC banks, masks (P, C, 2^bits), in one launch. Returns
     (P, M, C)."""
     spec = as_spec(spec)
     tables = spec.value_table(torch.as_tensor(masks, device=x.device))
-    return _adcq.adc_quantize_population(x, tables.contiguous(), spec=spec)
+    return _adcq.adc_quantize_population(x, tables.contiguous(), spec=spec,
+                                         block_m=block_m)
 
 
 def adc_quantize_variants(xv: torch.Tensor, masks, *,
@@ -135,7 +140,8 @@ def classifier_bank_sharded(x: torch.Tensor, tables, weights, *, mesh,
 
 
 def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,
-                    kind: str, spec: AdcSpec, rows=None) -> torch.Tensor:
+                    kind: str, spec: AdcSpec, rows=None,
+                    block_m=None) -> torch.Tensor:
     """One shared (M, C) batch through a deployed multi-design bank.
 
     tables: (D, C, 2^bits) baked value tables; weights: stacked
@@ -145,56 +151,63 @@ def classifier_bank(x: torch.Tensor, tables: torch.Tensor, weights, *,
     spec = as_spec(spec)
     if kind == "mlp":
         return qmlp.bespoke_mlp_bank(x, tables, *weights, spec=spec,
-                                     rows=rows)
+                                     rows=rows, block_m=block_m)
     if kind == "svm":
         return qmlp.bespoke_svm_bank(x, tables, *weights, spec=spec,
-                                     rows=rows)
+                                     rows=rows, block_m=block_m)
     raise ValueError(f"unknown classifier kind {kind!r}")
 
 
-def bespoke_mlp(x, mask, w1, b1, w2, b2, *, spec: AdcSpec) -> torch.Tensor:
+def bespoke_mlp(x, mask, w1, b1, w2, b2, *, spec: AdcSpec,
+                block_m=None) -> torch.Tensor:
     """Fused ADC + 1-hidden-layer printed MLP on one design, from its
     pruned mask (C, 2^bits). Returns (M, O)."""
     spec = as_spec(spec)
     table = spec.value_table(torch.as_tensor(mask, device=x.device))
-    return qmlp.bespoke_mlp(x, table, w1, b1, w2, b2, spec=spec)
+    return qmlp.bespoke_mlp(x, table, w1, b1, w2, b2, spec=spec,
+                            block_m=block_m)
 
 
-def bespoke_svm(x, mask, w, b, *, spec: AdcSpec) -> torch.Tensor:
+def bespoke_svm(x, mask, w, b, *, spec: AdcSpec,
+                block_m=None) -> torch.Tensor:
     """Fused ADC + linear SVM on one design, from its pruned mask."""
     spec = as_spec(spec)
     table = spec.value_table(torch.as_tensor(mask, device=x.device))
-    return qmlp.bespoke_svm(x, table, w, b, spec=spec)
+    return qmlp.bespoke_svm(x, table, w, b, spec=spec, block_m=block_m)
 
 
-def mc_eval(x, lb, ub, values, lo, scale, *, spec: AdcSpec) -> torch.Tensor:
+def mc_eval(x, lb, ub, values, lo, scale, *, spec: AdcSpec,
+            block_m=None) -> torch.Tensor:
     """S perturbed instances of one design: lb/ub (S, C, 2^N), values
     (C, 2^N), lo/scale (S, C) -> (S, M, C)."""
     as_spec(spec).validate_channels(x.shape[-1])
-    return _mc.mc_adc_eval(x, lb, ub, values, lo, scale)
+    return _mc.mc_adc_eval(x, lb, ub, values, lo, scale, block_m=block_m)
 
 
-def mc_eval_population(x, lb, ub, values, lo, scale, *,
-                       spec: AdcSpec) -> torch.Tensor:
+def mc_eval_population(x, lb, ub, values, lo, scale, *, spec: AdcSpec,
+                       block_m=None) -> torch.Tensor:
     """S perturbed instances of P designs, draws shared: lb/ub
     (P, S, C, 2^N) -> (P, S, M, C)."""
     as_spec(spec).validate_channels(x.shape[-1])
-    return _mc.mc_adc_eval_population(x, lb, ub, values, lo, scale)
+    return _mc.mc_adc_eval_population(x, lb, ub, values, lo, scale,
+                                      block_m=block_m)
 
 
-def mc_eval_cal(x, lb, ub, values, lo, scale, *,
-                spec: AdcSpec) -> torch.Tensor:
+def mc_eval_cal(x, lb, ub, values, lo, scale, *, spec: AdcSpec,
+                block_m=None) -> torch.Tensor:
     """Calibrated tables, one design: values (S, C, 2^N) -> (S, M, C)."""
     as_spec(spec).validate_channels(x.shape[-1])
-    return _mc.mc_adc_eval_cal(x, lb, ub, values, lo, scale)
+    return _mc.mc_adc_eval_cal(x, lb, ub, values, lo, scale,
+                               block_m=block_m)
 
 
-def mc_eval_cal_population(x, lb, ub, values, lo, scale, *,
-                           spec: AdcSpec) -> torch.Tensor:
+def mc_eval_cal_population(x, lb, ub, values, lo, scale, *, spec: AdcSpec,
+                           block_m=None) -> torch.Tensor:
     """Calibrated tables, P designs: lb/ub/values (P, S, C, 2^N) ->
     (P, S, M, C)."""
     as_spec(spec).validate_channels(x.shape[-1])
-    return _mc.mc_adc_eval_cal_population(x, lb, ub, values, lo, scale)
+    return _mc.mc_adc_eval_cal_population(x, lb, ub, values, lo, scale,
+                                          block_m=block_m)
 
 
 def flash_attention(q, k, v, q_positions, k_positions, *, causal=True,

@@ -18,15 +18,16 @@ the copy out. The dispatch runs in a worker thread under
 ``torch.inference_mode()`` (grad mode is per thread); the bank wrapper
 enters the input's CUDA device itself.
 
-**The batch quantum.** The reference reads its ladder quantum from the
-tuned Pallas ``block_m`` and falls back to 32 off-table. The port has no
-tuned table (``kernels/dispatch.py``), and ``qmlp_bank.cu``'s row tile is
-not one number (``envelope.bank_geometry`` gives 4 rows at M=256, D=6),
-so ``bank_quantum`` returns the reference's off-table default,
-``(32, "default")``, which is what the reference itself returns for the
-cardio fixture fronts on the CPU; both packages then build the same
-ladder and, fed the same latencies, follow the same trajectory. A tuned
-table (ROADMAP A10) would change speed, never values.
+**The batch quantum.** As in the reference, the ladder's quantum is the
+tuned tile the dispatch layer would pick for the tenant's bank at
+``max_batch`` rows (``bank_quantum``): on the card, the bank kernel's
+tuned rows from ``kernels/tuned_tables.json`` (perf/autotune.py), where
+the table has the bank's shape class; otherwise, and on a CPU pool (the
+plain version has no tile), the reference's off-table default,
+``(32, "default")``, which is what the reference gives the cardio fixture
+fronts on the CPU, so both packages build the same ladder there and, fed
+the same latencies, follow the same trajectory. A tuned quantum changes
+the batch shapes and so the latencies, never a response.
 
 **The device pool.** ``DevicePool`` holds ``torch.device`` entries,
 ``[cuda]`` by default (raising without a card). Every tenant's bank is
@@ -216,12 +217,29 @@ class AdaptiveBatcher:
 
 
 def bank_quantum(designs: Sequence[deploy.DeployedClassifier],
-                 max_batch: int, *, default: int = 32) -> Tuple[int, str]:
-    """The batch-ladder quantum for a front: the reference's off-table
-    ``default``. The port has no tuned tile table yet (ROADMAP A10), and
-    the bank kernel's row tile depends on the bank's shape, so every
-    front gets ``(default, "default")``, as the reference gives the
-    cardio fixture fronts."""
+                 max_batch: int, *, default: int = 32,
+                 device: DeviceLike = None) -> Tuple[int, str]:
+    """The batch-ladder quantum for a front: the tuned tile (rows) the
+    dispatch layer would pick for this bank's shape class at
+    ``max_batch`` rows (kernels/dispatch.py), else ``default``. A CPU
+    ``device`` runs the plain version, which carries no tile, so it gets
+    ``default``; ``None`` means the card, as everywhere in the port (the
+    table is consulted without probing for one)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.perf.workload import Workload
+    if device is not None and torch.device(device).type == "cpu":
+        return int(default), "default"
+    d0 = designs[0]
+    c = d0.table.shape[0]
+    if d0.kind == "mlp":
+        h, o = d0.weights[0].shape[1], d0.weights[2].shape[1]
+    else:
+        h, o = 0, d0.weights[0].shape[1]
+    w = Workload(entry=f"classifier_bank_{d0.kind}", m=max_batch, c=c,
+                 bits=d0.bits, d=len(designs), h=h, o=o)
+    bm, _ = dispatch.tuned_block_m(w.entry, w)
+    if bm:
+        return int(bm), "tuned"
     return int(default), "default"
 
 
@@ -299,7 +317,8 @@ class _TenantState:
     def __init__(self, tenant: Tenant, *, target_latency_s: float,
                  max_batch: int, device: torch.device) -> None:
         self.tenant = tenant
-        quantum, src = bank_quantum(tenant.designs, max_batch)
+        quantum, src = bank_quantum(tenant.designs, max_batch,
+                                    device=device)
         self.quantum_source = src
         self.batcher = AdaptiveBatcher(quantum=quantum, max_batch=max_batch,
                                        target_latency_s=target_latency_s)

@@ -65,6 +65,9 @@ def test_importing_every_port_module_loads_no_jax():
             } <= set(mods)
     assert {"repro_torch.launch.mesh", "repro_torch.distributed.sharding",
             "repro_torch.distributed.elastic"} <= set(mods)
+    assert {"repro_torch.perf", "repro_torch.perf.workload",
+            "repro_torch.perf.cost_model", "repro_torch.perf.autotune"
+            } <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

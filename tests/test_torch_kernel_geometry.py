@@ -352,3 +352,199 @@ def test_wrapper_keeps_the_range_rows(monkeypatch):
     adc_quantize.range_rows(AdcSpec(bits=4), 21, "cpu")
     assert len(built) == 3
     adc_quantize._range_rows.cache_clear()
+
+
+# ------------------------------------------------------------- the tile
+# The tile knob (``block_m``): the bank's rows, the quantizer's span of
+# block_m * C elements, each a geometry the kernels' walks above must
+# cover exactly once; a tile the kernel cannot take raises, naming its
+# limit; no tile (None or 0) is the geometry the kernels had before the
+# knob, here at the paths' shapes.
+QUANTIZE_TILE_CASES = [(p, m, c, n, bm) for p, m, c, n in
+                       ((16, 636, 21, 16), (5, 257, 3, 2), (7, 10, 7, 8),
+                        (2, 3, 1, 2), (17, 2, 2, 2), (3, 600, 200, 64))
+                       for bm in (1, 2, 3, 7, 87, envelope.Q_SPAN_MAX // c)
+                       if bm * c <= envelope.Q_SPAN_MAX]
+
+
+@pytest.mark.parametrize("p,m,c,n,block_m", QUANTIZE_TILE_CASES)
+def test_quantizer_tile_writes_every_output_once(p, m, c, n, block_m):
+    g = envelope.quantize_geometry(p, m, c, n, block_m)
+    heuristic = envelope.quantize_geometry(p, m, c, n)
+    assert g.span == -(-block_m * c // 4) * 4 <= envelope.Q_SPAN_MAX
+    assert (g.group, g.groups, g.smem_bytes) == (heuristic.group,
+                                                 heuristic.groups,
+                                                 heuristic.smem_bytes)
+    assert (quantize_writes(g, p, m, c) == 1).all()
+    assert g.spans * g.span >= m * c > (g.spans - 1) * g.span
+
+
+def _bank_tiles(kind, d, m, f, n, h, o):
+    g = envelope.bank_geometry(kind, d, m, f, n, h, o)
+    unit = g.per_thread
+    top = min(envelope.BANK_MAX_ROWS, max(unit, envelope.BANK_CODE_WORDS // f))
+    return sorted({unit, 2 * unit, 3 * unit, 5 * unit, g.rows,
+                   top // unit * unit} - {0})
+
+
+BANK_TILE_CASES = [case + (bm,) for case in
+                   (("mlp", 6, 1024, 21, 16, 5, 3), ("svm", 3, 256, 21, 16,
+                                                     0, 3),
+                    ("mlp", 1, 636, 21, 16, 5, 3), ("svm", 17, 1000, 21, 16,
+                                                    0, 3),
+                    ("mlp", 3, 333, 16, 16, 20, 11),
+                    ("mlp", 2, 300, 200, 64, 8, 4),
+                    ("mlp", 1, 50, 200, 256, 5, 3), ("mlp", 2, 9, 3, 4, 1, 1),
+                    ("mlp", 1, 1024, 1000, 36, 20, 3))
+                   for bm in _bank_tiles(*case)]
+
+
+@pytest.mark.parametrize("kind,d,m,f,n,h,o,block_m", BANK_TILE_CASES)
+def test_bank_tile_writes_every_output_once(kind, d, m, f, n, h, o, block_m):
+    heuristic = envelope.bank_geometry(kind, d, m, f, n, h, o)
+    if envelope.bank_tile_error(kind, bool(heuristic.padded),
+                                heuristic.group, f, n, h, o, block_m):
+        with pytest.raises(ValueError, match="bank tile"):
+            envelope.bank_geometry(kind, d, m, f, n, h, o, block_m)
+        return
+    g = envelope.bank_geometry(kind, d, m, f, n, h, o, block_m)
+    assert g.rows == block_m
+    assert (g.group, g.groups, g.padded, g.per_thread) == (
+        heuristic.group, heuristic.groups, heuristic.padded,
+        heuristic.per_thread)
+    assert (bank_writes(g, kind, d, m, f, o) == 1).all()
+    assert g.tiles * g.rows >= m > (g.tiles - 1) * g.rows
+    assert 1 <= (g.rows // g.per_thread) * g.lanes <= g.threads
+    assert g.smem_bytes == 4 * envelope.bank_words(
+        kind, bool(g.padded), g.group, g.rows, f, n, h, o) \
+        <= envelope.SMEM_MAX_BYTES
+
+
+@pytest.mark.parametrize("kind,d,m,f,n,h,o", BANK_CASES)
+def test_bank_heuristic_tile_is_the_heuristic(kind, d, m, f, n, h, o):
+    """The heuristic's own rows, passed as the tile, give its launch back
+    (the autotuner measures the heuristic that way); 0 is no tile."""
+    g = envelope.bank_geometry(kind, d, m, f, n, h, o)
+    assert envelope.bank_geometry(kind, d, m, f, n, h, o, g.rows) == g
+    assert envelope.bank_geometry(kind, d, m, f, n, h, o, 0) == g
+
+
+def test_invalid_tiles_raise_naming_the_limit():
+    bank = ("mlp", 6, 1024, 21, 16, 5, 3)
+    for bm, limit in ((-1, "at least one row"),
+                      (6, "BANK_ROWS_PER_THREAD"),
+                      (260, "BANK_MAX_ROWS")):
+        with pytest.raises(ValueError, match=limit):
+            envelope.bank_geometry(*bank, block_m=bm)
+    with pytest.raises(ValueError, match="BANK_CODE_WORDS"):
+        envelope.bank_geometry("mlp", 2, 300, 200, 64, 8, 4, block_m=44)
+    # one design near the limit (the unpadded layout, one row a thread):
+    # two rows of codes fit beside its operands, eight do not
+    edge = ("mlp", 1, 1024, 1000, 36, 20, 3)
+    assert not envelope.bank_geometry(*edge).padded
+    with pytest.raises(ValueError, match="shared memory"):
+        envelope.bank_geometry(*edge, block_m=8)
+    assert envelope.bank_geometry(*edge, block_m=1).rows == 1
+    assert envelope.bank_geometry(*edge, block_m=2).rows == 2
+    for bm, limit in ((-1, "at least one row"), (196, "Q_SPAN_MAX")):
+        with pytest.raises(ValueError, match=limit):
+            envelope.quantize_geometry(16, 1488, 21, 16, bm)
+        assert limit in envelope.quantize_tile_error(21, bm)
+    assert envelope.quantize_tile_error(21, 195) is None
+    assert envelope.quantize_geometry(16, 1488, 21, 16, 195).span == 4096
+
+
+# the launches before the tile knob, at the paths' shapes: the quantizer
+# (P, M, C, 2^N) -> QuantizeGeometry, the banks (kind, D, M, F, 2^N, H,
+# O) -> BankGeometry
+TODAY_QUANTIZE = {
+    (16, 1488, 21, 16): (256, 1, 16, 1836, 18, 18, 16, 1512),
+    (16, 636, 21, 16): (256, 1, 16, 784, 18, 18, 16, 1512),
+    (32, 1488, 21, 16): (256, 3, 11, 1300, 25, 25, 11, 4200),
+    (1, 636, 21, 16): (256, 1, 1, 48, 279, 279, 1, 1512),
+    (64, 65536, 21, 16): (256, 32, 2, 4096, 336, 336, 2, 43176),
+    (16, 1980, 16, 8): (256, 1, 16, 1864, 17, 17, 16, 640),
+    (16, 1680, 24, 8): (256, 2, 8, 1220, 34, 34, 8, 1728),
+    (8, 600, 16, 4): (256, 1, 8, 288, 34, 34, 8, 384)}
+TODAY_BANK = {
+    ("mlp", 6, 1024, 21, 16, 5, 3): (256, 44, 4, 1, 1, 6, 24, 24, 6, 1, 0,
+                                     5840),
+    ("svm", 3, 1024, 21, 16, 0, 3): (256, 20, 4, 1, 1, 3, 52, 52, 3, 1, 0,
+                                     3376),
+    ("mlp", 1, 1024, 21, 16, 5, 3): (256, 4, 4, 1, 1, 1, 256, 256, 1, 1, 0,
+                                     2480),
+    ("svm", 1, 1024, 21, 16, 0, 3): (256, 4, 4, 1, 1, 1, 256, 256, 1, 1, 0,
+                                     2032),
+    ("mlp", 6, 256, 21, 16, 5, 3): (256, 8, 4, 1, 1, 6, 32, 32, 6, 1, 0,
+                                    2816),
+    ("svm", 3, 256, 21, 16, 0, 3): (256, 4, 4, 1, 1, 3, 64, 64, 3, 1, 0,
+                                    2032),
+    ("mlp", 64, 65536, 21, 16, 5, 3): (256, 256, 4, 4, 16, 4, 256, 256, 4,
+                                       1, 1, 71936),
+    ("svm", 64, 65536, 21, 16, 0, 3): (256, 256, 4, 4, 16, 4, 256, 256, 4,
+                                       1, 1, 64960),
+    ("mlp", 6, 636, 21, 16, 5, 3): (256, 28, 4, 1, 1, 6, 23, 23, 6, 1, 0,
+                                    4496)}
+
+
+@pytest.mark.parametrize("shape", sorted(TODAY_QUANTIZE))
+def test_no_quantizer_tile_is_todays_geometry(shape):
+    assert tuple(envelope.quantize_geometry(*shape)) == TODAY_QUANTIZE[shape]
+    assert tuple(envelope.quantize_geometry(*shape, block_m=None)) == \
+        tuple(envelope.quantize_geometry(*shape, block_m=0))
+
+
+@pytest.mark.parametrize("shape", sorted(TODAY_BANK))
+def test_no_bank_tile_is_todays_geometry(shape):
+    assert tuple(envelope.bank_geometry(*shape)) == TODAY_BANK[shape]
+    assert tuple(envelope.bank_geometry(*shape, block_m=None)) == \
+        tuple(envelope.bank_geometry(*shape, block_m=0))
+
+
+def test_source_tile_limits_match_the_mirror():
+    """The CUDA sources refuse the tiles the mirrors refuse: the bank's
+    rows above kMaxRows, kCodeWords / F (at least the rows a thread), off
+    kRowsPerThread in the padded layout or above kSmemMax; the
+    quantizer's span above kSpanMax; block_m 0 the heuristic."""
+    bank = (CSRC / "qmlp_bank.cu").read_text()
+    for rule in (r"if \(block_m > kMaxRows\) return kTileAboveMaxRows;",
+                 r"kCodeWords / f > g\.per_thread \? kCodeWords / f : "
+                 r"g\.per_thread",
+                 r"if \(block_m > by_codes\) return kTileAboveCodeWords;",
+                 r"if \(block_m % g\.per_thread != 0\) return "
+                 r"kTileNotWholeRowGroups;",
+                 r"block_words\(mlp, g\.pad, g\.group, block_m, f, n, h, o\) "
+                 r"> kSmemMax\)",
+                 r"\} else if \(block_m < 0\) \{\s+return kTileBelowOne;"):
+        assert re.search(rule, bank), rule
+    quant = (CSRC / "adc_quantize.cu").read_text()
+    for rule in (r"span = ceil_div\(block_m \* c, 4\) \* 4;",
+                 r"if \(span > kSpanMax\) return kTileAboveSpanMax;",
+                 r"\} else if \(block_m < 0\) \{\s+return kTileBelowOne;"):
+        assert re.search(rule, quant), rule
+    for src in (bank, quant):
+        assert "int64_t block_m" in src
+        assert re.search(r"long long block_m,\s+long long\* out", src)
+
+
+def _default_candidates(families):
+    from repro_torch.perf import autotune, cost_model
+    return [(w, bm) for w in autotune.default_workloads()
+            if cost_model.family(w.entry) in families
+            for bm in autotune.candidate_block_ms(w)]
+
+
+@pytest.mark.parametrize("w,block_m", _default_candidates(("quantize",
+                                                           "bank")),
+                         ids=lambda v: getattr(v, "entry", str(v)))
+def test_every_tuning_candidate_writes_every_output_once(w, block_m):
+    """Every tile the autotuner times at the paths' shapes
+    (autotune.default_workloads) covers each output exactly once."""
+    from repro_torch.perf import cost_model
+    g = cost_model.geometry(w, block_m)
+    if cost_model.family(w.entry) == "quantize":
+        assert (quantize_writes(g, w.p, w.m, w.c) == 1).all()
+    else:
+        kind = "mlp" if w.entry.endswith("mlp") else "svm"
+        assert g.rows == block_m
+        assert (bank_writes(g, kind, w.d, w.m, w.c, w.o) == 1).all()

@@ -145,3 +145,94 @@ def test_order_key_leaf_test_is_the_float_compare():
         want = (u >= lb) & (u < ub)
         got = leaf_live(u, lb, ub)
     assert want.any() and (got == want).all()
+
+
+# The tile knob (``block_m``): a chunk of block_m rows, a whole number of
+# row lanes x MC_BATCH; the walk above must cover every output once at
+# any such tile, a tile off that grid raises naming its limit, and no
+# tile is the launch the kernel had before the knob.
+TILE_CASES = [(p, s, m, c, n, k) for p, s, m, c, n in
+              ((16, 32, 636, 21, 16), (1, 32, 636, 21, 16),
+               (3, 8, 999, 21, 2), (5, 3, 257, 300, 2), (2, 3, 300, 200, 64),
+               (1, 1, 1, 21, 16), (2, 2, 1000, 1000, 8))
+              for k in (1, 2, 3, 7, 1000)]
+
+
+@pytest.mark.parametrize("p,s,m,c,n,k", TILE_CASES)
+def test_tile_writes_every_output_once(p, s, m, c, n, k):
+    unit = envelope.mc_row_lanes(c) * envelope.MC_BATCH
+    g = envelope.mc_geometry(p, s, m, c, n, k * unit)
+    assert g.chunk_rows == k * unit
+    per_ps, rows = kernel_writes(g, p * s, m, c)
+    assert (per_ps == 1).all() and (rows == 1).all()
+    assert g.chunks * g.chunk_rows >= m > (g.chunks - 1) * g.chunk_rows
+    assert 1 <= g.grid_y <= envelope.MAX_DESIGNS
+    heuristic = envelope.mc_geometry(p, s, m, c, n)
+    assert (g.row_lanes, g.grid_x, g.leaves, g.smem_bytes) == (
+        heuristic.row_lanes, heuristic.grid_x, heuristic.leaves,
+        heuristic.smem_bytes)
+
+
+@pytest.mark.parametrize("p,s,m,c,n", CASES)
+def test_heuristic_tile_is_the_heuristic(p, s, m, c, n):
+    g = envelope.mc_geometry(p, s, m, c, n)
+    assert envelope.mc_geometry(p, s, m, c, n, g.chunk_rows) == g
+    assert envelope.mc_geometry(p, s, m, c, n, 0) == g
+
+
+def test_invalid_tiles_raise_naming_the_limit():
+    unit = envelope.mc_row_lanes(21) * envelope.MC_BATCH
+    assert unit == 48
+    too_big = unit * (envelope.MC_MAX_CHUNK_ROWS // unit + 1)
+    for bm, limit in ((-1, "at least one row"), (50, "MC_BATCH"),
+                      (unit + 1, "MC_BATCH"),
+                      (too_big, "MC_MAX_CHUNK_ROWS")):
+        with pytest.raises(ValueError, match=limit):
+            envelope.mc_geometry(16, 32, 636, 21, 16, bm)
+        assert limit in envelope.mc_tile_error(21, bm)
+    assert envelope.mc_tile_error(21, 96) is None
+    assert envelope.mc_tile_error(300, 8) is None      # one lane at C > 128
+
+
+# the launches before the tile knob at the paths' shapes (P, S, M, C, 2^N)
+TODAY = {(16, 32, 636, 21, 16): (128, 6, 672, 1, 512, 1, 16, 4032),
+         (1, 32, 636, 21, 16): (128, 6, 96, 7, 32, 7, 16, 4032),
+         (6, 32, 636, 21, 16): (128, 6, 336, 2, 192, 2, 16, 4032),
+         (64, 32, 8192, 21, 16): (128, 6, 768, 11, 2048, 11, 16, 4032),
+         (16, 32, 1488, 21, 16): (128, 6, 768, 2, 512, 2, 16, 4032)}
+
+
+@pytest.mark.parametrize("shape", sorted(TODAY))
+def test_no_tile_is_todays_geometry(shape):
+    assert tuple(envelope.mc_geometry(*shape)) == TODAY[shape]
+    assert tuple(envelope.mc_geometry(*shape, block_m=None)) == TODAY[shape]
+
+
+def test_source_tile_limits_match_the_mirror():
+    text = SOURCE.read_text()
+    got = re.search(r"kMaxChunkRows = int64_t\{1\} << (\d+);", text)
+    assert got and 1 << int(got.group(1)) == envelope.MC_MAX_CHUNK_ROWS
+    for rule in (r"if \(block_m % \(int64_t\{g\.row_lanes\} \* kBatch\) "
+                 r"!= 0\) return kTileNotWholeBatches;",
+                 r"if \(block_m > kMaxChunkRows\) return "
+                 r"kTileAboveMaxChunkRows;",
+                 r"\} else if \(block_m < 0\) \{\s+return kTileBelowOne;"):
+        assert re.search(rule, text), rule
+    assert re.search(r"long long block_m,\s+long long\* out", text)
+
+
+def _default_candidates():
+    from repro_torch.perf import autotune, cost_model
+    return [(w, bm) for w in autotune.default_workloads()
+            if cost_model.family(w.entry) == "mc"
+            for bm in autotune.candidate_block_ms(w)]
+
+
+@pytest.mark.parametrize("w,block_m", _default_candidates(),
+                         ids=lambda v: getattr(v, "entry", str(v)))
+def test_every_tuning_candidate_writes_every_output_once(w, block_m):
+    """Every chunk the autotuner times at the paths' shapes
+    (autotune.default_workloads) covers each output exactly once."""
+    g = envelope.mc_geometry(w.p, w.s, w.m, w.c, w.levels, block_m)
+    per_ps, rows = kernel_writes(g, w.p * w.s, w.m, w.c)
+    assert (per_ps == 1).all() and (rows == 1).all()

@@ -28,7 +28,7 @@ counters unchanged) and:
   M 1024), one design (D 1) and the wide call (D 64, M 65536); CUDA
   events over 200 calls (20 for the wide calls) after warm-up, and
   torch.profiler's device time per launch, beside the bound
-  (``chip_smoke.quantize_bound``, ``chip_smoke.bound``) and the time
+  (``chip_smoke.kernel_bound``, from the port's cost model) and the time
   ``Tensor.fill_`` takes to write an output of the same size (what this
   card's stores reach; a yardstick the port never calls).
 
@@ -90,20 +90,23 @@ def build_all(builds):
 
 
 def load(name: str, path: Path) -> ctypes.CDLL:
-    """The library with its C interface's argtypes (the launchers and the
-    error string; the geometry export only where the build has one)."""
+    """The library with its C interface's argtypes (the launchers, with
+    their tile argument, and the error string; every build must have the
+    repo's C interface)."""
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "adc_quantize":
         lib.adc_quantize_population.argtypes = [ptr] * 5 + [i64] + [i32] * 3 \
-            + [ptr]
+            + [i64, ptr]
         lib.adc_quantize_population.restype = i32
         lib.adcq_error_string.argtypes = [i32]
         lib.adcq_error_string.restype = ctypes.c_char_p
     else:
-        lib.qmlp_mlp_bank.argtypes = [ptr] * 9 + [i64] + [i32] * 5 + [ptr]
+        lib.qmlp_mlp_bank.argtypes = [ptr] * 9 + [i64] + [i32] * 5 \
+            + [i64, ptr]
         lib.qmlp_mlp_bank.restype = i32
-        lib.qmlp_svm_bank.argtypes = [ptr] * 7 + [i64] + [i32] * 4 + [ptr]
+        lib.qmlp_svm_bank.argtypes = [ptr] * 7 + [i64] + [i32] * 4 \
+            + [i64, ptr]
         lib.qmlp_svm_bank.restype = i32
         lib.qmlp_error_string.argtypes = [i32]
         lib.qmlp_error_string.restype = ctypes.c_char_p
@@ -124,8 +127,8 @@ def main() -> int:
         print("adc_bank_ab: FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
-    from chip_smoke import (FRONTS, bank_cases, bound, card_line, cuda_ms,
-                            device_kernel_ms, ptxas_report, quantize_bound,
+    from chip_smoke import (FRONTS, bank_cases, card_line, cuda_ms,
+                            device_kernel_ms, kernel_bound, ptxas_report,
                             quantizer_cases, random_masks)
     from repro_torch.core import deploy
     from repro_torch.core.adc import range_rows_tensors
@@ -290,7 +293,8 @@ def main() -> int:
         fn = (lambda: adcq.adc_quantize_population(     # noqa: E731
             xd, tables, spec=spec, rows=(lo, scale)))
         timed(key, fn, "adc_quantize_population_kernel",
-              quantize_bound(p, len(x), c, 16), (p, len(x), c),
+              kernel_bound("adc_quantize_population", len(x), c, 16, p=p),
+              (p, len(x), c),
               20 if "wide" in key else 200)
         result["shapes"][key]["shape"] = {"P": p, "M": len(x), "C": c,
                                           "levels": 16}
@@ -318,7 +322,8 @@ def main() -> int:
             fn = (lambda: kern(xd, td, *wd, spec=fspec)  # noqa: E731
                   if d == 1 else kern(xd, td, *wd, spec=fspec, rows=rows))
             timed(key, fn, f"qmlp_{kind}_bank_kernel",
-                  bound(kind, d, m, f, n, h, o), (d, m, o),
+                  kernel_bound(f"classifier_bank_{kind}", m, f, n, d=d, h=h,
+                               o=o), (d, m, o),
                   20 if "wide" in key else 200)
             result["shapes"][key]["shape"] = {"D": d, "M": m, "F": f,
                                               "levels": n, "H": h, "O": o}

@@ -25,7 +25,7 @@ checks and its launch counters unchanged) and:
   single-design call (S 32, M 636), the wide call (P 64, S 32, M 8192,
   1.41 GB out) and the search at 6 bits (2^N 64); CUDA events over 200
   calls (20 for the wide call) after warm-up, and torch.profiler's
-  device time per launch, beside the bound (``chip_smoke.mc_bound``) and
+  device time per launch, beside the bound (``chip_smoke.kernel_bound``) and
   the time ``Tensor.fill_`` takes to write an output of the same size
   (what this card's stores reach, a yardstick the port never calls);
 - with ``--leaf-ceiling``, how many leaf tests a second the card runs
@@ -145,11 +145,11 @@ LEAF_TESTS_PER_ITER = 16 * 8        # leaves x rows a thread, one iteration
 
 
 def load(path: Path) -> ctypes.CDLL:
-    """The library with the mc_eval C interface's argtypes."""
+    """The library with the mc_eval C interface's argtypes (with the tile
+    argument: every build must have the repo's C interface)."""
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mc_eval.argtypes = [ptr] * 7 + [ctypes.c_longlong] + [i32] * 5 \
-        + [ptr]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mc_eval.argtypes = [ptr] * 7 + [i64] + [i32] * 5 + [i64, ptr]
     lib.mc_eval.restype = i32
     lib.mc_eval_error_string.argtypes = [i32]
     lib.mc_eval_error_string.restype = ctypes.c_char_p
@@ -171,7 +171,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     from chip_smoke import (MC_SPECS, card_line, cuda_ms, device_kernel_ms,
-                            mc_bound, mc_operands_on, on_bound_inputs,
+                            kernel_bound, mc_operands_on, on_bound_inputs,
                             overlapping_operands, ptxas_report, random_masks)
     from repro_torch.core import nonideal
     from repro_torch.core.spec import AdcSpec
@@ -296,7 +296,9 @@ def main() -> int:
             fn = lambda: getattr(mc_eval, entry)(xd, *operands)  # noqa: E731
             reps = 20 if "wide" in label else 200
             n = 2 ** bits
-            b_ms, b_by, nbytes, _ = mc_bound(p, s, len(x), c, n, cal)
+            b_ms, b_by, nbytes, _ = kernel_bound(
+                "mc_eval_cal_population" if cal else "mc_eval_population",
+                len(x), c, n, p=p, s=s)
             row = {"entry": entry, "P": p, "S": s, "M": len(x), "C": c,
                    "levels": n, "bound_ms": b_ms, "bound_by": b_by,
                    "bytes": nbytes,
