@@ -11,8 +11,9 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    and ptxas report (registers and spills of every instantiation; the
    five tensor-core attention instantiations must not spill, nor may the
    eighteen CUDA-core ones compiled for head widths up to 128, nor the
-   twelve Monte-Carlo ones, the two quantizer ones or the four bank
-   ones), the SM clock, and the TF32 state (off).
+   twenty-four attention-backward ones, nor the twelve Monte-Carlo ones,
+   the two quantizer ones or the four bank ones), the SM clock, and the
+   TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
    card. The bank kernels (qmlp_mlp_bank, qmlp_svm_bank): the fixture
    fronts' shapes, D=1, M not a multiple of the block, bits 1/4/6, H and O
@@ -275,11 +276,42 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    is the warm float32 prefill of the lm_f32 path (4 x 2048, 48 CUDA-core
    launches), beside the stated baseline of the CUDA-core kernel this one
    replaced (3.185 ms a call x 48 launches).
+14. train (LM training, ROADMAP A11): (1/4) the attention backward
+   kernel (csrc/flash_attention_bwd.cu) against the plain autograd in
+   float32 at the same inputs, TF32 off: musicgen-medium's per-layer
+   shape (B 4, S 2048, H = KV = 24, dh 64, causal) in bf16 and float32,
+   GQA with a window and a softcap at dh 96 (S 1030) and 128 (S 777), a
+   ragged S = 77 with empty key slots; each gradient within |got - want|
+   <= rtol |want| + atol max|want| (bf16 2^-7 and 2^-12, float32 1e-5
+   and 1e-5), two runs bitwise equal, each call counted once; a dropped
+   64-key tile and the wrong kv head must exceed the bound 100-fold in
+   both dtypes; then timed at musicgen's shape beside the plain autograd,
+   the bound and scaled_dot_product_attention's backward (the yardstick;
+   the port never calls it); each pass's shared memory must equal the
+   envelope's. (2/4) the smoke configs of musicgen-medium
+   and deepseek-7b, float32: loss (1e-5), every gradient leaf (rtol
+   1e-4, atol 1e-6) and two microbatched train steps (loss, lr,
+   grad_norm 1e-4; params 2e-5) on the card against the CPU. (3/4)
+   repro_torch.launch.train.main at smoke size on the card, uninterrupted
+   and with a failure injected through run_with_recovery: the final
+   checkpoints bitwise equal. (4/4) musicgen-medium at its full published
+   config (1,818,378,240 parameters, bf16 activations, float32 params and
+   AdamW state, remat full) through launch.train.build ->
+   steps.init_state -> make_train_step, the functions main uses (main's
+   final checkpoint at this size would write 22 GB): batch 8 x 2048 in 2
+   microbatches, 4 steps (depth cut in steps only), the launch counters
+   at 0: 192 tensor-core forward launches (forward and remat) and 96
+   backward calls a step, no CUDA-core forward; the first loss within 1.5
+   of ln 2048, every loss and grad norm finite, the params changed; warm
+   s/step, tokens/s, 6 N tokens / step time against the bf16 dense peak,
+   peak memory, and one traced step (device busy share; row 11's forward
+   and the backward kernel's device time).
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
-has two, one per route; launches summed over the serve, search, robust,
-baseline, resume, gradient, cosearch, async, sharded, lm and lm_f32
-paths, each counted from 0),
+has two, one per route, and its backward one; launches summed over the
+serve, search, robust, baseline, resume, gradient, cosearch, async,
+sharded, lm, lm_f32, train, train_smoke and train_cli paths, each
+counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -349,10 +381,17 @@ KERNELS = {
         "pallas": "flash_attention_pallas (float32, and bf16 at other head "
                   "widths: the CUDA-core route)",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+    "flash_attention_bwd": {
+        "row": "11b", "replaces": "src/repro/models/layers.py:96",
+        "pallas": "none: the gradient of row 11's function, which the "
+                  "reference takes by XLA's autodiff of layers.attention",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
 }
 # the device kernel each launch counter counts, as torch.profiler names it
 FLASH_DEVICE_NAMES = {"flash_attention_tc": "flash_attention_tc_kernel",
                       "flash_attention": "flash_attention_kernel"}
+# the backward's three device kernels (one launch of the wrapper each)
+BWD_DEVICE_NAMES = ("row_stats_kernel", "dkdv_kernel", "dq_kernel")
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 # the robust path: the same shape with 32 Monte-Carlo instances
@@ -429,6 +468,30 @@ LM_TEACHER_F32_TOL = 3e-2        # tests/test_steps_lm.py's tolerance
 # stated baseline
 BASELINE_CUDA_CORE_MS = 3.185
 LM_TEACHER_BF16_ATOL = 1.25e-1   # 2x the largest sound bf16 reading
+# the training path: musicgen-medium at its full published config, batch
+# 8 x 2048 tokens in 2 microbatches, a few steps (depth in steps only)
+TRAIN = dict(arch="musicgen-medium", batch=8, seq=2048, microbatches=2,
+             steps=4)
+# the smoke configs trained on the card against the CPU (float32)
+TRAIN_SMOKE = dict(archs=("musicgen-medium", "deepseek-7b"), batch=4,
+                   seq=64, microbatches=2, steps=2)
+# the launcher at smoke size on the card, one failure injected
+# (the reference test_train_loss_decreases' batch, sequence and steps:
+# shorter runs at batch 2 do not improve reliably, and main then fails)
+TRAIN_CLI = dict(steps=30, batch=8, seq=64, ckpt_every=10, fail_at=17)
+# the backward kernel against the plain autograd in float32 at the same
+# inputs: |got - want| <= rtol |want| + atol max|want| per gradient. bf16:
+# one bf16 ulp of the element (2^-7 relative at the bottom of a binade,
+# for the two sides' roundings of float32 values 2e-6 apart) plus 2^-12 of
+# the largest element; float32: 1e-5 and 1e-5 (measured 2.4e-6 of the
+# largest element). Both controls (a dropped 64-key tile, the wrong kv
+# head) must exceed it by TRAIN_CONTROL_FACTOR
+BWD_TOL = {"bfloat16": (2 ** -7, 2 ** -12), "float32": (1e-5, 1e-5)}
+TRAIN_CONTROL_FACTOR = 100.0
+# smoke train step, card against CPU, float32: loss, grad leaves (the JAX
+# parity tests' bounds), the step's params
+TRAIN_SMOKE_TOL = dict(loss=1e-5, grad=(1e-4, 1e-6), metrics=1e-4,
+                       params=2e-5)
 
 
 class SmokeFailure(Exception):
@@ -3592,6 +3655,18 @@ def phase_sharded(np, torch, dev, card, fronts, data):
             "max_err": max_err}
 
 
+def visible_pairs(qpos, kpos, *, causal, window) -> int:
+    """(query, key) pairs these positions leave unmasked, per (b, h)."""
+    qp = qpos.long()[:, None]
+    kp = kpos.long()[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (qp - kp >= 0)
+    if window:
+        ok = ok & (qp - kp < window)
+    return int(ok.sum())
+
+
 def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     """(bound_ms, bound_by, bytes, flops, floors) of one attention call,
     the largest of three times: q, k, v and positions read once and the
@@ -3601,14 +3676,7 @@ def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     outside them); one exponential per such pair on the special-function
     units, EX2_PER_SM_PER_CLOCK a clock on each SM at ``clock`` (Hz,
     source, SM count). ``floors`` names each time."""
-    qp = qpos.long()[:, None]
-    kp = kpos.long()[None, :]
-    ok = kp >= 0
-    if causal:
-        ok = ok & (qp - kp >= 0)
-    if window:
-        ok = ok & (qp - kp < window)
-    pairs = int(ok.sum())
+    pairs = visible_pairs(qpos, kpos, causal=causal, window=window)
     b, _, h, dh = q.shape
     flops = 4 * b * h * dh * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
@@ -3934,14 +4002,17 @@ def timed_prefill(torch, fn):
 @contextlib.contextmanager
 def plain_attention(torch):
     """models.layers.attention through the kernel's plain version in
-    place of the kernel, for a witness (never on the main path)."""
-    from repro_torch.kernels import ops, ref
-    kernel = ops.flash_attention
-    ops.flash_attention = ref.flash_attention_ref
+    place of the kernel, for a witness (never on the main path): the
+    FlashAttention Function's forward calls the module's
+    ``flash_attention``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    kernel = fa.flash_attention
+    fa.flash_attention = ref.flash_attention_ref
     try:
         yield
     finally:
-        ops.flash_attention = kernel
+        fa.flash_attention = kernel
 
 
 def phase_lm(np, torch, dev, card):
@@ -4181,6 +4252,479 @@ def phase_lm(np, torch, dev, card):
     return out
 
 
+def bwd_bound(torch, q, k, qpos, kpos, *, window):
+    """(bound_ms, bound_by, bytes, flops, kernel_flops, floors) of one
+    backward call: q, k, v, dout and positions read once and dq, dk, dv
+    written once, against HBM; the gradient's five products of dh
+    multiply-adds per visible pair (q.k recomputed, do.v, and the dq, dk,
+    dv products: 10 dh flops), against float32 outside the tensor cores
+    (the kernel's arithmetic; the bf16 tensor-core floor is printed
+    beside it). ``kernel_flops`` is what this kernel does: 9 products,
+    18 dh flops a pair."""
+    from repro_torch.perf import cost_model
+    card = cost_model.machine_model("cuda")
+    b, _, h, dh = q.shape
+    pairs = visible_pairs(qpos, kpos, causal=True, window=window)
+    flops = 10 * dh * pairs * b * h
+    nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * (qpos.numel() + kpos.numel())
+    floors = {"hbm": nbytes / card.hbm_bw * 1e3,
+              "cuda_cores": flops / card.peak_flops * 1e3,
+              "tensor_cores_bf16": flops / BF16_FLOP_PER_S * 1e3}
+    binding = "hbm" if floors["hbm"] >= floors["cuda_cores"] else \
+        "cuda_cores"
+    return (floors[binding], "bytes" if binding == "hbm" else "operations",
+            nbytes, flops, 18 * dh * pairs * b * h, dict(floors,
+                                                         binding=binding))
+
+
+def bwd_share(torch, got, want, dtype_name) -> float:
+    """Largest |got - want| / (rtol |want| + atol max|want|) over the
+    elements, BWD_TOL[dtype_name]: above 1 fails."""
+    rtol, atol = BWD_TOL[dtype_name]
+    w = want.float()
+    lim = rtol * w.abs() + atol * float(w.abs().max())
+    return float(((got.float() - w).abs() / lim).max())
+
+
+def device_sums(torch, prof):
+    """(flash forward us, backward us, other us, other ops) of a traced
+    window, by device kernel name."""
+    fwd = bwd = other = 0.0
+    n_other = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is None or not ev.count:
+            continue
+        if "DeviceType.CUDA" not in str(ev.device_type):
+            continue
+        total = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
+            fwd += total
+        elif any(n in ev.key for n in BWD_DEVICE_NAMES):
+            bwd += total
+        else:
+            other += total
+            n_other += ev.count
+    return fwd, bwd, other, n_other
+
+
+def train_bwd_kernel(np, torch, dev, card):
+    """The backward kernel against the plain autograd (in float32 at the
+    same inputs) on the card: musicgen-medium's per-layer shape in bf16
+    and float32, GQA with a window and a softcap at dh 96 and 128, a
+    short ragged S with empty key slots; bitwise across two runs; two
+    controls per dtype at musicgen's shape. Returns (max_abs_err,
+    timings at musicgen's shape, shares)."""
+    from repro_torch.kernels import envelope
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    for dh in (16, 64, 96, 128):
+        for p in range(3):
+            check(fa.bwd_smem_bytes(p, dh)
+                  == envelope.flash_bwd_smem_bytes(p, dh),
+                  f"dh={dh}: backward pass {p} asks for "
+                  f"{fa.bwd_smem_bytes(p, dh)} bytes of shared memory, the "
+                  f"envelope says {envelope.flash_bwd_smem_bytes(p, dh)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    kp_ragged = arange(77)
+    kp_ragged[::6] = -1
+    # label: (B, S, H, KV, dh, window, softcap, dtype, kpos or None)
+    cases = {}
+    for dt in (bf16, f32):
+        tag = str(dt)[6:]
+        cases[f"musicgen layer B=4 S=2048 H=KV=24 dh=64 {tag}"] = (
+            4, 2048, 24, 24, 64, 0, 0.0, dt, None)
+        cases[f"GQA H=32 KV=8 dh=96 win=256 cap=30 S=1030 {tag}"] = (
+            2, 1030, 32, 8, 96, 256, 30.0, dt, None)
+        cases[f"GQA H=40 KV=8 dh=128 win=512 cap=50 S=777 {tag}"] = (
+            1, 777, 40, 8, 128, 512, 50.0, dt, None)
+        cases[f"ragged S=77 H=8 KV=2 dh=64, empty key slots {tag}"] = (
+            3, 77, 8, 2, 64, 0, 0.0, dt, kp_ragged)
+    print(f"phase train (1/4): flash_attention_bwd vs the plain autograd "
+          f"(float32 at the same inputs, TF32 off) on the card ({card}); "
+          f"q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1), dout ~ N(0, 1); "
+          f"bound |got - want| <= rtol |want| + atol max|want|, "
+          f"{BWD_TOL}")
+    max_err, made, shares = 0.0, {}, {}
+    for label, (b, s, h, kv, dh, win, cap, dt, kpos) in cases.items():
+        q, k, v = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh, dt)
+        do = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt)
+        qpos = arange(s)
+        kpos = qpos if kpos is None else kpos
+        kw = dict(causal=True, window=win, attn_softcap=cap)
+        before = fa.launches["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, do, qpos, kpos, **kw)
+        again = fa.flash_attention_bwd(q, k, v, do, qpos, kpos, **kw)
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           do.float(), qpos, kpos, **kw)
+        torch.cuda.synchronize()
+        check(fa.launches["flash_attention_bwd"] == before + 2,
+              f"bwd {label}: {fa.launches['flash_attention_bwd'] - before} "
+              f"launches counted for 2 calls")
+        tag = str(dt)[6:]
+        row = []
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            check(g.dtype == dt and g.shape == w.shape,
+                  f"bwd {label}: {name} {g.dtype} {tuple(g.shape)}")
+            check(bool(torch.isfinite(g).all()), f"bwd {label}: {name} "
+                                                 f"not finite")
+            check(torch.equal(g, a), f"bwd {label}: {name} differs between "
+                                     f"two runs")
+            sh = bwd_share(torch, g, w.to(dt), tag)
+            err = float((g.float() - w.to(dt).float()).abs().max())
+            max_err = max(max_err, err)
+            row.append(f"{name} {err:.3e} ({sh:.3f} of the bound)")
+            shares[f"{label} {name}"] = sh
+            check(sh <= 1.0, f"flash_attention_bwd disagrees with the "
+                             f"plain autograd on {label}: {name} at {sh:.3f} "
+                             f"of the bound (max_abs_err {err:.3e})")
+        print(f"  {label:50s} {'; '.join(row)}; two runs bitwise equal")
+        if label.startswith("musicgen"):
+            made[tag] = (q, k, v, do, qpos, kw, got)
+        del got, again, want
+
+    # controls: the plain gradient with keys 1024..1087 dropped, and with
+    # each query head reading the next kv head, against the sound one
+    for tag, (q, k, v, do, qpos, kw, got) in made.items():
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           do.float(), qpos, qpos, **kw)
+        drop = qpos.clone()
+        drop[1024:1088] = -1
+        heads = (torch.arange(q.shape[2], device=dev) + 1) % k.shape[2]
+        for label, args in (
+                ("one 64-key tile dropped", (k, v, drop)),
+                ("the wrong kv head", (k[:, :, heads].contiguous(),
+                                       v[:, :, heads].contiguous(), qpos))):
+            kk, vv, kpos = args
+            bad = ref.flash_attention_bwd_ref(
+                q.float(), kk.float(), vv.float(), do.float(), qpos, kpos,
+                **kw)
+            worst = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype), tag)
+                        for g, w in zip(bad, want))
+            shares[f"control {label} {tag}"] = worst
+            print(f"  control {tag}, {label}: the least share over dq, dk, "
+                  f"dv is {worst:.1f} x the bound")
+            check(worst > TRAIN_CONTROL_FACTOR,
+                  f"the {tag} bound does not reject {label} by "
+                  f"{TRAIN_CONTROL_FACTOR:g}x ({worst:.1f})")
+            del bad
+        del want
+
+    # timed at musicgen's shape: kernel, plain, SDPA's backward (the
+    # yardstick, never called by the port). The plain versions above left
+    # gigabytes in the allocator's cache; hand them back first, so the
+    # profiler's own buffers find room on the card
+    import torch.nn.functional as F
+    torch.cuda.empty_cache()
+    timings = {}
+    for tag, (q, k, v, do, qpos, kw, _) in made.items():
+        k_fn = lambda: fa.flash_attention_bwd(q, k, v, do, qpos,  # noqa
+                                              qpos, **kw)
+        p_fn = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, do, qpos, qpos, **kw)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+        l_fn = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qt, kt, vt), dot, retain_graph=True)
+        lib_kernel = top_device_kernel(torch, l_fn)
+        p1 = timed_ms(torch, p_fn, 2, warmup=1)
+        k1 = timed_ms(torch, k_fn, 10)
+        lib_ms = timed_ms(torch, l_fn, 10)
+        k2 = timed_ms(torch, k_fn, 10)
+        p2 = timed_ms(torch, p_fn, 2, warmup=1)
+        dev_ms = 0.0
+        for name in BWD_DEVICE_NAMES:
+            part = device_kernel_ms(torch, k_fn, name, reps=5)
+            dev_ms = None if (part is None or dev_ms is None) else \
+                dev_ms + part
+        b_ms, b_by, nbytes, flops, kflops, floors = bwd_bound(
+            torch, q, k, qpos, qpos, window=kw["window"])
+        b, s, h, dh = q.shape
+        ms = min(k1, k2)
+        timings[tag] = {
+            "kernel": "flash_attention_bwd",
+            "shape": {"B": b, "S": s, "Sk": s, "H": h, "KV": k.shape[2],
+                      "dh": dh, "window": 0, "softcap": 0.0, "dtype": tag},
+            "ms": ms, "plain_ms": min(p1, p2), "device_ms": dev_ms,
+            "library_ms": lib_ms, "library_kernel": lib_kernel,
+            "bound_ms": b_ms, "bound_by": b_by, "floors_ms": floors,
+            "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
+            "tflop_per_s": kflops / (ms * 1e-3) / 1e12}
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  time flash_attention_bwd musicgen layer {tag}: kernel "
+              f"{k1:.4f}/{k2:.4f} ms per call (3 launches; profiler device "
+              f"time {dev_txt}; {timings[tag]['tflop_per_s']:.2f} TFLOP/s "
+              f"of its own float32 FMAs), plain autograd {p1:.2f}/{p2:.2f} "
+              f"ms, scaled_dot_product_attention backward {lib_ms:.4f} ms "
+              f"(device kernel {lib_kernel}), bound {b_ms:.4f} ms "
+              f"({floors['binding']}; hbm {floors['hbm']:.4f}, bf16 tensor "
+              f"cores {floors['tensor_cores_bf16']:.4f} ms) on {card}")
+        del qt, kt, vt, dot, lib_out
+    made.clear()
+    return max_err, timings, shares
+
+
+def train_smoke_card_vs_cpu(np, torch, dev, card):
+    """The smoke configs' loss, every gradient leaf and two train steps
+    on the card against the CPU, float32, TF32 off, from one init and one
+    batch stream. Returns the card's launch counts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw
+    cpu = torch.device("cpu")
+    tol = TRAIN_SMOKE_TOL
+    print(f"phase train (2/4): smoke configs {TRAIN_SMOKE['archs']}, "
+          f"float32, card against CPU (batch {TRAIN_SMOKE['batch']} x "
+          f"{TRAIN_SMOKE['seq']}, {TRAIN_SMOKE['microbatches']} "
+          f"microbatches, {TRAIN_SMOKE['steps']} steps)")
+    reset_all_launches()
+    for arch in TRAIN_SMOKE["archs"]:
+        cfg = smoke_config(arch)
+        host = transformer.init_params(cfg, seed=5)
+        data = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE["seq"],
+            global_batch=TRAIN_SMOKE["batch"],
+            microbatches=TRAIN_SMOKE["microbatches"]), cfg)
+
+        def copy(tree, device):
+            return adamw.tree_map(lambda t: t.detach().clone().to(device),
+                                  tree)
+
+        grads, losses = {}, {}
+        for d in (cpu, dev):
+            live = adamw.tree_map(lambda t: t.requires_grad_(True),
+                                  copy(host, d))
+            mb = {k: (t if k == "adc_mask" else t[0])
+                  for k, t in data.device_batch(0, d).items()}
+            loss, _ = transformer.loss_fn(live, mb, cfg)
+            loss.backward()
+            losses[d.type] = float(loss.detach())
+            grads[d.type] = adamw.tree_map(lambda t: t.grad.cpu(), live)
+        worst = 0.0
+        rtol, atol = tol["grad"]
+        for g, w in zip(adamw.tree_leaves(grads["cuda"]),
+                        adamw.tree_leaves(grads["cpu"])):
+            worst = max(worst, float(((g - w).abs()
+                                      / (atol + rtol * w.abs())).max()))
+        lerr = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        check(lerr <= tol["loss"], f"{arch} smoke loss card {losses['cuda']}"
+                                   f" vs CPU {losses['cpu']}")
+        check(worst <= 1.0, f"{arch} smoke gradients: {worst:.3f} of the "
+                            f"bound (rtol {rtol:g}, atol {atol:g})")
+        shape = ShapeConfig("smoke", TRAIN_SMOKE["seq"], TRAIN_SMOKE["batch"],
+                            "train")
+        step = steps.make_train_step(cfg, None, shape,
+                                     microbatches=TRAIN_SMOKE["microbatches"],
+                                     total_steps=10)
+        states, metrics = {}, {}
+        for d in (cpu, dev):
+            params = copy(host, d)
+            state = steps.TrainState(params, adamw.init_tree(params))
+            for i in range(TRAIN_SMOKE["steps"]):
+                state, m = step(state, data.device_batch(i, d), i)
+                metrics.setdefault(d.type, []).append(
+                    {k: float(t) for k, t in m.items()})
+            states[d.type] = state
+        for mc, mh in zip(metrics["cuda"], metrics["cpu"]):
+            for key in ("loss", "lr", "grad_norm"):
+                check(abs(mc[key] - mh[key]) <= tol["metrics"] * abs(mh[key]),
+                      f"{arch} smoke step {key}: card {mc[key]} vs CPU "
+                      f"{mh[key]}")
+        perr = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(
+            adamw.tree_leaves(states["cuda"].params),
+            adamw.tree_leaves(states["cpu"].params)))
+        check(perr <= tol["params"], f"{arch} smoke params after "
+                                     f"{TRAIN_SMOKE['steps']} steps: "
+                                     f"max_abs_err {perr:.3e}")
+        print(f"  {cfg.name}: loss card {losses['cuda']:.6f} CPU "
+              f"{losses['cpu']:.6f} (rel {lerr:.2e}, bound "
+              f"{tol['loss']:g}); {len(adamw.tree_leaves(host))} gradient "
+              f"leaves at {worst:.3f} of the bound (rtol {rtol:g}, atol "
+              f"{atol:g}); {TRAIN_SMOKE['steps']} train steps: loss "
+              f"{[round(m['loss'], 6) for m in metrics['cuda']]} vs "
+              f"{[round(m['loss'], 6) for m in metrics['cpu']]}, grad_norm "
+              f"{[round(m['grad_norm'], 6) for m in metrics['cuda']]} vs "
+              f"{[round(m['grad_norm'], 6) for m in metrics['cpu']]}, "
+              f"params max_abs_err {perr:.2e} [{tol['params']:g}]")
+    launches = all_launches()
+    check(launches["flash_attention_bwd"] > 0 and launches["flash_attention"]
+          > 0, f"the smoke training on the card launched {launches}")
+    return launches
+
+
+def train_launcher_recovery(np, torch, card):
+    """repro_torch.launch.train.main on the card at smoke size, twice:
+    uninterrupted, and with one failure injected through
+    run_with_recovery; the final checkpoints must be bitwise equal."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import fault
+    from repro_torch.launch import train
+    c = TRAIN_CLI
+    argv = ["--arch", "musicgen-medium", "--smoke", "--steps",
+            str(c["steps"]), "--batch", str(c["batch"]), "--seq",
+            str(c["seq"]), "--ckpt-every", str(c["ckpt_every"]),
+            "--log-every", str(c["steps"]), "--device", "cuda"]
+    print(f"phase train (3/4): repro_torch.launch.train.main "
+          f"{' '.join(argv)} on {card}, uninterrupted and with a failure "
+          f"injected at step {c['fail_at']}")
+    plain = fault.run_with_recovery
+    infos = []
+
+    def with_failure(*args, **kwargs):
+        fired = []
+
+        def inject(step):
+            if step == c["fail_at"] and not fired:
+                fired.append(step)
+                return True
+            return False
+        state, info = plain(*args, inject_failure=inject, **kwargs)
+        infos.append(info)
+        return state, info
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        clean = train.main(argv + ["--ckpt-dir", f"{tmp}/clean"])
+        fault.run_with_recovery = with_failure
+        try:
+            failed = train.main(argv + ["--ckpt-dir", f"{tmp}/failed"])
+        finally:
+            fault.run_with_recovery = plain
+        launches = all_launches()
+        check(infos and infos[0]["failures"] == 1
+              and infos[0]["final_step"] == c["steps"],
+              f"the injected failure was not recovered: {infos}")
+        a = CheckpointManager(f"{tmp}/clean").restore_flat(c["steps"])
+        b = CheckpointManager(f"{tmp}/failed").restore_flat(c["steps"])
+        check(set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                       for k in a),
+              "the recovered run's final state differs from the "
+              "uninterrupted run's")
+    check(np.allclose(clean[-1], failed[-1], rtol=0, atol=0),
+          f"final losses {clean[-1]} vs {failed[-1]}")
+    print(f"  loss {clean[0]:.4f} -> {clean[-1]:.4f}; recovered run "
+          f"{infos[0]}: its {len(a)} checkpoint leaves at step "
+          f"{c['steps']} equal the uninterrupted run's bitwise; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_train(np, torch, dev, card):
+    """The LM training path (ROADMAP A11, dense and audio families)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    max_err, bwd_timings, shares = train_bwd_kernel(np, torch, dev, card)
+    smoke_launches = train_smoke_card_vs_cpu(np, torch, dev, card)
+    cli_launches = train_launcher_recovery(np, torch, card)
+
+    c = TRAIN
+    cfg, mesh, train_step, data = train.build(
+        c["arch"], smoke=False, seq=c["seq"], batch=c["batch"],
+        microbatches=c["microbatches"], steps_total=100, device="cuda")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+           cfg.param_dtype, cfg.opt_state_dtype, cfg.remat)
+          == (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", "float32",
+              "float32", "full"), f"{cfg.name} is not at its published "
+                                  f"config")
+    n_params = cfg.param_counts()["total"]
+    tokens = c["batch"] * c["seq"]
+    print(f"phase train (4/4): {cfg.name} at its published config "
+          f"({n_params:,} parameters, {cfg.dtype} activations, float32 "
+          f"params and AdamW state, remat={cfg.remat}) through "
+          f"launch.train.build -> steps.init_state -> make_train_step on "
+          f"cuda: batch {c['batch']} x {c['seq']} in {c['microbatches']} "
+          f"microbatches, {c['steps']} steps ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_state(cfg, seed=0, mesh=mesh)
+    snap = {"front_proj": state.params["front_proj"].clone(),
+            "layers/wi[0]": state.params["layers"]["wi"][0].clone()}
+    reset_all_launches()
+    losses, norms, walls = [], [], []
+    for i in range(c["steps"]):
+        batch = data.device_batch(i, mesh.first_device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {i}: loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
+              f"lr {float(m['lr']):.3e} {walls[-1]:.3f} s", flush=True)
+    launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = cfg.num_layers * c["microbatches"]
+    check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
+          and launches["flash_attention_bwd"] == per_step * c["steps"]
+          and launches["flash_attention"] == 0,
+          f"the full-width steps launched {launches}; expected "
+          f"{2 * per_step} tensor-core forwards (forward and remat) and "
+          f"{per_step} backwards a step, no CUDA-core forward")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
+          f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
+          f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}")
+    check(np.isfinite(losses).all() and np.isfinite(norms).all(),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    for key, before in snap.items():
+        now = (state.params["front_proj"] if key == "front_proj"
+               else state.params["layers"]["wi"][0])
+        check(not torch.equal(before, now), f"{key} did not change")
+    del snap
+    warm = min(walls[1:])
+    # one traced step
+    batch = data.device_batch(c["steps"], mesh.first_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, c["steps"])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    fwd_us, bwd_us, other_us, other_n = device_sums(torch, prof)
+    busy = (fwd_us + bwd_us + other_us) / 1e6 / traced_wall
+    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
+    sdpa = bwd_timings["bfloat16"]["library_ms"] * per_step
+    out = {"launches": launches, "launches_smoke": smoke_launches,
+           "launches_cli": cli_launches, "losses": losses,
+           "grad_norms": norms, "step_s": walls, "warm_step_s": warm,
+           "tokens_per_s": tokens / warm, "bf16_peak_share": share,
+           "peak_gb": peak_gb, "traced_wall_s": traced_wall,
+           "device_busy_share": busy, "flash_fwd_device_ms": fwd_us / 1e3,
+           "flash_bwd_device_ms": bwd_us / 1e3,
+           "other_device_ms": other_us / 1e3, "other_device_ops": other_n,
+           "sdpa_bwd_yardstick_ms_per_step": sdpa, "params": n_params,
+           "bwd_max_abs_err": max_err, "bwd_shares": shares}
+    print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; "
+          f"6 N tokens / step time = {share * 100:.1f} % of the bf16 dense "
+          f"peak), peak memory {peak_gb:.2f} GB; traced step: wall "
+          f"{traced_wall:.3f} s, device busy {busy * 100:.1f} %, row 11's "
+          f"forward (tensor cores, {2 * per_step} launches) "
+          f"{fwd_us / 1e3:.1f} ms, flash_attention_bwd ({per_step} calls) "
+          f"{bwd_us / 1e3:.1f} ms, everything else {other_us / 1e3:.1f} ms "
+          f"over {other_n} device operations; scaled_dot_product_attention's"
+          f" backward at the same shape would take {sdpa:.1f} ms a step "
+          f"(yardstick only) on {card}")
+    del state, data, train_step
+    torch.cuda.empty_cache()
+    return out, max_err, bwd_timings
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -4247,6 +4791,13 @@ def main() -> int:
                     st == 0 and ld == 0 for _, _, st, ld in narrow),
                       f"the CUDA-core instantiations for head widths up "
                       f"to 128 spill or are missing: {kernels}")
+            if src == "flash_attention_bwd":
+                # {row statistics, dk/dv, dq} x {f32, bf16} x DHP {64,
+                # 128} x softcap
+                check(len(kernels) == 24 and all(
+                    st == 0 and ld == 0 for _, _, st, ld in kernels),
+                      f"the backward instantiations spill or are "
+                      f"missing: {kernels}")
         clock = sm_clock(torch)
         tf32 = tf32_state()
         print(f"tf32: {tf32}")
@@ -4300,6 +4851,11 @@ def main() -> int:
               f"{' / '.join(f'{v:.2f}' for v in phase_s.values())} s, "
               f"{marks[-1] - marks[0]:.2f} s in all on {card}")
         lm_out = phase_lm(np, torch, dev, card)
+        t_train = time.perf_counter()
+        train_out, bwd_err, bwd_timings = phase_train(np, torch, dev, card)
+        max_err["flash_attention_bwd"] = bwd_err
+        train_out["phase_s"] = time.perf_counter() - t_train
+        print(f"phase train: {train_out['phase_s']:.2f} s on {card}")
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -4321,7 +4877,10 @@ def main() -> int:
                    "async": async_out["launches"],
                    "sharded": sharded_out["launches"],
                    "lm": lm_out["launches"],
-                   "lm_f32": lm_out["launches_f32"]}
+                   "lm_f32": lm_out["launches_f32"],
+                   "train": train_out["launches"],
+                   "train_smoke": train_out["launches_smoke"],
+                   "train_cli": train_out["launches_cli"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -4340,12 +4899,14 @@ def main() -> int:
             "flash_attention_tc":
                 fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64"],
             "flash_attention":
-                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"]}
+                fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"],
+            "flash_attention_bwd": bwd_timings["bfloat16"]}
         extra_timings = {"adc_quantize_population": q_timings,
                          "qmlp_mlp_bank": timings["qmlp_mlp_bank"],
                          "qmlp_svm_bank": timings["qmlp_svm_bank"],
                          **mc_timings, "flash_attention": fa_timings,
-                         "flash_attention_tc": fa_timings}
+                         "flash_attention_tc": fa_timings,
+                         "flash_attention_bwd": bwd_timings}
         rows = []
         for name, meta in KERNELS.items():
             paths = {path: counts.get(name, 0)
@@ -4388,6 +4949,8 @@ def main() -> int:
                    "phase_s": phase_s,
                    "lm": {k: v for k, v in lm_out.items()
                           if k != "launches"},
+                   "train": {k: v for k, v in train_out.items()
+                             if not k.startswith("launches")},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

@@ -11,14 +11,24 @@ either package loads in the other:
 * keep-N retention: after each save only the ``keep`` newest steps stay,
   and ``latest_step`` names the one a restart resumes from.
 
-Saves are synchronous: a search state is a few KB, so the reference's
-background writer thread would buy nothing, and the rename has landed
-when ``save`` returns.
+Trees are nested dicts (keys sorted, as the reference's tree flattening
+orders them), NamedTuples and dataclasses (fields in declaration order);
+anything else is a leaf, a numpy array or a tensor (copied to the host
+on save), and None is no leaf. A ``TrainState(params, opt, err)`` with an
+``OptState(step, m, v)`` therefore saves as ``params/...``,
+``opt/step``, ``opt/m/...``, ``opt/v/...``, the reference's names, and a
+checkpoint written by either package restores in the other.
+
+Saves are synchronous: the leaves are copied to the host and written
+before ``save`` returns, so ``wait`` (the reference's join of its
+background writer) has nothing to wait for. A train step that updates
+its tensors in place after a save cannot reach the saved copy.
 
 Non-array state rides as a uint8 leaf of packed JSON (``pack_json``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -27,6 +37,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 def pack_json(obj: Any) -> np.ndarray:
@@ -38,18 +49,56 @@ def unpack_json(arr) -> Any:
     return json.loads(bytes(np.asarray(arr, np.uint8)))
 
 
-def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Any]:
-    """Nested dict -> {"a/b": leaf}, keys in sorted order at every level
-    (the order the reference's tree flattening gives dicts)."""
+def _children(node):
+    """(key, child) pairs of an inner node, in the reference's order; None
+    for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name))
+                for f in dataclasses.fields(node)]
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Tree -> {"a/b": leaf}, in the reference's leaf order."""
     flat = {}
-    for key in sorted(tree):
-        value = tree[key]
+    for key, value in _children(tree):
         path = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if value is None:
+            continue
+        if _children(value) is not None:
             flat.update(_flatten(value, path + "/"))
-        elif value is not None:
+        else:
             flat[path] = value
     return flat
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array (a tensor is copied off its device)."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError("bfloat16 tensors have no numpy dtype here; "
+                            "checkpoint float32 leaves")
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _rebuild(like, flat: Dict[str, Any], prefix: str = ""):
+    """``like``'s structure with each leaf replaced by ``flat[path]``."""
+    kids = _children(like)
+    if kids is None:
+        return flat[prefix.rstrip("/")]
+    values = {key: (None if child is None
+                    else _rebuild(child, flat, f"{prefix}{key}/"))
+              for key, child in kids}
+    if isinstance(like, dict):
+        return {k: values[str(k)] for k in like}
+    if isinstance(like, tuple):
+        return type(like)(**values)
+    return dataclasses.replace(like, **values)
 
 
 def _leaf_file(directory: Path, key: str) -> Path:
@@ -62,10 +111,10 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
 
-    def save(self, step: int, tree: Dict) -> None:
-        """Write ``tree`` (a nested dict of arrays) as step ``step``,
-        atomically, replacing an earlier save of the same step."""
-        host = {k: np.asarray(v) for k, v in _flatten(tree).items()}
+    def save(self, step: int, tree) -> None:
+        """Write ``tree`` as step ``step``, atomically, replacing an
+        earlier save of the same step."""
+        host = {k: _host(v) for k, v in _flatten(tree).items()}
         tmp = self.dir / f"step_{step}.tmp"
         final = self.dir / f"step_{step}"
         if tmp.exists():
@@ -111,3 +160,26 @@ class CheckpointManager:
         d = self.dir / f"step_{step}"
         meta = json.loads((d / "metadata.json").read_text())
         return {k: np.load(_leaf_file(d, k)) for k in meta["leaves"]}
+
+    def restore(self, step: int, like, device=None):
+        """The tree saved at ``step`` in the structure of ``like``: each
+        leaf of ``like`` (a tensor, or a numpy array) is replaced by the
+        saved leaf of its path, a tensor on ``device`` (default: that
+        leaf's own device; numpy leaves stay numpy), in the saved dtype.
+        ``fault.run_with_recovery`` passes its ``shardings`` here, None on
+        the port's one-device step. Raises FileNotFoundError for a leaf
+        the step does not hold."""
+        d = self.dir / f"step_{step}"
+        flat = {}
+        for key, leaf in _flatten(like).items():
+            arr = np.load(_leaf_file(d, key))
+            if isinstance(leaf, torch.Tensor):
+                flat[key] = torch.from_numpy(arr).to(
+                    leaf.device if device is None else device)
+            else:
+                flat[key] = arr
+        return _rebuild(like, flat)
+
+    def wait(self) -> None:
+        """Saves are synchronous (see the module docstring): nothing is
+        in flight."""

@@ -3,8 +3,10 @@ Counterpart of the population half of ``repro/distributed/sharding.py``
 (``RULES_POPULATION``, ``population_axes``, ``design_bank_axes``,
 ``dp_axes``), copied in behaviour: the rules read only ``mesh.axis_names``
 and ``mesh.shape``, so they take the port's ``launch.mesh.Mesh`` and the
-reference tests' ``SimpleNamespace`` meshes alike. The LM parameter,
-cache and batch rules belong to ROADMAP A11 and are not here.
+reference tests' ``SimpleNamespace`` meshes alike. Of the LM rules only
+the batch candidates and ``batch_axes`` are here (the train step's
+``default_microbatches`` reads them); the parameter and cache rules
+belong to a later slice of ROADMAP A11.
 
 ``shard_plan`` says where each shard runs: shard k of a leading axis
 split over ``axes`` runs on the first device of the k-th slice of the
@@ -25,6 +27,35 @@ import numpy as np
 RULES_POPULATION: Tuple[Tuple[str, ...], ...] = (
     ("pod", "data", "model"), ("data", "model"), ("pod", "data"),
     ("data",), ("model",))
+
+
+# the LM's batch candidates, tried in order (the "batch" rule of the
+# reference's RULES_FSDP / RULES_TP_ONLY, and of RULES_EXTRA_DP for archs
+# whose heads do not split over 'model', where that axis becomes extra
+# data parallelism)
+RULES_BATCH = (("pod", "data"), ("data",))
+RULES_BATCH_EXTRA_DP = (("pod", "data", "model"), ("data", "model"),
+                        ("pod", "data"), ("data",))
+
+
+def batch_rules(cfg) -> Tuple[Tuple[str, ...], ...]:
+    """The batch candidates of the reference's ``rules_for(cfg)``."""
+    if cfg.grad_compression == "none" and getattr(cfg, "extra_dp", False):
+        return RULES_BATCH_EXTRA_DP
+    return RULES_BATCH
+
+
+def batch_axes(mesh, cfg, b: int) -> Optional[Tuple[str, ...]]:
+    """Mesh axes the batch dim shards over: the first candidate whose axes
+    are all in the mesh, whose size exceeds 1 and divides ``b``."""
+    for cand in batch_rules(cfg):
+        axes = tuple(a for a in cand if a in mesh.axis_names)
+        if len(axes) != len(cand):
+            continue
+        size = math.prod(mesh.shape[a] for a in axes)
+        if size > 1 and b % size == 0:
+            return axes
+    return None
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

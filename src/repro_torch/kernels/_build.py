@@ -27,7 +27,8 @@ SOURCES = {"qmlp_bank": CSRC / "qmlp_bank.cu",
            "adc_quantize": CSRC / "adc_quantize.cu",
            "mc_eval": CSRC / "mc_eval.cu",
            "flash_attention": CSRC / "flash_attention.cu",
-           "flash_attention_tc": CSRC / "flash_attention_tc.cu"}
+           "flash_attention_tc": CSRC / "flash_attention_tc.cu",
+           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -267,6 +267,17 @@ def resolve_flash(entry: str, q: torch.Tensor) -> Resolution:
         res, route=route if res.path == "kernel" else "plain")
 
 
+def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
+    """Decide how the flash-attention backward runs on q (B, S, H, dh):
+    the CUDA-core backward kernel (csrc/flash_attention_bwd.cu) on a CUDA
+    tensor inside its envelope, the plain autograd on a CPU tensor."""
+    b, s, h, dh = q.shape
+    res = _route(entry, q,
+                 lambda: envelope.outside_flash_bwd_envelope(b, s, h, dh))
+    return dataclasses.replace(
+        res, route="cuda_core" if res.path == "kernel" else "plain")
+
+
 # --------------------------------------------------------------- registry
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:

@@ -85,6 +85,19 @@ tiles to the swizzle's 1 KB atom:
 165,944 at dh = 96, 112 and 128, 198,200 at dh = 256 (its launcher
 raises the attribute). The route rule (``flash_route``) sends float32,
 and bf16 at any other width, to the CUDA-core kernel.
+
+The flash-attention backward (csrc/flash_attention_bwd.cu) is compiled
+for dh padded to DHP = 64 or 128 (``flash_bwd_head_pad``; up to the
+dense and audio configs' widest, 128) with 64-row q tiles and 64-key kv
+tiles staged as float32 in rows of DHP + 4 words, 256 threads. Its three
+passes ask for (``flash_bwd_smem_bytes``): the row statistics four tiles
+(q, do, k, v) and two position rows, ``4 * (4 * 64 (DHP + 4) + 2 * 64)``;
+dk/dv four tiles, P and dS (64 x 65 words each), lse and D, two position
+rows, ``4 * (4 * 64 (DHP + 4) + 2 * 64 * 65 + 4 * 64)``; dq four tiles,
+dS, lse and D, two position rows, ``4 * (4 * 64 (DHP + 4) + 64 * 65 +
+4 * 64)``: 70,144 / 103,936 / 87,296 bytes at DHP 64 and 135,680 /
+169,472 / 152,832 at 128. Their grids are one-dimensional (tiles x
+batch x heads).
 """
 from __future__ import annotations
 
@@ -555,4 +568,44 @@ def outside_flash_tc_envelope(b: int, h: int, dh: int) -> Optional[str]:
     if b * h > MAX_DESIGNS:
         return (f"B*H={b * h} exceeds the grid's y limit of "
                 f"{MAX_DESIGNS}")
+    return None
+
+
+FLASH_BWD_MAX_HEAD_DIM = 128      # the widest compiled backward head width
+FLASH_BWD_TILE = 64               # query rows and keys of a backward tile
+MAX_BLOCKS_1D = 2 ** 31 - 1       # gridDim.x
+
+
+def flash_bwd_head_pad(dh: int) -> int:
+    """The head width DHP the backward kernel is compiled for at dh."""
+    return 64 if dh <= 64 else 128
+
+
+def flash_bwd_smem_bytes(pass_: int, dh: int) -> int:
+    """Dynamic shared memory one block of backward pass ``pass_`` (0 row
+    statistics, 1 dk/dv, 2 dq) asks for at head width dh
+    (csrc/flash_attention_bwd.cu, ``smem_stats/dkdv/dq<DHP>``)."""
+    t = FLASH_BWD_TILE
+    tile = t * (flash_bwd_head_pad(dh) + 4)
+    words = {0: 4 * tile + 2 * t,
+             1: 4 * tile + 2 * t * (t + 1) + 4 * t,
+             2: 4 * tile + t * (t + 1) + 4 * t}[pass_]
+    return 4 * words
+
+
+def outside_flash_bwd_envelope(b: int, s: int, h: int, dh: int
+                               ) -> Optional[str]:
+    """None when the backward kernel takes B batch rows of H heads over S
+    queries at head width dh, else the limit it breaks, named."""
+    if dh > FLASH_BWD_MAX_HEAD_DIM:
+        return (f"head_dim={dh} exceeds the backward kernel's tiles, "
+                f"compiled for head_dim <= {FLASH_BWD_MAX_HEAD_DIM}")
+    need = max(flash_bwd_smem_bytes(p, dh) for p in range(3))
+    if need > SMEM_MAX_BYTES:
+        return (f"head_dim={dh} needs {need} bytes of shared memory; the "
+                f"H100 limit per block is {SMEM_MAX_BYTES}")
+    blocks = -(-s // FLASH_BWD_TILE) * b * h
+    if blocks > MAX_BLOCKS_1D:
+        return (f"{blocks} backward blocks exceed the grid's x limit of "
+                f"{MAX_BLOCKS_1D}")
     return None

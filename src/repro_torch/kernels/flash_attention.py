@@ -20,6 +20,19 @@ output with ``torch.empty``, launches on the current stream and raises if
 the launch reports an error. There is no fallback. The tensor-core
 kernel's TMA maps need 16-byte aligned bases: an operand whose view
 starts off that alignment is copied first.
+
+``flash_attention_bwd(q, k, v, dout, q_positions, k_positions, *,
+causal, window, attn_softcap)`` -> (dq, dk, dv) is the gradient of that
+function for the output cotangent dout: on a CUDA tensor the backward
+kernel (csrc/flash_attention_bwd.cu, three launches: row statistics,
+dk/dv, dq; CUDA cores, float32 accumulation, no atomics, so bitwise run to
+run) adds one to ``launches["flash_attention_bwd"]`` per call; on a CPU
+tensor the plain version (``ref.flash_attention_bwd_ref``, autograd
+through the plain forward). ``attention`` is the differentiable entry:
+the autograd Function ``FlashAttention``, whose forward is
+``flash_attention`` and whose backward is ``flash_attention_bwd`` on the
+saved q, k, v (the kernel recomputes what it needs of the output). The LM's
+prefill and its training step both go through it (models/layers.py).
 """
 from __future__ import annotations
 
@@ -34,11 +47,12 @@ from repro_torch.kernels import _build, dispatch, ref
 
 ENTRY = "flash_attention"             # the CUDA-core kernel's counter
 TC_ENTRY = "flash_attention_tc"       # the tensor-core kernel's counter
+BWD_ENTRY = "flash_attention_bwd"     # the backward kernel's counter
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches since the last reset_launches(), one key per route; only
-# the launch sites below add to them
-launches = {ENTRY: 0, TC_ENTRY: 0}
+# kernel launches since the last reset_launches(), one key per route and
+# one for the backward; only the launch sites below add to them
+launches = {ENTRY: 0, TC_ENTRY: 0, BWD_ENTRY: 0}
 
 
 def reset_launches() -> None:
@@ -47,8 +61,8 @@ def reset_launches() -> None:
 
 
 def total_launches() -> int:
-    """Launches of either kernel since the last reset_launches()."""
-    return sum(launches.values())
+    """Launches of either forward kernel since the last reset_launches()."""
+    return launches[ENTRY] + launches[TC_ENTRY]
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,6 +91,26 @@ def _lib_tc() -> ctypes.CDLL:
     lib.flash_attention_tc_smem_bytes.argtypes = [i32]
     lib.flash_attention_tc_smem_bytes.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd.argtypes = ([ptr] * 11 + [i32] * 6
+                                        + [f32, i32, i32, f32, i32, ptr])
+    lib.flash_attention_bwd.restype = i32
+    lib.flash_attention_bwd_error_string.argtypes = [i32]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.flash_attention_bwd_smem_bytes.restype = i32
+    return lib
+
+
+def bwd_smem_bytes(pass_: int, dh: int) -> int:
+    """Dynamic shared memory the built backward kernel's pass ``pass_``
+    (0 row statistics, 1 dk/dv, 2 dq) asks for at head width dh."""
+    return _lib_bwd().flash_attention_bwd_smem_bytes(pass_, dh)
 
 
 def smem_bytes(dh: int) -> int:
@@ -118,6 +152,29 @@ def _check(q, k, v, q_positions, k_positions
     return b, s, h, dh, sk, kvh
 
 
+def _check_cuda_operands(entry: str, named) -> None:
+    """Device, dtype and contiguity of a kernel call's operands, named:
+    ``named`` is [(label, tensor)], the float operands first (they must
+    share one of DTYPES), then the two int32 position vectors."""
+    first = named[0][1]
+    for label, t in named[1:]:
+        if t.device != first.device:
+            raise ValueError(f"{entry}: {label} is on {t.device}, "
+                             f"{named[0][0]} on {first.device}")
+    floats, pos = named[:-2], named[-2:]
+    if first.dtype not in DTYPES or any(t.dtype != first.dtype
+                                        for _, t in floats):
+        raise TypeError(f"{entry}: {', '.join(n for n, _ in floats)} must "
+                        f"share one of {DTYPES}; got "
+                        f"{', '.join(str(t.dtype) for _, t in floats)}")
+    if any(t.dtype != torch.int32 for _, t in pos):
+        raise TypeError(f"{entry}: positions must be int32; got "
+                        f"{pos[0][1].dtype}, {pos[1][1].dtype}")
+    for label, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{entry}: {label} is not contiguous")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_positions: torch.Tensor, k_positions: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
@@ -129,22 +186,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, q_positions, k_positions,
                                        causal=causal, window=window,
                                        attn_softcap=attn_softcap)
-    for label, t in (("k", k), ("v", v), ("q_positions", q_positions),
-                     ("k_positions", k_positions)):
-        if t.device != q.device:
-            raise ValueError(f"{ENTRY}: {label} is on {t.device}, q on "
-                             f"{q.device}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{ENTRY}: q, k, v must share one of {DTYPES}; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q_positions.dtype != torch.int32 or k_positions.dtype != torch.int32:
-        raise TypeError(f"{ENTRY}: positions must be int32; got "
-                        f"{q_positions.dtype}, {k_positions.dtype}")
-    for label, t in (("q", q), ("k", k), ("v", v),
-                     ("q_positions", q_positions),
-                     ("k_positions", k_positions)):
-        if not t.is_contiguous():
-            raise ValueError(f"{ENTRY}: {label} is not contiguous")
+    _check_cuda_operands(ENTRY, [("q", q), ("k", k), ("v", v),
+                                 ("q_positions", q_positions),
+                                 ("k_positions", k_positions)])
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -173,3 +217,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({name(err).decode()})")
     launches[key] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, q_positions: torch.Tensor,
+                        k_positions: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, attn_softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
+    cotangent ``dout`` (B, S, H, dh). See the module docstring."""
+    b, s, h, dh, sk, kvh = _check(q, k, v, q_positions, k_positions)
+    if tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"{BWD_ENTRY}: dout {tuple(dout.shape)} is not q's "
+                         f"shape {tuple(q.shape)}")
+    res = dispatch.resolve_flash_bwd(BWD_ENTRY, q)
+    if res.path == "plain":
+        return ref.flash_attention_bwd_ref(
+            q, k, v, dout, q_positions, k_positions, causal=causal,
+            window=window, attn_softcap=attn_softcap)
+    _check_cuda_operands(BWD_ENTRY, [
+        ("q", q), ("k", k), ("v", v), ("dout", dout),
+        ("q_positions", q_positions), ("k_positions", k_positions)])
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        # no query or no key: nothing attends, every gradient is 0
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    lib = _lib_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            q_positions.data_ptr(), k_positions.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), b, s, sk, h, kvh, dh, 1.0 / math.sqrt(dh),
+            int(bool(causal)), int(window or 0), float(attn_softcap or 0.0),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{BWD_ENTRY} launch failed: error {err} "
+            f"({lib.flash_attention_bwd_error_string(err).decode()})")
+    launches[BWD_ENTRY] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the hand-written backward: forward
+    ``flash_attention``, backward ``flash_attention_bwd`` on the saved q,
+    k and v. On CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, k_positions, causal, window,
+                attn_softcap):
+        out = flash_attention(q, k, v, q_positions, k_positions,
+                              causal=causal, window=window,
+                              attn_softcap=attn_softcap)
+        ctx.save_for_backward(q, k, v, q_positions, k_positions)
+        ctx.flags = dict(causal=causal, window=window,
+                         attn_softcap=attn_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(), qpos,
+                                         kpos, **ctx.flags)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_positions: torch.Tensor, k_positions: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              attn_softcap: float = 0.0) -> torch.Tensor:
+    """``flash_attention``, differentiable through ``FlashAttention``."""
+    return FlashAttention.apply(q, k, v, q_positions, k_positions,
+                                bool(causal), int(window or 0),
+                                float(attn_softcap or 0.0))

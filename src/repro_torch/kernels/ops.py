@@ -12,7 +12,8 @@ value tables, as deployment holds them; ``bespoke_mlp`` /
 faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
 kernel. ``flash_attention`` runs an attention kernel (the LM's prefill
 attention; tensor cores for bf16 at the configs' head widths, CUDA cores
-otherwise). Routing (kernel on a CUDA tensor inside the envelope, plain
+otherwise); ``flash_attention_bwd`` its backward kernel, and ``attention``
+the two as one differentiable call (the LM's prefill and training). Routing (kernel on a CUDA tensor inside the envelope, plain
 version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
 applied inside the kernel wrappers. Each kernel entry takes an optional
 ``block_m``, the kernel's tile (kernels/envelope.py); None leaves it to
@@ -218,3 +219,21 @@ def flash_attention(q, k, v, q_positions, k_positions, *, causal=True,
     return _fa.flash_attention(q, k, v, q_positions, k_positions,
                                causal=causal, window=window,
                                attn_softcap=attn_softcap)
+
+
+def flash_attention_bwd(q, k, v, dout, q_positions, k_positions, *,
+                        causal=True, window: int = 0,
+                        attn_softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention`` for the cotangent dout of its
+    output: the backward kernel, three launches on the card."""
+    return _fa.flash_attention_bwd(q, k, v, dout, q_positions, k_positions,
+                                   causal=causal, window=window,
+                                   attn_softcap=attn_softcap)
+
+
+def attention(q, k, v, q_positions, k_positions, *, causal=True,
+              window: int = 0, attn_softcap: float = 0.0) -> torch.Tensor:
+    """``flash_attention`` with ``flash_attention_bwd`` as its autograd
+    backward."""
+    return _fa.attention(q, k, v, q_positions, k_positions, causal=causal,
+                         window=window, attn_softcap=attn_softcap)

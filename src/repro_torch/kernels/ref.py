@@ -18,7 +18,11 @@ so kernel and plain version agree bitwise.
 ``flash_attention_ref`` is the attention kernel's function (masks,
 guards and casts of ``flash_attention_pallas``) with the scores of one q
 block materialised at a time and a one-pass softmax; the kernel's online
-softmax rounds in another order, so the two agree to rounding only.
+softmax rounds in another order, so the two agree to rounding only. It is
+differentiable: autograd through it is the gradient of the reference's
+attention (the row max is held constant, as ``jax.nn.softmax`` holds
+it), and ``flash_attention_bwd_ref`` is that autograd, the plain version
+of the backward kernel.
 """
 from __future__ import annotations
 
@@ -205,7 +209,7 @@ def flash_attention_ref(q, k, v, q_positions, k_positions, *,
         if window:
             ok = ok & (dpos < window)
         sc = torch.where(ok, sc, FLASH_NEG)
-        m = sc.amax(-1, keepdim=True)
+        m = sc.amax(-1, keepdim=True).detach()
         p = torch.where(m <= FLASH_NEG, 0.0, torch.exp(sc - m))
         denom = torch.clamp(p.sum(-1), min=1e-30)               # (b,kv,r,qb)
         o = torch.einsum("bkrqs,bskd->bkrqd", p.to(v.dtype).float(), vf)
@@ -213,3 +217,20 @@ def flash_attention_ref(q, k, v, q_positions, k_positions, *,
         out[:, q0:q0 + qb] = o.permute(0, 3, 1, 2, 4).reshape(
             b, qb, h, dh).to(q.dtype)
     return out
+
+
+def flash_attention_bwd_ref(q, k, v, dout, q_positions, k_positions, *,
+                            causal: bool = True, window: int = 0,
+                            attn_softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention_ref`` at (q, k, v) for the
+    output cotangent dout (B, S, H, dh): autograd through the plain
+    forward, recomputed here. The gradients accumulate in float32 and
+    come back in the inputs' types."""
+    if k.shape[1] == 0:                      # no keys: the output is 0
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, q_positions, k_positions,
+                                  causal=causal, window=window,
+                                  attn_softcap=attn_softcap)
+        return torch.autograd.grad(out, leaves, dout)

@@ -1,6 +1,20 @@
-"""Search launcher: the paper's in-training ADC optimization on the card.
-Counterpart of the ``--adc-search`` path of ``repro/launch/train.py``;
-reports per-generation wall time and individuals/s.
+"""Training launcher of the port: the paper's in-training ADC
+optimization (``--adc-search``) and LM training (``--arch``), on the card.
+Counterpart of ``repro/launch/train.py``.
+
+LM training, the dense and audio families (deepseek-7b, phi3-mini-3.8b,
+yi-34b, musicgen-medium), with the reference's microbatched AdamW step,
+schedule, synthetic corpus and checkpoint/restart loop:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
+      --smoke --steps 12 --batch 2 --seq 32 --ckpt-dir /tmp/lm_ckpt
+  # the plain PyTorch versions on the CPU: ... --device cpu
+
+It prints the reference's log lines and fails if the loss did not
+improve. The families not ported yet (moe, ssm, hybrid, vlm / M-RoPE,
+``local_global``) are refused with ROADMAP A11 named.
+
+The search reports per-generation wall time and individuals/s:
 
   # on the card (default --device cuda):
   PYTHONPATH=src python -m repro_torch.launch.train --adc-search \\
@@ -38,8 +52,9 @@ two newest steps; ``--resume`` restarts a killed run from the latest one,
 bit-identically. A run without ``--resume`` deletes that directory
 first, so a stale step cannot hijack a later resume.
 
-The reference's LM training (``--arch``) belongs to a later slice; it is
-accepted here only to fail with the ROADMAP item that ports it.
+``build`` and ``main`` are the LM path's entry points; ``main(argv,
+params=...)`` starts from a parameter tree given as numpy arrays (the
+reference's, for parity) in place of the port's own init.
 """
 from __future__ import annotations
 
@@ -52,14 +67,24 @@ from pathlib import Path
 
 import numpy as np
 
-_LATER = {"arch": "--arch (LM training, ROADMAP A11)"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="In-training ADC search through the PyTorch/CUDA port.")
+        description="LM training and the in-training ADC search through "
+                    "the PyTorch/CUDA port.")
+    ap.add_argument("--arch", help="LM architecture (required unless "
+                                   "--adc-search)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--adc-search", action="store_true",
-                    help="run the paper's in-training ADC optimization")
+                    help="run the paper's in-training ADC optimization "
+                         "instead of LM training")
     ap.add_argument("--dataset", default="seeds")
     ap.add_argument("--bits", type=int, default=3)
     ap.add_argument("--vmin", default="0.0",
@@ -100,9 +125,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"),
-                    help="search checkpoints go to "
-                         "<ckpt-dir>/adc_search, --export-front writes "
-                         "the front to <ckpt-dir>/front")
+                    help="LM checkpoints go to <ckpt-dir>, search "
+                         "checkpoints to <ckpt-dir>/adc_search, "
+                         "--export-front writes the front to "
+                         "<ckpt-dir>/front")
     ap.add_argument("--export-front", action="store_true",
                     help="freeze the Pareto front into deployable "
                          "classifiers (baked value tables + po2 weights + "
@@ -141,9 +167,91 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-spares", type=int, default=2,
                     help="per-channel spare-level gene range of "
                          "--faulttol (0 disables the spare action)")
-    # the reference's option of a later slice: accepted only to be refused
-    ap.add_argument("--arch")
     return ap
+
+
+def arch_config(arch: str, smoke: bool):
+    """The config of ``arch`` (its smoke config with ``smoke``); raises
+    KeyError for an unknown name and NotImplementedError, naming ROADMAP
+    A11, for a family the port does not train yet."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import transformer
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    transformer.check_supported(cfg)
+    return cfg
+
+
+def build(arch: str, *, smoke: bool, seq: int, batch: int,
+          microbatches: int, data_ax: int = 1, model_ax: int = 1,
+          steps_total: int = 100, device=None):
+    """(cfg, mesh, train_step, data) of an LM training run: the config,
+    a ``make_host_mesh(data_ax, model_ax)`` on ``device`` (default: the
+    card; the step takes a one-device mesh), the microbatched train step
+    over ``steps_total`` steps of the schedule, and the synthetic corpus
+    at (batch, seq) split into ``microbatches``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import steps
+    cfg = arch_config(arch, smoke)
+    mesh = mesh_lib.make_host_mesh(data_ax, model_ax, device=device)
+    shape = ShapeConfig("cli", seq, batch, "train")
+    train_step = steps.make_train_step(cfg, mesh, shape,
+                                       microbatches=microbatches,
+                                       total_steps=steps_total)
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch,
+                                    microbatches=microbatches), cfg)
+    return cfg, mesh, train_step, data
+
+
+def run_lm_training(args, params=None):
+    """Train ``args.arch`` for ``args.steps`` steps through
+    ``fault.run_with_recovery`` (a checkpoint every ``--ckpt-every``
+    steps and at the end, under ``--ckpt-dir``; a run finding a later
+    step there resumes from it). Returns the per-step losses; raises
+    AssertionError, as the reference does, when the last loss is not
+    below the first."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import fault
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw
+
+    cfg, mesh, train_step, data = build(
+        args.arch, smoke=args.smoke, seq=args.seq, batch=args.batch,
+        microbatches=args.microbatches, steps_total=args.steps,
+        device=args.device)
+    dev = mesh.first_device
+    if params is None:
+        state = steps.init_state(cfg, seed=args.seed, mesh=mesh)
+    else:
+        tree = transformer.params_from_numpy(params, cfg, device=dev)
+        state = steps.TrainState(tree,
+                                 adamw.init_tree(tree, cfg.opt_state_dtype))
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    print(f"train[repro_torch] arch={cfg.name} batch={args.batch} "
+          f"seq={args.seq} microbatches={args.microbatches} "
+          f"steps={args.steps} device={dev}", flush=True)
+    losses = []
+
+    def on_metrics(step, metrics):
+        losses.append(float(metrics["loss"]))
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"lr {float(metrics['lr']):.2e}", flush=True)
+
+    t0 = time.time()
+    state, info = fault.run_with_recovery(
+        train_step, state, lambda i: data.device_batch(i, dev),
+        num_steps=args.steps, ckpt=ckpt, ckpt_every=args.ckpt_every,
+        on_metrics=on_metrics)
+    dt = time.time() - t0
+    print(f"done: {args.steps} steps in {dt:.1f}s "
+          f"({dt / max(args.steps, 1):.2f}s/step); "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; {info}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not improve")
+    return losses
 
 
 def parse_yield_margins(text: str):
@@ -340,15 +448,24 @@ def run_adc_search(args) -> np.ndarray:
     return pf
 
 
-def main(argv=None):
+def main(argv=None, params=None):
+    """The CLI. ``params``: an LM parameter tree as numpy arrays (the
+    reference's, carried over with ``params_from_numpy``) in place of
+    the port's own init."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.arch is not None:
-        ap.error(f"{_LATER['arch']} is not yet ported to repro_torch; use "
-                 f"the JAX package (python -m repro.launch.train)")
+        from repro_torch.device import resolve_device
+        try:
+            arch_config(args.arch, args.smoke)
+            resolve_device(args.device)
+        except (KeyError, NotImplementedError, RuntimeError,
+                ValueError) as exc:
+            ap.error(str(exc))
     if not args.adc_search:
-        ap.error("repro_torch.launch.train runs only --adc-search (LM "
-                 "training is ROADMAP A11)")
+        if args.arch is None:
+            ap.error("--arch is required unless --adc-search is given")
+        return run_lm_training(args, params=params)
     from repro_torch.data import tabular
     from repro_torch.device import resolve_device
     try:

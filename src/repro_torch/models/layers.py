@@ -59,10 +59,11 @@ def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
               window: Optional[int] = None,
               attn_softcap: float = 0.0) -> torch.Tensor:
     """GQA attention of q (B, S, H, dh) over k/v (B, Sk, KV, dh) with
-    positions (S,) / (Sk,) shared by the batch. On a CUDA tensor it
-    launches the flash-attention kernel; on a CPU tensor it runs the
-    kernel's plain version. Returns (B, S, H, dh)."""
-    return ops.flash_attention(
+    positions (S,) / (Sk,) shared by the batch, differentiable. On a CUDA
+    tensor it launches the flash-attention kernel, and its gradient the
+    backward kernel; on a CPU tensor both are the plain versions. Returns
+    (B, S, H, dh)."""
+    return ops.attention(
         q.contiguous(), k.contiguous(), v.contiguous(),
         q_positions.to(torch.int32).contiguous(),
         k_positions.to(torch.int32).contiguous(), causal=causal,

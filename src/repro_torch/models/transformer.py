@@ -19,7 +19,16 @@ stacked on a leading L axis: ``ln1``, ``q`` (d, H, hd), ``k``/``v``
 ``scan`` is a Python loop over L. ``init_params`` draws from the port's
 own stream (a ``torch.Generator`` seeded on the device), which is not
 ``jax.random``'s; ``params_from_numpy`` carries the reference's weights
-over for parity.
+over for parity. ``layers`` leaves may also be lists of per-layer tensors
+(the train step's autograd leaves): ``layer(params, i)`` indexes both.
+
+Training: ``forward`` rematerialises each layer under
+``torch.utils.checkpoint`` when ``cfg.remat == "full"`` and autograd is
+recording (the reference's ``jax.checkpoint`` of its scan body);
+``chunked_ce_loss`` is the cross-entropy over 512-position chunks, each
+recomputed in the backward, so (B, S, V) logits never materialise;
+``loss_fn`` is ``(ce + aux, {"ce", "aux"})`` with ``aux = 0`` for these
+families (no router).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
@@ -251,13 +261,20 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
-    """Final hidden states (B, S, d), after the final norm."""
+    """Final hidden states (B, S, d), after the final norm. Each layer is
+    rematerialised in the backward when ``cfg.remat == "full"`` and
+    autograd is recording."""
     check_supported(cfg)
     x = embed_input(params, batch, cfg)
     positions = batch["positions"]
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = _dense_layer(layer(params, i), x, cfg, positions,
-                         window=window_of(cfg))
+        p = layer(params, i)
+        if remat:
+            x = checkpoint(_dense_layer, p, x, cfg, positions,
+                           window=window_of(cfg), use_reentrant=False)
+        else:
+            x = _dense_layer(p, x, cfg, positions, window=window_of(cfg))
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -266,16 +283,62 @@ def lm_head(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["head"] if "head" in params else params["embed"].T
 
 
+def head_logits(x: torch.Tensor, head_w: torch.Tensor, cap: float
+                ) -> torch.Tensor:
+    """float32, softcapped logits (..., V) of hidden states (..., d) under
+    the (d, V) head."""
+    lg = torch.einsum("...d,dv->...v", x, head_w.to(x.dtype))
+    return L.softcap(lg.float(), cap)
+
+
 def logits_of(params: Params, x: torch.Tensor, cfg: ArchConfig
               ) -> torch.Tensor:
     """float32 logits (..., V) of final hidden states (..., d)."""
-    lg = torch.einsum("...d,dv->...v", x, lm_head(params, cfg).to(x.dtype))
-    return L.softcap(lg.float(), cfg.final_logit_softcap)
+    return head_logits(x, lm_head(params, cfg), cfg.final_logit_softcap)
 
 
 def logits_fn(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     """(B, S, V) float32 logits of the whole sequence."""
     return logits_of(params, forward(params, batch, cfg), cfg)
+
+
+def _ce_chunk(xb, head_w, lb, cap: float) -> torch.Tensor:
+    """Summed negative log-likelihood of labels lb (B, c) under the
+    float32, softcapped logits of xb (B, c, d)."""
+    logp = torch.log_softmax(head_logits(xb, head_w, cap), dim=-1)
+    return -torch.gather(logp, -1, lb.long()[..., None])[..., 0].sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor,
+                    labels: torch.Tensor, cfg: ArchConfig,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of labels (B, S) under the logits of x (B, S, d)
+    and the (d, V) head, over sequence chunks of ``chunk`` positions
+    summed in order; each chunk is recomputed in the backward, so no
+    (B, S, V) tensor is kept. A float32 scalar."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled()
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], head_w, labels[:, c0:c0 + chunk],
+                cfg.final_logit_softcap)
+        tot = tot + (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                     if grad else _ce_chunk(*args))
+    return tot / (b * s)
+
+
+def loss_fn(params: Params, batch, cfg: ArchConfig):
+    """(total loss, {"ce", "aux"}): the chunked cross-entropy of the
+    batch's labels; aux (the router loss of the moe family, not ported)
+    is 0."""
+    x = forward(params, batch, cfg)
+    ce = chunked_ce_loss(x, lm_head(params, cfg), batch["labels"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "aux": aux}
 
 
 class Transformer(nn.Module):

@@ -1,28 +1,52 @@
-"""AdamW with float32 state, hand-rolled. Counterpart of
-``repro/optim/adamw.py`` (b2 = 0.95 by default, so not
-``torch.optim.AdamW``'s defaults), with the same operations in the same
-order, bias correction included.
+"""AdamW, hand-rolled. Counterpart of ``repro/optim/adamw.py`` (b2 = 0.95
+by default, so not ``torch.optim.AdamW``'s defaults), with the same
+operations in the same order, bias correction, global-norm clipping and
+the state dtype (``opt_state_dtype``) included.
 
 It updates in place: ``update_`` overwrites the parameter tensors and
-the moment buffers, where the reference returns new arrays. The step
-counter is a float32 tensor on the parameters' device, and the bias
-corrections ``1 - b ** step`` are float32 ``torch.pow`` on it, as the
-reference's ``b1 ** step.astype(float32)``; a Python ``0.9 ** step``
-would be float64 and could round 1 ulp away.
+the moment buffers, where the reference returns new arrays. The bias
+corrections ``1 - b ** step`` are float32 ``torch.pow`` on the step
+counter, as the reference's ``b1 ** step.astype(float32)``; a Python
+``0.9 ** step`` would be float64 and could round 1 ulp away.
+
+Two shapes of state. The printed classifiers' QAT loops keep lists
+(``init``: a float32 step, float32 moments beside a list of leaves). The
+LM keeps the reference's ``OptState`` tree (``init_tree``: an int32 step
+and moments in the parameters' nested dicts), so a checkpoint's leaves are
+named ``opt/step``, ``opt/m/...``, ``opt/v/...`` in both packages. Trees
+flatten in the reference's leaf order (``tree_leaves``: dict keys sorted,
+as ``jax.tree_util`` orders them).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
 
 @dataclass
 class OptState:
-    step: torch.Tensor               # () float32: steps taken
-    m: List[torch.Tensor]
-    v: List[torch.Tensor]
+    step: torch.Tensor               # (): steps taken
+    m: Any                           # a list of leaves, or the params' tree
+    v: Any
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of nested dicts (or a list) in the reference's order:
+    dict keys sorted at every level, None skipped."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts, keeping the tree."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    return fn(tree)
 
 
 def init(leaves: Sequence[torch.Tensor]) -> OptState:
@@ -35,22 +59,61 @@ def init(leaves: Sequence[torch.Tensor]) -> OptState:
                        for p in leaves])
 
 
+def init_tree(params, state_dtype: str = "float32") -> OptState:
+    """The reference's ``init(params, state_dtype)``: an int32 step 0 and
+    zero moments of ``state_dtype`` in the parameters' tree."""
+    dt = getattr(torch, state_dtype)
+    dev = tree_leaves(params)[0].device
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of the leaves' float32 square sums, leaf by leaf in
+    the reference's order."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for leaf in tree_leaves(tree)))
+
+
 @torch.no_grad()
 def update_(leaves: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-            state: OptState, *, lr: float, b1: float = 0.9,
+            state: OptState, *, lr, b1: float = 0.9,
             b2: float = 0.95, eps: float = 1e-8,
-            weight_decay: float = 0.0) -> OptState:
-    """One AdamW step, in place on ``leaves`` and ``state``."""
-    state.step.add_(1.0)
+            weight_decay: float = 0.0, grad_clip: float = 0.0,
+            grad_norm: Optional[torch.Tensor] = None) -> OptState:
+    """One AdamW step, in place on ``leaves`` and ``state`` (whose moments
+    are lists beside ``leaves``, or trees flattened by ``tree_leaves``).
+    ``lr`` is a float or a float32 scalar tensor (a schedule value). With
+    ``grad_clip > 0`` the gradients are first scaled, in place, by
+    ``min(1, grad_clip / max(norm, 1e-12))``, norm their ``global_norm``
+    (``grad_norm`` when the caller has it already)."""
+    if grad_clip and grad_clip > 0:
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+        for g in grads:
+            g.mul_(scale)
+    state.step.add_(1)
     # a Python scalar base is cast to the exponent's float32, on the device
-    c1 = 1.0 - torch.pow(b1, state.step)
-    c2 = 1.0 - torch.pow(b2, state.step)
-    for p, g, m, v in zip(leaves, grads, state.m, state.v):
+    c1 = 1.0 - torch.pow(b1, state.step.float())
+    c2 = 1.0 - torch.pow(b2, state.step.float())
+    for p, g, m, v in zip(leaves, grads, tree_leaves(state.m),
+                          tree_leaves(state.v)):
         gf = g.float()
-        m.mul_(b1).add_(gf * (1 - b1))
-        v.mul_(b2).add_(gf * gf * (1 - b2))
-        u = (m / c1) / (torch.sqrt(v / c2) + eps)
+        if m.dtype == torch.float32:
+            mf = m.mul_(b1).add_(gf * (1 - b1))
+            vf = v.mul_(b2).add_(gf * gf * (1 - b2))
+        else:                  # a narrower state: update in float32, store
+            mf = m.float() * b1 + gf * (1 - b1)
+            vf = v.float() * b2 + gf * gf * (1 - b2)
+            m.copy_(mf)
+            v.copy_(vf)
+        u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
         if weight_decay:
             u = u + weight_decay * p.float()
-        p.sub_(lr * u)
+        if p.dtype == torch.float32:
+            p.sub_(lr * u)
+        else:
+            p.copy_(p.float() - lr * u)
     return state

@@ -174,7 +174,8 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     got = flash_attention.flash_attention(qb, kb, vb, pos, pos)
     assert torch.equal(got, ref.flash_attention_ref(qb, kb, vb, pos, pos))
     assert flash_attention.launches == {"flash_attention": 0,
-                                        "flash_attention_tc": 0}
+                                        "flash_attention_tc": 0,
+                                        "flash_attention_bwd": 0}
     assert flash_attention.total_launches() == 0
 
 

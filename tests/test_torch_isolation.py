@@ -68,6 +68,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert {"repro_torch.perf", "repro_torch.perf.workload",
             "repro_torch.perf.cost_model", "repro_torch.perf.autotune"
             } <= set(mods)
+    assert {"repro_torch.data.lm", "repro_torch.optim.schedule",
+            "repro_torch.optim.adamw", "repro_torch.models.steps",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
