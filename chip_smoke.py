@@ -4254,13 +4254,16 @@ def phase_lm(np, torch, dev, card):
 
 def bwd_bound(torch, q, k, qpos, kpos, *, window):
     """(bound_ms, bound_by, bytes, flops, kernel_flops, floors) of one
-    backward call: q, k, v, dout and positions read once and dq, dk, dv
-    written once, against HBM; the gradient's five products of dh
-    multiply-adds per visible pair (q.k recomputed, do.v, and the dq, dk,
-    dv products: 10 dh flops), against float32 outside the tensor cores
-    (the kernel's arithmetic; the bf16 tensor-core floor is printed
-    beside it). ``kernel_flops`` is what this kernel does: 9 products,
-    18 dh flops a pair."""
+    backward call, the larger of two times: q, k, v, dout and positions
+    read once and dq, dk, dv written once, against HBM; the gradient's
+    five products of dh multiply-adds per visible pair (q.k recomputed,
+    do.v, and the dq, dk, dv products: 10 dh flops), against the peak of
+    the inputs' type (bf16 tensor cores, or float32 outside them, TF32
+    off), as ``flash_bound`` prices the forward. For bf16, ``floors``
+    also gives the same products at the float32 CUDA-core rate: the
+    ceiling of this kernel's design, which runs them outside the tensor
+    cores, and no bound. ``kernel_flops`` is what this kernel does: 9
+    products, 18 dh flops a pair."""
     from repro_torch.perf import cost_model
     card = cost_model.machine_model("cuda")
     b, _, h, dh = q.shape
@@ -4268,11 +4271,14 @@ def bwd_bound(torch, q, k, qpos, kpos, *, window):
     flops = 10 * dh * pairs * b * h
     nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
         + 4 * (qpos.numel() + kpos.numel())
+    bf16 = q.dtype == torch.bfloat16
+    unit = "tensor_cores" if bf16 else "cuda_cores"
     floors = {"hbm": nbytes / card.hbm_bw * 1e3,
-              "cuda_cores": flops / card.peak_flops * 1e3,
-              "tensor_cores_bf16": flops / BF16_FLOP_PER_S * 1e3}
-    binding = "hbm" if floors["hbm"] >= floors["cuda_cores"] else \
-        "cuda_cores"
+              unit: flops / (BF16_FLOP_PER_S if bf16 else card.peak_flops)
+              * 1e3}
+    binding = max(floors, key=floors.get)
+    if bf16:
+        floors["cuda_cores_design"] = flops / card.peak_flops * 1e3
     return (floors[binding], "bytes" if binding == "hbm" else "operations",
             nbytes, flops, 18 * dh * pairs * b * h, dict(floors,
                                                          binding=binding))
@@ -4468,8 +4474,10 @@ def train_bwd_kernel(np, torch, dev, card):
               f"of its own float32 FMAs), plain autograd {p1:.2f}/{p2:.2f} "
               f"ms, scaled_dot_product_attention backward {lib_ms:.4f} ms "
               f"(device kernel {lib_kernel}), bound {b_ms:.4f} ms "
-              f"({floors['binding']}; hbm {floors['hbm']:.4f}, bf16 tensor "
-              f"cores {floors['tensor_cores_bf16']:.4f} ms) on {card}")
+              f"({floors['binding']}; "
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in floors.items()
+                          if k_ != "binding")
+              + f" ms) on {card}")
         del qt, kt, vt, dot, lib_out
     made.clear()
     return max_err, timings, shares

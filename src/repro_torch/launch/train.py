@@ -52,9 +52,7 @@ two newest steps; ``--resume`` restarts a killed run from the latest one,
 bit-identically. A run without ``--resume`` deletes that directory
 first, so a stale step cannot hijack a later resume.
 
-``build`` and ``main`` are the LM path's entry points; ``main(argv,
-params=...)`` starts from a parameter tree given as numpy arrays (the
-reference's, for parity) in place of the port's own init.
+``build`` and ``main`` are the LM path's entry points.
 """
 from __future__ import annotations
 
@@ -205,7 +203,7 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int,
     return cfg, mesh, train_step, data
 
 
-def run_lm_training(args, params=None):
+def run_lm_training(args):
     """Train ``args.arch`` for ``args.steps`` steps through
     ``fault.run_with_recovery`` (a checkpoint every ``--ckpt-every``
     steps and at the end, under ``--ckpt-dir``; a run finding a later
@@ -214,20 +212,14 @@ def run_lm_training(args, params=None):
     below the first."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.distributed import fault
-    from repro_torch.models import steps, transformer
-    from repro_torch.optim import adamw
+    from repro_torch.models import steps
 
     cfg, mesh, train_step, data = build(
         args.arch, smoke=args.smoke, seq=args.seq, batch=args.batch,
         microbatches=args.microbatches, steps_total=args.steps,
         device=args.device)
     dev = mesh.first_device
-    if params is None:
-        state = steps.init_state(cfg, seed=args.seed, mesh=mesh)
-    else:
-        tree = transformer.params_from_numpy(params, cfg, device=dev)
-        state = steps.TrainState(tree,
-                                 adamw.init_tree(tree, cfg.opt_state_dtype))
+    state = steps.init_state(cfg, seed=args.seed, mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir, keep=2)
     print(f"train[repro_torch] arch={cfg.name} batch={args.batch} "
           f"seq={args.seq} microbatches={args.microbatches} "
@@ -448,10 +440,8 @@ def run_adc_search(args) -> np.ndarray:
     return pf
 
 
-def main(argv=None, params=None):
-    """The CLI. ``params``: an LM parameter tree as numpy arrays (the
-    reference's, carried over with ``params_from_numpy``) in place of
-    the port's own init."""
+def main(argv=None):
+    """The CLI."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.arch is not None:
@@ -465,7 +455,7 @@ def main(argv=None, params=None):
     if not args.adc_search:
         if args.arch is None:
             ap.error("--arch is required unless --adc-search is given")
-        return run_lm_training(args, params=params)
+        return run_lm_training(args)
     from repro_torch.data import tabular
     from repro_torch.device import resolve_device
     try:

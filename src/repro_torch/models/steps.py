@@ -47,7 +47,10 @@ from repro_torch.optim import adamw, schedule
 class TrainState(NamedTuple):
     params: Any
     opt: adamw.OptState
-    err: Optional[torch.Tensor] = None   # compression error feedback: unused
+    # the reference's compression error-feedback field, kept so the state
+    # and its checkpoint names match it; always None until compression
+    # (optim/compression.py) is ported
+    err: Optional[torch.Tensor] = None
 
 
 def _refuse_compression(cfg: ArchConfig) -> None:

@@ -548,20 +548,25 @@ def test_train_state_checkpoints_cross_between_the_packages(tmp_path,
 
 # -------------------------------------------------------------- launcher
 @pytest.mark.parametrize("arch", ["deepseek-7b", "musicgen-medium"])
-def test_launcher_matches_the_reference_losses(arch, tmp_path, capsys):
+def test_launcher_matches_the_reference_losses(arch, tmp_path, capsys,
+                                               monkeypatch):
     """``python -m repro_torch.launch.train --arch ... --smoke --steps 12
     --batch 2 --seq 32 --device cpu``, started from the reference
-    launcher's init (PRNGKey(0)), gives the reference launcher's losses
-    and its log lines."""
+    launcher's init (PRNGKey(0), carried over in place of the port's own
+    init), gives the reference launcher's losses and its log lines."""
     argv = ["--arch", arch, "--smoke", "--steps", "12", "--batch", "2",
             "--seq", "32", "--log-every", "1"]
     jcfg, _ = _configs(arch)
     init = _np(jtransformer.init_params(jax.random.PRNGKey(0), jcfg))
+    monkeypatch.setattr(
+        transformer, "init_params",
+        lambda cfg, *, seed, device: transformer.params_from_numpy(
+            init, cfg, device=device))
     outs, raised = [], []
     for run in (lambda: jtrain.main(argv + ["--ckpt-dir",
                                             str(tmp_path / "j")]),
                 lambda: ttrain.main(argv + ["--ckpt-dir", str(tmp_path / "t"),
-                                            "--device", "cpu"], params=init)):
+                                            "--device", "cpu"])):
         try:
             run()
             raised.append(False)
