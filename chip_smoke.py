@@ -277,21 +277,27 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    launches), beside the stated baseline of the CUDA-core kernel this one
    replaced (3.185 ms a call x 48 launches).
 14. train (LM training, ROADMAP A11): (1/4) the attention backward
-   kernel (csrc/flash_attention_bwd.cu) against the plain autograd in
-   float32 at the same inputs, TF32 off: musicgen-medium's per-layer
-   shape (B 4, S 2048, H = KV = 24, dh 64, causal) in bf16 and float32,
-   GQA with a window and a softcap at dh 96 (S 1030) and 128 (S 777), a
-   ragged S = 77 with empty key slots; each gradient within |got - want|
-   <= rtol |want| + atol max|want| (bf16 2^-7 and 2^-12, float32 1e-5
-   and 1e-5), two runs bitwise equal, each call counted once; a dropped
-   64-key tile and the wrong kv head must exceed the bound 100-fold in
-   both dtypes; then timed at musicgen's shape beside the plain autograd,
-   the bound and scaled_dot_product_attention's backward (the yardstick;
-   the port never calls it); each pass's shared memory must equal the
-   envelope's. (2/4) the smoke configs of musicgen-medium
-   and deepseek-7b, float32: loss (1e-5), every gradient leaf (rtol
-   1e-4, atol 1e-6) and two microbatched train steps (loss, lr,
-   grad_norm 1e-4; params 2e-5) on the card against the CPU. (3/4)
+   against the plain autograd in float32 at the same inputs, TF32 off,
+   on both routes: the tensor-core kernel (csrc/flash_attention_bwd_tc.cu)
+   for bf16 at dh 64/96/112/128, the CUDA-core kernel
+   (csrc/flash_attention_bwd.cu) for float32 and bf16 at other widths:
+   musicgen-medium's per-layer shape (B 4, S 2048, H = KV = 24, dh 64,
+   causal) in bf16 and float32, GQA with a window and a softcap at dh 96
+   (S 1030) and 128 (S 777), a ragged S = 77 with empty key slots, and
+   bf16 GQA at dh 80 (the CUDA-core kernel's bf16 instantiation); each
+   gradient within |got - want| <= rtol |want| + atol max|want| (bf16
+   2^-7 and 2^-12, float32 1e-5 and 1e-5), two runs bitwise equal, each
+   call counted once on its route's key; a dropped 64-key tile and the
+   wrong kv head must exceed the bound 100-fold in both dtypes; then
+   timed at musicgen's shape, each pass's device time on both routes
+   (bf16 on the CUDA-core kernel too, called directly for the
+   comparison), beside the plain autograd, the bound and
+   scaled_dot_product_attention's backward (the yardstick; the port never
+   calls it); each pass's shared memory must equal the envelope's. (2/4)
+   the smoke configs of musicgen-medium and deepseek-7b, float32: loss
+   (1e-5), every gradient leaf (rtol 1e-4, atol 1e-6) and two
+   microbatched train steps (loss, lr, grad_norm 1e-4; params 2e-5) on
+   the card against the CPU. (3/4)
    repro_torch.launch.train.main at smoke size on the card, uninterrupted
    and with a failure injected through run_with_recovery: the final
    checkpoints bitwise equal. (4/4) musicgen-medium at its full published
@@ -301,14 +307,15 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    final checkpoint at this size would write 22 GB): batch 8 x 2048 in 2
    microbatches, 4 steps (depth cut in steps only), the launch counters
    at 0: 192 tensor-core forward launches (forward and remat) and 96
-   backward calls a step, no CUDA-core forward; the first loss within 1.5
+   tensor-core backward calls a step, no CUDA-core forward or backward
+   (the traced step's device kernels agree); the first loss within 1.5
    of ln 2048, every loss and grad norm finite, the params changed; warm
    s/step, tokens/s, 6 N tokens / step time against the bf16 dense peak,
    peak memory, and one traced step (device busy share; row 11's forward
    and the backward kernel's device time).
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
-has two, one per route, and its backward one; launches summed over the
+has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
 sharded, lm, lm_f32, train, train_smoke and train_cli paths, each
 counted from 0),
@@ -381,17 +388,34 @@ KERNELS = {
         "pallas": "flash_attention_pallas (float32, and bf16 at other head "
                   "widths: the CUDA-core route)",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+    "flash_attention_bwd_tc": {
+        "row": "11b", "replaces": "src/repro/models/layers.py:96",
+        "pallas": "none: the gradient of row 11's function, which the "
+                  "reference takes by XLA's autodiff of layers.attention "
+                  "(bf16 at dh 64/96/112/128: the tensor-core route)",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"},
     "flash_attention_bwd": {
         "row": "11b", "replaces": "src/repro/models/layers.py:96",
         "pallas": "none: the gradient of row 11's function, which the "
-                  "reference takes by XLA's autodiff of layers.attention",
+                  "reference takes by XLA's autodiff of layers.attention "
+                  "(float32, and bf16 at other widths: the CUDA-core route)",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
 }
 # the device kernel each launch counter counts, as torch.profiler names it
 FLASH_DEVICE_NAMES = {"flash_attention_tc": "flash_attention_tc_kernel",
                       "flash_attention": "flash_attention_kernel"}
-# the backward's three device kernels (one launch of the wrapper each)
-BWD_DEVICE_NAMES = ("row_stats_kernel", "dkdv_kernel", "dq_kernel")
+# each backward route's three device kernels, in launch order (row
+# statistics, dk/dv, dq: one launch each per call of the wrapper); no name
+# is part of another
+BWD_DEVICE_NAMES = {
+    "flash_attention_bwd_tc": ("stats_tc_kernel", "dkdv_tc_kernel",
+                               "dq_tc_kernel"),
+    "flash_attention_bwd": ("row_stats_kernel", "dkdv_kernel", "dq_kernel")}
+BWD_PASSES = ("stats", "dkdv", "dq")
+# products of dh multiply-adds a visible (query, key) pair each backward
+# route runs: S and dP in each of three passes and the three gradient
+# products, those as hi/lo pairs on the tensor cores
+BWD_ROUTE_PRODUCTS = {"flash_attention_bwd_tc": 12, "flash_attention_bwd": 9}
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 # the robust path: the same shape with 32 Monte-Carlo instances
@@ -643,6 +667,40 @@ def device_kernel_ms(torch, fn, name_part: str, reps=REPS):
             if total > 0:
                 return total / ev.count / 1000.0
     return None
+
+
+def device_ms_by_name(torch, fn, names, window_ms=250.0, tries=3):
+    """{name: device ms per launch} of the CUDA kernels whose names
+    contain each of ``names``, read as ``device_sums`` reads a trace (self
+    device time of the device events, over the launches it recorded) from
+    a torch.profiler window of about ``window_ms`` of device work after a
+    timed warm-up call; None where ``tries`` windows record none. (In
+    phase train the profiler has recorded only some of a window's
+    launches, or none in windows of a few calls; the other phases' long
+    windows and the step trace lose none.)"""
+    from torch.profiler import ProfilerActivity, profile
+    reps = max(5, int(window_ms / max(timed_ms(torch, fn, 1, warmup=1),
+                                      1e-3)))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
+        for ev in prof.key_averages():
+            if "DeviceType.CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            total = getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+            for n in names:
+                if n in ev.key and ev.count and total > 0:
+                    us[n] += total
+                    count[n] += ev.count
+        if all(count.values()):
+            break
+    return {n: us[n] / count[n] / 1e3 if count[n] else None for n in names}
 
 
 def top_device_kernel(torch, fn, reps=3):
@@ -4252,18 +4310,19 @@ def phase_lm(np, torch, dev, card):
     return out
 
 
-def bwd_bound(torch, q, k, qpos, kpos, *, window):
+def bwd_bound(torch, q, k, qpos, kpos, *, window, route):
     """(bound_ms, bound_by, bytes, flops, kernel_flops, floors) of one
     backward call, the larger of two times: q, k, v, dout and positions
     read once and dq, dk, dv written once, against HBM; the gradient's
     five products of dh multiply-adds per visible pair (q.k recomputed,
     do.v, and the dq, dk, dv products: 10 dh flops), against the peak of
     the inputs' type (bf16 tensor cores, or float32 outside them, TF32
-    off), as ``flash_bound`` prices the forward. For bf16, ``floors``
-    also gives the same products at the float32 CUDA-core rate: the
-    ceiling of this kernel's design, which runs them outside the tensor
-    cores, and no bound. ``kernel_flops`` is what this kernel does: 9
-    products, 18 dh flops a pair."""
+    off), as ``flash_bound`` prices the forward. ``kernel_flops`` is what
+    the route's kernel does (``BWD_ROUTE_PRODUCTS``: 12 products a pair
+    on the tensor cores, 9 on the CUDA cores), and ``floors["design"]``
+    those at the rate of the units it runs them on (the bf16 tensor-core
+    peak, or the float32 CUDA-core peak): the ceiling of that design, and
+    no bound."""
     from repro_torch.perf import cost_model
     card = cost_model.machine_model("cuda")
     b, _, h, dh = q.shape
@@ -4277,11 +4336,12 @@ def bwd_bound(torch, q, k, qpos, kpos, *, window):
               unit: flops / (BF16_FLOP_PER_S if bf16 else card.peak_flops)
               * 1e3}
     binding = max(floors, key=floors.get)
-    if bf16:
-        floors["cuda_cores_design"] = flops / card.peak_flops * 1e3
+    kflops = 2 * BWD_ROUTE_PRODUCTS[route] * dh * pairs * b * h
+    floors["design"] = kflops / (BF16_FLOP_PER_S
+                                 if route == "flash_attention_bwd_tc"
+                                 else card.peak_flops) * 1e3
     return (floors[binding], "bytes" if binding == "hbm" else "operations",
-            nbytes, flops, 18 * dh * pairs * b * h, dict(floors,
-                                                         binding=binding))
+            nbytes, flops, kflops, dict(floors, binding=binding))
 
 
 def bwd_share(torch, got, want, dtype_name) -> float:
@@ -4294,10 +4354,14 @@ def bwd_share(torch, got, want, dtype_name) -> float:
 
 
 def device_sums(torch, prof):
-    """(flash forward us, backward us, other us, other ops) of a traced
-    window, by device kernel name."""
-    fwd = bwd = other = 0.0
-    n_other = 0
+    """({group: device us}, {group: launches}, {backward kernel name:
+    device us}) of a traced window, by device kernel name: 'fwd' (row
+    11's two kernels), each backward route by its counter key
+    (``BWD_DEVICE_NAMES``), 'other' the rest."""
+    us = {"fwd": 0.0, **{key: 0.0 for key in BWD_DEVICE_NAMES},
+          "other": 0.0}
+    count = dict.fromkeys(us, 0)
+    by_name = {n: 0.0 for names in BWD_DEVICE_NAMES.values() for n in names}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) is None or not ev.count:
             continue
@@ -4305,23 +4369,30 @@ def device_sums(torch, prof):
             continue
         total = getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))
+        group = "other"
         if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
-            fwd += total
-        elif any(n in ev.key for n in BWD_DEVICE_NAMES):
-            bwd += total
-        else:
-            other += total
-            n_other += ev.count
-    return fwd, bwd, other, n_other
+            group = "fwd"
+        for key, names in BWD_DEVICE_NAMES.items():
+            for n in names:
+                if n in ev.key:
+                    group = key
+                    by_name[n] += total
+        us[group] += total
+        count[group] += ev.count
+    return us, count, by_name
 
 
 def train_bwd_kernel(np, torch, dev, card):
-    """The backward kernel against the plain autograd (in float32 at the
-    same inputs) on the card: musicgen-medium's per-layer shape in bf16
-    and float32, GQA with a window and a softcap at dh 96 and 128, a
-    short ragged S with empty key slots; bitwise across two runs; two
-    controls per dtype at musicgen's shape. Returns (max_abs_err,
-    timings at musicgen's shape, shares)."""
+    """The backward's two routes against the plain autograd (in float32
+    at the same inputs) on the card: musicgen-medium's per-layer shape in
+    bf16 (tensor cores) and float32 (CUDA cores), GQA with a window and a
+    softcap at dh 96 and 128, a short ragged S with empty key slots, and
+    bf16 GQA at dh 80 (the CUDA-core kernel's bf16 instantiation);
+    bitwise across two runs; two controls per dtype at musicgen's shape.
+    Returns (max_abs_err by counter key, timings at musicgen's shape,
+    shares): timings 'bfloat16' (tensor cores), 'float32' (CUDA cores)
+    and 'bfloat16 cuda_core' (the CUDA-core kernel called directly on the
+    bf16 inputs, for the comparison only)."""
     from repro_torch.kernels import envelope
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -4332,9 +4403,19 @@ def train_bwd_kernel(np, torch, dev, card):
                   f"dh={dh}: backward pass {p} asks for "
                   f"{fa.bwd_smem_bytes(p, dh)} bytes of shared memory, the "
                   f"envelope says {envelope.flash_bwd_smem_bytes(p, dh)}")
+    for dh in envelope.FLASH_BWD_TC_HEAD_DIMS:
+        for p in range(3):
+            check(fa.bwd_tc_smem_bytes(p, dh)
+                  == envelope.flash_bwd_tc_smem_bytes(p, dh),
+                  f"dh={dh}: tensor-core backward pass {p} asks for "
+                  f"{fa.bwd_tc_smem_bytes(p, dh)} bytes of shared memory, "
+                  f"the envelope says "
+                  f"{envelope.flash_bwd_tc_smem_bytes(p, dh)}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2027)
     f32, bf16 = torch.float32, torch.bfloat16
+    keys = {"tensor_core": "flash_attention_bwd_tc",
+            "cuda_core": "flash_attention_bwd"}
 
     def arange(n):
         return torch.arange(n, dtype=torch.int32, device=dev)
@@ -4353,27 +4434,31 @@ def train_bwd_kernel(np, torch, dev, card):
             1, 777, 40, 8, 128, 512, 50.0, dt, None)
         cases[f"ragged S=77 H=8 KV=2 dh=64, empty key slots {tag}"] = (
             3, 77, 8, 2, 64, 0, 0.0, dt, kp_ragged)
-    print(f"phase train (1/4): flash_attention_bwd vs the plain autograd "
-          f"(float32 at the same inputs, TF32 off) on the card ({card}); "
-          f"q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1), dout ~ N(0, 1); "
-          f"bound |got - want| <= rtol |want| + atol max|want|, "
-          f"{BWD_TOL}")
-    max_err, made, shares = 0.0, {}, {}
+    cases["GQA H=16 KV=4 dh=80 win=300 cap=20 S=900 bfloat16"] = (
+        2, 900, 16, 4, 80, 300, 20.0, bf16, None)
+    print(f"phase train (1/4): the attention backward's two routes vs the "
+          f"plain autograd (float32 at the same inputs, TF32 off) on the "
+          f"card ({card}); q, k ~ N(0, {FLASH_QK_STD}^2), v ~ N(1, 1), "
+          f"dout ~ N(0, 1); bound |got - want| <= rtol |want| + atol "
+          f"max|want|, {BWD_TOL}")
+    max_err, made, shares = dict.fromkeys(keys.values(), 0.0), {}, {}
     for label, (b, s, h, kv, dh, win, cap, dt, kpos) in cases.items():
         q, k, v = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh, dt)
         do = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt)
         qpos = arange(s)
         kpos = qpos if kpos is None else kpos
         kw = dict(causal=True, window=win, attn_softcap=cap)
-        before = fa.launches["flash_attention_bwd"]
+        key = keys[envelope.flash_bwd_route(dt == bf16, dh)]
+        before = dict(fa.launches)
         got = fa.flash_attention_bwd(q, k, v, do, qpos, kpos, **kw)
         again = fa.flash_attention_bwd(q, k, v, do, qpos, kpos, **kw)
         want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                            do.float(), qpos, kpos, **kw)
         torch.cuda.synchronize()
-        check(fa.launches["flash_attention_bwd"] == before + 2,
-              f"bwd {label}: {fa.launches['flash_attention_bwd'] - before} "
-              f"launches counted for 2 calls")
+        moved = {n: c - before[n] for n, c in fa.launches.items()
+                 if c != before[n]}
+        check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 "
+                                 f"calls, expected {{{key!r}: 2}}")
         tag = str(dt)[6:]
         row = []
         for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -4385,13 +4470,14 @@ def train_bwd_kernel(np, torch, dev, card):
                                      f"two runs")
             sh = bwd_share(torch, g, w.to(dt), tag)
             err = float((g.float() - w.to(dt).float()).abs().max())
-            max_err = max(max_err, err)
+            max_err[key] = max(max_err[key], err)
             row.append(f"{name} {err:.3e} ({sh:.3f} of the bound)")
             shares[f"{label} {name}"] = sh
-            check(sh <= 1.0, f"flash_attention_bwd disagrees with the "
-                             f"plain autograd on {label}: {name} at {sh:.3f} "
-                             f"of the bound (max_abs_err {err:.3e})")
-        print(f"  {label:50s} {'; '.join(row)}; two runs bitwise equal")
+            check(sh <= 1.0, f"{key} disagrees with the plain autograd on "
+                             f"{label}: {name} at {sh:.3f} of the bound "
+                             f"(max_abs_err {err:.3e})")
+        print(f"  {label:50s} [{key}] {'; '.join(row)}; two runs bitwise "
+              f"equal")
         if label.startswith("musicgen"):
             made[tag] = (q, k, v, do, qpos, kw, got)
         del got, again, want
@@ -4423,16 +4509,27 @@ def train_bwd_kernel(np, torch, dev, card):
             del bad
         del want
 
-    # timed at musicgen's shape: kernel, plain, SDPA's backward (the
-    # yardstick, never called by the port). The plain versions above left
-    # gigabytes in the allocator's cache; hand them back first, so the
-    # profiler's own buffers find room on the card
+    # timed at musicgen's shape: each route's kernel (bf16 on the CUDA
+    # cores too, called directly), plain, SDPA's backward (the yardstick,
+    # never called by the port). The plain versions above left gigabytes
+    # in the allocator's cache; hand them back first, so the profiler's
+    # own buffers find room on the card
     import torch.nn.functional as F
     torch.cuda.empty_cache()
     timings = {}
-    for tag, (q, k, v, do, qpos, kw, _) in made.items():
-        k_fn = lambda: fa.flash_attention_bwd(q, k, v, do, qpos,  # noqa
-                                              qpos, **kw)
+    runs = [("bfloat16", "tensor_core"), ("float32", "cuda_core"),
+            ("bfloat16", "cuda_core")]
+    for tag, route in runs:
+        q, k, v, do, qpos, kw, _ = made[tag]
+        key = keys[route]
+        name = tag if (tag == "bfloat16") == (route == "tensor_core") \
+            else f"{tag} {route}"
+        if name == tag:                  # the route dispatch takes
+            k_fn = lambda: fa.flash_attention_bwd(q, k, v, do,  # noqa
+                                                  qpos, qpos, **kw)
+        else:
+            k_fn = lambda: fa._launch_bwd(route, q, k, v, do,  # noqa
+                                          qpos, qpos, **kw)
         p_fn = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
             q, k, v, do, qpos, qpos, **kw)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -4444,35 +4541,38 @@ def train_bwd_kernel(np, torch, dev, card):
         l_fn = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, (qt, kt, vt), dot, retain_graph=True)
         lib_kernel = top_device_kernel(torch, l_fn)
+        reps = 20 if route == "tensor_core" else 10
         p1 = timed_ms(torch, p_fn, 2, warmup=1)
-        k1 = timed_ms(torch, k_fn, 10)
+        k1 = timed_ms(torch, k_fn, reps)
         lib_ms = timed_ms(torch, l_fn, 10)
-        k2 = timed_ms(torch, k_fn, 10)
+        k2 = timed_ms(torch, k_fn, reps)
         p2 = timed_ms(torch, p_fn, 2, warmup=1)
-        dev_ms = 0.0
-        for name in BWD_DEVICE_NAMES:
-            part = device_kernel_ms(torch, k_fn, name, reps=5)
-            dev_ms = None if (part is None or dev_ms is None) else \
-                dev_ms + part
+        by_name = device_ms_by_name(torch, k_fn, BWD_DEVICE_NAMES[key])
+        passes = {pname: by_name[dname] for pname, dname
+                  in zip(BWD_PASSES, BWD_DEVICE_NAMES[key])}
+        dev_ms = None if None in passes.values() else sum(passes.values())
         b_ms, b_by, nbytes, flops, kflops, floors = bwd_bound(
-            torch, q, k, qpos, qpos, window=kw["window"])
+            torch, q, k, qpos, qpos, window=kw["window"], route=key)
         b, s, h, dh = q.shape
         ms = min(k1, k2)
-        timings[tag] = {
-            "kernel": "flash_attention_bwd",
+        timings[name] = {
+            "kernel": key, "route": route,
             "shape": {"B": b, "S": s, "Sk": s, "H": h, "KV": k.shape[2],
                       "dh": dh, "window": 0, "softcap": 0.0, "dtype": tag},
             "ms": ms, "plain_ms": min(p1, p2), "device_ms": dev_ms,
+            "pass_device_ms": passes,
             "library_ms": lib_ms, "library_kernel": lib_kernel,
             "bound_ms": b_ms, "bound_by": b_by, "floors_ms": floors,
             "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
             "tflop_per_s": kflops / (ms * 1e-3) / 1e12}
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        print(f"  time flash_attention_bwd musicgen layer {tag}: kernel "
-              f"{k1:.4f}/{k2:.4f} ms per call (3 launches; profiler device "
-              f"time {dev_txt}; {timings[tag]['tflop_per_s']:.2f} TFLOP/s "
-              f"of its own float32 FMAs), plain autograd {p1:.2f}/{p2:.2f} "
-              f"ms, scaled_dot_product_attention backward {lib_ms:.4f} ms "
+        dev_txt = "not measured" if dev_ms is None else (
+            f"{dev_ms:.4f} ms: " + ", ".join(
+                f"{n_} {v_:.4f}" for n_, v_ in passes.items()))
+        print(f"  time {key} musicgen layer {tag}: kernel {k1:.4f}/{k2:.4f} "
+              f"ms per call (3 launches; profiler device time {dev_txt}; "
+              f"{timings[name]['tflop_per_s']:.2f} TFLOP/s of its own "
+              f"products), plain autograd {p1:.2f}/{p2:.2f} ms, "
+              f"scaled_dot_product_attention backward {lib_ms:.4f} ms "
               f"(device kernel {lib_kernel}), bound {b_ms:.4f} ms "
               f"({floors['binding']}; "
               + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in floors.items()
@@ -4678,11 +4778,13 @@ def phase_train(np, torch, dev, card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = cfg.num_layers * c["microbatches"]
     check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
-          and launches["flash_attention_bwd"] == per_step * c["steps"]
-          and launches["flash_attention"] == 0,
+          and launches["flash_attention_bwd_tc"] == per_step * c["steps"]
+          and launches["flash_attention"] == 0
+          and launches["flash_attention_bwd"] == 0,
           f"the full-width steps launched {launches}; expected "
           f"{2 * per_step} tensor-core forwards (forward and remat) and "
-          f"{per_step} backwards a step, no CUDA-core forward")
+          f"{per_step} tensor-core backwards a step, no CUDA-core forward "
+          f"or backward")
     check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
           f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
           f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}")
@@ -4704,8 +4806,21 @@ def phase_train(np, torch, dev, card):
         float(m["loss"])
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    fwd_us, bwd_us, other_us, other_n = device_sums(torch, prof)
-    busy = (fwd_us + bwd_us + other_us) / 1e6 / traced_wall
+    us, count, by_name = device_sums(torch, prof)
+    # each tensor-core pass's device ms a call at the microbatch's shape
+    # (musicgen's layer), in the step
+    step_passes = {p: by_name[n] / 1e3 / per_step for p, n in zip(
+        BWD_PASSES, BWD_DEVICE_NAMES["flash_attention_bwd_tc"])}
+    fwd_us, other_us, other_n = us["fwd"], us["other"], count["other"]
+    bwd_us = us["flash_attention_bwd_tc"]
+    # the profiler's names agree with the counters: three tensor-core
+    # backward kernels a call, none of the CUDA-core route
+    check(count["flash_attention_bwd_tc"] == 3 * per_step
+          and count["flash_attention_bwd"] == 0,
+          f"the traced step ran {count['flash_attention_bwd_tc']} "
+          f"tensor-core and {count['flash_attention_bwd']} CUDA-core "
+          f"backward kernels; expected {3 * per_step} and 0")
+    busy = sum(us.values()) / 1e6 / traced_wall
     share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
     sdpa = bwd_timings["bfloat16"]["library_ms"] * per_step
     out = {"launches": launches, "launches_smoke": smoke_launches,
@@ -4715,6 +4830,7 @@ def phase_train(np, torch, dev, card):
            "peak_gb": peak_gb, "traced_wall_s": traced_wall,
            "device_busy_share": busy, "flash_fwd_device_ms": fwd_us / 1e3,
            "flash_bwd_device_ms": bwd_us / 1e3,
+           "flash_bwd_pass_device_ms_per_call": step_passes,
            "other_device_ms": other_us / 1e3, "other_device_ops": other_n,
            "sdpa_bwd_yardstick_ms_per_step": sdpa, "params": n_params,
            "bwd_max_abs_err": max_err, "bwd_shares": shares}
@@ -4723,8 +4839,11 @@ def phase_train(np, torch, dev, card):
           f"peak), peak memory {peak_gb:.2f} GB; traced step: wall "
           f"{traced_wall:.3f} s, device busy {busy * 100:.1f} %, row 11's "
           f"forward (tensor cores, {2 * per_step} launches) "
-          f"{fwd_us / 1e3:.1f} ms, flash_attention_bwd ({per_step} calls) "
-          f"{bwd_us / 1e3:.1f} ms, everything else {other_us / 1e3:.1f} ms "
+          f"{fwd_us / 1e3:.1f} ms, flash_attention_bwd_tc ({per_step} calls, "
+          f"{count['flash_attention_bwd_tc']} kernels) "
+          f"{bwd_us / 1e3:.1f} ms (a call: "
+          + ", ".join(f"{p} {v:.4f}" for p, v in step_passes.items())
+          + f" ms), everything else {other_us / 1e3:.1f} ms "
           f"over {other_n} device operations; scaled_dot_product_attention's"
           f" backward at the same shape would take {sdpa:.1f} ms a step "
           f"(yardstick only) on {card}")
@@ -4799,6 +4918,16 @@ def main() -> int:
                     st == 0 and ld == 0 for _, _, st, ld in narrow),
                       f"the CUDA-core instantiations for head widths up "
                       f"to 128 spill or are missing: {kernels}")
+            if src == "flash_attention_bwd_tc":
+                # {row statistics, dk/dv, dq} x dh {64, 96, 112, 128}; the
+                # dk/dv kernel above dh 64 (128 accumulator registers a
+                # thread) spills, a known cost (PERF.md, ROADMAP §B)
+                tight = [k for k in kernels if "dkdv_tc_kernel" not in k[0]
+                         or "ILi64E" in k[0]]
+                check(len(kernels) == 12 and len(tight) == 9 and all(
+                    st == 0 and ld == 0 for _, _, st, ld in tight),
+                      f"the tensor-core backward instantiations spill or "
+                      f"are missing: {kernels}")
             if src == "flash_attention_bwd":
                 # {row statistics, dk/dv, dq} x {f32, bf16} x DHP {64,
                 # 128} x softcap
@@ -4861,7 +4990,7 @@ def main() -> int:
         lm_out = phase_lm(np, torch, dev, card)
         t_train = time.perf_counter()
         train_out, bwd_err, bwd_timings = phase_train(np, torch, dev, card)
-        max_err["flash_attention_bwd"] = bwd_err
+        max_err.update(bwd_err)
         train_out["phase_s"] = time.perf_counter() - t_train
         print(f"phase train: {train_out['phase_s']:.2f} s on {card}")
 
@@ -4908,13 +5037,15 @@ def main() -> int:
                 fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64"],
             "flash_attention":
                 fa_timings["musicgen prefill B=4 S=2048 H=KV=24 dh=64 f32"],
-            "flash_attention_bwd": bwd_timings["bfloat16"]}
+            "flash_attention_bwd_tc": bwd_timings["bfloat16"],
+            "flash_attention_bwd": bwd_timings["float32"]}
         extra_timings = {"adc_quantize_population": q_timings,
                          "qmlp_mlp_bank": timings["qmlp_mlp_bank"],
                          "qmlp_svm_bank": timings["qmlp_svm_bank"],
                          **mc_timings, "flash_attention": fa_timings,
                          "flash_attention_tc": fa_timings,
-                         "flash_attention_bwd": bwd_timings}
+                         "flash_attention_bwd": bwd_timings,
+                         "flash_attention_bwd_tc": bwd_timings}
         rows = []
         for name, meta in KERNELS.items():
             paths = {path: counts.get(name, 0)

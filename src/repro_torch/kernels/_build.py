@@ -28,7 +28,8 @@ SOURCES = {"qmlp_bank": CSRC / "qmlp_bank.cu",
            "mc_eval": CSRC / "mc_eval.cu",
            "flash_attention": CSRC / "flash_attention.cu",
            "flash_attention_tc": CSRC / "flash_attention_tc.cu",
-           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu"}
+           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+           "flash_attention_bwd_tc": CSRC / "flash_attention_bwd_tc.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

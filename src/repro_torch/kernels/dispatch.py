@@ -268,14 +268,24 @@ def resolve_flash(entry: str, q: torch.Tensor) -> Resolution:
 
 
 def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
-    """Decide how the flash-attention backward runs on q (B, S, H, dh):
-    the CUDA-core backward kernel (csrc/flash_attention_bwd.cu) on a CUDA
-    tensor inside its envelope, the plain autograd on a CPU tensor."""
+    """Decide how the flash-attention backward runs on q (B, S, H, dh).
+    A CUDA call takes one of two kernels (``route``), by
+    ``envelope.flash_bwd_route``: 'tensor_core'
+    (csrc/flash_attention_bwd_tc.cu) for bf16 at head widths 64, 96, 112
+    and 128, 'cuda_core' (csrc/flash_attention_bwd.cu) for float32 and for
+    bf16 at any other width; each is held to its own envelope. A CPU
+    tensor takes the plain autograd (route 'plain')."""
     b, s, h, dh = q.shape
-    res = _route(entry, q,
-                 lambda: envelope.outside_flash_bwd_envelope(b, s, h, dh))
+    route = envelope.flash_bwd_route(q.dtype == torch.bfloat16, dh)
+
+    def why():
+        if route == "tensor_core":
+            return envelope.outside_flash_bwd_tc_envelope(b, h, dh)
+        return envelope.outside_flash_bwd_envelope(b, s, h, dh)
+
+    res = _route(entry, q, why)
     return dataclasses.replace(
-        res, route="cuda_core" if res.path == "kernel" else "plain")
+        res, route=route if res.path == "kernel" else "plain")
 
 
 # --------------------------------------------------------------- registry

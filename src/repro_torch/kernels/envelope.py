@@ -98,6 +98,21 @@ dS, lse and D, two position rows, ``4 * (4 * 64 (DHP + 4) + 64 * 65 +
 4 * 64)``: 70,144 / 103,936 / 87,296 bytes at DHP 64 and 135,680 /
 169,472 / 152,832 at 128. Their grids are one-dimensional (tiles x
 batch x heads).
+
+The tensor-core backward (csrc/flash_attention_bwd_tc.cu) takes bf16 at
+head widths 64, 96, 112 and 128 (``flash_bwd_route``; 96 and 112 run as
+128, two 64-column boxes of the 128-byte swizzle). Its passes stage bf16
+tiles by TMA. The row statistics and dq passes hold a 128-row q and dO
+tile and a ring of st stages (4 at dh 64, 3 above) of 64-key K and V
+tiles with the keys' positions and a tile word pair: with c = ceil(dh /
+64) boxes, ``2 c 16384 + 2 st c 8192 + st (256 + 8) + (1 + 2 st) 8 +
+1024`` bytes. The dk/dv pass holds a 128-key K and V tile and a ring of 4
+stages of 32-row Q and dO tiles with lse, D and the queries' positions:
+``2 c 16384 + 8 c 4096 + 4 (384 + 8) + 72 + 1024`` bytes
+(``flash_bwd_tc_smem_bytes``): 100,456 / 68,200 / 100,456 at dh 64 and
+165,712 / 133,736 / 165,712 above. Their grids are (tiles, batch x
+heads), heads the query heads for the row passes and the kv heads for
+dk/dv.
 """
 from __future__ import annotations
 
@@ -591,6 +606,57 @@ def flash_bwd_smem_bytes(pass_: int, dh: int) -> int:
              1: 4 * tile + 2 * t * (t + 1) + 4 * t,
              2: 4 * tile + t * (t + 1) + 4 * t}[pass_]
     return 4 * words
+
+
+FLASH_BWD_TC_HEAD_DIMS = (64, 96, 112, 128)
+
+
+def flash_bwd_route(bf16: bool, dh: int) -> str:
+    """The backward kernel a CUDA call takes: 'tensor_core' for bf16 at a
+    head width the tensor-core backward is instantiated for, 'cuda_core'
+    otherwise (float32 is held at 1e-5, which bf16 products do not
+    meet)."""
+    return ("tensor_core" if bf16 and dh in FLASH_BWD_TC_HEAD_DIMS
+            else "cuda_core")
+
+
+def flash_bwd_tc_stages(pass_: int, dh: int) -> int:
+    """Depth of the tensor-core backward's ring in pass ``pass_`` at head
+    width dh."""
+    return 4 if pass_ == 1 or dh <= 64 else 3
+
+
+FLASH_BWD_TC_Q_ROWS = 32          # query rows of a dk/dv step
+
+
+def flash_bwd_tc_smem_bytes(pass_: int, dh: int) -> int:
+    """Dynamic shared memory one block of tensor-core backward pass
+    ``pass_`` (0 row statistics, 1 dk/dv, 2 dq) asks for at head width dh
+    (csrc/flash_attention_bwd_tc.cu, ``Cfg<DH>::kRowBytes / kColBytes``)."""
+    chunks, st = -(-dh // 64), flash_bwd_tc_stages(pass_, dh)
+    if pass_ == 1:      # Q, dO; lse, D and positions of each row
+        rows, per_stage = FLASH_BWD_TC_Q_ROWS, 12 * FLASH_BWD_TC_Q_ROWS
+    else:               # K, V; the keys' positions
+        rows, per_stage = 64, 4 * 64
+    return (2 * chunks * 16384 + 2 * st * chunks * 128 * rows
+            + st * (per_stage + 8) + (1 + 2 * st) * 8 + 1024)
+
+
+def outside_flash_bwd_tc_envelope(b: int, h: int, dh: int
+                                  ) -> Optional[str]:
+    """None when the tensor-core backward takes B batch rows of H query
+    heads at head width dh, else the limit it breaks, named."""
+    if dh not in FLASH_BWD_TC_HEAD_DIMS:
+        return (f"head_dim={dh} has no tensor-core backward instantiation "
+                f"({FLASH_BWD_TC_HEAD_DIMS})")
+    need = max(flash_bwd_tc_smem_bytes(p, dh) for p in range(3))
+    if need > SMEM_MAX_BYTES:
+        return (f"head_dim={dh} needs {need} bytes of shared memory; the "
+                f"H100 limit per block is {SMEM_MAX_BYTES}")
+    if b * h > MAX_DESIGNS:
+        return (f"B*H={b * h} exceeds the grid's y limit of "
+                f"{MAX_DESIGNS}")
+    return None
 
 
 def outside_flash_bwd_envelope(b: int, s: int, h: int, dh: int

@@ -23,13 +23,20 @@ starts off that alignment is copied first.
 
 ``flash_attention_bwd(q, k, v, dout, q_positions, k_positions, *,
 causal, window, attn_softcap)`` -> (dq, dk, dv) is the gradient of that
-function for the output cotangent dout: on a CUDA tensor the backward
-kernel (csrc/flash_attention_bwd.cu, three launches: row statistics,
-dk/dv, dq; CUDA cores, float32 accumulation, no atomics, so bitwise run to
-run) adds one to ``launches["flash_attention_bwd"]`` per call; on a CPU
-tensor the plain version (``ref.flash_attention_bwd_ref``, autograd
-through the plain forward). ``attention`` is the differentiable entry:
-the autograd Function ``FlashAttention``, whose forward is
+function for the output cotangent dout. A CUDA tensor launches one of two
+backward kernels, three launches each (row statistics, dk/dv, dq; float32
+accumulation, no atomics, so bitwise run to run), by the route
+``dispatch.resolve_flash_bwd`` names: bf16 at head widths 64, 96, 112 and
+128 runs the tensor-core kernel (csrc/flash_attention_bwd_tc.cu, wgmma
+and TMA; its operands 16-byte aligned as the forward's) and adds one to
+``launches["flash_attention_bwd_tc"]`` per call; float32, and bf16 at any
+other width up to 128, run the CUDA-core kernel
+(csrc/flash_attention_bwd.cu) and add one to
+``launches["flash_attention_bwd"]``. A failed launch raises; there is no
+fallback. A CPU tensor runs the plain version
+(``ref.flash_attention_bwd_ref``, autograd through the plain forward).
+``attention`` is the differentiable entry: the autograd Function
+``FlashAttention``, whose forward is
 ``flash_attention`` and whose backward is ``flash_attention_bwd`` on the
 saved q, k, v (the kernel recomputes what it needs of the output). The LM's
 prefill and its training step both go through it (models/layers.py).
@@ -47,12 +54,13 @@ from repro_torch.kernels import _build, dispatch, ref
 
 ENTRY = "flash_attention"             # the CUDA-core kernel's counter
 TC_ENTRY = "flash_attention_tc"       # the tensor-core kernel's counter
-BWD_ENTRY = "flash_attention_bwd"     # the backward kernel's counter
+BWD_ENTRY = "flash_attention_bwd"     # the CUDA-core backward's counter
+BWD_TC_ENTRY = "flash_attention_bwd_tc"   # the tensor-core backward's
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches since the last reset_launches(), one key per route and
-# one for the backward; only the launch sites below add to them
-launches = {ENTRY: 0, TC_ENTRY: 0, BWD_ENTRY: 0}
+# kernel launches since the last reset_launches(), one key per route of
+# the forward and of the backward; only the launch sites below add to them
+launches = {ENTRY: 0, TC_ENTRY: 0, BWD_ENTRY: 0, BWD_TC_ENTRY: 0}
 
 
 def reset_launches() -> None:
@@ -105,6 +113,27 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.flash_attention_bwd_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_bwd_smem_bytes.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_tc() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_tc")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_tc.argtypes = ([ptr] * 11 + [i32] * 6
+                                           + [f32, i32, i32, f32, ptr])
+    lib.flash_attention_bwd_tc.restype = i32
+    lib.flash_attention_bwd_tc_error_string.argtypes = [i32]
+    lib.flash_attention_bwd_tc_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_tc_smem_bytes.argtypes = [i32, i32]
+    lib.flash_attention_bwd_tc_smem_bytes.restype = i32
+    return lib
+
+
+def bwd_tc_smem_bytes(pass_: int, dh: int) -> int:
+    """Dynamic shared memory the built tensor-core backward's pass
+    ``pass_`` asks for at head width dh (negative for a width it has no
+    instantiation for)."""
+    return _lib_bwd_tc().flash_attention_bwd_tc_smem_bytes(pass_, dh)
 
 
 def bwd_smem_bytes(pass_: int, dh: int) -> int:
@@ -225,7 +254,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0, attn_softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
     cotangent ``dout`` (B, S, H, dh). See the module docstring."""
-    b, s, h, dh, sk, kvh = _check(q, k, v, q_positions, k_positions)
+    _check(q, k, v, q_positions, k_positions)
     if tuple(dout.shape) != tuple(q.shape):
         raise ValueError(f"{BWD_ENTRY}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
@@ -237,26 +266,47 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_operands(BWD_ENTRY, [
         ("q", q), ("k", k), ("v", v), ("dout", dout),
         ("q_positions", q_positions), ("k_positions", k_positions)])
+    return _launch_bwd(res.route, q, k, v, dout, q_positions, k_positions,
+                       causal=causal, window=window,
+                       attn_softcap=attn_softcap)
+
+
+def _launch_bwd(route, q, k, v, dout, q_positions, k_positions, *, causal,
+                window, attn_softcap):
+    """One backward call on CUDA operands that passed the checks, on the
+    kernel of ``route`` ('tensor_core' or 'cuda_core'), counted on its
+    key. ``flash_attention_bwd`` passes the route dispatch names."""
+    b, s, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         # no query or no key: nothing attends, every gradient is 0
         return dq.zero_(), dk.zero_(), dv.zero_()
     stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
-    lib = _lib_bwd()
+    args = (b, s, sk, h, kvh, dh, 1.0 / math.sqrt(dh), int(bool(causal)),
+            int(window or 0), float(attn_softcap or 0.0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            q_positions.data_ptr(), k_positions.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), b, s, sk, h, kvh, dh, 1.0 / math.sqrt(dh),
-            int(bool(causal)), int(window or 0), float(attn_softcap or 0.0),
-            int(q.dtype == torch.bfloat16), stream)
+        if route == "tensor_core":
+            q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
+            lib, key = _lib_bwd_tc(), BWD_TC_ENTRY
+            fn, name = (lib.flash_attention_bwd_tc,
+                        lib.flash_attention_bwd_tc_error_string)
+            extra = ()
+        else:
+            lib, key = _lib_bwd(), BWD_ENTRY
+            fn, name = (lib.flash_attention_bwd,
+                        lib.flash_attention_bwd_error_string)
+            extra = (int(q.dtype == torch.bfloat16),)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 q_positions.data_ptr(), k_positions.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats[0].data_ptr(), stats[1].data_ptr(), *args, *extra,
+                 stream)
     if err != 0:
-        raise RuntimeError(
-            f"{BWD_ENTRY} launch failed: error {err} "
-            f"({lib.flash_attention_bwd_error_string(err).decode()})")
-    launches[BWD_ENTRY] += 1
+        raise RuntimeError(f"{key} launch failed: error {err} "
+                           f"({name(err).decode()})")
+    launches[key] += 1
     return dq, dk, dv
 
 

@@ -175,7 +175,8 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     assert torch.equal(got, ref.flash_attention_ref(qb, kb, vb, pos, pos))
     assert flash_attention.launches == {"flash_attention": 0,
                                         "flash_attention_tc": 0,
-                                        "flash_attention_bwd": 0}
+                                        "flash_attention_bwd": 0,
+                                        "flash_attention_bwd_tc": 0}
     assert flash_attention.total_launches() == 0
 
 

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 import pathlib  # noqa: E402
 import re  # noqa: E402
+import types  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -244,6 +245,92 @@ def test_backward_wrapper_checks_without_a_card():
     assert "atomic" not in src.replace("no atomics", "")
 
 
+def _fake_cuda(shape, dtype):
+    """Stand-in for a CUDA tensor: resolve_flash_bwd reads device, shape
+    and dtype."""
+    return types.SimpleNamespace(device=torch.device("cuda", 0), shape=shape,
+                                 dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    ("bfloat16", 64, "tensor_core"), ("bfloat16", 96, "tensor_core"),
+    ("bfloat16", 112, "tensor_core"), ("bfloat16", 128, "tensor_core"),
+    ("bfloat16", 80, "cuda_core"), ("bfloat16", 16, "cuda_core"),
+    ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core")])
+def test_backward_route_table(dtype, dh, route):
+    """The backward's two routes: bf16 at 64/96/112/128 on the tensor
+    cores, bf16 at other widths and float32 on the CUDA cores; a CPU
+    tensor on the plain autograd."""
+    from repro_torch.kernels import dispatch, envelope
+    dt = getattr(torch, dtype)
+    res = dispatch.resolve_flash_bwd("flash_attention_bwd",
+                                     _fake_cuda((4, 2048, 24, dh), dt))
+    assert (res.path, res.route) == ("kernel", route)
+    assert envelope.flash_bwd_route(dt == torch.bfloat16, dh) == route
+    res = dispatch.resolve_flash_bwd("flash_attention_bwd",
+                                     torch.zeros(1, 4, 2, dh, dtype=dt))
+    assert (res.path, res.route) == ("plain", "plain")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_refuses_head_dim_256(dtype):
+    """dh 256 is outside both routes' envelopes; the tensor-core route's
+    grid is (tiles, B*H), so B*H above gridDim.y is refused too."""
+    from repro_torch.kernels import dispatch, envelope
+    with pytest.raises(ValueError, match="head_dim=256"):
+        dispatch.resolve_flash_bwd(
+            "flash_attention_bwd",
+            _fake_cuda((1, 64, 8, 256), getattr(torch, dtype)))
+    assert "no tensor-core" in envelope.outside_flash_bwd_tc_envelope(
+        1, 8, 256)
+    with pytest.raises(ValueError, match="grid"):
+        dispatch.resolve_flash_bwd(
+            "flash_attention_bwd",
+            _fake_cuda((envelope.MAX_DESIGNS + 1, 16, 1, 64), torch.bfloat16))
+
+
+def test_backward_tc_shared_memory():
+    """csrc/flash_attention_bwd_tc.cu's Cfg<DH>::kRowBytes / kColBytes
+    (passes 0 and 2 / pass 1), mirrored by the envelope, under the
+    H100's per-block limit."""
+    from repro_torch.kernels import envelope
+    assert [envelope.flash_bwd_tc_smem_bytes(p, 64) for p in range(3)] == [
+        100_456, 68_200, 100_456]
+    for dh in (96, 112, 128):
+        assert [envelope.flash_bwd_tc_smem_bytes(p, dh)
+                for p in range(3)] == [165_712, 133_736, 165_712]
+    assert [envelope.flash_bwd_tc_stages(p, 64) for p in range(3)] == [
+        4, 4, 4]
+    assert [envelope.flash_bwd_tc_stages(p, 128) for p in range(3)] == [
+        3, 4, 3]
+    assert envelope.FLASH_BWD_TC_Q_ROWS == 32
+    assert all(envelope.outside_flash_bwd_tc_envelope(4, 24, dh) is None
+               for dh in envelope.FLASH_BWD_TC_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bwd",
+                                  "flash_attention_bwd_tc"])
+def test_backward_sources_have_no_atomics(name):
+    """Both backward sources are built from the repo, write each output
+    element from one block (no atomics in the code), and call no library
+    kernel; the tensor-core one runs its products on wgmma and brings its
+    tiles by TMA."""
+    from repro_torch.kernels import _build
+    path = _build.SOURCES[name]
+    assert path.name == f"{name}.cu" and path.is_file()
+    assert _build.library_path(name).name.startswith(f"lib{name}-")
+    src = path.read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "atomic" not in code
+    for word in ("cublas", "cudnn", "cutlass", "torch"):
+        assert word not in code.lower(), word
+    assert "cudaGetLastError" in code
+    if name.endswith("_tc"):
+        for word in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
+                     "setmaxnreg", "__grid_constant__"):
+            assert word in code, word
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernel_matches_plain_on_card(dtype):
@@ -264,13 +351,16 @@ def test_backward_kernel_matches_plain_on_card(dtype):
     kpos = pos.clone()
     kpos[::11] = -1
     kw = dict(window=120, attn_softcap=30.0)
-    before = flash_attention.launches["flash_attention_bwd"]
+    # dh 96: float32 on the CUDA cores, bf16 on the tensor cores
+    key = ("flash_attention_bwd_tc" if dtype == "bfloat16"
+           else "flash_attention_bwd")
+    before = flash_attention.launches[key]
     got = ops.flash_attention_bwd(q, k, v, do, pos, kpos, **kw)
     again = ops.flash_attention_bwd(q, k, v, do, pos, kpos, **kw)
     want = flash_attention.ref.flash_attention_bwd_ref(
         q.float(), k.float(), v.float(), do.float(), pos, kpos, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.launches["flash_attention_bwd"] == before + 2
+    assert flash_attention.launches[key] == before + 2
     rtol, atol = (2 ** -7, 2 ** -12) if dtype == "bfloat16" else (1e-5, 1e-5)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
