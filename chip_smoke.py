@@ -313,12 +313,36 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    s/step, tokens/s, 6 N tokens / step time against the bf16 dense peak,
    peak memory, and one traced step (device busy share; row 11's forward
    and the backward kernel's device time).
+15. moe (the moe family, ROADMAP A11.1; the path "moe" counts the two
+   serve calls and the training steps, each from 0): kimi-k2-1t-a32b
+   (bf16, cut to 2 layers: its dense first layer and one moe layer) and
+   llama4-scout-17b-a16e (float32 params, cut to 2 layers, heads
+   unpadded: 40 over 8 kv heads, ROADMAP C) at their published widths,
+   seeded weights, through launch.serve.serve: 4 x 2048 prompts, 16
+   decode steps; the tensor-core attention (dh 112, 128) once a layer of
+   the prefill and never the CUDA-core route; every moe layer's routed
+   output (8 prefill tokens, every decode step's 4) against a direct
+   float32 recomputation of the same routing and capacity rule, per
+   token within 1 % of its norm, a pair routed to another expert beyond
+   100x that; the dropped pairs printed; prefill == logits_fn (2e-2);
+   a warm and a traced prefill, 16 warm and one traced decode step,
+   peak memory. llama4-scout trained at full layer width (1 layer, bf16
+   masters and AdamW state), 4 x 2048 in 2 microbatches, 3 steps and a
+   traced one: the tensor-core backward at dh 128 once a layer a
+   microbatch, no CUDA-core route; the first loss within 1.5 of ln V,
+   finite losses, norms and aux, the params changed; s/step, tokens/s,
+   6 N_active tokens / step time against the bf16 peak, peak memory, the
+   device split (row 11, row 11b by pass, the rest); one full-width moe
+   layer's forward and backward twice, bitwise. The smoke configs of
+   both, float32, card against CPU (path moe_smoke: the CUDA-core
+   routes at dh 16): prefill and two decode steps (1e-4), three train
+   steps (phase train's bounds), a replayed step bitwise.
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
-sharded, lm, lm_f32, train, train_smoke and train_cli paths, each
-counted from 0),
+sharded, lm, lm_f32, train, train_smoke, train_cli, moe and moe_smoke
+paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -516,6 +540,35 @@ TRAIN_CONTROL_FACTOR = 100.0
 # parity tests' bounds), the step's params
 TRAIN_SMOKE_TOL = dict(loss=1e-5, grad=(1e-4, 1e-6), metrics=1e-4,
                        params=2e-5)
+
+
+# the moe path (ROADMAP A11.1): both published moe configs at their full
+# widths, cut in depth (kimi-k2: its first_k_dense dense layer and one moe
+# layer; llama4-scout unpadded, 40 heads over 8 kv heads, ROADMAP C)
+MOE_SERVE = (("kimi-k2-1t-a32b", dict(num_layers=2)),
+             ("llama4-scout-17b-a16e", dict(num_layers=2, pad_heads_to=0)))
+MOE = dict(requests=4, prompt_len=2048, gen=16, check_tokens=8)
+# llama4-scout trained at full layer width: one layer, bf16 masters and
+# AdamW state (kimi-k2's published choice for moe masters): float32 ones
+# would need ~85 GB at depth 1
+MOE_TRAIN = dict(arch="llama4-scout-17b-a16e",
+                 cut=dict(num_layers=1, pad_heads_to=0,
+                          param_dtype="bfloat16", opt_state_dtype="bfloat16"),
+                 batch=4, seq=2048, microbatches=2, steps=3)
+# the moe smoke configs, float32, card against CPU
+MOE_SMOKE = dict(archs=("kimi-k2-1t-a32b", "llama4-scout-17b-a16e"),
+                 batch=4, seq=32, microbatches=2, steps=3, prompt=16)
+MOE_SMOKE_LOGITS_TOL = 1e-4      # tests/test_torch_moe.py's logits bound
+# a moe layer's routed output (bf16 activations) against its float32
+# recomputation from the same bf16 input and weights, per token t:
+# ||got_t - want_t|| / ||want_t|| <= MOE_BF16_TOL. The port rounds h, g,
+# their SwiGLU product, the expert output, the gate and each of the k
+# partial sums to bf16 (2^-9 relative each), the partial sums most: about
+# 0.7 % at top-8 and d 7168, the bound's scale. Routing one pair to
+# another expert moves the token by about sqrt(2) g_j / ||g|| of its norm:
+# the control takes the checked token where that is largest, and must
+# exceed the bound TRAIN_CONTROL_FACTOR-fold
+MOE_BF16_TOL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -4852,6 +4905,553 @@ def phase_train(np, torch, dev, card):
     return out, max_err, bwd_timings
 
 
+# ------------------------------------------------------------------ moe
+@contextlib.contextmanager
+def recorded_moe(calls):
+    """models.moe.moe_ffn / moe_ffn_decode, as the moe layers call them,
+    each call's (kind, input, routed output, params, MoEConfig) appended
+    to ``calls``; the outputs are the calls' own."""
+    from repro_torch.models import moe
+    ffn, dec = moe.moe_ffn, moe.moe_ffn_decode
+
+    def rec_ffn(x, params, m):
+        y, aux = ffn(x, params, m)
+        calls.append(("prefill", x.detach().clone(), y.detach().clone(),
+                      params, m))
+        return y, aux
+
+    def rec_dec(x, params, m):
+        y = dec(x, params, m)
+        calls.append(("decode", x.detach().clone(), y.detach().clone(),
+                      params, m))
+        return y
+
+    moe.moe_ffn, moe.moe_ffn_decode = rec_ffn, rec_dec
+    try:
+        yield
+    finally:
+        moe.moe_ffn, moe.moe_ffn_decode = ffn, dec
+
+
+def moe_direct(torch, x, params, m, cap):
+    """The float32 routing of x (T, D) written directly: the router
+    product, softmax, the k largest probabilities (the lower expert first
+    on ties), the gates over their sum; pair (t, j) kept while fewer than
+    cap earlier pairs (in t k + j order) chose its expert. Returns (ids,
+    gate, keep), each (T, k), and ``out(rows, swap=None)``: float32 sum
+    over kept pairs of gate * SwiGLU_e(x_t) for the rows, with swap = (n,
+    j) routing row n's pair j to the next expert (the control)."""
+    import torch.nn.functional as F
+    t = x.shape[0]
+    k, e = m.top_k, m.num_experts
+    probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    ids = ids[:, :k]
+    gate = vals[:, :k] / vals[:, :k].sum(-1, keepdim=True).clamp(min=1e-9)
+    hot = F.one_hot(ids.reshape(-1), e)
+    earlier = (hot.cumsum(0) - hot).gather(1, ids.reshape(-1, 1))
+    keep = (earlier[:, 0] < cap).reshape(t, k)
+
+    def out(rows, swap=None):
+        y = torch.zeros((len(rows), x.shape[1]), dtype=torch.float32,
+                        device=x.device)
+        for n, row in enumerate(rows):
+            xt = x[row].float()
+            for j in range(k):
+                if not bool(keep[row, j]):
+                    continue
+                ex = int(ids[row, j])
+                if swap == (n, j):
+                    ex = (ex + 1) % e
+                h = xt @ params["wi"][ex].float()
+                g = xt @ params["wg"][ex].float()
+                y[n] += gate[row, j] * ((F.silu(g) * h)
+                                        @ params["wo"][ex].float())
+        return y
+    return ids, gate, keep, out
+
+
+def moe_share(torch, got, want) -> float:
+    """The largest ||got_t - want_t|| / ||want_t|| over rows t, over
+    MOE_BF16_TOL; a row whose pairs were all dropped (want_t = 0) must be
+    exactly 0 (share 0, else infinite), a non-finite row is infinite."""
+    got, want = got.float(), want.float()
+    err, size = (got - want).norm(dim=-1), want.norm(dim=-1)
+    rel = torch.where(size > 0, err / size.clamp(min=1e-30),
+                      torch.where(err == 0, 0.0, float("inf")))
+    rel = torch.where(torch.isfinite(rel), rel, float("inf"))
+    return float(rel.max()) / MOE_BF16_TOL
+
+
+def moe_output_checks(torch, calls, n_rows):
+    """Each recorded moe call's routed output against moe_direct: n_rows
+    prefill tokens (those with a dropped pair first, then spread evenly)
+    and every decode token; one control a call kind, the largest-gate
+    kept pair of the first checked row routed to the next expert. Returns
+    (worst share by kind, control share by kind, dropped pairs a call,
+    calls by kind)."""
+    from repro_torch.models import moe
+    worst, ctrl, dropped = {}, {}, []
+    kinds = {"prefill": 0, "decode": 0}
+    for kind, x, y, params, m in calls:
+        xf, yf = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+        t = xf.shape[0]
+        cap = (moe.prefill_capacity(t, m) if kind == "prefill"
+               else moe.decode_capacity(t, m))
+        _, gate, keep, out = moe_direct(torch, xf, params, m, cap)
+        kinds[kind] += 1
+        dropped.append(int((~keep).sum()))
+        if kind == "prefill":
+            # partly dropped tokens first, then one wholly dropped
+            part = torch.nonzero(~keep.all(1) & keep.any(1))[:, 0].tolist()
+            whole = torch.nonzero(~keep.any(1))[:, 0].tolist()
+            lossy = (part[:n_rows // 2 - 1] + whole[:1])[:n_rows // 2]
+            spread = [i * t // (n_rows - len(lossy))
+                      for i in range(n_rows - len(lossy))]
+            rows = lossy + [r for r in spread if r not in lossy]
+        else:
+            rows = list(range(t))
+        want = out(rows)
+        share = moe_share(torch, yf[rows], want)
+        worst[kind] = max(worst.get(kind, 0.0), share)
+        check(bool(torch.isfinite(yf).all()), f"moe {kind}: not finite")
+        check(bool(keep[rows].any()), f"moe {kind}: no checked token kept "
+                                      f"a pair")
+        if kind not in ctrl:
+            # the checked pair whose swap moves its token most
+            kept = torch.where(keep[rows], gate[rows], 0.0)
+            reach = kept.max(1).values / kept.norm(dim=1).clamp(min=1e-30)
+            n = int(torch.argmax(reach))
+            j = int(torch.argmax(kept[n]))
+            bad = out([rows[n]], swap=(0, j))
+            ctrl[kind] = moe_share(torch, bad, want[n:n + 1])
+    return worst, ctrl, dropped, kinds
+
+
+def moe_serve(np, torch, dev, card, arch, cut):
+    """One moe config at full width through launch.serve.serve, with every
+    launch counter at 0; its moe outputs against moe_direct, prefill ==
+    logits_fn, a warm and a traced prefill, 16 warm and one traced
+    decode step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    cfg = get_config(arch).replace(**cut)
+    m = cfg.moe
+    b, s, n_gen = MOE["requests"], MOE["prompt_len"], MOE["gen"]
+    counts = cfg.param_counts()
+    print(f"phase moe: {cfg.name} at full width, cut to {cfg.num_layers} "
+          f"layers ({cut}): d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, dh {cfg.resolved_head_dim}, "
+          f"{m.num_experts} experts top-{m.top_k}, d_expert {m.d_expert}, "
+          f"{m.num_shared_experts} shared ({m.d_shared}), cf "
+          f"{m.capacity_factor}, first_k_dense {m.first_k_dense}, vocab "
+          f"{cfg.vocab_size}, {counts['total']:,} parameters "
+          f"({counts['active']:,} active), {cfg.param_dtype} params, "
+          f"{cfg.dtype} activations; launch.serve.serve on cuda ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = []
+    reset_all_launches()
+    with recorded_moe(calls):
+        gen, info = serve.serve(cfg, params, requests=b, prompt_len=s,
+                                gen=n_gen, device=dev, seed=0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    print(f"  launch counters after the main path: {launches}")
+    check(launches["flash_attention_tc"] == cfg.num_layers
+          and launches["flash_attention"] == 0
+          and info["prefill_flash_launches"] == cfg.num_layers,
+          f"{cfg.name}: flash launches {launches}, prefill "
+          f"{info['prefill_flash_launches']}; expected "
+          f"{cfg.num_layers} tensor-core launches (one a layer of the "
+          f"prefill, dh {cfg.resolved_head_dim}), none on the CUDA cores")
+    check(gen.shape == (b, n_gen) and len(info["logits"]) == n_gen + 1
+          and all(lg.shape == (b, cfg.vocab_size) and np.isfinite(lg).all()
+                  for lg in info["logits"]),
+          f"{cfg.name}: generated {gen.shape}; logits not finite or "
+          f"misshapen")
+    n_moe = cfg.num_layers - m.first_k_dense
+    worst, ctrl, dropped, kinds = moe_output_checks(torch, calls,
+                                                    MOE["check_tokens"])
+    check(kinds == {"prefill": n_moe, "decode": n_moe * n_gen},
+          f"{cfg.name}: moe calls {kinds}, expected {n_moe} prefill and "
+          f"{n_moe * n_gen} decode")
+    del calls
+    print(f"  serve: {b} x {s} prefill {info['prefill_s']:.3f} s (first "
+          f"call, {info['prefill_tokens_per_s']:.0f} tokens/s), {n_gen} "
+          f"decode steps {info['decode_ms_per_token']:.2f} ms/token; init "
+          f"{init_s:.2f} s")
+    print(f"  moe outputs vs the float32 recomputation (same bf16 input "
+          f"and weights, same capacity rule; bound ||got - want|| <= "
+          f"{MOE_BF16_TOL:g} ||want|| a token): prefill "
+          f"{MOE['check_tokens']} tokens a moe layer, worst share "
+          f"{worst['prefill']:.3f}; decode every step's {b} tokens, worst "
+          f"{worst['decode']:.3f}; control (a pair routed to the next "
+          f"expert): prefill {ctrl['prefill']:.1f}x, decode "
+          f"{ctrl['decode']:.1f}x the bound; dropped pairs: prefill "
+          f"{dropped[:n_moe]} of {b * s * m.top_k}, decode "
+          f"{sum(dropped[n_moe:])} of {n_moe * n_gen * b * m.top_k} over "
+          f"{n_gen} steps")
+    check(max(worst.values()) <= 1.0,
+          f"{cfg.name}: moe outputs at {worst} of the bound")
+    check(min(ctrl.values()) > TRAIN_CONTROL_FACTOR,
+          f"{cfg.name}: the moe bound does not reject a pair routed to "
+          f"another expert by {TRAIN_CONTROL_FACTOR:g}x: {ctrl}")
+
+    batch = serve.make_batch(cfg, b, s, rng=np.random.default_rng(0),
+                             device=dev)
+    pre, _ = serving.prefill(params, batch, cfg)
+    full = transformer.logits_fn(params, batch, cfg)[:, -1]
+    err_c = float((pre - full).abs().max())
+    same = float(np.abs(pre.cpu().numpy() - info["logits"][0]).max())
+    print(f"  prefill last-position logits vs logits_fn: max_abs_err "
+          f"{err_c:.3e} [rtol=atol=2e-2]; vs serve's prefill {same:.3e}")
+    ok = torch.allclose(pre, full, rtol=2e-2, atol=2e-2)
+    del full
+    check(ok,
+          f"{cfg.name}: prefill != forward ({err_c:.3e})")
+    check(same <= 2e-2, f"{cfg.name}: a second prefill differs from "
+                        f"serve's ({same:.3e})")
+    walls, traced_wall, flash_us, flash_n, other_us, other_n = \
+        timed_prefill(torch, lambda: serving.prefill(params, batch, cfg))
+    check(flash_n == cfg.num_layers, f"{cfg.name}: the traced prefill ran "
+                                     f"{flash_n} flash kernels")
+    busy = (flash_us + other_us) / 1e6 / traced_wall
+    _, cache = serving.prefill(params, batch, cfg, extra_slots=n_gen + 1)
+    rng = np.random.default_rng(2)
+
+    def step_batch(i):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)).to(dev)
+        return serve.token_to_batch(cfg, tok, s + i, b, rng, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_gen):
+        serving.decode_step(params, step_batch(i), cache, cfg)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / n_gen * 1e3
+    nxt = step_batch(n_gen)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serving.decode_step(params, nxt, cache, cfg)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+    dec_us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+                 for ev in prof.key_averages()
+                 if "DeviceType.CUDA" in str(getattr(ev, "device_type", ""))
+                 and ev.count)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm = min(walls)
+    print(f"  warm prefill {walls[0]:.4f}/{walls[1]:.4f} s ({b * s / warm:.0f}"
+          f" tokens/s); traced: wall {traced_wall:.4f} s, flash_attention_tc "
+          f"(dh {cfg.resolved_head_dim}) {flash_us / 1e3:.3f} ms over "
+          f"{flash_n} launches, everything else {other_us / 1e3:.3f} ms over "
+          f"{other_n} device operations, device busy {busy * 100:.1f} %; "
+          f"warm decode {dec_ms:.2f} ms/token, a traced step {dec_wall * 1e3:.2f}"
+          f" ms wall, {dec_us / 1e3:.3f} ms device (busy "
+          f"{dec_us / 1e4 / dec_wall:.1f} %); peak {peak_gb:.2f} GB on {card}")
+    del params, cache, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": counts["total"],
+            "active_params": counts["active"], "init_s": init_s,
+            "prefill_s_first": info["prefill_s"],
+            "decode_ms_per_token_first": info["decode_ms_per_token"],
+            "prefill_s_warm": walls, "prefill_tokens_per_s": b * s / warm,
+            "traced_wall_s": traced_wall, "flash_device_ms": flash_us / 1e3,
+            "flash_launches_traced": flash_n,
+            "other_device_ms": other_us / 1e3, "other_device_ops": other_n,
+            "device_busy_share": busy, "decode_ms_per_token_warm": dec_ms,
+            "decode_traced_wall_ms": dec_wall * 1e3,
+            "decode_device_ms": dec_us / 1e3,
+            "decode_busy_share": dec_us / 1e6 / dec_wall,
+            "peak_gb": peak_gb, "prefill_vs_forward_err": err_c,
+            "moe_share": worst, "moe_control": ctrl, "dropped": dropped}
+
+
+def moe_smoke_card_vs_cpu(np, torch, dev, card):
+    """Both moe smoke configs, float32, card against CPU from one init:
+    prefill and two decode steps' logits, three microbatched train steps;
+    one train step replayed from a cloned state on the card, bitwise.
+    Returns the card's launch counts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, steps, transformer
+    from repro_torch.optim import adamw
+    c, tol = MOE_SMOKE, TRAIN_SMOKE_TOL
+    cpu = torch.device("cpu")
+    print(f"phase moe: smoke configs {c['archs']}, float32, card against "
+          f"CPU: prefill {c['prompt']} + 2 decode steps (logits "
+          f"{MOE_SMOKE_LOGITS_TOL:g}), {c['steps']} train steps (batch "
+          f"{c['batch']} x {c['seq']}, {c['microbatches']} microbatches; "
+          f"loss, lr, grad_norm {tol['metrics']:g}, params {tol['params']:g})"
+          f", a replayed step bitwise")
+    reset_all_launches()
+
+    def copy(tree, device):
+        return adamw.tree_map(lambda t: t.detach().clone().to(device), tree)
+
+    for arch in c["archs"]:
+        cfg = smoke_config(arch)
+        host = transformer.init_params(cfg, seed=5)
+        batch = serve.make_batch(cfg, 2, c["prompt"] + 2,
+                                 rng=np.random.default_rng(3))
+        logits = {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            params = copy(host, d)
+            mb = {k: t.to(d) for k, t in batch.items()}
+            part = lambda lo, hi: {k: t[:, lo:hi]  # noqa: E731
+                                   for k, t in mb.items()}
+            out, cache = serving.prefill(params, part(0, c["prompt"]), cfg)
+            outs = [out]
+            for t in range(c["prompt"], c["prompt"] + 2):
+                out, cache = serving.decode_step(params, part(t, t + 1),
+                                                 cache, cfg)
+                outs.append(out)
+            logits[where] = [o.cpu() for o in outs]
+        lerr = max(float((a - b_).abs().max())
+                   for a, b_ in zip(logits["card"], logits["cpu"]))
+        check(lerr <= MOE_SMOKE_LOGITS_TOL * (1 + max(
+            float(w.abs().max()) for w in logits["cpu"])),
+              f"{arch} smoke serving: card vs CPU logits {lerr:.3e}")
+        data = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=c["seq"],
+            global_batch=c["batch"], microbatches=c["microbatches"]), cfg)
+        step = steps.make_train_step(
+            cfg, None, ShapeConfig("smoke", c["seq"], c["batch"], "train"),
+            microbatches=c["microbatches"], total_steps=10)
+        states, metrics = {}, {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            params = copy(host, d)
+            state = steps.TrainState(params, adamw.init_tree(params))
+            for i in range(c["steps"]):
+                state, mt = step(state, data.device_batch(i, d), i)
+                metrics.setdefault(where, []).append(
+                    {k: float(t) for k, t in mt.items()})
+            states[where] = state
+        for mc, mh in zip(metrics["card"], metrics["cpu"]):
+            for key in ("loss", "lr", "grad_norm"):
+                check(abs(mc[key] - mh[key]) <= tol["metrics"] * abs(mh[key]),
+                      f"{arch} smoke step {key}: card {mc[key]} vs CPU "
+                      f"{mh[key]}")
+        perr = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(
+            adamw.tree_leaves(states["card"].params),
+            adamw.tree_leaves(states["cpu"].params)))
+        check(perr <= tol["params"], f"{arch} smoke params after "
+                                     f"{c['steps']} steps: {perr:.3e}")
+        # one step replayed from a clone of the card's state
+        base = states["card"]
+        runs = []
+        for _ in range(2):
+            clone = steps.TrainState(
+                copy(base.params, dev),
+                adamw.OptState(base.opt.step.clone(), copy(base.opt.m, dev),
+                               copy(base.opt.v, dev)))
+            new, mt = step(clone, data.device_batch(c["steps"], dev),
+                           c["steps"])
+            runs.append(adamw.tree_leaves(new.params)
+                        + adamw.tree_leaves(new.opt.m)
+                        + adamw.tree_leaves(new.opt.v)
+                        + [mt["loss"], mt["grad_norm"]])
+        differ = sum(not torch.equal(a, b_) for a, b_ in zip(*runs))
+        check(differ == 0, f"{arch} smoke: a replayed step differs in "
+                           f"{differ} of {len(runs[0])} tensors")
+        print(f"  {cfg.name}: serving logits card vs CPU {lerr:.2e}; loss "
+              f"{[round(mm['loss'], 6) for mm in metrics['card']]} vs "
+              f"{[round(mm['loss'], 6) for mm in metrics['cpu']]}, "
+              f"grad_norm {[round(mm['grad_norm'], 6) for mm in metrics['card']]}"
+              f" vs {[round(mm['grad_norm'], 6) for mm in metrics['cpu']]}, "
+              f"params max_abs_err {perr:.2e}; a replayed step's "
+              f"{len(runs[0])} tensors bitwise")
+        del states, runs
+    launches = all_launches()
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_bwd"] > 0,
+          f"the moe smoke runs on the card launched {launches}")
+    return launches
+
+
+def moe_train(np, torch, dev, card):
+    """llama4-scout at full layer width (MOE_TRAIN), trained with the
+    launch counters at 0; then one full-width moe layer's forward and
+    backward run twice, bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.models import moe, steps, transformer
+    from repro_torch.optim import adamw
+    c = MOE_TRAIN
+    cfg = get_config(c["arch"]).replace(**c["cut"])
+    counts = cfg.param_counts()
+    tokens = c["batch"] * c["seq"]
+    print(f"phase moe: {cfg.name} trained at full layer width, cut "
+          f"{c['cut']} ({counts['total']:,} parameters, {counts['active']:,}"
+          f" active; remat {cfg.remat}): steps.init_state -> "
+          f"make_train_step on cuda, batch {c['batch']} x {c['seq']} in "
+          f"{c['microbatches']} microbatches, {c['steps']} steps ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_state(cfg, seed=0, device=dev)
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=c["microbatches"]), cfg)
+    step = steps.make_train_step(cfg, None, ShapeConfig(
+        "moe", c["seq"], c["batch"], "train"),
+        microbatches=c["microbatches"], total_steps=100)
+    mb0 = {k: t[0] for k, t in data.device_batch(0, dev).items()}
+    with torch.no_grad():
+        _, m0 = transformer.loss_fn(state.params, mb0, cfg)
+    aux0 = float(m0["aux"])
+    del mb0, m0
+    snap = {"embed": state.params["embed"][:64].clone(),
+            "layers/moe/wi[0][0]": state.params["layers"]["moe"]["wi"][0, 0]
+            .clone(),
+            "layers/moe/router": state.params["layers"]["moe"]["router"]
+            .clone()}
+    reset_all_launches()
+    losses, norms, walls = [], [], []
+    for i in range(c["steps"]):
+        batch = data.device_batch(i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mt = step(state, batch, i)
+        losses.append(float(mt["loss"]))
+        norms.append(float(mt["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {i}: loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
+              f"{walls[-1]:.3f} s", flush=True)
+    launches = all_launches()
+    per_step = cfg.num_layers * c["microbatches"]
+    check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
+          and launches["flash_attention_bwd_tc"] == per_step * c["steps"]
+          and launches["flash_attention"] == 0
+          and launches["flash_attention_bwd"] == 0,
+          f"{cfg.name} steps launched {launches}; expected {2 * per_step} "
+          f"tensor-core forwards and {per_step} tensor-core backwards (dh "
+          f"{cfg.resolved_head_dim}) a step, no CUDA-core route")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
+          f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
+          f"{cfg.vocab_size}")
+    check(np.isfinite(losses).all() and np.isfinite(norms).all()
+          and np.isfinite(aux0), f"non-finite loss, grad norm or aux: "
+                                 f"{losses} {norms} {aux0}")
+    now = {"embed": state.params["embed"][:64],
+           "layers/moe/wi[0][0]": state.params["layers"]["moe"]["wi"][0, 0],
+           "layers/moe/router": state.params["layers"]["moe"]["router"]}
+    for key, before in snap.items():
+        check(not torch.equal(before, now[key]), f"{key} did not change")
+    del snap, now
+    warm = min(walls[1:])
+    batch = data.device_batch(c["steps"], dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, mt = step(state, batch, c["steps"])
+        float(mt["loss"])
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    us, count, by_name = device_sums(torch, prof)
+    passes = {p: by_name[n] / 1e3 / per_step for p, n in zip(
+        BWD_PASSES, BWD_DEVICE_NAMES["flash_attention_bwd_tc"])}
+    check(count["flash_attention_bwd_tc"] == 3 * per_step
+          and count["flash_attention_bwd"] == 0,
+          f"the traced step ran {count['flash_attention_bwd_tc']} "
+          f"tensor-core and {count['flash_attention_bwd']} CUDA-core "
+          f"backward kernels; expected {3 * per_step} and 0")
+    busy = sum(us.values()) / 1e6 / traced_wall
+    share = 6 * counts["active"] * tokens / warm / BF16_FLOP_PER_S
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 "
+          f"N_active tokens / step time = {share * 100:.2f} % of the bf16 "
+          f"dense peak), aux at init {aux0:.4f}, peak memory {peak_gb:.2f} "
+          f"GB; traced step: wall {traced_wall:.3f} s, device busy "
+          f"{busy * 100:.1f} %, row 11's forward {us['fwd'] / 1e3:.2f} ms, "
+          f"flash_attention_bwd_tc {us['flash_attention_bwd_tc'] / 1e3:.2f} "
+          f"ms over {per_step} calls (a call at B 2, S 2048, H 40, KV 8, dh "
+          f"128: " + ", ".join(f"{p} {v:.4f}" for p, v in passes.items())
+          + f" ms), everything else {us['other'] / 1e3:.1f} ms over "
+          f"{count['other']} device operations on {card}")
+    params = state.params
+    del state, data, batch, step
+    torch.cuda.empty_cache()
+
+    # one full-width moe layer (the trained one), forward + backward twice
+    p = adamw.tree_map(lambda t: t.detach().requires_grad_(True),
+                       transformer.layer(params, 0)["moe"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    x = torch.randn((c["batch"] // c["microbatches"], c["seq"], cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    leaves = [x] + adamw.tree_leaves(p)
+    runs = []
+    for _ in range(2):
+        with torch.enable_grad():
+            y, aux = moe.moe_ffn(x, p, cfg.moe)
+            y = y + moe.shared_ffn(x, p)
+            loss = (y.float() * w).sum() + aux
+            grads = torch.autograd.grad(loss, leaves)
+        runs.append([y.detach(), aux.detach()] + list(grads))
+    differ = [i for i, (a, b_) in enumerate(zip(*runs))
+              if not torch.equal(a, b_)]
+    check(not differ, f"a full-width {cfg.name} moe layer's forward + "
+                      f"backward differs between two runs in tensors "
+                      f"{differ}")
+    print(f"  a full-width moe layer's forward + backward (x {tuple(x.shape)}"
+          f" bf16; {len(runs[0])} tensors: output, aux, the gradients of x "
+          f"and of every moe leaf) twice: bitwise equal")
+    del params, p, x, w, runs, leaves
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "grad_norms": norms,
+            "aux_init": aux0, "step_s": walls, "warm_step_s": warm,
+            "tokens_per_s": tokens / warm, "bf16_peak_share_active": share,
+            "params": counts["total"], "active_params": counts["active"],
+            "peak_gb": peak_gb, "traced_wall_s": traced_wall,
+            "device_busy_share": busy, "flash_fwd_device_ms": us["fwd"] / 1e3,
+            "flash_bwd_device_ms": us["flash_attention_bwd_tc"] / 1e3,
+            "flash_bwd_pass_device_ms_per_call": passes,
+            "other_device_ms": us["other"] / 1e3,
+            "other_device_ops": count["other"]}
+
+
+def phase_moe(np, torch, dev, card):
+    """The moe family (ROADMAP A11.1) on the card: both published configs
+    served at full width (cut in depth), llama4-scout trained at full
+    layer width, the smoke configs card against CPU. Returns the main
+    path's launch counts (the two serve calls and the train steps, each
+    counted from 0) and the numbers."""
+    t_phase = time.perf_counter()
+    out = {"serve": {}}
+    launches = {}
+    for arch, cut in MOE_SERVE:
+        res = moe_serve(np, torch, dev, card, arch, cut)
+        out["serve"][arch] = {k: v for k, v in res.items()
+                              if k != "launches"}
+        for name, n in res["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    train = moe_train(np, torch, dev, card)
+    for name, n in train.pop("launches").items():
+        launches[name] = launches.get(name, 0) + n
+    out["train"] = train
+    out["smoke_launches"] = moe_smoke_card_vs_cpu(np, torch, dev, card)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase moe: {out['phase_s']:.2f} s on {card}; launches on the "
+          f"moe path: {launches}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -4993,6 +5593,7 @@ def main() -> int:
         max_err.update(bwd_err)
         train_out["phase_s"] = time.perf_counter() - t_train
         print(f"phase train: {train_out['phase_s']:.2f} s on {card}")
+        moe_out = phase_moe(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -5017,7 +5618,9 @@ def main() -> int:
                    "lm_f32": lm_out["launches_f32"],
                    "train": train_out["launches"],
                    "train_smoke": train_out["launches_smoke"],
-                   "train_cli": train_out["launches_cli"]}
+                   "train_cli": train_out["launches_cli"],
+                   "moe": moe_out["launches"],
+                   "moe_smoke": moe_out["smoke_launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -5090,6 +5693,8 @@ def main() -> int:
                           if k != "launches"},
                    "train": {k: v for k, v in train_out.items()
                              if not k.startswith("launches")},
+                   "moe": {k: v for k, v in moe_out.items()
+                           if not k.endswith("launches")},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

@@ -1,21 +1,27 @@
 """LM serving: prefill (builds the KV cache) and single-token decode, for
-the dense and audio families. Counterpart of the dense/audio branches of
+the dense, audio and moe families. Counterpart of those branches of
 ``repro/models/serving.py``.
 
 Cache (leading L = stacked layers): ring buffers ``k``/``v``
 (L, B, C, KV, hd) in cfg.dtype with C = min(S, window) for sliding
 attention and S otherwise (S = prompt length + ``extra_slots``), ``kpos``
 (C,) int32 absolute positions (-1 = empty slot) and ``pos`` () int32, the
-next position. The reference's ring semantics are kept exactly: decode
-writes the new token at slot ``pos % C`` and attends to that slot too, so
-with ``extra_slots=0`` it evicts StreamingLLM-style.
+next position. A moe config with ``first_k_dense`` adds ``k_pre``/
+``v_pre`` (first_k_dense, B, S, KV, hd) for its dense prelayers, which
+share ``kpos`` (moe attends globally, so C = S). The reference's ring
+semantics are kept exactly: decode writes the new token at slot ``pos %
+C`` and attends to that slot too, so with ``extra_slots=0`` it evicts
+StreamingLLM-style.
 
-``decode_step`` updates the cache's ``k``, ``v`` and ``kpos`` in place and
-returns the same tensors under a new dict with ``pos + 1`` (the
-reference's launcher donates the cache too): clone a cache that is still
-needed. Prefill attention runs the flash-attention kernel on a CUDA
-tensor (models/layers.py); decode attention is plain PyTorch, as it is
-plain jnp in the reference.
+``decode_step`` updates the cache's ``k``, ``v`` (``k_pre``, ``v_pre``)
+and ``kpos`` in place and returns the same tensors under a new dict with
+``pos + 1`` (the reference's launcher donates the cache too): clone a
+cache that is still needed. Prefill attention runs the flash-attention
+kernel on a CUDA tensor (models/layers.py); decode attention is plain
+PyTorch, as it is plain jnp in the reference. The moe layers route with
+the prefill capacity in prefill and the decode capacity in decode
+(``models/moe.py``), the reference's semantics: so for moe, decode after
+prefill is not teacher forcing.
 """
 from __future__ import annotations
 
@@ -43,11 +49,18 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     dt = T.torch_dtype(cfg.dtype)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     w = attn_cache_len(cfg, seq_len, local=False)
-    shape = (cfg.num_layers, batch, w, kv, hd)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "kpos": torch.full((w,), -1, dtype=torch.int32, device=device)}
+
+    def kvbuf(n, length):
+        return torch.zeros((n, batch, length, kv, hd), dtype=dt,
+                           device=device)
+
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "k": kvbuf(T.scan_len(cfg), w), "v": kvbuf(T.scan_len(cfg), w),
+             "kpos": torch.full((w,), -1, dtype=torch.int32, device=device)}
+    if T.first_k_dense(cfg):
+        npre = T.first_k_dense(cfg)
+        cache.update(k_pre=kvbuf(npre, seq_len), v_pre=kvbuf(npre, seq_len))
+    return cache
 
 
 # ----------------------------------------------------------------- decode
@@ -79,13 +92,23 @@ def decode_step(params, batch, cache: Cache, cfg: ArchConfig
     # reference writes the same value into the cache-level kpos after
     # the stack
     kpos.index_copy_(0, slot, positions[0, :1].to(kpos.dtype))
+    pre_cfg = T.dense_config(cfg)
+    for i in range(T.first_k_dense(cfg)):
+        p = T.layer(params, i, "prelayers")
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        a = _attend_decode(p, h, cache["k_pre"][i], cache["v_pre"][i], kpos,
+                           slot, pre_cfg, positions, window=None)
+        x = T.finish_layer(p, x, a, pre_cfg)
     window = T.window_of(cfg)
-    for i in range(cfg.num_layers):
+    for i in range(T.scan_len(cfg)):
         p = T.layer(params, i)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         a = _attend_decode(p, h, cache["k"][i], cache["v"][i], kpos, slot,
                            cfg, positions, window=window)
-        x = T.finish_layer(p, x, a, cfg)
+        if cfg.family == "moe":
+            x, _ = T.finish_moe_layer(p, x, a, cfg, decode=True)
+        else:
+            x = T.finish_layer(p, x, a, cfg)
     new = dict(cache)
     new["pos"] = pos + 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -93,6 +116,19 @@ def decode_step(params, batch, cache: Cache, cfg: ArchConfig
 
 
 # ---------------------------------------------------------------- prefill
+def _write_kv(kc, vc, k, v, s: int) -> None:
+    """A layer's prompt keys and values into its cache (B, C, KV, hd):
+    the last C when C <= S, else the first S slots (the tail stays zero:
+    empty slots)."""
+    wlen = kc.shape[1]
+    if wlen <= s:
+        kc.copy_(k[:, s - wlen:])
+        vc.copy_(v[:, s - wlen:])
+    else:
+        kc[:, :s].copy_(k)
+        vc[:, :s].copy_(v)
+
+
 def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
             ) -> Tuple[torch.Tensor, Cache]:
     """Full-context forward that also builds the decode cache.
@@ -105,19 +141,25 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
     b, s = x.shape[:2]
     cache = init_cache(cfg, b, s + extra_slots, device=x.device)
     wlen = cache["k"].shape[2]
+    pre_cfg = T.dense_config(cfg)
+    for i in range(T.first_k_dense(cfg)):
+        p = T.layer(params, i, "prelayers")
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = T.project_qkv(p, h, cfg, positions)
+        _write_kv(cache["k_pre"][i], cache["v_pre"][i], k, v, s)
+        a = T.attend_qkv(p, q, k, v, pre_cfg, positions[0], window=None)
+        x = T.finish_layer(p, x, a, pre_cfg)
     window = T.window_of(cfg)
-    for i in range(cfg.num_layers):
+    for i in range(T.scan_len(cfg)):
         p = T.layer(params, i)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = T.project_qkv(p, h, cfg, positions)
-        if wlen <= s:
-            cache["k"][i].copy_(k[:, s - wlen:])
-            cache["v"][i].copy_(v[:, s - wlen:])
-        else:                         # the tail stays zero: empty slots
-            cache["k"][i, :, :s].copy_(k)
-            cache["v"][i, :, :s].copy_(v)
+        _write_kv(cache["k"][i], cache["v"][i], k, v, s)
         a = T.attend_qkv(p, q, k, v, cfg, positions[0], window=window)
-        x = T.finish_layer(p, x, a, cfg)
+        if cfg.family == "moe":
+            x, _ = T.finish_moe_layer(p, x, a, cfg)
+        else:
+            x = T.finish_layer(p, x, a, cfg)
 
     last = positions[0, -1].to(torch.int32)
     valid = min(s, wlen)

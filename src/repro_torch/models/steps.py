@@ -20,7 +20,8 @@ semantics:
 
 The step updates ``state.params`` and the AdamW moments in place and
 returns the same ``TrainState``. Autograd's leaves are per-layer views of
-the stacked parameters (``layers`` leaves become lists, which
+the stacked parameters (the leaves of ``layers`` and ``prelayers``, nested
+``moe``/``shared`` subtrees included, become lists, which
 ``transformer.layer`` indexes as it indexes the stacks), so a layer's
 gradient is written into its slice of the stacked sum and no stack-sized
 gradient is made per layer.
@@ -90,20 +91,29 @@ def default_microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
     return mb
 
 
+_STACKED = ("layers", "prelayers")
+
+
 def _autograd_leaves(params):
     """(tree, leaves): ``params`` with every top-level tensor and every
-    layer of every stacked ``layers`` tensor as a fresh autograd leaf
-    sharing the parameter's storage; the flat leaf list in a fixed
-    order."""
-    tree, leaves = {}, []
+    layer of every stacked leaf (``layers`` and ``prelayers``, nested
+    subtrees such as ``moe`` and ``shared`` included) as a fresh autograd
+    leaf sharing the parameter's storage; the flat leaf list in a fixed
+    order, the trees' insertion order."""
+    leaves = []
+
+    def views(node):
+        if isinstance(node, dict):
+            return {k: views(v) for k, v in node.items()}
+        out = [node[i].detach().requires_grad_(True)
+               for i in range(node.shape[0])]
+        leaves.extend(out)
+        return out
+
+    tree = {}
     for key, value in params.items():
-        if key == "layers":
-            tree[key] = {}
-            for name, stack in value.items():
-                views = [stack[i].detach().requires_grad_(True)
-                         for i in range(stack.shape[0])]
-                tree[key][name] = views
-                leaves += views
+        if key in _STACKED:
+            tree[key] = views(value)
         else:
             tree[key] = value.detach().requires_grad_(True)
             leaves.append(tree[key])
@@ -113,10 +123,17 @@ def _autograd_leaves(params):
 def _grad_slots(gsum):
     """The gradient sums' destinations in ``_autograd_leaves`` order."""
     slots = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            slots.extend(node[i] for i in range(node.shape[0]))
+
     for key, value in gsum.items():
-        if key == "layers":
-            for stack in value.values():
-                slots += [stack[i] for i in range(stack.shape[0])]
+        if key in _STACKED:
+            walk(value)
         else:
             slots.append(value)
     return slots

@@ -1,39 +1,47 @@
-"""Decoder LM of the port, for the dense and audio families. Counterpart
-of ``repro/models/transformer.py``.
+"""Decoder LM of the port, for the dense, audio and moe families.
+Counterpart of ``repro/models/transformer.py``.
 
 Supported: ``dense``/``audio`` with ``attn_type`` global or sliding,
 ``post_norm``, ``tie_embeddings``, RoPE, attention and final softcaps, and
 the frontend + pruned-ADC path (musicgen-medium's frame embeddings run the
-port's ``core.adc.adc_quantize``). Refused with ``NotImplementedError``
-naming the ROADMAP item: the moe, ssm and hybrid families, vlm / M-RoPE
-and ``local_global`` (A11, later slices), and ``pad_heads_to >
-num_heads`` (ROADMAP C: unless KV = 1, padding the heads moves real heads
-to other kv heads, so it is not the published model).
+port's ``core.adc.adc_quantize``); ``moe`` (llama4-scout, kimi-k2:
+``models/moe.py``, ``first_k_dense`` dense prelayers) with global
+attention. Refused with ``NotImplementedError`` naming the ROADMAP item:
+the ssm and hybrid families, vlm / M-RoPE and ``local_global`` (A11,
+later slices); moe with a window (ROADMAP C: the reference's moe forward
+attends globally while its prefill and decode use the window); and
+``pad_heads_to > num_heads`` (ROADMAP C: unless KV = 1, padding the heads
+moves real heads to other kv heads, so it is not the published model).
 
-Parameters are a dict in the reference's tree and layouts, so the einsum
-strings are the same: ``final_norm``, ``front_proj`` (F, d) or ``embed``
-(V, d), ``head`` (d, V) unless tied, and ``layers`` with every leaf
-stacked on a leading L axis: ``ln1``, ``q`` (d, H, hd), ``k``/``v``
-(d, KV, hd), ``o`` (H, hd, d), ``ln2``, ``wi``/``wg`` (d, f), ``wo``
-(f, d), and ``ln1p``/``ln2p`` with ``post_norm``. The reference's layer
-``scan`` is a Python loop over L. ``init_params`` draws from the port's
-own stream (a ``torch.Generator`` seeded on the device), which is not
-``jax.random``'s; ``params_from_numpy`` carries the reference's weights
-over for parity. ``layers`` leaves may also be lists of per-layer tensors
-(the train step's autograd leaves): ``layer(params, i)`` indexes both.
+Parameters are a nested dict in the reference's tree and layouts, so the
+einsum strings are the same: ``final_norm``, ``front_proj`` (F, d) or
+``embed`` (V, d), ``head`` (d, V) unless tied, and ``layers`` with every
+leaf stacked on a leading axis over the scanned layers: ``ln1``, ``q``
+(d, H, hd), ``k``/``v`` (d, KV, hd), ``o`` (H, hd, d), ``ln2``, then for
+the dense families ``wi``/``wg`` (d, f), ``wo`` (f, d) and
+``ln1p``/``ln2p`` with ``post_norm``, for moe the subtree ``moe``
+(``models/moe.leaf_shapes``; ``router`` float32 whatever
+``param_dtype`` is). A moe config with ``first_k_dense`` adds
+``prelayers``, that many dense blocks (no post-norms) stacked the same
+way. The reference's layer ``scan`` is a Python loop. ``init_params``
+draws from the port's own stream (a ``torch.Generator`` seeded on the
+device), which is not ``jax.random``'s; ``params_from_numpy`` carries the
+reference's weights over for parity. Stacked leaves may also be lists of
+per-layer tensors (the train step's autograd leaves): ``layer(params,
+i)`` indexes both.
 
 Training: ``forward`` rematerialises each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` and autograd is
 recording (the reference's ``jax.checkpoint`` of its scan body);
 ``chunked_ce_loss`` is the cross-entropy over 512-position chunks, each
 recomputed in the backward, so (B, S, V) logits never materialise;
-``loss_fn`` is ``(ce + aux, {"ce", "aux"})`` with ``aux = 0`` for these
-families (no router).
+``loss_fn`` is ``(ce + router_aux_weight * aux, {"ce", "aux"})`` with
+``aux`` the moe layers' summed Switch loss (0 for the dense families).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 Params = Dict[str, object]
 
@@ -57,7 +66,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
     port does not run yet."""
-    if cfg.family in ("moe", "ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
             f"repro_torch yet (ROADMAP A11, a later slice); use the JAX "
@@ -66,7 +75,7 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: vlm / M-RoPE is not ported to repro_torch yet "
             f"(ROADMAP A11, a later slice); use the JAX package")
-    if cfg.family not in ("dense", "audio"):
+    if cfg.family not in ("dense", "audio", "moe"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.attn_type == "local_global":
         raise NotImplementedError(
@@ -75,11 +84,31 @@ def check_supported(cfg: ArchConfig) -> None:
             f"package")
     if cfg.attn_type not in ("global", "sliding"):
         raise ValueError(f"{cfg.name}: unknown attn_type {cfg.attn_type!r}")
+    if cfg.family == "moe" and cfg.attn_type != "global":
+        raise NotImplementedError(
+            f"{cfg.name}: moe with attn_type={cfg.attn_type!r} is refused "
+            f"(ROADMAP C: the reference's moe forward attends globally "
+            f"while its prefill and decode use the window)")
     if cfg.pad_heads_to > cfg.num_heads:
         raise NotImplementedError(
             f"{cfg.name}: pad_heads_to={cfg.pad_heads_to} > num_heads="
             f"{cfg.num_heads} is refused (ROADMAP C: padding the heads "
             f"changes the model unless num_kv_heads == 1)")
+
+
+def first_k_dense(cfg: ArchConfig) -> int:
+    """The dense prelayers before the scanned moe layers (0 otherwise)."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def scan_len(cfg: ArchConfig) -> int:
+    """The stacked ``layers``' length: every layer but the prelayers."""
+    return cfg.num_layers - first_k_dense(cfg)
+
+
+def dense_config(cfg: ArchConfig) -> ArchConfig:
+    """The config the prelayers run under, as the reference's."""
+    return cfg.replace(family="dense", post_norm=False)
 
 
 def window_of(cfg: ArchConfig):
@@ -88,12 +117,32 @@ def window_of(cfg: ArchConfig):
 
 
 # ============================================================ parameters
+def _attn_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    return {"ln1": (d,), "q": (d, h, hd), "k": (d, kv, hd),
+            "v": (d, kv, hd), "o": (h, hd, d), "ln2": (d,)}
+
+
+def _dense_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    d, f = cfg.d_model, cfg.d_ff
+    lay = dict(_attn_shapes(cfg), wi=(d, f), wg=(d, f), wo=(f, d))
+    if cfg.post_norm:
+        lay.update(ln1p=(d,), ln2p=(d,))
+    return lay
+
+
+def _stacked(tree, n: int):
+    return {k: (_stacked(v, n) if isinstance(v, dict) else (n,) + v)
+            for k, v in tree.items()}
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
-    """{name: shape} of the top-level leaves and {"layers": {name: shape}}
-    with the leading L axis, in the reference's tree."""
+    """{name: shape} of the top-level leaves and the stacked subtrees
+    (``layers``; ``prelayers`` for a moe config with first_k_dense), each
+    leaf with its leading layer axis, in the reference's tree."""
     check_supported(cfg)
-    d, hd, nl = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
-    h, kv, f, v = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size
+    d, v = cfg.d_model, cfg.vocab_size
     top: Dict[str, object] = {"final_norm": (d,)}
     if cfg.frontend:
         top["front_proj"] = (cfg.frontend_dim, d)
@@ -101,17 +150,24 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
         top["embed"] = (v, d)
     if cfg.frontend or not cfg.tie_embeddings:
         top["head"] = (d, v)
-    lay = {"ln1": (d,), "q": (d, h, hd), "k": (d, kv, hd), "v": (d, kv, hd),
-           "o": (h, hd, d), "ln2": (d,), "wi": (d, f), "wg": (d, f),
-           "wo": (f, d)}
-    if cfg.post_norm:
-        lay.update(ln1p=(d,), ln2p=(d,))
-    top["layers"] = {k: (nl,) + s for k, s in lay.items()}
+    if cfg.family == "moe":
+        lay = dict(_attn_shapes(cfg), moe=moe.leaf_shapes(d, cfg.moe))
+    else:
+        lay = _dense_shapes(cfg)
+    top["layers"] = _stacked(lay, scan_len(cfg))
+    if first_k_dense(cfg):
+        top["prelayers"] = _stacked(_dense_shapes(dense_config(cfg)),
+                                    first_k_dense(cfg))
     return top
 
 
-def _init_scale(cfg: ArchConfig, name: str) -> float:
-    """The reference's init scale of a leaf (0: zeros, the norm gains)."""
+def _init_scale(cfg: ArchConfig, path: Tuple[str, ...]) -> float:
+    """The reference's init scale of the leaf at ``path`` (0: zeros, the
+    norm gains), keyed by the whole path: a moe leaf's scale is not the
+    dense leaf's of the same name."""
+    if "moe" in path:
+        return moe.init_scale(cfg.d_model, cfg.moe,
+                              path[path.index("moe") + 1:])
     d = cfg.d_model
     return {"front_proj": 1.0 / math.sqrt(max(cfg.frontend_dim, 1)),
             "embed": 0.02, "head": 1.0 / math.sqrt(d),
@@ -119,33 +175,58 @@ def _init_scale(cfg: ArchConfig, name: str) -> float:
             "v": 1.0 / math.sqrt(d),
             "o": 1.0 / math.sqrt(cfg.num_heads * cfg.resolved_head_dim),
             "wi": 1.0 / math.sqrt(d), "wg": 1.0 / math.sqrt(d),
-            "wo": 1.0 / math.sqrt(max(cfg.d_ff, 1))}.get(name, 0.0)
+            "wo": 1.0 / math.sqrt(max(cfg.d_ff, 1))}.get(path[-1], 0.0)
+
+
+def leaf_dtype(cfg: ArchConfig, path: Tuple[str, ...]) -> torch.dtype:
+    """The stored dtype of the leaf at ``path``: ``param_dtype``, but the
+    moe router is float32 whatever it is (the reference's)."""
+    if path[-2:] == ("moe", "router"):
+        return torch.float32
+    return torch_dtype(cfg.param_dtype)
+
+
+def _per_expert(path: Tuple[str, ...]) -> bool:
+    return len(path) == 3 and path[1] == "moe" and path[2] in ("wi", "wg",
+                                                              "wo")
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device=None) -> Params:
     """Random parameters with the reference's scales (normal * 1/sqrt(fan
-    in), embed 0.02, zero norm gains), drawn leaf by leaf in
-    ``param_shapes`` order from a ``torch.Generator`` on ``device`` seeded
-    with ``seed``: the port's own stream, not ``jax.random``'s."""
+    in), embed and router 0.02, zero norm gains; ``_init_scale``) and
+    dtypes (``leaf_dtype``), drawn leaf by leaf in ``param_shapes`` order
+    from a ``torch.Generator`` on ``device`` seeded with ``seed``: the
+    port's own stream, not ``jax.random``'s. A leaf is one float32 draw,
+    scaled, then cast, except the stacked experts' ``wi``/``wg``/``wo``,
+    drawn one (layer, expert) matrix at a time into the stored dtype, so
+    no float32 copy of a whole expert stack is ever held."""
     dev = torch.device("cpu" if device is None else device)
-    dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def leaf(name, shape):
-        scale = _init_scale(cfg, name)
-        if scale == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
+    def draw(shape, scale, dtype):
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return t.mul_(scale).to(dtype)
 
-    shapes = param_shapes(cfg)
-    params: Params = {k: leaf(k, s) for k, s in shapes.items()
-                      if k != "layers"}
-    params["layers"] = {k: leaf(k, s) for k, s in shapes["layers"].items()}
-    return params
+    def leaf(path, shape):
+        scale, dtype = _init_scale(cfg, path), leaf_dtype(cfg, path)
+        if scale == 0.0:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if not _per_expert(path):
+            return draw(shape, scale, dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):
+            for e in range(shape[1]):
+                out[i, e] = draw(shape[2:], scale, dtype)
+        return out
+
+    def build(tree, path):
+        return {k: (build(v, path + (k,)) if isinstance(v, dict)
+                    else leaf(path + (k,), v)) for k, v in tree.items()}
+
+    return build(param_shapes(cfg), ())
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -184,9 +265,13 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Params:
     return carry(dict(tree), shapes, "params")
 
 
-def layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer i's leaves (views into the stacked tensors)."""
-    return {k: t[i] for k, t in params["layers"].items()}
+def layer(params: Params, i: int, key: str = "layers") -> Params:
+    """Layer i's leaves of the stacked subtree ``key`` (views into the
+    stacked tensors, or the per-layer lists' entries), nesting kept."""
+    def pick(node):
+        return {k: (pick(v) if isinstance(v, dict) else v[i])
+                for k, v in node.items()}
+    return pick(params[key])
 
 
 # ================================================================ forward
@@ -240,6 +325,33 @@ def _dense_layer(p, x, cfg: ArchConfig, positions, *, window):
                         cfg)
 
 
+def _moe_mlp(p, h, cfg: ArchConfig, *, decode: bool = False):
+    """A moe layer's FFN of its normed input h: the routed experts
+    (prefill capacity and the aux loss; with ``decode`` the decode
+    capacity and aux None) plus the shared experts. Returns (y, aux)."""
+    if decode:
+        y, aux = moe.moe_ffn_decode(h, p["moe"], cfg.moe), None
+    else:
+        y, aux = moe.moe_ffn(h, p["moe"], cfg.moe)
+    if cfg.moe.num_shared_experts:
+        y = y + moe.shared_ffn(h, p["moe"])
+    return y, aux
+
+
+def finish_moe_layer(p, x, a, cfg: ArchConfig, *, decode: bool = False):
+    """The rest of a moe layer after its attention output a: (x, aux)."""
+    x = x + a
+    y, aux = _moe_mlp(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                      decode=decode)
+    return x + y, aux
+
+
+def _moe_layer(p, x, cfg: ArchConfig, positions):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    return finish_moe_layer(p, x, _attend(p, h, cfg, positions,
+                                          window=None), cfg)
+
+
 def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     """(B, S, d) inputs in cfg.dtype: frontend embeddings through the
     pruned ADC (per-channel ``adc_mask``) and ``front_proj``, or token
@@ -260,22 +372,41 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
-def forward(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
-    """Final hidden states (B, S, d), after the final norm. Each layer is
-    rematerialised in the backward when ``cfg.remat == "full"`` and
-    autograd is recording."""
+def forward_aux(params: Params, batch, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final hidden states (B, S, d) after the final norm, the float32
+    aux loss summed over the moe layers). The prelayers run first, under
+    ``dense_config``. Each layer is rematerialised in the backward when
+    ``cfg.remat == "full"`` and autograd is recording."""
     check_supported(cfg)
     x = embed_input(params, batch, cfg)
     positions = batch["positions"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        p = layer(params, i)
+
+    def run(fn, *args, **kw):
         if remat:
-            x = checkpoint(_dense_layer, p, x, cfg, positions,
-                           window=window_of(cfg), use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
+    pre_cfg = dense_config(cfg)
+    for i in range(first_k_dense(cfg)):
+        x = run(_dense_layer, layer(params, i, "prelayers"), x, pre_cfg,
+                positions, window=None)
+    for i in range(scan_len(cfg)):
+        p = layer(params, i)
+        if cfg.family == "moe":
+            x, a = run(_moe_layer, p, x, cfg, positions)
+            aux = aux + a
         else:
-            x = _dense_layer(p, x, cfg, positions, window=window_of(cfg))
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = run(_dense_layer, p, x, cfg, positions,
+                    window=window_of(cfg))
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
+    """Final hidden states (B, S, d), after the final norm."""
+    return forward_aux(params, batch, cfg)[0]
 
 
 def lm_head(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -333,35 +464,44 @@ def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor,
 
 def loss_fn(params: Params, batch, cfg: ArchConfig):
     """(total loss, {"ce", "aux"}): the chunked cross-entropy of the
-    batch's labels; aux (the router loss of the moe family, not ported)
-    is 0."""
-    x = forward(params, batch, cfg)
+    batch's labels, plus ``router_aux_weight * aux`` for the moe family;
+    aux is 0 for the others."""
+    x, aux = forward_aux(params, batch, cfg)
     ce = chunked_ce_loss(x, lm_head(params, cfg), batch["labels"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce, {"ce": ce, "aux": aux}
+    total = ce + cfg.moe.router_aux_weight * aux if cfg.moe else ce
+    return total, {"ce": ce, "aux": aux}
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 class Transformer(nn.Module):
-    """The stacked parameters as an ``nn.Module`` (buffers, no autograd:
-    serving only); ``forward`` is ``logits_fn``, and ``params`` is the
-    tree the plain functions here and in models/serving.py take."""
+    """The parameter tree as an ``nn.Module`` (buffers, no autograd:
+    serving only; a nested leaf ``a/b/c`` is the buffer ``a__b__c``);
+    ``forward`` is ``logits_fn``, and ``params`` is the tree the plain
+    functions here and in models/serving.py take."""
 
     def __init__(self, cfg: ArchConfig, params: Params):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self._top = tuple(k for k in params if k != "layers")
-        self._layers = tuple(params["layers"])
-        for k in self._top:
-            self.register_buffer(k, params[k])
-        for k in self._layers:
-            self.register_buffer(f"layers_{k}", params["layers"][k])
+        self._paths = tuple(path for path, _ in _flat(params))
+        for path, t in _flat(params):
+            self.register_buffer("__".join(path), t)
 
     @property
     def params(self) -> Params:
-        tree: Params = {k: getattr(self, k) for k in self._top}
-        tree["layers"] = {k: getattr(self, f"layers_{k}")
-                          for k in self._layers}
+        tree: Params = {}
+        for path in self._paths:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = getattr(self, "__".join(path))
         return tree
 
     def forward(self, batch) -> torch.Tensor:

@@ -268,8 +268,9 @@ def test_steps_bind_the_config():
 
 
 @pytest.mark.parametrize("name,change,match", [
-    ("llama4-scout-17b-a16e", {}, "moe family.*A11"),
-    ("kimi-k2-1t-a32b", {}, "moe family.*A11"),
+    ("llama4-scout-17b-a16e", {}, "pad_heads_to=48.*ROADMAP C"),
+    ("kimi-k2-1t-a32b", {"attn_type": "sliding"},
+     "moe with attn_type='sliding'.*ROADMAP C"),
     ("mamba2-1.3b", {}, "ssm family.*A11"),
     ("hymba-1.5b", {}, "hybrid family.*A11"),
     ("qwen2-vl-72b", {}, "M-RoPE.*A11"),
@@ -278,7 +279,8 @@ def test_steps_bind_the_config():
     ("yi-34b", {"attn_type": "global"}, "pad_heads_to=64.*ROADMAP C"),
 ])
 def test_refusals_name_the_roadmap_item(name, change, match):
-    cfg = get_config(name) if name == "yi-34b" else smoke_config(name)
+    full = name in ("yi-34b", "llama4-scout-17b-a16e")
+    cfg = get_config(name) if full else smoke_config(name)
     cfg = dataclasses.replace(cfg, **change)
     for call in (lambda: transformer.check_supported(cfg),
                  lambda: transformer.init_params(cfg),
@@ -288,6 +290,28 @@ def test_refusals_name_the_roadmap_item(name, change, match):
                  lambda: serving.decode_step({}, {}, {}, cfg)):
         with pytest.raises(NotImplementedError, match=match):
             call()
+
+
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_moe_smoke_configs_run(name):
+    """The moe family's smoke configs, refused before the moe port, run
+    through each entry the refusal test calls (JAX parity:
+    tests/test_torch_moe.py)."""
+    cfg = smoke_config(name)
+    transformer.check_supported(cfg)
+    params = transformer.init_params(cfg, seed=0)
+    _, tb = _batches(cfg, S + 1, seed=2)
+    x = transformer.forward(params, _slice(tb, 0, S), cfg)
+    assert x.shape == (B, S, cfg.d_model)
+    log, cache = serving.prefill(params, _slice(tb, 0, S), cfg)
+    empty = serving.init_cache(cfg, B, S)
+    assert {k: v.shape for k, v in empty.items()} == {
+        k: v.shape for k, v in cache.items()}
+    got, cache = serving.decode_step(params, _slice(tb, S, S + 1), cache,
+                                     cfg)
+    assert got.shape == (B, cfg.vocab_size)
+    assert bool(torch.isfinite(log).all() and torch.isfinite(got).all())
+    assert int(cache["pos"]) == S + 1
 
 
 @pytest.mark.parametrize("kv,moved", [(2, True), (4, True), (1, False)])

@@ -681,14 +681,36 @@ def test_launcher_matches_the_reference_losses(arch, tmp_path, capsys,
 @pytest.mark.parametrize("arch, item", [
     ("gemma2-2b", "local_global.*A11"), ("mamba2-1.3b", "ssm family.*A11"),
     ("hymba-1.5b", "hybrid family.*A11"),
-    ("llama4-scout-17b-a16e", "moe family.*A11"),
-    ("kimi-k2-1t-a32b", "moe family.*A11"),
+    ("llama4-scout-17b-a16e/full", "pad_heads_to=48.*ROADMAP C"),
     ("qwen2-vl-72b", "M-RoPE.*A11"), ("no-such-arch", "unknown arch")])
 def test_launcher_refuses_each_unported_family(arch, item, capsys):
+    """A family not ported (smoke configs), or a published config the
+    port refuses (``/full``: llama4-scout pads 40 heads to 48)."""
+    name, _, full = arch.partition("/")
+    smoke = [] if full else ["--smoke"]
     with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        ttrain.main(["--arch", name, *smoke, "--device", "cpu"])
     assert exc.value.code == 2
     assert re.search(item, capsys.readouterr().err)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_launcher_trains_the_moe_smoke_configs(arch, tmp_path, capsys):
+    """The moe smoke configs, refused before the moe port, train through
+    the CLI: finite losses logged every step and a final checkpoint (the
+    reference's losses: tests/test_torch_moe.py)."""
+    argv = ["--arch", arch, "--smoke", "--steps", "4", "--batch", "2",
+            "--seq", "32", "--device", "cpu", "--log-every", "1",
+            "--ckpt-dir", str(tmp_path)]
+    try:
+        losses = ttrain.main(argv)
+    except AssertionError as exc:        # the reference's check, kept
+        assert "loss did not improve" in str(exc)
+        losses = [float(line.split()[3]) for line in
+                  capsys.readouterr().out.splitlines()
+                  if line.startswith("step ")]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert CheckpointManager(tmp_path).all_steps() == [4]
 
 
 def test_launcher_trains_a_ported_arch_and_resumes(tmp_path, capsys):
