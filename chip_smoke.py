@@ -337,12 +337,39 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    both, float32, card against CPU (path moe_smoke: the CUDA-core
    routes at dh 16): prefill and two decode steps (1e-4), three train
    steps (phase train's bounds), a replayed step bitwise.
+16. ssm (the ssm and hybrid families, ROADMAP A11.2-A11.3; the path
+   "ssm" counts the two serve calls and the two trainings, each from 0):
+   rows 11 and 11b at hymba's layer (B 4, S 2048, 25 heads over 5 kv
+   heads, dh 64, window 1024, bf16), a shape no other path runs, each
+   against its plain version (the bf16 flash limit; BWD_TOL, two runs
+   bitwise) with a dropped kv tile and the wrong kv head as controls,
+   timed beside the bound and SDPA with the window's mask (the
+   yardstick). mamba2-1.3b (48 layers, d_model 2048, state 128,
+   1,343,625,216 parameters) and hymba-1.5b (32 layers, d_model 1600,
+   state 16, 1,640,765,696 parameters) at their published configs,
+   uncut, seeded: launch.serve.serve, 4 x 2048 prompts and 16 decode
+   steps (hymba: the tensor-core attention once a layer of the prefill,
+   mamba2: no kernel at all); prefill == logits_fn (2e-2); 4 decode
+   steps == teacher forcing in float32 (3e-2) and in the served bf16
+   (1.25e-1), a zeroed SSD state and a conv_x tail shifted by one token
+   as controls; a warm and a traced prefill and decode step, each traced
+   window's device time split into the float32 products (the SSD's),
+   the bf16 products, rows 11/11b and the rest. Both trained uncut
+   through launch.train.build -> steps.init_state -> make_train_step,
+   8 x 2048 in 2 microbatches, 3 steps and a traced one (hymba: 2
+   tensor-core forwards and 1 tensor-core backward a layer a
+   microbatch); the first loss within 1.5 of ln V, s/step, tokens/s,
+   6 N tokens / step time against the bf16 peak, peak memory, the same
+   split; one microbatch's loss and every gradient leaf twice, bitwise.
+   The smoke configs card against CPU (path ssm_smoke: hymba's dh 16 on
+   the CUDA-core routes): prefill and 4 decode steps (1e-4), three train
+   steps, a replayed step bitwise.
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
-sharded, lm, lm_f32, train, train_smoke, train_cli, moe and moe_smoke
-paths, each counted from 0),
+sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm
+and ssm_smoke paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -569,6 +596,48 @@ MOE_SMOKE_LOGITS_TOL = 1e-4      # tests/test_torch_moe.py's logits bound
 # the control takes the checked token where that is largest, and must
 # exceed the bound TRAIN_CONTROL_FACTOR-fold
 MOE_BF16_TOL = 1e-2
+# decode == teacher forcing for the ssm and hybrid families: float32 is
+# the gate (LM_TEACHER_F32_TOL; a zeroed SSD state and a conv tail
+# shifted by one token must exceed it). In bf16 at full depth the
+# reference's own rounding (dt projected in bf16, then exponentiated
+# into the decays) leaves the forward and decode alike 0.15-0.27 from
+# the float32 forward (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), over
+# lm's 1.25e-1 gate, and a zeroed state hides inside it. So bf16 decode
+# is held to the float32 forward: no further from it than
+# SSM_BF16_FACTOR times the bf16 forward is (lm's "twice the sound
+# reading"), a bound the shifted conv tail must exceed; its distance
+# from the bf16 forward is printed against lm's gate
+SSM_BF16_FACTOR = 2.0
+# the ssm and hybrid families (ROADMAP A11.2-A11.3): both published
+# configs, uncut (configs/mamba2_1p3b.py, arXiv:2405.21060;
+# configs/hymba_1p5b.py, arXiv:2411.13676)
+SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+_SSM_DTYPES = dict(dtype="bfloat16", param_dtype="float32", remat="full")
+SSM_PUBLISHED = {
+    "mamba2-1.3b": dict(num_layers=48, d_model=2048, vocab_size=50280,
+                        num_heads=0, num_kv_heads=0, head_dim=0, window=0,
+                        d_ff=0, state_dim=128, ssm_head_dim=64, expand=2,
+                        ngroups=1, conv_width=4, chunk=256,
+                        params=1_343_625_216, **_SSM_DTYPES),
+    "hymba-1.5b": dict(num_layers=32, d_model=1600, vocab_size=32001,
+                       num_heads=25, num_kv_heads=5, head_dim=64,
+                       window=1024, d_ff=5504, state_dim=16, ssm_head_dim=64,
+                       expand=2, ngroups=1, conv_width=4, chunk=256,
+                       params=1_640_765_696, **_SSM_DTYPES)}
+# serving: 4 x 2048 prompts (on hymba's 1024-window grid), 16 decode
+# steps; decode against teacher forcing over 4 steps
+SSM = dict(requests=4, prompt_len=2048, gen=16, teacher=4)
+# training: 8 x 2048 tokens in 2 microbatches, 3 steps and a traced one
+SSM_TRAIN = dict(batch=8, seq=2048, microbatches=2, steps=3)
+# the smoke configs, float32, card against CPU
+SSM_SMOKE = dict(batch=4, seq=32, microbatches=2, steps=3, prompt=16,
+                 decode=4)
+# rows 11 and 11b at hymba's layer (bf16)
+HYMBA_ATTN = dict(B=4, S=2048, H=25, KV=5, dh=64, window=1024)
+# the CPU operations whose device kernels are matrix products
+PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+               "aten::addbmm", "aten::matmul", "aten::linear", "aten::mv",
+               "aten::dot", "aten::einsum")
 
 
 class SmokeFailure(Exception):
@@ -5452,6 +5521,757 @@ def phase_moe(np, torch, dev, card):
     return out
 
 
+# ------------------------------------------------------------------ ssm
+def product_split(torch, prof):
+    """({group: device ms}, {group: kernels}) of a traced window (a
+    torch.profiler profile taken with record_shapes=True), each device
+    kernel by the CPU operation that launched it (the chrome trace's
+    External id, the innermost operation): 'f32_products' and
+    'bf16_products' (matrix products, ``PRODUCT_OPS``, whose first input
+    is float32 / bf16: in the ssm and hybrid models every float32 product
+    is the SSD's), 'attention' (rows 11 and 11b, by kernel name) and
+    'rest'."""
+    import json
+    import os
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    ops = {}
+    for ev in events:
+        if ev.get("cat") == "cpu_op":
+            ext = ev.get("args", {}).get("External id")
+            if ext is not None:
+                ops[ext] = ev
+    attention = list(FLASH_DEVICE_NAMES.values()) + [
+        n for names in BWD_DEVICE_NAMES.values() for n in names]
+    us = dict.fromkeys(("f32_products", "bf16_products", "attention",
+                        "rest"), 0.0)
+    count = dict.fromkeys(us, 0)
+    rest = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        group = "rest"
+        op = ops.get(ev.get("args", {}).get("External id"))
+        if any(n in ev.get("name", "") for n in attention):
+            group = "attention"
+        elif op is not None and op.get("name") in PRODUCT_OPS:
+            types = op.get("args", {}).get("Input type") or [""]
+            if types[0] == "float":
+                group = "f32_products"
+            elif "BFloat16" in types[0]:
+                group = "bf16_products"
+        dur = float(ev.get("dur", 0.0))
+        us[group] += dur
+        count[group] += 1
+        if group == "rest":
+            name = op.get("name") if op is not None else "(no CPU op)"
+            rest[name] = rest.get(name, 0.0) + dur
+    ms = {k: v / 1e3 for k, v in us.items()}
+    ms["rest_top_ops"] = {k: v / 1e3 for k, v in sorted(
+        rest.items(), key=lambda kv_: -kv_[1])[:6]}
+    return ms, count
+
+
+def traced_split(torch, fn):
+    """One traced call of ``fn`` (record_shapes on, for
+    ``product_split``): (wall s, {group: device ms}, {group: kernels},
+    device busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms, count = product_split(torch, prof)
+    check(count["f32_products"] + count["bf16_products"] > 0,
+          f"the trace attributes no device kernel to a matrix product: "
+          f"{count}")
+    return wall, ms, count, sum(ms[k] for k in count) / 1e3 / wall
+
+
+def split_text(ms, count) -> str:
+    return (", ".join(f"{k} {ms[k]:.2f} ms ({n} kernels)"
+                      for k, n in count.items())
+            + " (the rest's largest launching operations: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in
+                        ms["rest_top_ops"].items()) + " ms)")
+
+
+def check_published(cfg) -> None:
+    want = SSM_PUBLISHED[cfg.name]
+    s = cfg.ssm
+    got = dict(num_layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab_size=cfg.vocab_size, num_heads=cfg.num_heads,
+               num_kv_heads=cfg.num_kv_heads,
+               head_dim=cfg.resolved_head_dim if cfg.num_heads else 0,
+               window=cfg.window if cfg.family == "hybrid" else 0,
+               d_ff=cfg.d_ff, state_dim=s.state_dim,
+               ssm_head_dim=s.head_dim, expand=s.expand, ngroups=s.ngroups,
+               conv_width=s.conv_width, chunk=s.chunk,
+               params=cfg.param_counts()["total"], dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat)
+    check(got == want, f"{cfg.name} is not at its published config: {got}"
+                       f" != {want}")
+
+
+def ssm_attention_kernels(np, torch, dev, card, clock):
+    """Rows 11 and 11b at hymba's layer (HYMBA_ATTN: bf16, dh 64, 25
+    heads over 5 kv heads, window 1024, S 2048), a shape no other path
+    runs: each against its plain version at the existing limits, with
+    the controls; device ms beside the bound and the library call (SDPA
+    with the windowed causal mask, the yardstick). Returns (max_abs_err by
+    counter key, {key: timing row})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch, envelope
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    a = HYMBA_ATTN
+    b, s, h, kv, dh, win = (a[k] for k in ("B", "S", "H", "KV", "dh",
+                                           "window"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    q, k, v = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh,
+                           torch.bfloat16)
+    do = torch.randn((b, s, h, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=win, attn_softcap=0.0)
+    label = f"hymba layer B={b} S={s} H={h} KV={kv} dh={dh} win={win}"
+    print(f"phase ssm: rows 11 and 11b at {label} bf16 vs their plain "
+          f"versions ({card})")
+    check(dispatch.resolve_flash(fa.ENTRY, q).route == "tensor_core"
+          and envelope.flash_bwd_route(True, dh) == "tensor_core",
+          f"{label}: not on the tensor-core routes")
+    drop = pos.clone()
+    drop[1024:1088] = -1
+    # every query head group reads the next group's kv head
+    wrong = (torch.arange(kv, device=dev) + 1) % kv
+    kw_, vw_ = k[:, :, wrong].contiguous(), v[:, :, wrong].contiguous()
+    max_err, rows = {}, {}
+
+    # row 11
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, pos, pos, **kw)
+    want = ref.flash_attention_ref(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    check(fa.launches == dict(before, **{fa.TC_ENTRY:
+                                         before[fa.TC_ENTRY] + 1}),
+          f"{label}: launches {before} -> {fa.launches}")
+    err = float((got.float() - want.float()).abs().max())
+    share = limit_share(got, want, FLASH_BF16_TOL)
+    check(torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL),
+          f"flash_attention_tc disagrees with its plain version on {label}"
+          f" (max_abs_err {err:.3e})")
+    ctrl = {}
+    for name, bad in (
+            ("one kv tile dropped",
+             ref.flash_attention_ref(q, k, v, pos, drop, **kw)),
+            ("the wrong kv head",
+             ref.flash_attention_ref(q, kw_, vw_, pos, pos, **kw))):
+        ctrl[name] = limit_share(bad, want, FLASH_BF16_TOL)
+        check(not torch.allclose(bad.float(), want.float(), **FLASH_BF16_TOL),
+              f"the bf16 flash limit does not reject {name} at {label}")
+        del bad
+    max_err["flash_attention_tc"] = err
+    print(f"  flash_attention_tc: max_abs_err {err:.3e} ({share:.3f} of the "
+          f"limit rtol {FLASH_BF16_TOL['rtol']:g}, atol "
+          f"{FLASH_BF16_TOL['atol']:g}); controls "
+          + ", ".join(f"{n} {v_:.1f}x the limit: rejected"
+                      for n, v_ in ctrl.items()))
+    del got, want
+    mask = (pos[:, None] - pos[None, :] >= 0) & (pos[:, None] - pos[None, :]
+                                                 < win)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_fn = lambda: fa.flash_attention(q, k, v, pos, pos, **kw)  # noqa: E731
+    p_fn = lambda: ref.flash_attention_ref(q, k, v, pos, pos,  # noqa: E731
+                                           **kw)
+    l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((l_fn().transpose(1, 2).float() - p_fn().float()).abs()
+                    .max())
+    check(lib_err < 5e-2, f"{label}: scaled_dot_product_attention with the "
+                          f"window's mask is not the same function "
+                          f"({lib_err})")
+    p1 = timed_ms(torch, p_fn, 3, warmup=1)
+    k1 = timed_ms(torch, k_fn, 20)
+    lib_ms = min(timed_ms(torch, l_fn, 10), timed_ms(torch, l_fn, 10))
+    k2 = timed_ms(torch, k_fn, 20)
+    p2 = timed_ms(torch, p_fn, 3, warmup=1)
+    name = FLASH_DEVICE_NAMES["flash_attention_tc"]
+    dev_ms = device_ms_by_name(torch, k_fn, (name,))[name]
+    b_ms, b_by, nbytes, flops, floors = flash_bound(
+        torch, q, k, pos, pos, causal=True, window=win, clock=clock)
+    shape = {"B": b, "S": s, "Sk": s, "H": h, "KV": kv, "dh": dh,
+             "window": win, "softcap": 0.0, "dtype": "bfloat16"}
+    rows["flash_attention_tc"] = {
+        "kernel": "flash_attention_tc", "shape": shape, "ms": min(k1, k2),
+        "plain_ms": min(p1, p2), "device_ms": dev_ms, "library_ms": lib_ms,
+        "library_kernel": top_device_kernel(torch, l_fn),
+        "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+        "floors_ms": floors, "bytes": nbytes, "flops": flops,
+        "max_share": share, "controls": ctrl}
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"  time flash_attention_tc {label}: kernel {k1:.4f}/{k2:.4f} ms "
+          f"a call (device {dev_txt}), plain {p1:.3f}/{p2:.3f} ms, SDPA "
+          f"with the mask {lib_ms:.4f} ms "
+          f"({rows['flash_attention_tc']['library_kernel']}), bound "
+          f"{b_ms:.4f} ms ({floors['binding']}) on {card}")
+
+    # row 11b
+    key = "flash_attention_bwd_tc"
+    before = dict(fa.launches)
+    got = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+    again = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       do.float(), pos, pos, **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in fa.launches.items()
+             if c != before[n]}
+    check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 calls")
+    shares, err = {}, 0.0
+    for name, g, a_, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(bool(torch.isfinite(g).all()), f"bwd {label}: {name} not "
+                                             f"finite")
+        check(torch.equal(g, a_), f"bwd {label}: {name} differs between "
+                                  f"two runs")
+        shares[name] = bwd_share(torch, g, w.to(g.dtype), "bfloat16")
+        err = max(err, float((g.float() - w.to(g.dtype).float()).abs()
+                             .max()))
+        check(shares[name] <= 1.0, f"{key} disagrees with the plain "
+                                   f"autograd on {label}: {name} at "
+                                   f"{shares[name]:.3f} of the bound")
+    del got, again
+    bctrl = {}
+    for name, kk, vv, kp in (("one 64-key tile dropped", k, v, drop),
+                             ("the wrong kv head", kw_, vw_, pos)):
+        bad = ref.flash_attention_bwd_ref(q.float(), kk.float(), vv.float(),
+                                          do.float(), pos, kp, **kw)
+        bctrl[name] = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype),
+                                    "bfloat16") for g, w in zip(bad, want))
+        check(bctrl[name] > TRAIN_CONTROL_FACTOR,
+              f"the bf16 backward bound does not reject {name} at {label} "
+              f"by {TRAIN_CONTROL_FACTOR:g}x ({bctrl[name]:.1f})")
+        del bad
+    del want
+    max_err[key] = err
+    print(f"  {key}: dq/dk/dv at "
+          + ", ".join(f"{n} {v_:.3f}" for n, v_ in shares.items())
+          + f" of the bound {BWD_TOL['bfloat16']}, two runs bitwise; "
+          f"controls " + ", ".join(f"{n} {v_:.1f}x" for n, v_ in
+                                   bctrl.items()))
+    torch.cuda.empty_cache()
+    k_fn = lambda: fa.flash_attention_bwd(q, k, v, do, pos,  # noqa: E731
+                                          pos, **kw)
+    p_fn = lambda: ref.flash_attention_bwd_ref(q, k, v, do,  # noqa: E731
+                                               pos, pos, **kw)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=True)
+    l_fn = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (qg, kg, vg), dot, retain_graph=True)
+    p1 = timed_ms(torch, p_fn, 2, warmup=1)
+    k1 = timed_ms(torch, k_fn, 20)
+    lib_ms = timed_ms(torch, l_fn, 10)
+    k2 = timed_ms(torch, k_fn, 20)
+    p2 = timed_ms(torch, p_fn, 2, warmup=1)
+    by_name = device_ms_by_name(torch, k_fn, BWD_DEVICE_NAMES[key])
+    passes = {pn: by_name[dn] for pn, dn in zip(BWD_PASSES,
+                                                  BWD_DEVICE_NAMES[key])}
+    dev_ms = None if None in passes.values() else sum(passes.values())
+    b_ms, b_by, nbytes, flops, kflops, floors = bwd_bound(
+        torch, q, k, pos, pos, window=win, route=key)
+    rows[key] = {"kernel": key, "shape": shape, "ms": min(k1, k2),
+                 "plain_ms": min(p1, p2), "device_ms": dev_ms,
+                 "pass_device_ms": passes, "library_ms": lib_ms,
+                 "library_kernel": top_device_kernel(torch, l_fn),
+                 "bound_ms": b_ms, "bound_by": b_by, "floors_ms": floors,
+                 "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
+                 "shares": shares, "controls": bctrl}
+    dev_txt = "not measured" if dev_ms is None else (
+        f"{dev_ms:.4f} ms: " + ", ".join(f"{n_} {v_:.4f}"
+                                         for n_, v_ in passes.items()))
+    print(f"  time {key} {label}: kernel {k1:.4f}/{k2:.4f} ms a call "
+          f"(device {dev_txt}), plain autograd {p1:.2f}/{p2:.2f} ms, SDPA "
+          f"backward with the mask {lib_ms:.4f} ms "
+          f"({rows[key]['library_kernel']}), bound {b_ms:.4f} ms "
+          f"({floors['binding']}) on {card}")
+    del q, k, v, do, kw_, vw_, qt, kt, vt, qg, kg, vg, lib_out, dot, mask
+    torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def ssm_serve(np, torch, dev, card, arch):
+    """One published config, uncut, through launch.serve.serve with every
+    launch counter at 0 (SSM: 4 x 2048 prompts, 16 decode steps); then
+    prefill == forward; decode == teacher forcing over SSM['teacher']
+    steps in float32 (LM_TEACHER_F32_TOL) and in the served bf16
+    (LM_TEACHER_BF16_ATOL), each with two cache-fault controls (the SSD
+    state zeroed, the conv_x tail shifted by one token) that must fail
+    it; a warm and a traced prefill, 16 warm and one traced decode step,
+    each traced window split by ``product_split``; peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    cfg = get_config(arch)
+    check_published(cfg)
+    b, s, n_gen, n_tf = (SSM[k] for k in ("requests", "prompt_len", "gen",
+                                          "teacher"))
+    hybrid = cfg.family == "hybrid"
+    n_tc = cfg.num_layers if hybrid else 0
+    print(f"phase ssm: {cfg.name} at its published config, uncut "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_counts()['total']:,} parameters, state "
+          f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk}"
+          + (f", {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, window {cfg.window}" if hybrid
+             else ", attention-free")
+          + f"; {cfg.param_dtype} params, {cfg.dtype} activations) through "
+          f"launch.serve.serve on cuda ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_all_launches()
+    gen, info = serve.serve(cfg, params, requests=b, prompt_len=s, gen=n_gen,
+                            device=dev, seed=0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    print(f"  launch counters after the main path: {launches}")
+    check(launches["flash_attention_tc"] == n_tc
+          and info["prefill_flash_launches"] == n_tc
+          and info["decode_flash_launches"] == 0
+          and sum(launches.values()) == n_tc,
+          f"{cfg.name}: launches {launches}, prefill "
+          f"{info['prefill_flash_launches']}; expected {n_tc} tensor-core "
+          f"attention launches (one a layer of the prefill) and nothing "
+          f"else")
+    check(gen.shape == (b, n_gen) and len(info["logits"]) == n_gen + 1
+          and all(lg.shape == (b, cfg.vocab_size) and np.isfinite(lg).all()
+                  for lg in info["logits"]),
+          f"{cfg.name}: generated {gen.shape}; logits not finite or "
+          f"misshapen")
+    print(f"  serve: {b} x {s} prefill {info['prefill_s']:.3f} s (first "
+          f"call, {info['prefill_tokens_per_s']:.0f} tokens/s), {n_gen} "
+          f"decode steps {info['decode_ms_per_token']:.2f} ms/token; init "
+          f"{init_s:.2f} s")
+
+    batch = serve.make_batch(cfg, b, s, rng=np.random.default_rng(0),
+                             device=dev)
+    pre, _ = serving.prefill(params, batch, cfg)
+    full = transformer.logits_fn(params, batch, cfg)[:, -1]
+    err_c = float((pre - full).abs().max())
+    same = float(np.abs(pre.cpu().numpy() - info["logits"][0]).max())
+    ok = torch.allclose(pre, full, rtol=2e-2, atol=2e-2)
+    print(f"  prefill last-position logits vs logits_fn: max_abs_err "
+          f"{err_c:.3e} [rtol=atol=2e-2]; vs serve's prefill {same:.3e}")
+    check(ok, f"{cfg.name}: prefill != forward ({err_c:.3e})")
+    check(same <= 2e-2, f"{cfg.name}: a second prefill differs from "
+                        f"serve's ({same:.3e})")
+    del pre, full
+
+    # decode == teacher forcing: prefill over s, then n_tf decode steps,
+    # each step's logits against the forward's at its position
+    ext = serve.make_batch(cfg, b, s + n_tf, rng=np.random.default_rng(1),
+                           device=dev)
+
+    def part(lo, hi):
+        return {k: t[:, lo:hi] for k, t in ext.items()}
+    out = {}
+    for dname in ("float32", cfg.dtype):
+        c = cfg.replace(dtype=dname)
+        want = transformer.logits_fn(params, ext, c)[:, s:].clone()
+        _, cache = serving.prefill(params, part(0, s), c, extra_slots=n_tf)
+        clean = {k: t.clone() for k, t in cache.items()}
+        got = []
+        for t in range(s, s + n_tf):
+            lg, cache = serving.decode_step(params, part(t, t + 1), cache, c)
+            got.append(lg)
+        got = torch.stack(got, 1)
+        ctrl = {}
+        for name, edit in (
+                ("SSD state zeroed", lambda cc: cc["state"].zero_()),
+                ("conv_x tail shifted by one token",
+                 lambda cc: cc["conv_x"].copy_(torch.roll(cc["conv_x"], 1,
+                                                          dims=2)))):
+            bad = {k: t.clone() for k, t in clean.items()}
+            edit(bad)
+            ctrl[name] = serving.decode_step(params, part(s, s + 1), bad,
+                                             c)[0]
+            del bad
+        out[dname] = (got, want, ctrl)
+        del cache, clean
+
+    def dist(a_, b_):
+        return float((a_ - b_).abs().max())
+    got32, want32, ctrl32 = out["float32"]
+    got16, want16, ctrl16 = out[cfg.dtype]
+    err32, err16 = dist(got32, want32), dist(got16, want16)
+    c32 = {n: dist(t, want32[:, 0]) for n, t in ctrl32.items()}
+    c16 = {n: dist(t, want16[:, 0]) for n, t in ctrl16.items()}
+    wit = {"bf16 decode vs float32 forward": dist(got16, want32),
+           "bf16 forward vs float32 forward": dist(want16, want32)}
+    # the bf16 path held to the float32 forward (SSM_BF16_FACTOR)
+    bound16 = SSM_BF16_FACTOR * wit["bf16 forward vs float32 forward"]
+    c16_truth = {n: dist(t, want32[:, 0]) for n, t in ctrl16.items()}
+    held16 = err16 <= LM_TEACHER_BF16_ATOL
+    print(f"  decode after prefill(extra_slots={n_tf}) vs the forward over "
+          f"{s + n_tf} tokens, {n_tf} steps (float32 forward: std "
+          f"{float(want32.std()):.3f}, max |.| "
+          f"{float(want32.abs().max()):.3f}):")
+    print(f"      float32 (the gate): max_abs_err {err32:.3e} [rtol=atol="
+          f"{LM_TEACHER_F32_TOL:g}]; controls "
+          + ", ".join(f"{n} {v_:.3e} ({v_ / LM_TEACHER_F32_TOL:.1f}x: "
+                      f"{'rejected' if v_ > LM_TEACHER_F32_TOL else 'NOT'})"
+                      for n, v_ in c32.items()))
+    print(f"      {cfg.dtype}: max_abs_err {err16:.3e} against lm's gate "
+          f"{LM_TEACHER_BF16_ATOL:g}: {'held' if held16 else 'not held'}; "
+          f"controls " + ", ".join(f"{n} {v_:.3e}" for n, v_ in c16.items()))
+    for name, val in wit.items():
+        print(f"      witness, {name}: {val:.3e}")
+    dec16 = wit["bf16 decode vs float32 forward"]
+    print(f"      {cfg.dtype} decode vs the float32 forward {dec16:.3e} <= "
+          f"{SSM_BF16_FACTOR:g} x the {cfg.dtype} forward's "
+          f"{bound16 / SSM_BF16_FACTOR:.3e}; controls there " + ", ".join(
+              f"{n} {v_:.3e} ({'rejected' if v_ > bound16 else 'within'})"
+              for n, v_ in c16_truth.items()))
+    check(torch.allclose(got32, want32, rtol=LM_TEACHER_F32_TOL,
+                         atol=LM_TEACHER_F32_TOL),
+          f"{cfg.name}: decode != teacher forcing in float32 ({err32:.3e})")
+    check(all(v_ > LM_TEACHER_F32_TOL for v_ in c32.values()),
+          f"{cfg.name}: the float32 limit does not reject a cache fault: "
+          f"{c32}")
+    check(dec16 <= bound16,
+          f"{cfg.name}: {cfg.dtype} decode is {dec16:.3e} from the float32 "
+          f"forward, over {SSM_BF16_FACTOR:g} x the {cfg.dtype} forward's "
+          f"distance")
+    check(c16_truth["conv_x tail shifted by one token"] > bound16,
+          f"{cfg.name}: the {cfg.dtype} bound does not reject a shifted "
+          f"conv tail: {c16_truth}")
+    ctrl32, ctrl16 = c32, dict(c16, **{f"{n} (vs the float32 forward)": v_
+                                       for n, v_ in c16_truth.items()})
+    del out, got32, want32, got16, want16
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serving.prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pre_wall, pre_ms, pre_n, pre_busy = traced_split(
+        torch, lambda: serving.prefill(params, batch, cfg))
+    _, cache = serving.prefill(params, batch, cfg, extra_slots=n_gen + 1)
+    rng = np.random.default_rng(2)
+
+    def step_batch(i):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)).to(dev)
+        return serve.token_to_batch(cfg, tok, s + i, b, rng, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_gen):
+        serving.decode_step(params, step_batch(i), cache, cfg)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / n_gen * 1e3
+    nxt = step_batch(n_gen)
+    dec_wall, dec_split, dec_n, dec_busy = traced_split(
+        torch, lambda: serving.decode_step(params, nxt, cache, cfg))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm = min(walls)
+    print(f"  warm prefill {walls[0]:.4f}/{walls[1]:.4f} s ({b * s / warm:.0f}"
+          f" tokens/s); traced (shapes recorded): wall {pre_wall:.4f} s, "
+          f"busy {pre_busy * 100:.1f} %, device {split_text(pre_ms, pre_n)}")
+    print(f"  warm decode {dec_ms:.2f} ms/token; a traced step: wall "
+          f"{dec_wall * 1e3:.2f} ms, busy {dec_busy * 100:.1f} %, device "
+          f"{split_text(dec_split, dec_n)}; peak {peak_gb:.2f} GB on {card}")
+    del params, cache, batch, ext
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": cfg.param_counts()["total"],
+            "init_s": init_s, "prefill_s_first": info["prefill_s"],
+            "decode_ms_per_token_first": info["decode_ms_per_token"],
+            "prefill_s_warm": walls, "prefill_tokens_per_s": b * s / warm,
+            "prefill_traced_wall_s": pre_wall,
+            "prefill_device_ms": pre_ms, "prefill_kernels": pre_n,
+            "prefill_busy_share": pre_busy,
+            "decode_ms_per_token_warm": dec_ms,
+            "decode_traced_wall_ms": dec_wall * 1e3,
+            "decode_device_ms": dec_split, "decode_kernels": dec_n,
+            "decode_busy_share": dec_busy, "peak_gb": peak_gb,
+            "prefill_vs_forward_err": err_c,
+            "decode_vs_teacher_err_f32": err32,
+            "decode_vs_teacher_err_served": err16,
+            "decode_vs_teacher_served_held_lm_gate": held16,
+            "controls_f32": ctrl32, "controls_served": ctrl16,
+            "witnesses": wit}
+
+
+def leaf_names(params, stacked):
+    """Names of ``steps._autograd_leaves``' leaves, in its order."""
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        else:
+            names.extend(f"{path}[{i}]" for i in range(node.shape[0]))
+    for key, value in params.items():
+        if key in stacked:
+            walk(value, key)
+        else:
+            names.append(key)
+    return names
+
+
+def ssm_train(np, torch, dev, card, arch):
+    """One published config, uncut, trained through launch.train.build ->
+    steps.init_state -> make_train_step with every launch counter at 0
+    (SSM_TRAIN: 8 x 2048 in 2 microbatches, 3 steps) and one traced
+    step; then one microbatch's loss and every gradient leaf (every layer,
+    the token embedding's gather and, for mamba2, the tied head) twice,
+    bitwise."""
+    from repro_torch.launch import train
+    from repro_torch.models import steps, transformer
+    c = SSM_TRAIN
+    cfg, mesh, train_step, data = train.build(
+        arch, smoke=False, seq=c["seq"], batch=c["batch"],
+        microbatches=c["microbatches"], steps_total=100, device="cuda")
+    check_published(cfg)
+    hybrid = cfg.family == "hybrid"
+    n_params = cfg.param_counts()["total"]
+    tokens = c["batch"] * c["seq"]
+    print(f"phase ssm: {cfg.name} trained at its published config, uncut "
+          f"({n_params:,} parameters, {cfg.param_dtype} params and AdamW "
+          f"state, {cfg.dtype} activations, remat {cfg.remat}) through "
+          f"launch.train.build -> steps.init_state -> make_train_step on "
+          f"cuda: batch {c['batch']} x {c['seq']} in {c['microbatches']} "
+          f"microbatches, {c['steps']} steps ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_state(cfg, seed=0, mesh=mesh)
+    snap = {"embed": state.params["embed"][:64].clone(),
+            "layers/ssm/x_proj[0]": state.params["layers"]["ssm"]["x_proj"][0]
+            .clone(),
+            "layers/ssm/A_log": state.params["layers"]["ssm"]["A_log"]
+            .clone()}
+    reset_all_launches()
+    losses, norms, walls = [], [], []
+    for i in range(c["steps"]):
+        batch = data.device_batch(i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {i}: loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
+              f"{walls[-1]:.3f} s", flush=True)
+    launches = all_launches()
+    per_step = cfg.num_layers * c["microbatches"] if hybrid else 0
+    check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
+          and launches["flash_attention_bwd_tc"] == per_step * c["steps"]
+          and sum(launches.values()) == 3 * per_step * c["steps"],
+          f"{cfg.name} steps launched {launches}; expected {2 * per_step} "
+          f"tensor-core forwards and {per_step} tensor-core backwards a "
+          f"step, nothing else")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
+          f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
+          f"{cfg.vocab_size}")
+    check(np.isfinite(losses).all() and np.isfinite(norms).all(),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    now = {"embed": state.params["embed"][:64],
+           "layers/ssm/x_proj[0]": state.params["layers"]["ssm"]["x_proj"][0],
+           "layers/ssm/A_log": state.params["layers"]["ssm"]["A_log"]}
+    for key, before in snap.items():
+        check(not torch.equal(before, now[key]), f"{key} did not change")
+    del snap, now
+    warm = min(walls[1:])
+    batch = data.device_batch(c["steps"], dev)
+    wall, split, count, busy = traced_split(
+        torch, lambda: train_step(state, batch, c["steps"]))
+    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 N "
+          f"tokens / step time = {share * 100:.1f} % of the bf16 dense "
+          f"peak), peak memory {peak_gb:.2f} GB; traced step (shapes "
+          f"recorded): wall {wall:.3f} s, busy {busy * 100:.1f} %, device "
+          f"{split_text(split, count)} on {card}")
+
+    # one microbatch's loss and every gradient leaf, twice, bitwise
+    mb = {k: t[0] for k, t in data.device_batch(c["steps"] + 1, dev).items()}
+    names = leaf_names(state.params, steps._STACKED)
+    runs = []
+    for _ in range(2):
+        live, leaves = steps._autograd_leaves(state.params)
+        with torch.enable_grad():
+            loss, _ = transformer.loss_fn(live, mb, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        runs.append([loss.detach()] + list(grads))
+        del live, leaves, grads, loss
+    names = ["loss"] + names
+    differ = [names[i] for i, (a_, b_) in enumerate(zip(*runs))
+              if not torch.equal(a_, b_)]
+    print(f"  replay: one microbatch ({c['batch'] // c['microbatches']} x "
+          f"{c['seq']}) loss and its {len(runs[0]) - 1} gradient leaves "
+          f"twice: " + ("bitwise equal" if not differ else
+                        f"{len(differ)} differ: {differ[:12]}"))
+    check(not differ, f"{cfg.name}: a replayed microbatch's gradients "
+                      f"differ in {differ[:12]}")
+    del runs, state, data, train_step, batch, mb
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "grad_norms": norms,
+            "step_s": walls, "warm_step_s": warm,
+            "tokens_per_s": tokens / warm, "bf16_peak_share": share,
+            "params": n_params, "peak_gb": peak_gb, "traced_wall_s": wall,
+            "device_ms": split, "device_kernels": count,
+            "device_busy_share": busy, "replay_bitwise": not differ}
+
+
+def ssm_smoke_card_vs_cpu(np, torch, dev, card):
+    """Both smoke configs, float32, card against CPU from one init:
+    prefill and SSM_SMOKE['decode'] decode steps' logits, three
+    microbatched train steps; one train step replayed from a cloned state
+    on the card, bitwise. Returns the card's launch counts (hymba's smoke
+    attention, dh 16, runs rows 11 and 11b on the CUDA-core routes)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, steps, transformer
+    from repro_torch.optim import adamw
+    c, tol = SSM_SMOKE, TRAIN_SMOKE_TOL
+    cpu = torch.device("cpu")
+    print(f"phase ssm: smoke configs {SSM_ARCHS}, float32, card against "
+          f"CPU: prefill {c['prompt']} + {c['decode']} decode steps (logits "
+          f"{MOE_SMOKE_LOGITS_TOL:g}), {c['steps']} train steps (batch "
+          f"{c['batch']} x {c['seq']}, {c['microbatches']} microbatches; "
+          f"loss, lr, grad_norm {tol['metrics']:g}, params {tol['params']:g})"
+          f", a replayed step bitwise")
+    reset_all_launches()
+
+    def copy(tree, device):
+        return adamw.tree_map(lambda t: t.detach().clone().to(device), tree)
+
+    for arch in SSM_ARCHS:
+        cfg = smoke_config(arch)
+        host = transformer.init_params(cfg, seed=5)
+        n = c["prompt"] + c["decode"]
+        batch = serve.make_batch(cfg, 2, n, rng=np.random.default_rng(3))
+        logits = {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            params = copy(host, d)
+            mb = {k: t.to(d) for k, t in batch.items()}
+            part = lambda lo, hi: {k: t[:, lo:hi]  # noqa: E731
+                                   for k, t in mb.items()}
+            out, cache = serving.prefill(params, part(0, c["prompt"]), cfg)
+            outs = [out]
+            for t in range(c["prompt"], n):
+                out, cache = serving.decode_step(params, part(t, t + 1),
+                                                 cache, cfg)
+                outs.append(out)
+            logits[where] = [o.cpu() for o in outs]
+        lerr = max(float((a - b_).abs().max())
+                   for a, b_ in zip(logits["card"], logits["cpu"]))
+        check(lerr <= MOE_SMOKE_LOGITS_TOL * (1 + max(
+            float(w.abs().max()) for w in logits["cpu"])),
+              f"{arch} smoke serving: card vs CPU logits {lerr:.3e}")
+        data = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=c["seq"],
+            global_batch=c["batch"], microbatches=c["microbatches"]), cfg)
+        step = steps.make_train_step(
+            cfg, None, ShapeConfig("smoke", c["seq"], c["batch"], "train"),
+            microbatches=c["microbatches"], total_steps=10)
+        states, metrics = {}, {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            params = copy(host, d)
+            state = steps.TrainState(params, adamw.init_tree(params))
+            for i in range(c["steps"]):
+                state, mt = step(state, data.device_batch(i, d), i)
+                metrics.setdefault(where, []).append(
+                    {k: float(t) for k, t in mt.items()})
+            states[where] = state
+        for mc, mh in zip(metrics["card"], metrics["cpu"]):
+            for key in ("loss", "lr", "grad_norm"):
+                check(abs(mc[key] - mh[key]) <= tol["metrics"] * abs(mh[key]),
+                      f"{arch} smoke step {key}: card {mc[key]} vs CPU "
+                      f"{mh[key]}")
+        perr = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(
+            adamw.tree_leaves(states["card"].params),
+            adamw.tree_leaves(states["cpu"].params)))
+        check(perr <= tol["params"], f"{arch} smoke params after "
+                                     f"{c['steps']} steps: {perr:.3e}")
+        base = states["card"]
+        runs = []
+        for _ in range(2):
+            clone = steps.TrainState(
+                copy(base.params, dev),
+                adamw.OptState(base.opt.step.clone(), copy(base.opt.m, dev),
+                               copy(base.opt.v, dev)))
+            new, mt = step(clone, data.device_batch(c["steps"], dev),
+                           c["steps"])
+            runs.append(adamw.tree_leaves(new.params)
+                        + adamw.tree_leaves(new.opt.m)
+                        + adamw.tree_leaves(new.opt.v)
+                        + [mt["loss"], mt["grad_norm"]])
+        differ = sum(not torch.equal(a, b_) for a, b_ in zip(*runs))
+        check(differ == 0, f"{arch} smoke: a replayed step differs in "
+                           f"{differ} of {len(runs[0])} tensors")
+        print(f"  {cfg.name}: serving logits card vs CPU {lerr:.2e}; loss "
+              f"{[round(mm['loss'], 6) for mm in metrics['card']]} vs "
+              f"{[round(mm['loss'], 6) for mm in metrics['cpu']]}, "
+              f"grad_norm {[round(mm['grad_norm'], 6) for mm in metrics['card']]}"
+              f" vs {[round(mm['grad_norm'], 6) for mm in metrics['cpu']]}, "
+              f"params max_abs_err {perr:.2e}; a replayed step's "
+              f"{len(runs[0])} tensors bitwise")
+        del states, runs
+    launches = all_launches()
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_bwd"] > 0
+          and launches["flash_attention_tc"] == 0
+          and launches["flash_attention_bwd_tc"] == 0,
+          f"the ssm smoke runs on the card launched {launches}; expected "
+          f"the CUDA-core routes only (hymba's smoke dh 16)")
+    return launches
+
+
+def phase_ssm(np, torch, dev, card, clock):
+    """The ssm and hybrid families (ROADMAP A11.2-A11.3) on the card:
+    rows 11 and 11b at hymba's layer; both published configs served and
+    trained uncut; the smoke configs card against CPU. Returns the main
+    path's launch counts (the serve calls and the train steps, each
+    counted from 0) and the numbers."""
+    t_phase = time.perf_counter()
+    max_err, rows = ssm_attention_kernels(np, torch, dev, card, clock)
+    out = {"serve": {}, "train": {}, "max_err": max_err,
+           "hymba_rows": rows}
+    launches = {}
+    for arch in SSM_ARCHS:
+        res = ssm_serve(np, torch, dev, card, arch)
+        for name, n in res.pop("launches").items():
+            launches[name] = launches.get(name, 0) + n
+        out["serve"][arch] = res
+    for arch in SSM_ARCHS:
+        res = ssm_train(np, torch, dev, card, arch)
+        for name, n in res.pop("launches").items():
+            launches[name] = launches.get(name, 0) + n
+        out["train"][arch] = res
+    out["smoke_launches"] = ssm_smoke_card_vs_cpu(np, torch, dev, card)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase ssm: {out['phase_s']:.2f} s on {card}; launches on the "
+          f"ssm path: {launches}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -5594,6 +6414,13 @@ def main() -> int:
         train_out["phase_s"] = time.perf_counter() - t_train
         print(f"phase train: {train_out['phase_s']:.2f} s on {card}")
         moe_out = phase_moe(np, torch, dev, card)
+        ssm_out = phase_ssm(np, torch, dev, card, clock)
+        for name, err in ssm_out.pop("max_err").items():
+            max_err[name] = max(max_err[name], err)
+        fa_timings["hymba layer (phase ssm)"] = \
+            ssm_out["hymba_rows"]["flash_attention_tc"]
+        bwd_timings["hymba layer (phase ssm)"] = \
+            ssm_out["hymba_rows"]["flash_attention_bwd_tc"]
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -5620,7 +6447,9 @@ def main() -> int:
                    "train_smoke": train_out["launches_smoke"],
                    "train_cli": train_out["launches_cli"],
                    "moe": moe_out["launches"],
-                   "moe_smoke": moe_out["smoke_launches"]}
+                   "moe_smoke": moe_out["smoke_launches"],
+                   "ssm": ssm_out["launches"],
+                   "ssm_smoke": ssm_out["smoke_launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -5694,6 +6523,8 @@ def main() -> int:
                    "train": {k: v for k, v in train_out.items()
                              if not k.startswith("launches")},
                    "moe": {k: v for k, v in moe_out.items()
+                           if not k.endswith("launches")},
+                   "ssm": {k: v for k, v in ssm_out.items()
                            if not k.endswith("launches")},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")

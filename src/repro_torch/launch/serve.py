@@ -3,6 +3,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
       --smoke --device cpu --requests 2 --prompt-len 32 --gen 4
+  # the moe, ssm and hybrid families: --arch kimi-k2-1t-a32b,
+  # mamba2-1.3b, hymba-1.5b (an ssm or hybrid prompt needs at least
+  # conv_width - 1 tokens, ROADMAP C)
 
 Runs on the card unless ``--device cpu``. Inputs come from
 ``np.random.default_rng(0)`` exactly as in the reference launcher (for a
@@ -26,7 +29,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention
-from repro_torch.models import steps, transformer
+from repro_torch.models import ssm, steps, transformer
 
 
 def _positions(cfg, b, s, start_pos, device):
@@ -146,7 +149,9 @@ def main(argv=None, params=None) -> Tuple[np.ndarray, Dict]:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     try:
         transformer.check_supported(cfg)
-    except NotImplementedError as exc:
+        if cfg.ssm is not None:
+            ssm.check_prompt(args.prompt_len, cfg.ssm)
+    except (NotImplementedError, ValueError) as exc:
         ap.error(str(exc))
     try:
         dev = resolve_device(args.device)

@@ -2,19 +2,21 @@
 optimization (``--adc-search``) and LM training (``--arch``), on the card.
 Counterpart of ``repro/launch/train.py``.
 
-LM training, the dense, audio and moe families (deepseek-7b,
-phi3-mini-3.8b, yi-34b, musicgen-medium, kimi-k2-1t-a32b,
-llama4-scout-17b-a16e), with the reference's microbatched AdamW step,
-schedule, synthetic corpus and checkpoint/restart loop:
+LM training, the dense, audio, moe, ssm and hybrid families
+(deepseek-7b, phi3-mini-3.8b, yi-34b, musicgen-medium, kimi-k2-1t-a32b,
+llama4-scout-17b-a16e, mamba2-1.3b, hymba-1.5b), with the reference's
+microbatched AdamW step, schedule, synthetic corpus and checkpoint/restart
+loop:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
       --smoke --steps 12 --batch 2 --seq 32 --ckpt-dir /tmp/lm_ckpt
   # the plain PyTorch versions on the CPU: ... --device cpu
   # a moe smoke config: --arch kimi-k2-1t-a32b --smoke ...
+  # the ssm and hybrid families: --arch mamba2-1.3b / hymba-1.5b ...
 
 It prints the reference's log lines and fails if the loss did not
-improve. The families not ported yet (ssm, hybrid, vlm / M-RoPE,
-``local_global``) are refused with ROADMAP A11 named; so are published
+improve. The parts not ported yet (vlm / M-RoPE, ``local_global``) are
+refused with ROADMAP A11 named; so are published
 configs that pad their heads (yi-34b, llama4-scout: ``pad_heads_to``,
 ROADMAP C), whose ``--smoke`` configs run.
 

@@ -1,27 +1,36 @@
-"""LM serving: prefill (builds the KV cache) and single-token decode, for
-the dense, audio and moe families. Counterpart of those branches of
+"""LM serving: prefill (builds the decode cache) and single-token decode,
+for the dense, audio, moe, ssm and hybrid families. Counterpart of
 ``repro/models/serving.py``.
 
-Cache (leading L = stacked layers): ring buffers ``k``/``v``
-(L, B, C, KV, hd) in cfg.dtype with C = min(S, window) for sliding
-attention and S otherwise (S = prompt length + ``extra_slots``), ``kpos``
-(C,) int32 absolute positions (-1 = empty slot) and ``pos`` () int32, the
-next position. A moe config with ``first_k_dense`` adds ``k_pre``/
-``v_pre`` (first_k_dense, B, S, KV, hd) for its dense prelayers, which
-share ``kpos`` (moe attends globally, so C = S). The reference's ring
-semantics are kept exactly: decode writes the new token at slot ``pos %
-C`` and attends to that slot too, so with ``extra_slots=0`` it evicts
-StreamingLLM-style.
+Cache (leading L = stacked layers). Attention (every family but ssm):
+ring buffers ``k``/``v`` (L, B, C, KV, hd) in cfg.dtype with C =
+min(S, window) for sliding attention and for every hybrid layer (the
+reference's ``local=True`` length: a hybrid layer attends over the window
+whatever ``attn_type`` is), S otherwise (S = prompt length +
+``extra_slots``), and ``kpos`` (C,) int32 absolute positions (-1 = empty
+slot). The ssm and hybrid families add the SSD's decode state
+(``models/ssm.py``): ``conv_x`` (L, B, conv_width - 1, d_inner) and
+``conv_bc`` (L, B, conv_width - 1, 2 G N), the raw projections of the last
+tokens in cfg.dtype, and ``state`` (L, B, H, N, P) float32; the ssm
+family has no ring at all. ``pos`` () int32 is the next position. A moe
+config with ``first_k_dense`` adds ``k_pre``/``v_pre`` (first_k_dense,
+B, S, KV, hd) for its dense prelayers, which share ``kpos`` (moe attends
+globally, so C = S). The reference's ring semantics are kept exactly:
+decode writes the new token at slot ``pos % C`` and attends to that slot
+too, so with ``extra_slots=0`` it evicts StreamingLLM-style (and a
+prompt off the window grid overwrites a visible key, ROADMAP C).
 
-``decode_step`` updates the cache's ``k``, ``v`` (``k_pre``, ``v_pre``)
-and ``kpos`` in place and returns the same tensors under a new dict with
-``pos + 1`` (the reference's launcher donates the cache too): clone a
-cache that is still needed. Prefill attention runs the flash-attention
-kernel on a CUDA tensor (models/layers.py); decode attention is plain
-PyTorch, as it is plain jnp in the reference. The moe layers route with
-the prefill capacity in prefill and the decode capacity in decode
-(``models/moe.py``), the reference's semantics: so for moe, decode after
-prefill is not teacher forcing.
+``decode_step`` updates the cache's tensors in place (``k``, ``v``,
+``k_pre``, ``v_pre``, ``kpos``, and the SSD's ``conv_x``, ``conv_bc``,
+``state``) and returns them under a new dict with ``pos + 1`` (the
+reference's launcher donates the cache too): clone a cache that is still
+needed. Prefill attention runs the flash-attention kernel on a CUDA
+tensor (models/layers.py); decode attention is plain PyTorch, as it is
+plain jnp in the reference. The moe layers route with the prefill
+capacity in prefill and the decode capacity in decode (``models/moe.py``),
+the reference's semantics: so for moe, decode after prefill is not
+teacher forcing. Prefill of an ssm or hybrid config refuses a prompt
+shorter than ``conv_width - 1`` (``ssm.ssd_prefill``, ROADMAP C).
 """
 from __future__ import annotations
 
@@ -31,9 +40,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 
 Cache = Dict[str, torch.Tensor]
+SSM_KEYS = ("conv_x", "conv_bc", "state")
 
 
 def attn_cache_len(cfg: ArchConfig, seq_len: int, *, local: bool) -> int:
@@ -48,18 +59,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     T.check_supported(cfg)
     dt = T.torch_dtype(cfg.dtype)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    w = attn_cache_len(cfg, seq_len, local=False)
+    n = T.scan_len(cfg)
 
-    def kvbuf(n, length):
-        return torch.zeros((n, batch, length, kv, hd), dtype=dt,
+    def kvbuf(layers, length):
+        return torch.zeros((layers, batch, length, kv, hd), dtype=dt,
                            device=device)
 
-    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
-             "k": kvbuf(T.scan_len(cfg), w), "v": kvbuf(T.scan_len(cfg), w),
-             "kpos": torch.full((w,), -1, dtype=torch.int32, device=device)}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family != "ssm":
+        w = attn_cache_len(cfg, seq_len, local=cfg.family == "hybrid")
+        cache.update(k=kvbuf(n, w), v=kvbuf(n, w),
+                     kpos=torch.full((w,), -1, dtype=torch.int32,
+                                     device=device))
     if T.first_k_dense(cfg):
         npre = T.first_k_dense(cfg)
         cache.update(k_pre=kvbuf(npre, seq_len), v_pre=kvbuf(npre, seq_len))
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssm.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype=dt,
+                                 device=device)
+        cache.update({k: t.new_zeros((n,) + tuple(t.shape))
+                      for k, t in one.items()})
     return cache
 
 
@@ -78,6 +97,16 @@ def _attend_decode(p, x, kc, vc, kpos, slot, cfg: ArchConfig, positions, *,
     return torch.einsum("bshk,hkd->bsd", out, p["o"].to(x.dtype))
 
 
+def _ssd_decode(p, h, cache: Cache, i: int, cfg: ArchConfig):
+    """Layer i's SSD step of its normed input h (B, 1, d); its conv tails
+    and state are updated in place."""
+    y, new = ssm.ssd_decode(p["ssm"], h, {k: cache[k][i] for k in SSM_KEYS},
+                            cfg.d_model, cfg.ssm)
+    for k in SSM_KEYS:
+        cache[k][i].copy_(new[k])
+    return y
+
+
 def decode_step(params, batch, cache: Cache, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, Cache]:
     """One token for the whole stack. batch: tokens (B, 1) or embeddings
@@ -86,12 +115,14 @@ def decode_step(params, batch, cache: Cache, cfg: ArchConfig
     x = T.embed_input(params, batch, cfg)
     positions = batch["positions"]
     pos = cache["pos"]
-    kpos = cache["kpos"]
-    slot = (pos.long() % kpos.shape[0]).reshape(1)
-    # the new token's own slot is attendable in every layer; the
-    # reference writes the same value into the cache-level kpos after
-    # the stack
-    kpos.index_copy_(0, slot, positions[0, :1].to(kpos.dtype))
+    kpos = cache.get("kpos")
+    slot = None
+    if kpos is not None:
+        slot = (pos.long() % kpos.shape[0]).reshape(1)
+        # the new token's own slot is attendable in every layer; the
+        # reference writes the same value into the cache-level kpos
+        # after the stack
+        kpos.index_copy_(0, slot, positions[0, :1].to(kpos.dtype))
     pre_cfg = T.dense_config(cfg)
     for i in range(T.first_k_dense(cfg)):
         p = T.layer(params, i, "prelayers")
@@ -103,9 +134,15 @@ def decode_step(params, batch, cache: Cache, cfg: ArchConfig
     for i in range(T.scan_len(cfg)):
         p = T.layer(params, i)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            x = x + _ssd_decode(p, h, cache, i, cfg)
+            continue
         a = _attend_decode(p, h, cache["k"][i], cache["v"][i], kpos, slot,
                            cfg, positions, window=window)
-        if cfg.family == "moe":
+        if cfg.family == "hybrid":
+            x = T.finish_hybrid_layer(p, x, a, _ssd_decode(p, h, cache, i,
+                                                           cfg), cfg)
+        elif cfg.family == "moe":
             x, _ = T.finish_moe_layer(p, x, a, cfg, decode=True)
         else:
             x = T.finish_layer(p, x, a, cfg)
@@ -140,7 +177,7 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
     positions = batch["positions"]
     b, s = x.shape[:2]
     cache = init_cache(cfg, b, s + extra_slots, device=x.device)
-    wlen = cache["k"].shape[2]
+    wlen = cache["k"].shape[2] if "k" in cache else 0
     pre_cfg = T.dense_config(cfg)
     for i in range(T.first_k_dense(cfg)):
         p = T.layer(params, i, "prelayers")
@@ -150,22 +187,35 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
         a = T.attend_qkv(p, q, k, v, pre_cfg, positions[0], window=None)
         x = T.finish_layer(p, x, a, pre_cfg)
     window = T.window_of(cfg)
+
+    def ssd(p, h, i):
+        y, st = ssm.ssd_prefill(p["ssm"], h, cfg.d_model, cfg.ssm)
+        for k in SSM_KEYS:
+            cache[k][i].copy_(st[k])
+        return y
+
     for i in range(T.scan_len(cfg)):
         p = T.layer(params, i)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            x = x + ssd(p, h, i)
+            continue
         q, k, v = T.project_qkv(p, h, cfg, positions)
         _write_kv(cache["k"][i], cache["v"][i], k, v, s)
         a = T.attend_qkv(p, q, k, v, cfg, positions[0], window=window)
-        if cfg.family == "moe":
+        if cfg.family == "hybrid":
+            x = T.finish_hybrid_layer(p, x, a, ssd(p, h, i), cfg)
+        elif cfg.family == "moe":
             x, _ = T.finish_moe_layer(p, x, a, cfg)
         else:
             x = T.finish_layer(p, x, a, cfg)
 
     last = positions[0, -1].to(torch.int32)
-    valid = min(s, wlen)
-    slots = torch.arange(wlen, dtype=torch.int32, device=x.device)
-    cache["kpos"] = torch.where(slots < valid, last - valid + 1 + slots,
-                                torch.full_like(slots, -1))
+    if wlen:
+        valid = min(s, wlen)
+        slots = torch.arange(wlen, dtype=torch.int32, device=x.device)
+        cache["kpos"] = torch.where(slots < valid, last - valid + 1 + slots,
+                                    torch.full_like(slots, -1))
     cache["pos"] = last + 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return T.logits_of(params, x[:, -1], cfg), cache

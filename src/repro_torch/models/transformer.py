@@ -1,17 +1,21 @@
-"""Decoder LM of the port, for the dense, audio and moe families.
-Counterpart of ``repro/models/transformer.py``.
+"""Decoder LM of the port, for the dense, audio, moe, ssm and hybrid
+families. Counterpart of ``repro/models/transformer.py``.
 
 Supported: ``dense``/``audio`` with ``attn_type`` global or sliding,
 ``post_norm``, ``tie_embeddings``, RoPE, attention and final softcaps, and
 the frontend + pruned-ADC path (musicgen-medium's frame embeddings run the
 port's ``core.adc.adc_quantize``); ``moe`` (llama4-scout, kimi-k2:
 ``models/moe.py``, ``first_k_dense`` dense prelayers) with global
-attention. Refused with ``NotImplementedError`` naming the ROADMAP item:
-the ssm and hybrid families, vlm / M-RoPE and ``local_global`` (A11,
-later slices); moe with a window (ROADMAP C: the reference's moe forward
-attends globally while its prefill and decode use the window); and
-``pad_heads_to > num_heads`` (ROADMAP C: unless KV = 1, padding the heads
-moves real heads to other kv heads, so it is not the published model).
+attention; ``ssm`` (mamba2: each layer ``x + SSD(rms(x))``,
+``models/ssm.py``) and ``hybrid`` (hymba: attention over ``cfg.window``
+whatever ``attn_type`` is, and the SSD in parallel on the same normed
+input, ``x + 0.5 * (rms(a) + rms(s))``, then the SwiGLU MLP). Refused
+with ``NotImplementedError`` naming the ROADMAP item: vlm / M-RoPE and
+``local_global`` (A11, later slices); moe with a window (ROADMAP C: the
+reference's moe forward attends globally while its prefill and decode
+use the window); and ``pad_heads_to > num_heads`` (ROADMAP C: unless KV =
+1, padding the heads moves real heads to other kv heads, so it is not the
+published model).
 
 Parameters are a nested dict in the reference's tree and layouts, so the
 einsum strings are the same: ``final_norm``, ``front_proj`` (F, d) or
@@ -21,14 +25,18 @@ leaf stacked on a leading axis over the scanned layers: ``ln1``, ``q``
 the dense families ``wi``/``wg`` (d, f), ``wo`` (f, d) and
 ``ln1p``/``ln2p`` with ``post_norm``, for moe the subtree ``moe``
 (``models/moe.leaf_shapes``; ``router`` float32 whatever
-``param_dtype`` is). A moe config with ``first_k_dense`` adds
-``prelayers``, that many dense blocks (no post-norms) stacked the same
-way. The reference's layer ``scan`` is a Python loop. ``init_params``
-draws from the port's own stream (a ``torch.Generator`` seeded on the
-device), which is not ``jax.random``'s; ``params_from_numpy`` carries the
-reference's weights over for parity. Stacked leaves may also be lists of
-per-layer tensors (the train step's autograd leaves): ``layer(params,
-i)`` indexes both.
+``param_dtype`` is). An ssm layer is ``ln1`` and the subtree ``ssm``
+(``models/ssm.leaf_shapes``); a hybrid layer adds to it the attention
+leaves, ``ln2``, ``attn_scale``, ``ssm_scale`` and ``wi``/``wg``/``wo``. A
+moe config with ``first_k_dense`` adds ``prelayers``, that many dense
+blocks (no post-norms) stacked the same way. The reference's layer
+``scan`` is a Python loop. ``init_params`` draws from the port's own
+stream (a ``torch.Generator`` seeded on the device), which is not
+``jax.random``'s, at the reference's scales and constants
+(``ssm.A_log`` = log(linspace(1, 16, H)), ``ssm.D`` = 1);
+``params_from_numpy`` carries the reference's weights over for parity.
+Stacked leaves may also be lists of per-layer tensors (the train step's
+autograd leaves): ``layer(params, i)`` indexes both.
 
 Training: ``forward`` rematerialises each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` and autograd is
@@ -36,7 +44,7 @@ recording (the reference's ``jax.checkpoint`` of its scan body);
 ``chunked_ce_loss`` is the cross-entropy over 512-position chunks, each
 recomputed in the backward, so (B, S, V) logits never materialise;
 ``loss_fn`` is ``(ce + router_aux_weight * aux, {"ce", "aux"})`` with
-``aux`` the moe layers' summed Switch loss (0 for the dense families).
+``aux`` the moe layers' summed Switch loss (0 for the other families).
 """
 from __future__ import annotations
 
@@ -51,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 
 Params = Dict[str, object]
 
@@ -66,16 +74,11 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
     port does not run yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP A11, a later slice); use the JAX "
-            f"package")
     if cfg.family == "vlm" or cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: vlm / M-RoPE is not ported to repro_torch yet "
             f"(ROADMAP A11, a later slice); use the JAX package")
-    if cfg.family not in ("dense", "audio", "moe"):
+    if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.attn_type == "local_global":
         raise NotImplementedError(
@@ -112,8 +115,12 @@ def dense_config(cfg: ArchConfig) -> ArchConfig:
 
 
 def window_of(cfg: ArchConfig):
-    """The attention window of every layer: cfg.window when sliding."""
-    return cfg.window if cfg.attn_type == "sliding" else None
+    """The attention window of every layer, the reference's rule:
+    cfg.window for sliding attention, and for every hybrid layer whatever
+    attn_type is; None (global) otherwise."""
+    if cfg.family == "hybrid" or cfg.attn_type == "sliding":
+        return cfg.window
+    return None
 
 
 # ============================================================ parameters
@@ -152,6 +159,12 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
         top["head"] = (d, v)
     if cfg.family == "moe":
         lay = dict(_attn_shapes(cfg), moe=moe.leaf_shapes(d, cfg.moe))
+    elif cfg.family == "ssm":
+        lay = {"ln1": (d,), "ssm": ssm.leaf_shapes(d, cfg.ssm)}
+    elif cfg.family == "hybrid":
+        lay = dict(_attn_shapes(cfg), attn_scale=(d,), ssm_scale=(d,),
+                   ssm=ssm.leaf_shapes(d, cfg.ssm), wi=(d, cfg.d_ff),
+                   wg=(d, cfg.d_ff), wo=(cfg.d_ff, d))
     else:
         lay = _dense_shapes(cfg)
     top["layers"] = _stacked(lay, scan_len(cfg))
@@ -168,12 +181,15 @@ def _init_scale(cfg: ArchConfig, path: Tuple[str, ...]) -> float:
     if "moe" in path:
         return moe.init_scale(cfg.d_model, cfg.moe,
                               path[path.index("moe") + 1:])
+    if "ssm" in path:
+        return ssm.init_scale(cfg.d_model, path[-1])
     d = cfg.d_model
     return {"front_proj": 1.0 / math.sqrt(max(cfg.frontend_dim, 1)),
             "embed": 0.02, "head": 1.0 / math.sqrt(d),
             "q": 1.0 / math.sqrt(d), "k": 1.0 / math.sqrt(d),
             "v": 1.0 / math.sqrt(d),
-            "o": 1.0 / math.sqrt(cfg.num_heads * cfg.resolved_head_dim),
+            "o": 1.0 / math.sqrt(max(cfg.num_heads * cfg.resolved_head_dim,
+                                     1)),
             "wi": 1.0 / math.sqrt(d), "wg": 1.0 / math.sqrt(d),
             "wo": 1.0 / math.sqrt(max(cfg.d_ff, 1))}.get(path[-1], 0.0)
 
@@ -194,7 +210,8 @@ def _per_expert(path: Tuple[str, ...]) -> bool:
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device=None) -> Params:
     """Random parameters with the reference's scales (normal * 1/sqrt(fan
-    in), embed and router 0.02, zero norm gains; ``_init_scale``) and
+    in), embed and router 0.02, ssm conv weights 0.1, zero norm gains;
+    ``_init_scale``), its constant leaves (``ssm.init_constant``) and
     dtypes (``leaf_dtype``), drawn leaf by leaf in ``param_shapes`` order
     from a ``torch.Generator`` on ``device`` seeded with ``seed``: the
     port's own stream, not ``jax.random``'s. A leaf is one float32 draw,
@@ -212,6 +229,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
 
     def leaf(path, shape):
         scale, dtype = _init_scale(cfg, path), leaf_dtype(cfg, path)
+        const = ssm.init_constant(path[-1], shape) if "ssm" in path else None
+        if const is not None:
+            return torch.empty(shape, dtype=dtype, device=dev).copy_(const)
         if scale == 0.0:
             return torch.zeros(shape, dtype=dtype, device=dev)
         if not _per_expert(path):
@@ -352,10 +372,33 @@ def _moe_layer(p, x, cfg: ArchConfig, positions):
                                           window=None), cfg)
 
 
+def _ssm_layer(p, x, cfg: ArchConfig):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    return x + ssm.ssd_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+
+
+def finish_hybrid_layer(p, x, a, s, cfg: ArchConfig):
+    """The rest of a hybrid layer after its attention output a and SSD
+    output s: ``x + 0.5 * (rms(a) + rms(s))`` in the activation dtype,
+    then the SwiGLU MLP's residual."""
+    a = L.rms_norm(a, p["attn_scale"], cfg.norm_eps)
+    s = L.rms_norm(s, p["ssm_scale"], cfg.norm_eps)
+    x = x + 0.5 * (a + s)
+    return x + mlp(p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _hybrid_layer(p, x, cfg: ArchConfig, positions):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = _attend(p, h, cfg, positions, window=window_of(cfg))
+    s = ssm.ssd_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+    return finish_hybrid_layer(p, x, a, s, cfg)
+
+
 def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     """(B, S, d) inputs in cfg.dtype: frontend embeddings through the
     pruned ADC (per-channel ``adc_mask``) and ``front_proj``, or token
-    embeddings (scaled by sqrt(d) for tied dense models, gemma2-style)."""
+    embeddings (scaled by sqrt(d) for tied dense models, gemma2-style;
+    mamba2 ties its embeddings too, unscaled, as in the reference)."""
     dt = torch_dtype(cfg.dtype)
     if cfg.frontend:
         emb = batch["embeddings"]
@@ -398,6 +441,10 @@ def forward_aux(params: Params, batch, cfg: ArchConfig
         if cfg.family == "moe":
             x, a = run(_moe_layer, p, x, cfg, positions)
             aux = aux + a
+        elif cfg.family == "ssm":
+            x = run(_ssm_layer, p, x, cfg)
+        elif cfg.family == "hybrid":
+            x = run(_hybrid_layer, p, x, cfg, positions)
         else:
             x = run(_dense_layer, p, x, cfg, positions,
                     window=window_of(cfg))

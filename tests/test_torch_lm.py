@@ -170,7 +170,7 @@ def test_sliding_ring_slot_matches_jax_off_the_window_grid(mesh):
     assert float(jnp.abs(jlog - teacher).max()) > 0.1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b", "hymba-1.5b"])
 def test_launcher_matches_jax_steps(arch, mesh):
     """The port's launcher, fed the JAX package's init, gives the logits
     the JAX package's steps give on the JAX launcher's inputs
@@ -271,8 +271,8 @@ def test_steps_bind_the_config():
     ("llama4-scout-17b-a16e", {}, "pad_heads_to=48.*ROADMAP C"),
     ("kimi-k2-1t-a32b", {"attn_type": "sliding"},
      "moe with attn_type='sliding'.*ROADMAP C"),
-    ("mamba2-1.3b", {}, "ssm family.*A11"),
-    ("hymba-1.5b", {}, "hybrid family.*A11"),
+    ("hymba-1.5b", {"attn_type": "local_global"}, "local_global.*A11"),
+    ("hymba-1.5b", {"pad_heads_to": 8}, "pad_heads_to=8.*ROADMAP C"),
     ("qwen2-vl-72b", {}, "M-RoPE.*A11"),
     ("gemma2-2b", {}, "local_global.*A11"),
     ("deepseek-7b", {"pad_heads_to": 8}, "pad_heads_to=8.*ROADMAP C"),
@@ -314,6 +314,40 @@ def test_moe_smoke_configs_run(name):
     assert int(cache["pos"]) == S + 1
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_and_hybrid_smoke_configs_match_jax(arch, mesh):
+    """The ssm and hybrid families, refused before their port: logits_fn,
+    prefill (logits and every cache leaf: the conv tails and SSD state,
+    and hymba's k/v ring over its window) and two decode steps against
+    the reference's (block-level parity: tests/test_torch_ssm.py)."""
+    jcfg, cfg = _configs(arch)
+    jp = _jax_params(jcfg)
+    params = transformer.params_from_numpy(_np_tree(jp), cfg)
+    jb, tb = _batches(cfg, S + 2, seed=3)
+    with compat.set_mesh(mesh):
+        want = jtransformer.logits_fn(jp, _slice(jb, 0, S), jcfg, mesh)
+        jlog, jcache = jserving.prefill(jp, _slice(jb, 0, S), jcfg, mesh)
+    _close(transformer.logits_fn(params, _slice(tb, 0, S), cfg), want)
+    log, cache = serving.prefill(params, _slice(tb, 0, S), cfg)
+    assert set(cache) == set(jcache)
+    assert ("k" in cache) == (cfg.family == "hybrid")
+    _close(log, jlog)
+    for t in range(S, S + 2):
+        for key in cache:
+            if key in ("kpos", "pos"):
+                np.testing.assert_array_equal(cache[key].numpy(),
+                                              np.asarray(jcache[key]))
+            else:
+                _close(cache[key], jcache[key])
+        with compat.set_mesh(mesh):
+            jlog, jcache = jserving.decode_step(
+                jp, _slice(jb, t, t + 1), jcache, jcfg, mesh)
+        log, cache = serving.decode_step(params, _slice(tb, t, t + 1),
+                                         cache, cfg)
+        _close(log, jlog)
+    assert int(cache["pos"]) == S + 2
+
+
 @pytest.mark.parametrize("kv,moved", [(2, True), (4, True), (1, False)])
 def test_padded_heads_change_the_reference_model_under_gqa(kv, moved, mesh):
     """Why the port refuses pad_heads_to > num_heads: in the JAX package
@@ -343,9 +377,20 @@ def test_padded_heads_change_the_reference_model_under_gqa(kv, moved, mesh):
 
 def test_launcher_refuses_unported_archs(capsys):
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu"])
     assert exc.value.code == 2
     assert "A11" in capsys.readouterr().err
+
+
+def test_launcher_serves_mamba2_at_its_defaults(capsys):
+    """The call refused before the ssm port runs: 4 requests, a 32-token
+    prompt, 16 decode steps, finite logits, no attention kernel (mamba2
+    is attention-free)."""
+    gen, info = serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+                            "cpu"])
+    assert gen.shape == (4, 16) and len(info["logits"]) == 17
+    assert info["prefill_flash_launches"] == 0
+    assert "generated token matrix" in capsys.readouterr().out
 
 
 def test_rope_refuses_mrope():

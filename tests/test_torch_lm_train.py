@@ -52,6 +52,7 @@ from repro_torch.models import steps, transformer  # noqa: E402
 from repro_torch.optim import adamw, schedule  # noqa: E402
 
 ARCHS = ["deepseek-7b", "phi3-mini-3.8b", "musicgen-medium"]
+SSM_ARCHS = ["mamba2-1.3b", "hymba-1.5b"]
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 SEQ, BATCH, MB = 32, 4, 2
 
@@ -108,9 +109,7 @@ def _data(jcfg, cfg, microbatches=MB, seq=SEQ, batch=BATCH):
 
 
 def _requires_grad(params):
-    return {k: ({kk: vv.requires_grad_(True) for kk, vv in v.items()}
-                if k == "layers" else v.requires_grad_(True))
-            for k, v in params.items()}
+    return adamw.tree_map(lambda t: t.requires_grad_(True), params)
 
 
 # ------------------------------------------------------------- schedule
@@ -370,7 +369,7 @@ def test_backward_kernel_matches_plain_on_card(dtype):
 
 
 # ------------------------------------------------------- loss, gradients
-@pytest.mark.parametrize("arch", ARCHS + ["dense-options"])
+@pytest.mark.parametrize("arch", ARCHS + ["dense-options"] + SSM_ARCHS)
 def test_loss_and_every_gradient_leaf_match_jax(arch, mesh):
     jcfg, cfg = _configs(arch)
     jp = jtransformer.init_params(jax.random.PRNGKey(1), jcfg)
@@ -488,7 +487,7 @@ def _port_state(jstate, cfg):
                                                      cfg.opt_state_dtype))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_three_train_steps_match_the_reference(arch, mesh):
     jcfg, cfg = _configs(arch)
     shape = JShape("t", SEQ, BATCH, "train")
@@ -679,8 +678,7 @@ def test_launcher_matches_the_reference_losses(arch, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("arch, item", [
-    ("gemma2-2b", "local_global.*A11"), ("mamba2-1.3b", "ssm family.*A11"),
-    ("hymba-1.5b", "hybrid family.*A11"),
+    ("gemma2-2b", "local_global.*A11"),
     ("llama4-scout-17b-a16e/full", "pad_heads_to=48.*ROADMAP C"),
     ("qwen2-vl-72b", "M-RoPE.*A11"), ("no-such-arch", "unknown arch")])
 def test_launcher_refuses_each_unported_family(arch, item, capsys):
@@ -711,6 +709,46 @@ def test_launcher_trains_the_moe_smoke_configs(arch, tmp_path, capsys):
                   if line.startswith("step ")]
     assert len(losses) == 4 and np.isfinite(losses).all()
     assert CheckpointManager(tmp_path).all_steps() == [4]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_launcher_trains_the_ssm_and_hybrid_smoke_configs(arch, tmp_path,
+                                                         capsys,
+                                                         monkeypatch):
+    """``python -m repro_torch.launch.train --arch mamba2-1.3b|hymba-1.5b
+    --smoke --steps 6 --batch 2 --seq 32 --device cpu``, refused before
+    their port, from the reference launcher's init gives the reference
+    launcher's losses, log lines and verdict, and a final checkpoint."""
+    argv = ["--arch", arch, "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "32", "--log-every", "1"]
+    jcfg, _ = _configs(arch)
+    init = _np(jtransformer.init_params(jax.random.PRNGKey(0), jcfg))
+    monkeypatch.setattr(
+        transformer, "init_params",
+        lambda cfg, *, seed, device: transformer.params_from_numpy(
+            init, cfg, device=device))
+    outs, raised = [], []
+    for run in (lambda: jtrain.main(argv + ["--ckpt-dir",
+                                            str(tmp_path / "j")]),
+                lambda: ttrain.main(argv + ["--ckpt-dir", str(tmp_path / "t"),
+                                            "--device", "cpu"])):
+        try:
+            run()
+            raised.append(False)
+        except AssertionError as exc:    # the reference's check, kept
+            assert "loss did not improve" in str(exc)
+            raised.append(True)
+        outs.append(capsys.readouterr().out)
+
+    def losses(text):
+        rows = [line.split() for line in text.splitlines()
+                if line.startswith("step ")]
+        assert [int(r[1]) for r in rows] == list(range(1, 7))
+        return [float(r[3]) for r in rows]
+    assert raised[0] == raised[1]
+    np.testing.assert_allclose(losses(outs[1]), losses(outs[0]), rtol=1e-4)
+    assert "done: 6 steps" in outs[1]
+    assert CheckpointManager(tmp_path / "t").all_steps() == [6]
 
 
 def test_launcher_trains_a_ported_arch_and_resumes(tmp_path, capsys):
