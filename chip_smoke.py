@@ -11,7 +11,7 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    and ptxas report (registers and spills of every instantiation; the
    five tensor-core attention instantiations must not spill, nor may the
    eighteen CUDA-core ones compiled for head widths up to 128, nor the
-   twenty-four attention-backward ones, nor the twelve Monte-Carlo ones,
+   thirty-six attention-backward ones, nor the twelve Monte-Carlo ones,
    the two quantizer ones or the four bank ones), the SM clock, and the
    TF32 state (off).
 2. kernels: each kernel is held against its plain PyTorch version on the
@@ -364,12 +364,54 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    The smoke configs card against CPU (path ssm_smoke: hymba's dh 16 on
    the CUDA-core routes): prefill and 4 decode steps (1e-4), three train
    steps, a replayed step bitwise.
+17. local_global_vlm (the local_global and vlm families, ROADMAP
+   A11.4-A11.5; the path "local_global_vlm" counts gemma2's serve call
+   and steps and qwen2-vl's prefill, decode and steps, each from 0):
+   rows 11 and 11b at gemma2's layer (B 1, S 8192, 8 heads over 4, dh
+   256, softcap 50, window 4096 and global): row 11b on the CUDA-core
+   kernel's 32-row dh-256 tiles in bf16 and float32 against the plain
+   autograd (BWD_TOL, two runs bitwise, keys 1024..1087 dropped and the
+   wrong kv head over 100x), counted on flash_attention_bwd, each pass's
+   device time beside the bound and SDPA's backward without the softcap
+   (a yardstick; n/a where it refuses); row 11's tensor-core forward
+   there against its plain version. gemma2-2b at its published widths,
+   uncut (26 layers as 13 (local 4096, global) pairs, d_model 2304, dh
+   256, softcaps 50/30, post-norms, tied 256k embedding), 8 heads over 4
+   unpadded (ROADMAP C): launch.serve.serve 1 x 8192 + 8 decode steps
+   (the tensor-core forward once a layer of the prefill, nothing else);
+   prefill == forward (2e-2); decode == teacher forcing over 4 steps
+   after prefill(extra_slots) in float32 (3e-2; a zeroed local ring and
+   a zeroed global cache must fail it) and in bf16 held to the float32
+   forward (within 2x the bf16 forward's distance, the controls beyond
+   it; lm's 1.25e-1 gate printed); trained uncut at 1 x 8192, float32
+   masters and AdamW, 3 steps and a traced one (52 tensor-core forwards
+   and 26 CUDA-core backwards at dh 256 a step), a replayed microbatch's
+   loss and gradient leaves bitwise. qwen2-vl-72b at its published
+   widths (d_model 8192, 64 heads over 8 of 128, d_ff 29568, vocab
+   152064, 1280 frontend features through the 4-bit ADC, M-RoPE (16, 24,
+   24), theta 1e6), cut in depth to the most float32 layers the card
+   holds beside 8 GB of work (printed): 2 x 2048 vision prompts (an image
+   of 1 x 32 x 48 patches at its M-RoPE grid, data.lm.mrope_grid_positions,
+   then 512 text tokens) through make_prefill_step / make_decode_step (one
+   tensor-core forward a layer, nothing else), 8 decode steps; prefill ==
+   forward; M-RoPE's witness (the grid against its t component alone
+   must move the float32 forward's final hidden states beyond 1e-3);
+   decode == teacher forcing after a
+   text prompt of 2048 (after a vision grid the reference's kpos and ring
+   slot take position for token count, ROADMAP C; float32 gate, a zeroed
+   cache and the layers' caches rolled as controls; bf16 as for gemma2);
+   trained at 2 layers on the grid, 2 x 2048 in 2 microbatches,
+   3 steps, a traced one, the replay bitwise. The smoke configs card
+   against CPU (path local_global_vlm_smoke, dh 16 on the CUDA-core
+   routes): prefill and 4 decode steps (1e-4), three train steps, a
+   replayed step bitwise.
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
-sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm
-and ssm_smoke paths, each counted from 0),
+sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm,
+ssm_smoke, local_global_vlm and local_global_vlm_smoke paths, each
+counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -612,18 +654,19 @@ SSM_BF16_FACTOR = 2.0
 # configs, uncut (configs/mamba2_1p3b.py, arXiv:2405.21060;
 # configs/hymba_1p5b.py, arXiv:2411.13676)
 SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
-_SSM_DTYPES = dict(dtype="bfloat16", param_dtype="float32", remat="full")
-SSM_PUBLISHED = {
+_DTYPES = dict(dtype="bfloat16", param_dtype="float32", remat="full")
+# each model's published config, field by field (check_published)
+PUBLISHED = {
     "mamba2-1.3b": dict(num_layers=48, d_model=2048, vocab_size=50280,
                         num_heads=0, num_kv_heads=0, head_dim=0, window=0,
                         d_ff=0, state_dim=128, ssm_head_dim=64, expand=2,
                         ngroups=1, conv_width=4, chunk=256,
-                        params=1_343_625_216, **_SSM_DTYPES),
+                        params=1_343_625_216, **_DTYPES),
     "hymba-1.5b": dict(num_layers=32, d_model=1600, vocab_size=32001,
                        num_heads=25, num_kv_heads=5, head_dim=64,
                        window=1024, d_ff=5504, state_dim=16, ssm_head_dim=64,
                        expand=2, ngroups=1, conv_width=4, chunk=256,
-                       params=1_640_765_696, **_SSM_DTYPES)}
+                       params=1_640_765_696, **_DTYPES)}
 # serving: 4 x 2048 prompts (on hymba's 1024-window grid), 16 decode
 # steps; decode against teacher forcing over 4 steps
 SSM = dict(requests=4, prompt_len=2048, gen=16, teacher=4)
@@ -634,6 +677,51 @@ SSM_SMOKE = dict(batch=4, seq=32, microbatches=2, steps=3, prompt=16,
                  decode=4)
 # rows 11 and 11b at hymba's layer (bf16)
 HYMBA_ATTN = dict(B=4, S=2048, H=25, KV=5, dh=64, window=1024)
+# the local_global and vlm families (ROADMAP A11.4-A11.5). Rows 11 and
+# 11b at gemma2's layer: its context, twice its window, bf16 and float32
+GEMMA_ATTN = dict(B=1, S=8192, H=8, KV=4, dh=256, window=4096, softcap=50.0)
+# ... and at qwen2-vl-72b's layer (bf16, tensor cores), on QWEN's grid
+QWEN_ATTN = dict(B=2, S=2048, H=64, KV=8, dh=128)
+# gemma2-2b (configs/gemma2_2b.py, arXiv:2408.00118) at its published
+# widths, uncut, its 8 heads over 4 kv heads unpadded (the published
+# model; the config pads to 16, ROADMAP C): a 1 x 8192 prompt, decode
+# against teacher forcing over 4 steps; trained at 1 x 8192
+GEMMA = dict(arch="gemma2-2b", cut=dict(pad_heads_to=0), requests=1,
+             prompt_len=8192, gen=8, teacher=4)
+PUBLISHED["gemma2-2b"] = dict(
+    num_layers=26, d_model=2304, num_heads=8, num_kv_heads=4, head_dim=256,
+    d_ff=9216, vocab_size=256000, attn_type="local_global", window=4096,
+    softcaps=(50.0, 30.0), post_norm=True, tie=True, mrope=None, theta=1e4,
+    frontend=0, adc_bits=0, opt_state_dtype="float32", **_DTYPES)
+GEMMA_TRAIN = dict(batch=1, seq=8192, microbatches=1, steps=3,
+                   routes=("flash_attention_tc", "flash_attention_bwd"))
+# qwen2-vl-72b (configs/qwen2_vl_72b.py, arXiv:2409.12191) at its
+# published widths, served cut in depth to 20 of its 80 layers (float32
+# masters, 3.5 GB a layer: 20 fit beside the head and reserve_gb of
+# work, 21 do not; checked against the card's free memory): 2 x 2048
+# vision prompts, an image of 1 x 32 x 48 patches and 512 text tokens;
+# trained at 2 layers (float32 masters and AdamW state, 24 bytes a
+# parameter at the step's peak: 3 layers would need 93 GB), 2 x 2048 on
+# the same grid
+QWEN = dict(arch="qwen2-vl-72b", layers=20, requests=2, grid=(1, 32, 48),
+            text=512, gen=8, teacher=4, reserve_gb=8)
+# M-RoPE's witness: the grid's h and w components must move the float32
+# forward's final hidden states (unit RMS) by more than this, 100x the
+# float32 paths' 1e-5 agreement (decode against teacher forcing)
+QWEN_WITNESS = 1e-3
+PUBLISHED["qwen2-vl-72b"] = dict(
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=29568, vocab_size=152064, attn_type="global", window=0,
+    softcaps=(0.0, 0.0), post_norm=False, tie=False, mrope=(16, 24, 24),
+    theta=1e6, frontend=1280, adc_bits=4, opt_state_dtype="float32",
+    **_DTYPES)
+QWEN_TRAIN = dict(num_layers=2, batch=2, seq=2048, microbatches=2, steps=3,
+                  grid=(1, 32, 48), text=512,
+                  routes=("flash_attention_tc", "flash_attention_bwd_tc"))
+# their smoke configs, float32, card against CPU (gemma2's smoke window
+# 32 binds under the 40-token prompt and the 64-token rows)
+LG_SMOKE = dict(archs=("gemma2-2b", "qwen2-vl-72b"), batch=4, seq=64,
+                microbatches=2, steps=3, prompt=40, decode=4, grid=(1, 4, 6))
 # the CPU operations whose device kernels are matrix products
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
                "aten::addbmm", "aten::matmul", "aten::linear", "aten::mv",
@@ -5604,31 +5692,142 @@ def split_text(ms, count) -> str:
 
 
 def check_published(cfg) -> None:
-    want = SSM_PUBLISHED[cfg.name]
-    s = cfg.ssm
-    got = dict(num_layers=cfg.num_layers, d_model=cfg.d_model,
-               vocab_size=cfg.vocab_size, num_heads=cfg.num_heads,
-               num_kv_heads=cfg.num_kv_heads,
-               head_dim=cfg.resolved_head_dim if cfg.num_heads else 0,
-               window=cfg.window if cfg.family == "hybrid" else 0,
-               d_ff=cfg.d_ff, state_dim=s.state_dim,
-               ssm_head_dim=s.head_dim, expand=s.expand, ngroups=s.ngroups,
-               conv_width=s.conv_width, chunk=s.chunk,
-               params=cfg.param_counts()["total"], dtype=cfg.dtype,
-               param_dtype=cfg.param_dtype, remat=cfg.remat)
+    """``cfg`` against its row of PUBLISHED, field by field."""
+    want = PUBLISHED[cfg.name]
+    fields = dict(
+        num_layers=lambda c: c.num_layers, d_model=lambda c: c.d_model,
+        vocab_size=lambda c: c.vocab_size, num_heads=lambda c: c.num_heads,
+        num_kv_heads=lambda c: c.num_kv_heads,
+        head_dim=lambda c: c.resolved_head_dim if c.num_heads else 0,
+        window=lambda c: c.window if c.attn_type != "global" else 0,
+        d_ff=lambda c: c.d_ff, attn_type=lambda c: c.attn_type,
+        softcaps=lambda c: (c.attn_logit_softcap, c.final_logit_softcap),
+        post_norm=lambda c: c.post_norm, tie=lambda c: c.tie_embeddings,
+        mrope=lambda c: c.mrope_sections if c.mrope else None,
+        theta=lambda c: c.rope_theta, frontend=lambda c: c.frontend_dim,
+        adc_bits=lambda c: c.adc.bits if c.adc.enable else 0,
+        state_dim=lambda c: c.ssm.state_dim,
+        ssm_head_dim=lambda c: c.ssm.head_dim,
+        expand=lambda c: c.ssm.expand, ngroups=lambda c: c.ssm.ngroups,
+        conv_width=lambda c: c.ssm.conv_width, chunk=lambda c: c.ssm.chunk,
+        params=lambda c: c.param_counts()["total"],
+        dtype=lambda c: c.dtype, param_dtype=lambda c: c.param_dtype,
+        opt_state_dtype=lambda c: c.opt_state_dtype,
+        remat=lambda c: c.remat)
+    got = {k: fields[k](cfg) for k in want}
     check(got == want, f"{cfg.name} is not at its published config: {got}"
                        f" != {want}")
+
+
+def attention_layer_checks(torch, label, q, k, v, do, pos, kw):
+    """Rows 11 and 11b at one model's layer (bf16, positions ``pos``, (S,),
+    S > 1088) on the tensor-core routes: the forward against
+    ref.flash_attention_ref (FLASH_BF16_TOL), the backward twice (bitwise)
+    against ref.flash_attention_bwd_ref on float32 copies (BWD_TOL), each
+    call counted once on its key and nowhere else; both limits reject
+    the plain version with keys 1024..1087 dropped and with every query
+    head group reading the next group's kv head, the backward's by more
+    than TRAIN_CONTROL_FACTOR. Returns ({key: max_abs_err}, the forward's
+    share of its limit, {key: controls}, the backward's dq/dk/dv
+    shares)."""
+    from repro_torch.kernels import dispatch, envelope
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    kv, dh = k.shape[2], q.shape[3]
+    check(dispatch.resolve_flash(fa.ENTRY, q).route == "tensor_core"
+          and envelope.flash_bwd_route(True, dh) == "tensor_core",
+          f"{label}: not on the tensor-core routes")
+    drop = pos.clone()
+    drop[1024:1088] = -1
+    wrong = (torch.arange(kv, device=q.device) + 1) % kv
+    kw_, vw_ = k[:, :, wrong].contiguous(), v[:, :, wrong].contiguous()
+    controls = {"keys 1024..1087 dropped": (k, v, drop),
+                "the wrong kv head": (kw_, vw_, pos)}
+    max_err, ctrl = {}, {}
+
+    # row 11
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, pos, pos, **kw)
+    want = ref.flash_attention_ref(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    check(fa.launches == dict(before, **{fa.TC_ENTRY:
+                                         before[fa.TC_ENTRY] + 1}),
+          f"{label}: launches {before} -> {fa.launches}")
+    err = float((got.float() - want.float()).abs().max())
+    share = limit_share(got, want, FLASH_BF16_TOL)
+    check(torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL),
+          f"flash_attention_tc disagrees with its plain version on {label}"
+          f" (max_abs_err {err:.3e})")
+    again = fa.flash_attention(q, k, v, pos, pos, **kw)
+    check(torch.equal(got, again), f"{label}: two forward runs differ")
+    del got, again
+    fctrl = {}
+    for name, (kk, vv, kp) in controls.items():
+        bad = ref.flash_attention_ref(q, kk, vv, pos, kp, **kw)
+        fctrl[name] = limit_share(bad, want, FLASH_BF16_TOL)
+        check(not torch.allclose(bad.float(), want.float(), **FLASH_BF16_TOL),
+              f"the bf16 flash limit does not reject {name} at {label}")
+        del bad
+    del want
+    max_err[fa.TC_ENTRY], ctrl[fa.TC_ENTRY] = err, fctrl
+    print(f"  flash_attention_tc at {label}: max_abs_err {err:.3e} "
+          f"({share:.3f} of the limit rtol {FLASH_BF16_TOL['rtol']:g}, atol "
+          f"{FLASH_BF16_TOL['atol']:g}), two runs bitwise; controls "
+          + ", ".join(f"{n} {v_:.1f}x the limit: rejected"
+                      for n, v_ in fctrl.items()))
+
+    # row 11b
+    key = fa.BWD_TC_ENTRY
+    before = dict(fa.launches)
+    got = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+    again = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       do.float(), pos, pos, **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in fa.launches.items()
+             if c != before[n]}
+    check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 calls")
+    shares, err = {}, 0.0
+    for name, g, a_, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(bool(torch.isfinite(g).all()), f"bwd {label}: {name} not "
+                                             f"finite")
+        check(torch.equal(g, a_), f"bwd {label}: {name} differs between "
+                                  f"two runs")
+        shares[name] = bwd_share(torch, g, w.to(g.dtype), "bfloat16")
+        err = max(err, float((g.float() - w.to(g.dtype).float()).abs()
+                             .max()))
+        check(shares[name] <= 1.0, f"{key} disagrees with the plain "
+                                   f"autograd on {label}: {name} at "
+                                   f"{shares[name]:.3f} of the bound")
+    del got, again
+    bctrl = {}
+    for name, (kk, vv, kp) in controls.items():
+        bad = ref.flash_attention_bwd_ref(q.float(), kk.float(), vv.float(),
+                                          do.float(), pos, kp, **kw)
+        bctrl[name] = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype),
+                                    "bfloat16") for g, w in zip(bad, want))
+        check(bctrl[name] > TRAIN_CONTROL_FACTOR,
+              f"the bf16 backward bound does not reject {name} at {label} "
+              f"by {TRAIN_CONTROL_FACTOR:g}x ({bctrl[name]:.1f})")
+        del bad
+    del want, kw_, vw_
+    max_err[key], ctrl[key] = err, bctrl
+    print(f"  {key} at {label}: dq/dk/dv at "
+          + ", ".join(f"{n} {v_:.3f}" for n, v_ in shares.items())
+          + f" of the bound {BWD_TOL['bfloat16']}, two runs bitwise; "
+          f"controls " + ", ".join(f"{n} {v_:.1f}x" for n, v_ in
+                                   bctrl.items()))
+    torch.cuda.empty_cache()
+    return max_err, share, ctrl, shares
 
 
 def ssm_attention_kernels(np, torch, dev, card, clock):
     """Rows 11 and 11b at hymba's layer (HYMBA_ATTN: bf16, dh 64, 25
     heads over 5 kv heads, window 1024, S 2048), a shape no other path
-    runs: each against its plain version at the existing limits, with
-    the controls; device ms beside the bound and the library call (SDPA
-    with the windowed causal mask, the yardstick). Returns (max_abs_err by
-    counter key, {key: timing row})."""
+    runs: ``attention_layer_checks``; device ms beside the bound and the
+    library call (SDPA with the windowed causal mask, the yardstick).
+    Returns (max_abs_err by counter key, {key: timing row})."""
     import torch.nn.functional as F
-    from repro_torch.kernels import dispatch, envelope
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     a = HYMBA_ATTN
@@ -5645,46 +5844,9 @@ def ssm_attention_kernels(np, torch, dev, card, clock):
     label = f"hymba layer B={b} S={s} H={h} KV={kv} dh={dh} win={win}"
     print(f"phase ssm: rows 11 and 11b at {label} bf16 vs their plain "
           f"versions ({card})")
-    check(dispatch.resolve_flash(fa.ENTRY, q).route == "tensor_core"
-          and envelope.flash_bwd_route(True, dh) == "tensor_core",
-          f"{label}: not on the tensor-core routes")
-    drop = pos.clone()
-    drop[1024:1088] = -1
-    # every query head group reads the next group's kv head
-    wrong = (torch.arange(kv, device=dev) + 1) % kv
-    kw_, vw_ = k[:, :, wrong].contiguous(), v[:, :, wrong].contiguous()
-    max_err, rows = {}, {}
-
-    # row 11
-    before = dict(fa.launches)
-    got = fa.flash_attention(q, k, v, pos, pos, **kw)
-    want = ref.flash_attention_ref(q, k, v, pos, pos, **kw)
-    torch.cuda.synchronize()
-    check(fa.launches == dict(before, **{fa.TC_ENTRY:
-                                         before[fa.TC_ENTRY] + 1}),
-          f"{label}: launches {before} -> {fa.launches}")
-    err = float((got.float() - want.float()).abs().max())
-    share = limit_share(got, want, FLASH_BF16_TOL)
-    check(torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL),
-          f"flash_attention_tc disagrees with its plain version on {label}"
-          f" (max_abs_err {err:.3e})")
-    ctrl = {}
-    for name, bad in (
-            ("one kv tile dropped",
-             ref.flash_attention_ref(q, k, v, pos, drop, **kw)),
-            ("the wrong kv head",
-             ref.flash_attention_ref(q, kw_, vw_, pos, pos, **kw))):
-        ctrl[name] = limit_share(bad, want, FLASH_BF16_TOL)
-        check(not torch.allclose(bad.float(), want.float(), **FLASH_BF16_TOL),
-              f"the bf16 flash limit does not reject {name} at {label}")
-        del bad
-    max_err["flash_attention_tc"] = err
-    print(f"  flash_attention_tc: max_abs_err {err:.3e} ({share:.3f} of the "
-          f"limit rtol {FLASH_BF16_TOL['rtol']:g}, atol "
-          f"{FLASH_BF16_TOL['atol']:g}); controls "
-          + ", ".join(f"{n} {v_:.1f}x the limit: rejected"
-                      for n, v_ in ctrl.items()))
-    del got, want
+    max_err, share, ctrl, shares = attention_layer_checks(
+        torch, label, q, k, v, do, pos, kw)
+    rows = {}
     mask = (pos[:, None] - pos[None, :] >= 0) & (pos[:, None] - pos[None, :]
                                                  < win)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -5715,7 +5877,7 @@ def ssm_attention_kernels(np, torch, dev, card, clock):
         "library_kernel": top_device_kernel(torch, l_fn),
         "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
         "floors_ms": floors, "bytes": nbytes, "flops": flops,
-        "max_share": share, "controls": ctrl}
+        "max_share": share, "controls": ctrl[fa.TC_ENTRY]}
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
     print(f"  time flash_attention_tc {label}: kernel {k1:.4f}/{k2:.4f} ms "
           f"a call (device {dev_txt}), plain {p1:.3f}/{p2:.3f} ms, SDPA "
@@ -5724,48 +5886,7 @@ def ssm_attention_kernels(np, torch, dev, card, clock):
           f"{b_ms:.4f} ms ({floors['binding']}) on {card}")
 
     # row 11b
-    key = "flash_attention_bwd_tc"
-    before = dict(fa.launches)
-    got = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
-    again = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
-    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       do.float(), pos, pos, **kw)
-    torch.cuda.synchronize()
-    moved = {n: c - before[n] for n, c in fa.launches.items()
-             if c != before[n]}
-    check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 calls")
-    shares, err = {}, 0.0
-    for name, g, a_, w in zip(("dq", "dk", "dv"), got, again, want):
-        check(bool(torch.isfinite(g).all()), f"bwd {label}: {name} not "
-                                             f"finite")
-        check(torch.equal(g, a_), f"bwd {label}: {name} differs between "
-                                  f"two runs")
-        shares[name] = bwd_share(torch, g, w.to(g.dtype), "bfloat16")
-        err = max(err, float((g.float() - w.to(g.dtype).float()).abs()
-                             .max()))
-        check(shares[name] <= 1.0, f"{key} disagrees with the plain "
-                                   f"autograd on {label}: {name} at "
-                                   f"{shares[name]:.3f} of the bound")
-    del got, again
-    bctrl = {}
-    for name, kk, vv, kp in (("one 64-key tile dropped", k, v, drop),
-                             ("the wrong kv head", kw_, vw_, pos)):
-        bad = ref.flash_attention_bwd_ref(q.float(), kk.float(), vv.float(),
-                                          do.float(), pos, kp, **kw)
-        bctrl[name] = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype),
-                                    "bfloat16") for g, w in zip(bad, want))
-        check(bctrl[name] > TRAIN_CONTROL_FACTOR,
-              f"the bf16 backward bound does not reject {name} at {label} "
-              f"by {TRAIN_CONTROL_FACTOR:g}x ({bctrl[name]:.1f})")
-        del bad
-    del want
-    max_err[key] = err
-    print(f"  {key}: dq/dk/dv at "
-          + ", ".join(f"{n} {v_:.3f}" for n, v_ in shares.items())
-          + f" of the bound {BWD_TOL['bfloat16']}, two runs bitwise; "
-          f"controls " + ", ".join(f"{n} {v_:.1f}x" for n, v_ in
-                                   bctrl.items()))
-    torch.cuda.empty_cache()
+    key = fa.BWD_TC_ENTRY
     k_fn = lambda: fa.flash_attention_bwd(q, k, v, do, pos,  # noqa: E731
                                           pos, **kw)
     p_fn = lambda: ref.flash_attention_bwd_ref(q, k, v, do,  # noqa: E731
@@ -5794,7 +5915,7 @@ def ssm_attention_kernels(np, torch, dev, card, clock):
                  "library_kernel": top_device_kernel(torch, l_fn),
                  "bound_ms": b_ms, "bound_by": b_by, "floors_ms": floors,
                  "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
-                 "shares": shares, "controls": bctrl}
+                 "shares": shares, "controls": ctrl[key]}
     dev_txt = "not measured" if dev_ms is None else (
         f"{dev_ms:.4f} ms: " + ", ".join(f"{n_} {v_:.4f}"
                                          for n_, v_ in passes.items()))
@@ -5803,19 +5924,106 @@ def ssm_attention_kernels(np, torch, dev, card, clock):
           f"backward with the mask {lib_ms:.4f} ms "
           f"({rows[key]['library_kernel']}), bound {b_ms:.4f} ms "
           f"({floors['binding']}) on {card}")
-    del q, k, v, do, kw_, vw_, qt, kt, vt, qg, kg, vg, lib_out, dot, mask
+    del q, k, v, do, qt, kt, vt, qg, kg, vg, lib_out, dot, mask
     torch.cuda.empty_cache()
     return max_err, rows
+
+
+def dist(a_, b_) -> float:
+    return float((a_.float() - b_.float()).abs().max())
+
+
+def teacher_gate(torch, params, cfg, ext, s, n_tf, controls, serving,
+                 transformer, served=None):
+    """decode == teacher forcing over ``n_tf`` steps after a prompt of
+    ``s`` (prefill with extra_slots=n_tf), in float32 (the gate, with
+    each of ``controls``, {name: cache edit}, that must fail it) and in
+    cfg.dtype (held to the float32 forward: within SSM_BF16_FACTOR times
+    the cfg.dtype forward's distance from it, a bound that the controls
+    named in ``served`` (default: all) must exceed). The forward's logits
+    are taken at the decoded positions only. Returns the numbers."""
+    def part(lo, hi):
+        return {k: (t if k == "adc_mask" else t[:, lo:hi])
+                for k, t in ext.items()}
+    out = {}
+    for dname in ("float32", cfg.dtype):
+        c = cfg.replace(dtype=dname)
+        with torch.no_grad():
+            want = transformer.logits_of(
+                params, transformer.forward(params, ext, c)[:, s:], c)
+            _, cache = serving.prefill(params, part(0, s), c,
+                                       extra_slots=n_tf)
+            clean = {k: t.clone() for k, t in cache.items()}
+            got = []
+            for i in range(s, s + n_tf):
+                lg, cache = serving.decode_step(params, part(i, i + 1),
+                                                cache, c)
+                got.append(lg)
+            got = torch.stack(got, 1)
+            ctrl = {}
+            for name, edit in controls.items():
+                bad = {k: t.clone() for k, t in clean.items()}
+                edit(bad)
+                ctrl[name] = serving.decode_step(params, part(s, s + 1), bad,
+                                                 c)[0]
+                del bad
+        out[dname] = (got, want, ctrl)
+        del cache, clean
+    got32, want32, ctrl32 = out["float32"]
+    got16, want16, ctrl16 = out[cfg.dtype]
+    err32, err16 = dist(got32, want32), dist(got16, want16)
+    c32 = {n: dist(t_, want32[:, 0]) for n, t_ in ctrl32.items()}
+    fwd16 = dist(want16, want32)
+    dec16 = dist(got16, want32)
+    bound16 = SSM_BF16_FACTOR * fwd16
+    c16 = {n: dist(t_, want32[:, 0]) for n, t_ in ctrl16.items()}
+    held_lm = err16 <= LM_TEACHER_BF16_ATOL
+    print(f"  decode after prefill(extra_slots={n_tf}) vs the forward over "
+          f"{s + n_tf} tokens, {n_tf} steps (float32 logits: std "
+          f"{float(want32.std()):.3f}, max |.| "
+          f"{float(want32.abs().max()):.3f}):")
+    print(f"      float32 (the gate): max_abs_err {err32:.3e} [rtol=atol="
+          f"{LM_TEACHER_F32_TOL:g}]; controls " + ", ".join(
+              f"{n} {v_:.3e} ({v_ / LM_TEACHER_F32_TOL:.1f}x: "
+              f"{'rejected' if v_ > LM_TEACHER_F32_TOL else 'NOT'})"
+              for n, v_ in c32.items()))
+    print(f"      {cfg.dtype}: decode vs the {cfg.dtype} forward "
+          f"{err16:.3e} (lm's gate {LM_TEACHER_BF16_ATOL:g}: "
+          f"{'held' if held_lm else 'not held'}); decode vs the float32 "
+          f"forward {dec16:.3e} <= {SSM_BF16_FACTOR:g} x the {cfg.dtype} "
+          f"forward's {fwd16:.3e}; controls there " + ", ".join(
+              f"{n} {v_:.3e} ({'rejected' if v_ > bound16 else 'within'})"
+              for n, v_ in c16.items()))
+    check(torch.allclose(got32, want32, rtol=LM_TEACHER_F32_TOL,
+                         atol=LM_TEACHER_F32_TOL),
+          f"{cfg.name}: decode != teacher forcing in float32 ({err32:.3e})")
+    check(all(v_ > LM_TEACHER_F32_TOL for v_ in c32.values()),
+          f"{cfg.name}: the float32 limit does not reject a cache fault: "
+          f"{c32}")
+    check(dec16 <= bound16,
+          f"{cfg.name}: {cfg.dtype} decode is {dec16:.3e} from the float32 "
+          f"forward, over {SSM_BF16_FACTOR:g} x the {cfg.dtype} forward's "
+          f"distance {fwd16:.3e}")
+    check(all(v_ > bound16 for n, v_ in c16.items()
+              if served is None or n in served),
+          f"{cfg.name}: the {cfg.dtype} bound {bound16:.3e} does not reject "
+          f"a cache fault: {c16}")
+    return {"decode_vs_teacher_err_f32": err32,
+            "decode_vs_teacher_err_served": err16,
+            "served_held_lm_gate": held_lm,
+            "served_decode_vs_f32_forward": dec16,
+            "served_forward_vs_f32_forward": fwd16,
+            "controls_f32": c32, "controls_served_vs_f32": c16}
 
 
 def ssm_serve(np, torch, dev, card, arch):
     """One published config, uncut, through launch.serve.serve with every
     launch counter at 0 (SSM: 4 x 2048 prompts, 16 decode steps); then
     prefill == forward; decode == teacher forcing over SSM['teacher']
-    steps in float32 (LM_TEACHER_F32_TOL) and in the served bf16
-    (LM_TEACHER_BF16_ATOL), each with two cache-fault controls (the SSD
-    state zeroed, the conv_x tail shifted by one token) that must fail
-    it; a warm and a traced prefill, 16 warm and one traced decode step,
+    steps (``teacher_gate``) with two cache-fault controls (the SSD state
+    zeroed, the conv_x tail shifted by one token) that must fail the
+    float32 gate, the shifted tail the served bf16's bound too; a warm
+    and a traced prefill, 16 warm and one traced decode step,
     each traced window split by ``product_split``; peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -5879,87 +6087,15 @@ def ssm_serve(np, torch, dev, card, arch):
                         f"serve's ({same:.3e})")
     del pre, full
 
-    # decode == teacher forcing: prefill over s, then n_tf decode steps,
-    # each step's logits against the forward's at its position
     ext = serve.make_batch(cfg, b, s + n_tf, rng=np.random.default_rng(1),
                            device=dev)
-
-    def part(lo, hi):
-        return {k: t[:, lo:hi] for k, t in ext.items()}
-    out = {}
-    for dname in ("float32", cfg.dtype):
-        c = cfg.replace(dtype=dname)
-        want = transformer.logits_fn(params, ext, c)[:, s:].clone()
-        _, cache = serving.prefill(params, part(0, s), c, extra_slots=n_tf)
-        clean = {k: t.clone() for k, t in cache.items()}
-        got = []
-        for t in range(s, s + n_tf):
-            lg, cache = serving.decode_step(params, part(t, t + 1), cache, c)
-            got.append(lg)
-        got = torch.stack(got, 1)
-        ctrl = {}
-        for name, edit in (
-                ("SSD state zeroed", lambda cc: cc["state"].zero_()),
-                ("conv_x tail shifted by one token",
-                 lambda cc: cc["conv_x"].copy_(torch.roll(cc["conv_x"], 1,
-                                                          dims=2)))):
-            bad = {k: t.clone() for k, t in clean.items()}
-            edit(bad)
-            ctrl[name] = serving.decode_step(params, part(s, s + 1), bad,
-                                             c)[0]
-            del bad
-        out[dname] = (got, want, ctrl)
-        del cache, clean
-
-    def dist(a_, b_):
-        return float((a_ - b_).abs().max())
-    got32, want32, ctrl32 = out["float32"]
-    got16, want16, ctrl16 = out[cfg.dtype]
-    err32, err16 = dist(got32, want32), dist(got16, want16)
-    c32 = {n: dist(t, want32[:, 0]) for n, t in ctrl32.items()}
-    c16 = {n: dist(t, want16[:, 0]) for n, t in ctrl16.items()}
-    wit = {"bf16 decode vs float32 forward": dist(got16, want32),
-           "bf16 forward vs float32 forward": dist(want16, want32)}
-    # the bf16 path held to the float32 forward (SSM_BF16_FACTOR)
-    bound16 = SSM_BF16_FACTOR * wit["bf16 forward vs float32 forward"]
-    c16_truth = {n: dist(t, want32[:, 0]) for n, t in ctrl16.items()}
-    held16 = err16 <= LM_TEACHER_BF16_ATOL
-    print(f"  decode after prefill(extra_slots={n_tf}) vs the forward over "
-          f"{s + n_tf} tokens, {n_tf} steps (float32 forward: std "
-          f"{float(want32.std()):.3f}, max |.| "
-          f"{float(want32.abs().max()):.3f}):")
-    print(f"      float32 (the gate): max_abs_err {err32:.3e} [rtol=atol="
-          f"{LM_TEACHER_F32_TOL:g}]; controls "
-          + ", ".join(f"{n} {v_:.3e} ({v_ / LM_TEACHER_F32_TOL:.1f}x: "
-                      f"{'rejected' if v_ > LM_TEACHER_F32_TOL else 'NOT'})"
-                      for n, v_ in c32.items()))
-    print(f"      {cfg.dtype}: max_abs_err {err16:.3e} against lm's gate "
-          f"{LM_TEACHER_BF16_ATOL:g}: {'held' if held16 else 'not held'}; "
-          f"controls " + ", ".join(f"{n} {v_:.3e}" for n, v_ in c16.items()))
-    for name, val in wit.items():
-        print(f"      witness, {name}: {val:.3e}")
-    dec16 = wit["bf16 decode vs float32 forward"]
-    print(f"      {cfg.dtype} decode vs the float32 forward {dec16:.3e} <= "
-          f"{SSM_BF16_FACTOR:g} x the {cfg.dtype} forward's "
-          f"{bound16 / SSM_BF16_FACTOR:.3e}; controls there " + ", ".join(
-              f"{n} {v_:.3e} ({'rejected' if v_ > bound16 else 'within'})"
-              for n, v_ in c16_truth.items()))
-    check(torch.allclose(got32, want32, rtol=LM_TEACHER_F32_TOL,
-                         atol=LM_TEACHER_F32_TOL),
-          f"{cfg.name}: decode != teacher forcing in float32 ({err32:.3e})")
-    check(all(v_ > LM_TEACHER_F32_TOL for v_ in c32.values()),
-          f"{cfg.name}: the float32 limit does not reject a cache fault: "
-          f"{c32}")
-    check(dec16 <= bound16,
-          f"{cfg.name}: {cfg.dtype} decode is {dec16:.3e} from the float32 "
-          f"forward, over {SSM_BF16_FACTOR:g} x the {cfg.dtype} forward's "
-          f"distance")
-    check(c16_truth["conv_x tail shifted by one token"] > bound16,
-          f"{cfg.name}: the {cfg.dtype} bound does not reject a shifted "
-          f"conv tail: {c16_truth}")
-    ctrl32, ctrl16 = c32, dict(c16, **{f"{n} (vs the float32 forward)": v_
-                                       for n, v_ in c16_truth.items()})
-    del out, got32, want32, got16, want16
+    conv = "conv_x tail shifted by one token"
+    gate = teacher_gate(
+        torch, params, cfg, ext, s, n_tf,
+        {"SSD state zeroed": lambda cc: cc["state"].zero_(),
+         conv: lambda cc: cc["conv_x"].copy_(torch.roll(cc["conv_x"], 1,
+                                                        dims=2))},
+        serving, transformer, served=(conv,))
 
     walls = []
     for _ in range(2):
@@ -6006,12 +6142,7 @@ def ssm_serve(np, torch, dev, card, arch):
             "decode_traced_wall_ms": dec_wall * 1e3,
             "decode_device_ms": dec_split, "decode_kernels": dec_n,
             "decode_busy_share": dec_busy, "peak_gb": peak_gb,
-            "prefill_vs_forward_err": err_c,
-            "decode_vs_teacher_err_f32": err32,
-            "decode_vs_teacher_err_served": err16,
-            "decode_vs_teacher_served_held_lm_gate": held16,
-            "controls_f32": ctrl32, "controls_served": ctrl16,
-            "witnesses": wit}
+            "prefill_vs_forward_err": err_c, **gate}
 
 
 def leaf_names(params, stacked):
@@ -6032,146 +6163,101 @@ def leaf_names(params, stacked):
     return names
 
 
-def ssm_train(np, torch, dev, card, arch):
-    """One published config, uncut, trained through launch.train.build ->
-    steps.init_state -> make_train_step with every launch counter at 0
-    (SSM_TRAIN: 8 x 2048 in 2 microbatches, 3 steps) and one traced
-    step; then one microbatch's loss and every gradient leaf (every layer,
-    the token embedding's gather and, for mamba2, the tied head) twice,
-    bitwise."""
-    from repro_torch.launch import train
-    from repro_torch.models import steps, transformer
-    c = SSM_TRAIN
-    cfg, mesh, train_step, data = train.build(
-        arch, smoke=False, seq=c["seq"], batch=c["batch"],
-        microbatches=c["microbatches"], steps_total=100, device="cuda")
-    check_published(cfg)
-    hybrid = cfg.family == "hybrid"
-    n_params = cfg.param_counts()["total"]
-    tokens = c["batch"] * c["seq"]
-    print(f"phase ssm: {cfg.name} trained at its published config, uncut "
-          f"({n_params:,} parameters, {cfg.param_dtype} params and AdamW "
-          f"state, {cfg.dtype} activations, remat {cfg.remat}) through "
-          f"launch.train.build -> steps.init_state -> make_train_step on "
-          f"cuda: batch {c['batch']} x {c['seq']} in {c['microbatches']} "
-          f"microbatches, {c['steps']} steps ({card})")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state = steps.init_state(cfg, seed=0, mesh=mesh)
-    snap = {"embed": state.params["embed"][:64].clone(),
-            "layers/ssm/x_proj[0]": state.params["layers"]["ssm"]["x_proj"][0]
-            .clone(),
-            "layers/ssm/A_log": state.params["layers"]["ssm"]["A_log"]
-            .clone()}
-    reset_all_launches()
-    losses, norms, walls = [], [], []
-    for i in range(c["steps"]):
-        batch = data.device_batch(i, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch, i)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        walls.append(time.perf_counter() - t0)
-        print(f"  step {i}: loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
-              f"{walls[-1]:.3f} s", flush=True)
-    launches = all_launches()
-    per_step = cfg.num_layers * c["microbatches"] if hybrid else 0
-    check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
-          and launches["flash_attention_bwd_tc"] == per_step * c["steps"]
-          and sum(launches.values()) == 3 * per_step * c["steps"],
-          f"{cfg.name} steps launched {launches}; expected {2 * per_step} "
-          f"tensor-core forwards and {per_step} tensor-core backwards a "
-          f"step, nothing else")
-    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
-          f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
-          f"{cfg.vocab_size}")
-    check(np.isfinite(losses).all() and np.isfinite(norms).all(),
-          f"non-finite loss or grad norm: {losses} {norms}")
-    now = {"embed": state.params["embed"][:64],
-           "layers/ssm/x_proj[0]": state.params["layers"]["ssm"]["x_proj"][0],
-           "layers/ssm/A_log": state.params["layers"]["ssm"]["A_log"]}
-    for key, before in snap.items():
-        check(not torch.equal(before, now[key]), f"{key} did not change")
-    del snap, now
-    warm = min(walls[1:])
-    batch = data.device_batch(c["steps"], dev)
-    wall, split, count, busy = traced_split(
-        torch, lambda: train_step(state, batch, c["steps"]))
-    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 N "
-          f"tokens / step time = {share * 100:.1f} % of the bf16 dense "
-          f"peak), peak memory {peak_gb:.2f} GB; traced step (shapes "
-          f"recorded): wall {wall:.3f} s, busy {busy * 100:.1f} %, device "
-          f"{split_text(split, count)} on {card}")
-
-    # one microbatch's loss and every gradient leaf, twice, bitwise
-    mb = {k: t[0] for k, t in data.device_batch(c["steps"] + 1, dev).items()}
-    names = leaf_names(state.params, steps._STACKED)
-    runs = []
+def replay_grads(torch, params, mb, cfg, steps, transformer):
+    """One microbatch's loss and every gradient leaf twice: the names of
+    the leaves that differ, and their count."""
+    names = ["loss"] + leaf_names(params, steps._STACKED)
+    first, differ = None, []
     for _ in range(2):
-        live, leaves = steps._autograd_leaves(state.params)
+        live, leaves = steps._autograd_leaves(params)
         with torch.enable_grad():
             loss, _ = transformer.loss_fn(live, mb, cfg)
             grads = torch.autograd.grad(loss, leaves)
-        runs.append([loss.detach()] + list(grads))
+        run = [loss.detach()] + list(grads)
         del live, leaves, grads, loss
-    names = ["loss"] + names
-    differ = [names[i] for i, (a_, b_) in enumerate(zip(*runs))
-              if not torch.equal(a_, b_)]
-    print(f"  replay: one microbatch ({c['batch'] // c['microbatches']} x "
-          f"{c['seq']}) loss and its {len(runs[0]) - 1} gradient leaves "
-          f"twice: " + ("bitwise equal" if not differ else
-                        f"{len(differ)} differ: {differ[:12]}"))
-    check(not differ, f"{cfg.name}: a replayed microbatch's gradients "
-                      f"differ in {differ[:12]}")
-    del runs, state, data, train_step, batch, mb
-    torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses, "grad_norms": norms,
-            "step_s": walls, "warm_step_s": warm,
-            "tokens_per_s": tokens / warm, "bf16_peak_share": share,
-            "params": n_params, "peak_gb": peak_gb, "traced_wall_s": wall,
-            "device_ms": split, "device_kernels": count,
-            "device_busy_share": busy, "replay_bitwise": not differ}
+        if first is None:
+            first = run
+        else:
+            differ = [names[i] for i, (a_, b_) in enumerate(zip(first, run))
+                      if not torch.equal(a_, b_)]
+        del run
+    n = len(first)
+    del first
+    return differ, n
 
 
-def ssm_smoke_card_vs_cpu(np, torch, dev, card):
-    """Both smoke configs, float32, card against CPU from one init:
-    prefill and SSM_SMOKE['decode'] decode steps' logits, three
-    microbatched train steps; one train step replayed from a cloned state
-    on the card, bitwise. Returns the card's launch counts (hymba's smoke
-    attention, dh 16, runs rows 11 and 11b on the CUDA-core routes)."""
+def ssm_train(np, torch, dev, card, arch):
+    """One published config, uncut, trained through launch.train.build
+    and ``train_run`` (SSM_TRAIN: 8 x 2048 in 2 microbatches, 3 steps):
+    hybrid runs rows 11 and 11b on the tensor cores in each attention
+    layer, mamba2 launches no kernel; the replay covers every layer, the
+    token embedding's gather and, for mamba2, the tied head."""
+    from repro_torch.launch import train
+    c = dict(SSM_TRAIN, routes=("flash_attention_tc",
+                                "flash_attention_bwd_tc"))
+    built = train.build(arch, smoke=False, seq=c["seq"], batch=c["batch"],
+                        microbatches=c["microbatches"], steps_total=100,
+                        device="cuda")
+    cfg = built[0]
+    check_published(cfg)
+    ssm = lambda p: p["layers"]["ssm"]  # noqa: E731
+    return train_run(
+        np, torch, dev, card, "ssm", built, c,
+        cfg.num_layers if cfg.family == "hybrid" else 0,
+        {"embed": lambda p: p["embed"][:64],
+         "layers/ssm/x_proj[0]": lambda p: ssm(p)["x_proj"][0],
+         "layers/ssm/A_log": lambda p: ssm(p)["A_log"]},
+        " at its published config, uncut")
+
+
+def smoke_card_vs_cpu(np, torch, dev, card, phase, c):
+    """The smoke configs of ``c['archs']`` (SSM_SMOKE, LG_SMOKE), float32,
+    card against CPU from one init: prefill and c['decode'] decode steps'
+    logits, c['steps'] microbatched train steps; one train step replayed
+    on the card, bitwise. An M-RoPE config takes c['grid']'s vision
+    positions in both. Returns the card's launch counts (their attention,
+    dh 16, runs rows 11 and 11b on the CUDA-core routes)."""
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.data.lm import (LMDataConfig, SyntheticLM,
+                                     mrope_grid_positions)
     from repro_torch.launch import serve
     from repro_torch.models import serving, steps, transformer
     from repro_torch.optim import adamw
-    c, tol = SSM_SMOKE, TRAIN_SMOKE_TOL
+    tol = TRAIN_SMOKE_TOL
     cpu = torch.device("cpu")
-    print(f"phase ssm: smoke configs {SSM_ARCHS}, float32, card against "
-          f"CPU: prefill {c['prompt']} + {c['decode']} decode steps (logits "
-          f"{MOE_SMOKE_LOGITS_TOL:g}), {c['steps']} train steps (batch "
-          f"{c['batch']} x {c['seq']}, {c['microbatches']} microbatches; "
-          f"loss, lr, grad_norm {tol['metrics']:g}, params {tol['params']:g})"
-          f", a replayed step bitwise")
+    print(f"phase {phase}: smoke configs {c['archs']}, float32, card "
+          f"against CPU: prefill {c['prompt']} + {c['decode']} decode steps "
+          f"(logits {MOE_SMOKE_LOGITS_TOL:g}), {c['steps']} train steps "
+          f"(batch {c['batch']} x {c['seq']}, {c['microbatches']} "
+          f"microbatches; loss, lr, grad_norm {tol['metrics']:g}, params "
+          f"{tol['params']:g}), a replayed step bitwise")
     reset_all_launches()
 
     def copy(tree, device):
         return adamw.tree_map(lambda t: t.detach().clone().to(device), tree)
 
-    for arch in SSM_ARCHS:
+    for arch in c["archs"]:
         cfg = smoke_config(arch)
         host = transformer.init_params(cfg, seed=5)
         n = c["prompt"] + c["decode"]
-        batch = serve.make_batch(cfg, 2, n, rng=np.random.default_rng(3))
+        rng = np.random.default_rng(3)
+        batch = serve.make_batch(cfg, 2, n, rng=rng)
+        grid = None
+        if cfg.mrope:
+            g = c["grid"]
+            batch["positions"] = torch.from_numpy(mrope_grid_positions(
+                2, [g], n - g[0] * g[1] * g[2]))
+            grid = torch.from_numpy(mrope_grid_positions(
+                c["batch"], [g], c["seq"] - g[0] * g[1] * g[2])).reshape(
+                    c["microbatches"], -1, c["seq"], 3)
         logits = {}
         for where, d in (("cpu", cpu), ("card", dev)):
             params = copy(host, d)
             mb = {k: t.to(d) for k, t in batch.items()}
-            part = lambda lo, hi: {k: t[:, lo:hi]  # noqa: E731
-                                   for k, t in mb.items()}
+            part = lambda lo, hi: {  # noqa: E731
+                k: (t if k == "adc_mask" else t[:, lo:hi])
+                for k, t in mb.items()}
             out, cache = serving.prefill(params, part(0, c["prompt"]), cfg)
             outs = [out]
             for t in range(c["prompt"], n):
@@ -6187,6 +6273,12 @@ def ssm_smoke_card_vs_cpu(np, torch, dev, card):
         data = SyntheticLM(LMDataConfig(
             vocab_size=cfg.vocab_size, seq_len=c["seq"],
             global_batch=c["batch"], microbatches=c["microbatches"]), cfg)
+
+        def batch_at(i, d):
+            out = data.device_batch(i, d)
+            if grid is not None:
+                out["positions"] = grid.to(d)
+            return out
         step = steps.make_train_step(
             cfg, None, ShapeConfig("smoke", c["seq"], c["batch"], "train"),
             microbatches=c["microbatches"], total_steps=10)
@@ -6195,7 +6287,7 @@ def ssm_smoke_card_vs_cpu(np, torch, dev, card):
             params = copy(host, d)
             state = steps.TrainState(params, adamw.init_tree(params))
             for i in range(c["steps"]):
-                state, mt = step(state, data.device_batch(i, d), i)
+                state, mt = step(state, batch_at(i, d), i)
                 metrics.setdefault(where, []).append(
                     {k: float(t) for k, t in mt.items()})
             states[where] = state
@@ -6216,8 +6308,7 @@ def ssm_smoke_card_vs_cpu(np, torch, dev, card):
                 copy(base.params, dev),
                 adamw.OptState(base.opt.step.clone(), copy(base.opt.m, dev),
                                copy(base.opt.v, dev)))
-            new, mt = step(clone, data.device_batch(c["steps"], dev),
-                           c["steps"])
+            new, mt = step(clone, batch_at(c["steps"], dev), c["steps"])
             runs.append(adamw.tree_leaves(new.params)
                         + adamw.tree_leaves(new.opt.m)
                         + adamw.tree_leaves(new.opt.v)
@@ -6228,8 +6319,6 @@ def ssm_smoke_card_vs_cpu(np, torch, dev, card):
         print(f"  {cfg.name}: serving logits card vs CPU {lerr:.2e}; loss "
               f"{[round(mm['loss'], 6) for mm in metrics['card']]} vs "
               f"{[round(mm['loss'], 6) for mm in metrics['cpu']]}, "
-              f"grad_norm {[round(mm['grad_norm'], 6) for mm in metrics['card']]}"
-              f" vs {[round(mm['grad_norm'], 6) for mm in metrics['cpu']]}, "
               f"params max_abs_err {perr:.2e}; a replayed step's "
               f"{len(runs[0])} tensors bitwise")
         del states, runs
@@ -6238,8 +6327,8 @@ def ssm_smoke_card_vs_cpu(np, torch, dev, card):
           and launches["flash_attention_bwd"] > 0
           and launches["flash_attention_tc"] == 0
           and launches["flash_attention_bwd_tc"] == 0,
-          f"the ssm smoke runs on the card launched {launches}; expected "
-          f"the CUDA-core routes only (hymba's smoke dh 16)")
+          f"the {phase} smoke runs on the card launched {launches}; "
+          f"expected the CUDA-core routes only (dh 16)")
     return launches
 
 
@@ -6264,11 +6353,693 @@ def phase_ssm(np, torch, dev, card, clock):
         for name, n in res.pop("launches").items():
             launches[name] = launches.get(name, 0) + n
         out["train"][arch] = res
-    out["smoke_launches"] = ssm_smoke_card_vs_cpu(np, torch, dev, card)
+    out["smoke_launches"] = smoke_card_vs_cpu(np, torch, dev, card, "ssm",
+                                              dict(SSM_SMOKE, archs=SSM_ARCHS))
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase ssm: {out['phase_s']:.2f} s on {card}; launches on the "
           f"ssm path: {launches}")
+    return out
+
+
+def tree_numel(params) -> int:
+    from repro_torch.optim import adamw
+    return sum(t.numel() for t in adamw.tree_leaves(params))
+
+
+def lg_attention_kernels(np, torch, dev, card, clock):
+    """Rows 11 and 11b at gemma2's layer (GEMMA_ATTN: B 1, S 8192, 8
+    heads over 4, dh 256, softcap 50), windowed (4096) and global: row
+    11b (the CUDA-core backward's 32-row dh-256 tiles) in bf16 and
+    float32 against the plain autograd in float32 (BWD_TOL), two runs
+    bitwise, phase train's controls (keys 1024..1087 dropped, the wrong kv
+    head) rejected at TRAIN_CONTROL_FACTOR (a control's dk / dv share is
+    at most 1 / rtol = 128 on a key whose gradient it zeroes, so a
+    single 32-key tile far from the large gradients can stay under 100),
+    each call counted on BWD_ENTRY's key, each
+    pass's device time beside bwd_bound and SDPA's backward (without
+    the softcap, which SDPA lacks: a yardstick, not the same function;
+    None where it refuses); row 11's tensor-core forward at the same
+    shape against its plain version; then ``attention_layer_checks`` at
+    qwen2-vl's layer (QWEN_ATTN, tensor cores) on the t component of
+    QWEN's vision grid, its 1536 image tokens at one position. Returns
+    (max_abs_err by counter key, {label: timing row})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch, envelope
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    a = GEMMA_ATTN
+    b, s, h, kv, dh, cap = (a[k] for k in ("B", "S", "H", "KV", "dh",
+                                            "softcap"))
+    key = fa.BWD_ENTRY
+    check(envelope.flash_bwd_route(True, dh) == "cuda_core"
+          and envelope.outside_flash_bwd_envelope(b, s, h, dh) is None,
+          f"dh {dh}: not on the CUDA-core backward's route and envelope")
+    for p in range(3):
+        check(fa.bwd_smem_bytes(p, dh) == envelope.flash_bwd_smem_bytes(p, dh)
+              <= envelope.SMEM_MAX_BYTES,
+              f"backward pass {p} at dh {dh}: the build asks for "
+              f"{fa.bwd_smem_bytes(p, dh)} bytes, the envelope says "
+              f"{envelope.flash_bwd_smem_bytes(p, dh)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2029)
+    q32, k32, v32 = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh,
+                                 torch.float32)
+    do32 = torch.randn((b, s, h, dh), generator=gen, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    # the controls every row 11b case takes: keys 1024..1087 dropped (two
+    # of this kernel's 32-key tiles), and the wrong kv head
+    drop = pos.clone()
+    drop[1024:1088] = -1
+    # every query head group reads the next group's kv head
+    wrong = (torch.arange(kv, device=dev) + 1) % kv
+    max_err, rows = {key: 0.0, fa.TC_ENTRY: 0.0, fa.BWD_TC_ENTRY: 0.0}, {}
+    print(f"phase local_global_vlm: rows 11 and 11b at gemma2's layer B={b} "
+          f"S={s} H={h} KV={kv} dh={dh} softcap {cap:g}, window "
+          f"{a['window']} and global ({card})")
+    for win in (a["window"], 0):
+        kw = dict(causal=True, window=win, attn_softcap=cap)
+        mask = (pos[:, None] - pos[None, :] >= 0)
+        if win:
+            mask = mask & (pos[:, None] - pos[None, :] < win)
+        wtxt = f"window {win}" if win else "global"
+        # row 11, the tensor-core forward (bf16)
+        q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+        check(dispatch.resolve_flash(fa.ENTRY, q).route == "tensor_core",
+              f"dh {dh} bf16: not on the tensor-core forward")
+        before = dict(fa.launches)
+        got = fa.flash_attention(q, k, v, pos, pos, **kw)
+        want = ref.flash_attention_ref(q, k, v, pos, pos, **kw)
+        torch.cuda.synchronize()
+        check(fa.launches == dict(before, **{fa.TC_ENTRY:
+                                             before[fa.TC_ENTRY] + 1}),
+              f"forward {wtxt}: launches {before} -> {fa.launches}")
+        err = float((got.float() - want.float()).abs().max())
+        share = limit_share(got, want, FLASH_BF16_TOL)
+        check(share <= 1.0, f"flash_attention_tc disagrees with its plain "
+                            f"version at gemma2's layer, {wtxt} ({err:.3e})")
+        max_err[fa.TC_ENTRY] = max(max_err[fa.TC_ENTRY], err)
+        k_fn = lambda: fa.flash_attention(q, k, v, pos, pos,  # noqa: E731
+                                          **kw)
+        f_ms = timed_ms(torch, k_fn, 5)
+        f_dev = device_ms_by_name(torch, k_fn, (FLASH_DEVICE_NAMES[
+            fa.TC_ENTRY],))[FLASH_DEVICE_NAMES[fa.TC_ENTRY]]
+        f_plain = timed_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, pos, pos, **kw), 2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        f_lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask if win else None, is_causal=not win,
+            enable_gqa=True), 5)
+        fb_ms, fb_by, _, _, ffloors = flash_bound(
+            torch, q, k, pos, pos, causal=True, window=win, clock=clock)
+        rows[f"row 11 gemma2 layer {wtxt} bfloat16"] = {
+            "kernel": fa.TC_ENTRY, "ms": f_ms, "device_ms": f_dev,
+            "plain_ms": f_plain, "library_ms": f_lib,
+            "library_note": "SDPA without the softcap (SDPA has none)",
+            "bound_ms": fb_ms, "bound_by": fb_by, "floors_ms": ffloors,
+            "max_share": share}
+        print(f"  row 11 tensor-core forward, {wtxt}, bf16: max_abs_err "
+              f"{err:.3e} ({share:.3f} of the bf16 flash limit); "
+              f"{f_ms:.4f} ms a call (device "
+              + ("not measured" if f_dev is None else f"{f_dev:.4f} ms")
+              + f"), plain {f_plain:.2f} ms, SDPA without the softcap "
+              f"{f_lib:.4f} ms, bound {fb_ms:.4f} ms ({ffloors['binding']})"
+              f" on {card}")
+        del got, want, qt, kt, vt
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[-1]
+            label = (f"gemma2 layer B={b} S={s} H={h} KV={kv} dh={dh} "
+                     f"cap={cap:g} {wtxt} {dname}")
+            q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+            check(dispatch.resolve_flash_bwd(key, q).route == "cuda_core",
+                  f"{label}: not on the CUDA-core backward")
+            before = dict(fa.launches)
+            got = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+            again = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
+            want = ref.flash_attention_bwd_ref(q.float(), k.float(),
+                                               v.float(), do.float(), pos,
+                                               pos, **kw)
+            torch.cuda.synchronize()
+            moved = {n: c_ - before[n] for n, c_ in fa.launches.items()
+                     if c_ != before[n]}
+            check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 "
+                                     f"calls")
+            shares, err = {}, 0.0
+            for name, g, a_, w in zip(("dq", "dk", "dv"), got, again, want):
+                check(bool(torch.isfinite(g).all()),
+                      f"bwd {label}: {name} not finite")
+                check(torch.equal(g, a_), f"bwd {label}: {name} differs "
+                                          f"between two runs")
+                shares[name] = bwd_share(torch, g, w.to(dt), dname)
+                err = max(err, float((g.float() - w.to(dt).float()).abs()
+                                     .max()))
+                check(shares[name] <= 1.0,
+                      f"{key} disagrees with the plain autograd on {label}: "
+                      f"{name} at {shares[name]:.3f} of the bound")
+            del got, again
+            ctrl = {}
+            for name, kk, vv, kp in (
+                    ("one 64-key span dropped", k, v, drop),
+                    ("the wrong kv head", k[:, :, wrong].contiguous(),
+                     v[:, :, wrong].contiguous(), pos)):
+                bad = ref.flash_attention_bwd_ref(
+                    q.float(), kk.float(), vv.float(), do.float(), pos, kp,
+                    **kw)
+                ctrl[name] = min(bwd_share(torch, g.to(dt), w.to(dt), dname)
+                                 for g, w in zip(bad, want))
+                check(ctrl[name] > TRAIN_CONTROL_FACTOR,
+                      f"the {dname} backward bound does not reject {name} "
+                      f"at {label} by {TRAIN_CONTROL_FACTOR:g}x "
+                      f"({ctrl[name]:.1f})")
+                del bad
+            del want
+            max_err[key] = max(max_err[key], err)
+            torch.cuda.empty_cache()
+            k_fn = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, v, do, pos, pos, **kw)
+            p_fn = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+                q, k, v, do, pos, pos, **kw)
+            p1 = timed_ms(torch, p_fn, 1, warmup=1)
+            k1 = timed_ms(torch, k_fn, 3, warmup=1)
+            k2 = timed_ms(torch, k_fn, 3, warmup=0)
+            by_name = device_ms_by_name(torch, k_fn, BWD_DEVICE_NAMES[key])
+            passes = {pn: by_name[dn] for pn, dn in
+                      zip(BWD_PASSES, BWD_DEVICE_NAMES[key])}
+            dev_ms = (None if None in passes.values()
+                      else sum(passes.values()))
+            lib_ms, lib_kernel = None, None
+            qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                               for x in (q, k, v, do))
+            try:
+                qg, kg, vg = (x.detach().requires_grad_(True)
+                              for x in (qt, kt, vt))
+                with torch.enable_grad():
+                    lib_out = F.scaled_dot_product_attention(
+                        qg, kg, vg, attn_mask=None if not win else mask,
+                        is_causal=not win, enable_gqa=True)
+                l_fn = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_out, (qg, kg, vg), dot, retain_graph=True)
+                lib_ms = timed_ms(torch, l_fn, 3, warmup=1)
+                lib_kernel = top_device_kernel(torch, l_fn)
+                del lib_out, qg, kg, vg
+            except RuntimeError as exc:
+                print(f"  SDPA backward at {label}: n/a ({exc})")
+            del qt, kt, vt, dot
+            b_ms, b_by, nbytes, flops, kflops, floors = bwd_bound(
+                torch, q, k, pos, pos, window=win, route=key)
+            rows[label] = {
+                "kernel": key, "shape": {"B": b, "S": s, "Sk": s, "H": h,
+                                         "KV": kv, "dh": dh, "window": win,
+                                         "softcap": cap, "dtype": dname},
+                "ms": min(k1, k2), "plain_ms": p1, "device_ms": dev_ms,
+                "pass_device_ms": passes, "library_ms": lib_ms,
+                "library_kernel": lib_kernel,
+                "library_note": "SDPA without the softcap (SDPA has none)",
+                "bound_ms": b_ms, "bound_by": b_by, "floors_ms": floors,
+                "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
+                "shares": shares, "controls": ctrl,
+                "forward_tc_ms": f_ms}
+            dev_txt = "not measured" if dev_ms is None else (
+                f"{dev_ms:.3f} ms: " + ", ".join(
+                    f"{n_} {v_:.3f}" for n_, v_ in passes.items()))
+            lib_txt = ("n/a" if lib_ms is None
+                       else f"{lib_ms:.3f} ms ({lib_kernel})")
+            print(f"  row 11b {label}: dq/dk/dv at " + ", ".join(
+                f"{n} {v_:.3f}" for n, v_ in shares.items())
+                + f" of BWD_TOL, two runs bitwise; controls "
+                + ", ".join(f"{n} {v_:.1f}x" for n, v_ in ctrl.items()))
+            print(f"  time {key} {label}: kernel {k1:.3f}/{k2:.3f} ms a "
+                  f"call (device {dev_txt}), plain autograd {p1:.2f} ms, "
+                  f"SDPA backward without the softcap {lib_txt}, bound "
+                  f"{b_ms:.4f} ms ({floors['binding']}), the design's "
+                  f"{kflops / 1e12:.3f} TFLOP at the float32 peak "
+                  f"{floors['design']:.3f} ms on {card}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    del q32, k32, v32, do32
+    torch.cuda.empty_cache()
+
+    # qwen2-vl's layer on its vision grid: attention reads the t
+    # component, so the image's QWEN['grid'] patches share one position
+    from repro_torch.data.lm import mrope_grid_positions
+    a = QWEN_ATTN
+    b, s, h, kv, dh = (a[k_] for k_ in ("B", "S", "H", "KV", "dh"))
+    grid, text = QWEN["grid"], QWEN["text"]
+    pos = torch.from_numpy(mrope_grid_positions(1, [grid], text)[0, :, 0]
+                           .copy()).to(dev)
+    check(pos.shape == (s,), f"qwen2-vl's grid spans {tuple(pos.shape)}")
+    q, k, v = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh,
+                           torch.bfloat16)
+    do = torch.randn((b, s, h, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(causal=True, window=0, attn_softcap=0.0)
+    label = (f"qwen2-vl layer B={b} S={s} H={h} KV={kv} dh={dh}, an image "
+             f"of {grid} patches at one t then {text} text tokens")
+    print(f"phase local_global_vlm: rows 11 and 11b at {label} bf16 vs "
+          f"their plain versions ({card})")
+    errs, share, ctrl, shares = attention_layer_checks(
+        torch, label, q, k, v, do, pos, kw)
+    for key_, err in errs.items():
+        max_err[key_] = max(max_err[key_], err)
+    f_ms = timed_ms(torch, lambda: fa.flash_attention(q, k, v, pos, pos,
+                                                      **kw), 10)
+    b_ms = timed_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, do, pos,
+                                                          pos, **kw), 10)
+    rows[f"row 11 {label}"] = {
+        "kernel": fa.TC_ENTRY, "ms": f_ms, "max_share": share,
+        "max_abs_err": errs[fa.TC_ENTRY], "controls": ctrl[fa.TC_ENTRY]}
+    rows[f"row 11b {label}"] = {
+        "kernel": fa.BWD_TC_ENTRY, "ms": b_ms, "shares": shares,
+        "max_abs_err": errs[fa.BWD_TC_ENTRY],
+        "controls": ctrl[fa.BWD_TC_ENTRY]}
+    print(f"  time at {label}: forward {f_ms:.4f} ms, backward {b_ms:.4f} "
+          f"ms a call on {card}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def gemma2_serve(np, torch, dev, card):
+    """gemma2-2b at its published widths, uncut, heads unpadded
+    (GEMMA['cut']): launch.serve.serve with every launch counter at 0
+    (1 x 8192 prompt, twice the window, GEMMA['gen'] decode steps: the
+    tensor-core forward once a layer of the prefill, 13 windowed and 13
+    global, nothing else); prefill == forward; decode == teacher forcing
+    after prefill(extra_slots) in float32 with a zeroed local ring and a
+    zeroed global cache as controls, and in bf16 held to the float32
+    forward; a warm prefill and decode step, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    g = GEMMA
+    cfg = get_config(g["arch"]).replace(**g["cut"])
+    check_published(cfg)
+    b, s, n_gen, n_tf = g["requests"], g["prompt_len"], g["gen"], g["teacher"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    n_params = tree_numel(params)
+    print(f"phase local_global_vlm: {cfg.name} at its published widths, uncut "
+          f"({cfg.num_layers} layers as {transformer.scan_len(cfg)} (local "
+          f"{cfg.window}, global) pairs, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"{cfg.resolved_head_dim}, softcaps {cfg.attn_logit_softcap:g}/"
+          f"{cfg.final_logit_softcap:g}, {n_params:,} parameters; heads "
+          f"unpadded, {g['cut']}, ROADMAP C) through launch.serve.serve: "
+          f"{b} x {s} prompt, {n_gen} decode steps ({card})")
+    reset_all_launches()
+    gen, info = serve.serve(cfg, params, requests=b, prompt_len=s, gen=n_gen,
+                            device=dev, seed=0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    print(f"  launch counters after the main path: {launches}")
+    check(launches["flash_attention_tc"] == cfg.num_layers
+          and info["prefill_flash_launches"] == cfg.num_layers
+          and sum(launches.values()) == cfg.num_layers,
+          f"{cfg.name}: launches {launches}; expected {cfg.num_layers} "
+          f"tensor-core forwards (one a layer of the prefill), nothing else")
+    check(gen.shape == (b, n_gen) and all(
+        lg.shape == (b, cfg.vocab_size) and np.isfinite(lg).all()
+        for lg in info["logits"]), f"{cfg.name}: generated {gen.shape}; "
+                                   f"logits not finite or misshapen")
+    print(f"  serve: prefill {info['prefill_s']:.3f} s (first call, "
+          f"{info['prefill_tokens_per_s']:.0f} tokens/s), {n_gen} decode "
+          f"steps {info['decode_ms_per_token']:.2f} ms/token")
+    batch = serve.make_batch(cfg, b, s, rng=np.random.default_rng(0),
+                             device=dev)
+    with torch.no_grad():
+        full = transformer.logits_of(
+            params, transformer.forward(params, batch, cfg)[:, -1], cfg)
+    err_c = dist(torch.from_numpy(info["logits"][0]).to(dev), full)
+    print(f"  serve's prefill last-position logits vs the forward's: "
+          f"max_abs_err {err_c:.3e} [rtol=atol=2e-2]")
+    check(err_c <= 2e-2, f"{cfg.name}: prefill != forward ({err_c:.3e})")
+    del full
+    ext = serve.make_batch(cfg, b, s + n_tf, rng=np.random.default_rng(1),
+                           device=dev)
+
+    def zero(*keys):
+        return lambda cc: [cc[k_].zero_() for k_ in keys]
+    gate = teacher_gate(
+        torch, params, cfg, ext, s, n_tf,
+        {"local ring zeroed": zero("k", "v"),
+         "global cache zeroed": zero("k2", "v2")}, serving, transformer)
+    del ext
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            serving.prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        _, cache = serving.prefill(params, batch, cfg, extra_slots=n_gen)
+        rng = np.random.default_rng(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_gen):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)).to(dev)
+            serving.decode_step(params, serve.token_to_batch(
+                cfg, tok, s + i, b, rng, device=dev), cache, cfg)
+        torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / n_gen * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  warm prefill {walls[0]:.4f}/{walls[1]:.4f} s "
+          f"({b * s / min(walls):.0f} tokens/s), warm decode {dec_ms:.2f} "
+          f"ms/token, peak {peak_gb:.2f} GB on {card}")
+    del params, cache, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": n_params,
+            "prefill_s_first": info["prefill_s"],
+            "decode_ms_per_token_first": info["decode_ms_per_token"],
+            "prefill_s_warm": walls, "prefill_tokens_per_s":
+                b * s / min(walls), "decode_ms_per_token_warm": dec_ms,
+            "peak_gb": peak_gb, "prefill_vs_forward_err": err_c, **gate}
+
+
+def lg_train(np, torch, dev, card, cfg, c, positions=None):
+    """``cfg`` (a published config cut as the phase cuts it, so not one
+    launch.train.build builds) through make_train_step and ``train_run``:
+    rows 11 and 11b on ``c['routes']`` in each of its layers."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.models import steps
+    step = steps.make_train_step(cfg, None, ShapeConfig(
+        "lg", c["seq"], c["batch"], "train"),
+        microbatches=c["microbatches"], total_steps=100)
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=c["microbatches"]), cfg)
+    first = "front_proj" if cfg.frontend_dim else "embed"
+    return train_run(
+        np, torch, dev, card, "local_global_vlm", (cfg, None, step, data), c,
+        cfg.num_layers,
+        {first: lambda p: p[first][:64],
+         "layers/wi[0]": lambda p: p["layers"]["wi"][0, :64]},
+        "", positions)
+
+
+def train_run(np, torch, dev, card, phase, built, c, n_attn, snap, how,
+              positions=None):
+    """``built`` ((cfg, mesh, train_step, data), as launch.train.build
+    gives them; mesh None: on ``dev``) trained from steps.init_state with
+    every launch counter at 0 (c: batch x seq in microbatches, steps),
+    ``positions`` (np, (batch, seq, 3)) in place of the corpus's. Each
+    step launches rows 11 and 11b on ``c['routes']`` (forward key,
+    backward key) in each of ``n_attn`` attention layers (the forward
+    twice under remat) and nothing else; the first loss is within 1.5 of
+    ln V; each leaf of ``snap`` ({name: params -> tensor}) moves. Then one
+    traced step (the device split) and one microbatch's loss and every
+    gradient leaf twice, bitwise."""
+    from repro_torch.models import steps, transformer
+    cfg, mesh, step, data = built
+    fwd_key, bwd_key = c["routes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_state(cfg, seed=0, mesh=mesh, device=dev)
+    n_params = tree_numel(state.params)
+    tokens = c["batch"] * c["seq"]
+    print(f"phase {phase}: {cfg.name} trained{how} ({cfg.num_layers} "
+          f"layers, {n_params:,} parameters, {cfg.param_dtype} masters and "
+          f"{cfg.opt_state_dtype} AdamW state, {cfg.dtype} activations, "
+          f"remat {cfg.remat}) through "
+          + ("launch.train.build -> " if mesh is not None else "")
+          + f"steps.init_state -> make_train_step on cuda: batch "
+          f"{c['batch']} x {c['seq']} in {c['microbatches']} microbatches, "
+          f"{c['steps']} steps"
+          + (", vision-grid positions" if positions is not None else "")
+          + f" ({card})")
+    grid = None
+    if positions is not None:
+        grid = torch.from_numpy(positions).to(dev).reshape(
+            c["microbatches"], c["batch"] // c["microbatches"], c["seq"], 3)
+
+    def batch_of(i):
+        out = data.device_batch(i, dev)
+        if grid is not None:
+            check(out["positions"].shape == grid.shape,
+                  f"corpus positions {tuple(out['positions'].shape)} != the "
+                  f"grid's {tuple(grid.shape)}")
+            out["positions"] = grid
+        return out
+    before = {k_: f(state.params).clone() for k_, f in snap.items()}
+    reset_all_launches()
+    losses, norms, walls = [], [], []
+    for i in range(c["steps"]):
+        batch = batch_of(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {i}: loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
+              f"{walls[-1]:.3f} s", flush=True)
+    launches = all_launches()
+    per_step = n_attn * c["microbatches"]
+    check(launches[fwd_key] == 2 * per_step * c["steps"]
+          and launches[bwd_key] == per_step * c["steps"]
+          and sum(launches.values()) == 3 * per_step * c["steps"],
+          f"{cfg.name} steps launched {launches}; expected {2 * per_step} "
+          f"{fwd_key} (forward and remat) and {per_step} {bwd_key} a step, "
+          f"nothing else")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.5,
+          f"initial loss {losses[0]:.4f} is not within 1.5 of ln "
+          f"{cfg.vocab_size}")
+    check(np.isfinite(losses).all() and np.isfinite(norms).all(),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    for k_, f in snap.items():
+        check(not torch.equal(before[k_], f(state.params)),
+              f"{k_} did not change")
+    del before
+    warm = min(walls[1:])
+    batch = batch_of(c["steps"])
+    wall, split, count, busy = traced_split(
+        torch, lambda: step(state, batch, c["steps"]))
+    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 N "
+          f"tokens / step time = {share * 100:.1f} % of the bf16 dense "
+          f"peak), peak memory {peak_gb:.2f} GB; traced step (shapes "
+          f"recorded): wall {wall:.3f} s, busy {busy * 100:.1f} %, device "
+          f"{split_text(split, count)} on {card}")
+    del batch
+    mb = {k: (t if k == "adc_mask" else t[0])
+          for k, t in batch_of(c["steps"] + 1).items()}
+    differ, n_leaves = replay_grads(torch, state.params, mb, cfg, steps,
+                                    transformer)
+    print(f"  replay: one microbatch ({c['batch'] // c['microbatches']} x "
+          f"{c['seq']}) loss and its {n_leaves - 1} gradient leaves twice: "
+          + ("bitwise equal" if not differ else
+             f"{len(differ)} differ: {differ[:12]}"))
+    check(not differ, f"{cfg.name}: a replayed microbatch's gradients "
+                      f"differ in {differ[:12]}")
+    del state, data, step, mb, grid
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "grad_norms": norms,
+            "step_s": walls, "warm_step_s": warm,
+            "tokens_per_s": tokens / warm, "bf16_peak_share": share,
+            "params": n_params, "peak_gb": peak_gb, "traced_wall_s": wall,
+            "device_ms": split, "device_kernels": count,
+            "device_busy_share": busy, "replay_bitwise": not differ,
+            "replay_leaves": n_leaves - 1}
+
+
+def qwen_fits(torch, cfg, bytes_per_param, reserve_gb) -> None:
+    """Fails unless the card's free memory holds ``cfg``'s parameters
+    (its layers, the head and the frontend) at ``bytes_per_param`` each
+    beside ``reserve_gb`` for the work."""
+    free, _ = torch.cuda.mem_get_info()
+    layer = (cfg.replace(num_layers=2).param_counts()["total"]
+             - cfg.replace(num_layers=1).param_counts()["total"])
+    rest = (cfg.vocab_size + cfg.frontend_dim + 1) * cfg.d_model
+    need = ((cfg.num_layers * layer + rest) * bytes_per_param
+            + reserve_gb * 1e9)
+    check(need <= free, f"{cfg.name} at {cfg.num_layers} layers needs "
+                        f"{need / 1e9:.1f} GB, the card has {free / 1e9:.1f}"
+                        f" GB free")
+
+
+def qwen_inputs(np, torch, cfg, b, grid, text, rng, dev):
+    """Frontend inputs of a vision prompt: random patch embeddings in [0,
+    1) through all ADC levels, and its M-RoPE grid positions."""
+    from repro_torch.data.lm import mrope_grid_positions
+    from repro_torch.launch import serve
+    pos = mrope_grid_positions(b, [grid], text)
+    out = serve._frontend_inputs(cfg, b, pos.shape[1], rng, dev)
+    out["positions"] = torch.from_numpy(pos).to(dev)
+    return out
+
+
+def qwen2_vl(np, torch, dev, card):
+    """qwen2-vl-72b at its published widths, cut in depth to
+    QWEN['layers'] (checked against the card's free memory): a vision
+    prompt (an image of QWEN['grid'] patches at its M-RoPE grid
+    positions, then text) through steps.make_prefill_step /
+    make_decode_step with every launch counter at 0 (the tensor-core
+    forward once a layer of the prefill, nothing else); M-RoPE's witness
+    (the grid against its t component alone, the float32 forward's final
+    hidden states); decode == teacher forcing after a text prompt of the
+    same length (after a vision grid the reference's cache bookkeeping
+    drops keys, ROADMAP C) in float32 (a zeroed cache and the layers'
+    caches rolled by one as controls) and in bf16 held to the float32
+    forward; then trained at QWEN_TRAIN's depth on the grid, replayed
+    bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, steps, transformer
+    q = QWEN
+    full = get_config(q["arch"])
+    check_published(full)
+    b, n_gen, n_tf = q["requests"], q["gen"], q["teacher"]
+    grid, text = q["grid"], q["text"]
+    s = grid[0] * grid[1] * grid[2] + text
+    torch.cuda.empty_cache()
+    depth = q["layers"]
+    cfg = full.replace(num_layers=depth)
+    qwen_fits(torch, cfg, 4, q["reserve_gb"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    n_params = tree_numel(params)
+    print(f"phase local_global_vlm: {cfg.name} at its published widths "
+          f"(d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, frontend {cfg.frontend_dim} through the "
+          f"{cfg.adc.bits}-bit ADC, M-RoPE sections {cfg.mrope_sections}, "
+          f"theta {cfg.rope_theta:g}), cut in depth {full.num_layers} -> "
+          f"{depth} layers (float32 masters beside {q['reserve_gb']} GB of "
+          f"work), {n_params:,} parameters: "
+          f"{b} x {s} vision prompts (an image of {grid} patches, then "
+          f"{text} text tokens), {n_gen} decode steps ({card})")
+    rng = np.random.default_rng(0)
+    batch = qwen_inputs(np, torch, cfg, b, grid, text, rng, dev)
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    nxt = int(batch["positions"][0, -1, 0]) + 1
+    outs = [logits]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(n_gen):
+            sb = serve._frontend_inputs(cfg, b, 1, rng, dev)
+            sb["positions"] = torch.full((b, 1, 3), nxt + i, dtype=torch.int32,
+                                         device=dev)
+            logits, cache = decode(params, sb, cache)
+            outs.append(logits)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / n_gen * 1e3
+    launches = all_launches()
+    print(f"  launch counters after the main path: {launches}")
+    check(launches["flash_attention_tc"] == depth
+          and sum(launches.values()) == depth,
+          f"{cfg.name}: launches {launches}; expected {depth} tensor-core "
+          f"forwards (one a layer of the prefill), nothing else")
+    check(all(o.shape == (b, cfg.vocab_size) and bool(torch.isfinite(o).all())
+              for o in outs), f"{cfg.name}: logits not finite or misshapen")
+    check(int(cache["pos"]) == nxt + n_gen, f"{cfg.name}: the cache's pos "
+                                            f"{int(cache['pos'])}")
+    del cache
+    # M-RoPE's witness: the float32 forward's final hidden states (unit
+    # RMS) on the grid against those with its t component in all three
+    c32 = cfg.replace(dtype="float32")
+    flat = dict(batch, positions=batch["positions"][..., :1].expand(
+        -1, -1, 3).contiguous())
+    with torch.no_grad():
+        full_lg = transformer.logits_of(
+            params, transformer.forward(params, batch, cfg)[:, -1], cfg)
+        wit = dist(transformer.forward(params, batch, c32),
+                   transformer.forward(params, flat, c32))
+    err_c = dist(outs[0], full_lg)
+    print(f"  prefill {t_pre:.3f} s ({b * s / t_pre:.0f} tokens/s, first "
+          f"call), decode {dec_ms:.2f} ms/token; prefill's last-position "
+          f"logits vs the forward's {err_c:.3e} [2e-2]; M-RoPE witness: the "
+          f"same prompt with its t component in all three moves the float32 "
+          f"forward's final hidden states by {wit:.3e} [> {QWEN_WITNESS:g}]")
+    check(err_c <= 2e-2, f"{cfg.name}: prefill != forward ({err_c:.3e})")
+    check(wit > QWEN_WITNESS, f"{cfg.name}: the vision grid's h and w "
+                              f"components move the float32 forward by only "
+                              f"{wit:.3e}")
+    del full_lg, flat, outs
+    # the cache gate on a text prompt: after a vision grid the reference's
+    # kpos and ring slot read position as token count (ROADMAP C), so
+    # decode there is not teacher forcing in either package
+    ext = serve.make_batch(cfg, b, s + n_tf, rng=np.random.default_rng(1),
+                           device=dev)
+    controls = {"k/v cache zeroed": lambda cc: (cc["k"].zero_(),
+                                                cc["v"].zero_()),
+                "each layer reading the next layer's cache":
+                lambda cc: (cc["k"].copy_(torch.roll(cc["k"], 1, 0)),
+                            cc["v"].copy_(torch.roll(cc["v"], 1, 0)))}
+    gate = teacher_gate(torch, params, cfg, ext, s, n_tf, controls,
+                           serving, transformer)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  warm prefill {walls[0]:.4f}/{walls[1]:.4f} s "
+          f"({b * s / min(walls):.0f} tokens/s), peak {peak_gb:.2f} GB on "
+          f"{card}")
+    del params, batch, ext
+    torch.cuda.empty_cache()
+    serve_out = {"launches": launches, "layers": depth, "params": n_params,
+                 "prefill_s_first": t_pre, "decode_ms_per_token": dec_ms,
+                 "prefill_s_warm": walls,
+                 "prefill_tokens_per_s": b * s / min(walls),
+                 "peak_gb": peak_gb, "prefill_vs_forward_err": err_c,
+                 "mrope_witness": wit, **gate}
+    t = QWEN_TRAIN
+    tcfg = full.replace(num_layers=t["num_layers"])
+    from repro_torch.data.lm import mrope_grid_positions
+    pos = mrope_grid_positions(t["batch"], [t["grid"]], t["text"])
+    check(pos.shape[1] == t["seq"], f"the training grid spans "
+                                    f"{pos.shape[1]} tokens, not {t['seq']}")
+    train_out = lg_train(np, torch, dev, card, tcfg, t, positions=pos)
+    return serve_out, train_out
+
+
+def phase_local_global_vlm(np, torch, dev, card, clock):
+    """The local_global and vlm families (ROADMAP A11.4-A11.5) on the
+    card: rows 11 and 11b at gemma2's layer (dh 256); gemma2-2b served
+    and trained uncut at 1 x 8192; qwen2-vl-72b at full width, cut in
+    depth, served on a vision grid and trained; the smoke configs card
+    against CPU. Returns the main path's launch counts (the serve calls
+    and the train steps, each counted from 0) and the numbers."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    max_err, rows = lg_attention_kernels(np, torch, dev, card, clock)
+    out = {"max_err": max_err, "layer_rows": rows}
+    launches = {}
+
+    def add(res):
+        for name, n in res.pop("launches").items():
+            launches[name] = launches.get(name, 0) + n
+        return res
+    out["gemma2_serve"] = add(gemma2_serve(np, torch, dev, card))
+    gcfg = get_config(GEMMA["arch"]).replace(**GEMMA["cut"])
+    out["gemma2_train"] = add(lg_train(np, torch, dev, card, gcfg,
+                                       GEMMA_TRAIN))
+    vserve, vtrain = qwen2_vl(np, torch, dev, card)
+    out["qwen2_vl_serve"], out["qwen2_vl_train"] = add(vserve), add(vtrain)
+    out["smoke_launches"] = smoke_card_vs_cpu(np, torch, dev, card,
+                                              "local_global_vlm", LG_SMOKE)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase local_global_vlm: {out['phase_s']:.2f} s on {card}; "
+          f"launches on the local_global_vlm path: {launches}")
     return out
 
 
@@ -6350,8 +7121,8 @@ def main() -> int:
                       f"are missing: {kernels}")
             if src == "flash_attention_bwd":
                 # {row statistics, dk/dv, dq} x {f32, bf16} x DHP {64,
-                # 128} x softcap
-                check(len(kernels) == 24 and all(
+                # 128, 256} x softcap
+                check(len(kernels) == 36 and all(
                     st == 0 and ld == 0 for _, _, st, ld in kernels),
                       f"the backward instantiations spill or are "
                       f"missing: {kernels}")
@@ -6421,6 +7192,12 @@ def main() -> int:
             ssm_out["hymba_rows"]["flash_attention_tc"]
         bwd_timings["hymba layer (phase ssm)"] = \
             ssm_out["hymba_rows"]["flash_attention_bwd_tc"]
+        lg_out = phase_local_global_vlm(np, torch, dev, card, clock)
+        for name, err in lg_out.pop("max_err").items():
+            max_err[name] = max(max_err[name], err)
+        for k, v in lg_out["layer_rows"].items():
+            (fa_timings if v["kernel"] == "flash_attention_tc"
+             else bwd_timings)[f"{k} (phase local_global_vlm)"] = v
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -6449,7 +7226,9 @@ def main() -> int:
                    "moe": moe_out["launches"],
                    "moe_smoke": moe_out["smoke_launches"],
                    "ssm": ssm_out["launches"],
-                   "ssm_smoke": ssm_out["smoke_launches"]}
+                   "ssm_smoke": ssm_out["smoke_launches"],
+                   "local_global_vlm": lg_out["launches"],
+                   "local_global_vlm_smoke": lg_out["smoke_launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -6526,6 +7305,8 @@ def main() -> int:
                            if not k.endswith("launches")},
                    "ssm": {k: v for k, v in ssm_out.items()
                            if not k.endswith("launches")},
+                   "local_global_vlm": {k: v for k, v in lg_out.items()
+                                        if not k.endswith("launches")},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

@@ -11,7 +11,9 @@ numpy streams, so ``batch_at(step)`` is bitwise the reference's.
   (seed + 1) and, with the pruned ADC, an all-ones level mask.
 
 ``device_batch(step, device)`` returns the batch as torch tensors on
-``device``.
+``device``. Under M-RoPE its positions are the reference's, three equal
+components; ``mrope_grid_positions`` builds a vision prompt's (B, S, 3)
+positions, which tell M-RoPE from plain RoPE.
 """
 from __future__ import annotations
 
@@ -33,6 +35,25 @@ class LMDataConfig:
     seed: int = 0
     motif_len: int = 16
     n_motifs: int = 64
+
+
+def mrope_grid_positions(batch: int, grids, text: int) -> np.ndarray:
+    """(batch, S, 3) int32 M-RoPE positions (t, h, w) of a prompt of images
+    then ``text`` text tokens, the layout of Qwen2-VL's rope index: image
+    g of ``grids`` (t, h, w patches) holds t * h * w tokens at (p + ti,
+    p + hi, p + wi), ti, hi and wi walking its patch grid in (t, h, w)
+    order, where p is the next free position (0 for the first image);
+    each component of the text tokens after it equals p + max(t, h, w)
+    + j. S = sum(t h w) + text."""
+    rows, p = [], 0
+    for t, h, w in grids:
+        ti, hi, wi = np.meshgrid(np.arange(t), np.arange(h), np.arange(w),
+                                 indexing="ij")
+        rows.append(p + np.stack([ti.ravel(), hi.ravel(), wi.ravel()], -1))
+        p += max(t, h, w)
+    rows.append(np.repeat(p + np.arange(text)[:, None], 3, axis=1))
+    pos = np.concatenate(rows).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos, (batch,) + pos.shape))
 
 
 class SyntheticLM:

@@ -273,7 +273,8 @@ def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
     ``envelope.flash_bwd_route``: 'tensor_core'
     (csrc/flash_attention_bwd_tc.cu) for bf16 at head widths 64, 96, 112
     and 128, 'cuda_core' (csrc/flash_attention_bwd.cu) for float32 and for
-    bf16 at any other width; each is held to its own envelope. A CPU
+    bf16 at any other width up to ``envelope.FLASH_BWD_MAX_HEAD_DIM``
+    (256, gemma2's); each is held to its own envelope. A CPU
     tensor takes the plain autograd (route 'plain')."""
     b, s, h, dh = q.shape
     route = envelope.flash_bwd_route(q.dtype == torch.bfloat16, dh)

@@ -87,17 +87,18 @@ raises the attribute). The route rule (``flash_route``) sends float32,
 and bf16 at any other width, to the CUDA-core kernel.
 
 The flash-attention backward (csrc/flash_attention_bwd.cu) is compiled
-for dh padded to DHP = 64 or 128 (``flash_bwd_head_pad``; up to the
-dense and audio configs' widest, 128) with 64-row q tiles and 64-key kv
-tiles staged as float32 in rows of DHP + 4 words, 256 threads. Its three
-passes ask for (``flash_bwd_smem_bytes``): the row statistics four tiles
-(q, do, k, v) and two position rows, ``4 * (4 * 64 (DHP + 4) + 2 * 64)``;
-dk/dv four tiles, P and dS (64 x 65 words each), lse and D, two position
-rows, ``4 * (4 * 64 (DHP + 4) + 2 * 64 * 65 + 4 * 64)``; dq four tiles,
-dS, lse and D, two position rows, ``4 * (4 * 64 (DHP + 4) + 64 * 65 +
-4 * 64)``: 70,144 / 103,936 / 87,296 bytes at DHP 64 and 135,680 /
-169,472 / 152,832 at 128. Their grids are one-dimensional (tiles x
-batch x heads).
+for dh padded to DHP = 64, 128 or 256 (``flash_bwd_head_pad``; up to
+gemma2's 256) with T-row q tiles and T-key kv tiles (``flash_bwd_tile``:
+T = 64, but 32 at DHP 256) staged as float32 in rows of DHP + 4 words,
+256 threads. Its three passes ask for (``flash_bwd_smem_bytes``): the
+row statistics four tiles (q, do, k, v) and two position rows, ``4 * (4
+T (DHP + 4) + 2 T)``; dk/dv four tiles, P and dS (T x (T + 1) words
+each), lse and D, two position rows, ``4 * (4 T (DHP + 4) + 2 T (T + 1)
++ 4 T)``; dq four tiles, dS, lse and D, two position rows, ``4 * (4 T
+(DHP + 4) + T (T + 1) + 4 T)``: 70,144 / 103,936 / 87,296 bytes at DHP
+64, 135,680 / 169,472 / 152,832 at 128 and 133,376 / 142,080 / 137,856
+at 256 (a 64-row tile there would need 266,752 for the statistics
+alone). Their grids are one-dimensional (tiles x batch x heads).
 
 The tensor-core backward (csrc/flash_attention_bwd_tc.cu) takes bf16 at
 head widths 64, 96, 112 and 128 (``flash_bwd_route``; 96 and 112 run as
@@ -586,21 +587,26 @@ def outside_flash_tc_envelope(b: int, h: int, dh: int) -> Optional[str]:
     return None
 
 
-FLASH_BWD_MAX_HEAD_DIM = 128      # the widest compiled backward head width
-FLASH_BWD_TILE = 64               # query rows and keys of a backward tile
+FLASH_BWD_MAX_HEAD_DIM = 256      # the widest compiled backward head width
 MAX_BLOCKS_1D = 2 ** 31 - 1       # gridDim.x
 
 
 def flash_bwd_head_pad(dh: int) -> int:
     """The head width DHP the backward kernel is compiled for at dh."""
-    return 64 if dh <= 64 else 128
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def flash_bwd_tile(dh: int) -> int:
+    """Query rows and keys of a backward tile at head width dh
+    (csrc/flash_attention_bwd.cu, ``Tile<DHP>::kT``)."""
+    return 32 if flash_bwd_head_pad(dh) == 256 else 64
 
 
 def flash_bwd_smem_bytes(pass_: int, dh: int) -> int:
     """Dynamic shared memory one block of backward pass ``pass_`` (0 row
     statistics, 1 dk/dv, 2 dq) asks for at head width dh
     (csrc/flash_attention_bwd.cu, ``smem_stats/dkdv/dq<DHP>``)."""
-    t = FLASH_BWD_TILE
+    t = flash_bwd_tile(dh)
     tile = t * (flash_bwd_head_pad(dh) + 4)
     words = {0: 4 * tile + 2 * t,
              1: 4 * tile + 2 * t * (t + 1) + 4 * t,
@@ -670,7 +676,7 @@ def outside_flash_bwd_envelope(b: int, s: int, h: int, dh: int
     if need > SMEM_MAX_BYTES:
         return (f"head_dim={dh} needs {need} bytes of shared memory; the "
                 f"H100 limit per block is {SMEM_MAX_BYTES}")
-    blocks = -(-s // FLASH_BWD_TILE) * b * h
+    blocks = -(-s // flash_bwd_tile(dh)) * b * h
     if blocks > MAX_BLOCKS_1D:
         return (f"{blocks} backward blocks exceed the grid's x limit of "
                 f"{MAX_BLOCKS_1D}")

@@ -30,8 +30,8 @@ accumulation, no atomics, so bitwise run to run), by the route
 128 runs the tensor-core kernel (csrc/flash_attention_bwd_tc.cu, wgmma
 and TMA; its operands 16-byte aligned as the forward's) and adds one to
 ``launches["flash_attention_bwd_tc"]`` per call; float32, and bf16 at any
-other width up to 128, run the CUDA-core kernel
-(csrc/flash_attention_bwd.cu) and add one to
+other width up to 256 (gemma2's, in 32-row tiles), run the CUDA-core
+kernel (csrc/flash_attention_bwd.cu) and add one to
 ``launches["flash_attention_bwd"]``. A failed launch raises; there is no
 fallback. A CPU tensor runs the plain version
 (``ref.flash_attention_bwd_ref``, autograd through the plain forward).

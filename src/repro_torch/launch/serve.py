@@ -3,9 +3,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
       --smoke --device cpu --requests 2 --prompt-len 32 --gen 4
-  # the moe, ssm and hybrid families: --arch kimi-k2-1t-a32b,
-  # mamba2-1.3b, hymba-1.5b (an ssm or hybrid prompt needs at least
-  # conv_width - 1 tokens, ROADMAP C)
+  # the moe, ssm, hybrid, local_global and vlm families: --arch
+  # kimi-k2-1t-a32b, mamba2-1.3b, hymba-1.5b, gemma2-2b, qwen2-vl-72b (an
+  # ssm or hybrid prompt needs at least conv_width - 1 tokens, ROADMAP C;
+  # gemma2-2b's published config pads its heads and is refused, ROADMAP C:
+  # --smoke runs)
 
 Runs on the card unless ``--device cpu``. Inputs come from
 ``np.random.default_rng(0)`` exactly as in the reference launcher (for a
@@ -51,7 +53,9 @@ def _frontend_inputs(cfg, b, s, rng, device) -> Dict[str, torch.Tensor]:
 
 def make_batch(cfg, b, s, start_pos=0, rng=None, device=None):
     """Prompt inputs: frontend embeddings (uniform [0, 1), all ADC levels
-    kept) or tokens, and positions start_pos.. (B, S)."""
+    kept) or tokens, and positions start_pos.. (B, S); under M-RoPE the
+    three components equal, (B, S, 3), as in the reference launcher
+    (``data.lm.mrope_grid_positions`` builds a vision grid's)."""
     rng = rng or np.random.default_rng(0)
     if cfg.frontend:
         out = _frontend_inputs(cfg, b, s, rng, device)

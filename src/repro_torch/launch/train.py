@@ -2,23 +2,23 @@
 optimization (``--adc-search``) and LM training (``--arch``), on the card.
 Counterpart of ``repro/launch/train.py``.
 
-LM training, the dense, audio, moe, ssm and hybrid families
-(deepseek-7b, phi3-mini-3.8b, yi-34b, musicgen-medium, kimi-k2-1t-a32b,
-llama4-scout-17b-a16e, mamba2-1.3b, hymba-1.5b), with the reference's
-microbatched AdamW step, schedule, synthetic corpus and checkpoint/restart
-loop:
+LM training, the dense, audio, vlm, moe, ssm and hybrid families
+(deepseek-7b, phi3-mini-3.8b, yi-34b, gemma2-2b, musicgen-medium,
+qwen2-vl-72b, kimi-k2-1t-a32b, llama4-scout-17b-a16e, mamba2-1.3b,
+hymba-1.5b), with the reference's microbatched AdamW step, schedule,
+synthetic corpus and checkpoint/restart loop:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
       --smoke --steps 12 --batch 2 --seq 32 --ckpt-dir /tmp/lm_ckpt
   # the plain PyTorch versions on the CPU: ... --device cpu
   # a moe smoke config: --arch kimi-k2-1t-a32b --smoke ...
   # the ssm and hybrid families: --arch mamba2-1.3b / hymba-1.5b ...
+  # local_global and M-RoPE: --arch gemma2-2b / qwen2-vl-72b ...
 
 It prints the reference's log lines and fails if the loss did not
-improve. The parts not ported yet (vlm / M-RoPE, ``local_global``) are
-refused with ROADMAP A11 named; so are published
-configs that pad their heads (yi-34b, llama4-scout: ``pad_heads_to``,
-ROADMAP C), whose ``--smoke`` configs run.
+improve. Published configs that pad their heads (yi-34b, gemma2-2b,
+llama4-scout: ``pad_heads_to``, ROADMAP C) are refused with ROADMAP C
+named; their ``--smoke`` configs run.
 
 The search reports per-generation wall time and individuals/s:
 
@@ -176,8 +176,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def arch_config(arch: str, smoke: bool):
     """The config of ``arch`` (its smoke config with ``smoke``); raises
-    KeyError for an unknown name and NotImplementedError, naming ROADMAP
-    A11, for a family the port does not train yet."""
+    KeyError for an unknown name and NotImplementedError, naming the
+    ROADMAP item, for a config the port refuses
+    (``transformer.check_supported``)."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models import transformer
     cfg = smoke_config(arch) if smoke else get_config(arch)

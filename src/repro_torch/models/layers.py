@@ -1,5 +1,5 @@
 """Transformer building blocks of the LM substrate. Counterpart of
-``repro/models/layers.py``: RMSNorm, softcap, RoPE, GQA attention
+``repro/models/layers.py``: RMSNorm, softcap, RoPE and M-RoPE, GQA attention
 (prefill, through the flash-attention kernel), decode attention against a
 ring-buffer cache, SwiGLU.
 
@@ -37,17 +37,27 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          sections: Optional[tuple] = None) -> torch.Tensor:
-    """Rotary embedding. x (B, S, H, dh); positions (B, S) int. M-RoPE
-    (``sections``, (B, S, 3) positions) is not ported yet."""
-    if sections is not None or positions.ndim == 3:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported to repro_torch yet (ROADMAP "
-            "A11, a later slice); use the JAX package")
+    """Rotary embedding. x (B, S, H, dh); positions (B, S) int or, for
+    M-RoPE (qwen2-vl), (B, S, 3) with (t, h, w) components and
+    ``sections`` summing to dh / 2: frequency band i of each section
+    takes its angle from that section's component, in float32. (B, S, 3)
+    positions without sections use component 0."""
     half = x.shape[-1] // 2
     freqs = torch.pow(
         torch.tensor(theta, dtype=torch.float32, device=x.device),
         -torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    angle = positions.float()[..., None] * freqs                # (B,S,half)
+    if sections is not None and positions.ndim == 3:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                             f"to head_dim / 2 = {half}")
+        comp = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                     device=x.device)
+                          for i, n in enumerate(sections)])
+        pos = positions.float()[..., comp]                      # (B,S,half)
+    else:
+        pos = (positions[..., 0] if positions.ndim == 3
+               else positions).float()[..., None]
+    angle = pos * freqs                                         # (B,S,half)
     cos = torch.cos(angle)[:, :, None, :]
     sin = torch.sin(angle)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

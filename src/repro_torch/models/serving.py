@@ -1,5 +1,5 @@
 """LM serving: prefill (builds the decode cache) and single-token decode,
-for the dense, audio, moe, ssm and hybrid families. Counterpart of
+for the dense, audio, vlm, moe, ssm and hybrid families. Counterpart of
 ``repro/models/serving.py``.
 
 Cache (leading L = stacked layers). Attention (every family but ssm):
@@ -8,7 +8,12 @@ min(S, window) for sliding attention and for every hybrid layer (the
 reference's ``local=True`` length: a hybrid layer attends over the window
 whatever ``attn_type`` is), S otherwise (S = prompt length +
 ``extra_slots``), and ``kpos`` (C,) int32 absolute positions (-1 = empty
-slot). The ssm and hybrid families add the SSD's decode state
+slot). A ``local_global`` config (gemma2, L pairs) keeps its local layers'
+ring there (C = min(S, window)) and its global layers' full-length cache
+in ``k2``/``v2`` (L, B, S, KV, hd) with ``kpos2`` (S,); each ring writes
+decode's token at its own slot ``pos % C``. Under M-RoPE ((B, S, 3)
+positions) ``kpos``, the mask and ``pos`` read component 0, as the
+reference's do. The ssm and hybrid families add the SSD's decode state
 (``models/ssm.py``): ``conv_x`` (L, B, conv_width - 1, d_inner) and
 ``conv_bc`` (L, B, conv_width - 1, 2 G N), the raw projections of the last
 tokens in cfg.dtype, and ``state`` (L, B, H, N, P) float32; the ssm
@@ -21,12 +26,12 @@ too, so with ``extra_slots=0`` it evicts StreamingLLM-style (and a
 prompt off the window grid overwrites a visible key, ROADMAP C).
 
 ``decode_step`` updates the cache's tensors in place (``k``, ``v``,
-``k_pre``, ``v_pre``, ``kpos``, and the SSD's ``conv_x``, ``conv_bc``,
-``state``) and returns them under a new dict with ``pos + 1`` (the
-reference's launcher donates the cache too): clone a cache that is still
-needed. Prefill attention runs the flash-attention kernel on a CUDA
-tensor (models/layers.py); decode attention is plain PyTorch, as it is
-plain jnp in the reference. The moe layers route with the prefill
+``k2``, ``v2``, ``k_pre``, ``v_pre``, ``kpos``, ``kpos2``, and the SSD's
+``conv_x``, ``conv_bc``, ``state``) and returns them under a new dict
+with ``pos + 1`` (the reference's launcher donates the cache too): clone
+a cache that is still needed. Prefill attention runs the flash-attention
+kernel on a CUDA tensor (models/layers.py); decode attention is plain
+PyTorch, as it is plain jnp in the reference. The moe layers route with the prefill
 capacity in prefill and the decode capacity in decode (``models/moe.py``),
 the reference's semantics: so for moe, decode after prefill is not
 teacher forcing. Prefill of an ssm or hybrid config refuses a prompt
@@ -65,12 +70,17 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
         return torch.zeros((layers, batch, length, kv, hd), dtype=dt,
                            device=device)
 
+    def kposbuf(length):
+        return torch.full((length,), -1, dtype=torch.int32, device=device)
+
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family != "ssm":
-        w = attn_cache_len(cfg, seq_len, local=cfg.family == "hybrid")
-        cache.update(k=kvbuf(n, w), v=kvbuf(n, w),
-                     kpos=torch.full((w,), -1, dtype=torch.int32,
-                                     device=device))
+        w = attn_cache_len(cfg, seq_len, local=cfg.family == "hybrid"
+                           or T.local_global(cfg))
+        cache.update(k=kvbuf(n, w), v=kvbuf(n, w), kpos=kposbuf(w))
+    if T.local_global(cfg):
+        cache.update(k2=kvbuf(n, seq_len), v2=kvbuf(n, seq_len),
+                     kpos2=kposbuf(seq_len))
     if T.first_k_dense(cfg):
         npre = T.first_k_dense(cfg)
         cache.update(k_pre=kvbuf(npre, seq_len), v_pre=kvbuf(npre, seq_len))
@@ -91,7 +101,7 @@ def _attend_decode(p, x, kc, vc, kpos, slot, cfg: ArchConfig, positions, *,
     kc.index_copy_(1, slot, k.to(kc.dtype))
     vc.index_copy_(1, slot, v.to(vc.dtype))
     out = L.decode_attention(
-        q, kc, vc, q_position=positions[:, 0],
+        q, kc, vc, q_position=T.token_positions(positions)[:, 0],
         k_positions=kpos[None].expand(x.shape[0], -1), window=window,
         attn_softcap=cfg.attn_logit_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p["o"].to(x.dtype))
@@ -107,22 +117,32 @@ def _ssd_decode(p, h, cache: Cache, i: int, cfg: ArchConfig):
     return y
 
 
+def _ring_slot(cache: Cache, key: str, pos, qpos):
+    """(the ring ``key``'s kpos, the new token's slot pos % C), that slot
+    of kpos already holding the new position; (None, None) without the
+    ring. The new token's own slot is attendable in every layer; the
+    reference writes the same value into the cache-level kpos after the
+    stack."""
+    kpos = cache.get(key)
+    if kpos is None:
+        return None, None
+    slot = (pos.long() % kpos.shape[0]).reshape(1)
+    kpos.index_copy_(0, slot, qpos[0, :1].to(kpos.dtype))
+    return kpos, slot
+
+
 def decode_step(params, batch, cache: Cache, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, Cache]:
     """One token for the whole stack. batch: tokens (B, 1) or embeddings
-    (B, 1, F), positions (B, 1). Returns (logits (B, V) float32, cache)."""
+    (B, 1, F), positions (B, 1) or (B, 1, 3). Returns (logits (B, V)
+    float32, cache)."""
     T.check_supported(cfg)
     x = T.embed_input(params, batch, cfg)
     positions = batch["positions"]
     pos = cache["pos"]
-    kpos = cache.get("kpos")
-    slot = None
-    if kpos is not None:
-        slot = (pos.long() % kpos.shape[0]).reshape(1)
-        # the new token's own slot is attendable in every layer; the
-        # reference writes the same value into the cache-level kpos
-        # after the stack
-        kpos.index_copy_(0, slot, positions[0, :1].to(kpos.dtype))
+    qpos = T.token_positions(positions)
+    kpos, slot = _ring_slot(cache, "kpos", pos, qpos)
+    kpos2, slot2 = _ring_slot(cache, "kpos2", pos, qpos)
     pre_cfg = T.dense_config(cfg)
     for i in range(T.first_k_dense(cfg)):
         p = T.layer(params, i, "prelayers")
@@ -145,6 +165,12 @@ def decode_step(params, batch, cache: Cache, cfg: ArchConfig
         elif cfg.family == "moe":
             x, _ = T.finish_moe_layer(p, x, a, cfg, decode=True)
         else:
+            x = T.finish_layer(p, x, a, cfg)
+        if kpos2 is not None:
+            p = T.layer(params, i, "layers2")
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            a = _attend_decode(p, h, cache["k2"][i], cache["v2"][i], kpos2,
+                               slot2, cfg, positions, window=None)
             x = T.finish_layer(p, x, a, cfg)
     new = dict(cache)
     new["pos"] = pos + 1
@@ -175,16 +201,16 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
     T.check_supported(cfg)
     x = T.embed_input(params, batch, cfg)
     positions = batch["positions"]
+    tpos = T.token_positions(positions)[0]
     b, s = x.shape[:2]
     cache = init_cache(cfg, b, s + extra_slots, device=x.device)
-    wlen = cache["k"].shape[2] if "k" in cache else 0
     pre_cfg = T.dense_config(cfg)
     for i in range(T.first_k_dense(cfg)):
         p = T.layer(params, i, "prelayers")
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = T.project_qkv(p, h, cfg, positions)
         _write_kv(cache["k_pre"][i], cache["v_pre"][i], k, v, s)
-        a = T.attend_qkv(p, q, k, v, pre_cfg, positions[0], window=None)
+        a = T.attend_qkv(p, q, k, v, pre_cfg, tpos, window=None)
         x = T.finish_layer(p, x, a, pre_cfg)
     window = T.window_of(cfg)
 
@@ -202,20 +228,30 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0
             continue
         q, k, v = T.project_qkv(p, h, cfg, positions)
         _write_kv(cache["k"][i], cache["v"][i], k, v, s)
-        a = T.attend_qkv(p, q, k, v, cfg, positions[0], window=window)
+        a = T.attend_qkv(p, q, k, v, cfg, tpos, window=window)
         if cfg.family == "hybrid":
             x = T.finish_hybrid_layer(p, x, a, ssd(p, h, i), cfg)
         elif cfg.family == "moe":
             x, _ = T.finish_moe_layer(p, x, a, cfg)
         else:
             x = T.finish_layer(p, x, a, cfg)
+        if T.local_global(cfg):
+            p = T.layer(params, i, "layers2")
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = T.project_qkv(p, h, cfg, positions)
+            _write_kv(cache["k2"][i], cache["v2"][i], k, v, s)
+            a = T.attend_qkv(p, q, k, v, cfg, tpos, window=None)
+            x = T.finish_layer(p, x, a, cfg)
 
-    last = positions[0, -1].to(torch.int32)
-    if wlen:
+    last = tpos[-1].to(torch.int32)
+    for key, ring in (("kpos", "k"), ("kpos2", "k2")):
+        if key not in cache:
+            continue
+        wlen = cache[ring].shape[2]
         valid = min(s, wlen)
         slots = torch.arange(wlen, dtype=torch.int32, device=x.device)
-        cache["kpos"] = torch.where(slots < valid, last - valid + 1 + slots,
-                                    torch.full_like(slots, -1))
+        cache[key] = torch.where(slots < valid, last - valid + 1 + slots,
+                                 torch.full_like(slots, -1))
     cache["pos"] = last + 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return T.logits_of(params, x[:, -1], cfg), cache

@@ -20,8 +20,9 @@ semantics:
 
 The step updates ``state.params`` and the AdamW moments in place and
 returns the same ``TrainState``. Autograd's leaves are per-layer views of
-the stacked parameters (the leaves of ``layers`` and ``prelayers``, nested
-``moe``/``shared``/``ssm`` subtrees included, become lists, which
+the stacked parameters (the leaves of ``layers``, ``layers2`` and
+``prelayers``, nested ``moe``/``shared``/``ssm`` subtrees included,
+become lists, which
 ``transformer.layer`` indexes as it indexes the stacks), so a layer's
 gradient is written into its slice of the stacked sum and no stack-sized
 gradient is made per layer.
@@ -91,15 +92,15 @@ def default_microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
     return mb
 
 
-_STACKED = ("layers", "prelayers")
+_STACKED = ("layers", "layers2", "prelayers")
 
 
 def _autograd_leaves(params):
     """(tree, leaves): ``params`` with every top-level tensor and every
-    layer of every stacked leaf (``layers`` and ``prelayers``, nested
-    subtrees such as ``moe``, ``shared`` and ``ssm`` included) as a fresh
-    autograd leaf sharing the parameter's storage; the flat leaf list in
-    a fixed order, the trees' insertion order."""
+    layer of every stacked leaf (``layers``, ``layers2`` and
+    ``prelayers``, nested subtrees such as ``moe``, ``shared`` and ``ssm``
+    included) as a fresh autograd leaf sharing the parameter's storage;
+    the flat leaf list in a fixed order, the trees' insertion order."""
     leaves = []
 
     def views(node):

@@ -1,21 +1,27 @@
-"""Decoder LM of the port, for the dense, audio, moe, ssm and hybrid
+"""Decoder LM of the port, for the dense, audio, vlm, moe, ssm and hybrid
 families. Counterpart of ``repro/models/transformer.py``.
 
-Supported: ``dense``/``audio`` with ``attn_type`` global or sliding,
-``post_norm``, ``tie_embeddings``, RoPE, attention and final softcaps, and
-the frontend + pruned-ADC path (musicgen-medium's frame embeddings run the
-port's ``core.adc.adc_quantize``); ``moe`` (llama4-scout, kimi-k2:
-``models/moe.py``, ``first_k_dense`` dense prelayers) with global
-attention; ``ssm`` (mamba2: each layer ``x + SSD(rms(x))``,
+Supported: ``dense``/``audio``/``vlm`` with ``attn_type`` global or
+sliding, ``post_norm``, ``tie_embeddings``, RoPE, attention and final
+softcaps, and the frontend + pruned-ADC path (musicgen-medium's frame
+embeddings and qwen2-vl's patch embeddings run the port's
+``core.adc.adc_quantize``); ``local_global`` for the dense family (gemma2:
+the stacked layers run in (local, global) pairs, ``layers[i]`` over
+``cfg.window`` then ``layers2[i]`` globally); M-RoPE (``cfg.mrope``,
+(B, S, 3) positions, ``layers.rope``'s sections), where attention's mask
+reads component 0 of the positions, as the reference's does; ``moe``
+(llama4-scout, kimi-k2: ``models/moe.py``, ``first_k_dense`` dense
+prelayers) with global attention; ``ssm`` (mamba2: each layer ``x + SSD(rms(x))``,
 ``models/ssm.py``) and ``hybrid`` (hymba: attention over ``cfg.window``
 whatever ``attn_type`` is, and the SSD in parallel on the same normed
 input, ``x + 0.5 * (rms(a) + rms(s))``, then the SwiGLU MLP). Refused
-with ``NotImplementedError`` naming the ROADMAP item: vlm / M-RoPE and
-``local_global`` (A11, later slices); moe with a window (ROADMAP C: the
-reference's moe forward attends globally while its prefill and decode
-use the window); and ``pad_heads_to > num_heads`` (ROADMAP C: unless KV =
-1, padding the heads moves real heads to other kv heads, so it is not the
-published model).
+with ``NotImplementedError`` naming the ROADMAP item: ``local_global``
+outside the dense family (ROADMAP C: the reference's serving defines it
+only there); moe with a window (ROADMAP C: the reference's moe forward
+attends globally while its prefill and decode use the window); and
+``pad_heads_to > num_heads`` (ROADMAP C: unless KV = 1, padding the heads
+moves real heads to other kv heads, so it is not the published model;
+gemma2-2b's published config pads 8 heads to 16).
 
 Parameters are a nested dict in the reference's tree and layouts, so the
 einsum strings are the same: ``final_norm``, ``front_proj`` (F, d) or
@@ -28,6 +34,8 @@ the dense families ``wi``/``wg`` (d, f), ``wo`` (f, d) and
 ``param_dtype`` is). An ssm layer is ``ln1`` and the subtree ``ssm``
 (``models/ssm.leaf_shapes``); a hybrid layer adds to it the attention
 leaves, ``ln2``, ``attn_scale``, ``ssm_scale`` and ``wi``/``wg``/``wo``. A
+``local_global`` config stacks num_layers / 2 pairs: ``layers`` the local
+layer of each pair, ``layers2`` (same leaves) the global one. A
 moe config with ``first_k_dense`` adds ``prelayers``, that many dense
 blocks (no post-norms) stacked the same way. The reference's layer
 ``scan`` is a Python loop. ``init_params`` draws from the port's own
@@ -74,19 +82,18 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
     port does not run yet."""
-    if cfg.family == "vlm" or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: vlm / M-RoPE is not ported to repro_torch yet "
-            f"(ROADMAP A11, a later slice); use the JAX package")
-    if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "audio", "vlm", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    if cfg.attn_type == "local_global":
-        raise NotImplementedError(
-            f"{cfg.name}: local_global attention is not ported to "
-            f"repro_torch yet (ROADMAP A11, a later slice); use the JAX "
-            f"package")
-    if cfg.attn_type not in ("global", "sliding"):
+    if cfg.attn_type not in ("global", "sliding", "local_global"):
         raise ValueError(f"{cfg.name}: unknown attn_type {cfg.attn_type!r}")
+    if cfg.attn_type == "local_global" and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: local_global attention outside the dense family "
+            f"(family {cfg.family!r}) is refused (ROADMAP C: the "
+            f"reference's decode defines it only for the dense family)")
+    if cfg.attn_type == "local_global" and cfg.num_layers % 2:
+        raise ValueError(f"{cfg.name}: local_global pairs need an even "
+                         f"num_layers, not {cfg.num_layers}")
     if cfg.family == "moe" and cfg.attn_type != "global":
         raise NotImplementedError(
             f"{cfg.name}: moe with attn_type={cfg.attn_type!r} is refused "
@@ -104,9 +111,16 @@ def first_k_dense(cfg: ArchConfig) -> int:
     return cfg.moe.first_k_dense if cfg.moe else 0
 
 
+def local_global(cfg: ArchConfig) -> bool:
+    """Whether the layers run in (local, global) pairs (gemma2)."""
+    return cfg.attn_type == "local_global"
+
+
 def scan_len(cfg: ArchConfig) -> int:
-    """The stacked ``layers``' length: every layer but the prelayers."""
-    return cfg.num_layers - first_k_dense(cfg)
+    """The stacked ``layers``' length: every layer but the prelayers, or
+    the number of (local, global) pairs."""
+    n = cfg.num_layers - first_k_dense(cfg)
+    return n // 2 if local_global(cfg) else n
 
 
 def dense_config(cfg: ArchConfig) -> ArchConfig:
@@ -115,12 +129,21 @@ def dense_config(cfg: ArchConfig) -> ArchConfig:
 
 
 def window_of(cfg: ArchConfig):
-    """The attention window of every layer, the reference's rule:
-    cfg.window for sliding attention, and for every hybrid layer whatever
-    attn_type is; None (global) otherwise."""
-    if cfg.family == "hybrid" or cfg.attn_type == "sliding":
+    """The attention window of every layer of ``layers``, the reference's
+    rule: cfg.window for sliding attention, for the local layer of each
+    local_global pair (``layers2`` attends globally) and for every hybrid
+    layer whatever attn_type is; None (global) otherwise."""
+    if cfg.family == "hybrid" or cfg.attn_type in ("sliding",
+                                                   "local_global"):
         return cfg.window
     return None
+
+
+def token_positions(positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions that attention's mask and the cache's ``kpos``
+    read: the positions themselves, or component 0 (t) of M-RoPE's
+    (B, S, 3), as in the reference."""
+    return positions[..., 0] if positions.ndim == 3 else positions
 
 
 # ============================================================ parameters
@@ -146,7 +169,8 @@ def _stacked(tree, n: int):
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
     """{name: shape} of the top-level leaves and the stacked subtrees
-    (``layers``; ``prelayers`` for a moe config with first_k_dense), each
+    (``layers``; ``layers2`` for local_global; ``prelayers`` for a moe
+    config with first_k_dense), each
     leaf with its leading layer axis, in the reference's tree."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
@@ -168,6 +192,8 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
     else:
         lay = _dense_shapes(cfg)
     top["layers"] = _stacked(lay, scan_len(cfg))
+    if local_global(cfg):
+        top["layers2"] = _stacked(lay, scan_len(cfg))
     if first_k_dense(cfg):
         top["prelayers"] = _stacked(_dense_shapes(dense_config(cfg)),
                                     first_k_dense(cfg))
@@ -296,15 +322,17 @@ def layer(params: Params, i: int, key: str = "layers") -> Params:
 
 # ================================================================ forward
 def project_qkv(p, x, cfg: ArchConfig, positions):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) of x (B, S, d), RoPE applied
-    (the reference's ``serving._qkv_one``)."""
+    """q (B, S, H, hd), k/v (B, S, KV, hd) of x (B, S, d), RoPE applied,
+    M-RoPE's sections with ``cfg.mrope`` (the reference's
+    ``serving._qkv_one``)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["k"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["v"].to(dt))
     if cfg.use_rope:
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+        sections = cfg.mrope_sections if cfg.mrope else None
+        q = L.rope(q, positions, cfg.rope_theta, sections)
+        k = L.rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 
@@ -320,7 +348,8 @@ def attend_qkv(p, q, k, v, cfg: ArchConfig, kpos, *, window):
 def _attend(p, x, cfg: ArchConfig, positions, *, window):
     q, k, v = project_qkv(p, x, cfg, positions)
     # the batch shares row 0's positions, as in the reference
-    return attend_qkv(p, q, k, v, cfg, positions[0], window=window)
+    return attend_qkv(p, q, k, v, cfg, token_positions(positions)[0],
+                      window=window)
 
 
 def mlp(p, x):
@@ -448,6 +477,9 @@ def forward_aux(params: Params, batch, cfg: ArchConfig
         else:
             x = run(_dense_layer, p, x, cfg, positions,
                     window=window_of(cfg))
+            if local_global(cfg):
+                x = run(_dense_layer, layer(params, i, "layers2"), x, cfg,
+                        positions, window=None)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 

@@ -23,10 +23,13 @@ TOL = {"bfloat16": (2 ** -7, 2 ** -12), "float32": (1e-5, 1e-5)}
     ("bfloat16", 112, "flash_attention_bwd_tc"),
     ("bfloat16", 128, "flash_attention_bwd_tc"),
     ("bfloat16", 80, "flash_attention_bwd"),
-    ("float32", 64, "flash_attention_bwd")])
+    ("float32", 64, "flash_attention_bwd"),
+    ("bfloat16", 256, "flash_attention_bwd"),
+    ("float32", 256, "flash_attention_bwd")])
 def test_backward_routes_match_plain_on_card(dtype, dh, key):
     """GQA, ragged S, a window, a softcap and empty key slots; each call
-    counted once on its route's key."""
+    counted once on its route's key (dh 256, gemma2's, on the CUDA-core
+    kernel's 32-row tiles in both types)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(37)

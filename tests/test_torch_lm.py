@@ -271,15 +271,17 @@ def test_steps_bind_the_config():
     ("llama4-scout-17b-a16e", {}, "pad_heads_to=48.*ROADMAP C"),
     ("kimi-k2-1t-a32b", {"attn_type": "sliding"},
      "moe with attn_type='sliding'.*ROADMAP C"),
-    ("hymba-1.5b", {"attn_type": "local_global"}, "local_global.*A11"),
+    ("hymba-1.5b", {"attn_type": "local_global"},
+     "local_global attention outside the dense family.*ROADMAP C"),
     ("hymba-1.5b", {"pad_heads_to": 8}, "pad_heads_to=8.*ROADMAP C"),
-    ("qwen2-vl-72b", {}, "M-RoPE.*A11"),
-    ("gemma2-2b", {}, "local_global.*A11"),
+    ("qwen2-vl-72b", {"attn_type": "local_global"},
+     "local_global attention outside the dense family.*ROADMAP C"),
+    ("gemma2-2b", {}, "pad_heads_to=16.*ROADMAP C"),
     ("deepseek-7b", {"pad_heads_to": 8}, "pad_heads_to=8.*ROADMAP C"),
     ("yi-34b", {"attn_type": "global"}, "pad_heads_to=64.*ROADMAP C"),
 ])
 def test_refusals_name_the_roadmap_item(name, change, match):
-    full = name in ("yi-34b", "llama4-scout-17b-a16e")
+    full = name in ("yi-34b", "llama4-scout-17b-a16e", "gemma2-2b")
     cfg = get_config(name) if full else smoke_config(name)
     cfg = dataclasses.replace(cfg, **change)
     for call in (lambda: transformer.check_supported(cfg),
@@ -376,10 +378,12 @@ def test_padded_heads_change_the_reference_model_under_gqa(kv, moved, mesh):
 
 
 def test_launcher_refuses_unported_archs(capsys):
+    """gemma2-2b's published config pads its heads (ROADMAP C); its smoke
+    config serves (tests/test_torch_local_global.py)."""
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "gemma2-2b", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "A11" in capsys.readouterr().err
+    assert "pad_heads_to=16" in capsys.readouterr().err
 
 
 def test_launcher_serves_mamba2_at_its_defaults(capsys):
@@ -394,11 +398,13 @@ def test_launcher_serves_mamba2_at_its_defaults(capsys):
 
 
 def test_rope_refuses_mrope():
+    """M-RoPE sections that do not split head_dim / 2 are refused
+    (tests/test_torch_vlm.py holds M-RoPE itself)."""
     x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="M-RoPE.*A11"):
-        from repro_torch.models import layers
+    from repro_torch.models import layers
+    with pytest.raises(ValueError, match="do not sum to head_dim / 2 = 4"):
         layers.rope(x, torch.zeros(1, 4, 3, dtype=torch.int32), 1e4,
-                    sections=(1, 1, 2))
+                    sections=(1, 1, 1))
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["dense-options"])

@@ -204,7 +204,7 @@ def test_attention_gradient_matches_jax_grad(case):
 def test_backward_wrapper_checks_without_a_card():
     """The backward wrapper's checks, without building the kernel: shapes
     on every device, and (on the operands a CUDA call would pass) device,
-    dtype and contiguity; the envelope (head widths up to 128)."""
+    dtype and contiguity; the envelope (head widths up to 256)."""
     from repro_torch.kernels import dispatch, envelope
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
@@ -232,8 +232,9 @@ def test_backward_wrapper_checks_without_a_card():
         "plain"
     assert envelope.outside_flash_bwd_envelope(4, 2048, 24, 64) is None
     assert envelope.outside_flash_bwd_envelope(1, 300, 8, 128) is None
-    assert "head_dim=256" in envelope.outside_flash_bwd_envelope(
-        1, 64, 8, 256)
+    assert envelope.outside_flash_bwd_envelope(1, 300, 8, 256) is None
+    assert "head_dim=288" in envelope.outside_flash_bwd_envelope(
+        1, 64, 8, 288)
     # csrc/flash_attention_bwd.cu's smem_stats/dkdv/dq at DHP 64 and 128
     assert [envelope.flash_bwd_smem_bytes(p, 64) for p in range(3)] == [
         70_144, 103_936, 87_296]
@@ -255,11 +256,12 @@ def _fake_cuda(shape, dtype):
     ("bfloat16", 64, "tensor_core"), ("bfloat16", 96, "tensor_core"),
     ("bfloat16", 112, "tensor_core"), ("bfloat16", 128, "tensor_core"),
     ("bfloat16", 80, "cuda_core"), ("bfloat16", 16, "cuda_core"),
-    ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core")])
+    ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core"),
+    ("bfloat16", 256, "cuda_core"), ("float32", 256, "cuda_core")])
 def test_backward_route_table(dtype, dh, route):
     """The backward's two routes: bf16 at 64/96/112/128 on the tensor
-    cores, bf16 at other widths and float32 on the CUDA cores; a CPU
-    tensor on the plain autograd."""
+    cores, bf16 at other widths (gemma2's 256 included) and float32 on the
+    CUDA cores; a CPU tensor on the plain autograd."""
     from repro_torch.kernels import dispatch, envelope
     dt = getattr(torch, dtype)
     res = dispatch.resolve_flash_bwd("flash_attention_bwd",
@@ -273,15 +275,21 @@ def test_backward_route_table(dtype, dh, route):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_backward_refuses_head_dim_256(dtype):
-    """dh 256 is outside both routes' envelopes; the tensor-core route's
-    grid is (tiles, B*H), so B*H above gridDim.y is refused too."""
+    """dh 256 has no tensor-core backward: it runs on the CUDA-core
+    kernel's 32-row tiles, and a width above 256 is outside both routes'
+    envelopes; the tensor-core route's grid is (tiles, B*H), so B*H above
+    gridDim.y is refused too."""
     from repro_torch.kernels import dispatch, envelope
-    with pytest.raises(ValueError, match="head_dim=256"):
-        dispatch.resolve_flash_bwd(
-            "flash_attention_bwd",
-            _fake_cuda((1, 64, 8, 256), getattr(torch, dtype)))
     assert "no tensor-core" in envelope.outside_flash_bwd_tc_envelope(
         1, 8, 256)
+    res = dispatch.resolve_flash_bwd(
+        "flash_attention_bwd",
+        _fake_cuda((1, 64, 8, 256), getattr(torch, dtype)))
+    assert (res.path, res.route) == ("kernel", "cuda_core")
+    with pytest.raises(ValueError, match="head_dim=320"):
+        dispatch.resolve_flash_bwd(
+            "flash_attention_bwd",
+            _fake_cuda((1, 64, 8, 320), getattr(torch, dtype)))
     with pytest.raises(ValueError, match="grid"):
         dispatch.resolve_flash_bwd(
             "flash_attention_bwd",
@@ -678,12 +686,12 @@ def test_launcher_matches_the_reference_losses(arch, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("arch, item", [
-    ("gemma2-2b", "local_global.*A11"),
+    ("gemma2-2b/full", "pad_heads_to=16.*ROADMAP C"),
     ("llama4-scout-17b-a16e/full", "pad_heads_to=48.*ROADMAP C"),
-    ("qwen2-vl-72b", "M-RoPE.*A11"), ("no-such-arch", "unknown arch")])
+    ("no-such-arch", "unknown arch")])
 def test_launcher_refuses_each_unported_family(arch, item, capsys):
-    """A family not ported (smoke configs), or a published config the
-    port refuses (``/full``: llama4-scout pads 40 heads to 48)."""
+    """An unknown arch, or a published config the port refuses
+    (``/full``: gemma2-2b pads 8 heads to 16, llama4-scout 40 to 48)."""
     name, _, full = arch.partition("/")
     smoke = [] if full else ["--smoke"]
     with pytest.raises(SystemExit) as exc:

@@ -299,7 +299,7 @@ def test_cli_search_export_and_serve_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--arch", "gemma2-2b"], "A11"), ([], "--adc-search")])
+    (["--arch", "gemma2-2b"], "pad_heads_to=16"), ([], "--adc-search")])
 def test_cli_refuses_later_slices(argv, item, capsys):
     base = ["--adc-search"] if argv else []
     with pytest.raises(SystemExit) as exc:
