@@ -279,7 +279,7 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
 14. train (LM training, ROADMAP A11): (1/4) the attention backward
    against the plain autograd in float32 at the same inputs, TF32 off,
    on both routes: the tensor-core kernel (csrc/flash_attention_bwd_tc.cu)
-   for bf16 at dh 64/96/112/128, the CUDA-core kernel
+   for bf16 at dh 64/96/112/128/256, the CUDA-core kernel
    (csrc/flash_attention_bwd.cu) for float32 and bf16 at other widths:
    musicgen-medium's per-layer shape (B 4, S 2048, H = KV = 24, dh 64,
    causal) in bf16 and float32, GQA with a window and a softcap at dh 96
@@ -288,7 +288,8 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    gradient within |got - want| <= rtol |want| + atol max|want| (bf16
    2^-7 and 2^-12, float32 1e-5 and 1e-5), two runs bitwise equal, each
    call counted once on its route's key; a dropped 64-key tile and the
-   wrong kv head must exceed the bound 100-fold in both dtypes; then
+   wrong kv head must exceed the bound in every gradient, and 100-fold in
+   the one where the fault shows most, in both dtypes; then
    timed at musicgen's shape, each pass's device time on both routes
    (bf16 on the CUDA-core kernel too, called directly for the
    comparison), beside the plain autograd, the bound and
@@ -368,12 +369,16 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    A11.4-A11.5; the path "local_global_vlm" counts gemma2's serve call
    and steps and qwen2-vl's prefill, decode and steps, each from 0):
    rows 11 and 11b at gemma2's layer (B 1, S 8192, 8 heads over 4, dh
-   256, softcap 50, window 4096 and global): row 11b on the CUDA-core
-   kernel's 32-row dh-256 tiles in bf16 and float32 against the plain
-   autograd (BWD_TOL, two runs bitwise, keys 1024..1087 dropped and the
-   wrong kv head over 100x), counted on flash_attention_bwd, each pass's
-   device time beside the bound and SDPA's backward without the softcap
-   (a yardstick; n/a where it refuses); row 11's tensor-core forward
+   256, softcap 50, window 4096 and global): row 11b on its route in
+   each type (bf16 on the tensor-core kernel's dh-256 geometry, counted
+   on flash_attention_bwd_tc; float32 on the CUDA-core kernel's 32-row
+   tiles, counted on flash_attention_bwd) and, in bf16, on the CUDA-core
+   kernel called directly, each against the plain autograd (BWD_TOL, two
+   runs bitwise; keys 1024..1087 dropped and the wrong kv head rejected
+   on every gradient and by 100x on one, each control's dq / dk / dv
+   shares printed), each pass's device time beside the bound, the plain
+   autograd and SDPA's backward without the softcap (a yardstick; n/a
+   where it refuses); row 11's tensor-core forward
    there against its plain version. gemma2-2b at its published widths,
    uncut (26 layers as 13 (local 4096, global) pairs, d_model 2304, dh
    256, softcaps 50/30, post-norms, tied 256k embedding), 8 heads over 4
@@ -385,7 +390,7 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    forward (within 2x the bf16 forward's distance, the controls beyond
    it; lm's 1.25e-1 gate printed); trained uncut at 1 x 8192, float32
    masters and AdamW, 3 steps and a traced one (52 tensor-core forwards
-   and 26 CUDA-core backwards at dh 256 a step), a replayed microbatch's
+   and 26 tensor-core backwards at dh 256 a step), a replayed microbatch's
    loss and gradient leaves bitwise. qwen2-vl-72b at its published
    widths (d_model 8192, 64 heads over 8 of 128, d_ff 29568, vocab
    152064, 1280 frontend features through the 4-bit ADC, M-RoPE (16, 24,
@@ -485,7 +490,7 @@ KERNELS = {
         "row": "11b", "replaces": "src/repro/models/layers.py:96",
         "pallas": "none: the gradient of row 11's function, which the "
                   "reference takes by XLA's autodiff of layers.attention "
-                  "(bf16 at dh 64/96/112/128: the tensor-core route)",
+                  "(bf16 at dh 64/96/112/128/256: the tensor-core route)",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"},
     "flash_attention_bwd": {
         "row": "11b", "replaces": "src/repro/models/layers.py:96",
@@ -505,10 +510,19 @@ BWD_DEVICE_NAMES = {
                                "dq_tc_kernel"),
     "flash_attention_bwd": ("row_stats_kernel", "dkdv_kernel", "dq_kernel")}
 BWD_PASSES = ("stats", "dkdv", "dq")
-# products of dh multiply-adds a visible (query, key) pair each backward
-# route runs: S and dP in each of three passes and the three gradient
-# products, those as hi/lo pairs on the tensor cores
-BWD_ROUTE_PRODUCTS = {"flash_attention_bwd_tc": 12, "flash_attention_bwd": 9}
+
+
+def bwd_route_products(route: str, dh: int) -> int:
+    """Products of dh multiply-adds a visible (query, key) pair each
+    backward route runs: S and dP in each of three passes and the three
+    gradient products, those as hi/lo pairs on the tensor cores (12); at
+    dh 256 the tensor-core dk/dv pass walks the q tiles twice, dv then dk,
+    and computes S^T in both (13)."""
+    if route == "flash_attention_bwd_tc":
+        return 13 if dh > 128 else 12
+    return 9
+
+
 # the search's main path: the fixture fronts' config at cardio's width
 SEARCH = dict(bits=4, pop_size=16, generations=3, train_steps=100)
 # the robust path: the same shape with 32 Monte-Carlo instances
@@ -602,7 +616,8 @@ TRAIN_CLI = dict(steps=30, batch=8, seq=64, ckpt_every=10, fail_at=17)
 # for the two sides' roundings of float32 values 2e-6 apart) plus 2^-12 of
 # the largest element; float32: 1e-5 and 1e-5 (measured 2.4e-6 of the
 # largest element). Both controls (a dropped 64-key tile, the wrong kv
-# head) must exceed it by TRAIN_CONTROL_FACTOR
+# head) must exceed it in every gradient and by TRAIN_CONTROL_FACTOR in
+# the one where the fault shows most (bwd_control_rejected)
 BWD_TOL = {"bfloat16": (2 ** -7, 2 ** -12), "float32": (1e-5, 1e-5)}
 TRAIN_CONTROL_FACTOR = 100.0
 # smoke train step, card against CPU, float32: loss, grad leaves (the JAX
@@ -694,7 +709,7 @@ PUBLISHED["gemma2-2b"] = dict(
     softcaps=(50.0, 30.0), post_norm=True, tie=True, mrope=None, theta=1e4,
     frontend=0, adc_bits=0, opt_state_dtype="float32", **_DTYPES)
 GEMMA_TRAIN = dict(batch=1, seq=8192, microbatches=1, steps=3,
-                   routes=("flash_attention_tc", "flash_attention_bwd"))
+                   routes=("flash_attention_tc", "flash_attention_bwd_tc"))
 # qwen2-vl-72b (configs/qwen2_vl_72b.py, arXiv:2409.12191) at its
 # published widths, served cut in depth to 20 of its 80 layers (float32
 # masters, 3.5 GB a layer: 20 fit beside the head and reserve_gb of
@@ -4528,8 +4543,8 @@ def bwd_bound(torch, q, k, qpos, kpos, *, window, route):
     do.v, and the dq, dk, dv products: 10 dh flops), against the peak of
     the inputs' type (bf16 tensor cores, or float32 outside them, TF32
     off), as ``flash_bound`` prices the forward. ``kernel_flops`` is what
-    the route's kernel does (``BWD_ROUTE_PRODUCTS``: 12 products a pair
-    on the tensor cores, 9 on the CUDA cores), and ``floors["design"]``
+    the route's kernel does (``bwd_route_products``: 12 products a pair
+    on the tensor cores, 13 there at dh 256, 9 on the CUDA cores), and ``floors["design"]``
     those at the rate of the units it runs them on (the bf16 tensor-core
     peak, or the float32 CUDA-core peak): the ceiling of that design, and
     no bound."""
@@ -4546,7 +4561,7 @@ def bwd_bound(torch, q, k, qpos, kpos, *, window, route):
               unit: flops / (BF16_FLOP_PER_S if bf16 else card.peak_flops)
               * 1e3}
     binding = max(floors, key=floors.get)
-    kflops = 2 * BWD_ROUTE_PRODUCTS[route] * dh * pairs * b * h
+    kflops = 2 * bwd_route_products(route, dh) * dh * pairs * b * h
     floors["design"] = kflops / (BF16_FLOP_PER_S
                                  if route == "flash_attention_bwd_tc"
                                  else card.peak_flops) * 1e3
@@ -4561,6 +4576,31 @@ def bwd_share(torch, got, want, dtype_name) -> float:
     w = want.float()
     lim = rtol * w.abs() + atol * float(w.abs().max())
     return float(((got.float() - w).abs() / lim).max())
+
+
+def bwd_control(torch, bad, want, dtype) -> dict:
+    """{dq, dk, dv: share of BWD_TOL} of a backward control: the plain
+    gradient of a faulty call (``bad``) held to the sound one (``want``),
+    both rounded to ``dtype`` as the kernel's output is."""
+    name = str(dtype).split(".")[-1]
+    return {g_name: bwd_share(torch, g.to(dtype), w.to(dtype), name)
+            for g_name, g, w in zip(("dq", "dk", "dv"), bad, want)}
+
+
+def bwd_control_rejected(shares) -> bool:
+    """A backward control is rejected when the gate rejects it on every
+    gradient (each share above 1) and by TRAIN_CONTROL_FACTOR on the
+    gradient where its fault shows most (the largest share). The least
+    share is no measure of a fault: a dropped key's dk and dv are zeroed,
+    which caps their shares at 1 / rtol (128 in bf16)."""
+    return (max(shares.values()) > TRAIN_CONTROL_FACTOR
+            and min(shares.values()) > 1.0)
+
+
+def control_text(shares) -> str:
+    return ("dq / dk / dv " + " / ".join(f"{shares[n]:.1f}"
+                                          for n in ("dq", "dk", "dv"))
+            + "x the bound")
 
 
 def device_sums(torch, prof):
@@ -4708,14 +4748,13 @@ def train_bwd_kernel(np, torch, dev, card):
             bad = ref.flash_attention_bwd_ref(
                 q.float(), kk.float(), vv.float(), do.float(), qpos, kpos,
                 **kw)
-            worst = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype), tag)
-                        for g, w in zip(bad, want))
-            shares[f"control {label} {tag}"] = worst
-            print(f"  control {tag}, {label}: the least share over dq, dk, "
-                  f"dv is {worst:.1f} x the bound")
-            check(worst > TRAIN_CONTROL_FACTOR,
-                  f"the {tag} bound does not reject {label} by "
-                  f"{TRAIN_CONTROL_FACTOR:g}x ({worst:.1f})")
+            ctrl = bwd_control(torch, bad, want, q.dtype)
+            shares[f"control {label} {tag}"] = ctrl
+            print(f"  control {tag}, {label}: {control_text(ctrl)}")
+            check(bwd_control_rejected(ctrl),
+                  f"the {tag} bound does not reject {label} on every "
+                  f"gradient and by {TRAIN_CONTROL_FACTOR:g}x on one "
+                  f"({control_text(ctrl)})")
             del bad
         del want
 
@@ -5726,10 +5765,11 @@ def attention_layer_checks(torch, label, q, k, v, do, pos, kw):
     against ref.flash_attention_bwd_ref on float32 copies (BWD_TOL), each
     call counted once on its key and nowhere else; both limits reject
     the plain version with keys 1024..1087 dropped and with every query
-    head group reading the next group's kv head, the backward's by more
-    than TRAIN_CONTROL_FACTOR. Returns ({key: max_abs_err}, the forward's
-    share of its limit, {key: controls}, the backward's dq/dk/dv
-    shares)."""
+    head group reading the next group's kv head, the backward's on every
+    gradient and by more than TRAIN_CONTROL_FACTOR on one
+    (``bwd_control_rejected``). Returns ({key: max_abs_err}, the
+    forward's share of its limit, {key: controls}, the backward's
+    dq/dk/dv shares)."""
     from repro_torch.kernels import dispatch, envelope
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -5804,19 +5844,19 @@ def attention_layer_checks(torch, label, q, k, v, do, pos, kw):
     for name, (kk, vv, kp) in controls.items():
         bad = ref.flash_attention_bwd_ref(q.float(), kk.float(), vv.float(),
                                           do.float(), pos, kp, **kw)
-        bctrl[name] = min(bwd_share(torch, g.to(q.dtype), w.to(q.dtype),
-                                    "bfloat16") for g, w in zip(bad, want))
-        check(bctrl[name] > TRAIN_CONTROL_FACTOR,
+        bctrl[name] = bwd_control(torch, bad, want, q.dtype)
+        check(bwd_control_rejected(bctrl[name]),
               f"the bf16 backward bound does not reject {name} at {label} "
-              f"by {TRAIN_CONTROL_FACTOR:g}x ({bctrl[name]:.1f})")
+              f"on every gradient and by {TRAIN_CONTROL_FACTOR:g}x on one "
+              f"({control_text(bctrl[name])})")
         del bad
     del want, kw_, vw_
     max_err[key], ctrl[key] = err, bctrl
     print(f"  {key} at {label}: dq/dk/dv at "
           + ", ".join(f"{n} {v_:.3f}" for n, v_ in shares.items())
           + f" of the bound {BWD_TOL['bfloat16']}, two runs bitwise; "
-          f"controls " + ", ".join(f"{n} {v_:.1f}x" for n, v_ in
-                                   bctrl.items()))
+          f"controls " + "; ".join(f"{n}: {control_text(v_)}"
+                                   for n, v_ in bctrl.items()))
     torch.cuda.empty_cache()
     return max_err, share, ctrl, shares
 
@@ -6370,17 +6410,19 @@ def tree_numel(params) -> int:
 def lg_attention_kernels(np, torch, dev, card, clock):
     """Rows 11 and 11b at gemma2's layer (GEMMA_ATTN: B 1, S 8192, 8
     heads over 4, dh 256, softcap 50), windowed (4096) and global: row
-    11b (the CUDA-core backward's 32-row dh-256 tiles) in bf16 and
-    float32 against the plain autograd in float32 (BWD_TOL), two runs
-    bitwise, phase train's controls (keys 1024..1087 dropped, the wrong kv
-    head) rejected at TRAIN_CONTROL_FACTOR (a control's dk / dv share is
-    at most 1 / rtol = 128 on a key whose gradient it zeroes, so a
-    single 32-key tile far from the large gradients can stay under 100),
-    each call counted on BWD_ENTRY's key, each
-    pass's device time beside bwd_bound and SDPA's backward (without
-    the softcap, which SDPA lacks: a yardstick, not the same function;
-    None where it refuses); row 11's tensor-core forward at the same
-    shape against its plain version; then ``attention_layer_checks`` at
+    11b on its route in each type (bf16 on the tensor-core kernel's dh-256
+    geometry, float32 on the CUDA-core kernel's 32-row tiles) and in bf16
+    on the CUDA-core kernel called directly, against the plain autograd in
+    float32 (BWD_TOL), two runs bitwise, each call counted on its kernel's
+    key; phase train's controls (keys 1024..1087 dropped, the wrong kv
+    head) rejected by ``bwd_control_rejected`` (every gradient over the
+    bound, the largest share over TRAIN_CONTROL_FACTOR: a dropped key's dk
+    / dv share is at most 1 / rtol = 128, so the least of the three is no
+    measure), each control's three shares printed; each pass's device time
+    beside bwd_bound, the plain autograd and SDPA's backward (without the
+    softcap, which SDPA lacks: a yardstick, not the same function; None
+    where it refuses); row 11's tensor-core forward at the same shape
+    against its plain version; then ``attention_layer_checks`` at
     qwen2-vl's layer (QWEN_ATTN, tensor cores) on the t component of
     QWEN's vision grid, its 1536 image tokens at one position. Returns
     (max_abs_err by counter key, {label: timing row})."""
@@ -6391,16 +6433,27 @@ def lg_attention_kernels(np, torch, dev, card, clock):
     a = GEMMA_ATTN
     b, s, h, kv, dh, cap = (a[k] for k in ("B", "S", "H", "KV", "dh",
                                             "softcap"))
-    key = fa.BWD_ENTRY
-    check(envelope.flash_bwd_route(True, dh) == "cuda_core"
+    keys = {"tensor_core": fa.BWD_TC_ENTRY, "cuda_core": fa.BWD_ENTRY}
+    check(envelope.flash_bwd_route(True, dh) == "tensor_core"
+          and envelope.outside_flash_bwd_tc_envelope(b, h, dh) is None,
+          f"dh {dh} bf16: not on the tensor-core backward's route and "
+          f"envelope")
+    check(envelope.flash_bwd_route(False, dh) == "cuda_core"
           and envelope.outside_flash_bwd_envelope(b, s, h, dh) is None,
-          f"dh {dh}: not on the CUDA-core backward's route and envelope")
+          f"dh {dh} float32: not on the CUDA-core backward's route and "
+          f"envelope")
     for p in range(3):
         check(fa.bwd_smem_bytes(p, dh) == envelope.flash_bwd_smem_bytes(p, dh)
               <= envelope.SMEM_MAX_BYTES,
               f"backward pass {p} at dh {dh}: the build asks for "
               f"{fa.bwd_smem_bytes(p, dh)} bytes, the envelope says "
               f"{envelope.flash_bwd_smem_bytes(p, dh)}")
+        check(fa.bwd_tc_smem_bytes(p, dh)
+              == envelope.flash_bwd_tc_smem_bytes(p, dh)
+              <= envelope.SMEM_MAX_BYTES,
+              f"tensor-core backward pass {p} at dh {dh}: the build asks "
+              f"for {fa.bwd_tc_smem_bytes(p, dh)} bytes, the envelope says "
+              f"{envelope.flash_bwd_tc_smem_bytes(p, dh)}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2029)
     q32, k32, v32 = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh,
@@ -6408,12 +6461,13 @@ def lg_attention_kernels(np, torch, dev, card, clock):
     do32 = torch.randn((b, s, h, dh), generator=gen, device=dev)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     # the controls every row 11b case takes: keys 1024..1087 dropped (two
-    # of this kernel's 32-key tiles), and the wrong kv head
+    # of either kernel's 32-key tiles), and the wrong kv head
     drop = pos.clone()
     drop[1024:1088] = -1
     # every query head group reads the next group's kv head
     wrong = (torch.arange(kv, device=dev) + 1) % kv
-    max_err, rows = {key: 0.0, fa.TC_ENTRY: 0.0, fa.BWD_TC_ENTRY: 0.0}, {}
+    max_err, rows = {fa.BWD_ENTRY: 0.0, fa.TC_ENTRY: 0.0,
+                     fa.BWD_TC_ENTRY: 0.0}, {}
     print(f"phase local_global_vlm: rows 11 and 11b at gemma2's layer B={b} "
           f"S={s} H={h} KV={kv} dh={dh} softcap {cap:g}, window "
           f"{a['window']} and global ({card})")
@@ -6466,26 +6520,47 @@ def lg_attention_kernels(np, torch, dev, card, clock):
               f"{f_lib:.4f} ms, bound {fb_ms:.4f} ms ({ffloors['binding']})"
               f" on {card}")
         del got, want, qt, kt, vt
-        for dt in (torch.bfloat16, torch.float32):
+        # row 11b: each type on its route (bf16 on the tensor cores,
+        # float32 on the CUDA cores), then bf16 on the CUDA-core kernel
+        # called directly; the plain gradient, the controls, the plain
+        # time and SDPA's once a type
+        wants, ctrls, plains, libs, by_route = {}, {}, {}, {}, {}
+        for dt, route in ((torch.bfloat16, "tensor_core"),
+                          (torch.float32, "cuda_core"),
+                          (torch.bfloat16, "cuda_core")):
             dname = str(dt).split(".")[-1]
+            ckey = keys[route]
+            direct = route != envelope.flash_bwd_route(dt == torch.bfloat16,
+                                                       dh)
             label = (f"gemma2 layer B={b} S={s} H={h} KV={kv} dh={dh} "
-                     f"cap={cap:g} {wtxt} {dname}")
+                     f"cap={cap:g} {wtxt} {dname}"
+                     + (f" {route} (called directly)" if direct else ""))
             q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
-            check(dispatch.resolve_flash_bwd(key, q).route == "cuda_core",
-                  f"{label}: not on the CUDA-core backward")
+            if direct:
+                k_fn = lambda: fa._launch_bwd(  # noqa: E731
+                    route, q, k, v, do, pos, pos, **kw)
+            else:
+                check(dispatch.resolve_flash_bwd(fa.BWD_ENTRY, q).route
+                      == route, f"{label}: not on the {route} backward")
+                k_fn = lambda: fa.flash_attention_bwd(  # noqa: E731
+                    q, k, v, do, pos, pos, **kw)
             before = dict(fa.launches)
-            got = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
-            again = fa.flash_attention_bwd(q, k, v, do, pos, pos, **kw)
-            want = ref.flash_attention_bwd_ref(q.float(), k.float(),
-                                               v.float(), do.float(), pos,
-                                               pos, **kw)
+            got = k_fn()
+            again = k_fn()
+            if dname not in wants:
+                wants[dname] = ref.flash_attention_bwd_ref(
+                    q.float(), k.float(), v.float(), do.float(), pos, pos,
+                    **kw)
+            want = wants[dname]
             torch.cuda.synchronize()
             moved = {n: c_ - before[n] for n, c_ in fa.launches.items()
                      if c_ != before[n]}
-            check(moved == {key: 2}, f"bwd {label}: launches {moved} for 2 "
-                                     f"calls")
+            check(moved == {ckey: 2}, f"bwd {label}: launches {moved} for 2 "
+                                      f"calls, expected {{{ckey!r}: 2}}")
             shares, err = {}, 0.0
             for name, g, a_, w in zip(("dq", "dk", "dv"), got, again, want):
+                check(g.dtype == dt and g.shape == w.shape,
+                      f"bwd {label}: {name} {g.dtype} {tuple(g.shape)}")
                 check(bool(torch.isfinite(g).all()),
                       f"bwd {label}: {name} not finite")
                 check(torch.equal(g, a_), f"bwd {label}: {name} differs "
@@ -6494,63 +6569,68 @@ def lg_attention_kernels(np, torch, dev, card, clock):
                 err = max(err, float((g.float() - w.to(dt).float()).abs()
                                      .max()))
                 check(shares[name] <= 1.0,
-                      f"{key} disagrees with the plain autograd on {label}: "
+                      f"{ckey} disagrees with the plain autograd on {label}: "
                       f"{name} at {shares[name]:.3f} of the bound")
             del got, again
-            ctrl = {}
-            for name, kk, vv, kp in (
-                    ("one 64-key span dropped", k, v, drop),
-                    ("the wrong kv head", k[:, :, wrong].contiguous(),
-                     v[:, :, wrong].contiguous(), pos)):
-                bad = ref.flash_attention_bwd_ref(
-                    q.float(), kk.float(), vv.float(), do.float(), pos, kp,
-                    **kw)
-                ctrl[name] = min(bwd_share(torch, g.to(dt), w.to(dt), dname)
-                                 for g, w in zip(bad, want))
-                check(ctrl[name] > TRAIN_CONTROL_FACTOR,
-                      f"the {dname} backward bound does not reject {name} "
-                      f"at {label} by {TRAIN_CONTROL_FACTOR:g}x "
-                      f"({ctrl[name]:.1f})")
-                del bad
-            del want
-            max_err[key] = max(max_err[key], err)
+            if dname not in ctrls:
+                ctrls[dname] = {}
+                for name, kk, vv, kp in (
+                        ("keys 1024..1087 dropped", k, v, drop),
+                        ("the wrong kv head", k[:, :, wrong].contiguous(),
+                         v[:, :, wrong].contiguous(), pos)):
+                    bad = ref.flash_attention_bwd_ref(
+                        q.float(), kk.float(), vv.float(), do.float(), pos,
+                        kp, **kw)
+                    ctrls[dname][name] = bwd_control(torch, bad, want, dt)
+                    check(bwd_control_rejected(ctrls[dname][name]),
+                          f"the {dname} backward bound does not reject "
+                          f"{name} at {label} on every gradient and by "
+                          f"{TRAIN_CONTROL_FACTOR:g}x on one "
+                          f"({control_text(ctrls[dname][name])})")
+                    del bad
+            ctrl = ctrls[dname]
+            max_err[ckey] = max(max_err[ckey], err)
             torch.cuda.empty_cache()
-            k_fn = lambda: fa.flash_attention_bwd(  # noqa: E731
-                q, k, v, do, pos, pos, **kw)
-            p_fn = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
-                q, k, v, do, pos, pos, **kw)
-            p1 = timed_ms(torch, p_fn, 1, warmup=1)
-            k1 = timed_ms(torch, k_fn, 3, warmup=1)
-            k2 = timed_ms(torch, k_fn, 3, warmup=0)
-            by_name = device_ms_by_name(torch, k_fn, BWD_DEVICE_NAMES[key])
+            if dname not in plains:
+                plains[dname] = timed_ms(torch, lambda: (  # noqa: E731
+                    ref.flash_attention_bwd_ref(q, k, v, do, pos, pos,
+                                                **kw)), 1, warmup=1)
+            p1 = plains[dname]
+            reps = 20 if route == "tensor_core" else 3
+            k1 = timed_ms(torch, k_fn, reps, warmup=1)
+            k2 = timed_ms(torch, k_fn, reps, warmup=0)
+            by_name = device_ms_by_name(torch, k_fn, BWD_DEVICE_NAMES[ckey])
             passes = {pn: by_name[dn] for pn, dn in
-                      zip(BWD_PASSES, BWD_DEVICE_NAMES[key])}
+                      zip(BWD_PASSES, BWD_DEVICE_NAMES[ckey])}
             dev_ms = (None if None in passes.values()
                       else sum(passes.values()))
-            lib_ms, lib_kernel = None, None
-            qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
-                               for x in (q, k, v, do))
-            try:
-                qg, kg, vg = (x.detach().requires_grad_(True)
-                              for x in (qt, kt, vt))
-                with torch.enable_grad():
-                    lib_out = F.scaled_dot_product_attention(
-                        qg, kg, vg, attn_mask=None if not win else mask,
-                        is_causal=not win, enable_gqa=True)
-                l_fn = lambda: torch.autograd.grad(  # noqa: E731
-                    lib_out, (qg, kg, vg), dot, retain_graph=True)
-                lib_ms = timed_ms(torch, l_fn, 3, warmup=1)
-                lib_kernel = top_device_kernel(torch, l_fn)
-                del lib_out, qg, kg, vg
-            except RuntimeError as exc:
-                print(f"  SDPA backward at {label}: n/a ({exc})")
-            del qt, kt, vt, dot
+            if dname not in libs:
+                libs[dname] = (None, None)
+                qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                                   for x in (q, k, v, do))
+                try:
+                    qg, kg, vg = (x.detach().requires_grad_(True)
+                                  for x in (qt, kt, vt))
+                    with torch.enable_grad():
+                        lib_out = F.scaled_dot_product_attention(
+                            qg, kg, vg, attn_mask=None if not win else mask,
+                            is_causal=not win, enable_gqa=True)
+                    l_fn = lambda: torch.autograd.grad(  # noqa: E731
+                        lib_out, (qg, kg, vg), dot, retain_graph=True)
+                    libs[dname] = (timed_ms(torch, l_fn, 3, warmup=1),
+                                   top_device_kernel(torch, l_fn))
+                    del lib_out, qg, kg, vg
+                except RuntimeError as exc:
+                    print(f"  SDPA backward at {label}: n/a ({exc})")
+                del qt, kt, vt, dot
+            lib_ms, lib_kernel = libs[dname]
             b_ms, b_by, nbytes, flops, kflops, floors = bwd_bound(
-                torch, q, k, pos, pos, window=win, route=key)
+                torch, q, k, pos, pos, window=win, route=ckey)
             rows[label] = {
-                "kernel": key, "shape": {"B": b, "S": s, "Sk": s, "H": h,
-                                         "KV": kv, "dh": dh, "window": win,
-                                         "softcap": cap, "dtype": dname},
+                "kernel": ckey, "route": route, "called_directly": direct,
+                "shape": {"B": b, "S": s, "Sk": s, "H": h, "KV": kv,
+                          "dh": dh, "window": win, "softcap": cap,
+                          "dtype": dname},
                 "ms": min(k1, k2), "plain_ms": p1, "device_ms": dev_ms,
                 "pass_device_ms": passes, "library_ms": lib_ms,
                 "library_kernel": lib_kernel,
@@ -6559,23 +6639,44 @@ def lg_attention_kernels(np, torch, dev, card, clock):
                 "bytes": nbytes, "flops": flops, "kernel_flops": kflops,
                 "shares": shares, "controls": ctrl,
                 "forward_tc_ms": f_ms}
+            by_route[(dname, route)] = rows[label]
             dev_txt = "not measured" if dev_ms is None else (
                 f"{dev_ms:.3f} ms: " + ", ".join(
                     f"{n_} {v_:.3f}" for n_, v_ in passes.items()))
             lib_txt = ("n/a" if lib_ms is None
                        else f"{lib_ms:.3f} ms ({lib_kernel})")
+            peak = "bf16 tensor-core" if route == "tensor_core" \
+                else "float32"
             print(f"  row 11b {label}: dq/dk/dv at " + ", ".join(
                 f"{n} {v_:.3f}" for n, v_ in shares.items())
-                + f" of BWD_TOL, two runs bitwise; controls "
-                + ", ".join(f"{n} {v_:.1f}x" for n, v_ in ctrl.items()))
-            print(f"  time {key} {label}: kernel {k1:.3f}/{k2:.3f} ms a "
+                + " of BWD_TOL, two runs bitwise; controls "
+                + "; ".join(f"{n}: {control_text(v_)}"
+                            for n, v_ in ctrl.items()))
+            print(f"  time {ckey} {label}: kernel {k1:.3f}/{k2:.3f} ms a "
                   f"call (device {dev_txt}), plain autograd {p1:.2f} ms, "
                   f"SDPA backward without the softcap {lib_txt}, bound "
                   f"{b_ms:.4f} ms ({floors['binding']}), the design's "
-                  f"{kflops / 1e12:.3f} TFLOP at the float32 peak "
+                  f"{kflops / 1e12:.3f} TFLOP at the {peak} peak "
                   f"{floors['design']:.3f} ms on {card}")
             del q, k, v, do
             torch.cuda.empty_cache()
+        tc_row = by_route[("bfloat16", "tensor_core")]
+        cc_row = by_route[("bfloat16", "cuda_core")]
+        print(f"  row 11b bf16 at gemma2's layer, {wtxt}, a pass's device "
+              f"ms (statistics / dk-dv / dq): tensor cores "
+              + " / ".join(f"{t:.3f}" for t in
+                           tc_row["pass_device_ms"].values())
+              + ", CUDA cores "
+              + " / ".join(f"{t:.3f}" for t in
+                           cc_row["pass_device_ms"].values())
+              + f"; a call {tc_row['ms']:.3f} against {cc_row['ms']:.3f} ms "
+              f"({cc_row['ms'] / tc_row['ms']:.1f}x), bound "
+              f"{tc_row['bound_ms']:.4f} ms ({tc_row['ms'] / tc_row['bound_ms']:.1f}x "
+              f"it), plain autograd {tc_row['plain_ms']:.2f} ms, SDPA "
+              f"without the softcap "
+              + ("n/a" if tc_row["library_ms"] is None
+                 else f"{tc_row['library_ms']:.3f} ms") + f" on {card}")
+        del wants
     del q32, k32, v32, do32
     torch.cuda.empty_cache()
 
@@ -7110,12 +7211,16 @@ def main() -> int:
                       f"the CUDA-core instantiations for head widths up "
                       f"to 128 spill or are missing: {kernels}")
             if src == "flash_attention_bwd_tc":
-                # {row statistics, dk/dv, dq} x dh {64, 96, 112, 128}; the
-                # dk/dv kernel above dh 64 (128 accumulator registers a
-                # thread) spills, a known cost (PERF.md, ROADMAP §B)
-                tight = [k for k in kernels if "dkdv_tc_kernel" not in k[0]
-                         or "ILi64E" in k[0]]
-                check(len(kernels) == 12 and len(tight) == 9 and all(
+                # {row statistics, dk/dv, dq} x dh {64, 96, 112, 128, 256};
+                # the dk/dv kernel above dh 64 and the dq kernel at dh 256
+                # (128 accumulator registers a thread beside S, dP and
+                # their fragments) spill, a known cost (PERF.md, ROADMAP §B)
+                tight = [k for k in kernels
+                         if not ("dkdv_tc_kernel" in k[0]
+                                 and "ILi64E" not in k[0])
+                         and not ("dq_tc_kernel" in k[0]
+                                  and "ILi256E" in k[0])]
+                check(len(kernels) == 15 and len(tight) == 10 and all(
                     st == 0 and ld == 0 for _, _, st, ld in tight),
                       f"the tensor-core backward instantiations spill or "
                       f"are missing: {kernels}")

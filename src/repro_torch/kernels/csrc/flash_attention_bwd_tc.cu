@@ -5,9 +5,9 @@
 // of its score-materialising attention (src/repro/models/layers.py:60-133
 // attention/_sdpa). This is the tensor-core route of the port's attention
 // backward, beside the CUDA-core kernel (csrc/flash_attention_bwd.cu): bf16
-// at the head widths 64, 96, 112 and 128 (96 and 112 run as 128, the
+// at the head widths 64, 96, 112, 128 and 256 (96 and 112 run as 128, the
 // columns past dh read as zeros) come here; float32, and bf16 at any other
-// width up to 128, go there (kernels/dispatch.py::resolve_flash_bwd).
+// width up to 256, go there (kernels/dispatch.py::resolve_flash_bwd).
 //
 // It computes what the CUDA-core kernel computes (its header states the
 // forward and the gradient): for q, do (B, S, H, dh), k, v (B, Sk, KV, dh)
@@ -49,10 +49,11 @@
 // a per-tile flag written beside the stage, as the forward's), and ends
 // the walk with a sentinel.
 //   (a) stats_tc_kernel: one block per (128-row q tile, b*h), 64 rows a
-//       consumer warpgroup. Q and dO once; K and V tiles of 64 keys
-//       through the ring. S = Q.K^T and dP = dO.V^T as ss-form wgmma; the
-//       online max, sum p and sum p dP (rescaled as the max moves) over a
-//       quad's row; writes lse and D into the (2, B, H, S) float32 scratch.
+//       consumer warpgroup. Q and dO once; K and V tiles of 64 keys (32
+//       at dh 256) through the ring. S = Q.K^T and dP = dO.V^T as ss-form
+//       wgmma; the online max, sum p and sum p dP (rescaled as the max
+//       moves) over a quad's row; writes lse and D into the (2, B, H, S)
+//       float32 scratch.
 //   (b) dkdv_tc_kernel: one block per (128-key tile, b*kv head), 64 keys a
 //       consumer warpgroup. K and V once; Q, dO (32-row q tiles), lse, D
 //       and the query positions through the ring, walking the GQA group's
@@ -68,6 +69,26 @@
 // Per visible (query, key) pair that is 12 products of dh multiply-adds:
 // S and dP in each pass, and the hi/lo halves of dv, dk and dq.
 //
+// Head width 256 (gemma2) needs its own geometry (Cfg<256>): c = 4 boxes
+// make a 64 x 256 bf16 tile 32,768 bytes, and a warpgroup's 64 keys of dk
+// and dv over 256 columns would be 256 accumulator floats a thread.
+//   - (a), (c): the 128-row Q and dO (131,072 bytes) with a 2-stage ring
+//     of 32-key K and V (65,536): S and dP are 64 x 32, and dq's 128
+//     accumulator floats sit beside 32 of S and dP.
+//   - (b): the 128-key K and V (131,072) with a 2-stage ring of 32-row Q
+//     and dO (65,536), and the q tiles walked twice: dv first (S^T, P^T,
+//     dv += P^T.dO), then dk (S^T, dP^T, dS^T, dk += dS^T.Q), each walk
+//     with one 128-float accumulator. S^T is computed in both walks and
+//     dP^T only in the second: 13 products a pair instead of 12.
+//   - x / cap is taken as x (1 / cap) (score<kCap, kRecip>): the IEEE
+//     division's slow-path branch kept the compiler from interleaving a
+//     tile's elements, and the softcapped elementwise work sets the pace.
+// ptxas still allocates the dh-256 dq and dk/dv consumers within the
+// block's 168 registers (setmaxnreg's 232 notwithstanding; a 288-thread
+// block with a one-warp producer, 16-key half tiles and __maxnreg__ were
+// each measured no better) and spills about 0.5 and 0.8 KB a thread,
+// which tools/flash_bwd_ab.py --dh 256 prints beside the passes' times.
+//
 // Bound on an H100 SXM (chip_smoke.py bwd_bound): the gradient's five
 // products (q.k, do.v, dq, dk, dv: 10 dh flops a visible pair) at the
 // 989 TFLOP/s bf16 tensor-core peak; at musicgen-medium's layer (B 4,
@@ -79,6 +100,11 @@
 // softcap, masks, dS, the hi/lo split) shares the issue slots and, with no
 // overlap of one tile's elementwise work with the next tile's products
 // inside a warpgroup, is what this design leaves on the critical path.
+// At gemma2's layer (B 1, S 8192, 8 over 4 heads, dh 256, causal: 3.4e7
+// visible pairs a head) the five products are 0.69 ms at that peak and
+// this design's 13 are 1.81 ms; a pair's elementwise work is the same at
+// every width, so at dh 256 the products weigh four times as much
+// against it as at dh 64.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -115,11 +141,12 @@ __device__ __forceinline__ void turn_pass(int wg) {
 template <int DH>
 struct Cfg {
   static constexpr int kChunks = (DH + 63) / 64;     // 64-column boxes
-  // (a) and (c): 128 query rows a block, kv tiles of 64 keys
+  // (a) and (c): 128 query rows a block, kv tiles of 64 keys (32 at dh
+  // 256, where a 2-stage ring of 64-key K and V would not fit beside Q, dO)
   static constexpr int kBQ = 128;
-  static constexpr int kBK = 64;
-  static constexpr int kRowStages = DH <= 64 ? 4 : 3;
-  static constexpr int kScanTiles = 4;               // kv tiles tested at once
+  static constexpr int kBK = DH > 128 ? 32 : 64;
+  static constexpr int kRowStages = DH <= 64 ? 4 : DH <= 128 ? 3 : 2;
+  static constexpr int kScanTiles = 256 / kBK;       // kv tiles tested at once
   static constexpr int kChunkQ = kBQ * 128;          // bytes of one box
   static constexpr int kChunkK = kBK * 128;
   static constexpr int kRowStage = kChunks * kChunkK;  // K or V of a stage
@@ -135,7 +162,9 @@ struct Cfg {
   static constexpr int kKB = 128;
   static constexpr int kQB = 32;
   static constexpr int kQSteps = kQB / 16;           // k-steps of dv, dk
-  static constexpr int kColStages = 4;
+  static constexpr int kColStages = DH > 128 ? 2 : 4;
+  // walks over the q tiles: dv and dk together, or (dh 256) dv, then dk
+  static constexpr int kColWalks = DH > 128 ? 2 : 1;
   static constexpr int kChunkKB = kKB * 128;
   static constexpr int kChunkQB = kQB * 128;
   static constexpr int kColStage = kChunks * kChunkQB;  // Q or dO of a stage
@@ -358,13 +387,17 @@ __device__ __forceinline__ void split_pack(const float (&x)[8 * KS], uint32_t (&
   }
 }
 
-// the scaled (and softcapped) score of a raw q.k; t = tanh(x / cap)
-template <bool kCap>
+// the scaled (and softcapped) score of a raw q.k; t = tanh(x / cap). With
+// kRecip (dh 256) x / cap is taken as x (1 / cap): one rounding more, half
+// an ulp of tanh's argument, far below the gate; the IEEE division's
+// slow-path branch otherwise keeps the compiler from interleaving a
+// tile's elements (measured on the card: 22 % of gemma2's dh-256 call).
+template <bool kCap, bool kRecip>
 __device__ __forceinline__ float score(float raw, float scale, float cap, float& t) {
   float x = raw * scale;
   t = 0.0f;
   if constexpr (kCap) {
-    t = tanhf(x / cap);
+    t = tanhf(kRecip ? x * (1.0f / cap) : x / cap);
     x = t * cap;
   }
   return x;
@@ -399,24 +432,25 @@ __device__ __forceinline__ int frag_col(int i, int lane) {
 }
 
 // (a): one kv tile's update of the online row statistics. s and dp are the
-// raw S and dP of the warpgroup's 64 rows (this thread's two) against 64
+// raw S and dP of the warpgroup's 64 rows (this thread's two) against N
 // keys (kp_s: their positions); m (log2 units) is shared by the quad, l
 // and pd are this thread's shares of sum p and sum p dP against it.
-template <bool kCap, bool kMask>
-__device__ __forceinline__ void stats_tile(float (&s)[32], const float (&dp)[32], float (&m)[2],
-                                           float (&l)[2], float (&pd)[2], const int (&qp)[2],
-                                           const int* kp_s, int lane, const Params& p) {
+template <int N, bool kRecip, bool kCap, bool kMask>
+__device__ __forceinline__ void stats_tile(float (&s)[N / 2], const float (&dp)[N / 2],
+                                           float (&m)[2], float (&l)[2], float (&pd)[2],
+                                           const int (&qp)[2], const int* kp_s, int lane,
+                                           const Params& p) {
   // x in log2 units with a softcap; without one the max is taken on the
   // raw scores (scale log2(e) > 0 keeps their order) and scaled once
   const float sl2 = p.scale * kLog2e;
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     float x = s[i];
     if (kCap) {
       float t;
-      x = score<true>(s[i], p.scale, p.cap, t) * kLog2e;
+      x = score<true, kRecip>(s[i], p.scale, p.cap, t) * kLog2e;
     }
     if (kMask && !visible(qp[r], kp_s[frag_col(i, lane)], p.causal, p.window)) x = -INFINITY;
     tmax[r] = fmaxf(tmax[r], x);
@@ -431,7 +465,7 @@ __device__ __forceinline__ void stats_tile(float (&s)[32], const float (&dp)[32]
   }
   float sum[2] = {0.0f, 0.0f}, spd[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     // 0 for a key the row does not see
     const float e = kCap ? exp2f(s[i] - mn[r]) : exp2f(fmaf(s[i], sl2, -mn[r]));
@@ -450,16 +484,17 @@ __device__ __forceinline__ void stats_tile(float (&s)[32], const float (&dp)[32]
 
 // (c): dS of one tile, rows of the thread (lse log2(e), D, positions per
 // row), keys along the columns (kp_s). s becomes dS.
-template <bool kCap, bool kMask>
-__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32], const float (&lse2)[2],
-                                        const float (&dl)[2], const int (&qp)[2], const int* kp_s,
-                                        int lane, const Params& p) {
+template <int N, bool kRecip, bool kCap, bool kMask>
+__device__ __forceinline__ void ds_rows(float (&s)[N / 2], const float (&dp)[N / 2],
+                                        const float (&lse2)[2], const float (&dl)[2],
+                                        const int (&qp)[2], const int* kp_s, int lane,
+                                        const Params& p) {
   const float sl2 = p.scale * kLog2e;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     float t;
-    const float x = score<kCap>(s[i], p.scale, p.cap, t);
+    const float x = score<kCap, kRecip>(s[i], p.scale, p.cap, t);
     float pij = prob<kCap>(s[i], x, sl2, lse2[r]);
     if (kMask && !visible(qp[r], kp_s[frag_col(i, lane)], p.causal, p.window)) pij = 0.0f;
     float g = pij * (dp[i] - dl[r]);
@@ -468,10 +503,15 @@ __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32], c
   }
 }
 
+// What one walk of (b) over the q tiles accumulates: dv and dk together,
+// or (Cfg::kColWalks == 2) dv alone, then dk alone.
+enum Walk { kBoth = 0, kDv = 1, kDk = 2 };
+
 // (b): P^T and dS^T of one 64 x N tile, keys along the rows (kp per
 // row), queries along the columns (lse log2(e), D and positions from the
-// stage). s becomes P^T, dp becomes dS^T.
-template <int N, bool kCap, bool kMask>
+// stage). s becomes P^T (not in a kDk walk), dp becomes dS^T (not in a
+// kDv walk, which neither reads dp nor D).
+template <int N, int kWalk, bool kRecip, bool kCap, bool kMask>
 __device__ __forceinline__ void p_ds_cols(float (&s)[N / 2], float (&dp)[N / 2],
                                           const int (&kp)[2], const float* lse_s,
                                           const float* dl_s, const int* qp_s, int lane,
@@ -481,7 +521,8 @@ __device__ __forceinline__ void p_ds_cols(float (&s)[N / 2], float (&dp)[N / 2],
   for (int g = 0; g < N / 8; ++g) {
     const int col = 8 * g + 2 * (lane & 3);
     const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + col);
-    const float2 dl2 = *reinterpret_cast<const float2*>(dl_s + col);
+    float2 dl2 = make_float2(0.0f, 0.0f);
+    if (kWalk != kDv) dl2 = *reinterpret_cast<const float2*>(dl_s + col);
     int2 qp2 = make_int2(0, 0);
     if (kMask) qp2 = *reinterpret_cast<const int2*>(qp_s + col);
 #pragma unroll
@@ -490,20 +531,22 @@ __device__ __forceinline__ void p_ds_cols(float (&s)[N / 2], float (&dp)[N / 2],
       const int r = u >> 1;
       const bool odd = (u & 1) != 0;
       float t;
-      const float x = score<kCap>(s[i], p.scale, p.cap, t);
+      const float x = score<kCap, kRecip>(s[i], p.scale, p.cap, t);
       float pij = prob<kCap>(s[i], x, sl2, odd ? lse2.y : lse2.x);
       if (kMask && !visible(odd ? qp2.y : qp2.x, kp[r], p.causal, p.window)) pij = 0.0f;
-      float g_ = pij * (dp[i] - (odd ? dl2.y : dl2.x));
-      if (kCap) g_ *= 1.0f - t * t;
-      s[i] = pij;
-      dp[i] = g_;
+      if constexpr (kWalk != kDv) {
+        float g_ = pij * (dp[i] - (odd ? dl2.y : dl2.x));
+        if (kCap) g_ *= 1.0f - t * t;
+        dp[i] = g_;
+      }
+      if constexpr (kWalk != kDk) s[i] = pij;
     }
   }
 }
 
 // ------------------------------------------------ (a) and (c): q-row blocks
 // The producer of (a) and (c): Q and dO once, then the visible kv tiles of
-// 64 keys in order through the ring, each with its key positions and its
+// kBK keys in order through the ring, each with its key positions and its
 // flag (all pairs visible) beside it; a sentinel ends the walk.
 template <int DH>
 __device__ __forceinline__ void row_producer(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
@@ -666,9 +709,12 @@ __device__ __forceinline__ void row_pass(const CUtensorMap* tm_q, const CUtensor
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
   }
-  float s[32], dp[32];
+  constexpr int N = C::kBK;                          // keys of a tile
+  constexpr int KS = N / 16;                         // k-steps of dq
+  constexpr bool kRecip = DH > 128;
+  float s[N / 2], dp[N / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.0f;
   const uint32_t q_addr = base + wg * 64 * 128;
   const uint32_t do_addr = base + C::kRowOffDo + wg * 64 * 128;
   turns_begin(wg);
@@ -687,8 +733,8 @@ __device__ __forceinline__ void row_pass(const CUtensorMap* tm_q, const CUtensor
     pin(dp);
     turn_wait(wg);
     wgmma_fence();
-    issue_nt<DH, 64>(s, q_addr, C::kChunkQ, k_addr, C::kChunkK);
-    issue_nt<DH, 64>(dp, do_addr, C::kChunkQ, v_addr, C::kChunkK);
+    issue_nt<DH, N>(s, q_addr, C::kChunkQ, k_addr, C::kChunkK);
+    issue_nt<DH, N>(dp, do_addr, C::kChunkQ, v_addr, C::kChunkK);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait_all();
@@ -696,36 +742,36 @@ __device__ __forceinline__ void row_pass(const CUtensorMap* tm_q, const CUtensor
     pin(dp);
     if constexpr (kDq) {
       if (p.cap != 0.0f) {
-        if (all_seen) ds_rows<true, false>(s, dp, lse2, dl, qp, kp_s, lane, p);
-        else ds_rows<true, true>(s, dp, lse2, dl, qp, kp_s, lane, p);
+        if (all_seen) ds_rows<N, kRecip, true, false>(s, dp, lse2, dl, qp, kp_s, lane, p);
+        else ds_rows<N, kRecip, true, true>(s, dp, lse2, dl, qp, kp_s, lane, p);
       } else if (all_seen) {
-        ds_rows<false, false>(s, dp, lse2, dl, qp, kp_s, lane, p);
+        ds_rows<N, kRecip, false, false>(s, dp, lse2, dl, qp, kp_s, lane, p);
       } else {
-        ds_rows<false, true>(s, dp, lse2, dl, qp, kp_s, lane, p);
+        ds_rows<N, kRecip, false, true>(s, dp, lse2, dl, qp, kp_s, lane, p);
       }
-      uint32_t gh[4][4], gl[4][4];
-      split_pack<4>(s, gh, gl);
+      uint32_t gh[KS][4], gl[KS][4];
+      split_pack<KS>(s, gh, gl);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KS; ++j) {
         pin(gh[j]);
         pin(gl[j]);
       }
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c) pin(acc[c]);
       wgmma_fence();
-      issue_grad<DH, 4>(acc, gh, gl, k_addr, C::kChunkK);
+      issue_grad<DH, KS>(acc, gh, gl, k_addr, C::kChunkK);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c) pin(acc[c]);
     } else {
       if (p.cap != 0.0f) {
-        if (all_seen) stats_tile<true, false>(s, dp, m, l, pd, qp, kp_s, lane, p);
-        else stats_tile<true, true>(s, dp, m, l, pd, qp, kp_s, lane, p);
+        if (all_seen) stats_tile<N, kRecip, true, false>(s, dp, m, l, pd, qp, kp_s, lane, p);
+        else stats_tile<N, kRecip, true, true>(s, dp, m, l, pd, qp, kp_s, lane, p);
       } else if (all_seen) {
-        stats_tile<false, false>(s, dp, m, l, pd, qp, kp_s, lane, p);
+        stats_tile<N, kRecip, false, false>(s, dp, m, l, pd, qp, kp_s, lane, p);
       } else {
-        stats_tile<false, true>(s, dp, m, l, pd, qp, kp_s, lane, p);
+        stats_tile<N, kRecip, false, true>(s, dp, m, l, pd, qp, kp_s, lane, p);
       }
     }
     __syncwarp();
@@ -791,73 +837,53 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 }
 
 // ------------------------------------------------------- (b) dk, dv
+// The producer of (b): K and V once, then in each of kColWalks walks the
+// GQA group's heads and, for each, the q tiles that can meet the key
+// block, in order, through the ring with their lse, D, positions and flag;
+// a sentinel ends each walk.
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
-               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
-               const Params p) {
+__device__ __forceinline__ void col_producer(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+                                             const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                             uint32_t base, uint8_t* smem, int k0, int b, int kvh,
+                                             int lane, const Params& p) {
   using C = Cfg<DH>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  uint8_t* smem = smem_raw + (base - raw);
-  float* s_stat = reinterpret_cast<float*>(smem + C::kColOffStat);   // [stage]{lse, D, qpos}[64]
+  float* s_stat = reinterpret_cast<float*>(smem + C::kColOffStat);   // [stage]{lse, D, qpos}[kQB]
   int* s_tile = reinterpret_cast<int*>(smem + C::kColOffTile);       // [stage]{live, all seen}
   const uint32_t bar_kv = base + C::kColOffBar;
   auto bar_full = [&](int st) { return bar_kv + 8u * (1 + st); };
   auto bar_empty = [&](int st) { return bar_kv + 8u * (1 + C::kColStages + st); };
-
-  const int k0 = static_cast<int>(blockIdx.x) * C::kKB;  // first keys meet the most queries
-  const int b = static_cast<int>(blockIdx.y) / p.kv_heads;
-  const int kvh = static_cast<int>(blockIdx.y) - b * p.kv_heads;
   const int rep = p.heads / p.kv_heads;
-  const int warp = static_cast<int>(threadIdx.x) >> 5;
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_kv, 1);
-    for (int st = 0; st < C::kColStages; ++st) {
-      mbar_init(bar_full(st), 1);
-      mbar_init(bar_empty(st), kConsumerWarps);
+  if (lane == 0) {
+    mbar_expect_tx(bar_kv, 2 * C::kChunks * C::kChunkKB);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      tma_load_4d(base + c * C::kChunkKB, tm_k, bar_kv, 64 * c, kvh, k0, b);
+      tma_load_4d(base + C::kColOffV + c * C::kChunkKB, tm_v, bar_kv, 64 * c, kvh, k0, b);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-
-  if (warp >= kConsumerWarps) {
-    // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (warp != kConsumerWarps) return;
-    if (lane == 0) {
-      mbar_expect_tx(bar_kv, 2 * C::kChunks * C::kChunkKB);
+  // the key block's live positions: range and whether every key is live
+  int kmin = INT_MAX;
+  int kmax = INT_MIN;
+  bool kall = true;
 #pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-        tma_load_4d(base + c * C::kChunkKB, &tm_k, bar_kv, 64 * c, kvh, k0, b);
-        tma_load_4d(base + C::kColOffV + c * C::kChunkKB, &tm_v, bar_kv, 64 * c, kvh, k0, b);
-      }
+  for (int e = 0; e < C::kKB / 32; ++e) {
+    const int j = k0 + lane + 32 * e;
+    const int x = j < p.sk_len ? __ldg(p.kpos + j) : -1;
+    if (x >= 0) {
+      kmin = min(kmin, x);
+      kmax = max(kmax, x);
+    } else {
+      kall = false;
     }
-    // the key block's live positions: range and whether every key is live
-    int kmin = INT_MAX;
-    int kmax = INT_MIN;
-    bool kall = true;
-#pragma unroll
-    for (int e = 0; e < C::kKB / 32; ++e) {
-      const int j = k0 + lane + 32 * e;
-      const int x = j < p.sk_len ? __ldg(p.kpos + j) : -1;
-      if (x >= 0) {
-        kmin = min(kmin, x);
-        kmax = max(kmax, x);
-      } else {
-        kall = false;
-      }
-    }
-    kmin = __reduce_min_sync(0xffffffffu, kmin);
-    kmax = __reduce_max_sync(0xffffffffu, kmax);
-    kall = __all_sync(0xffffffffu, kall);
-    const bool klive = kmin <= kmax;
-    const int n_qt = (p.s_len + C::kQB - 1) / C::kQB;
-    int stage = 0;
-    int phase = 0;
+  }
+  kmin = __reduce_min_sync(0xffffffffu, kmin);
+  kmax = __reduce_max_sync(0xffffffffu, kmax);
+  kall = __all_sync(0xffffffffu, kall);
+  const bool klive = kmin <= kmax;
+  const int n_qt = (p.s_len + C::kQB - 1) / C::kQB;
+  int stage = 0;
+  int phase = 0;
+  for (int walk = 0; walk < C::kColWalks; ++walk) {
     for (int r = 0; r < rep && klive; ++r) {
       const int h = kvh * rep + r;
       const size_t stat0 = (static_cast<size_t>(b) * p.heads + h) * p.s_len;
@@ -915,8 +941,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           const uint32_t do_dst = base + C::kColOffDo + stage * C::kColStage;
 #pragma unroll
           for (int c = 0; c < C::kChunks; ++c) {
-            tma_load_4d(q_dst + c * C::kChunkQB, &tm_q, bar_full(stage), 64 * c, h, q0, b);
-            tma_load_4d(do_dst + c * C::kChunkQB, &tm_do, bar_full(stage), 64 * c, h, q0, b);
+            tma_load_4d(q_dst + c * C::kChunkQB, tm_q, bar_full(stage), 64 * c, h, q0, b);
+            tma_load_4d(do_dst + c * C::kChunkQB, tm_do, bar_full(stage), 64 * c, h, q0, b);
           }
         }
         if (++stage == C::kColStages) {
@@ -930,116 +956,226 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       s_tile[2 * stage] = -1;                        // the walk is over
       mbar_arrive(bar_full(stage));
     }
-  } else {
-    // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const volatile int* s_tile_v = s_tile;
-    const int wg = warp >> 2;
-    const int kr0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // keys kr0 and kr0 + 8 of the block
-    int kp[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = k0 + kr0 + 8 * r;
-      kp[r] = j < p.sk_len ? __ldg(p.kpos + j) : -1;
+    if (++stage == C::kColStages) {
+      stage = 0;
+      phase ^= 1;
     }
+  }
+}
+
+// (b)'s consumers: one walk over the q tiles the producer brings, from
+// (stage, phase) to the walk's sentinel, whose stage it then releases
+// (the next walk reuses it). A kBoth walk adds P^T.dO to acc_v and
+// dS^T.Q to acc_k; a kDv walk (S^T, P^T) only the first, a kDk walk
+// (S^T, dP^T, dS^T) only the second, and touches nothing of the other.
+template <int DH, int kWalk>
+__device__ __forceinline__ void col_walk(float (&acc_k)[Cfg<DH>::kChunks][32],
+                                         float (&acc_v)[Cfg<DH>::kChunks][32], int& stage,
+                                         int& phase, uint32_t base, const float* s_stat,
+                                         const volatile int* s_tile, uint32_t k_addr,
+                                         uint32_t v_addr, const int (&kp)[2], int wg, int lane,
+                                         const Params& p) {
+  using C = Cfg<DH>;
+  constexpr int N = C::kQB;
+  constexpr int KS = C::kQSteps;
+  constexpr bool kRecip = DH > 128;
+  const uint32_t bar_kv = base + C::kColOffBar;
+  auto bar_full = [&](int st) { return bar_kv + 8u * (1 + st); };
+  auto bar_empty = [&](int st) { return bar_kv + 8u * (1 + C::kColStages + st); };
+  float s[N / 2], dp[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.0f;
+  while (true) {
+    mbar_wait(bar_full(stage), phase);
+    if (s_tile[2 * stage] < 0) break;
+    const bool all_seen = s_tile[2 * stage + 1] != 0;
+    const uint32_t q_addr = base + C::kColOffQ + stage * C::kColStage;
+    const uint32_t do_addr = base + C::kColOffDo + stage * C::kColStage;
+    const float* st_lse = s_stat + stage * 3 * N;
+    pin(s);
+    if constexpr (kWalk != kDv) pin(dp);
+    turn_wait(wg);
+    wgmma_fence();
+    issue_nt<DH, N>(s, k_addr, C::kChunkKB, q_addr, C::kChunkQB);         // S^T = K.Q^T
+    if constexpr (kWalk != kDv) {
+      issue_nt<DH, N>(dp, v_addr, C::kChunkKB, do_addr, C::kChunkQB);     // dP^T = V.dO^T
+    }
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait_all();
+    pin(s);
+    if constexpr (kWalk != kDv) pin(dp);
+    const float* dl_s = st_lse + N;
+    const int* qp_s = reinterpret_cast<const int*>(st_lse + 2 * N);
+    if (p.cap != 0.0f) {
+      if (all_seen) p_ds_cols<N, kWalk, kRecip, true, false>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
+      else p_ds_cols<N, kWalk, kRecip, true, true>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
+    } else if (all_seen) {
+      p_ds_cols<N, kWalk, kRecip, false, false>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
+    } else {
+      p_ds_cols<N, kWalk, kRecip, false, true>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
+    }
+    uint32_t ph[KS][4], pl[KS][4], gh[KS][4], gl[KS][4];
+    if constexpr (kWalk != kDk) {
+      split_pack<KS>(s, ph, pl);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        pin(ph[j]);
+        pin(pl[j]);
+      }
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) pin(acc_v[c]);
+    }
+    if constexpr (kWalk != kDv) {
+      split_pack<KS>(dp, gh, gl);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        pin(gh[j]);
+        pin(gl[j]);
+      }
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) pin(acc_k[c]);
+    }
+    wgmma_fence();
+    if constexpr (kWalk != kDk) {
+      issue_grad<DH, KS>(acc_v, ph, pl, do_addr, C::kChunkQB);            // dv += P^T.dO
+    }
+    if constexpr (kWalk != kDv) {
+      issue_grad<DH, KS>(acc_k, gh, gl, q_addr, C::kChunkQB);             // dk += dS^T.Q
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      if constexpr (kWalk != kDk) pin(acc_v[c]);
+      if constexpr (kWalk != kDv) pin(acc_k[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty(stage));
+    if (++stage == C::kColStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar_empty(stage));
+  if (++stage == C::kColStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// A consumer thread's two keys (kr0 and kr0 + 8 of the block at k0) of dk
+// or dv: acc times mul, each element rounded once to bf16.
+template <int DH>
+__device__ __forceinline__ void store_keys(__nv_bfloat16* out,
+                                           const float (&acc)[Cfg<DH>::kChunks][32], float mul,
+                                           int k0, int kr0, int b, int kvh, int lane,
+                                           const Params& p) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + kr0 + 8 * r;
+    if (j >= p.sk_len) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * p.sk_len + j) * p.kv_heads + kvh) * DH;
+#pragma unroll
+    for (int c = 0; c < Cfg<DH>::kChunks; ++c) {
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = 64 * c + 8 * g + 2 * (lane & 3);
+        if (col < DH) {
+          const int i = 4 * g + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(out + row + col) =
+              __floats2bfloat162_rn(acc[c][i] * mul, acc[c][i + 1] * mul);
+        }
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+               const Params p) {
+  using C = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + C::kColOffBar;
+  auto bar_full = [&](int st) { return bar_kv + 8u * (1 + st); };
+  auto bar_empty = [&](int st) { return bar_kv + 8u * (1 + C::kColStages + st); };
+
+  const int k0 = static_cast<int>(blockIdx.x) * C::kKB;  // first keys meet the most queries
+  const int b = static_cast<int>(blockIdx.y) / p.kv_heads;
+  const int kvh = static_cast<int>(blockIdx.y) - b * p.kv_heads;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < C::kColStages; ++st) {
+      mbar_init(bar_full(st), 1);
+      mbar_init(bar_empty(st), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kConsumerWarps) return;
+    col_producer<DH>(&tm_q, &tm_do, &tm_k, &tm_v, base, smem, k0, b, kvh, lane, p);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const float* s_stat = reinterpret_cast<const float*>(smem + C::kColOffStat);
+  const volatile int* s_tile = reinterpret_cast<const volatile int*>(smem + C::kColOffTile);
+  const int wg = warp >> 2;
+  const int kr0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // keys kr0 and kr0 + 8 of the block
+  int kp[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + kr0 + 8 * r;
+    kp[r] = j < p.sk_len ? __ldg(p.kpos + j) : -1;
+  }
+  const uint32_t k_addr = base + wg * 64 * 128;
+  const uint32_t v_addr = base + C::kColOffV + wg * 64 * 128;
+  turns_begin(wg);
+  mbar_wait(bar_kv, 0);
+
+  int stage = 0;
+  int phase = 0;
+  if constexpr (C::kColWalks == 1) {
     float acc_k[C::kChunks][32], acc_v[C::kChunks][32];
 #pragma unroll
     for (int c = 0; c < C::kChunks; ++c) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc_k[c][i] = acc_v[c][i] = 0.0f;
     }
-    float s[C::kQB / 2], dp[C::kQB / 2];
+    col_walk<DH, kBoth>(acc_k, acc_v, stage, phase, base, s_stat, s_tile, k_addr, v_addr, kp, wg,
+                        lane, p);
+    store_keys<DH>(p.dk, acc_k, p.scale, k0, kr0, b, kvh, lane, p);
+    store_keys<DH>(p.dv, acc_v, 1.0f, k0, kr0, b, kvh, lane, p);
+  } else {
+    // dv, then dk, each in one accumulator of 128 floats a thread at dh 256
+    float acc[C::kChunks][32];
 #pragma unroll
-    for (int i = 0; i < C::kQB / 2; ++i) s[i] = dp[i] = 0.0f;
-    const uint32_t k_addr = base + wg * 64 * 128;
-    const uint32_t v_addr = base + C::kColOffV + wg * 64 * 128;
-    turns_begin(wg);
-    mbar_wait(bar_kv, 0);
-
-    int stage = 0;
-    int phase = 0;
-    while (true) {
-      mbar_wait(bar_full(stage), phase);
-      if (s_tile_v[2 * stage] < 0) break;
-      const bool all_seen = s_tile_v[2 * stage + 1] != 0;
-      const uint32_t q_addr = base + C::kColOffQ + stage * C::kColStage;
-      const uint32_t do_addr = base + C::kColOffDo + stage * C::kColStage;
-      const float* st_lse = s_stat + stage * 3 * C::kQB;
-      pin(s);
-      pin(dp);
-      turn_wait(wg);
-      wgmma_fence();
-      issue_nt<DH, C::kQB>(s, k_addr, C::kChunkKB, q_addr, C::kChunkQB);    // S^T = K.Q^T
-      issue_nt<DH, C::kQB>(dp, v_addr, C::kChunkKB, do_addr, C::kChunkQB);  // dP^T = V.dO^T
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait_all();
-      pin(s);
-      pin(dp);
-      const float* dl_s = st_lse + C::kQB;
-      const int* qp_s = reinterpret_cast<const int*>(st_lse + 2 * C::kQB);
-      constexpr int N = C::kQB;
-      if (p.cap != 0.0f) {
-        if (all_seen) p_ds_cols<N, true, false>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
-        else p_ds_cols<N, true, true>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
-      } else if (all_seen) {
-        p_ds_cols<N, false, false>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
-      } else {
-        p_ds_cols<N, false, true>(s, dp, kp, st_lse, dl_s, qp_s, lane, p);
-      }
-      uint32_t ph[C::kQSteps][4], pl[C::kQSteps][4], gh[C::kQSteps][4], gl[C::kQSteps][4];
-      split_pack<C::kQSteps>(s, ph, pl);
-      split_pack<C::kQSteps>(dp, gh, gl);
+    for (int c = 0; c < C::kChunks; ++c) {
 #pragma unroll
-      for (int j = 0; j < C::kQSteps; ++j) {
-        pin(ph[j]);
-        pin(pl[j]);
-        pin(gh[j]);
-        pin(gl[j]);
-      }
-#pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-        pin(acc_k[c]);
-        pin(acc_v[c]);
-      }
-      wgmma_fence();
-      issue_grad<DH, C::kQSteps>(acc_v, ph, pl, do_addr, C::kChunkQB);   // dv += P^T.dO
-      issue_grad<DH, C::kQSteps>(acc_k, gh, gl, q_addr, C::kChunkQB);    // dk += dS^T.Q
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-        pin(acc_k[c]);
-        pin(acc_v[c]);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty(stage));
-      if (++stage == C::kColStages) {
-        stage = 0;
-        phase ^= 1;
-      }
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
     }
-
+    col_walk<DH, kDv>(acc, acc, stage, phase, base, s_stat, s_tile, k_addr, v_addr, kp, wg, lane,
+                      p);
+    store_keys<DH>(p.dv, acc, 1.0f, k0, kr0, b, kvh, lane, p);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = k0 + kr0 + 8 * r;
-      if (j >= p.sk_len) continue;
-      const int64_t row = ((static_cast<int64_t>(b) * p.sk_len + j) * p.kv_heads + kvh) * DH;
+    for (int c = 0; c < C::kChunks; ++c) {
 #pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-#pragma unroll
-        for (int g = 0; g < 8; ++g) {
-          const int col = 64 * c + 8 * g + 2 * (lane & 3);
-          if (col < DH) {
-            const int i = 4 * g + 2 * r;
-            *reinterpret_cast<__nv_bfloat162*>(p.dk + row + col) =
-                __floats2bfloat162_rn(acc_k[c][i] * p.scale, acc_k[c][i + 1] * p.scale);
-            *reinterpret_cast<__nv_bfloat162*>(p.dv + row + col) =
-                __floats2bfloat162_rn(acc_v[c][i], acc_v[c][i + 1]);
-          }
-        }
-      }
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
     }
+    col_walk<DH, kDk>(acc, acc, stage, phase, base, s_stat, s_tile, k_addr, v_addr, kp, wg, lane,
+                      p);
+    store_keys<DH>(p.dk, acc, p.scale, k0, kr0, b, kvh, lane, p);
   }
 }
 
@@ -1118,7 +1254,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            int b, cudaStream_t stream) {
   using C = Cfg<DH>;
   const int s = p0.s_len, sk = p0.sk_len, h = p0.heads, kvh = p0.kv_heads;
-  // (a), (c): q and dO in 128-row boxes, k and v in 64; (b) the other way
+  // (a), (c): q and dO in 128-row boxes, k and v in kBK; (b): k and v in
+  // 128, q and dO in kQB
   CUtensorMap rq, rdo, rk, rv, cq, cdo, ck, cv;
   int err = 0;
   if ((err = make_map(&rq, q, DH, h, s, b, C::kBQ)) != 0) return err;
@@ -1167,7 +1304,7 @@ int smem_of(int pass) {
 // (flash_attention_bwd_tc_error_string names each); it never synchronises
 // and allocates nothing: lse and delta are (B, H, S) float32 scratch from
 // the caller. The caller guarantees s, sk >= 1, b * h >= 1, dh one of 64,
-// 96, 112, 128, h % kvh == 0, contiguous bf16 q, do, dq (B, S, H, dh) and
+// 96, 112, 128, 256, h % kvh == 0, contiguous bf16 q, do, dq (B, S, H, dh) and
 // k, v, dk, dv (B, Sk, KV, dh) with 16-byte aligned bases for q, k, v, do,
 // int32 positions, all on the current device, and the envelope
 // (kernels/envelope.outside_flash_bwd_tc_envelope).
@@ -1198,6 +1335,7 @@ int flash_attention_bwd_tc_smem_bytes(int pass, int dh) {
     case 96: return smem_of<96>(pass);
     case 112: return smem_of<112>(pass);
     case 128: return smem_of<128>(pass);
+    case 256: return smem_of<256>(pass);
     default: return kErrHeadDim;
   }
 }
@@ -1215,6 +1353,7 @@ int flash_attention_bwd_tc(const void* q, const void* k, const void* v, const vo
     case 96: return launch<96>(q, k, v, dout, p, b, st);
     case 112: return launch<112>(q, k, v, dout, p, b, st);
     case 128: return launch<128>(q, k, v, dout, p, b, st);
+    case 256: return launch<256>(q, k, v, dout, p, b, st);
     default: return kErrHeadDim;
   }
 }

@@ -271,11 +271,12 @@ def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
     """Decide how the flash-attention backward runs on q (B, S, H, dh).
     A CUDA call takes one of two kernels (``route``), by
     ``envelope.flash_bwd_route``: 'tensor_core'
-    (csrc/flash_attention_bwd_tc.cu) for bf16 at head widths 64, 96, 112
-    and 128, 'cuda_core' (csrc/flash_attention_bwd.cu) for float32 and for
-    bf16 at any other width up to ``envelope.FLASH_BWD_MAX_HEAD_DIM``
-    (256, gemma2's); each is held to its own envelope. A CPU
-    tensor takes the plain autograd (route 'plain')."""
+    (csrc/flash_attention_bwd_tc.cu) for bf16 at head widths 64, 96, 112,
+    128 and 256 (gemma2's), 'cuda_core' (csrc/flash_attention_bwd.cu) for
+    float32 and for bf16 at any other width up to
+    ``envelope.FLASH_BWD_MAX_HEAD_DIM``; each is held to its own envelope,
+    and a call outside its route's envelope raises. A CPU tensor takes the
+    plain autograd (route 'plain')."""
     b, s, h, dh = q.shape
     route = envelope.flash_bwd_route(q.dtype == torch.bfloat16, dh)
 

@@ -101,19 +101,24 @@ at 256 (a 64-row tile there would need 266,752 for the statistics
 alone). Their grids are one-dimensional (tiles x batch x heads).
 
 The tensor-core backward (csrc/flash_attention_bwd_tc.cu) takes bf16 at
-head widths 64, 96, 112 and 128 (``flash_bwd_route``; 96 and 112 run as
-128, two 64-column boxes of the 128-byte swizzle). Its passes stage bf16
-tiles by TMA. The row statistics and dq passes hold a 128-row q and dO
-tile and a ring of st stages (4 at dh 64, 3 above) of 64-key K and V
-tiles with the keys' positions and a tile word pair: with c = ceil(dh /
-64) boxes, ``2 c 16384 + 2 st c 8192 + st (256 + 8) + (1 + 2 st) 8 +
-1024`` bytes. The dk/dv pass holds a 128-key K and V tile and a ring of 4
-stages of 32-row Q and dO tiles with lse, D and the queries' positions:
-``2 c 16384 + 8 c 4096 + 4 (384 + 8) + 72 + 1024`` bytes
-(``flash_bwd_tc_smem_bytes``): 100,456 / 68,200 / 100,456 at dh 64 and
-165,712 / 133,736 / 165,712 above. Their grids are (tiles, batch x
-heads), heads the query heads for the row passes and the kv heads for
-dk/dv.
+head widths 64, 96, 112, 128 and 256 (``flash_bwd_route``; 96 and 112 run
+as 128; c = ceil(dh / 64) boxes of 64 columns under the 128-byte
+swizzle). Its passes stage bf16 tiles by TMA. The row statistics and dq
+passes hold a 128-row q and dO tile and a ring of st stages (4 at dh 64,
+3 at 96-128, 2 at 256) of kr-key K and V tiles (kr = 64, 32 at dh 256:
+``flash_bwd_tc_key_rows``) with the keys' positions and a tile word
+pair: ``2 c 16384 + 2 st c 128 kr + st (4 kr + 8) + (1 + 2 st) 8 +
+1024`` bytes. The dk/dv pass holds a 128-key K and V tile and a ring of
+st stages (4, 2 at dh 256) of 32-row Q and dO tiles with lse, D and the
+queries' positions: ``2 c 16384 + 2 st c 4096 + st (384 + 8) + (1 + 2
+st) 8 + 1024`` bytes (``flash_bwd_tc_smem_bytes``): 100,456 / 68,200 /
+100,456 at dh 64, 165,712 / 133,736 / 165,712 at 96-128 and 197,944 /
+198,456 / 197,944 at 256, where the layouts with 64-key K and V tiles or
+4 stages of Q and dO would need 262,144 bytes before positions and
+barriers. At dh 256 the dk/dv pass walks the q tiles twice, dv then dk
+(``flash_bwd_tc_walks``), so a consumer thread holds one 128-float
+accumulator, not two. Their grids are (tiles, batch x heads), heads the
+query heads for the row passes and the kv heads for dk/dv.
 """
 from __future__ import annotations
 
@@ -614,7 +619,7 @@ def flash_bwd_smem_bytes(pass_: int, dh: int) -> int:
     return 4 * words
 
 
-FLASH_BWD_TC_HEAD_DIMS = (64, 96, 112, 128)
+FLASH_BWD_TC_HEAD_DIMS = (64, 96, 112, 128, 256)
 
 
 def flash_bwd_route(bf16: bool, dh: int) -> str:
@@ -628,8 +633,23 @@ def flash_bwd_route(bf16: bool, dh: int) -> str:
 
 def flash_bwd_tc_stages(pass_: int, dh: int) -> int:
     """Depth of the tensor-core backward's ring in pass ``pass_`` at head
-    width dh."""
+    width dh (``Cfg<DH>::kRowStages / kColStages``)."""
+    if dh > 128:
+        return 2
     return 4 if pass_ == 1 or dh <= 64 else 3
+
+
+def flash_bwd_tc_key_rows(dh: int) -> int:
+    """Keys of a kv tile in the tensor-core backward's row passes at head
+    width dh (``Cfg<DH>::kBK``)."""
+    return 32 if dh > 128 else 64
+
+
+def flash_bwd_tc_walks(dh: int) -> int:
+    """Walks of the tensor-core dk/dv pass over the q tiles at head width
+    dh: 1 (dk and dv together), 2 at dh 256 (dv, then dk;
+    ``Cfg<DH>::kColWalks``)."""
+    return 2 if dh > 128 else 1
 
 
 FLASH_BWD_TC_Q_ROWS = 32          # query rows of a dk/dv step
@@ -643,7 +663,8 @@ def flash_bwd_tc_smem_bytes(pass_: int, dh: int) -> int:
     if pass_ == 1:      # Q, dO; lse, D and positions of each row
         rows, per_stage = FLASH_BWD_TC_Q_ROWS, 12 * FLASH_BWD_TC_Q_ROWS
     else:               # K, V; the keys' positions
-        rows, per_stage = 64, 4 * 64
+        rows = flash_bwd_tc_key_rows(dh)
+        per_stage = 4 * rows
     return (2 * chunks * 16384 + 2 * st * chunks * 128 * rows
             + st * (per_stage + 8) + (1 + 2 * st) * 8 + 1024)
 

@@ -26,11 +26,12 @@ causal, window, attn_softcap)`` -> (dq, dk, dv) is the gradient of that
 function for the output cotangent dout. A CUDA tensor launches one of two
 backward kernels, three launches each (row statistics, dk/dv, dq; float32
 accumulation, no atomics, so bitwise run to run), by the route
-``dispatch.resolve_flash_bwd`` names: bf16 at head widths 64, 96, 112 and
-128 runs the tensor-core kernel (csrc/flash_attention_bwd_tc.cu, wgmma
-and TMA; its operands 16-byte aligned as the forward's) and adds one to
-``launches["flash_attention_bwd_tc"]`` per call; float32, and bf16 at any
-other width up to 256 (gemma2's, in 32-row tiles), run the CUDA-core
+``dispatch.resolve_flash_bwd`` names: bf16 at head widths 64, 96, 112,
+128 and 256 (gemma2's) runs the tensor-core kernel
+(csrc/flash_attention_bwd_tc.cu, wgmma and TMA; its operands 16-byte
+aligned as the forward's) and adds one to
+``launches["flash_attention_bwd_tc"]`` per call; float32 (dh 256 in
+32-row tiles), and bf16 at any other width up to 256, run the CUDA-core
 kernel (csrc/flash_attention_bwd.cu) and add one to
 ``launches["flash_attention_bwd"]``. A failed launch raises; there is no
 fallback. A CPU tensor runs the plain version

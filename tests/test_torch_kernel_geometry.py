@@ -8,7 +8,9 @@ design lanes, the channel of each element found incrementally as the
 kernels do), and every output must be written exactly once. The built
 libraries' own numbers are held against the mirrors on the card by
 chip_smoke.py. The range rows the wrappers keep are held against
-``core.adc.range_rows_tensors``.
+``core.adc.range_rows_tensors``. The tensor-core attention backward's
+``Cfg<DH>`` (csrc/flash_attention_bwd_tc.cu), its constants parsed from
+the source, is held against the envelope's ``flash_bwd_tc_*`` mirrors.
 """
 import re
 from pathlib import Path
@@ -548,3 +550,63 @@ def test_every_tuning_candidate_writes_every_output_once(w, block_m):
         kind = "mlp" if w.entry.endswith("mlp") else "svm"
         assert g.rows == block_m
         assert (bank_writes(g, kind, w.d, w.m, w.c, w.o) == 1).all()
+
+
+def _c_to_py(expr: str) -> str:
+    """A C integer expression of the Cfg structs (+, -, *, integer /,
+    comparisons, ?: nested on the right) as Python."""
+    if "?" not in expr:
+        return expr
+    cond, rest = expr.split("?", 1)
+    then, other = rest.split(":", 1)
+    return (f"(({_c_to_py(then)}) if ({_c_to_py(cond)}) "
+            f"else ({_c_to_py(other)}))")
+
+
+def _cfg_consts(name: str, dh: int) -> dict:
+    """The constants of ``struct Cfg`` in csrc/<name>, evaluated at DH = dh
+    in the order they are declared, after the namespace's own constexpr
+    ints that precede the struct."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / name).read_text())
+    head, body = re.search(r"(.*?)struct Cfg \{(.*?)\n\};", text,
+                           re.S).groups()
+    env = {"DH": dh, "true": True, "false": False}
+    decls = (re.findall(r"^constexpr int (\w+) = ([^;]+);", head, re.M)
+             + re.findall(r"static constexpr (?:int|bool) (\w+) = ([^;]+);",
+                          body))
+    for key, expr in decls:
+        py = _c_to_py(expr.replace("/", "//"))
+        env[key] = eval(py, {"__builtins__": {}}, dict(env))
+    return env
+
+
+def test_backward_tc_instantiations_are_the_envelope_widths():
+    """csrc/flash_attention_bwd_tc.cu launches (and sizes) exactly the
+    head widths ``envelope.FLASH_BWD_TC_HEAD_DIMS`` names."""
+    src = (CSRC / "flash_attention_bwd_tc.cu").read_text()
+    launched = sorted(int(d) for d in re.findall(
+        r"case (\d+): return launch<\1>", src))
+    sized = sorted(int(d) for d in re.findall(
+        r"case (\d+): return smem_of<\1>", src))
+    assert launched == sized == sorted(envelope.FLASH_BWD_TC_HEAD_DIMS)
+    assert 256 in launched
+
+
+@pytest.mark.parametrize("dh", envelope.FLASH_BWD_TC_HEAD_DIMS)
+def test_backward_tc_cfg_matches_the_envelope(dh):
+    """Cfg<DH> of csrc/flash_attention_bwd_tc.cu, its constants parsed
+    from the source and evaluated at each instantiated width (Cfg<256>
+    included), gives the envelope's geometry: each ring's depth, the row
+    passes' kv-tile keys, the dk/dv pass's q rows and walks, and each
+    pass's shared memory."""
+    c = _cfg_consts("flash_attention_bwd_tc.cu", dh)
+    assert c["kChunks"] == -(-dh // 64)
+    assert c["kRowStages"] == envelope.flash_bwd_tc_stages(0, dh) \
+        == envelope.flash_bwd_tc_stages(2, dh)
+    assert c["kColStages"] == envelope.flash_bwd_tc_stages(1, dh)
+    assert c["kBK"] == envelope.flash_bwd_tc_key_rows(dh)
+    assert c["kQB"] == envelope.FLASH_BWD_TC_Q_ROWS
+    assert c["kColWalks"] == envelope.flash_bwd_tc_walks(dh)
+    assert [c["kRowBytes"], c["kColBytes"], c["kRowBytes"]] == [
+        envelope.flash_bwd_tc_smem_bytes(p, dh) for p in range(3)]
+    assert max(c["kRowBytes"], c["kColBytes"]) <= envelope.SMEM_MAX_BYTES

@@ -257,11 +257,11 @@ def _fake_cuda(shape, dtype):
     ("bfloat16", 112, "tensor_core"), ("bfloat16", 128, "tensor_core"),
     ("bfloat16", 80, "cuda_core"), ("bfloat16", 16, "cuda_core"),
     ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core"),
-    ("bfloat16", 256, "cuda_core"), ("float32", 256, "cuda_core")])
+    ("bfloat16", 256, "tensor_core"), ("float32", 256, "cuda_core")])
 def test_backward_route_table(dtype, dh, route):
-    """The backward's two routes: bf16 at 64/96/112/128 on the tensor
-    cores, bf16 at other widths (gemma2's 256 included) and float32 on the
-    CUDA cores; a CPU tensor on the plain autograd."""
+    """The backward's two routes: bf16 at 64/96/112/128 and 256 (gemma2's)
+    on the tensor cores, bf16 at other widths and float32 on the CUDA
+    cores; a CPU tensor on the plain autograd."""
     from repro_torch.kernels import dispatch, envelope
     dt = getattr(torch, dtype)
     res = dispatch.resolve_flash_bwd("flash_attention_bwd",
@@ -275,17 +275,20 @@ def test_backward_route_table(dtype, dh, route):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_backward_refuses_head_dim_256(dtype):
-    """dh 256 has no tensor-core backward: it runs on the CUDA-core
-    kernel's 32-row tiles, and a width above 256 is outside both routes'
-    envelopes; the tensor-core route's grid is (tiles, B*H), so B*H above
-    gridDim.y is refused too."""
+    """dh 256 runs on the tensor-core backward in bf16 and on the CUDA-core
+    kernel's 32-row tiles in float32; a width above 256 is outside both
+    routes' envelopes (the tensor-core one has no instantiation between
+    128 and 256 either); the tensor-core route's grid is (tiles, B*H), so
+    B*H above gridDim.y is refused too."""
     from repro_torch.kernels import dispatch, envelope
+    assert envelope.outside_flash_bwd_tc_envelope(1, 8, 256) is None
     assert "no tensor-core" in envelope.outside_flash_bwd_tc_envelope(
-        1, 8, 256)
+        1, 8, 200)
     res = dispatch.resolve_flash_bwd(
         "flash_attention_bwd",
         _fake_cuda((1, 64, 8, 256), getattr(torch, dtype)))
-    assert (res.path, res.route) == ("kernel", "cuda_core")
+    assert (res.path, res.route) == (
+        "kernel", "tensor_core" if dtype == "bfloat16" else "cuda_core")
     with pytest.raises(ValueError, match="head_dim=320"):
         dispatch.resolve_flash_bwd(
             "flash_attention_bwd",
@@ -310,9 +313,62 @@ def test_backward_tc_shared_memory():
         4, 4, 4]
     assert [envelope.flash_bwd_tc_stages(p, 128) for p in range(3)] == [
         3, 4, 3]
+    assert [envelope.flash_bwd_tc_smem_bytes(p, 256) for p in range(3)] == [
+        197_944, 198_456, 197_944]
+    assert [envelope.flash_bwd_tc_stages(p, 256) for p in range(3)] == [
+        2, 2, 2]
     assert envelope.FLASH_BWD_TC_Q_ROWS == 32
     assert all(envelope.outside_flash_bwd_tc_envelope(4, 24, dh) is None
                for dh in envelope.FLASH_BWD_TC_HEAD_DIMS)
+
+
+def test_backward_tc_route_at_head_dim_256():
+    """gemma2's dh 256: bf16 takes the tensor-core backward, float32 stays
+    on the CUDA-core kernel (held at 1e-5, which bf16 products do not
+    meet); the routes at the other widths are as they were."""
+    from repro_torch.kernels import envelope
+    assert envelope.flash_bwd_route(True, 256) == "tensor_core"
+    assert envelope.flash_bwd_route(False, 256) == "cuda_core"
+    for dh in (64, 96, 112, 128):
+        assert envelope.flash_bwd_route(True, dh) == "tensor_core"
+        assert envelope.flash_bwd_route(False, dh) == "cuda_core"
+    for dh in (16, 80, 129, 200, 255):
+        assert envelope.flash_bwd_route(True, dh) == "cuda_core"
+
+
+def test_backward_tc_envelope_at_head_dim_256():
+    """The dh-256 geometry of csrc/flash_attention_bwd_tc.cu as the
+    envelope's docstring states it: the row passes hold a 128-row Q and dO
+    tile and 2 stages of 32-key K and V, the dk/dv pass a 128-key K and V
+    tile and 2 stages of 32-row Q and dO, walked twice (dv, then dk); each
+    under the H100's per-block limit, where 64-key K and V or 4 stages of
+    Q and dO would not fit; gemma2's layer inside the envelope; a bf16
+    dh-256 call outside it raises, naming the limit."""
+    from repro_torch.kernels import dispatch, envelope
+    c, st, kr = 256 // 64, 2, 32
+    assert envelope.flash_bwd_tc_key_rows(256) == kr
+    assert envelope.flash_bwd_tc_walks(256) == 2
+    rows = (2 * c * 16384 + 2 * st * c * 128 * kr + st * (4 * kr + 8)
+            + (1 + 2 * st) * 8 + 1024)
+    cols = (2 * c * 16384 + 2 * st * c * 4096 + st * (384 + 8)
+            + (1 + 2 * st) * 8 + 1024)
+    assert [envelope.flash_bwd_tc_smem_bytes(p, 256) for p in range(3)] == [
+        rows, cols, rows] == [197_944, 198_456, 197_944]
+    assert max(rows, cols) <= envelope.SMEM_MAX_BYTES
+    assert 2 * c * 16384 + 2 * 2 * c * 128 * 64 == 262_144
+    assert 2 * c * 16384 + 2 * 4 * c * 4096 == 262_144
+    assert 262_144 > envelope.SMEM_MAX_BYTES
+    for dh in (64, 96, 112, 128):
+        assert envelope.flash_bwd_tc_key_rows(dh) == 64
+        assert envelope.flash_bwd_tc_walks(dh) == 1
+    assert envelope.outside_flash_bwd_tc_envelope(1, 8, 256) is None
+    res = dispatch.resolve_flash_bwd(
+        "flash_attention_bwd", _fake_cuda((1, 8192, 8, 256), torch.bfloat16))
+    assert (res.path, res.route) == ("kernel", "tensor_core")
+    with pytest.raises(ValueError, match="grid's y limit"):
+        dispatch.resolve_flash_bwd(
+            "flash_attention_bwd",
+            _fake_cuda((envelope.MAX_DESIGNS + 1, 64, 1, 256), torch.bfloat16))
 
 
 @pytest.mark.parametrize("name", ["flash_attention_bwd",

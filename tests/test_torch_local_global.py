@@ -368,7 +368,8 @@ def test_backward_envelope_at_head_dim_256():
     """csrc/flash_attention_bwd.cu at DHP 256: 32-row tiles, each pass's
     shared memory by the formula (T rows of DHP + 4 words, P and dS rows
     of T + 1) under the H100's 232,448 bytes, the CUDA-core route in
-    both types, and the grid counted in 32-row tiles."""
+    float32 (and in bf16 below 256, where the tensor-core backward has no
+    instantiation), and the grid counted in 32-row tiles."""
     t, ld = 32, 256 + 4
     want = [4 * (4 * t * ld + 2 * t),
             4 * (4 * t * ld + 2 * t * (t + 1) + 4 * t),
@@ -381,7 +382,9 @@ def test_backward_envelope_at_head_dim_256():
     for dh in (129, 200, 256):
         assert envelope.flash_bwd_head_pad(dh) == 256
         assert envelope.flash_bwd_tile(dh) == 32
-        assert envelope.flash_bwd_route(True, dh) == "cuda_core"
+        # bf16 at 256 takes the tensor-core backward (Cfg<256>)
+        assert envelope.flash_bwd_route(True, dh) == (
+            "tensor_core" if dh == 256 else "cuda_core")
         assert envelope.flash_bwd_route(False, dh) == "cuda_core"
         assert envelope.outside_flash_bwd_envelope(1, 8192, 8, dh) is None
     assert envelope.flash_bwd_tile(128) == envelope.flash_bwd_tile(64) == 64

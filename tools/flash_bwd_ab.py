@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the tensor-core attention backward on one card.
 
-  python3 tools/flash_bwd_ab.py [--variant NAME=OTHER.cu ...]
+  python3 tools/flash_bwd_ab.py [--dh 256] [--variant NAME=OTHER.cu ...]
 
 Builds the repo's ``src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu``
 and each ``--variant`` (another copy of that source: a parent commit's,
@@ -15,7 +15,9 @@ is put behind ``kernels.flash_attention``'s tensor-core backward in turn
 - held against the plain autograd (``ref.flash_attention_bwd_ref`` in
   float32 at the same inputs) at musicgen-medium's layer (B 4, S 2048,
   H = KV 24, dh 64, causal) and a GQA call at dh 128 with a window and a
-  softcap (B 1, S 777, H 40, KV 8, window 512, softcap 50), on
+  softcap (B 1, S 777, H 40, KV 8, window 512, softcap 50), or with
+  ``--dh 256`` at gemma2-2b's layer (B 1, S 8192, H 8, KV 4, dh 256,
+  softcap 50; global, then window 4096), on
   q, k ~ N(0, 1.5^2), v ~ N(1, 1), dout ~ N(0, 1): each gradient's share
   of chip_smoke.py's bf16 gate ``BWD_TOL`` (above 1 breaks it; reported,
   not enforced, so a variant that breaks it is measured too) and whether
@@ -25,7 +27,10 @@ is put behind ``kernels.flash_attention``'s tensor-core backward in turn
   pass's device time per launch (torch.profiler, as chip_smoke.py reads
   it);
 - beside them, the repo's CUDA-core backward (csrc/flash_attention_bwd.cu)
-  on the same bf16 inputs: shares, two timings of 3 calls, its passes.
+  on the same bf16 inputs: shares, two timings of 3 calls, its passes;
+  and chip_smoke.py's ``bwd_bound`` of the call (the gradient's five
+  products at the bf16 tensor-core peak) and the tensor-core design's
+  own products at that peak.
 
 The card's nvidia-smi name and power limit are printed first; the last
 line is one JSON object with every number. Needs a CUDA card and nvcc.
@@ -47,6 +52,9 @@ sys.path.insert(0, str(REPO))
 # (label, B, S, H, KV, dh, window, softcap)
 CASES = [("musicgen layer", 4, 2048, 24, 24, 64, 0, 0.0),
          ("GQA dh 128 window softcap", 1, 777, 40, 8, 128, 512, 50.0)]
+# --dh 256: gemma2-2b's layer (chip_smoke.GEMMA_ATTN), global and windowed
+CASES_256 = [("gemma2 layer global", 1, 8192, 8, 4, 256, 0, 50.0),
+             ("gemma2 layer window 4096", 1, 8192, 8, 4, 256, 4096, 50.0)]
 REPS = 20
 
 
@@ -91,15 +99,18 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="another flash_attention_bwd_tc.cu to hold "
                          "against the repo's (repeatable)")
+    ap.add_argument("--dh", type=int, choices=(128, 256), default=128,
+                    help="256: gemma2-2b's layer instead of the dh 64 and "
+                         "dh 128 calls")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("flash_bwd_ab: FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
-    from chip_smoke import (BWD_DEVICE_NAMES, BWD_PASSES, bwd_share,
-                            card_line, device_ms_by_name, flash_inputs,
-                            ptxas_report, timed_ms)
+    from chip_smoke import (BWD_DEVICE_NAMES, BWD_PASSES, bwd_bound,
+                            bwd_share, card_line, device_ms_by_name,
+                            flash_inputs, ptxas_report, timed_ms)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -133,7 +144,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(2027)
     names = BWD_DEVICE_NAMES["flash_attention_bwd_tc"]
-    for label, b, s, h, kv, dh, win, cap in CASES:
+    for label, b, s, h, kv, dh, win, cap in (CASES_256 if args.dh == 256
+                                             else CASES):
         q, k, v = flash_inputs(torch, gen, dev, b, s, s, h, kv, dh,
                                torch.bfloat16)
         do = torch.randn((b, s, h, dh), generator=gen,
@@ -142,6 +154,8 @@ def main() -> int:
         kw = dict(causal=True, window=win, attn_softcap=cap)
         want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                            do.float(), pos, pos, **kw)
+        b_ms, b_by, _, _, _, floors = bwd_bound(
+            torch, q, k, pos, pos, window=win, route="flash_attention_bwd_tc")
 
         def call():
             return fa._launch_bwd("tensor_core", q, k, v, do, pos, pos, **kw)
@@ -191,6 +205,10 @@ def main() -> int:
                   f"dv); bitwise the repo's {row['bitwise_repo']}; "
                   f"{' / '.join(f'{t:.4f}' for t in row['ms'])} ms a call; "
                   f"device ms a pass: {passes} on {card}")
+        print(f"{label}: bound {b_ms:.4f} ms ({b_by}), the tensor-core "
+              f"design's products at the bf16 peak {floors['design']:.4f} "
+              f"ms on {card}")
+        case["bound"] = {"ms": b_ms, "by": b_by, "floors_ms": floors}
         out["cases"][label] = case
         del q, k, v, do
     print(json.dumps(out))
