@@ -410,13 +410,36 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    against CPU (path local_global_vlm_smoke, dh 16 on the CUDA-core
    routes): prefill and 4 decode steps (1e-4), three train steps, a
    replayed step bitwise.
+18. dp_train (data-parallel LM training with int8 error-feedback
+   compression, ROADMAP A11.6 and A11.9's dp half; the path "dp_train"
+   counts the 4 int8 steps from 0): optim/compression.py's ring at n =
+   2, 3, 8, compressed_mean at pod 2 x data 2 and 8 syncs of sync_grads
+   over 4 ranks, every rank on the card, bitwise against the same calls
+   on the CPU (the reference test's inputs), the ring within (n + 1) / 4
+   int8 steps of the true mean, error feedback beating the first sync
+   and its zeroed-rows control not. musicgen-medium at its published
+   config with grad_compression="int8" at data 2 on [cuda:0, cuda:0],
+   8 x 2048 in 2 microbatches: the memory reckoning printed first; a
+   gradient step (synced gradients, loss, new error rows) replayed
+   bitwise through host copies; the int8 gradients within 1.25 int8
+   steps of the ranks' largest gradient from the float32 mean of each
+   rank's rows through the one-device step (their distance from the
+   uncompressed step's printed); 4 steps (s/step, tokens/s, peak
+   memory, err absmax, 384 tensor-core forwards and 192 backward calls
+   a step), then one step with the sync timed (host clock, synchronized
+   around each call). The uncompressed data-2 step against the
+   one-device step on the same state and batch (bitwise: uncompressed,
+   the step is the reference's global step on the mesh's first device),
+   each timed, and one traced step of the int8 and of the one-device
+   step (device ms, kernels, and the busy share: device time over the
+   untraced warm step's wall, beside the traced wall).
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
 sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm,
-ssm_smoke, local_global_vlm and local_global_vlm_smoke paths, each
-counted from 0),
+ssm_smoke, local_global_vlm, local_global_vlm_smoke and dp_train paths,
+each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -738,6 +761,28 @@ QWEN_TRAIN = dict(num_layers=2, batch=2, seq=2048, microbatches=2, steps=3,
 LG_SMOKE = dict(archs=("gemma2-2b", "qwen2-vl-72b"), batch=4, seq=64,
                 microbatches=2, steps=3, prompt=40, decode=4, grid=(1, 4, 6))
 # the CPU operations whose device kernels are matrix products
+# the data-parallel path (ROADMAP A11.6 and A11.9's dp half). The int8
+# ring on [cuda:0] x n meshes held bitwise to the CPU on the reference
+# test's inputs (seed 0, 8 x 1000); its error against the true mean
+# within (n + 1) / 4 of the inputs' int8 step (n - 1 reduce-scatter hops
+# whose partials grow to (t + 1) max|x|, each half its step over n, and
+# half a step in the all-gather; tests/test_torch_compression.py); 8
+# syncs of one tree (keys out of sorted order, float32 and bf16 leaves)
+# over 4 ranks, whose average must beat the first sync with error
+# feedback and must not with the error rows zeroed (the control)
+DP_RING = dict(ns=(2, 3, 8), seed=0, rows=8, cols=1000, ef_ranks=4,
+               ef_steps=8)
+# musicgen-medium at its published config with grad_compression="int8",
+# data 2 on [cuda:0, cuda:0]: phase train's batch and steps
+DP_TRAIN = dict(arch="musicgen-medium", batch=8, seq=2048, microbatches=2,
+                steps=4, data=2)
+# the int8 step's synced gradients against the float32 mean of the
+# ranks' one-device gradients on the same state and batch (err zero),
+# what the ring approximates: within 1.25 int8 steps
+# of the ranks' largest gradient A (half a step of a leaf's scale in the
+# fake quantization, a quarter in the one reduce-scatter hop over 2, half
+# in the all-gather), plus 1e-6 A of float32 rounding
+DP_INT8_STEPS = 1.25
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
                "aten::addbmm", "aten::matmul", "aten::linear", "aten::mv",
                "aten::dot", "aten::einsum")
@@ -4992,12 +5037,7 @@ def phase_train(np, torch, dev, card):
     cfg, mesh, train_step, data = train.build(
         c["arch"], smoke=False, seq=c["seq"], batch=c["batch"],
         microbatches=c["microbatches"], steps_total=100, device="cuda")
-    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
-           cfg.param_dtype, cfg.opt_state_dtype, cfg.remat)
-          == (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", "float32",
-              "float32", "full"), f"{cfg.name} is not at its published "
-                                  f"config")
+    check_musicgen(cfg)
     n_params = cfg.param_counts()["total"]
     tokens = c["batch"] * c["seq"]
     print(f"phase train (4/4): {cfg.name} at its published config "
@@ -7144,6 +7184,407 @@ def phase_local_global_vlm(np, torch, dev, card, clock):
     return out
 
 
+# ---------------------------------------------------------------- dp
+def dp_ring_checks(np, torch, dev, card):
+    """Part 1 of phase dp_train: ring_allreduce_int8 (n = 2, 3, 8),
+    compressed_mean (pod 2 x data 2) and 8 syncs of sync_grads, every
+    rank on the card, bitwise against the same calls on the CPU."""
+    from repro_torch.optim import compression
+    c = DP_RING
+    xs = np.random.default_rng(c["seed"]).normal(
+        size=(c["rows"], c["cols"])).astype(np.float32)
+
+    def on(d, rows):
+        return [torch.from_numpy(x.copy()).to(d) for x in rows]
+
+    def host(ts):
+        return [t.cpu() for t in ts]
+
+    out = {}
+    for n in c["ns"]:
+        cpu = compression.ring_allreduce_int8(on("cpu", xs[:n]), n)
+        got = host(compression.ring_allreduce_int8(on(dev, xs[:n]), n))
+        check(all(torch.equal(a, b) for a, b in zip(got, cpu)),
+              f"the int8 ring at n={n}: the card's output is not the CPU's")
+        check(all(torch.equal(g, got[0]) for g in got),
+              f"the int8 ring at n={n}: the ranks' outputs differ")
+        scale = float(np.abs(xs[:n]).max()) / 127.0
+        err = float(np.abs(got[0].numpy() - xs[:n].mean(0)).max())
+        check(err <= (n + 1) / 4 * scale,
+              f"the int8 ring at n={n}: max |ring - mean| {err:.4g} > "
+              f"{(n + 1) / 4} x the step {scale:.4g}")
+        out[f"ring_n{n}_err_steps"] = err / scale
+    cpu = compression.compressed_mean(on("cpu", xs[:4]), ("pod", "data"),
+                                      (2, 2))
+    got = host(compression.compressed_mean(on(dev, xs[:4]), ("pod", "data"),
+                                           (2, 2)))
+    check(all(torch.equal(a, b) for a, b in zip(got, cpu))
+          and torch.equal(got[0], got[1]) and torch.equal(got[2], got[3]),
+          "compressed_mean at pod 2 x data 2: the card is not the CPU, or "
+          "ranks of one pod differ")
+    out["pods_max_diff"] = float((got[0] - got[2]).abs().max())
+
+    rng = np.random.default_rng(1)
+    r = c["ef_ranks"]
+    w = rng.normal(size=(r, 30, 10)).astype(np.float32)
+    b = (rng.normal(size=(r, 7, 11)) * 3).astype(np.float32)
+    z = (rng.normal(size=(r, 50)) * 1e-3).astype(np.float32)
+    cc = rng.normal(size=(r, 64)).astype(np.float32)
+
+    def grads(d):
+        return [{"w": torch.from_numpy(w[k]).to(d),
+                 "b": torch.from_numpy(b[k]).to(d).to(torch.bfloat16),
+                 "a": {"z": torch.from_numpy(z[k]).to(d),
+                       "c": torch.from_numpy(cc[k]).to(d).to(torch.bfloat16)}}
+                for k in range(r)]
+
+    def syncs(d, zero):
+        g = grads(d)
+        err = compression.init_error_buffer(g[0], r, [d] * r)
+        outs = []
+        for _ in range(c["ef_steps"]):
+            if zero:
+                err = [torch.zeros_like(e) for e in err]
+            o, err = compression.sync_grads(g, err, ("data",), (r,))
+            outs.append(([x["w"].cpu() for x in o], host(err)))
+        return outs
+
+    cpu, got = syncs("cpu", False), syncs(dev, False)
+    check(all(torch.equal(a, b_) for (ow, oe), (cw, ce) in zip(got, cpu)
+              for a, b_ in zip(ow + oe, cw + ce)),
+          "sync_grads: the card's synced leaves or error rows are not the "
+          "CPU's")
+    want = w.mean(0)
+
+    def ef(outs):
+        first = np.abs(outs[0][0][0].numpy() - want).max()
+        avg = np.abs(np.mean([o[0][0].numpy() for o in outs], 0)
+                     - want).max()
+        return float(first), float(avg)
+    first, avg = ef(got)
+    zfirst, zavg = ef(syncs(dev, True))
+    check(avg < first, f"error feedback: the 8 syncs' average is "
+                       f"{avg:.4g} from the mean, the first {first:.4g}")
+    check(not zavg < zfirst, f"the control (error rows zeroed) passes the "
+                             f"error-feedback check: {zavg:.4g} < {zfirst:.4g}")
+    out.update(ef_first=first, ef_avg=avg, ef_control=(zfirst, zavg))
+    print(f"phase dp_train (1/3): the int8 ring on [cuda:0] x n == the CPU "
+          f"bitwise at n = {c['ns']} (max |ring - mean| in int8 steps: "
+          + ", ".join(f"{out[f'ring_n{n}_err_steps']:.3f}" for n in c["ns"])
+          + f"; bounds (n + 1) / 4), pod 2 x data 2 == the CPU (pods "
+          f"{out['pods_max_diff']:.3g} apart, as in the reference), "
+          f"sync_grads x {c['ef_steps']} over {r} ranks == the CPU with its "
+          f"error rows; error feedback: the average {avg:.4g} < the first "
+          f"{first:.4g}; control (rows zeroed): {zavg:.4g}, not below "
+          f"{zfirst:.4g} ({card})")
+    return out
+
+
+def check_musicgen(cfg) -> None:
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+           cfg.param_dtype, cfg.opt_state_dtype, cfg.remat)
+          == (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", "float32",
+              "float32", "full"), f"{cfg.name} is not at its published "
+                                  f"config")
+
+
+def dp_rank_mean(torch, state, batch, base, half, mb, dp):
+    """Each rank's rows of ``batch`` through the one-device gradient step
+    of ``base``: (their float32 mean in rank order, each rank's largest
+    gradient), what the int8 ring approximates."""
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    gsr = steps.make_grad_step(base, None, half, mb)
+    per = half.global_batch // mb
+    acc, amax = None, []
+    for r in range(dp):
+        part = {k: (v if k == "adc_mask" else v[:, r * per:(r + 1) * per])
+                for k, v in batch.items()}
+        g = adamw.tree_leaves(gsr(state, part)[0])
+        amax.append(max(float(t.abs().max()) for t in g))
+        if acc is None:
+            acc = [t.float() for t in g]
+        else:
+            for a, t in zip(acc, g):
+                a.add_(t.float())
+        del g
+    for a in acc:
+        a.div_(dp)
+    return acc, amax
+
+
+@contextlib.contextmanager
+def timed_sync(torch, times):
+    """compression.local_quantize and compressed_mean, as the train step
+    calls them, each call's host-clock seconds (synchronized before and
+    after) appended to ``times``."""
+    from repro_torch.optim import compression
+    fns = {k: getattr(compression, k)
+           for k in ("local_quantize", "compressed_mean")}
+
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return res
+        return run
+    for k, fn in fns.items():
+        setattr(compression, k, timed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in fns.items():
+            setattr(compression, k, fn)
+
+
+def dp_musicgen(np, torch, dev, card):
+    """Parts 2 and 3 of phase dp_train: musicgen-medium at its published
+    config trained with int8 compression at data 2 on [cuda:0, cuda:0]
+    (memory reckoning, a replayed gradient step bitwise, the synced
+    gradients within DP_INT8_STEPS of the ranks' float32 mean, the
+    uncompressed data-2 step bitwise the one-device step, 4 steps timed,
+    one with the sync timed), every launch counter at 0 around the 4
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    c = DP_TRAIN
+    base = get_config(c["arch"])
+    check_musicgen(base)
+    cfg8 = base.replace(grad_compression="int8")
+    mb, dp = c["microbatches"], c["data"]
+    mesh = mesh_lib.make_mesh((dp, 1), ("data", "model"), devices=[dev] * dp)
+    shape = ShapeConfig("dp", c["seq"], c["batch"], "train")
+    n = base.param_counts()["total"]
+    tokens = c["batch"] * c["seq"]
+    gb = lambda b: b * n / 1e9                                  # noqa: E731
+    # two moments of the step: a rank's backward (phase train's activations:
+    # its 37.41 GB peak on an H100 at 700 W, PERF.md, less params, m, v and
+    # a gradient sum), and the ring's all-gather (the step's largest)
+    states = [("params", gb(4)), ("AdamW m and v", gb(8)),
+              (f"err, {dp} bf16 rows", gb(2 * dp))]
+    backward = states + [
+        ("rank 0's quantized vector and new err row", gb(4 + 2)),
+        ("rank 1's float32 gradient sum", gb(4)),
+        ("activations", 37.41 - gb(16))]
+    gather = states + [
+        (f"new err, {dp} bf16 rows", gb(2 * dp)),
+        (f"{dp} padded float32 ring vectors (inputs, then outputs)",
+         gb(4 * dp)),
+        ("owned chunks, int8 messages, a dequantized chunk",
+         gb(4 + 1 + 4 / dp))]
+    total = max(sum(v for _, v in r) for r in (backward, gather))
+    torch.cuda.empty_cache()
+    free, whole = torch.cuda.mem_get_info()
+    print(f"phase dp_train (2/3): {cfg8.name} at its published config "
+          f"({n:,} parameters, bf16 activations, float32 params and AdamW, "
+          f"remat full), grad_compression=int8, data {dp} on "
+          f"{[str(d) for d in mesh.devices.reshape(-1)]}: batch "
+          f"{c['batch']} x {c['seq']} in {mb} microbatches, {c['steps']} "
+          f"steps, uncut; memory reckoning (GB) at a rank's backward: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in backward)
+          + f" (total {sum(v for _, v in backward):.1f}); at the ring's "
+          f"all-gather: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in gather)
+          + f" (total {sum(v for _, v in gather):.1f}); of "
+          f"{whole / 1e9:.1f} ({free / 1e9:.1f} free) ({card})", flush=True)
+    check(total < free / 1e9, f"the reckoning {total:.1f} GB exceeds the "
+                              f"free {free / 1e9:.1f} GB")
+    data = SyntheticLM(LMDataConfig(vocab_size=base.vocab_size,
+                                    seq_len=c["seq"], global_batch=c["batch"],
+                                    microbatches=mb), base)
+    state = steps.init_state(cfg8, seed=0, mesh=mesh)
+    gs8 = steps.make_grad_step(cfg8, mesh, shape, mb)
+    batch = data.device_batch(0, dev)
+    leaves = adamw.tree_leaves
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    (g8, l8, e8), t_g8 = timed(gs8, state, batch)
+    host_g, host_e = [t.cpu() for t in leaves(g8)], [e.cpu() for e in e8]
+    del g8, e8
+    (g8b, l8b, e8b), _ = timed(gs8, state, batch)
+    same = torch.equal(l8, l8b) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(leaves(g8b) + e8b,
+                                                host_g + host_e))
+    check(same, "a replayed int8 gradient step is not bitwise the first")
+    del g8b, e8b
+
+    # each rank's rows on one device: the float32 mean the ring
+    # approximates, and each rank's largest gradient for the bound
+    mean, amax = dp_rank_mean(torch, state, batch, base,
+                              half=ShapeConfig("dp-rank", c["seq"],
+                                               c["batch"] // dp, "train"),
+                              mb=mb, dp=dp)
+    big = max(amax)
+    step = big / 127.0
+    worst = max(float((a.to(dev) - u).abs().max())
+                for a, u in zip(host_g, mean))
+    check(worst <= DP_INT8_STEPS * step + 1e-6 * big,
+          f"int8 against the ranks' float32 mean at data {dp}: max |diff| "
+          f"{worst:.4g} > {DP_INT8_STEPS} int8 steps of the largest "
+          f"gradient ({step:.4g})")
+    del mean
+
+    # part 3: the uncompressed data-2 step against the one-device step
+    gsu = steps.make_grad_step(base, mesh, shape, mb)
+    (gu, lu, _), t_gu = timed(gsu, state, batch)
+    vs_uncompressed = max(float((a.to(dev) - u).abs().max())
+                          for a, u in zip(host_g, leaves(gu))) / step
+    del host_g, host_e
+    gs1 = steps.make_grad_step(base, None, shape, mb)
+    (g1, l1, _), t_g1 = timed(gs1, state, batch)
+    same1 = torch.equal(lu, l1) and all(
+        torch.equal(a, b) for a, b in zip(leaves(gu), leaves(g1)))
+    del gu, g1
+    check(same1, f"the uncompressed data-{dp} gradient step is not bitwise "
+                 f"the one-device step")
+
+    # 4 int8 steps from the same state, every launch counter at 0
+    step8 = steps.make_train_step(cfg8, mesh, shape, mb, total_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, norms, walls, err_max = [], [], [], []
+    for i in range(c["steps"]):
+        b = data.device_batch(i, dev)
+        (state, m), wall = timed(step8, state, b, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(wall)
+        err_max.append(max(float(e.float().abs().max()) for e in state.err))
+        print(f"  int8 step {i}: loss {losses[-1]:.4f} grad_norm "
+              f"{norms[-1]:.4f} err absmax {err_max[-1]:.4g} "
+              f"{wall:.3f} s", flush=True)
+    launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = base.num_layers * mb * dp
+    check(launches["flash_attention_tc"] == 2 * per_step * c["steps"]
+          and launches["flash_attention_bwd_tc"] == per_step * c["steps"]
+          and launches["flash_attention"] == 0
+          and launches["flash_attention_bwd"] == 0,
+          f"the int8 data-{dp} steps launched {launches}; expected "
+          f"{2 * per_step} tensor-core forwards and {per_step} tensor-core "
+          f"backwards a step, nothing on the CUDA cores")
+    check(abs(losses[0] - np.log(base.vocab_size)) <= 1.5
+          and np.isfinite(losses).all() and np.isfinite(norms).all()
+          and np.isfinite(err_max).all() and 0 < err_max[0],
+          f"losses {losses}, grad norms {norms}, err absmax {err_max}")
+    warm = min(walls[1:])
+    # one more step with the sync timed (synchronized around each call)
+    times = []
+    with timed_sync(torch, times):
+        (state, _), t_sync_step = timed(step8, state,
+                                        data.device_batch(c["steps"], dev),
+                                        c["steps"])
+    sync_ms = sum(times) * 1e3
+    # s/step of the uncompressed data-2 step and the one-device step
+    # (each timed on its second call; they update the same state)
+    stepu = steps.make_train_step(base, mesh, shape, mb, total_steps=100)
+    step1 = steps.make_train_step(base, None, shape, mb, total_steps=100)
+    st = state._replace(err=None)
+    t_u, t_1 = [], []
+    for i in range(2):
+        (st, _), t = timed(stepu, st, data.device_batch(10 + i, dev), 10 + i)
+        t_u.append(t)
+        (st, _), t = timed(step1, st, data.device_batch(20 + i, dev), 20 + i)
+        t_1.append(t)
+    # one traced int8 data-2 step and one traced one-device step (the
+    # uncompressed config's, same state): device ms, kernels, busy share
+    # over the untraced warm step (the profiler stretches the traced one)
+    traces = {name: traced_step(torch, fn, st, data.device_batch(30 + k,
+                                                                 dev),
+                                30 + k, untraced)
+              for k, (name, fn, st, untraced) in enumerate((
+                  ("int8_dp", step8, state, warm),
+                  ("one_device", step1, state._replace(err=None),
+                   t_1[-1])))}
+    out = {"launches": launches, "losses": losses, "grad_norms": norms,
+           "step_s": walls, "warm_step_s": warm, "tokens_per_s": tokens / warm,
+           "peak_gb": peak_gb, "reckoning_gb": total, "err_absmax": err_max,
+           "sync_ms": sync_ms, "sync_calls": len(times),
+           "sync_step_s": t_sync_step, "sync_share": sync_ms / 1e3 / t_sync_step,
+           "grad_step_s": {"int8": t_g8, "uncompressed": t_gu,
+                           "one_device": t_g1},
+           "int8_vs_rank_mean_steps": worst / step,
+           "int8_vs_uncompressed_steps": vs_uncompressed,
+           "rank_grad_amax": amax,
+           "uncompressed_dp_step_s": t_u[-1], "one_device_step_s": t_1[-1],
+           "traced": traces}
+    print(f"  int8 data {dp}: warm {warm:.3f} s/step ({tokens / warm:.0f} "
+          f"tokens/s), peak memory {peak_gb:.2f} GB (reckoned {total:.1f}); "
+          f"the sync (local_quantize x {dp}, compressed_mean) {sync_ms:.1f} "
+          f"ms of a {t_sync_step:.3f} s step "
+          f"({out['sync_share'] * 100:.1f} %); launches {launches}; "
+          f"replayed gradient step bitwise; int8 against the ranks' "
+          f"float32 mean {worst / step:.3f} int8 steps of the largest "
+          f"gradient {big:.4g} (bound {DP_INT8_STEPS}), against the "
+          f"uncompressed step {vs_uncompressed:.3f} ({card})")
+    print(f"phase dp_train (3/3): uncompressed data {dp} against one "
+          f"device, same state and batch: gradients and loss bitwise; "
+          f"s/step "
+          f"uncompressed data {dp} {t_u[-1]:.3f}, one device {t_1[-1]:.3f}, "
+          f"int8 data {dp} {warm:.3f}; gradient steps int8 {t_g8:.3f} s, "
+          f"uncompressed {t_gu:.3f} s, one device {t_g1:.3f} s; traced "
+          + "; ".join(f"{k}: device {v['device_ms']:.1f} ms in "
+                      f"{v['kernels']} kernels, busy {v['busy'] * 100:.1f} "
+                      f"% of the untraced {v['untraced_wall_s']:.3f} s "
+                      f"({v['busy_traced'] * 100:.1f} % of the traced wall "
+                      f"{v['wall_s']:.3f} s)"
+                      for k, v in traces.items())
+          + f" ({card})")
+    del state, st, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_step(torch, step, state, batch, i, untraced_wall) -> dict:
+    """One train step under torch.profiler: its wall s, device ms, device
+    kernels and the busy share: device time over ``untraced_wall`` (the
+    same step's warm wall without the profiler, which stretches the host
+    side of every launch), and over the traced wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us, count, _ = device_sums(torch, prof)
+    ms = sum(us.values()) / 1e3
+    return {"wall_s": wall, "device_ms": ms, "kernels": sum(count.values()),
+            "untraced_wall_s": untraced_wall,
+            "busy": ms / 1e3 / untraced_wall, "busy_traced": ms / 1e3 / wall,
+            "flash_ms": (us["fwd"] + us["flash_attention_bwd_tc"]) / 1e3}
+
+
+def phase_dp_train(np, torch, dev, card):
+    """The data-parallel path (ROADMAP A11.6 and A11.9's dp half): the
+    int8 ring on the card against the CPU; musicgen-medium trained with
+    int8 at data 2 on [cuda:0, cuda:0]; the uncompressed data-2 step
+    against the one-device step. Returns the numbers and the 4 int8
+    steps' launch counts."""
+    t_phase = time.perf_counter()
+    out = {"ring": dp_ring_checks(np, torch, dev, card)}
+    out.update(dp_musicgen(np, torch, dev, card))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase dp_train: {out['phase_s']:.2f} s on {card}; launches on "
+          f"the dp_train path: {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -7303,6 +7744,7 @@ def main() -> int:
         for k, v in lg_out["layer_rows"].items():
             (fa_timings if v["kernel"] == "flash_attention_tc"
              else bwd_timings)[f"{k} (phase local_global_vlm)"] = v
+        dp_out = phase_dp_train(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -7333,7 +7775,8 @@ def main() -> int:
                    "ssm": ssm_out["launches"],
                    "ssm_smoke": ssm_out["smoke_launches"],
                    "local_global_vlm": lg_out["launches"],
-                   "local_global_vlm_smoke": lg_out["smoke_launches"]}
+                   "local_global_vlm_smoke": lg_out["smoke_launches"],
+                   "dp_train": dp_out["launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -7412,6 +7855,8 @@ def main() -> int:
                            if not k.endswith("launches")},
                    "local_global_vlm": {k: v for k, v in lg_out.items()
                                         if not k.endswith("launches")},
+                   "dp_train": {k: v for k, v in dp_out.items()
+                                if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

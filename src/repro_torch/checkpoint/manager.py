@@ -16,8 +16,13 @@ orders them), NamedTuples and dataclasses (fields in declaration order);
 anything else is a leaf, a numpy array or a tensor (copied to the host
 on save), and None is no leaf. A ``TrainState(params, opt, err)`` with an
 ``OptState(step, m, v)`` therefore saves as ``params/...``,
-``opt/step``, ``opt/m/...``, ``opt/v/...``, the reference's names, and a
-checkpoint written by either package restores in the other.
+``opt/step``, ``opt/m/...``, ``opt/v/...`` and, under int8 compression,
+``err``, the reference's names, and a checkpoint written by either
+package restores in the other. ``err``'s rows (one per dp rank, each on
+its device) save as the reference's one (dp, n) leaf. numpy has no
+bfloat16, so a bfloat16 leaf is saved as its raw 2-byte patterns (dtype
+``V2``, the bytes the reference's ``ml_dtypes`` array writes) and
+restored as bfloat16 where ``like``'s leaf is.
 
 Saves are synchronous: the leaves are copied to the host and written
 before ``save`` returns, so ``wait`` (the reference's join of its
@@ -38,6 +43,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.arrays import tensor_from_numpy
 
 
 def pack_json(obj: Any) -> np.ndarray:
@@ -76,13 +83,22 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def _rows(leaf) -> bool:
+    """A list of tensors: the rows of one leaf (``TrainState.err``)."""
+    return (isinstance(leaf, list) and bool(leaf)
+            and all(isinstance(r, torch.Tensor) for r in leaf))
+
+
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a tensor is copied off its device)."""
+    """A leaf as a host numpy array (a tensor is copied off its device;
+    rows are stacked; bfloat16 as its raw bytes, dtype V2)."""
+    if _rows(leaf):
+        leaf = torch.stack([r.detach().cpu() for r in leaf])
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 tensors have no numpy dtype here; "
-                            "checkpoint float32 leaves")
-        return leaf.detach().cpu().numpy()
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -153,6 +169,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def leaves(self, step: int) -> Dict[str, Dict[str, Any]]:
+        """``metadata.json``'s ``{path: {"shape", "dtype"}}`` of ``step``,
+        nothing loaded."""
+        d = self.dir / f"step_{step}"
+        return json.loads((d / "metadata.json").read_text())["leaves"]
+
     def restore_flat(self, step: int) -> Dict[str, np.ndarray]:
         """Every leaf saved at ``step`` as a numpy array, keyed by its
         path; ``metadata.json`` enumerates the leaves, so no structure
@@ -163,9 +185,10 @@ class CheckpointManager:
 
     def restore(self, step: int, like, device=None):
         """The tree saved at ``step`` in the structure of ``like``: each
-        leaf of ``like`` (a tensor, or a numpy array) is replaced by the
-        saved leaf of its path, a tensor on ``device`` (default: that
-        leaf's own device; numpy leaves stay numpy), in the saved dtype.
+        leaf of ``like`` (a tensor, rows, or a numpy array) is replaced by
+        the saved leaf of its path, a tensor on ``device`` (default: that
+        leaf's own device, each row's for rows; numpy leaves stay numpy),
+        in the saved dtype.
         ``fault.run_with_recovery`` passes its ``shardings`` here, None on
         the port's one-device step. Raises FileNotFoundError for a leaf
         the step does not hold."""
@@ -173,8 +196,17 @@ class CheckpointManager:
         flat = {}
         for key, leaf in _flatten(like).items():
             arr = np.load(_leaf_file(d, key))
-            if isinstance(leaf, torch.Tensor):
-                flat[key] = torch.from_numpy(arr).to(
+            if _rows(leaf):
+                if arr.shape[0] != len(leaf):
+                    raise ValueError(
+                        f"{key}: step {step} holds {arr.shape[0]} rows, the "
+                        f"state {len(leaf)} (a new dp size: "
+                        f"distributed/elastic.reshard_state)")
+                flat[key] = [tensor_from_numpy(a).to(
+                    r.device if device is None else device)
+                    for a, r in zip(arr, leaf)]
+            elif isinstance(leaf, torch.Tensor):
+                flat[key] = tensor_from_numpy(arr).to(
                     leaf.device if device is None else device)
             else:
                 flat[key] = arr

@@ -10,13 +10,15 @@ before serving resumes.
 ``plan_mesh`` / ``make_elastic_mesh`` are the TP-pinned (pod, data,
 model) degradation policy of large pod jobs, copied; the classifier bank
 has no TP axis, so serving does not use them. ``reshard_state`` restores
-an LM train state against a shrunken mesh and belongs to ROADMAP A11.
+an LM train state from a checkpoint onto a new mesh (the data-parallel
+train step of ``models/steps.py``).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.launch import mesh as mesh_lib
 
@@ -67,7 +69,40 @@ def make_elastic_mesh(devices: Optional[Sequence] = None, *,
 
 
 def reshard_state(ckpt, step: int, state_like, new_mesh, cfg):
-    """Restore an LM train state against a new mesh: not in the port."""
-    raise NotImplementedError(
-        "reshard_state (restoring an LM train state against a shrunken "
-        "mesh) is not ported to repro_torch: ROADMAP A11")
+    """The ``TrainState`` saved at ``step`` restored onto ``new_mesh``: the
+    parameters and the AdamW state on its first device (the port's train
+    step holds them whole there), and under ``grad_compression="int8"``
+    one error row per dp rank of ``new_mesh`` on the rank's device.
+    ``state_like`` gives the tree (its tensors' devices are not read).
+
+    The reference restores the saved (dp, n) buffer as it is and leaves
+    its step to shard it; it cannot load a bfloat16 leaf at all (ROADMAP
+    C). Each error row is one rank's unsent residual, so a checkpoint
+    whose row count is not the new mesh's dp size is refused (ROADMAP
+    C), as is a compressed state without rows."""
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    dev = new_mesh.first_device
+
+    def placed(t):
+        return torch.empty(0, dtype=t.dtype, device=dev)
+
+    opt = state_like.opt
+    like = steps.TrainState(
+        adamw.tree_map(placed, state_like.params),
+        type(opt)(step=placed(opt.step), m=adamw.tree_map(placed, opt.m),
+                  v=adamw.tree_map(placed, opt.v)))
+    if cfg.grad_compression == "int8":
+        devs = steps.dp_devices(new_mesh)
+        saved = ckpt.leaves(step).get("err")
+        if saved is None or saved["shape"][0] != len(devs):
+            raise NotImplementedError(
+                f"step {step} holds "
+                f"{'no error rows' if saved is None else saved['shape'][0]}"
+                f" error rows and {new_mesh} has {len(devs)} dp ranks: "
+                f"moving the int8 ring's residuals to a new dp size is not "
+                f"defined (ROADMAP C)")
+        like = like._replace(err=[torch.empty(0, dtype=torch.bfloat16,
+                                              device=d) for d in devs])
+    return ckpt.restore(step, like)

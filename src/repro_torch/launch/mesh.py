@@ -10,8 +10,9 @@ stands behind it. Devices may repeat: ``[cuda:0, cuda:0]`` is a two-shard
 mesh on one card, and ``[cpu, cpu]`` the tests' two-shard mesh, so the
 split, the per-shard launches and the gather all run on one device.
 
-``make_production_mesh`` is the TPU pod topology of the LM training job,
-which belongs to ROADMAP A11.
+The LM train step (``models/steps.py``) runs data parallel over such a
+mesh. ``make_production_mesh``, the TPU pod topology of the LM training
+job that the dry run lowers against, belongs to ROADMAP A11.7.
 """
 from __future__ import annotations
 
@@ -134,7 +135,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     """The TPU pod topology of the LM training job: not in the port."""
     raise NotImplementedError(
         "make_production_mesh (the TPU v5e pod topology of the LM training "
-        "job) is not ported to repro_torch: ROADMAP A11")
+        "job) is not ported to repro_torch: ROADMAP A11.7")
 
 
 def describe(mesh: Mesh) -> str:

@@ -191,9 +191,12 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int,
           steps_total: int = 100, device=None):
     """(cfg, mesh, train_step, data) of an LM training run: the config,
     a ``make_host_mesh(data_ax, model_ax)`` on ``device`` (default: the
-    card; the step takes a one-device mesh), the microbatched train step
-    over ``steps_total`` steps of the schedule, and the synthetic corpus
-    at (batch, seq) split into ``microbatches``."""
+    cards; on the CPU the one device repeats), the
+    microbatched train step over ``steps_total`` steps of the schedule
+    (data parallel over the mesh's dp ranks when ``cfg.grad_compression``
+    is int8, else the global step on the mesh's first device:
+    ``models/steps.py``), and the
+    synthetic corpus at (batch, seq) split into ``microbatches``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.lm import LMDataConfig, SyntheticLM
     from repro_torch.launch import mesh as mesh_lib

@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN of the moe family (llama4-scout, kimi-k2).
-Counterpart of ``repro/models/moe.py`` at tp = 1: the port runs on one
-device, so every expert is local and no collective is needed (expert
-parallelism over a mesh is ROADMAP A11 item 9).
+Counterpart of ``repro/models/moe.py`` at tp = 1: every expert is local
+to its rank's device and no collective is needed (data-parallel ranks
+each run it on their own rows under int8 compression, ``models/steps.py``;
+expert parallelism over a 'model' axis is ROADMAP A11.9).
 
 The reference's numerics, step by step:
 

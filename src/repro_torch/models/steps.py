@@ -8,7 +8,7 @@ semantics:
 
 * the batch's leaves lead with the microbatch axis (n_mb, b, ...), as
   ``data/lm.SyntheticLM`` makes them; ``adc_mask`` is a constant shared by
-  every microbatch;
+  every microbatch and every rank;
 * each microbatch's loss (``transformer.loss_fn``) is differentiated by
   autograd, attention through the hand-written backward kernel on the
   card; the gradients are summed over the microbatches in
@@ -18,24 +18,49 @@ semantics:
 * metrics: ``loss`` (the microbatches' mean), ``lr`` and ``grad_norm``
   (before clipping), float32 scalar tensors.
 
-The step updates ``state.params`` and the AdamW moments in place and
-returns the same ``TrainState``. Autograd's leaves are per-layer views of
+Data parallelism over a single-process mesh (``launch/mesh.py``; a
+device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
+
+* ``grad_compression="int8"``: the ranks are the dp axes ('pod', 'data'),
+  pod-major (``sharding.shard_plan``), and the step is the reference's
+  ``shard_map`` body. Rank r takes the r-th contiguous block of every
+  microbatch's batch rows on its device, the reference's ``P(None,
+  dp)``, and runs the one-device microbatch loop on it; its gradients
+  go through ``compression.sync_grads`` with its error row
+  (``TrainState.err``, one bf16 row per rank on its device), and the
+  loss is the ranks' mean. The moe family routes per rank, as there.
+  The parameters and the AdamW state live on the mesh's first device;
+  every other distinct device of the ranks gets a copy of the
+  parameters at the start of each step, so AdamW runs once, on rank 0's
+  synced gradients, and no replica can drift. The synced gradients are
+  equal on every rank, but with two pods only inside each pod
+  (``optim/compression.py``); the reference's ``shard_map`` declares
+  them replicated, so its pods' copies would drift apart (ROADMAP C).
+* uncompressed: the reference's step is one global (GSPMD) step over
+  the whole microbatch, which is what the one-device loop computes, so
+  the step runs that loop on the mesh's first device. The port issues a
+  rank's work from one host thread, so splitting it over the ranks
+  would only serialise them (ROADMAP: concurrent per-device shard
+  dispatch).
+
+A 'model' axis the parameter rules would shard weights over (tensor
+parallelism) and a mesh mixing device types are refused (ROADMAP
+A11.9).
+
+The step updates ``state.params``, the AdamW moments and the error rows
+in place and returns the state. Autograd's leaves are per-layer views of
 the stacked parameters (the leaves of ``layers``, ``layers2`` and
 ``prelayers``, nested ``moe``/``shared``/``ssm`` subtrees included,
-become lists, which
-``transformer.layer`` indexes as it indexes the stacks), so a layer's
-gradient is written into its slice of the stacked sum and no stack-sized
-gradient is made per layer.
-
-The step runs on the device of the state. A mesh of more than one device
-is refused: the LM's parameter sharding (``make_production_mesh``,
-``reshard_state``) and ``grad_compression="int8"``
-(``optim/compression.py``) belong to later slices of ROADMAP A11.
+become lists, which ``transformer.layer`` indexes as it indexes the
+stacks), so a layer's gradient is written into its slice of the stacked
+sum and no stack-sized gradient is made per layer.
+``make_grad_step`` is the step before AdamW: the synced gradients, the
+loss and the new error rows, the state untouched.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -43,35 +68,39 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding
 from repro_torch.models import serving, transformer
-from repro_torch.optim import adamw, schedule
+from repro_torch.optim import adamw, compression, schedule
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: adamw.OptState
-    # the reference's compression error-feedback field, kept so the state
-    # and its checkpoint names match it; always None until compression
-    # (optim/compression.py) is ported
-    err: Optional[torch.Tensor] = None
+    # the int8 ring's error-feedback rows (the reference's (dp, n) bf16
+    # buffer, one row per dp rank on its device); None uncompressed
+    err: Optional[List[torch.Tensor]] = None
 
 
-def _refuse_compression(cfg: ArchConfig) -> None:
-    if cfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: grad_compression={cfg.grad_compression!r} (the "
-            f"int8 error-feedback ring, optim/compression.py) is not ported "
-            f"to repro_torch yet (ROADMAP A11, a later slice)")
+def dp_devices(mesh) -> list:
+    """The devices of the dp ranks, pod-major (one: the mesh's first)."""
+    axes = sharding.dp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in axes)
+    return [dev for dev, _ in sharding.shard_plan(mesh, axes, n)]
 
 
 def init_state(cfg: ArchConfig, *, seed: int = 0, device=None,
                mesh=None) -> TrainState:
     """Random parameters (``transformer.init_params``, the port's stream)
     and zero AdamW state in ``cfg.opt_state_dtype``, on ``mesh``'s first
-    device when a mesh is given, else on ``device`` (default: the card)."""
-    _refuse_compression(cfg)
+    device when a mesh is given, else on ``device`` (default: the card);
+    under ``grad_compression="int8"`` a zero error row per dp rank of the
+    mesh (one without a mesh), on the rank's device."""
     dev = mesh.first_device if mesh is not None else resolve_device(device)
     params = transformer.init_params(cfg, seed=seed, device=dev)
-    return TrainState(params, adamw.init_tree(params, cfg.opt_state_dtype))
+    err = None
+    if cfg.grad_compression == "int8":
+        devs = [dev] if mesh is None else dp_devices(mesh)
+        err = compression.init_error_buffer(params, len(devs), devs)
+    return TrainState(params, adamw.init_tree(params, cfg.opt_state_dtype),
+                      err)
 
 
 def default_microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
@@ -140,56 +169,164 @@ def _grad_slots(gsum):
     return slots
 
 
+def _rank_plan(cfg: ArchConfig, mesh, b: int) -> list:
+    """``[(device, rows), ...]``: each rank's device (None: the state's)
+    and its block of a microbatch's ``b`` rows (see the module
+    docstring); raises for what the step refuses."""
+    if mesh is None or mesh.size == 1:
+        return [(None, slice(0, b))]
+    types = {d.type for d in mesh.devices.reshape(-1)}
+    if len(types) > 1:
+        raise NotImplementedError(
+            f"LM training on a mesh mixing device types {sorted(types)} is "
+            f"not ported to repro_torch (ROADMAP A11.9)")
+    if mesh.shape.get("model", 1) > 1:
+        specs = sharding.param_specs(transformer.param_shapes(cfg), mesh,
+                                     cfg)
+        sharded = sorted("/".join(path) for path, spec
+                         in transformer._flat(specs)
+                         if any(a == "model" or (isinstance(a, tuple)
+                                                 and "model" in a)
+                                for a in spec))
+        if sharded:
+            raise NotImplementedError(
+                f"{cfg.name}: the 'model' axis of {mesh.shape} would shard "
+                f"{len(sharded)} weights ({sharded[0]}, ...): tensor "
+                f"parallelism is not ported to repro_torch (ROADMAP A11.9)")
+    if cfg.grad_compression != "int8":
+        return [(mesh.first_device, slice(0, b))]
+    axes = sharding.dp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in axes)
+    if b % n:
+        raise ValueError(f"a microbatch of {b} rows does not split over "
+                         f"the {n} dp ranks of {mesh.shape}")
+    return sharding.shard_plan(mesh, axes, b)
+
+
+def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int):
+    """One rank's microbatch loop: (the gradient sums over its n_mb
+    microbatches scaled by 1 / n_mb, in ``promote_types(param, bf16)``;
+    the microbatches' mean loss), on ``params``' device."""
+    dev = params["final_norm"].device
+    gsum = adamw.tree_map(
+        lambda p: torch.zeros_like(
+            p, dtype=torch.promote_types(p.dtype, torch.bfloat16)),
+        params)
+    slots = _grad_slots(gsum)
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for j in range(n_mb):
+        mb = {k: v[j] for k, v in batch.items()}
+        live, leaves = _autograd_leaves(params)
+        with torch.enable_grad():
+            loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for slot, g in zip(slots, grads):
+                slot.add_(g)
+        lsum = lsum + loss.detach()
+        del live, leaves, grads, loss
+    scale = 1.0 / n_mb
+    with torch.no_grad():
+        for g in adamw.tree_leaves(gsum):
+            g.mul_(scale)
+    return gsum, lsum * scale
+
+
+def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
+                   microbatches: Optional[int] = None):
+    """``grad_step(state, batch) -> (grads, loss, new_err)``: the train
+    step before AdamW (see the module docstring). ``grads`` on the
+    state's device; ``new_err`` the new error rows (None uncompressed);
+    the state is not modified."""
+    transformer.check_supported(cfg)
+    n_mb = microbatches or default_microbatches(cfg, shape, mesh)
+    plan = _rank_plan(cfg, mesh, shape.global_batch // n_mb)
+    n = len(plan)
+    int8 = cfg.grad_compression == "int8"
+    dp = () if mesh is None else sharding.dp_axes(mesh)
+    dp_sizes = tuple(mesh.shape[a] for a in dp)
+    ndata = dict(zip(dp, dp_sizes)).get("data", 1)
+
+    def rank_batch(batch, rows, rdev):
+        """(the rank's rows of every microbatch, the shared constants),
+        on ``rdev``."""
+        return ({k: v[:, rows].to(rdev) for k, v in batch.items()
+                 if k != "adc_mask"},
+                {k: v.to(rdev) for k, v in batch.items() if k == "adc_mask"})
+
+    def grad_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params = state.params
+        dev = params["final_norm"].device
+        if batch["labels"].shape[0] != n_mb:
+            raise ValueError(f"the batch leads with {batch['labels'].shape[0]}"
+                             f" microbatches; the step takes {n_mb}")
+        if plan[0][0] is not None and plan[0][0] != dev:
+            raise ValueError(f"the state lives on {dev}, not on the mesh's "
+                             f"first device {plan[0][0]}")
+        if not int8:                    # one rank (see _rank_plan)
+            gsum, loss = _local_grads(params, *rank_batch(
+                batch, plan[0][1], dev), cfg, n_mb)
+            return gsum, loss, None
+        if state.err is None or len(state.err) != n:
+            raise ValueError(f"grad_compression='int8' over {n} dp ranks "
+                             f"needs {n} error rows, the state has "
+                             f"{None if state.err is None else len(state.err)}")
+        replicas = {dev: params}
+        for rdev, _ in plan:
+            if rdev is not None and rdev not in replicas:
+                replicas[rdev] = adamw.tree_map(lambda p: p.to(rdev), params)
+        total = sum(p.numel() for p in adamw.tree_leaves(params))
+        length = ndata * -(-total // ndata)
+        losses, flats, new_err = [], [], []
+        for r, (rdev, rows) in enumerate(plan):
+            rdev = dev if rdev is None else rdev
+            gsum, loss = _local_grads(replicas[rdev], *rank_batch(
+                batch, rows, rdev), cfg, n_mb)
+            losses.append(loss.to(dev))
+            # quantized as each rank finishes, so only one rank's
+            # gradient sums are alive at a time
+            with torch.no_grad():
+                flat, row = compression.local_quantize(
+                    gsum, state.err[r], length=length)
+            flats.append(flat)
+            new_err.append(row)
+            del gsum
+        with torch.no_grad():
+            # padded to the ring's length, so the ring's results overwrite
+            # the flat vectors (no second full-size buffer a rank)
+            synced = compression.compressed_mean(flats, dp, dp_sizes)
+        del flats
+        like = adamw.tree_map(lambda p: torch.empty(
+            p.shape, dtype=torch.promote_types(p.dtype, torch.bfloat16),
+            device="meta"), params)
+        return (compression.unflatten(synced[0], like), sum(losses) / n,
+                new_err)
+
+    return grad_step
+
+
 def make_train_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
                     microbatches: Optional[int] = None,
                     total_steps: int = 10_000):
     """The train step of ``cfg`` at ``shape`` (see the module docstring)."""
-    transformer.check_supported(cfg)
-    _refuse_compression(cfg)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"LM training on a mesh of {mesh.size} devices is not ported to "
-            f"repro_torch yet (ROADMAP A11: make_production_mesh, "
-            f"reshard_state); use a one-device mesh")
-    n_mb = microbatches or default_microbatches(cfg, shape, mesh)
+    grad_step = make_grad_step(cfg, mesh, shape, microbatches)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    step: int):
-        params = state.params
-        dev = params["final_norm"].device
+        dev = state.params["final_norm"].device
         lr = schedule.warmup_cosine(step, peak_lr=cfg.learning_rate,
                                     total=total_steps).to(dev)
-        const = {k: v for k, v in batch.items() if k == "adc_mask"}
-        if batch["labels"].shape[0] != n_mb:
-            raise ValueError(f"the batch leads with {batch['labels'].shape[0]}"
-                             f" microbatches; the step takes {n_mb}")
-        gsum = adamw.tree_map(
-            lambda p: torch.zeros_like(
-                p, dtype=torch.promote_types(p.dtype, torch.bfloat16)),
-            params)
-        slots = _grad_slots(gsum)
-        lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        for j in range(n_mb):
-            mb = {k: v[j] for k, v in batch.items() if k != "adc_mask"}
-            live, leaves = _autograd_leaves(params)
-            with torch.enable_grad():
-                loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg)
-                grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                for slot, g in zip(slots, grads):
-                    slot.add_(g)
-            lsum = lsum + loss.detach()
-            del live, leaves, grads, loss
-        scale = 1.0 / n_mb
-        with torch.no_grad():
-            for g in adamw.tree_leaves(gsum):
-                g.mul_(scale)
-        gnorm = adamw.global_norm(gsum)
-        adamw.update_(adamw.tree_leaves(params), adamw.tree_leaves(gsum),
-                      state.opt, lr=lr, weight_decay=cfg.weight_decay,
+        grads, loss, new_err = grad_step(state, batch)
+        gnorm = adamw.global_norm(grads)
+        adamw.update_(adamw.tree_leaves(state.params),
+                      adamw.tree_leaves(grads), state.opt, lr=lr,
+                      weight_decay=cfg.weight_decay,
                       grad_clip=cfg.grad_clip, grad_norm=gnorm)
-        metrics = {"loss": lsum * scale, "lr": lr, "grad_norm": gnorm}
-        return state, metrics
+        if new_err is not None:
+            with torch.no_grad():
+                for row, new in zip(state.err, new_err):
+                    row.copy_(new)
+        return state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
 
     return train_step
 

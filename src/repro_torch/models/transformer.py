@@ -64,6 +64,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.arrays import tensor_from_numpy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
 from repro_torch.models import layers as L
@@ -275,16 +276,6 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     return build(param_shapes(cfg), ())
 
 
-def _from_numpy(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":           # ml_dtypes, as jax hands it
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    if not (a.flags.writeable and a.flags.c_contiguous):
-        a = a.copy()                         # jax hands read-only views
-    return torch.from_numpy(a)
-
-
 def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Params:
     """The reference's parameter tree, as numpy arrays, to the port's
     parameters on ``device``: same keys, shapes, layouts and dtypes,
@@ -301,7 +292,7 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Params:
             if isinstance(shape, dict):
                 out[k] = carry(node[k], shape, f"{where}.{k}")
                 continue
-            t = _from_numpy(node[k])
+            t = tensor_from_numpy(node[k])
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{where}.{k}: shape {tuple(t.shape)} != "
                                  f"{tuple(shape)}")
@@ -309,6 +300,22 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Params:
         return out
 
     return carry(dict(tree), shapes, "params")
+
+
+def err_from_numpy(err, cfg: ArchConfig, devices=None) -> list:
+    """The reference's int8 error-feedback buffer, a (dp, n) bfloat16
+    array, to the port's rows (``TrainState.err``): row r on
+    ``devices[r]`` (default: the CPU), bitwise. Raises ValueError where n
+    is not ``cfg``'s parameter count or the devices are not one a row."""
+    t = tensor_from_numpy(err)
+    n = sum(math.prod(shape) for _, shape in _flat(param_shapes(cfg)))
+    if t.dtype != torch.bfloat16 or t.ndim != 2 or t.shape[1] != n:
+        raise ValueError(f"an error buffer of {cfg.name} is (dp, {n}) "
+                         f"bfloat16, not {tuple(t.shape)} {t.dtype}")
+    devices = ["cpu"] * t.shape[0] if devices is None else list(devices)
+    if len(devices) != t.shape[0]:
+        raise ValueError(f"{len(devices)} devices for {t.shape[0]} rows")
+    return [row.to(torch.device(d)) for row, d in zip(t, devices)]
 
 
 def layer(params: Params, i: int, key: str = "layers") -> Params:

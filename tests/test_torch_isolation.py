@@ -1,6 +1,6 @@
 """The port stands alone: src/repro_torch, chip_smoke.py and the A/B
 tools (tools/flash_f32_ab.py, flash_bwd_ab.py, mc_eval_ab.py,
-adc_bank_ab.py, lookup_backward_ab.py) import
+adc_bank_ab.py, lookup_backward_ab.py, dp_cards.py) import
 neither JAX nor the JAX package, entry points do not drift to the CPU when
 no card is present, and chip_smoke.py refuses to report without a card or
 outside a checkout (the A/B tools without a card)."""
@@ -27,7 +27,8 @@ def _port_files():
         REPO / "chip_smoke.py", REPO / "tools" / "flash_f32_ab.py",
         REPO / "tools" / "flash_bwd_ab.py", REPO / "tools" / "mc_eval_ab.py",
         REPO / "tools" / "adc_bank_ab.py",
-        REPO / "tools" / "lookup_backward_ab.py"]
+        REPO / "tools" / "lookup_backward_ab.py",
+        REPO / "tools" / "dp_cards.py"]
 
 
 def _modules():
@@ -190,6 +191,20 @@ def test_lookup_backward_tool_without_a_card_fails():
     assert out.returncode == 3
     assert "torch.cuda.is_available() is false" in out.stderr
     assert "ms" not in out.stdout and "{" not in out.stdout
+
+
+def test_dp_cards_tool_without_two_cards_fails():
+    """tools/dp_cards.py compares distinct cards: with fewer than two it
+    exits 3 before printing a number."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA cards are present")
+    out = subprocess.run([sys.executable, str(REPO / "tools" /
+                                              "dp_cards.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ))
+    assert out.returncode == 3
+    assert "needs at least two CUDA cards" in out.stderr
+    assert "{" not in out.stdout
 
 
 def _gradient_slice_calls():

@@ -597,15 +597,21 @@ def test_default_microbatches_follow_the_reference():
         shape = ShapeConfig("t", 64, batch, "train")
         assert steps.default_microbatches(cfg, shape, tm) == want
         assert steps.default_microbatches(cfg, shape, None) == want
+    # a two-device mesh and int8 compression build a step (their parity:
+    # tests/test_torch_dp_train.py), and the int8 state carries one bf16
+    # error row per dp rank of the parameters' count
     two = tmesh.make_host_mesh(2, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        steps.make_train_step(cfg, two, ShapeConfig("t", 64, 8, "train"))
-    with pytest.raises(NotImplementedError, match="compression.py"):
-        steps.make_train_step(cfg.replace(grad_compression="int8"), tm,
-                              ShapeConfig("t", 64, 8, "train"))
-    with pytest.raises(NotImplementedError, match="compression.py"):
-        steps.init_state(cfg.replace(grad_compression="int8"),
-                         device="cpu")
+    int8 = cfg.replace(grad_compression="int8")
+    for c, m in ((cfg, two), (int8, tm), (int8, two)):
+        assert callable(steps.make_train_step(
+            c, m, ShapeConfig("t", 64, 8, "train")))
+    n = sum(t.numel() for t in adamw.tree_leaves(
+        steps.init_state(cfg, device="cpu").params))
+    for m, rows in ((None, 1), (tm, 1), (two, 2)):
+        err = steps.init_state(int8, device="cpu", mesh=m).err
+        assert [(e.shape, e.dtype) for e in err] == [
+            ((n,), torch.bfloat16)] * rows
+    assert steps.init_state(cfg, device="cpu", mesh=two).err is None
 
 
 def test_train_loss_decreases():

@@ -44,6 +44,7 @@ from repro_torch.distributed import sharding as tsharding  # noqa: E402
 from repro_torch.faulttol.spec import FaultTolSpec  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves as adamw_leaves  # noqa: E402
 from repro_torch.timeseries import cosearch as tcosearch  # noqa: E402
 from repro_torch.timeseries import feature as tfeature  # noqa: E402
 from repro_torch.timeseries import stream as tstream  # noqa: E402
@@ -161,7 +162,7 @@ def test_make_mesh_holds_devices_axes_and_shape():
         tmesh.make_production_mesh()
 
 
-def test_elastic_meshes_over_device_lists():
+def test_elastic_meshes_over_device_lists(tmp_path):
     pool = telastic.bank_pool_mesh(["cpu"] * 3)
     assert pool.shape == {"data": 3, "model": 1}
     assert list(pool.devices.reshape(-1)) == [CPU] * 3
@@ -177,8 +178,18 @@ def test_elastic_meshes_over_device_lists():
     pods = telastic.make_elastic_mesh(["cpu"] * 520, model=16)
     assert pods.shape == {"pod": 2, "data": 16, "model": 16}
     assert pods.size == 512                   # 8 remainder devices wait
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        telastic.reshard_state(None, 0, None, pool, None)
+    # reshard_state restores an LM train state onto a new mesh (the
+    # dp-size cases, int8 rows included: tests/test_torch_dp_train.py)
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import steps
+    cfg = smoke_config("deepseek-7b")
+    state = steps.init_state(cfg, seed=3, device="cpu")
+    CheckpointManager(tmp_path).save(5, state)
+    got = telastic.reshard_state(CheckpointManager(tmp_path), 5, state,
+                                 pool, cfg)
+    assert got.err is None and int(got.opt.step) == 0
+    for a, b in zip(adamw_leaves(got.params), adamw_leaves(state.params)):
+        assert a.device == CPU and torch.equal(a, b)
 
 
 def test_shard_plan_follows_shard_map_block_order():

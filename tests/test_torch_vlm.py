@@ -392,20 +392,24 @@ def test_launcher_trains_the_smoke_config_as_the_reference(tmp_path, capsys,
     assert CheckpointManager(tmp_path / "t").all_steps() == [4]
 
 
-@pytest.mark.parametrize("what", ["int8 compression", "two-device mesh"])
+@pytest.mark.parametrize("what", ["weight-sharding model axis",
+                                  "make_production_mesh"])
 def test_what_stays_refused_names_the_roadmap_item(what):
-    """The train step refuses what later slices of ROADMAP A11 port:
-    grad_compression="int8" (optim/compression.py) and a mesh of more
-    than one device (make_production_mesh, reshard_state)."""
+    """The train step refuses what later slices of ROADMAP A11 port: a
+    'model' axis that the parameter rules would shard weights over
+    (tensor parallelism, A11.9; the dp half of A11.9 runs) and the
+    production mesh the dry run lowers against (A11.7)."""
     cfg = smoke_config(ARCH)
     shape = ShapeConfig("t", 32, 4, "train")
-    if what == "int8 compression":
-        cfg = cfg.replace(grad_compression="int8")
-        with pytest.raises(NotImplementedError, match="int8.*A11"):
-            steps.make_train_step(cfg, None, shape, microbatches=2)
-        with pytest.raises(NotImplementedError, match="int8.*A11"):
-            steps.init_state(cfg, device="cpu")
+    if what == "make_production_mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
+            tmesh.make_production_mesh()
         return
+    tp = tmesh.make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
+    for c in (cfg, cfg.replace(grad_compression="int8")):
+        with pytest.raises(NotImplementedError,
+                           match="tensor parallelism.*A11.9"):
+            steps.make_train_step(c, tp, shape, microbatches=2)
+    # the same mesh's 'data' axis alone is data parallelism, which runs
     two = tmesh.make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="2 devices.*A11"):
-        steps.make_train_step(cfg, two, shape, microbatches=2)
+    assert callable(steps.make_train_step(cfg, two, shape, microbatches=2))
