@@ -433,13 +433,27 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    each timed, and one traced step of the int8 and of the one-device
    step (device ms, kernels, and the busy share: device time over the
    untraced warm step's wall, beside the traced wall).
+19. dryrun (the LM dry run and its roofline analysis, ROADMAP A11.7-
+   A11.8; the path "dryrun" counts its musicgen steps from 0):
+   musicgen-medium's training step at phase train's shape (8 x 2048 in
+   2 microbatches) counted by launch/analysis.count_step twice, around
+   the real step on the card (rows 11 and 11b launching) and on meta
+   tensors: FLOPs, the matrix-product calls, the hand-kernel units (calls,
+   FLOPs, bytes), every aten op's calls and traffic and the copies
+   between devices must be equal. The H100 row's roofline of that count
+   beside the measured warm s/step and peak memory; the dry run's
+   per-device argument bytes (parameters, AdamW state, batch) must not
+   exceed the measured peak. Then launch/dryrun.run_cell at the single
+   production mesh for musicgen-medium's train_4k, prefill_32k and
+   decode_32k and kimi-k2-1t-a32b's train_4k, each ok (data-sheet
+   estimates, no measurement).
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
 sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm,
-ssm_smoke, local_global_vlm, local_global_vlm_smoke and dp_train paths,
-each counted from 0),
+ssm_smoke, local_global_vlm, local_global_vlm_smoke, dp_train and
+dryrun paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -457,6 +471,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+
+
+def port_analysis():
+    """The checkout's repro_torch.launch.analysis: the H100 row and the
+    attention cost formulas the bounds below share with the dry run."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.launch import analysis
+    return analysis
+
+
+def bf16_peak() -> float:
+    """Dense bf16 on the tensor cores, the H100 data sheet's
+    (analysis.H100)."""
+    return port_analysis().H100.peak_flops
+
 FRONTS = ROOT / "tests" / "fixtures" / "fronts"
 DATASET = "cardio"
 
@@ -605,7 +635,6 @@ ROBUST_NI = dict(sigma_offset=0.5, sigma_range=0.01, fault_rate=0.02,
 MC_WIDE = dict(P=64, S=32, M=8192)
 # the LM path: musicgen-medium at its full published config
 LM = dict(arch="musicgen-medium", requests=4, prompt_len=2048, gen=16)
-BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
 EX2_PER_SM_PER_CLOCK = 16        # special-function unit exponentials
 FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)   # the JAX package's own test
 # bf16: two ulps of the output at its magnitude (2^-6 relative), for the
@@ -4003,15 +4032,15 @@ def flash_bound(torch, q, k, qpos, kpos, *, causal, window, clock):
     against the peak of the inputs' type (bf16 tensor cores, or float32
     outside them); one exponential per such pair on the special-function
     units, EX2_PER_SM_PER_CLOCK a clock on each SM at ``clock`` (Hz,
-    source, SM count). ``floors`` names each time."""
+    source, SM count). ``floors`` names each time. The FLOPs and bytes
+    are launch/analysis.attention_fwd_cost's, the dry run's unit count."""
     pairs = visible_pairs(qpos, kpos, causal=causal, window=window)
-    b, _, h, dh = q.shape
-    flops = 4 * b * h * dh * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-        + 4 * (qpos.numel() + kpos.numel())
+    b, s, h, dh = q.shape
+    flops, nbytes = (int(x) for x in port_analysis().attention_fwd_cost(
+        b, s, k.shape[1], h, k.shape[2], dh, q.element_size(), pairs))
     from repro_torch.perf import cost_model
     card = cost_model.machine_model("cuda")     # the H100 data sheet's row
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else card.peak_flops
+    rate = bf16_peak() if q.dtype == torch.bfloat16 else card.peak_flops
     hz, _, sms = clock
     floors = {"hbm": nbytes / card.hbm_bw * 1e3,
               "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores":
@@ -4592,22 +4621,22 @@ def bwd_bound(torch, q, k, qpos, kpos, *, window, route):
     on the tensor cores, 13 there at dh 256, 9 on the CUDA cores), and ``floors["design"]``
     those at the rate of the units it runs them on (the bf16 tensor-core
     peak, or the float32 CUDA-core peak): the ceiling of that design, and
-    no bound."""
+    no bound. The FLOPs and bytes are launch/analysis.attention_bwd_cost's,
+    the dry run's unit count."""
     from repro_torch.perf import cost_model
     card = cost_model.machine_model("cuda")
-    b, _, h, dh = q.shape
+    b, s, h, dh = q.shape
     pairs = visible_pairs(qpos, kpos, causal=True, window=window)
-    flops = 10 * dh * pairs * b * h
-    nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + 4 * (qpos.numel() + kpos.numel())
+    flops, nbytes = (int(x) for x in port_analysis().attention_bwd_cost(
+        b, s, k.shape[1], h, k.shape[2], dh, q.element_size(), pairs))
     bf16 = q.dtype == torch.bfloat16
     unit = "tensor_cores" if bf16 else "cuda_cores"
     floors = {"hbm": nbytes / card.hbm_bw * 1e3,
-              unit: flops / (BF16_FLOP_PER_S if bf16 else card.peak_flops)
+              unit: flops / (bf16_peak() if bf16 else card.peak_flops)
               * 1e3}
     binding = max(floors, key=floors.get)
     kflops = 2 * bwd_route_products(route, dh) * dh * pairs * b * h
-    floors["design"] = kflops / (BF16_FLOP_PER_S
+    floors["design"] = kflops / (bf16_peak()
                                  if route == "flash_attention_bwd_tc"
                                  else card.peak_flops) * 1e3
     return (floors[binding], "bytes" if binding == "hbm" else "operations",
@@ -5110,7 +5139,7 @@ def phase_train(np, torch, dev, card):
           f"tensor-core and {count['flash_attention_bwd']} CUDA-core "
           f"backward kernels; expected {3 * per_step} and 0")
     busy = sum(us.values()) / 1e6 / traced_wall
-    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
+    share = 6 * n_params * tokens / warm / bf16_peak()
     sdpa = bwd_timings["bfloat16"]["library_ms"] * per_step
     out = {"launches": launches, "launches_smoke": smoke_launches,
            "launches_cli": cli_launches, "losses": losses,
@@ -5605,7 +5634,7 @@ def moe_train(np, torch, dev, card):
           f"tensor-core and {count['flash_attention_bwd']} CUDA-core "
           f"backward kernels; expected {3 * per_step} and 0")
     busy = sum(us.values()) / 1e6 / traced_wall
-    share = 6 * counts["active"] * tokens / warm / BF16_FLOP_PER_S
+    share = 6 * counts["active"] * tokens / warm / bf16_peak()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 "
           f"N_active tokens / step time = {share * 100:.2f} % of the bf16 "
@@ -6958,7 +6987,7 @@ def train_run(np, torch, dev, card, phase, built, c, n_attn, snap, how,
     batch = batch_of(c["steps"])
     wall, split, count, busy = traced_split(
         torch, lambda: step(state, batch, c["steps"]))
-    share = 6 * n_params * tokens / warm / BF16_FLOP_PER_S
+    share = 6 * n_params * tokens / warm / bf16_peak()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  warm {warm:.3f} s/step ({tokens / warm:.0f} tokens/s; 6 N "
           f"tokens / step time = {share * 100:.1f} % of the bf16 dense "
@@ -7585,6 +7614,183 @@ def phase_dp_train(np, torch, dev, card):
     return out
 
 
+# phase dryrun (ROADMAP A11.7-A11.8): production cells of the dry run at
+# the single mesh; kimi-k2's train cell routes its moe layers on meta
+DRYRUN_CELLS = (("musicgen-medium", "train_4k"),
+                ("musicgen-medium", "prefill_32k"),
+                ("musicgen-medium", "decode_32k"),
+                ("kimi-k2-1t-a32b", "train_4k"))
+
+
+def op_diff(a, b) -> dict:
+    """{op: (a's [calls, bytes], b's)} where two counts' ops differ."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)}
+
+
+def dryrun_card_vs_meta(np, torch, dev, card):
+    """Part 1 of phase dryrun: musicgen-medium's TRAIN step counted on the
+    card (the real step, rows 11 and 11b launching) and on meta, equal;
+    the H100 roofline of the count against the measured step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import steps
+    analysis = port_analysis()
+    c = TRAIN
+    cfg, mesh, train_step, data = train.build(
+        c["arch"], smoke=False, seq=c["seq"], batch=c["batch"],
+        microbatches=c["microbatches"], steps_total=100, device="cuda")
+    check_musicgen(cfg)
+    shape = ShapeConfig("train", c["seq"], c["batch"], "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_state(cfg, seed=0, mesh=mesh)
+    reset_all_launches()
+    walls = []
+    for i in range(2):                    # warm-up, then the timed step
+        batch = data.device_batch(i, mesh.first_device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, i)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+    warm = walls[-1]
+    batch = data.device_batch(2, mesh.first_device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card, (state, m) = analysis.count_step(train_step, state, batch, 2)
+    loss = float(m["loss"])
+    counted_s = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = cfg.num_layers * c["microbatches"]
+    fwd = (2 if cfg.remat == "full" else 1) * per_step    # remat: twice
+    check(launches["flash_attention_tc"] == 3 * fwd
+          and launches["flash_attention_bwd_tc"] == 3 * per_step
+          and sum(launches.values()) == 3 * (fwd + per_step),
+          f"the three steps launched {launches}; expected {fwd} "
+          f"tensor-core forwards and {per_step} backwards a step")
+    check(np.isfinite(loss), f"non-finite loss {loss}")
+    t0 = time.perf_counter()
+    on_meta, _ = analysis.count_step(
+        train_step, dryrun.meta_state(cfg),
+        {k: torch.empty_like(v, device="meta") for k, v in batch.items()},
+        2)
+    meta_s = time.perf_counter() - t0
+    units = analysis.unit_calls(on_card)
+    print(f"phase dryrun (1/2): {cfg.name}'s train step ({c['batch']} x "
+          f"{c['seq']} in {c['microbatches']} microbatches) counted by "
+          f"analysis.count_step on the card (the real step, {counted_s:.2f} "
+          f"s with the counter; warm {warm:.3f} s/step without) and on meta "
+          f"({meta_s:.2f} s): FLOPs {on_card.flops:.6e} / {on_meta.flops:.6e}"
+          f", matrix products {on_card.dot_ops} / {on_meta.dot_ops}, units "
+          f"{units} / {analysis.unit_calls(on_meta)}, traffic "
+          f"{on_card.traffic_bytes:.6e} / {on_meta.traffic_bytes:.6e} B, "
+          f"copies between devices {on_card.transfers} / "
+          f"{on_meta.transfers} ({card})")
+    check(on_card.flops == on_meta.flops
+          and on_card.dot_ops == on_meta.dot_ops
+          and on_card.kernel_units == on_meta.kernel_units,
+          f"card != meta: FLOPs {on_card.flops} / {on_meta.flops}, "
+          f"products {on_card.dot_ops} / {on_meta.dot_ops}, units "
+          f"{on_card.kernel_units} / {on_meta.kernel_units}")
+    check(units == {"flash_attention": fwd, "flash_attention_bwd": per_step},
+          f"the count saw units {units}; the step launched {fwd} forwards "
+          f"and {per_step} backwards")
+    differ = op_diff(on_card.ops, on_meta.ops)
+    check(on_card.traffic_bytes == on_meta.traffic_bytes and not differ
+          and on_card.transfers == on_meta.transfers,
+          f"card != meta in traffic: {on_card.traffic_bytes} / "
+          f"{on_meta.traffic_bytes} B; ops (card, meta) {differ}; copies "
+          f"between devices {on_card.transfers} / {on_meta.transfers}")
+    mf = analysis.model_flops(cfg, shape)
+    roof = analysis.roofline(
+        on_card, chips=1, model_flops_global=mf,
+        ideal_bytes_per_dev=analysis.ideal_bytes(cfg, shape, 1,
+                                                 c["microbatches"]),
+        machine=analysis.H100)
+    bound_s = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    structs, _ = dryrun.state_structs(cfg, AbstractMesh((1, 1),
+                                                        ("data", "model")))
+    batch_b = float(sum(t.numel() * t.element_size()
+                        for t in batch.values()))
+    args = {"params": dryrun.bytes_per_device(structs.params),
+            "opt": dryrun.bytes_per_device(structs.opt), "inputs": batch_b}
+    args["total"] = sum(args.values())
+    unit_flops = sum(u["flops"] for u in on_card.kernel_units.values())
+    print(f"  counted FLOPs / 6 N D = {on_card.flops / mf:.4f} (remat "
+          f"counted; attention {unit_flops:.4e} FLOPs in units); H100 "
+          f"(data sheet): compute "
+          f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, "
+          f"dominant {roof['dominant']}; measured warm {warm:.4f} s/step = "
+          f"{warm / bound_s:.2f} x the bound; the largest traffic "
+          f"{on_card.top_traffic[:5]}; argument bytes "
+          f"{args['total'] / 1e9:.3f} GB (params "
+          f"{args['params'] / 1e9:.3f}, AdamW "
+          f"{args['opt'] / 1e9:.3f}, batch {batch_b / 1e9:.4f}) against the "
+          f"measured peak {peak / 1e9:.3f} GB ({card})")
+    check(args["total"] <= peak,
+          f"the dry run's argument bytes {args['total']} exceed the "
+          f"measured peak {peak}")
+    del state, batch, data, train_step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "warm_step_s": warm,
+            "counted_step_s": counted_s, "meta_count_s": meta_s,
+            "flops": on_card.flops, "flops_over_6nd": on_card.flops / mf,
+            "traffic_bytes": on_card.traffic_bytes,
+            "dot_ops": on_card.dot_ops, "units": on_card.kernel_units,
+            "transfers": on_card.transfers, "roofline": roof,
+            "bound_s": bound_s, "warm_over_bound": warm / bound_s,
+            "peak_bytes": peak, "argument_bytes": args,
+            "top_traffic": on_card.top_traffic}
+
+
+def dryrun_cells(card):
+    """Part 2 of phase dryrun: launch/dryrun.run_cell at the single
+    production mesh for DRYRUN_CELLS, each ok; the records' numbers are
+    the H100 row's data-sheet estimates."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    out, memo = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, SHAPES[shape], "single", Path(tmp),
+                                  force=True, memo=memo)
+            check(rec["ok"], f"dry run {arch} {shape}: {rec.get('error')}\n"
+                             f"{rec.get('traceback')}")
+            r = rec["roofline"]
+            out[f"{arch} {shape}"] = {
+                k: rec[k] for k in ("count_s", "rows_per_device",
+                                    "model_division", "bytes_per_device")
+            } | {"n_microbatches": rec.get("n_microbatches"),
+                 "flops": rec["step_stats"]["flops"],
+                 "traffic_bytes": rec["step_stats"]["traffic_bytes"],
+                 "units": rec["step_stats"]["kernel_units"],
+                 "roofline": r}
+            print(f"phase dryrun (2/2): {arch} {shape} single mesh: ok in "
+                  f"{rec['count_s']:.2f} s; {rec['rows_per_device']} rows a "
+                  f"device, work / {rec['model_division']}; counted / model "
+                  f"FLOPs {1 / r['useful_flops_ratio']:.4f}; dominant "
+                  f"{r['dominant']} (compute {r['compute_s']:.4e} s, memory "
+                  f"{r['memory_s']:.4e} s, collective "
+                  f"{r['collective_s']:.4e} s: data-sheet estimates); "
+                  f"{rec['bytes_per_device']['total'] / 1e9:.3f} GB a device "
+                  f"({card})", flush=True)
+    return out
+
+
+def phase_dryrun(np, torch, dev, card):
+    """The LM dry run and its roofline analysis (ROADMAP A11.7-A11.8)."""
+    t_phase = time.perf_counter()
+    out = dryrun_card_vs_meta(np, torch, dev, card)
+    out["cells"] = dryrun_cells(card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase dryrun: {out['phase_s']:.2f} s on {card}; launches on "
+          f"the dryrun path: {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -7745,6 +7951,7 @@ def main() -> int:
             (fa_timings if v["kernel"] == "flash_attention_tc"
              else bwd_timings)[f"{k} (phase local_global_vlm)"] = v
         dp_out = phase_dp_train(np, torch, dev, card)
+        dryrun_out = phase_dryrun(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -7776,7 +7983,8 @@ def main() -> int:
                    "ssm_smoke": ssm_out["smoke_launches"],
                    "local_global_vlm": lg_out["launches"],
                    "local_global_vlm_smoke": lg_out["smoke_launches"],
-                   "dp_train": dp_out["launches"]}
+                   "dp_train": dp_out["launches"],
+                   "dryrun": dryrun_out["launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -7857,6 +8065,8 @@ def main() -> int:
                                         if not k.endswith("launches")},
                    "dp_train": {k: v for k, v in dp_out.items()
                                 if k != "launches"},
+                   "dryrun": {k: v for k, v in dryrun_out.items()
+                              if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

@@ -1,7 +1,6 @@
 """Axis rules: the LM's parameters and batch, the sharded search's
 population and the sharded design bank. Counterpart of
-``repro/distributed/sharding.py`` (all of it but ``cache_specs``, which
-only the dry run reads), copied in behaviour: the rules read only
+``repro/distributed/sharding.py``, copied in behaviour: the rules read only
 ``mesh.axis_names`` and ``mesh.shape``, so they take the port's
 ``launch.mesh.Mesh`` and the reference tests' ``SimpleNamespace`` meshes
 alike.
@@ -25,9 +24,10 @@ mesh along ``axes``; mesh axes not in ``axes`` replicate, as under
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 # GA individuals are embarrassingly parallel, so the population axis of
 # the in-training ADC search (core/search.py, engine='sharded') may take
@@ -81,6 +81,14 @@ def rules_for(cfg) -> Dict[Optional[str], tuple]:
 
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+
+
+class Sharded(NamedTuple):
+    """A stand-in for one input or state leaf of a step over a mesh: a
+    meta tensor of its global shape and dtype, and its spec (the
+    reference's ``ShapeDtypeStruct`` with a ``NamedSharding``)."""
+    tensor: torch.Tensor
+    spec: Spec
 
 
 def spec_for(shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
@@ -190,6 +198,45 @@ def param_specs(params_shape, mesh, cfg, inference: bool = False):
                         mesh, rules)
 
     return walk(params_shape, ())
+
+
+def cache_specs(cache_shape, mesh, cfg) -> Dict[str, Spec]:
+    """The spec of every leaf of a decode cache (``serving.init_cache``'s
+    dict; leaves are tensors or shape tuples): batch over the dp axes;
+    kv heads over 'model', or, where the kv heads do not divide 'model',
+    the sequence (decode then all-reduces only the softmax statistics);
+    the SSD's inner and head dims over 'model' where they divide."""
+    rules = rules_for(cfg)
+    tp = mesh.shape.get("model", 1)
+
+    def one(key, leaf):
+        shape = tuple(leaf.shape if hasattr(leaf, "shape") else leaf)
+        nd = len(shape)
+        if key == "pos":
+            return ()
+        if key in ("kpos", "kpos2"):
+            return (None,)                 # the reference's P(None)
+        if key.startswith(("k", "v")):
+            # (L, B, C, KV, hd)
+            if nd == 5 and tp > 1 and cfg.num_kv_heads % tp and \
+                    shape[2] % tp == 0:
+                loc = dict(rules, cache_seq=(("model",),), kv_heads=(),
+                           head_dim=())
+                return spec_for(shape, ("layers", "batch", "cache_seq",
+                                        "kv_heads", "head_dim"), mesh, loc)
+            logical = ("layers", "batch", "seq", "kv_heads",
+                       "head_dim")[:nd]
+        elif key == "conv_x":
+            logical = ("layers", "batch", None, "ssm_inner")
+        elif key == "conv_bc":
+            logical = ("layers", "batch", None, "ssm_bc")
+        elif key == "state":
+            logical = ("layers", "batch", "ssm_heads", "state", None)
+        else:
+            logical = (None,) * nd
+        return spec_for(shape, logical, mesh, rules)
+
+    return {k: one(k, v) for k, v in cache_shape.items()}
 
 
 def batch_spec(mesh, extra_dims: int = 1) -> Spec:

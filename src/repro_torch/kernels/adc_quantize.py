@@ -11,7 +11,8 @@ contiguity, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
 the count of the entry called (``launches["adc_quantize_population"]``
 or, for the P=1 call, ``launches["adc_quantize"]``). There is no
-fallback.
+fallback. A meta tensor (the dry run) returns an empty (P, M, C) output
+and launches nothing; every call is one ``dispatch.kernel_unit``.
 
 The range rows a call needs are built once per (bits, vmin, vmax, C,
 device) and kept (``range_rows``): building them copies two host arrays
@@ -113,32 +114,38 @@ def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
     if block_m is not None and min(p, m, c) > 0:  # raises on any device
         envelope.quantize_geometry(p, m, c, n, block_m)
     tile = block_m if block_m is not None else res.block_m or 0
-    if res.path == "plain":
-        return ref.adc_quantize_ref_population(x, tables, spec.bits,
-                                               spec.vmin, spec.vmax)
-    lo, scale = rows if rows is not None else range_rows(spec, c, x.device)
-    for i, t in enumerate((x, tables, lo, scale)):
-        if t.device != x.device:
-            raise ValueError(f"{entry}: operand {i} is on {t.device}, x on "
-                             f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{entry}: operand {i} is {t.dtype}, needs "
-                            f"float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{entry}: operand {i} is not contiguous")
-    out = torch.empty((p, m, c), dtype=torch.float32, device=x.device)
-    if m == 0 or p == 0:
+    with dispatch.kernel_unit(entry, p=p, m=m, c=c, n=n):
+        if res.path == "plain":
+            return ref.adc_quantize_ref_population(x, tables, spec.bits,
+                                                   spec.vmin, spec.vmax)
+        if res.path == "meta":
+            return torch.empty((p, m, c), dtype=torch.float32,
+                               device=x.device)
+        lo, scale = (rows if rows is not None
+                     else range_rows(spec, c, x.device))
+        for i, t in enumerate((x, tables, lo, scale)):
+            if t.device != x.device:
+                raise ValueError(f"{entry}: operand {i} is on {t.device}, "
+                                 f"x on {x.device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{entry}: operand {i} is {t.dtype}, needs "
+                                f"float32")
+            if not t.is_contiguous():
+                raise ValueError(f"{entry}: operand {i} is not contiguous")
+        out = torch.empty((p, m, c), dtype=torch.float32, device=x.device)
+        if m == 0 or p == 0:
+            return out
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().adc_quantize_population(
+                x.data_ptr(), tables.data_ptr(), lo.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), m, c, n, p, tile, stream)
+        if err != 0:
+            msg = _lib().adcq_error_string(err).decode()
+            raise RuntimeError(f"{entry} launch failed: error {err} "
+                               f"({msg})")
+        launches[entry] += 1
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().adc_quantize_population(
-            x.data_ptr(), tables.data_ptr(), lo.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, c, n, p, tile, stream)
-    if err != 0:
-        msg = _lib().adcq_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: error {err} ({msg})")
-    launches[entry] += 1
-    return out
 
 
 def adc_quantize_population(

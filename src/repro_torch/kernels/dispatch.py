@@ -4,10 +4,21 @@ registry, and the tuned tile policy. Counterpart of
 
 1. a tensor on the CPU -> the plain PyTorch version (kernels/ref.py);
 2. a CUDA tensor inside the Hopper envelope -> the hand-written kernel;
-3. a CUDA tensor outside the envelope -> ``ValueError`` naming the limit.
+3. a CUDA tensor outside the envelope -> ``ValueError`` naming the limit;
+4. a meta tensor (the dry run, launch/dryrun.py) -> the kernel path
+   without a launch: the same envelope check, then the wrapper returns
+   empty outputs of the kernel's shapes and dtypes. Never the plain
+   version, whose ops are not the kernel's work.
 
-There is no third route: a CUDA tensor never falls back to the plain
+There is no other route: a CUDA tensor never falls back to the plain
 version or to the CPU.
+
+``kernel_unit`` marks one call of a hand kernel's entry on every route:
+an active counter (``launch/analysis.count_step``) is told the entry
+and the call's shapes, prices the call as one unit, and leaves out the
+aten ops run inside it (the plain version's on the CPU, the output
+allocations on the card and on meta), so a step counts the same on
+every device.
 
 Kernel-path resolutions also pick the tile (the ``block_m`` of the
 reference's Pallas entries; here the bank kernels' rows, the quantizer's
@@ -29,6 +40,7 @@ one also taking ``block_m``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Callable, Dict, Optional, Tuple
@@ -145,25 +157,65 @@ def _log(res: Resolution) -> None:
 def _route(entry: str, x, why,
            tile: Optional[Callable[[], Tuple[Optional[int], str]]] = None
            ) -> Resolution:
-    """The three rules, with ``why()`` naming the envelope limit a CUDA
-    call breaks (None inside the envelope) and ``tile()`` the kernel
-    path's (block_m, source). Reads only ``x.device``."""
+    """The four rules, with ``why()`` naming the envelope limit a CUDA
+    or meta call breaks (None inside the envelope) and ``tile()`` the
+    kernel path's (block_m, source). Reads only ``x.device``."""
     dev = str(x.device)
     if x.device.type == "cpu":
         res = Resolution(entry, "plain", dev, "CPU tensor: plain version")
     else:
-        if x.device.type != "cuda":
+        if x.device.type not in ("cuda", "meta"):
             raise ValueError(f"{entry}: unsupported device {x.device}")
         reason = why()
         if reason is not None:
             raise ValueError(f"{entry}: outside the Hopper kernel envelope: "
                              f"{reason}")
-        bm, src = tile() if tile is not None else (None, None)
-        res = Resolution(entry, "kernel", dev,
-                         "CUDA tensor inside the Hopper envelope",
-                         block_m=bm, block_m_source=src)
+        if x.device.type == "meta":
+            res = Resolution(entry, "meta", dev,
+                             "meta tensor: the kernel's shapes, no launch")
+        else:
+            bm, src = tile() if tile is not None else (None, None)
+            res = Resolution(entry, "kernel", dev,
+                             "CUDA tensor inside the Hopper envelope",
+                             block_m=bm, block_m_source=src)
     _log(res)
     return res
+
+
+# ------------------------------------------------------------ unit reports
+# the active counters (launch/analysis.count_step), innermost last; each
+# has ``unit(entry, shapes)`` and a ``depth`` of open units. Module-wide,
+# not per thread or context, as torch's dispatch-mode stack is: a CUDA
+# backward runs its kernels' wrappers on the autograd engine's thread
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Make ``counter`` active while the block runs (see
+    ``kernel_unit``)."""
+    _COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTERS.remove(counter)
+
+
+@contextlib.contextmanager
+def kernel_unit(entry: str, **shapes):
+    """One call of the hand kernel ``entry`` (see the module docstring):
+    every active counter records ``unit(entry, shapes)`` and holds its
+    ``depth`` above 0 while the block runs. Costs nothing when no counter
+    is active."""
+    counters = tuple(_COUNTERS)
+    for c in counters:
+        c.unit(entry, shapes)
+        c.depth += 1
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.depth -= 1
 
 
 def _bits(n: int) -> Optional[int]:
@@ -264,7 +316,7 @@ def resolve_flash(entry: str, q: torch.Tensor) -> Resolution:
 
     res = _route(entry, q, why)
     return dataclasses.replace(
-        res, route=route if res.path == "kernel" else "plain")
+        res, route="plain" if res.path == "plain" else route)
 
 
 def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
@@ -287,7 +339,7 @@ def resolve_flash_bwd(entry: str, q: torch.Tensor) -> Resolution:
 
     res = _route(entry, q, why)
     return dataclasses.replace(
-        res, route=route if res.path == "kernel" else "plain")
+        res, route="plain" if res.path == "plain" else route)
 
 
 # --------------------------------------------------------------- registry

@@ -19,7 +19,12 @@ The wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and raises if
 the launch reports an error. There is no fallback. The tensor-core
 kernel's TMA maps need 16-byte aligned bases: an operand whose view
-starts off that alignment is copied first.
+starts off that alignment is copied first. A meta tensor (the dry run,
+launch/dryrun.py) takes the kernel path without a launch: the envelope
+is checked and an empty output of the kernel's shape is returned. Every
+call, on every route, is one ``dispatch.kernel_unit`` (``unit_shapes``),
+so launch/analysis.count_step prices it and skips the ops inside; the
+plain backward's gradients are made contiguous, as the kernel's are.
 
 ``flash_attention_bwd(q, k, v, dout, q_positions, k_positions, *,
 causal, window, attn_softcap)`` -> (dq, dk, dv) is the gradient of that
@@ -182,6 +187,15 @@ def _check(q, k, v, q_positions, k_positions
     return b, s, h, dh, sk, kvh
 
 
+def unit_shapes(q, k, causal, window) -> dict:
+    """What a call reports to ``dispatch.kernel_unit``: the shapes, the
+    element size and the mask's parameters (positions are not read)."""
+    b, s, h, dh = q.shape
+    return dict(b=b, s=s, sk=k.shape[1], h=h, kv=k.shape[2], dh=dh,
+                itemsize=q.element_size(), causal=bool(causal),
+                window=int(window or 0))
+
+
 def _check_cuda_operands(entry: str, named) -> None:
     """Device, dtype and contiguity of a kernel call's operands, named:
     ``named`` is [(label, tensor)], the float operands first (they must
@@ -210,12 +224,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     attn_softcap: float = 0.0) -> torch.Tensor:
     """Attention of q over (k, v); see the module docstring."""
-    b, s, h, dh, sk, kvh = _check(q, k, v, q_positions, k_positions)
+    _check(q, k, v, q_positions, k_positions)
     res = dispatch.resolve_flash(ENTRY, q)
-    if res.path == "plain":
-        return ref.flash_attention_ref(q, k, v, q_positions, k_positions,
-                                       causal=causal, window=window,
-                                       attn_softcap=attn_softcap)
+    with dispatch.kernel_unit(ENTRY, **unit_shapes(q, k, causal, window)):
+        if res.path == "plain":
+            return ref.flash_attention_ref(
+                q, k, v, q_positions, k_positions, causal=causal,
+                window=window, attn_softcap=attn_softcap)
+        if res.path == "meta":
+            return torch.empty_like(q)
+        return _launch(res.route, q, k, v, q_positions, k_positions,
+                       causal=causal, window=window,
+                       attn_softcap=attn_softcap)
+
+
+def _launch(route, q, k, v, q_positions, k_positions, *, causal, window,
+            attn_softcap):
+    """One forward call on the kernel of ``route``, counted on its key."""
+    b, s, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
     _check_cuda_operands(ENTRY, [("q", q), ("k", k), ("v", v),
                                  ("q_positions", q_positions),
                                  ("k_positions", k_positions)])
@@ -226,7 +253,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flags = (int(bool(causal)), int(window or 0), float(attn_softcap or 0.0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if res.route == "tensor_core":
+        if route == "tensor_core":
             q, k, v = (_aligned(t) for t in (q, k, v))
             lib, key = _lib_tc(), TC_ENTRY
             err = lib.flash_attention_tc(
@@ -260,16 +287,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{BWD_ENTRY}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
     res = dispatch.resolve_flash_bwd(BWD_ENTRY, q)
-    if res.path == "plain":
-        return ref.flash_attention_bwd_ref(
-            q, k, v, dout, q_positions, k_positions, causal=causal,
-            window=window, attn_softcap=attn_softcap)
-    _check_cuda_operands(BWD_ENTRY, [
-        ("q", q), ("k", k), ("v", v), ("dout", dout),
-        ("q_positions", q_positions), ("k_positions", k_positions)])
-    return _launch_bwd(res.route, q, k, v, dout, q_positions, k_positions,
-                       causal=causal, window=window,
-                       attn_softcap=attn_softcap)
+    with dispatch.kernel_unit(BWD_ENTRY, **unit_shapes(q, k, causal,
+                                                       window)):
+        if res.path == "plain":
+            # contiguous, as the kernels' outputs are, so the ops after
+            # the call are the same on every route
+            return tuple(t.contiguous() for t in ref.flash_attention_bwd_ref(
+                q, k, v, dout, q_positions, k_positions, causal=causal,
+                window=window, attn_softcap=attn_softcap))
+        if res.path == "meta":
+            return tuple(torch.empty_like(t) for t in (q, k, v))
+        _check_cuda_operands(BWD_ENTRY, [
+            ("q", q), ("k", k), ("v", v), ("dout", dout),
+            ("q_positions", q_positions), ("k_positions", k_positions)])
+        return _launch_bwd(res.route, q, k, v, dout, q_positions,
+                           k_positions, causal=causal, window=window,
+                           attn_softcap=attn_softcap)
 
 
 def _launch_bwd(route, q, k, v, dout, q_positions, k_positions, *, causal,

@@ -14,7 +14,8 @@ Each entry counts its own launches. A CPU tensor runs the plain version
 wrapper checks device, dtype, shape and contiguity, allocates the output
 with ``torch.empty``, launches on the current stream, raises if the
 launch reports an error, and adds one to ``launches[<entry>]``. There is
-no fallback.
+no fallback. A meta tensor (the dry run) returns an empty output and
+launches nothing; every call is one ``dispatch.kernel_unit``.
 
 The tile (``block_m``: the rows of a block's chunk of M,
 envelope.mc_geometry) is the caller's where given, else the tuned
@@ -110,33 +111,39 @@ def _run(entry: str, x: torch.Tensor, lb, ub, values, lo, scale,
     if block_m is not None and c > 0:           # raises on any device
         envelope.mc_geometry(p, s, m, c, n, block_m)
     tile = block_m if block_m is not None else res.block_m or 0
-    if res.path == "plain":
-        return _PLAIN[entry](x, lb, ub, values, lo, scale)
-    operands = (x, lb, ub, values, lo, scale)
-    for i, t in enumerate(operands):
-        if t.device != x.device:
-            raise ValueError(f"{entry}: operand {i} is on {t.device}, x on "
-                             f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{entry}: operand {i} is {t.dtype}, needs "
-                            f"float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{entry}: operand {i} is not contiguous")
-    shape = (s, m, c) if lb.ndim == 3 else (p, s, m, c)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    if m == 0 or s == 0 or p == 0 or c == 0:
+    with dispatch.kernel_unit(entry, p=p, s=s, m=m, c=c, n=n):
+        if res.path == "plain":
+            return _PLAIN[entry](x, lb, ub, values, lo, scale)
+        if res.path == "meta":
+            return torch.empty((s, m, c) if lb.ndim == 3 else (p, s, m, c),
+                               dtype=torch.float32, device=x.device)
+        operands = (x, lb, ub, values, lo, scale)
+        for i, t in enumerate(operands):
+            if t.device != x.device:
+                raise ValueError(f"{entry}: operand {i} is on {t.device}, "
+                                 f"x on {x.device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{entry}: operand {i} is {t.dtype}, needs "
+                                f"float32")
+            if not t.is_contiguous():
+                raise ValueError(f"{entry}: operand {i} is not contiguous")
+        shape = (s, m, c) if lb.ndim == 3 else (p, s, m, c)
+        out = torch.empty(shape, dtype=torch.float32, device=x.device)
+        if m == 0 or s == 0 or p == 0 or c == 0:
+            return out
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().mc_eval(
+                x.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+                values.data_ptr(), lo.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), m, c, n, p, s, int("_cal" in entry), tile,
+                stream)
+        if err != 0:
+            msg = _lib().mc_eval_error_string(err).decode()
+            raise RuntimeError(f"{entry} launch failed: error {err} "
+                               f"({msg})")
+        launches[entry] += 1
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().mc_eval(
-            x.data_ptr(), lb.data_ptr(), ub.data_ptr(), values.data_ptr(),
-            lo.data_ptr(), scale.data_ptr(), out.data_ptr(), m, c, n, p, s,
-            int("_cal" in entry), tile, stream)
-    if err != 0:
-        msg = _lib().mc_eval_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: error {err} ({msg})")
-    launches[entry] += 1
-    return out
 
 
 def mc_adc_eval(x, lb, ub, values, lo, scale, *,

@@ -13,9 +13,11 @@ faulttol/calibrate.mc_operands_ft) compiles and run the Monte-Carlo
 kernel. ``flash_attention`` runs an attention kernel (the LM's prefill
 attention; tensor cores for bf16 at the configs' head widths, CUDA cores
 otherwise); ``flash_attention_bwd`` its backward kernel, and ``attention``
-the two as one differentiable call (the LM's prefill and training). Routing (kernel on a CUDA tensor inside the envelope, plain
-version on a CPU tensor, ValueError otherwise) is kernels/dispatch's,
-applied inside the kernel wrappers. Each kernel entry takes an optional
+the two as one differentiable call (the LM's prefill and training).
+Routing (kernel on a CUDA tensor inside the envelope, plain version on a
+CPU tensor, empty outputs of the kernel's shapes on a meta tensor,
+ValueError otherwise) is kernels/dispatch's, applied inside the kernel
+wrappers. Each kernel entry takes an optional
 ``block_m``, the kernel's tile (kernels/envelope.py); None leaves it to
 the tuned table and the heuristic (kernels/dispatch.py).
 

@@ -12,7 +12,9 @@ contiguity, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to
 the count of the entry called (``launches["qmlp_mlp_bank"]``, or
 ``launches["bespoke_mlp"]`` for the D=1 call, and the same for the SVM).
-There is no fallback.
+There is no fallback. A meta tensor (the dry run) returns an empty
+(D, M, O) output and launches nothing; every call is one
+``dispatch.kernel_unit``.
 
 The tile (``block_m``, the rows a block takes; envelope.bank_geometry)
 is the caller's where given, else the tuned table's for the call's
@@ -150,18 +152,22 @@ def _mlp_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w1, b1, w2,
     d, m, f, n, h, o = dims
     res = dispatch.resolve(entry, "mlp", x, tables, weights)
     tile = _tile("mlp", block_m, res, dims)
-    if res.path == "plain":
-        spec.validate_channels(f)
-        return ref.bespoke_mlp_bank_ref(x, tables, spec.bits, w1, b1, w2, b2,
-                                        spec.vmin, spec.vmax)
-    lo, scale = _rows(spec, f, x, rows)
-    operands = (tables, lo, scale, w1, b1, w2, b2)
-    _check_operands(entry, x, operands)
-    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
-    if m == 0 or d == 0:
-        return out
-    return _launch(entry, _lib().qmlp_mlp_bank, x, operands,
-                   (m, f, n, h, o, d, tile), out)
+    with dispatch.kernel_unit(entry, d=d, m=m, f=f, n=n, h=h, o=o):
+        if res.path == "plain":
+            spec.validate_channels(f)
+            return ref.bespoke_mlp_bank_ref(x, tables, spec.bits, w1, b1, w2,
+                                            b2, spec.vmin, spec.vmax)
+        if res.path == "meta":
+            return torch.empty((d, m, o), dtype=torch.float32,
+                               device=x.device)
+        lo, scale = _rows(spec, f, x, rows)
+        operands = (tables, lo, scale, w1, b1, w2, b2)
+        _check_operands(entry, x, operands)
+        out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
+        if m == 0 or d == 0:
+            return out
+        return _launch(entry, _lib().qmlp_mlp_bank, x, operands,
+                       (m, f, n, h, o, d, tile), out)
 
 
 def _svm_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w, b,
@@ -171,18 +177,22 @@ def _svm_bank(entry: str, x: torch.Tensor, tables: torch.Tensor, w, b,
     d, m, f, n, _, o = dims
     res = dispatch.resolve(entry, "svm", x, tables, weights)
     tile = _tile("svm", block_m, res, dims)
-    if res.path == "plain":
-        spec.validate_channels(f)
-        return ref.bespoke_svm_bank_ref(x, tables, spec.bits, w, b,
-                                        spec.vmin, spec.vmax)
-    lo, scale = _rows(spec, f, x, rows)
-    operands = (tables, lo, scale, w, b)
-    _check_operands(entry, x, operands)
-    out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
-    if m == 0 or d == 0:
-        return out
-    return _launch(entry, _lib().qmlp_svm_bank, x, operands,
-                   (m, f, n, o, d, tile), out)
+    with dispatch.kernel_unit(entry, d=d, m=m, f=f, n=n, h=0, o=o):
+        if res.path == "plain":
+            spec.validate_channels(f)
+            return ref.bespoke_svm_bank_ref(x, tables, spec.bits, w, b,
+                                            spec.vmin, spec.vmax)
+        if res.path == "meta":
+            return torch.empty((d, m, o), dtype=torch.float32,
+                               device=x.device)
+        lo, scale = _rows(spec, f, x, rows)
+        operands = (tables, lo, scale, w, b)
+        _check_operands(entry, x, operands)
+        out = torch.empty((d, m, o), dtype=torch.float32, device=x.device)
+        if m == 0 or d == 0:
+            return out
+        return _launch(entry, _lib().qmlp_svm_bank, x, operands,
+                       (m, f, n, o, d, tile), out)
 
 
 def bespoke_mlp_bank(x: torch.Tensor, tables: torch.Tensor, w1, b1, w2, b2,

@@ -11,8 +11,13 @@ mesh on one card, and ``[cpu, cpu]`` the tests' two-shard mesh, so the
 split, the per-shard launches and the gather all run on one device.
 
 The LM train step (``models/steps.py``) runs data parallel over such a
-mesh. ``make_production_mesh``, the TPU pod topology of the LM training
-job that the dry run lowers against, belongs to ROADMAP A11.7.
+mesh. ``make_production_mesh`` is the production LM job's topology, the
+reference's (16, 16) ('data', 'model') pod or (2, 16, 16) with 'pod', as
+an ``AbstractMesh``: axis names and sizes over ``meta`` entries, no
+device behind them. The dry run (``launch/dryrun.py``) reads its specs
+and counts one device's step on meta tensors; no step runs over it
+(``models/steps.py`` refuses it: tensor parallelism, ROADMAP A11.9), and
+it has no first device.
 """
 from __future__ import annotations
 
@@ -131,11 +136,35 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
     return make_mesh((data, model), ("data", "model"), devices=devs[:n])
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The TPU pod topology of the LM training job: not in the port."""
-    raise NotImplementedError(
-        "make_production_mesh (the TPU v5e pod topology of the LM training "
-        "job) is not ported to repro_torch: ROADMAP A11.7")
+class AbstractMesh(Mesh):
+    """A mesh of axis names and sizes only: every entry is
+    ``torch.device("meta")``. The sharding rules read it as any mesh;
+    nothing runs on it."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]) -> None:
+        names = tuple(axes)
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {shape} does not fit the axes "
+                             f"{names}")
+        arr = np.empty(math.prod(shape), dtype=object)
+        arr[:] = [torch.device("meta")] * arr.size
+        self.devices = arr.reshape(shape)
+        self.axis_names = names
+
+    @property
+    def first_device(self) -> torch.device:
+        raise ValueError("an abstract mesh has no device to run on: the "
+                         "dry run counts one device's step on meta tensors "
+                         "(launch/dryrun.py)")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production LM job's topology, the reference's: 16 x 16 = 256
+    devices ('data', 'model'), or 2 pods of them (512, 'pod' first)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
 
 
 def describe(mesh: Mesh) -> str:

@@ -123,7 +123,10 @@ class Routing(NamedTuple):
     (token t's r-th pair in sorted-position order at t k + r):
     ``rank_pair`` (T k,) its flat pair t k + j, ``pair_rank`` (T k, 1) the
     inverse, ``rank_slot`` (T k,) its buffer row, ``slot_rank`` (E cap, 1)
-    the inverse."""
+    the inverse; ``counts`` (E,) the pairs routed to each expert, kept or
+    dropped (the differences of the left ``searchsorted`` starts: the
+    integers ``bincount`` gives, with no extra op on the card and a meta
+    kernel)."""
     order: torch.Tensor
     slot: torch.Tensor
     keep: torch.Tensor
@@ -134,6 +137,7 @@ class Routing(NamedTuple):
     pair_rank: torch.Tensor
     rank_slot: torch.Tensor
     slot_rank: torch.Tensor
+    counts: torch.Tensor
 
 
 def prefill_capacity(tokens: int, m: MoEConfig) -> int:
@@ -192,7 +196,8 @@ def route(ids: torch.Tensor, num_experts: int, cap: int) -> Routing:
     slot_tok = torch.where(filled, sorted_tok[src], -1).reshape(-1)
     slot_rank = torch.where(filled, rank_of_pos[src], -1).reshape(-1, 1)
     return Routing(order, slot, keep, cap, slot_tok, pair_slot,
-                   rank_pair, pair_rank, rank_slot, slot_rank)
+                   rank_pair, pair_rank, rank_slot, slot_rank,
+                   starts[1:] - starts[:-1])
 
 
 def _router(xf: torch.Tensor, router_w: torch.Tensor, k: int):
@@ -235,10 +240,10 @@ def moe_ffn(x: torch.Tensor, params, m: MoEConfig
     t, e, k = b * s, m.num_experts, m.top_k
     xf = x.reshape(t, d)
     probs, gate, ids = _router(xf, params["router"], k)
-    me = probs.mean(0)
-    ce = torch.bincount(ids.reshape(-1), minlength=e).float() / (t * k)
-    aux = e * torch.sum(me * ce)
     r = route(ids, e, prefill_capacity(t, m))
+    me = probs.mean(0)
+    ce = r.counts.float() / (t * k)
+    aux = e * torch.sum(me * ce)
     return _experts(xf, gate, r, params, m).reshape(b, s, d), aux
 
 

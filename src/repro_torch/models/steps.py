@@ -44,8 +44,11 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
   dispatch).
 
 A 'model' axis the parameter rules would shard weights over (tensor
-parallelism) and a mesh mixing device types are refused (ROADMAP
-A11.9).
+parallelism), a mesh mixing device types and the abstract production
+mesh (``launch/mesh.make_production_mesh``, meta entries) are refused
+(ROADMAP A11.9). ``input_specs`` gives a cell's inputs on such a mesh as
+``sharding.Sharded`` meta stand-ins, as the reference's does, for the
+dry run (``launch/dryrun.py``).
 
 The step updates ``state.params``, the AdamW moments and the error rows
 in place and returns the state. Autograd's leaves are per-layer views of
@@ -193,6 +196,11 @@ def _rank_plan(cfg: ArchConfig, mesh, b: int) -> list:
                 f"{cfg.name}: the 'model' axis of {mesh.shape} would shard "
                 f"{len(sharded)} weights ({sharded[0]}, ...): tensor "
                 f"parallelism is not ported to repro_torch (ROADMAP A11.9)")
+    if "meta" in types:
+        raise NotImplementedError(
+            f"{cfg.name}: a step over the abstract mesh {mesh.shape} is not "
+            f"ported to repro_torch (ROADMAP A11.9); the dry run counts one "
+            f"device's step on meta tensors (launch/dryrun.py)")
     if cfg.grad_compression != "int8":
         return [(mesh.first_device, slice(0, b))]
     axes = sharding.dp_axes(mesh)
@@ -305,6 +313,18 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
     return grad_step
 
 
+def apply_grads(cfg: ArchConfig, state: TrainState, grads, lr
+                ) -> torch.Tensor:
+    """The step after the gradients: their global norm (returned), then
+    AdamW in place on ``state``'s parameters and moments, clipped to
+    ``cfg.grad_clip`` by that norm, at learning rate ``lr``."""
+    gnorm = adamw.global_norm(grads)
+    adamw.update_(adamw.tree_leaves(state.params), adamw.tree_leaves(grads),
+                  state.opt, lr=lr, weight_decay=cfg.weight_decay,
+                  grad_clip=cfg.grad_clip, grad_norm=gnorm)
+    return gnorm
+
+
 def make_train_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
                     microbatches: Optional[int] = None,
                     total_steps: int = 10_000):
@@ -317,11 +337,7 @@ def make_train_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
         lr = schedule.warmup_cosine(step, peak_lr=cfg.learning_rate,
                                     total=total_steps).to(dev)
         grads, loss, new_err = grad_step(state, batch)
-        gnorm = adamw.global_norm(grads)
-        adamw.update_(adamw.tree_leaves(state.params),
-                      adamw.tree_leaves(grads), state.opt, lr=lr,
-                      weight_decay=cfg.weight_decay,
-                      grad_clip=cfg.grad_clip, grad_norm=gnorm)
+        gnorm = apply_grads(cfg, state, grads, lr)
         if new_err is not None:
             with torch.no_grad():
                 for row, new in zip(state.err, new_err):
@@ -341,3 +357,60 @@ def make_decode_step(cfg: ArchConfig):
     def decode_step(params, batch, cache):
         return serving.decode_step(params, batch, cache, cfg)
     return decode_step
+
+
+# ------------------------------------------------------------- input specs
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                microbatches: Optional[int] = None) -> Dict[str, Any]:
+    """Meta stand-ins (``sharding.Sharded``: tensor and spec) for every
+    model input of the (arch x shape) cell on ``mesh``, the reference's:
+    kind 'train' gives ``{"batch", "n_microbatches"}``, the batch's
+    leaves leading with the microbatch axis; 'prefill' ``{"batch"}``;
+    'decode' ``{"batch", "cache"}``, one new token against a cache of
+    ``shape.seq_len`` (``serving.init_cache`` on meta, which does not
+    depend on ``pad_heads_to``, so a padded published config gets its
+    cache too)."""
+    dt = transformer.torch_dtype(cfg.dtype)
+
+    def sds(shp, dtype, spec):
+        return sharding.Sharded(torch.empty(shp, dtype=dtype, device="meta"),
+                                tuple(spec))
+
+    def batch_struct(b: int, s: int, lead: tuple = ()):
+        baxes = sharding.batch_axes(mesh, cfg, b)
+
+        def mk(shp, dtype, batch_axis):
+            parts = [None] * len(shp)
+            if baxes:
+                parts[batch_axis] = baxes if len(baxes) > 1 else baxes[0]
+            return sds(lead + shp, dtype, [None] * len(lead) + parts)
+
+        out: Dict[str, Any] = {}
+        if cfg.frontend:
+            out["embeddings"] = mk((b, s, cfg.frontend_dim), dt, 0)
+            if cfg.adc.enable:
+                # a constant: never gets the microbatch axis
+                out["adc_mask"] = sds((cfg.frontend_dim, 2 ** cfg.adc.bits),
+                                      torch.int32, ())
+        else:
+            out["tokens"] = mk((b, s), torch.int32, 0)
+        out["positions"] = mk((b, s, 3) if cfg.mrope else (b, s),
+                              torch.int32, 0)
+        if shape.kind == "train":
+            out["labels"] = mk((b, s), torch.int32, 0)
+        return out
+
+    if shape.kind == "train":
+        n_mb = microbatches or default_microbatches(cfg, shape, mesh)
+        return {"batch": batch_struct(shape.global_batch // n_mb,
+                                      shape.seq_len, lead=(n_mb,)),
+                "n_microbatches": n_mb}
+    if shape.kind == "prefill":
+        return {"batch": batch_struct(shape.global_batch, shape.seq_len)}
+    b = shape.global_batch
+    cache = serving.init_cache(cfg.replace(pad_heads_to=0), b,
+                               shape.seq_len, device="meta")
+    specs = sharding.cache_specs(cache, mesh, cfg)
+    return {"batch": batch_struct(b, 1),
+            "cache": {k: sharding.Sharded(t, specs[k])
+                      for k, t in cache.items()}}

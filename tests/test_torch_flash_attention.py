@@ -224,8 +224,13 @@ def test_dispatch_rules():
     with pytest.raises(ValueError, match="grid"):
         dispatch.resolve_flash("flash_attention",
                                _fake_cuda((65536, 16, 2, 64)))
+    # meta (the dry run): the kernel path without a launch, on the route
+    # a card would take; any other device but cpu and cuda is refused
+    meta = dispatch.resolve_flash("flash_attention", q.to("meta"))
+    assert (meta.path, meta.route) == ("meta", "cuda_core")
     with pytest.raises(ValueError, match="unsupported device"):
-        dispatch.resolve_flash("flash_attention", q.to("meta"))
+        dispatch.resolve_flash("flash_attention", types.SimpleNamespace(
+            device=torch.device("xpu"), shape=q.shape, dtype=q.dtype))
     # routes: float32 -> the CUDA-core kernel; bf16 at every config head
     # width -> the tensor-core kernel; bf16 off that list -> CUDA cores
     assert res.route == "cuda_core"

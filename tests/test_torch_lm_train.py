@@ -226,8 +226,14 @@ def test_backward_wrapper_checks_without_a_card():
         named[i] = item
         with pytest.raises(exc, match=match):
             chk("flash_attention_bwd", named)
+    # meta (the dry run): the kernel path without a launch; any other
+    # device but cpu and cuda is refused
+    assert dispatch.resolve_flash_bwd("flash_attention_bwd",
+                                      q.to("meta")).path == "meta"
     with pytest.raises(ValueError, match="unsupported device"):
-        dispatch.resolve_flash_bwd("flash_attention_bwd", q.to("meta"))
+        dispatch.resolve_flash_bwd(
+            "flash_attention_bwd", types.SimpleNamespace(
+                device=torch.device("xpu"), shape=q.shape, dtype=q.dtype))
     assert dispatch.resolve_flash_bwd("flash_attention_bwd", q).path == \
         "plain"
     assert envelope.outside_flash_bwd_envelope(4, 2048, 24, 64) is None

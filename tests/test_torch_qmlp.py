@@ -190,8 +190,13 @@ def test_dispatch_rules():
     with pytest.raises(ValueError, match="shared memory"):
         dispatch.resolve("qmlp_svm_bank", "svm", _fake_cuda((4, 1000)),
                          _fake_cuda((6, 1000, 64)), svm_w)
+    # meta (the dry run): the kernel path without a launch; any other
+    # device but cpu and cuda is refused
+    assert dispatch.resolve("qmlp_mlp_bank", "mlp", x.to("meta"), tables,
+                            mlp_w).path == "meta"
     with pytest.raises(ValueError, match="unsupported device"):
-        dispatch.resolve("qmlp_mlp_bank", "mlp", x.to("meta"), tables, mlp_w)
+        dispatch.resolve("qmlp_mlp_bank", "mlp", types.SimpleNamespace(
+            device=torch.device("xpu"), shape=x.shape), tables, mlp_w)
 
 
 def test_envelope_is_shared_memory():

@@ -172,9 +172,16 @@ def test_quantizer_dispatch_and_envelope():
         dispatch.resolve_quantize(
             "adc_quantize_population", _fake_cuda((8, 21)),
             _fake_cuda((envelope.MAX_DESIGNS + 1, 21, 16)))
+    # meta (the dry run): the kernel path without a launch; any other
+    # device but cpu and cuda is refused
+    assert dispatch.resolve_quantize("adc_quantize_population",
+                                     torch.zeros(4, 21, device="meta"),
+                                     torch.zeros(2, 21, 16)).path == "meta"
     with pytest.raises(ValueError, match="unsupported device"):
         dispatch.resolve_quantize("adc_quantize_population",
-                                  torch.zeros(4, 21, device="meta"),
+                                  types.SimpleNamespace(
+                                      device=torch.device("xpu"),
+                                      shape=(4, 21)),
                                   torch.zeros(2, 21, 16))
     # cardio's search shape needs 1512 bytes; F=200 at 6 bits passes 48 KB
     assert envelope.quantize_smem_bytes(21, 16) == 4 * (21 * 16 + 2 * 21)

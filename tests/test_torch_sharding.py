@@ -158,8 +158,11 @@ def test_make_mesh_holds_devices_axes_and_shape():
         tmesh.make_mesh((2,), ("data", "model"), devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="unsupported device"):
         tmesh.make_mesh((1,), ("data",), devices=["meta"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tmesh.make_production_mesh()
+    prod = tmesh.make_production_mesh()
+    assert prod.shape == {"data": 16, "model": 16} and prod.size == 256
+    assert tmesh.make_production_mesh(multi_pod=True).shape == {
+        "pod": 2, "data": 16, "model": 16}
+    assert {d.type for d in prod.devices.reshape(-1)} == {"meta"}
 
 
 def test_elastic_meshes_over_device_lists(tmp_path):

@@ -398,12 +398,14 @@ def test_what_stays_refused_names_the_roadmap_item(what):
     """The train step refuses what later slices of ROADMAP A11 port: a
     'model' axis that the parameter rules would shard weights over
     (tensor parallelism, A11.9; the dp half of A11.9 runs) and the
-    production mesh the dry run lowers against (A11.7)."""
+    production mesh the dry run counts against (abstract since A11.7: a
+    step over it is A11.9's)."""
     cfg = smoke_config(ARCH)
     shape = ShapeConfig("t", 32, 4, "train")
     if what == "make_production_mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
-            tmesh.make_production_mesh()
+        with pytest.raises(NotImplementedError, match="ROADMAP A11.9"):
+            steps.make_train_step(cfg, tmesh.make_production_mesh(), shape,
+                                  microbatches=2)
         return
     tp = tmesh.make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
     for c in (cfg, cfg.replace(grad_compression="int8")):
