@@ -772,6 +772,48 @@ GEMMA_TRAIN = dict(batch=1, seq=8192, microbatches=1, steps=3,
 # the same grid
 QWEN = dict(arch="qwen2-vl-72b", layers=20, requests=2, grid=(1, 32, 48),
             text=512, gen=8, teacher=4, reserve_gb=8)
+# the tensor-parallel path (ROADMAP A11.9) on (1, 2) meshes. qwen2-vl-72b
+# served at QWEN's depth and prompt length, a text prompt: bf16 weights,
+# since the one-card tree of float32 masters (70 GB at 20 layers) and its
+# split copy do not fit one card together
+TP_QWEN = dict(arch="qwen2-vl-72b", layers=QWEN["layers"], requests=2,
+               prompt_len=2048, gen=8)
+# llama4-scout at phase moe's serving cut, a 4 x 2048 prefill; then one
+# step at MOE_TRAIN's cut
+TP_MOE = dict(arch="llama4-scout-17b-a16e",
+              cut=dict(num_layers=2, pad_heads_to=0), requests=4,
+              prompt_len=2048, check_tokens=8)
+# gemma2-2b uncut, heads unpadded, trained at GEMMA_TRAIN's 1 x 8192
+TP_GEMMA = dict(arch="gemma2-2b", cut=dict(pad_heads_to=0), batch=1,
+                seq=8192, microbatches=1, steps=2)
+# the repaired moe dp step: kimi-k2's smoke config at (2, 1)
+TP_SMOKE = dict(arch="kimi-k2-1t-a32b", batch=8, seq=32, microbatches=2,
+                steps=2)
+# tensor parallel against one card on the same bf16 weights: the split
+# rounds each rank's partial to bf16 before the sum. Served logits are
+# held to LM_TEACHER_BF16_ATOL, the bf16 serving bound ("twice the
+# largest sound bf16 reading"); a training step's loss and grad norm to
+# one bf16 ulp relative (BWD_TOL's bf16 rtol): each gradient element may
+# move by BWD_TOL, their norm and the float32 loss by no more
+TP_SERVE_TOL = LM_TEACHER_BF16_ATOL
+TP_TRAIN_RTOL = BWD_TOL["bfloat16"][0]
+# llama4-scout's tp prefill against the one-card prefill: each moe call's
+# dropped pairs, and the prefill's, within this share of its pairs. The
+# split rounds each rank's bf16 partial before reduce_sum, so each layer's
+# input is an ulp away from one card's and a near-tie top-k choice, and
+# with it the capacity cutoff, can move: equal counts cannot be asked.
+# Read on the H100: 513 and 386 of 8192 pairs dropped against one card's
+# 516 and 385 (gaps 3 and 1, 0.04 %); the bound, 0.2 % (16 pairs a call),
+# is five times the larger gap
+TP_MOE_DROP_SHARE = 2e-3
+# phase tp's gemma2-2b step 0, split against one card: every gradient
+# leaf's distance from one card's over one card's norm (split leaves
+# gathered whole), beside the loss and grad norm's TP_TRAIN_RTOL, which
+# alone barely sees a rank reading the wrong kv heads at a random init
+# (1.11e-2 against its 7.8e-3 on the H100). Read there: worst leaf
+# layers2/k at 1.21e-2; the bound, 2^-4, is five times that; the planted
+# faults (tp_train_faults) read 0.89-1.53
+TP_GRAD_REL = 2.0 ** -4
 # M-RoPE's witness: the grid's h and w components must move the float32
 # forward's final hidden states (unit RMS) by more than this, 100x the
 # float32 paths' 1e-5 agreement (decode against teacher forcing)
@@ -5179,8 +5221,8 @@ def recorded_moe(calls):
     from repro_torch.models import moe
     ffn, dec = moe.moe_ffn, moe.moe_ffn_decode
 
-    def rec_ffn(x, params, m):
-        y, aux = ffn(x, params, m)
+    def rec_ffn(x, params, m, **kw):
+        y, aux = ffn(x, params, m, **kw)
         calls.append(("prefill", x.detach().clone(), y.detach().clone(),
                       params, m))
         return y, aux
@@ -6733,11 +6775,11 @@ def lg_attention_kernels(np, torch, dev, card, clock):
         cc_row = by_route[("bfloat16", "cuda_core")]
         print(f"  row 11b bf16 at gemma2's layer, {wtxt}, a pass's device "
               f"ms (statistics / dk-dv / dq): tensor cores "
-              + " / ".join(f"{t:.3f}" for t in
-                           tc_row["pass_device_ms"].values())
+              + " / ".join("not measured" if t is None else f"{t:.3f}"
+                           for t in tc_row["pass_device_ms"].values())
               + ", CUDA cores "
-              + " / ".join(f"{t:.3f}" for t in
-                           cc_row["pass_device_ms"].values())
+              + " / ".join("not measured" if t is None else f"{t:.3f}"
+                           for t in cc_row["pass_device_ms"].values())
               + f"; a call {tc_row['ms']:.3f} against {cc_row['ms']:.3f} ms "
               f"({cc_row['ms'] / tc_row['ms']:.1f}x), bound "
               f"{tc_row['bound_ms']:.4f} ms ({tc_row['ms'] / tc_row['bound_ms']:.1f}x "
@@ -7791,6 +7833,605 @@ def phase_dryrun(np, torch, dev, card):
     return out
 
 
+# ---------------------------------------------------------------- tp
+def tp_meshes(torch):
+    """The phase's (1, 2) meshes: one card repeated, and two distinct
+    cards where the machine has them."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = {"repeated": mesh_lib.make_mesh(
+        (1, 2), ("data", "model"), devices=["cuda:0", "cuda:0"])}
+    if torch.cuda.device_count() >= 2:
+        out["distinct"] = mesh_lib.make_mesh(
+            (1, 2), ("data", "model"), devices=["cuda:0", "cuda:1"])
+    return out
+
+
+def tp_counts(launches, total):
+    """The flash counters of one call, added into ``total``."""
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def tp_qwen_serve(np, torch, dev, card, meshes, total):
+    """qwen2-vl-72b at full width, TP_QWEN's depth: a text prompt served
+    on one card, then over the (1, 2) meshes on the same weights (the
+    one-card tree freed, then drawn again from its seed already split,
+    ``init_params(plan=)``: the same values); every logits array within
+    TP_SERVE_TOL of the one-card run's, a control (rank 1's kv cache
+    zeroed before a decode step) beyond it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, steps, transformer
+    q = TP_QWEN
+    full = get_config(q["arch"])
+    check_published(full)
+    cfg = full.replace(num_layers=q["layers"], param_dtype="bfloat16")
+    b, s, n_gen = q["requests"], q["prompt_len"], q["gen"]
+    mesh = meshes["repeated"]
+    plan = serving.serving_plan(cfg, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    n_params = tree_numel(params)
+    print(f"phase tp (1/4): {cfg.name} at its published widths ({cfg.d_model}"
+          f", {cfg.num_heads} heads over {cfg.num_kv_heads}, dh "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})"
+          f", cut in depth {full.num_layers} -> {cfg.num_layers} layers, "
+          f"bf16 weights ({n_params:,} parameters; a float32 tree and its "
+          f"split copy do not fit one card together), a {b} x {s} text "
+          f"prompt, {n_gen} decode steps: one card, then tensor parallel "
+          f"over {list(meshes)} (1, 2) meshes, {cfg.num_heads // 2} heads "
+          f"and {len(plan.kv_heads(0))} kv heads a rank ({card})")
+
+    def run(p, m):
+        reset_all_launches()
+        outs = [serve.serve(cfg, p, requests=b, prompt_len=s, gen=n_gen,
+                            device=dev, seed=0, mesh=m) for _ in range(2)]
+        launches = all_launches()
+        return outs[1][1], outs[0][1], launches
+
+    one, one_first, one_launches = run(params, None)
+    check(one_launches["flash_attention_tc"] == 2 * cfg.num_layers,
+          f"one card: flash launches {one_launches}")
+    del params
+    torch.cuda.empty_cache()
+    params = transformer.init_params(cfg, seed=0, device=dev, plan=plan)
+    per_rank = TP.weight_bytes(params)
+    reset_all_launches()
+    got, got_first, launches = run(params, mesh)
+    tp_counts(launches, total)
+    print(f"  launch counters over the two tensor-parallel serve calls: "
+          f"{launches}")
+    check(launches["flash_attention_tc"] == 2 * 2 * cfg.num_layers
+          and sum(launches.values()) == launches["flash_attention_tc"]
+          and got["prefill_flash_launches"] == 2 * cfg.num_layers,
+          f"{cfg.name} tp: launches {launches}, prefill "
+          f"{got['prefill_flash_launches']}; expected {cfg.num_layers} "
+          f"tensor-core forwards a rank a prefill (H/tp = "
+          f"{cfg.num_heads // 2}, dh {cfg.resolved_head_dim}), nothing else")
+    errs = [dist(torch.from_numpy(a), torch.from_numpy(w))
+            for a, w in zip(got["logits"], one["logits"], strict=True)]
+    check(all(np.isfinite(lg).all() for lg in got["logits"]),
+          f"{cfg.name} tp: non-finite logits")
+    # the control: rank 1's cache zeroed before the first decode step
+    rng = np.random.default_rng(0)
+    batch = serve.make_batch(cfg, b, s, rng=rng, device=dev)
+    with torch.no_grad():
+        _, cache = serving.prefill(params, batch, cfg, mesh=mesh)
+        for key in ("k", "v"):
+            cache[key][1].zero_()
+        step_in = serve.token_to_batch(cfg, torch.zeros(b, dtype=torch.long,
+                                                        device=dev), s, b,
+                                       rng, device=dev)
+        bad, _ = serving.decode_step(params, step_in, cache, cfg, mesh=mesh)
+    ctrl = dist(bad.cpu(), torch.from_numpy(one["logits"][1]))
+    del cache, bad
+    print(f"  tensor parallel vs one card, the same bf16 weights: prefill "
+          f"logits {errs[0]:.3e}, decode steps max {max(errs[1:]):.3e} "
+          f"[{TP_SERVE_TOL:g}]; control (rank 1's kv cache zeroed) "
+          f"{ctrl:.3e} [> {TP_SERVE_TOL:g}]; weights a rank "
+          f"{[round(x / 1e9, 3) for x in per_rank]} GB; prefill "
+          f"{got['prefill_s']:.4f} s (one card {one['prefill_s']:.4f}; first "
+          f"calls {got_first['prefill_s']:.4f} / {one_first['prefill_s']:.4f})"
+          f", decode {got['decode_ms_per_token']:.2f} ms/token (one card "
+          f"{one['decode_ms_per_token']:.2f}) on {card}")
+    check(max(errs) <= TP_SERVE_TOL, f"{cfg.name} tp logits {errs} beyond "
+                                     f"{TP_SERVE_TOL:g}")
+    check(ctrl > TP_SERVE_TOL, f"{cfg.name}: zeroing rank 1's cache moves "
+                               f"the logits by only {ctrl:.3e}")
+    out = {"layers": cfg.num_layers, "params": n_params,
+           "weight_bytes_per_rank": per_rank, "logits_err": errs,
+           "control": ctrl, "prefill_s": got["prefill_s"],
+           "prefill_s_one_card": one["prefill_s"],
+           "decode_ms_per_token": got["decode_ms_per_token"],
+           "decode_ms_per_token_one_card": one["decode_ms_per_token"],
+           "flash_launches": launches["flash_attention_tc"]}
+    if "distinct" in meshes:
+        moved = steps._on_group(params, list(meshes["distinct"].devices[0]))
+        del params
+        reset_all_launches()
+        dist_run, _, _ = run(moved, meshes["distinct"])
+        same = all(np.array_equal(a, w) for a, w in zip(
+            dist_run["logits"], got["logits"]))
+        print(f"  on [cuda:0, cuda:1]: prefill {dist_run['prefill_s']:.4f} "
+              f"s, decode {dist_run['decode_ms_per_token']:.2f} ms/token; "
+              f"logits bitwise the repeated card's: {same}")
+        check(same, f"{cfg.name}: distinct cards differ from one card "
+                    f"repeated")
+        out["distinct_cards"] = {
+            "prefill_s": dist_run["prefill_s"],
+            "decode_ms_per_token": dist_run["decode_ms_per_token"]}
+        del moved
+    else:
+        del params
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe(np, torch, dev, card, meshes, total):
+    """llama4-scout at full width, TP_MOE's cut: a prefill on one card,
+    then over the repeated (1, 2) mesh on the same weights (8 experts, 20
+    heads and 4 kv heads a rank): phase moe's gates on every recorded moe
+    call (against the float32 recomputation, the swapped-expert control);
+    each call's routing (top-k, capacity, keep) bitwise one card's
+    ``moe_ffn`` on the same input; each call's dropped pairs, and the
+    prefill's, within TP_MOE_DROP_SHARE of the one-card prefill's (whose
+    layers see inputs an ulp away: see the constant); the last-position
+    logits within TP_SERVE_TOL of one card's. Then one training step at
+    depth 1 (MOE_TRAIN's cut), both ways, loss and grad norm within
+    TP_TRAIN_RTOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, serving, steps, transformer
+    c = TP_MOE
+    cfg = get_config(c["arch"]).replace(**c["cut"])
+    mesh = meshes["repeated"]
+    b, s = c["requests"], c["prompt_len"]
+    print(f"phase tp (2/4): {cfg.name} at full width cut {c['cut']}: a "
+          f"{b} x {s} prefill on one card and over [cuda:0, cuda:0], "
+          f"{cfg.moe.num_experts // 2} experts, {cfg.num_heads // 2} heads "
+          f"and {cfg.num_kv_heads // 2} kv heads a rank ({card})")
+    routes = []
+    real = moe.route
+
+    def spy(ids, e, cap):
+        r = real(ids, e, cap)
+        routes.append((ids.clone(), cap, r.keep.clone()))
+        return r
+    calls = []
+    moe.route = spy
+    try:
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        batch = serve.make_batch(cfg, b, s, rng=np.random.default_rng(0),
+                                 device=dev)
+        with torch.no_grad():
+            one, _ = serving.prefill(params, batch, cfg)
+        n_one = len(routes)
+        del params
+        torch.cuda.empty_cache()
+        params = transformer.init_params(
+            cfg, seed=0, device=dev, plan=serving.serving_plan(cfg, mesh))
+        reset_all_launches()
+        with torch.no_grad(), recorded_moe(calls):
+            got, _ = serving.prefill(params, batch, cfg, mesh=mesh)
+        launches = all_launches()
+        tp_counts(launches, total)
+        calls = [(k, x, y, TP.gather_params(p), m) for k, x, y, p, m in calls]
+        n_tp = len(routes) - n_one
+        with torch.no_grad():
+            for _, x, _, p, m in calls:
+                moe.moe_ffn(x, p, m)
+    finally:
+        moe.route = real
+    check(launches["flash_attention_tc"] == 2 * cfg.num_layers
+          and sum(launches.values()) == 2 * cfg.num_layers,
+          f"{cfg.name} tp prefill launches {launches}")
+    r_one, r_tp = routes[:n_one], routes[n_one:n_one + n_tp]
+    r_same = routes[n_one + n_tp:]
+    check(n_one == n_tp == len(calls) == len(r_same),
+          f"{cfg.name}: {n_one} / {n_tp} / {len(r_same)} routings for "
+          f"{len(calls)} moe calls")
+    same_routes = all(torch.equal(a[0], b_[0]) and a[1] == b_[1]
+                      and torch.equal(a[2], b_[2])
+                      for a, b_ in zip(r_tp, r_same))
+    drops_one = [int((~r[2]).sum()) for r in r_one]
+    drops_tp = [int((~r[2]).sum()) for r in r_tp]
+    pairs = [r[0].numel() for r in r_one]
+    moved = [int((a[0] != b_[0]).any(1).sum()) for a, b_ in zip(r_tp, r_one)]
+    gaps = [abs(a - b_) for a, b_ in zip(drops_tp, drops_one)]
+    drop_bounds = [TP_MOE_DROP_SHARE * n for n in pairs]
+    gap_total = abs(sum(drops_tp) - sum(drops_one))
+    worst, ctrl, dropped, kinds = moe_output_checks(torch, calls,
+                                                    c["check_tokens"])
+    err = dist(got, one)
+    print(f"  tp prefill: launches {launches}; moe outputs worst share "
+          f"{worst['prefill']:.3f} of {MOE_BF16_TOL:g}, control "
+          f"{ctrl['prefill']:.1f}x; dropped pairs a call {dropped}; top-k, "
+          f"capacity and keep bitwise one card's moe_ffn on the same "
+          f"inputs: {same_routes}; against the one-card prefill: dropped "
+          f"{drops_tp} vs {drops_one} of {pairs} pairs (gaps {gaps}, total "
+          f"{gap_total}; bound {TP_MOE_DROP_SHARE:g} of the pairs, "
+          f"{[round(x, 1) for x in drop_bounds]}), tokens routed to other "
+          f"experts {moved}; last-position logits vs one card {err:.3e} "
+          f"[{TP_SERVE_TOL:g}]")
+    check(worst["prefill"] <= 1.0, f"{cfg.name} tp moe outputs at {worst}")
+    check(ctrl["prefill"] > TRAIN_CONTROL_FACTOR,
+          f"{cfg.name} tp: the moe control {ctrl}")
+    check(same_routes, f"{cfg.name} tp: routing differs from one card's on "
+                       f"the same inputs")
+    check(all(g <= bd for g, bd in zip(gaps, drop_bounds))
+          and gap_total <= TP_MOE_DROP_SHARE * sum(pairs),
+          f"{cfg.name} tp: dropped pairs {drops_tp} against one card's "
+          f"{drops_one} beyond {TP_MOE_DROP_SHARE:g} of {pairs}")
+    check(err <= TP_SERVE_TOL, f"{cfg.name} tp prefill logits {err:.3e}")
+    del params, batch, one, got, calls, routes
+    torch.cuda.empty_cache()
+    t = MOE_TRAIN
+    tcfg = get_config(t["arch"]).replace(**t["cut"])
+    shape = ShapeConfig("tp", t["seq"], t["batch"], "train")
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=tcfg.vocab_size, seq_len=t["seq"], global_batch=t["batch"],
+        microbatches=t["microbatches"]), tcfg)
+    metrics = {}
+    for tag, m in (("one", None), ("tp", mesh)):
+        state = steps.init_state(tcfg, seed=0, device=dev, mesh=m)
+        step = steps.make_train_step(tcfg, m, shape, t["microbatches"],
+                                     total_steps=100)
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mt = step(state, data.device_batch(0, dev), 0)
+        torch.cuda.synchronize()
+        metrics[tag] = (float(mt["loss"]), float(mt["grad_norm"]),
+                        time.perf_counter() - t0)
+        if tag == "tp":
+            tl = all_launches()
+            tp_counts(tl, total)
+        del state, step
+        torch.cuda.empty_cache()
+    per_step = tcfg.num_layers * t["microbatches"]
+    check(tl["flash_attention_tc"] == 2 * 2 * per_step
+          and tl["flash_attention_bwd_tc"] == 2 * per_step
+          and sum(tl.values()) == 6 * per_step,
+          f"{tcfg.name} tp step launched {tl}")
+    (l1, g1, w1), (l2, g2, w2) = metrics["one"], metrics["tp"]
+    print(f"  one training step at depth 1 (bf16 masters, {t['batch']} x "
+          f"{t['seq']}): loss {l2:.6f} vs one card {l1:.6f}, grad norm "
+          f"{g2:.6f} vs {g1:.6f} [rtol {TP_TRAIN_RTOL:g}]; {w2:.3f} s vs "
+          f"{w1:.3f} s (first steps); launches {tl}")
+    check(abs(l2 - l1) <= TP_TRAIN_RTOL * abs(l1)
+          and abs(g2 - g1) <= TP_TRAIN_RTOL * abs(g1)
+          and abs(l1 - np.log(tcfg.vocab_size)) <= 1.5,
+          f"{tcfg.name} tp step: loss {l2} / {l1}, grad norm {g2} / {g1}")
+    return {"prefill_moe_share": worst, "prefill_moe_control": ctrl,
+            "dropped": dropped, "dropped_one_card": drops_one,
+            "routed_elsewhere": moved, "routes_equal": same_routes,
+            "prefill_logits_err": err, "train": metrics}
+
+
+def tp_gemma_train(np, torch, dev, card, meshes, total):
+    """gemma2-2b uncut (pad_heads_to=0), trained TP_GEMMA's steps at 1 x
+    8192 on one card and twice over [cuda:0, cuda:0] (4 heads and 2 kv
+    heads a rank, row 11b's Cfg<256>): each step's loss and grad norm
+    within TP_TRAIN_RTOL of one card's, every rank's slices bitwise across
+    the two runs; s/step, and the share of a step inside reduce_sum's
+    forward calls (host clock, synchronised around each call). Then step
+    0's gradients (``tp_grad_gate``): every leaf within TP_GRAD_REL of one
+    card's, and each planted fault (``tp_train_faults``) rejected by the
+    same comparisons."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    c = TP_GEMMA
+    cfg = get_config(c["arch"]).replace(**c["cut"])
+    check_published(get_config(c["arch"]))
+    mesh = meshes["repeated"]
+    shape = ShapeConfig("tp", c["seq"], c["batch"], "train")
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=c["microbatches"]), cfg)
+    print(f"phase tp (3/4): {cfg.name} uncut ({cfg.num_layers} layers, "
+          f"heads unpadded), trained {c['steps']} steps at {c['batch']} x "
+          f"{c['seq']} on one card and twice over [cuda:0, cuda:0]: "
+          f"{cfg.num_heads // 2} heads and {cfg.num_kv_heads // 2} kv heads "
+          f"a rank, dh {cfg.resolved_head_dim} ({card})")
+    runs, snaps, times = {}, [], {}
+    timer = {"s": 0.0, "n": 0}
+    real = TP.reduce_sum
+
+    def timed(parts, dev_, tp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(parts, dev_, tp)
+        torch.cuda.synchronize()
+        timer["s"] += time.perf_counter() - t0
+        timer["n"] += 1
+        return out
+    for tag, m in (("one", None), ("tp", mesh), ("tp again", mesh)):
+        state = steps.init_state(cfg, seed=0, device=dev, mesh=m)
+        step = steps.make_train_step(cfg, m, shape, c["microbatches"],
+                                     total_steps=100)
+        if tag == "tp":
+            reset_all_launches()
+        out, walls = [], []
+        for i in range(c["steps"]):
+            instrument = tag == "tp again" and i == c["steps"] - 1
+            if instrument:
+                TP.reduce_sum = timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                state, mt = step(state, data.device_batch(i, dev), i)
+                out.append((float(mt["loss"]), float(mt["grad_norm"])))
+            finally:
+                TP.reduce_sum = real
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if tag == "tp":
+            tl = all_launches()
+            tp_counts(tl, total)
+        runs[tag], times[tag] = out, walls
+        if tag != "one":
+            snaps.append([t.cpu() for t in adamw.tree_leaves(state.params)])
+            check(isinstance(state.params["layers"]["q"], TP.Shards)
+                  and state.params["layers"]["q"][0].shape[2]
+                  == cfg.num_heads // 2, f"{cfg.name}: q is not split")
+        del state, step
+        torch.cuda.empty_cache()
+    per_step = cfg.num_layers * c["microbatches"]
+    check(tl["flash_attention_tc"] == 2 * 2 * per_step * c["steps"]
+          and tl["flash_attention_bwd_tc"] == 2 * per_step * c["steps"]
+          and sum(tl.values()) == 6 * per_step * c["steps"],
+          f"{cfg.name} tp steps launched {tl}")
+    bitwise = all(torch.equal(a, b_) for a, b_ in zip(*snaps, strict=True))
+    worst = max(max(abs(a[0] - w[0]) / abs(w[0]), abs(a[1] - w[1]) / abs(w[1]))
+                for a, w in zip(runs["tp"], runs["one"]))
+    share = timer["s"] / times["tp again"][-1]
+    print(f"  loss / grad norm a step: tp {runs['tp']}, one card "
+          f"{runs['one']}: worst relative {worst:.2e} [{TP_TRAIN_RTOL:g}]; "
+          f"the two tp runs' {len(snaps[0])} slices and leaves bitwise: "
+          f"{bitwise}; s/step tp {times['tp']} (one card {times['one']}); "
+          f"reduce_sum's {timer['n']} forward calls {timer['s']:.3f} s of an "
+          f"instrumented {times['tp again'][-1]:.3f} s step ({share * 100:.1f}"
+          f" %); launches {tl} on {card}")
+    check(worst <= TP_TRAIN_RTOL, f"{cfg.name} tp vs one card {worst:.2e}")
+    check(bitwise, f"{cfg.name}: two tp runs differ")
+    del snaps
+    grads = tp_grad_gate(torch, cfg, mesh, shape, c["microbatches"],
+                         data.device_batch(0, dev), dev, runs["one"][0])
+    return {"losses": runs, "step_s": times, "worst_rel": worst,
+            "bitwise": bitwise, "reduce_sum_s": timer["s"],
+            "reduce_sum_calls": timer["n"], "reduce_sum_share": share,
+            "step0_grads": grads}
+
+
+def tp_train_faults(torch):
+    """Planted faults of a split step over (1, 2), each a context manager
+    over the split state that leaves it as it found it: rank 1's
+    attention output partial dropped (its rows of ``o`` zeroed), the
+    ranks reading each other's kv heads (their ``k`` slices swapped), and
+    the attention input's backward all-reduce missing rank 1's share
+    (its copy of x detached in ``project_qkv``)."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import transformer
+
+    def stacks(state):
+        return [state.params[k] for k in ("layers", "layers2")
+                if k in state.params]
+
+    @contextlib.contextmanager
+    def drop_partial(state):
+        saved = [st["o"][1].clone() for st in stacks(state)]
+        with torch.no_grad():
+            for st in stacks(state):
+                st["o"][1].zero_()
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for st, o in zip(stacks(state), saved):
+                    st["o"][1].copy_(o)
+
+    def swap(state):
+        with torch.no_grad():
+            for st in stacks(state):
+                k0 = st["k"][0].clone()
+                st["k"][0].copy_(st["k"][1])
+                st["k"][1].copy_(k0)
+
+    @contextlib.contextmanager
+    def swap_kv(state):
+        swap(state)
+        try:
+            yield
+        finally:
+            swap(state)
+
+    @contextlib.contextmanager
+    def detach_rank1(state):
+        real_b, real_p = TP.broadcast, transformer.project_qkv
+
+        def detached(x, like):
+            out = real_b(x, like)
+            return out[:1] + [o.detach() for o in out[1:]]
+
+        def project(*args, **kw):
+            TP.broadcast = detached
+            try:
+                return real_p(*args, **kw)
+            finally:
+                TP.broadcast = real_b
+        transformer.project_qkv = project
+        try:
+            yield
+        finally:
+            transformer.project_qkv = real_p
+    return {"rank 1's attention partial dropped": drop_partial,
+            "kv heads swapped across ranks": swap_kv,
+            "rank 1's attention input gradient dropped": detach_rank1}
+
+
+def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
+    """Step 0's gradients (``steps.make_grad_step``) on one card and over
+    ``mesh`` on the same init and batch: the loss and global grad norm
+    (the train step's metrics) within TP_TRAIN_RTOL of one card's, and
+    every gradient leaf's distance from one card's, over one card's norm,
+    within TP_GRAD_REL. Each of ``tp_train_faults`` must be rejected by
+    them (beyond either bound). ``one_step0``: the one-card train step's
+    step-0 (loss, grad norm), which the one-card grad step repeats."""
+    import numpy as np
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    def read(m, state, fault=None):
+        grad_step = steps.make_grad_step(cfg, m, shape, n_mb)
+        with fault(state) if fault else contextlib.nullcontext():
+            grads, loss, _ = grad_step(state, batch)
+        gnorm = float(adamw.global_norm(grads))
+        whole = TP.gather_params(grads)
+        del grads
+        names = leaf_paths(whole)
+        leaves = adamw.tree_leaves(whole)
+        return float(loss), gnorm, names, leaves
+
+    state = steps.init_state(cfg, seed=0, device=dev)
+    l1, g1, names, leaves = read(None, state)
+    ref = [t.cpu() for t in leaves]
+    del state, leaves
+    torch.cuda.empty_cache()
+
+    def compare(loss, gnorm, leaves):
+        rel = max(abs(loss - l1) / abs(l1), abs(gnorm - g1) / abs(g1))
+        dists = []
+        for g, r in zip(leaves, ref, strict=True):
+            r = r.to(g.device).float()
+            d = float(torch.linalg.vector_norm(g.float() - r))
+            n = float(torch.linalg.vector_norm(r))
+            dists.append(d / n if n > 0 else (0.0 if d == 0 else np.inf))
+        i = int(np.argmax(dists))
+        return rel, dists[i], names[i]
+
+    state = steps.init_state(cfg, seed=0, device=dev, mesh=mesh)
+    loss, gnorm, _, leaves = read(mesh, state)
+    rel, leaf_worst, leaf_name = compare(loss, gnorm, leaves)
+    del leaves
+    out = {"one_card": [l1, g1], "tp": [loss, gnorm], "scalar_rel": rel,
+           "leaf_rel": leaf_worst, "leaf": leaf_name, "controls": {}}
+    print(f"  step 0's gradients ({len(ref)} leaves): one card loss {l1:.6f}"
+          f", grad norm {g1:.6f} (its train step's {one_step0}); tp {loss:.6f}"
+          f", {gnorm:.6f}: relative {rel:.2e} [{TP_TRAIN_RTOL:g}]; worst "
+          f"leaf {leaf_name} {leaf_worst:.3e} [{TP_GRAD_REL:g}]", flush=True)
+    for name, fault in tp_train_faults(torch).items():
+        c_loss, c_gnorm, _, leaves = read(mesh, state, fault)
+        c_rel, c_leaf, c_name = compare(c_loss, c_gnorm, leaves)
+        del leaves
+        torch.cuda.empty_cache()
+        seen = c_rel > TP_TRAIN_RTOL or c_leaf > TP_GRAD_REL
+        out["controls"][name] = {"scalar_rel": c_rel, "leaf_rel": c_leaf,
+                                 "leaf": c_name, "rejected": seen}
+        print(f"  control, {name}: loss / grad norm relative {c_rel:.2e} "
+              f"({c_rel / TP_TRAIN_RTOL:.2f} x TP_TRAIN_RTOL), worst leaf "
+              f"{c_name} {c_leaf:.3e} ({c_leaf / TP_GRAD_REL:.1f} x "
+              f"TP_GRAD_REL): rejected {seen}", flush=True)
+    del state, ref
+    torch.cuda.empty_cache()
+    check(rel <= TP_TRAIN_RTOL and leaf_worst <= TP_GRAD_REL,
+          f"{cfg.name} tp step-0 gradients: {rel:.2e}, {leaf_name} "
+          f"{leaf_worst:.3e}")
+    check(all(v["rejected"] for v in out["controls"].values()),
+          f"{cfg.name}: a planted fault passes the tp gates: "
+          f"{out['controls']}")
+    return out
+
+
+def leaf_paths(tree, path=""):
+    """The names of ``adamw.tree_leaves(tree)``'s leaves, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_paths(tree[k], f"{path}/{k}" if path else k)]
+    return [path]
+
+
+def tp_moe_dp_smoke(np, torch, dev, card):
+    """The repaired uncompressed moe dp step (each dp shard routed apart):
+    kimi-k2's smoke config on (2, 1) [cuda:0, cuda:0] against [cpu, cpu],
+    float32, from one init, TRAIN_SMOKE_TOL's bounds."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw
+    c = TP_SMOKE
+    cfg = smoke_config(c["arch"])
+    host = transformer.init_params(cfg, seed=5)
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=c["microbatches"]), cfg)
+    shape = ShapeConfig("smoke", c["seq"], c["batch"], "train")
+    out = {}
+    for d in ("cpu", "cuda:0"):
+        mesh = mesh_lib.make_mesh((2, 1), ("data", "model"), devices=[d, d])
+        params = adamw.tree_map(lambda t: t.clone().to(d), host)
+        state = steps.TrainState(params, adamw.init_tree(params))
+        step = steps.make_train_step(cfg, mesh, shape, c["microbatches"],
+                                     total_steps=10)
+        ms = []
+        for i in range(c["steps"]):
+            state, m = step(state, data.device_batch(i, torch.device(d)), i)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[d] = (ms, [t.cpu() for t in adamw.tree_leaves(state.params)])
+    tol = TRAIN_SMOKE_TOL
+    worst = max(abs(a - w) / abs(w) for mc, mh in zip(out["cuda:0"][0],
+                                                      out["cpu"][0])
+                for a, w in zip(mc, mh))
+    perr = max(float((a - w).abs().max()) for a, w in zip(out["cuda:0"][1],
+                                                          out["cpu"][1]))
+    print(f"phase tp (4/4): {cfg.name} uncompressed at (2, 1), each dp "
+          f"shard routed apart: card {out['cuda:0'][0]} vs CPU "
+          f"{out['cpu'][0]} (worst relative {worst:.2e} [{tol['metrics']:g}])"
+          f", params max_abs_err {perr:.2e} [{tol['params']:g}]")
+    check(worst <= tol["metrics"] and perr <= tol["params"],
+          f"{cfg.name} moe dp step card vs CPU: {worst:.2e}, {perr:.2e}")
+    return {"metrics": out["cuda:0"][0], "metrics_cpu": out["cpu"][0],
+            "worst_rel": worst, "params_err": perr}
+
+
+def phase_tp(np, torch, dev, card):
+    """Tensor parallelism over 'model' (ROADMAP A11.9) on the card: rows
+    11 and 11b per rank at full width (qwen2-vl-72b served, llama4-scout
+    prefill and a step, gemma2-2b trained, its step-0 gradients leaf by
+    leaf with planted faults as controls) over [cuda:0, cuda:0] (and two
+    cards where the machine has them), each against one card on the same
+    weights; the repaired moe dp step card == CPU. Returns the main
+    path's launch counts (the tensor-parallel calls, each counted from
+    0) and the numbers."""
+    t_phase = time.perf_counter()
+    meshes = tp_meshes(torch)
+    launches = {}
+    out = {"qwen2_vl_serve": tp_qwen_serve(np, torch, dev, card, meshes,
+                                           launches)}
+    out["llama4_moe"] = tp_moe(np, torch, dev, card, meshes, launches)
+    out["gemma2_train"] = tp_gemma_train(np, torch, dev, card, meshes,
+                                         launches)
+    out["moe_dp_smoke"] = tp_moe_dp_smoke(np, torch, dev, card)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase tp: {out['phase_s']:.2f} s on {card}; launches on the tp "
+          f"path: {launches}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not FRONTS.is_dir():
         print("chip_smoke: FAIL: run from the root of a checkout holding "
@@ -7952,6 +8593,7 @@ def main() -> int:
              else bwd_timings)[f"{k} (phase local_global_vlm)"] = v
         dp_out = phase_dp_train(np, torch, dev, card)
         dryrun_out = phase_dryrun(np, torch, dev, card)
+        tp_out = phase_tp(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -7984,7 +8626,8 @@ def main() -> int:
                    "local_global_vlm": lg_out["launches"],
                    "local_global_vlm_smoke": lg_out["smoke_launches"],
                    "dp_train": dp_out["launches"],
-                   "dryrun": dryrun_out["launches"]}
+                   "dryrun": dryrun_out["launches"],
+                   "tp": tp_out["launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -8067,6 +8710,8 @@ def main() -> int:
                                 if k != "launches"},
                    "dryrun": {k: v for k, v in dryrun_out.items()
                               if k != "launches"},
+                   "tp": {k: v for k, v in tp_out.items()
+                          if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

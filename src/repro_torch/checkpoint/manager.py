@@ -22,7 +22,10 @@ package restores in the other. ``err``'s rows (one per dp rank, each on
 its device) save as the reference's one (dp, n) leaf. numpy has no
 bfloat16, so a bfloat16 leaf is saved as its raw 2-byte patterns (dtype
 ``V2``, the bytes the reference's ``ml_dtypes`` array writes) and
-restored as bfloat16 where ``like``'s leaf is.
+restored as bfloat16 where ``like``'s leaf is. A leaf split over 'model'
+(``tensor_parallel.Shards``) saves whole, its slices concatenated in rank
+order: the reference's global array. It restores into ``like``'s split,
+each slice on its rank's device, so a checkpoint restores onto any mesh.
 
 Saves are synchronous: the leaves are copied to the host and written
 before ``save`` returns, so ``wait`` (the reference's join of its
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.arrays import tensor_from_numpy
+from repro_torch.distributed.tensor_parallel import Shards
 
 
 def pack_json(obj: Any) -> np.ndarray:
@@ -85,7 +89,8 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 def _rows(leaf) -> bool:
     """A list of tensors: the rows of one leaf (``TrainState.err``)."""
-    return (isinstance(leaf, list) and bool(leaf)
+    return (isinstance(leaf, list) and not isinstance(leaf, Shards)
+            and bool(leaf)
             and all(isinstance(r, torch.Tensor) for r in leaf))
 
 
@@ -94,6 +99,8 @@ def _host(leaf) -> np.ndarray:
     rows are stacked; bfloat16 as its raw bytes, dtype V2)."""
     if _rows(leaf):
         leaf = torch.stack([r.detach().cpu() for r in leaf])
+    if isinstance(leaf, Shards):
+        leaf = torch.cat([p.detach().cpu() for p in leaf], leaf.dim)
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -185,10 +192,11 @@ class CheckpointManager:
 
     def restore(self, step: int, like, device=None):
         """The tree saved at ``step`` in the structure of ``like``: each
-        leaf of ``like`` (a tensor, rows, or a numpy array) is replaced by
-        the saved leaf of its path, a tensor on ``device`` (default: that
-        leaf's own device, each row's for rows; numpy leaves stay numpy),
-        in the saved dtype.
+        leaf of ``like`` (a tensor, rows, split ``Shards`` or a numpy
+        array) is replaced by the saved leaf of its path, a tensor on
+        ``device`` (default: that leaf's own device, each row's for rows,
+        each slice's for a split leaf, sliced as ``like``'s; numpy leaves
+        stay numpy), in the saved dtype.
         ``fault.run_with_recovery`` passes its ``shardings`` here, None on
         the port's one-device step. Raises FileNotFoundError for a leaf
         the step does not hold."""
@@ -205,6 +213,13 @@ class CheckpointManager:
                 flat[key] = [tensor_from_numpy(a).to(
                     r.device if device is None else device)
                     for a, r in zip(arr, leaf)]
+            elif isinstance(leaf, Shards):
+                whole = tensor_from_numpy(arr)
+                n = whole.shape[leaf.dim] // leaf.tp
+                flat[key] = leaf.like([whole.narrow(
+                    leaf.dim, r * n, n).to(p.device if device is None
+                                           else device, copy=True)
+                    for r, p in zip(leaf.ranks, leaf)])
             elif isinstance(leaf, torch.Tensor):
                 flat[key] = tensor_from_numpy(arr).to(
                     leaf.device if device is None else device)

@@ -10,6 +10,8 @@ the bitwise logit parity the plain versions are held to.
 """
 from __future__ import annotations
 
+import argparse
+import re
 from typing import Optional, Union
 
 import torch
@@ -21,6 +23,16 @@ def tf32_state() -> dict:
     """The two TF32 switches, for run reports."""
     return {"matmul": bool(torch.backends.cuda.matmul.allow_tf32),
             "cudnn": bool(torch.backends.cudnn.allow_tf32)}
+
+
+def device_arg(text: str) -> str:
+    """The LM launchers' ``--device``: ``cuda`` (the visible cards),
+    ``cuda:N`` (that card alone, repeated over a mesh's ranks) or
+    ``cpu``."""
+    if text in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", text):
+        return text
+    raise argparse.ArgumentTypeError(f"unsupported device {text!r}; use "
+                                     f"cuda, cuda:N or cpu")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

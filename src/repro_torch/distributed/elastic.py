@@ -9,9 +9,13 @@ before serving resumes.
 
 ``plan_mesh`` / ``make_elastic_mesh`` are the TP-pinned (pod, data,
 model) degradation policy of large pod jobs, copied; the classifier bank
-has no TP axis, so serving does not use them. ``reshard_state`` restores
-an LM train state from a checkpoint onto a new mesh (the data-parallel
-train step of ``models/steps.py``).
+has no TP axis, so serving does not use them, and no LM launcher does
+either: they cannot repeat a device and they shrink 'model' below the
+asked size when fewer devices are visible, where the launchers'
+``make_host_mesh`` keeps it (raising, or repeating one named device).
+``reshard_state`` restores an
+LM train state from a checkpoint onto a new mesh (the data- and
+tensor-parallel train step of ``models/steps.py``).
 """
 from __future__ import annotations
 
@@ -70,29 +74,42 @@ def make_elastic_mesh(devices: Optional[Sequence] = None, *,
 
 def reshard_state(ckpt, step: int, state_like, new_mesh, cfg):
     """The ``TrainState`` saved at ``step`` restored onto ``new_mesh``: the
-    parameters and the AdamW state on its first device (the port's train
-    step holds them whole there), and under ``grad_compression="int8"``
-    one error row per dp rank of ``new_mesh`` on the rank's device.
-    ``state_like`` gives the tree (its tensors' devices are not read).
+    parameters and the AdamW state placed as ``tensor_parallel.tp_plan``
+    places them on ``new_mesh`` (split leaves' slices on its first data
+    slice's 'model' ranks, the rest whole on its first device; a
+    checkpoint holds whole leaves, so any 'model' size restores), and
+    under ``grad_compression="int8"`` one error row per dp rank of
+    ``new_mesh`` on the rank's first device. ``state_like`` gives the
+    tree (its tensors' devices and splits are not read).
 
     The reference restores the saved (dp, n) buffer as it is and leaves
     its step to shard it; it cannot load a bfloat16 leaf at all (ROADMAP
     C). Each error row is one rank's unsent residual, so a checkpoint
     whose row count is not the new mesh's dp size is refused (ROADMAP
     C), as is a compressed state without rows."""
+    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import steps
-    from repro_torch.optim import adamw
 
     dev = new_mesh.first_device
+    plan = TP.tp_plan(cfg, new_mesh)
 
-    def placed(t):
-        return torch.empty(0, dtype=t.dtype, device=dev)
+    def placed(t, path=()):
+        dtype = (t[0] if isinstance(t, TP.Shards) else t).dtype
+        if plan is None or not plan.split(path):
+            return torch.empty(0, dtype=dtype, device=dev)
+        return TP.Shards([torch.empty(0, dtype=dtype, device=d)
+                          for d in plan.devices], plan.dims[path],
+                         plan.ranks, plan.tp)
+
+    def tree(node, path=()):
+        if isinstance(node, dict):
+            return {k: tree(v, path + (k,)) for k, v in node.items()}
+        return placed(node, path)
 
     opt = state_like.opt
     like = steps.TrainState(
-        adamw.tree_map(placed, state_like.params),
-        type(opt)(step=placed(opt.step), m=adamw.tree_map(placed, opt.m),
-                  v=adamw.tree_map(placed, opt.v)))
+        tree(state_like.params),
+        type(opt)(step=placed(opt.step), m=tree(opt.m), v=tree(opt.v)))
     if cfg.grad_compression == "int8":
         devs = steps.dp_devices(new_mesh)
         saved = ckpt.leaves(step).get("err")

@@ -11,10 +11,10 @@ The LM's rule sets are the reference's: FSDP by default ('embed' over
 ('pod', 'data')); TP-only under ``grad_compression="int8"`` (parameters
 replicated over the dp axes, so per-rank gradients exist for the int8
 ring); extra_dp for archs whose heads do not split over 'model', where
-'model' becomes data parallelism. The port's train step
-(``models/steps.py``) holds the parameters whole on each device and reads
-the specs only to refuse a 'model' axis that would shard them (tensor
-parallelism, ROADMAP A11.9).
+'model' becomes data parallelism. The port reads the specs' 'model'
+entries only (``distributed/tensor_parallel.py``: each leaf's dimension
+split over the 'model' ranks); each 'data' slice holds its weights whole
+(no FSDP over 'data').
 
 ``shard_plan`` says where each shard runs: shard k of a leading axis
 split over ``axes`` runs on the first device of the k-th slice of the

@@ -13,22 +13,37 @@ device's step run on meta tensors (shapes and dtypes, no storage) under
   (``sharding.param_specs``, ``cache_specs``, ``steps.input_specs``) are
   the reference's;
 * a device's rows are the rows the batch spec gives it; its step runs
-  with no mesh on those rows with whole weights. Where the batch is not
-  split over 'model' and the parameter specs split weights over it, the
-  count is divided by the 'model' size: an even tensor-parallel split
-  assumed, which the port does not run (ROADMAP A11.9), so its
-  collectives are 0. Where no weight is split over 'model' (the
-  extra_dp configs, whose heads do not divide it), a batch not split
-  over it is replicated there, and the count stands whole;
+  with no mesh on those rows. Where the batch is not split over 'model'
+  and the parameter specs split weights over it, the device is rank 0
+  of the port's tensor-parallel step (``TENSOR_PARALLEL``): its weights
+  are rank 0's slices (``tensor_parallel.counting_plan``: 1/tp of each
+  split leaf, the replicated leaves whole), so the split work (the
+  projections over its heads, its MLP columns, its experts, its vocab
+  columns and attention on its heads) counts 1/tp and the replicated
+  work (embedding rows, norms, residual adds, the moe router, the loss
+  on the gathered logits) counts whole. Its collective term adds what
+  ``tensor_parallel.reduce_sum`` / ``gather_cat`` and their backward move
+  a device (``tensor_parallel.metering``): a ring all-reduce of each
+  attention-out, MLP-out, moe-out and embedding activation a layer
+  forward (and in the rematerialised forward) and of its input's
+  gradient backward, 2 (tp - 1) / tp of it, and an all-gather of the
+  logits, (tp - 1) / tp. The ssm family's 'model' split is not ported
+  (ROADMAP A11.9): its count is divided by the 'model' size, an even
+  split assumed, with no collective (``SSM_DIVIDED``). Where no weight
+  is split over 'model' (the extra_dp configs, whose heads do not divide
+  it), a batch not split over it is replicated there, and the count
+  stands whole;
 * train: one microbatch's ``grad_step`` (its gradient-sum set-up and
   scale included) times ``n_microbatches``, then AdamW once on the
-  device's shard of the parameters (``steps.apply_grads`` on whole
-  weights, scaled by the shard's share: it is elementwise a leaf); the
-  collective term is the dp gradient sync, a ring all-reduce over the
-  batch's axes: 2 (dp - 1) / dp of the device's gradient in int8 under
-  ``grad_compression="int8"``, else in the gradient's dtype;
+  device's parameters (``steps.apply_grads`` on rank 0's slices and the
+  replicated leaves, scaled to the device's share under the spec: it is
+  elementwise a leaf); the collective term adds the dp gradient sync, a
+  ring all-reduce over the batch's axes: 2 (dp - 1) / dp of the device's
+  gradient in int8 under ``grad_compression="int8"``, else in the
+  gradient's dtype;
 * prefill and decode: ``serving.prefill`` / ``decode_step`` on the
-  device's rows (decode against a meta cache of ``seq_len``);
+  device's rows (decode against a meta cache of ``seq_len``, rank 0's kv
+  heads under tensor parallelism);
 * per-device bytes: the parameters, AdamW's moments and the int8 error
   row, each under its spec, and the inputs under theirs (the cache
   included): the counterpart of ``memory_analysis``'s
@@ -62,12 +77,17 @@ import torch
 from repro_torch.configs import ARCH_NAMES, applicable_shapes, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import AbstractMesh, make_production_mesh
 from repro_torch.models import serving, steps, transformer
 from repro_torch.optim import adamw
 
-TENSOR_PARALLEL = "even split over 'model' assumed; not ported (ROADMAP A11.9)"
+TENSOR_PARALLEL = ("rank 0 of the port's tensor-parallel step: split work "
+                   "1/tp, replicated work whole, reduce_sum / gather_cat "
+                   "and their backward as ring collectives")
+SSM_DIVIDED = ("the ssm family's 'model' split is not ported (ROADMAP "
+               "A11.9): count divided by the 'model' size, no collective")
 PADDED = "pad_heads_to=0 (ROADMAP C)"
 
 
@@ -123,16 +143,28 @@ def state_structs(cfg, mesh, inference: bool = False):
     return steps.TrainState(params, opt, err), params
 
 
-def meta_state(cfg) -> steps.TrainState:
+def meta_state(cfg, plan=None) -> steps.TrainState:
     """The whole TrainState as meta tensors (an int8 config's one error
-    row included): what one device's step runs on in the dry run."""
+    row included): what one device's step runs on in the dry run; with a
+    ``plan`` (``tensor_parallel.counting_plan``) the parameters and
+    moments are its ranks' slices."""
     state, _ = state_structs(cfg, AbstractMesh((1, 1), ("data", "model")))
     err = None if state.err is None else [
         torch.empty(state.err.tensor.shape[1], dtype=torch.bfloat16,
                     device="meta")]
-    return steps.TrainState(tensors(state.params), adamw.OptState(
-        tensors(state.opt.step), tensors(state.opt.m),
-        tensors(state.opt.v)), err)
+
+    def placed(tree):
+        return TP.shard_params(tensors(tree), plan)
+
+    return steps.TrainState(placed(state.params), adamw.OptState(
+        tensors(state.opt.step), placed(state.opt.m), placed(state.opt.v)),
+        err)
+
+
+def tree_bytes(tree) -> float:
+    """Bytes of a tree's tensors (a split leaf's held slices)."""
+    return float(sum(t.numel() * t.element_size()
+                     for t in adamw.tree_leaves(tree)))
 
 
 def tensors(tree):
@@ -213,32 +245,54 @@ def count_cell(cfg, shape: ShapeConfig, mesh, microbatches=None,
     rows = batch["positions"].tensor.shape[axis] // math.prod(
         mesh.shape[a] for a in baxes)
     local = {k: _local(v, axis, rows, train) for k, v in batch.items()}
-    state, params = state_structs(cfg, mesh,
-                                  inference=shape.kind == "decode")
+    inference = shape.kind == "decode"
+    state, params = state_structs(cfg, mesh, inference=inference)
     # the 'model' axis splits the work where it splits weights and not
     # the batch; else it replicates it (extra_dp configs' prefill)
     tp = mesh.shape.get("model", 1) if "model" not in baxes and any(
         "model" in _axes(part) for x in _leaves(params)
         for part in x.spec) else 1
+    plan = None
+    if tp > 1:
+        try:
+            plan = TP.counting_plan(cfg, mesh, inference=inference)
+        except NotImplementedError:          # the ssm family (A11.9)
+            plan = None
+    div = tp if plan is None else 1
     n_mb = specs.get("n_microbatches", 1)
     out = {"n_microbatches": n_mb, "rows_per_device": rows,
-           "model_division": tp}
+           "model_division": div, "model_ranks": tp,
+           "tensor_parallel": (SSM_DIVIDED if div > 1 else TENSOR_PARALLEL
+                               if plan is not None else "none")}
     key = (cfg.name, shape.name, rows)
+
+    def counted(fn, *args):
+        """``count_step`` with the TP collectives metered in."""
+        with TP.metering() as rec:
+            st, res = analysis.count_step(fn, *args)
+        for kind in ("all-reduce", "all-gather"):
+            if rec[kind]:
+                st.collectives[kind] += rec[kind]
+                st.collective_bytes += rec[kind]
+                st.top_collectives.append(
+                    [rec[kind], f"tensor-parallel {kind} over 'model'"])
+        st.collective_ops += rec["calls"]
+        return st, res
+
     if train:
         if key not in memo:
-            live = meta_state(cfg)
+            live = meta_state(cfg, plan)
             grad_step = steps.make_grad_step(
                 cfg, None, ShapeConfig(shape.name, shape.seq_len, rows,
                                        "train"), microbatches=1)
-            mb, (grads, _, _) = analysis.count_step(grad_step, live, local)
+            mb, (grads, _, _) = counted(grad_step, live, local)
             lr = torch.empty((), dtype=torch.float32, device="meta")
             adam, _ = analysis.count_step(steps.apply_grads, cfg, live,
                                           grads, lr)
-            memo[key] = (mb, adam)
-        mb, adam = memo[key]
-        share = bytes_per_device(state.params, mesh) / bytes_per_device(
-            state.params)
-        stats = (mb.scaled(n_mb / tp, n_mb) + adam.scaled(share)
+            memo[key] = (mb, adam, tree_bytes(live.params))
+        mb, adam, held = memo[key]
+        share = bytes_per_device(state.params, mesh) / held
+        stats = (mb.scaled(n_mb / div, n_mb) + adam.scaled(share)
                  + _sync_stats(cfg, state, baxes, mesh))
         nbytes = {"params": bytes_per_device(state.params, mesh),
                   "opt": bytes_per_device(state.opt, mesh),
@@ -246,16 +300,15 @@ def count_cell(cfg, shape: ShapeConfig, mesh, microbatches=None,
                   "inputs": bytes_per_device(batch, mesh)}
     else:
         if key not in memo:
-            p = tensors(params)
+            p = TP.shard_params(tensors(params), plan)
             if shape.kind == "prefill":
-                memo[key], _ = analysis.count_step(
-                    serving.prefill, p, local, cfg)
+                memo[key], _ = counted(serving.prefill, p, local, cfg)
             else:
                 cache = serving.init_cache(cfg, rows, shape.seq_len,
-                                           device="meta")
-                memo[key], _ = analysis.count_step(
-                    serving.decode_step, p, local, cache, cfg)
-        stats = memo[key].scaled(1.0 / tp)
+                                           device="meta", plan=plan)
+                memo[key], _ = counted(serving.decode_step, p, local, cache,
+                                       cfg)
+        stats = memo[key].scaled(1.0 / div)
         nbytes = {"params": bytes_per_device(params, mesh),
                   "inputs": bytes_per_device(specs, mesh)}
     nbytes["total"] = sum(nbytes.values())
@@ -276,7 +329,7 @@ def run_cell(arch: str, shape: ShapeConfig, mesh_name: str, outdir: Path,
     chips = mesh.size
     rec = {"arch": arch, "shape": shape.name, "mesh": mesh_name,
            "chips": chips, "kind": shape.kind,
-           "params": cfg.param_counts(), "tensor_parallel": TENSOR_PARALLEL}
+           "params": cfg.param_counts()}
     if cfg.pad_heads_to > cfg.num_heads:
         cfg = cfg.replace(pad_heads_to=0)
         rec["reduced"] = PADDED
@@ -288,6 +341,8 @@ def run_cell(arch: str, shape: ShapeConfig, mesh_name: str, outdir: Path,
             rec["n_microbatches"] = cell["n_microbatches"]
         rec["rows_per_device"] = cell["rows_per_device"]
         rec["model_division"] = cell["model_division"]
+        rec["model_ranks"] = cell["model_ranks"]
+        rec["tensor_parallel"] = cell["tensor_parallel"]
         rec["bytes_per_device"] = cell["bytes_per_device"]
         rec["step_stats"] = cell["stats"].to_dict()
         rec["roofline"] = analysis.roofline(

@@ -11,13 +11,15 @@ mesh on one card, and ``[cpu, cpu]`` the tests' two-shard mesh, so the
 split, the per-shard launches and the gather all run on one device.
 
 The LM train step (``models/steps.py``) runs data parallel over such a
-mesh. ``make_production_mesh`` is the production LM job's topology, the
-reference's (16, 16) ('data', 'model') pod or (2, 16, 16) with 'pod', as
+mesh, and tensor parallel over its 'model' axis
+(``distributed/tensor_parallel.py``), as LM serving does
+(``models/serving.py``, (1, tp) meshes). ``make_production_mesh`` is
+the production LM job's topology, the reference's (16, 16) ('data', 'model') pod or (2, 16, 16) with 'pod', as
 an ``AbstractMesh``: axis names and sizes over ``meta`` entries, no
 device behind them. The dry run (``launch/dryrun.py``) reads its specs
-and counts one device's step on meta tensors; no step runs over it
-(``models/steps.py`` refuses it: tensor parallelism, ROADMAP A11.9), and
-it has no first device.
+and counts rank 0 of one device's step on meta tensors; no step runs
+over it (``models/steps.py`` refuses it, ROADMAP A11.9), and it has no
+first device.
 """
 from __future__ import annotations
 
@@ -124,15 +126,21 @@ def work_device(device: DeviceLike = None, mesh: Optional[Mesh] = None
 def make_host_mesh(data: int = 1, model: int = 1, *,
                    device: DeviceLike = None) -> Mesh:
     """A small ('data', 'model') mesh over the first ``data * model``
-    visible devices of ``device``'s type (default ``cuda``). On the CPU,
-    which is one device, the entries repeat it."""
+    visible devices of ``device``'s type (default ``cuda``), raising
+    where fewer cards are visible. Two cases repeat one device in every
+    entry instead: the CPU, which is one device, and a card named by its
+    index (``cuda:0``: a (1, 2) mesh is ``[cuda:0, cuda:0]``, one card
+    standing in for two ranks)."""
     n = data * model
-    devs = visible_devices(device)
-    if devs[0].type == "cpu":
-        devs = devs * n
+    asked = torch.device("cuda" if device is None else device)
+    if asked.type == "cpu" or asked.index is not None:
+        return make_mesh((data, model), ("data", "model"),
+                         devices=[_normalize(asked)] * n)
+    devs = visible_devices(asked)
     if len(devs) < n:
-        raise ValueError(f"a ({data}, {model}) mesh needs {n} devices, "
-                         f"{len(devs)} are visible")
+        raise ValueError(f"a ({data}, {model}) mesh needs {n} cards, "
+                         f"{len(devs)} are visible (name one card, e.g. "
+                         f"cuda:0, to run every rank on it)")
     return make_mesh((data, model), ("data", "model"), devices=devs[:n])
 
 

@@ -8,6 +8,12 @@
   # ssm or hybrid prompt needs at least conv_width - 1 tokens, ROADMAP C;
   # gemma2-2b's published config pads its heads and is refused, ROADMAP C:
   # --smoke runs)
+  # tensor parallel over 'model' (the dense, local_global, vlm and moe
+  # families): --model 2 serves over a (1, 2) mesh of the first two
+  # visible cards (fewer raise); --device cuda:0 runs both ranks on that
+  # card, and on the CPU the device repeats
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+      --smoke --device cpu --model 2 --requests 2 --prompt-len 32 --gen 4
 
 Runs on the card unless ``--device cpu``. Inputs come from
 ``np.random.default_rng(0)`` exactly as in the reference launcher (for a
@@ -29,9 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.device import resolve_device
+from repro_torch.device import device_arg, resolve_device
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import flash_attention
-from repro_torch.models import ssm, steps, transformer
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import serving, ssm, steps, transformer
 
 
 def _positions(cfg, b, s, start_pos, device):
@@ -83,19 +91,21 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg, params, *, requests: int, prompt_len: int, gen: int,
-          temperature: float = 1.0, device=None, seed: int = 0
+          temperature: float = 1.0, device=None, seed: int = 0, mesh=None
           ) -> Tuple[np.ndarray, Dict]:
     """Prefill ``requests`` prompts of ``prompt_len``, then decode ``gen``
-    tokens each. Returns the (requests, gen) generated matrix and a dict:
-    prefill_s, decode_s (host clock around synchronised work),
-    prefill_tokens_per_s, decode_ms_per_token, the flash-attention kernels'
-    launches (either route) in the prefill and in the decode loop, and the
-    float32 logits (prefill's last position, then one array per decode
-    step)."""
-    dev = torch.device(device) if device is not None else resolve_device()
+    tokens each, over ``mesh`` (a mesh whose plan,
+    ``serving.serving_plan``, placed ``params``; its first device is
+    where the inputs and logits live) or on ``device``. Returns the
+    (requests, gen) generated matrix and a dict: prefill_s, decode_s
+    (host clock around synchronised work), prefill_tokens_per_s,
+    decode_ms_per_token, the flash-attention kernels' launches (either
+    route) in the prefill and in the decode loop, and the float32 logits
+    (prefill's last position, then one array per decode step)."""
+    dev = mesh_lib.work_device(device, mesh)
     rng = np.random.default_rng(0)
-    prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_decode_step(cfg)
+    prefill = steps.make_prefill_step(cfg, mesh)
+    decode = steps.make_decode_step(cfg, mesh)
     b, s = requests, prompt_len
     batch = make_batch(cfg, b, s, rng=rng, device=dev)
     count0 = flash_attention.total_launches()
@@ -138,7 +148,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=1.0)
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--device", type=device_arg, default="cuda",
+                    help="cuda, cuda:N (that card alone) or cpu")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor parallelism: serve over a (1, N) mesh "
+                         "('model' axis N) of the first N visible cards "
+                         "(cuda), or of one device repeated (cuda:N, "
+                         "cpu)")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights (port's own init) and sampling stream")
     return ap
@@ -159,20 +175,33 @@ def main(argv=None, params=None) -> Tuple[np.ndarray, Dict]:
         ap.error(str(exc))
     try:
         dev = resolve_device(args.device)
+        mesh = plan = None
+        if args.model > 1:
+            mesh = mesh_lib.make_host_mesh(1, args.model, device=dev)
+            plan = serving.serving_plan(cfg, mesh)
+            dev = mesh.first_device
     except RuntimeError as exc:
         ap.error(str(exc))
+    except NotImplementedError as exc:
+        ap.error(str(exc))
     if params is None:
-        tree = transformer.init_params(cfg, seed=args.seed, device=dev)
+        tree = transformer.init_params(cfg, seed=args.seed, device=dev,
+                                       plan=plan)
     else:
-        tree = transformer.params_from_numpy(params, cfg, device=dev)
+        tree = transformer.params_from_numpy(params, cfg, device=dev,
+                                             plan=plan)
     gen, info = serve(cfg, tree, requests=args.requests,
                       prompt_len=args.prompt_len, gen=args.gen,
                       temperature=args.temperature, device=dev,
-                      seed=args.seed)
+                      seed=args.seed, mesh=mesh)
+    where = dev if mesh is None else mesh_lib.describe(mesh)
+    if mesh is not None:
+        where += (f", weight bytes a rank "
+                  f"{tensor_parallel.weight_bytes(tree)}")
     print(f"prefill: {args.requests}x{args.prompt_len} in "
           f"{info['prefill_s']:.2f}s; decode: {args.gen} steps in "
           f"{info['decode_s']:.2f}s ({info['decode_ms_per_token']:.0f} "
-          f"ms/tok) on {dev}")
+          f"ms/tok) on {where}")
     print("generated token matrix:\n", gen)
     if gen.shape != (args.requests, args.gen):
         raise RuntimeError(f"generated {gen.shape}, expected "

@@ -14,6 +14,10 @@ synthetic corpus and checkpoint/restart loop:
   # a moe smoke config: --arch kimi-k2-1t-a32b --smoke ...
   # the ssm and hybrid families: --arch mamba2-1.3b / hymba-1.5b ...
   # local_global and M-RoPE: --arch gemma2-2b / qwen2-vl-72b ...
+  # tensor parallel over 'model' (dense, local_global, vlm, moe):
+  # --model-ax 2, a (1, 2) mesh of the first two visible cards (fewer
+  # raise); --device cuda:0 runs both ranks on that card, and on the
+  # CPU the device repeats
 
 It prints the reference's log lines and fails if the loss did not
 improve. Published configs that pad their heads (yi-34b, gemma2-2b,
@@ -73,6 +77,7 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.device import device_arg
     ap = argparse.ArgumentParser(
         description="LM training and the in-training ADC search through "
                     "the PyTorch/CUDA port.")
@@ -84,6 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--model-ax", type=int, default=1,
+                    help="LM training: the mesh's 'model' axis (tensor "
+                         "parallelism over a (1, N) mesh of the first N "
+                         "visible cards, or of one device repeated: "
+                         "--device cuda:N or cpu)")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--adc-search", action="store_true",
@@ -137,9 +147,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="freeze the Pareto front into deployable "
                          "classifiers (baked value tables + po2 weights + "
                          "area) under <ckpt-dir>/front")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="cuda: the hand-written kernels; cpu: their plain "
-                         "PyTorch versions")
+    ap.add_argument("--device", type=device_arg, default="cuda",
+                    help="cuda (cuda:N: that card alone): the hand-written "
+                         "kernels; cpu: their plain PyTorch versions")
     ap.add_argument("--mc-samples", type=int, default=0,
                     help="Monte-Carlo instances per design for the "
                          "robustness objective (0 disables)")
@@ -191,12 +201,15 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int,
           steps_total: int = 100, device=None):
     """(cfg, mesh, train_step, data) of an LM training run: the config,
     a ``make_host_mesh(data_ax, model_ax)`` on ``device`` (default: the
-    cards; on the CPU the one device repeats), the
-    microbatched train step over ``steps_total`` steps of the schedule
-    (data parallel over the mesh's dp ranks when ``cfg.grad_compression``
-    is int8, else the global step on the mesh's first device:
-    ``models/steps.py``), and the
-    synthetic corpus at (batch, seq) split into ``microbatches``."""
+    first visible cards, raising where fewer are visible; ``cuda:N`` or
+    the CPU: that one device repeated), the microbatched train step
+    over ``steps_total`` steps of the schedule (data parallel over the
+    mesh's dp ranks when ``cfg.grad_compression`` is int8, else the
+    global step on the mesh's first data slice; tensor parallel over
+    'model' where the parameter rules split weights over it, the state
+    then placed by ``steps.init_state(cfg, mesh=mesh)``:
+    ``models/steps.py``), and the synthetic corpus at (batch, seq) split
+    into ``microbatches``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.lm import LMDataConfig, SyntheticLM
     from repro_torch.launch import mesh as mesh_lib
@@ -222,18 +235,21 @@ def run_lm_training(args):
     below the first."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.distributed import fault
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import steps
 
     cfg, mesh, train_step, data = build(
         args.arch, smoke=args.smoke, seq=args.seq, batch=args.batch,
-        microbatches=args.microbatches, steps_total=args.steps,
-        device=args.device)
+        microbatches=args.microbatches, model_ax=args.model_ax,
+        steps_total=args.steps, device=args.device)
     dev = mesh.first_device
     state = steps.init_state(cfg, seed=args.seed, mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir, keep=2)
     print(f"train[repro_torch] arch={cfg.name} batch={args.batch} "
           f"seq={args.seq} microbatches={args.microbatches} "
-          f"steps={args.steps} device={dev}", flush=True)
+          f"steps={args.steps} device={dev}"
+          + (f" {mesh_lib.describe(mesh)}" if args.model_ax > 1 else ""),
+          flush=True)
     losses = []
 
     def on_metrics(step, metrics):
@@ -457,8 +473,13 @@ def main(argv=None):
     if args.arch is not None:
         from repro_torch.device import resolve_device
         try:
-            arch_config(args.arch, args.smoke)
+            cfg = arch_config(args.arch, args.smoke)
             resolve_device(args.device)
+            if args.model_ax > 1:
+                from repro_torch.distributed import tensor_parallel
+                from repro_torch.launch import mesh as mesh_lib
+                tensor_parallel.tp_plan(cfg, mesh_lib.make_host_mesh(
+                    1, args.model_ax, device=args.device))
         except (KeyError, NotImplementedError, RuntimeError,
                 ValueError) as exc:
             ap.error(str(exc))

@@ -1,8 +1,19 @@
 """Mixture-of-Experts FFN of the moe family (llama4-scout, kimi-k2).
-Counterpart of ``repro/models/moe.py`` at tp = 1: every expert is local
-to its rank's device and no collective is needed (data-parallel ranks
-each run it on their own rows under int8 compression, ``models/steps.py``;
-expert parallelism over a 'model' axis is ROADMAP A11.9).
+Counterpart of ``repro/models/moe.py``.
+
+Placement. Whole experts (tp = 1): every expert is on one device. Split
+over 'model' (``distributed/tensor_parallel.py``: ``wi``/``wg``/``wo`` as
+``Shards`` of E / tp experts, rank r's from ``e0 = r E / tp``): the
+reference's ``_local_moe`` and ``_gathered_moe``. The routing runs once,
+on the first device, over every expert, so the top-k, capacity and drops
+are tp = 1's: the reference routes on each rank over its own experts,
+and a stable sort of the local expert ids keeps each expert's pairs in
+the same order, so its keep decisions are the same. Each rank gathers
+its experts' slots of the buffer and its contributions, and the ranks'
+partial outputs go through ``tensor_parallel.reduce_sum``. Under the
+reference's ``shard_map`` the tokens enter ``P(('pod', 'data'))``: on a
+mesh with n dp shards each shard of the batch routes on its own
+(``moe_ffn``'s ``dp``: its own capacity, the aux loss the shards' mean).
 
 The reference's numerics, step by step:
 
@@ -42,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 
@@ -163,8 +175,9 @@ def top_k(probs: torch.Tensor, k: int):
 
 def route(ids: torch.Tensor, num_experts: int, cap: int) -> Routing:
     """The sort-compact routing of the pairs ``ids`` (T, k) into
-    ``num_experts`` buffers of ``cap`` rows, integers only. Every expert
-    is local (tp = 1), so no pair is routed off the device."""
+    ``num_experts`` buffers of ``cap`` rows, integers only, over every
+    expert (a rank's experts take their rows of the maps,
+    ``_expert_block``)."""
     t, k = ids.shape
     e = num_experts
     dev = ids.device
@@ -208,20 +221,33 @@ def _router(xf: torch.Tensor, router_w: torch.Tensor, k: int):
     return probs, gate, ids
 
 
-def _experts(xf: torch.Tensor, gate: torch.Tensor, r: Routing, params,
-             m: MoEConfig) -> torch.Tensor:
-    """The routed experts' output (T, D) in xf's dtype."""
+def _expert_block(xf, g_rank, r: Routing, wi, wg, wo, k: int, e0: int
+                  ) -> torch.Tensor:
+    """The output (T, D) in xf's dtype of the experts ``e0..e0 + len(wi)``
+    (on wi's device, as xf and g_rank are): their rows of the buffer,
+    their products, and each token's contributions from them, k in
+    sorted-position order (zero where another block holds the pair)."""
     t, d = xf.shape
-    e, k, dt = m.num_experts, m.top_k, xf.dtype
-    xbuf = gather_rows(xf, r.slot_tok, r.pair_slot).reshape(e, r.cap, d)
-    h = torch.bmm(xbuf, params["wi"].to(dt))
-    g = torch.bmm(xbuf, params["wg"].to(dt))
-    obuf = torch.bmm(F.silu(g) * h, params["wo"].to(dt)).reshape(e * r.cap,
-                                                                 d)
+    el, cap, dt = wi.shape[0], r.cap, xf.dtype
+    lo, hi = e0 * cap, (e0 + el) * cap
+    if lo == 0 and hi == r.slot_tok.shape[0]:
+        slot_tok, pair_slot = r.slot_tok, r.pair_slot
+        rank_slot, slot_rank = r.rank_slot, r.slot_rank
+    else:
+        def local(idx):
+            return torch.where((idx >= lo) & (idx < hi), idx - lo,
+                               -1).to(xf.device)
+        slot_tok, pair_slot = r.slot_tok[lo:hi].to(xf.device), local(
+            r.pair_slot)
+        rank_slot, slot_rank = local(r.rank_slot), r.slot_rank[lo:hi].to(
+            xf.device)
+    xbuf = gather_rows(xf, slot_tok, pair_slot).reshape(el, cap, d)
+    h = torch.bmm(xbuf, wi.to(dt))
+    g = torch.bmm(xbuf, wg.to(dt))
+    obuf = torch.bmm(F.silu(g) * h, wo.to(dt)).reshape(el * cap, d)
     # each token's k contributions in sorted-position order
-    contrib = gather_rows(obuf, r.rank_slot, r.slot_rank)
-    g_rank = gather_rows(gate.reshape(-1, 1), r.rank_pair, r.pair_rank)
-    kept = (r.rank_slot >= 0)[:, None]
+    contrib = gather_rows(obuf, rank_slot, slot_rank)
+    kept = (rank_slot >= 0)[:, None]
     contrib = contrib * (g_rank * kept).to(dt)
     contrib = contrib.reshape(t, k, d)
     y = contrib[:, 0]
@@ -230,13 +256,42 @@ def _experts(xf: torch.Tensor, gate: torch.Tensor, r: Routing, params,
     return y
 
 
-def moe_ffn(x: torch.Tensor, params, m: MoEConfig
+def _experts(xf: torch.Tensor, gate: torch.Tensor, r: Routing, params,
+             m: MoEConfig) -> torch.Tensor:
+    """The routed experts' output (T, D) in xf's dtype: one block, or
+    each rank's experts' block on its device, ``reduce_sum``'d onto xf's
+    device."""
+    g_rank = gather_rows(gate.reshape(-1, 1), r.rank_pair, r.pair_rank)
+    wi, wg, wo = params["wi"], params["wg"], params["wo"]
+    if not isinstance(wi, TP.Shards):
+        return _expert_block(xf, g_rank, r, wi, wg, wo, m.top_k, 0)
+    parts = [_expert_block(xr, gr, r, a, b, c, m.top_k, rank * a.shape[0])
+             for xr, gr, rank, a, b, c in zip(
+                 TP.broadcast(xf, wi), TP.broadcast(g_rank, wi), wi.ranks,
+                 wi, wg, wo)]
+    return TP.reduce_sum(parts, xf.device, wi.tp)
+
+
+def moe_ffn(x: torch.Tensor, params, m: MoEConfig, *, dp: int = 1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed-experts FFN of the prefill and training paths (the
-    reference's ``_local_moe`` at tp = 1). x (B, S, D). Returns (y (B, S,
-    D) in x's dtype, the float32 aux loss). Shared experts are applied
-    outside (``shared_ffn``)."""
+    reference's ``_local_moe``). x (B, S, D). Returns (y (B, S, D) in x's
+    dtype, the float32 aux loss). Shared experts are applied outside
+    (``shared_ffn``). With ``dp`` > 1 (the dp shards of the reference's
+    ``shard_map``) the batch splits into ``dp`` contiguous row blocks,
+    each routed on its own with its own capacity; y is their outputs in
+    block order, aux the float32 mean of theirs (summed in block order,
+    ``lax.pmean``). Raises where the rows do not divide ``dp``."""
     b, s, d = x.shape
+    if dp > 1:
+        if b % dp:
+            raise ValueError(f"a batch of {b} rows does not split over "
+                             f"{dp} dp shards")
+        outs = [moe_ffn(blk, params, m) for blk in x.split(b // dp)]
+        aux = outs[0][1]
+        for _, a in outs[1:]:
+            aux = aux + a
+        return torch.cat([y for y, _ in outs]), aux / dp
     t, e, k = b * s, m.num_experts, m.top_k
     xf = x.reshape(t, d)
     probs, gate, ids = _router(xf, params["router"], k)
@@ -248,8 +303,11 @@ def moe_ffn(x: torch.Tensor, params, m: MoEConfig
 
 
 def moe_ffn_decode(x: torch.Tensor, params, m: MoEConfig) -> torch.Tensor:
-    """The decode path's routed experts (the reference's ``_gathered_moe``
-    at tp = 1): x (B, S, D), the decode capacity, no aux."""
+    """The decode path's routed experts (the reference's
+    ``_gathered_moe``, experts over 'model' when split): x (B, S, D), the
+    decode capacity, no aux. The reference's placement on a serving mesh
+    with dp > 1 (each expert's hidden dim over dp, the tokens replicated)
+    changes no value: its routing reads the whole batch, as here."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     _, gate, ids = _router(xf, params["router"], m.top_k)
@@ -258,6 +316,9 @@ def moe_ffn_decode(x: torch.Tensor, params, m: MoEConfig) -> torch.Tensor:
 
 
 def shared_ffn(x: torch.Tensor, params) -> torch.Tensor:
-    """The shared experts' SwiGLU, dense compute."""
+    """The shared experts' SwiGLU, dense compute (a tensor-parallel MLP
+    when split over 'model')."""
     sp = params["shared"]
+    if isinstance(sp["wi"], TP.Shards):
+        return TP.run_ranks(L.swiglu, x, sp["wi"], sp["wg"], sp["wo"])
     return L.swiglu(x, sp["wi"], sp["wg"], sp["wo"])

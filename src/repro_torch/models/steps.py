@@ -38,15 +38,32 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
   them replicated, so its pods' copies would drift apart (ROADMAP C).
 * uncompressed: the reference's step is one global (GSPMD) step over
   the whole microbatch, which is what the one-device loop computes, so
-  the step runs that loop on the mesh's first device. The port issues a
+  the step runs that loop on the mesh's first device (its first 'data'
+  slice's 'model' ranks under tensor parallelism). The port issues a
   rank's work from one host thread, so splitting it over the ranks
   would only serialise them (ROADMAP: concurrent per-device shard
-  dispatch).
+  dispatch). One exception: the reference's moe FFN runs in a
+  ``shard_map`` whose tokens enter ``P(('pod', 'data'))``, so its dp
+  shards route apart; the step passes their number to ``loss_fn``
+  (``moe.moe_ffn``'s ``dp``) and raises where a microbatch's rows do
+  not divide it, as the ``shard_map`` does.
 
-A 'model' axis the parameter rules would shard weights over (tensor
-parallelism), a mesh mixing device types and the abstract production
-mesh (``launch/mesh.make_production_mesh``, meta entries) are refused
-(ROADMAP A11.9). ``input_specs`` gives a cell's inputs on such a mesh as
+Tensor parallelism over 'model' (``distributed/tensor_parallel.py``):
+where the parameter rules split weights over 'model' (the dense,
+local_global, vlm and moe families), ``init_state`` places the
+parameters and the AdamW moments as ``tp_plan(cfg, mesh)`` gives them,
+each rank's slices on its device. Uncompressed, the step runs that group
+on the whole microbatch. Under int8 (``RULES_TP_ONLY``) each dp rank runs
+its own group (the state's slices copied to its group's devices at the
+start of the step, as the replicas above); its gradients are gathered
+whole on its first device and go through the ring unchanged; the synced
+gradients are split again for AdamW, which steps each slice elementwise.
+
+Refused, naming ROADMAP A11.9 (``tensor_parallel.check_mesh``,
+``tp_plan``): the ssm family's 'model' split, a mesh mixing device
+types and the abstract production mesh
+(``launch/mesh.make_production_mesh``, meta entries).
+``input_specs`` gives a cell's inputs on such a mesh as
 ``sharding.Sharded`` meta stand-ins, as the reference's does, for the
 dry run (``launch/dryrun.py``).
 
@@ -56,7 +73,8 @@ the stacked parameters (the leaves of ``layers``, ``layers2`` and
 ``prelayers``, nested ``moe``/``shared``/``ssm`` subtrees included,
 become lists, which ``transformer.layer`` indexes as it indexes the
 stacks), so a layer's gradient is written into its slice of the stacked
-sum and no stack-sized gradient is made per layer.
+sum and no stack-sized gradient is made per layer (a split leaf's
+layer is ``Shards`` of its ranks' layer views).
 ``make_grad_step`` is the step before AdamW: the synced gradients, the
 loss and the new error rows, the state untouched.
 """
@@ -70,6 +88,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import serving, transformer
 from repro_torch.optim import adamw, compression, schedule
 
@@ -93,11 +112,15 @@ def init_state(cfg: ArchConfig, *, seed: int = 0, device=None,
                mesh=None) -> TrainState:
     """Random parameters (``transformer.init_params``, the port's stream)
     and zero AdamW state in ``cfg.opt_state_dtype``, on ``mesh``'s first
-    device when a mesh is given, else on ``device`` (default: the card);
-    under ``grad_compression="int8"`` a zero error row per dp rank of the
-    mesh (one without a mesh), on the rank's device."""
+    device when a mesh is given, else on ``device`` (default: the card),
+    split as ``tensor_parallel.tp_plan(cfg, mesh)`` places them; under
+    ``grad_compression="int8"`` a zero error row per dp rank of the mesh
+    (one without a mesh), on the rank's first device."""
     dev = mesh.first_device if mesh is not None else resolve_device(device)
-    params = transformer.init_params(cfg, seed=seed, device=dev)
+    plan = TP.tp_plan(cfg, mesh)
+    # each leaf placed as it is drawn: no card holds the whole tree
+    params = transformer.init_params(cfg, seed=seed, device=dev, **(
+        {} if plan is None else {"plan": plan}))
     err = None
     if cfg.grad_compression == "int8":
         devs = [dev] if mesh is None else dp_devices(mesh)
@@ -135,21 +158,24 @@ def _autograd_leaves(params):
     the flat leaf list in a fixed order, the trees' insertion order."""
     leaves = []
 
+    def leaf(t):
+        if isinstance(t, TP.Shards):
+            out = t.like([p.detach().requires_grad_(True) for p in t])
+            leaves.extend(out)
+            return out
+        out = t.detach().requires_grad_(True)
+        leaves.append(out)
+        return out
+
     def views(node):
         if isinstance(node, dict):
             return {k: views(v) for k, v in node.items()}
-        out = [node[i].detach().requires_grad_(True)
-               for i in range(node.shape[0])]
-        leaves.extend(out)
-        return out
+        if isinstance(node, TP.Shards):
+            return [leaf(node.at(i)) for i in range(node[0].shape[0])]
+        return [leaf(node[i]) for i in range(node.shape[0])]
 
-    tree = {}
-    for key, value in params.items():
-        if key in _STACKED:
-            tree[key] = views(value)
-        else:
-            tree[key] = value.detach().requires_grad_(True)
-            leaves.append(tree[key])
+    tree = {key: (views(value) if key in _STACKED else leaf(value))
+            for key, value in params.items()}
     return tree, leaves
 
 
@@ -161,60 +187,69 @@ def _grad_slots(gsum):
         if isinstance(node, dict):
             for v in node.values():
                 walk(v)
+        elif isinstance(node, TP.Shards):
+            for i in range(node[0].shape[0]):
+                slots.extend(node.at(i))
         else:
             slots.extend(node[i] for i in range(node.shape[0]))
 
     for key, value in gsum.items():
         if key in _STACKED:
             walk(value)
+        elif isinstance(value, TP.Shards):
+            slots.extend(value)
         else:
             slots.append(value)
     return slots
 
 
 def _rank_plan(cfg: ArchConfig, mesh, b: int) -> list:
-    """``[(device, rows), ...]``: each rank's device (None: the state's)
-    and its block of a microbatch's ``b`` rows (see the module
-    docstring); raises for what the step refuses."""
+    """``[(devices, rows), ...]``: each rank's 'model' group's devices
+    (None: the state's device) and its block of a microbatch's ``b`` rows
+    (see the module docstring); raises for what the step refuses."""
     if mesh is None or mesh.size == 1:
         return [(None, slice(0, b))]
-    types = {d.type for d in mesh.devices.reshape(-1)}
-    if len(types) > 1:
-        raise NotImplementedError(
-            f"LM training on a mesh mixing device types {sorted(types)} is "
-            f"not ported to repro_torch (ROADMAP A11.9)")
-    if mesh.shape.get("model", 1) > 1:
-        specs = sharding.param_specs(transformer.param_shapes(cfg), mesh,
-                                     cfg)
-        sharded = sorted("/".join(path) for path, spec
-                         in transformer._flat(specs)
-                         if any(a == "model" or (isinstance(a, tuple)
-                                                 and "model" in a)
-                                for a in spec))
-        if sharded:
-            raise NotImplementedError(
-                f"{cfg.name}: the 'model' axis of {mesh.shape} would shard "
-                f"{len(sharded)} weights ({sharded[0]}, ...): tensor "
-                f"parallelism is not ported to repro_torch (ROADMAP A11.9)")
-    if "meta" in types:
-        raise NotImplementedError(
-            f"{cfg.name}: a step over the abstract mesh {mesh.shape} is not "
-            f"ported to repro_torch (ROADMAP A11.9); the dry run counts one "
-            f"device's step on meta tensors (launch/dryrun.py)")
+    TP.check_mesh(cfg, mesh)
+    TP.tp_plan(cfg, mesh)                  # raises for the ssm split
+    groups = TP.tp_groups(mesh)
     if cfg.grad_compression != "int8":
-        return [(mesh.first_device, slice(0, b))]
+        n = len(groups)
+        if cfg.family == "moe" and b % n:
+            raise ValueError(f"a microbatch of {b} rows does not split over "
+                             f"the {n} dp shards of {mesh.shape} that the "
+                             f"moe layers route apart")
+        return [(groups[0], slice(0, b))]
     axes = sharding.dp_axes(mesh)
     n = math.prod(mesh.shape[a] for a in axes)
     if b % n:
         raise ValueError(f"a microbatch of {b} rows does not split over "
                          f"the {n} dp ranks of {mesh.shape}")
-    return sharding.shard_plan(mesh, axes, b)
+    return [(g, rows) for g, (_, rows) in zip(
+        groups, sharding.shard_plan(mesh, axes, b))]
 
 
-def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int):
+def _on_group(params, devices):
+    """A copy of ``params`` on another 'model' group: each split leaf's
+    slice j on ``devices[j]``, the replicated leaves on ``devices[0]``."""
+    def move(leaf):
+        if isinstance(leaf, TP.Shards):
+            return leaf.like([p.to(d) for p, d in zip(leaf, devices)])
+        return leaf.to(devices[0])
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return move(node)
+
+    return walk(params)
+
+
+def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int,
+                 dp: int = 1):
     """One rank's microbatch loop: (the gradient sums over its n_mb
     microbatches scaled by 1 / n_mb, in ``promote_types(param, bf16)``;
-    the microbatches' mean loss), on ``params``' device."""
+    the microbatches' mean loss), on ``params``' devices. ``dp``: the dp
+    shards a moe layer routes apart (``transformer.loss_fn``)."""
     dev = params["final_norm"].device
     gsum = adamw.tree_map(
         lambda p: torch.zeros_like(
@@ -226,7 +261,7 @@ def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int):
         mb = {k: v[j] for k, v in batch.items()}
         live, leaves = _autograd_leaves(params)
         with torch.enable_grad():
-            loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg)
+            loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg, dp=dp)
             grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             for slot, g in zip(slots, grads):
@@ -254,6 +289,9 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
     dp = () if mesh is None else sharding.dp_axes(mesh)
     dp_sizes = tuple(mesh.shape[a] for a in dp)
     ndata = dict(zip(dp, dp_sizes)).get("data", 1)
+    tp = TP.tp_plan(cfg, mesh)
+    # the dp shards the moe layers route apart (uncompressed)
+    n_shards = 1 if mesh is None else len(TP.tp_groups(mesh))
 
     def rank_batch(batch, rows, rdev):
         """(the rank's rows of every microbatch, the shared constants),
@@ -268,34 +306,39 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
         if batch["labels"].shape[0] != n_mb:
             raise ValueError(f"the batch leads with {batch['labels'].shape[0]}"
                              f" microbatches; the step takes {n_mb}")
-        if plan[0][0] is not None and plan[0][0] != dev:
+        if plan[0][0] is not None and plan[0][0][0] != dev:
             raise ValueError(f"the state lives on {dev}, not on the mesh's "
-                             f"first device {plan[0][0]}")
+                             f"first device {plan[0][0][0]}")
+        TP.check_placed(params, tp)
         if not int8:                    # one rank (see _rank_plan)
             gsum, loss = _local_grads(params, *rank_batch(
-                batch, plan[0][1], dev), cfg, n_mb)
+                batch, plan[0][1], dev), cfg, n_mb, dp=n_shards)
             return gsum, loss, None
         if state.err is None or len(state.err) != n:
             raise ValueError(f"grad_compression='int8' over {n} dp ranks "
                              f"needs {n} error rows, the state has "
                              f"{None if state.err is None else len(state.err)}")
-        replicas = {dev: params}
-        for rdev, _ in plan:
-            if rdev is not None and rdev not in replicas:
-                replicas[rdev] = adamw.tree_map(lambda p: p.to(rdev), params)
+        first = (dev,) if plan[0][0] is None else tuple(plan[0][0])
+        replicas = {first: params}
+        for group, _ in plan:
+            if group is not None and tuple(group) not in replicas:
+                replicas[tuple(group)] = _on_group(params, group)
         total = sum(p.numel() for p in adamw.tree_leaves(params))
         length = ndata * -(-total // ndata)
         losses, flats, new_err = [], [], []
-        for r, (rdev, rows) in enumerate(plan):
-            rdev = dev if rdev is None else rdev
-            gsum, loss = _local_grads(replicas[rdev], *rank_batch(
+        for r, (group, rows) in enumerate(plan):
+            group = first if group is None else tuple(group)
+            rdev = group[0]
+            gsum, loss = _local_grads(replicas[group], *rank_batch(
                 batch, rows, rdev), cfg, n_mb)
             losses.append(loss.to(dev))
             # quantized as each rank finishes, so only one rank's
-            # gradient sums are alive at a time
+            # gradient sums are alive at a time; split sums gathered
+            # whole on the rank's first device
             with torch.no_grad():
                 flat, row = compression.local_quantize(
-                    gsum, state.err[r], length=length)
+                    TP.gather_params(gsum, rdev), state.err[r],
+                    length=length)
             flats.append(flat)
             new_err.append(row)
             del gsum
@@ -306,11 +349,18 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
         del flats
         like = adamw.tree_map(lambda p: torch.empty(
             p.shape, dtype=torch.promote_types(p.dtype, torch.bfloat16),
-            device="meta"), params)
-        return (compression.unflatten(synced[0], like), sum(losses) / n,
-                new_err)
+            device="meta"), TP.gather_params(_meta(params)))
+        grads = TP.shard_params(compression.unflatten(synced[0], like),
+                                TP.plan_of(params, cfg))
+        return grads, sum(losses) / n, new_err
 
     return grad_step
+
+
+def _meta(params):
+    """``params`` as meta tensors (split leaves' slices too)."""
+    return adamw.tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                                device="meta"), params)
 
 
 def apply_grads(cfg: ArchConfig, state: TrainState, grads, lr
@@ -347,15 +397,23 @@ def make_train_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, mesh=None):
+    """``prefill_step(params, batch)``: ``serving.prefill`` over ``mesh``
+    (the mesh the parameters are placed on, or None)."""
+    serving.serving_plan(cfg, mesh)          # refuse before any work
+
     def prefill_step(params, batch):
-        return serving.prefill(params, batch, cfg)
+        return serving.prefill(params, batch, cfg, mesh=mesh)
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None):
+    """``decode_step(params, batch, cache)``: ``serving.decode_step`` over
+    ``mesh``."""
+    serving.serving_plan(cfg, mesh)
+
     def decode_step(params, batch, cache):
-        return serving.decode_step(params, batch, cache, cfg)
+        return serving.decode_step(params, batch, cache, cfg, mesh=mesh)
     return decode_step
 
 

@@ -46,6 +46,16 @@ stream (a ``torch.Generator`` seeded on the device), which is not
 Stacked leaves may also be lists of per-layer tensors (the train step's
 autograd leaves): ``layer(params, i)`` indexes both.
 
+Tensor parallelism (``distributed/tensor_parallel.py``): a parameter
+split over 'model' is ``Shards``, one slice a rank on its device, and
+the functions here dispatch on it. Split q heads: each rank projects its
+heads (``project_qkv``; replicated k/v read per rank by
+``kv_weights``), runs the attention kernel on them and its rows of
+``o`` (``attend_qkv``); split ``wi``/``wg``/``wo``: ``mlp`` per rank; a
+vocab split: ``embed_input``'s masked lookup and ``head_logits``'s
+gathered logits. Each rank's partial output is ``reduce_sum``'d onto
+the first device, where the replicated work runs once.
+
 Training: ``forward`` rematerialises each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` and autograd is
 recording (the reference's ``jax.checkpoint`` of its scan body);
@@ -67,6 +77,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.arrays import tensor_from_numpy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe, ssm
 
@@ -234,8 +245,8 @@ def _per_expert(path: Tuple[str, ...]) -> bool:
                                                               "wo")
 
 
-def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device=None) -> Params:
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                plan=None) -> Params:
     """Random parameters with the reference's scales (normal * 1/sqrt(fan
     in), embed and router 0.02, ssm conv weights 0.1, zero norm gains;
     ``_init_scale``), its constant leaves (``ssm.init_constant``) and
@@ -244,8 +255,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     port's own stream, not ``jax.random``'s. A leaf is one float32 draw,
     scaled, then cast, except the stacked experts' ``wi``/``wg``/``wo``,
     drawn one (layer, expert) matrix at a time into the stored dtype, so
-    no float32 copy of a whole expert stack is ever held."""
-    dev = torch.device("cpu" if device is None else device)
+    no float32 copy of a whole expert stack is ever held. With a
+    ``plan`` (``tensor_parallel.tp_plan``) each leaf is drawn whole on
+    its first device, then placed as ``shard_params`` places it: the
+    same values, split."""
+    dev = (plan.first if plan is not None
+           else torch.device("cpu" if device is None else device))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -269,44 +284,58 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 out[i, e] = draw(shape[2:], scale, dtype)
         return out
 
+    def placed(path, shape):
+        t = leaf(path, shape)
+        return t if plan is None else TP.place(t, plan.dims.get(path), plan)
+
     def build(tree, path):
         return {k: (build(v, path + (k,)) if isinstance(v, dict)
-                    else leaf(path + (k,), v)) for k, v in tree.items()}
+                    else placed(path + (k,), v)) for k, v in tree.items()}
 
     return build(param_shapes(cfg), ())
 
 
-def params_from_numpy(tree, cfg: ArchConfig, device=None) -> Params:
+def params_from_numpy(tree, cfg: ArchConfig, device=None,
+                      plan=None) -> Params:
     """The reference's parameter tree, as numpy arrays, to the port's
     parameters on ``device``: same keys, shapes, layouts and dtypes,
-    bitwise. Raises ValueError on a missing, extra or misshapen leaf."""
+    bitwise. With a ``plan`` (``tensor_parallel.tp_plan``) each array is
+    placed directly as the plan places it (a split leaf's slices on its
+    ranks' devices, a replicated one on the first device). Raises
+    ValueError on a missing, extra or misshapen leaf."""
     dev = torch.device("cpu" if device is None else device)
     shapes = param_shapes(cfg)
 
-    def carry(node, want, where):
+    def carry(node, want, path):
+        where = ".".join(("params",) + path)
         if set(node) != set(want):
             raise ValueError(f"{where}: leaves {sorted(node)} != "
                              f"{sorted(want)}")
         out = {}
         for k, shape in want.items():
             if isinstance(shape, dict):
-                out[k] = carry(node[k], shape, f"{where}.{k}")
+                out[k] = carry(node[k], shape, path + (k,))
                 continue
             t = tensor_from_numpy(node[k])
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{where}.{k}: shape {tuple(t.shape)} != "
                                  f"{tuple(shape)}")
-            out[k] = t.to(dev)
+            out[k] = (t.to(dev) if plan is None
+                      else TP.place(t, plan.dims.get(path + (k,)), plan))
         return out
 
-    return carry(dict(tree), shapes, "params")
+    return carry(dict(tree), shapes, ())
 
 
-def err_from_numpy(err, cfg: ArchConfig, devices=None) -> list:
+def err_from_numpy(err, cfg: ArchConfig, devices=None, *, mesh=None) -> list:
     """The reference's int8 error-feedback buffer, a (dp, n) bfloat16
     array, to the port's rows (``TrainState.err``): row r on
-    ``devices[r]`` (default: the CPU), bitwise. Raises ValueError where n
-    is not ``cfg``'s parameter count or the devices are not one a row."""
+    ``devices[r]`` (default: the CPU), or on the first device of dp rank
+    r of a (dp, tp) ``mesh`` (its ('pod', 'data') ranks, pod-major),
+    bitwise. Raises ValueError where n is not ``cfg``'s parameter count
+    or the devices are not one a row."""
+    if mesh is not None:
+        devices = [g[0] for g in TP.tp_groups(mesh)]
     t = tensor_from_numpy(err)
     n = sum(math.prod(shape) for _, shape in _flat(param_shapes(cfg)))
     if t.dtype != torch.bfloat16 or t.ndim != 2 or t.shape[1] != n:
@@ -320,22 +349,21 @@ def err_from_numpy(err, cfg: ArchConfig, devices=None) -> list:
 
 def layer(params: Params, i: int, key: str = "layers") -> Params:
     """Layer i's leaves of the stacked subtree ``key`` (views into the
-    stacked tensors, or the per-layer lists' entries), nesting kept."""
+    stacked tensors, or the per-layer lists' entries; a split leaf's
+    ``Shards`` of its ranks' layer i), nesting kept."""
     def pick(node):
-        return {k: (pick(v) if isinstance(v, dict) else v[i])
+        return {k: (pick(v) if isinstance(v, dict)
+                    else v.at(i) if isinstance(v, TP.Shards) else v[i])
                 for k, v in node.items()}
     return pick(params[key])
 
 
 # ================================================================ forward
-def project_qkv(p, x, cfg: ArchConfig, positions):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) of x (B, S, d), RoPE applied,
-    M-RoPE's sections with ``cfg.mrope`` (the reference's
-    ``serving._qkv_one``)."""
+def _project(x, wq, wk, wv, cfg: ArchConfig, positions):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["k"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["v"].to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(dt))
     if cfg.use_rope:
         sections = cfg.mrope_sections if cfg.mrope else None
         q = L.rope(q, positions, cfg.rope_theta, sections)
@@ -343,9 +371,52 @@ def project_qkv(p, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
+def kv_weights(p, cfg: ArchConfig):
+    """(k, v) weights a rank of the split q heads ``p["q"]`` reads: the
+    split ones, or the replicated ones broadcast to the ranks (their
+    gradients summed in rank order), each rank taking the kv heads its q
+    heads read (``tensor_parallel.rank_kv_heads``): a slice where they
+    are consecutive, else one head at a time (no index_add in the
+    backward)."""
+    wq = p["q"]
+    if isinstance(p["k"], TP.Shards):
+        return p["k"], p["v"]
+
+    def heads(w, r):
+        hs = TP.rank_kv_heads(cfg.num_heads, cfg.num_kv_heads, wq.tp, r)
+        if hs == list(range(hs[0], hs[0] + len(hs))):
+            return w.narrow(1, hs[0], len(hs))
+        return torch.stack([w.select(1, h) for h in hs], 1)
+    return tuple(wq.like([heads(w, r) for w, r in zip(
+        TP.broadcast(p[key], wq), wq.ranks)]) for key in ("k", "v"))
+
+
+def project_qkv(p, x, cfg: ArchConfig, positions):
+    """q (B, S, H, hd), k/v (B, S, KV, hd) of x (B, S, d), RoPE applied,
+    M-RoPE's sections with ``cfg.mrope`` (the reference's
+    ``serving._qkv_one``). With q split over 'model' (``Shards``), each
+    rank projects its heads on its device and q, k and v are ``Shards``
+    over heads (dim 2): column parallelism."""
+    if not isinstance(p["q"], TP.Shards):
+        return _project(x, p["q"], p["k"], p["v"], cfg, positions)
+    wq = p["q"]
+    wk, wv = kv_weights(p, cfg)
+    out = [_project(xr, a, b, c, cfg, pr) for xr, pr, a, b, c in zip(
+        TP.broadcast(x, wq), TP.broadcast(positions, wq), wq, wk, wv)]
+    return tuple(wq.like(list(t), 2) for t in zip(*out))
+
+
 def attend_qkv(p, q, k, v, cfg: ArchConfig, kpos, *, window):
     """Causal attention over the sequence's own keys, then the output
-    projection. kpos (S,) positions shared by the batch."""
+    projection. kpos (S,) positions shared by the batch. Split heads
+    (``Shards`` q, k, v): each rank runs the attention kernel on its
+    heads and its rows of ``o``, the partials ``reduce_sum``'d onto
+    kpos's device."""
+    if isinstance(q, TP.Shards):
+        parts = [attend_qkv({"o": o}, qr, kr, vr, cfg, kp, window=window)
+                 for o, qr, kr, vr, kp in zip(p["o"], q, k, v,
+                                              TP.broadcast(kpos, q))]
+        return TP.reduce_sum(parts, kpos.device, q.tp)
     out = L.attention(q, k, v, q_positions=kpos, k_positions=kpos,
                       causal=True, window=window,
                       attn_softcap=cfg.attn_logit_softcap)
@@ -360,6 +431,10 @@ def _attend(p, x, cfg: ArchConfig, positions, *, window):
 
 
 def mlp(p, x):
+    """The SwiGLU MLP; split over 'model' (``Shards``: ``wi``/``wg`` by
+    columns, ``wo`` by rows), each rank's partial ``reduce_sum``'d."""
+    if isinstance(p["wi"], TP.Shards):
+        return TP.run_ranks(L.swiglu, x, p["wi"], p["wg"], p["wo"])
     return L.swiglu(x, p["wi"], p["wg"], p["wo"])
 
 
@@ -381,31 +456,34 @@ def _dense_layer(p, x, cfg: ArchConfig, positions, *, window):
                         cfg)
 
 
-def _moe_mlp(p, h, cfg: ArchConfig, *, decode: bool = False):
+def _moe_mlp(p, h, cfg: ArchConfig, *, decode: bool = False,
+             dp: int = 1):
     """A moe layer's FFN of its normed input h: the routed experts
-    (prefill capacity and the aux loss; with ``decode`` the decode
-    capacity and aux None) plus the shared experts. Returns (y, aux)."""
+    (prefill capacity and the aux loss, routed per dp shard of ``dp``;
+    with ``decode`` the decode capacity and aux None) plus the shared
+    experts. Returns (y, aux)."""
     if decode:
         y, aux = moe.moe_ffn_decode(h, p["moe"], cfg.moe), None
     else:
-        y, aux = moe.moe_ffn(h, p["moe"], cfg.moe)
+        y, aux = moe.moe_ffn(h, p["moe"], cfg.moe, dp=dp)
     if cfg.moe.num_shared_experts:
         y = y + moe.shared_ffn(h, p["moe"])
     return y, aux
 
 
-def finish_moe_layer(p, x, a, cfg: ArchConfig, *, decode: bool = False):
+def finish_moe_layer(p, x, a, cfg: ArchConfig, *, decode: bool = False,
+                     dp: int = 1):
     """The rest of a moe layer after its attention output a: (x, aux)."""
     x = x + a
     y, aux = _moe_mlp(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
-                      decode=decode)
+                      decode=decode, dp=dp)
     return x + y, aux
 
 
-def _moe_layer(p, x, cfg: ArchConfig, positions):
+def _moe_layer(p, x, cfg: ArchConfig, positions, dp: int = 1):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     return finish_moe_layer(p, x, _attend(p, h, cfg, positions,
-                                          window=None), cfg)
+                                          window=None), cfg, dp=dp)
 
 
 def _ssm_layer(p, x, cfg: ArchConfig):
@@ -434,7 +512,9 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     """(B, S, d) inputs in cfg.dtype: frontend embeddings through the
     pruned ADC (per-channel ``adc_mask``) and ``front_proj``, or token
     embeddings (scaled by sqrt(d) for tied dense models, gemma2-style;
-    mamba2 ties its embeddings too, unscaled, as in the reference)."""
+    mamba2 ties its embeddings too, unscaled, as in the reference). A
+    vocab split over 'model' is a masked lookup a rank, ``reduce_sum``'d:
+    one rank holds each token's row, the others add zeros."""
     dt = torch_dtype(cfg.dtype)
     if cfg.frontend:
         emb = batch["embeddings"]
@@ -444,6 +524,8 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
                                    vmax=cfg.adc.vmax)
         x = torch.einsum("bsf,fd->bsd", emb.to(dt),
                          params["front_proj"].to(dt))
+    elif isinstance(params["embed"], TP.Shards):
+        x = _embed_split(params["embed"], batch["tokens"]).to(dt)
     else:
         x = params["embed"][batch["tokens"].long()].to(dt)
     if cfg.family == "dense" and cfg.tie_embeddings:
@@ -451,12 +533,26 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
-def forward_aux(params: Params, batch, cfg: ArchConfig
+def _embed_split(table: "TP.Shards", tokens: torch.Tensor) -> torch.Tensor:
+    parts = []
+    for r, shard, tok in zip(table.ranks, table, TP.broadcast(tokens,
+                                                              table)):
+        n = shard.shape[0]
+        t = tok.long() - r * n
+        mine = (t >= 0) & (t < n)
+        parts.append(shard[t.clamp(0, n - 1)].masked_fill(~mine[..., None],
+                                                          0))
+    return TP.reduce_sum(parts, tokens.device, table.tp)
+
+
+def forward_aux(params: Params, batch, cfg: ArchConfig, *, dp: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final hidden states (B, S, d) after the final norm, the float32
     aux loss summed over the moe layers). The prelayers run first, under
     ``dense_config``. Each layer is rematerialised in the backward when
-    ``cfg.remat == "full"`` and autograd is recording."""
+    ``cfg.remat == "full"`` and autograd is recording. ``dp``: the dp
+    shards a moe layer routes apart (``moe.moe_ffn``); the other
+    families ignore it."""
     check_supported(cfg)
     x = embed_input(params, batch, cfg)
     positions = batch["positions"]
@@ -465,7 +561,8 @@ def forward_aux(params: Params, batch, cfg: ArchConfig
 
     def run(fn, *args, **kw):
         if remat:
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
+            return checkpoint(TP.remat_fn(fn, params), *args,
+                              use_reentrant=False, **kw)
         return fn(*args, **kw)
 
     pre_cfg = dense_config(cfg)
@@ -475,7 +572,7 @@ def forward_aux(params: Params, batch, cfg: ArchConfig
     for i in range(scan_len(cfg)):
         p = layer(params, i)
         if cfg.family == "moe":
-            x, a = run(_moe_layer, p, x, cfg, positions)
+            x, a = run(_moe_layer, p, x, cfg, positions, dp)
             aux = aux + a
         elif cfg.family == "ssm":
             x = run(_ssm_layer, p, x, cfg)
@@ -496,15 +593,28 @@ def forward(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
 
 
 def lm_head(params: Params, cfg: ArchConfig) -> torch.Tensor:
-    """The (d, V) output projection (the tied embedding's transpose)."""
-    return params["head"] if "head" in params else params["embed"].T
+    """The (d, V) output projection (the tied embedding's transpose; a
+    vocab split's ``Shards`` of its ranks' transposes)."""
+    if "head" in params:
+        return params["head"]
+    emb = params["embed"]
+    if isinstance(emb, TP.Shards):
+        return emb.like([e.T for e in emb], 1)
+    return emb.T
 
 
 def head_logits(x: torch.Tensor, head_w: torch.Tensor, cap: float
                 ) -> torch.Tensor:
     """float32, softcapped logits (..., V) of hidden states (..., d) under
-    the (d, V) head."""
-    lg = torch.einsum("...d,dv->...v", x, head_w.to(x.dtype))
+    the (d, V) head. A vocab split (``Shards``): each rank's logits of
+    its columns, ``gather_cat``'d onto x's device before the softcap."""
+    if isinstance(head_w, TP.Shards):
+        lg = TP.gather_cat(
+            [torch.einsum("...d,dv->...v", xr, w.to(x.dtype))
+             for xr, w in zip(TP.broadcast(x, head_w), head_w)], -1,
+            x.device, head_w.tp)
+    else:
+        lg = torch.einsum("...d,dv->...v", x, head_w.to(x.dtype))
     return L.softcap(lg.float(), cap)
 
 
@@ -548,11 +658,11 @@ def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor,
     return tot / (b * s)
 
 
-def loss_fn(params: Params, batch, cfg: ArchConfig):
+def loss_fn(params: Params, batch, cfg: ArchConfig, *, dp: int = 1):
     """(total loss, {"ce", "aux"}): the chunked cross-entropy of the
     batch's labels, plus ``router_aux_weight * aux`` for the moe family;
-    aux is 0 for the others."""
-    x, aux = forward_aux(params, batch, cfg)
+    aux is 0 for the others. ``dp``: as ``forward_aux``'s."""
+    x, aux = forward_aux(params, batch, cfg, dp=dp)
     ce = chunked_ce_loss(x, lm_head(params, cfg), batch["labels"], cfg)
     total = ce + cfg.moe.router_aux_weight * aux if cfg.moe else ce
     return total, {"ce": ce, "aux": aux}
@@ -575,6 +685,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Params):
         super().__init__()
         check_supported(cfg)
+        if TP.is_split(params):
+            raise ValueError("the Transformer module holds whole "
+                             "parameters: gather_params first")
         self.cfg = cfg
         self._paths = tuple(path for path, _ in _flat(params))
         for path, t in _flat(params):

@@ -16,6 +16,15 @@ and moments in the parameters' nested dicts), so a checkpoint's leaves are
 named ``opt/step``, ``opt/m/...``, ``opt/v/...`` in both packages. Trees
 flatten in the reference's leaf order (``tree_leaves``: dict keys sorted,
 as ``jax.tree_util`` orders them).
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) a split
+leaf is ``Shards``, one slice a rank on the rank's device: it flattens to
+its slices in rank order, ``tree_map`` maps each slice and keeps the
+split, and AdamW steps each slice elementwise on its device, so the
+update is the whole leaf's. The global norm sums the slices' float32
+square sums in a fixed order, tree order then rank order, on the first
+leaf's device; that order, not the whole leaf's, is the only difference
+from one device.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence
 
 import torch
+
+from repro_torch.distributed.tensor_parallel import Shards
 
 
 @dataclass
@@ -43,9 +54,12 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to every leaf of nested dicts, keeping the tree."""
+    """``fn`` applied to every leaf of nested dicts (to each rank's slice
+    of a ``Shards`` leaf), keeping the tree."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, Shards):
+        return tree.like([fn(p) for p in tree])
     return fn(tree)
 
 
@@ -71,9 +85,12 @@ def init_tree(params, state_dtype: str = "float32") -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of the leaves' float32 square sums, leaf by leaf in
-    the reference's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    the reference's order (a split leaf's slices in rank order), on the
+    first leaf's device."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())).to(dev)
+                          for leaf in leaves))
 
 
 @torch.no_grad()
@@ -88,18 +105,31 @@ def update_(leaves: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     ``grad_clip > 0`` the gradients are first scaled, in place, by
     ``min(1, grad_clip / max(norm, 1e-12))``, norm their ``global_norm``
     (``grad_norm`` when the caller has it already)."""
+    copies = {}
+
+    def on(t, dev):
+        """A 0-d tensor on ``dev`` (copied once a device: split leaves'
+        slices live on their ranks' devices)."""
+        if not isinstance(t, torch.Tensor) or t.device == dev:
+            return t
+        key = (id(t), dev)
+        if key not in copies:
+            copies[key] = t.to(dev)
+        return copies[key]
+
     if grad_clip and grad_clip > 0:
         gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         for g in grads:
-            g.mul_(scale)
+            g.mul_(on(scale, g.device))
     state.step.add_(1)
     # a Python scalar base is cast to the exponent's float32, on the device
-    c1 = 1.0 - torch.pow(b1, state.step.float())
-    c2 = 1.0 - torch.pow(b2, state.step.float())
+    c1_, c2_ = (1.0 - torch.pow(b, state.step.float()) for b in (b1, b2))
+    lr_ = lr
     for p, g, m, v in zip(leaves, grads, tree_leaves(state.m),
                           tree_leaves(state.v)):
+        c1, c2, lr = (on(t, p.device) for t in (c1_, c2_, lr_))
         gf = g.float()
         if m.dtype == torch.float32:
             mf = m.mul_(b1).add_(gf * (1 - b1))

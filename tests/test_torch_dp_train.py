@@ -17,7 +17,10 @@ forced host devices:
   manual ``shard_map``; pinned by
   tests/test_torch_compression.py::test_the_reference_int8_step_raises_at_dp_2);
 * uncompressed at dp = 2 and musicgen at data 2 x model 2 (extra_dp,
-  four ranks): the reference's own GSPMD step.
+  four ranks): the reference's own GSPMD step; kimi-k2 uncompressed at
+  dp = 2, whose moe layers route each dp shard apart (the reference's
+  ``shard_map`` over ('pod', 'data')), the same, plus its ``loss_fn`` on
+  one microbatch at dp 2 and dp 1.
 
 Tolerances: tests/torch_dp_checks.py (the float bounds of
 tests/test_torch_lm_train.py; for int8, the share and size of the
@@ -64,7 +67,7 @@ MB = 2
 def ref(tmp_path_factory):
     return __import__("torch_dp_checks").reference(
         tmp_path_factory.mktemp("dp"), "int8_dp1", "int8_dp2", "none_dp2",
-        "musicgen_extra_dp")
+        "musicgen_extra_dp", "moe_none_dp2")
 
 
 def _two():
@@ -104,6 +107,31 @@ def test_uncompressed_step_at_dp_2_matches_the_reference(ref):
     assert float(m["loss"]) == float(metrics[0]["loss"])
 
 
+def test_uncompressed_moe_step_at_dp_2_matches_the_reference(ref):
+    """kimi-k2 uncompressed on a (2, 1) mesh: the reference's own (2, 1)
+    step, whose two dp shards route apart (their own capacity, the aux
+    loss their mean), within the uncompressed bounds; and one
+    microbatch's ce and aux within tests/test_torch_moe.py's moe bound
+    (1e-5) of the reference's (2, 1) values, where its (1, 1) aux lies
+    outside that bound."""
+    cfg = smoke_config("kimi-k2-1t-a32b")
+    state, metrics, _ = run_port(ref, "moe_none_dp2", cfg, _two(),
+                                 n_steps=2)
+    assert_metrics(ref, "moe_none_dp2", metrics)
+    assert_float_state(ref, "moe_none_dp2", state)
+    params = transformer.params_from_numpy(tree(ref, "moe_none_dp2/init/"),
+                                           cfg)
+    mb = {k: v[0] for k, v in _data(cfg).device_batch(0).items()}
+    _, m = transformer.loss_fn(params, mb, cfg, dp=2)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for key in ("ce", "aux"):
+        np.testing.assert_allclose(float(m[key]), float(
+            ref[f"moe_none_dp2/loss_fn2x1/{key}"]), err_msg=key, **tol)
+    one, two = (float(ref[f"moe_none_dp2/loss_fn{s}/aux"])
+                for s in ("1x1", "2x1"))
+    assert abs(one - two) > tol["atol"] + tol["rtol"] * abs(two)
+
+
 def test_extra_dp_musicgen_at_data_2_model_2_matches_the_reference(ref):
     cfg = smoke_config("musicgen-medium")
     mesh = tmesh.make_host_mesh(2, 2, device="cpu")
@@ -121,8 +149,11 @@ def test_uncompressed_dp_step_is_the_one_device_step_bitwise(arch, axes):
     """Uncompressed, the reference's step is one global step over the
     whole microbatch, so the port's runs the one-device loop on the
     mesh's first device: bitwise the mesh-less step, also under extra_dp
-    (musicgen, four batch ranks) and for moe, whose capacity and aux loss
-    read the whole microbatch."""
+    (musicgen, four batch ranks). For moe the reference's ``shard_map``
+    routes each dp shard's rows apart, so the step is the one-device
+    loop with the dp shards passed to ``loss_fn`` (``moe_ffn``'s
+    ``dp``), bitwise, and not the mesh-less step (whose capacity and aux
+    loss read the whole microbatch)."""
     cfg = smoke_config(arch)
     mesh = tmesh.make_host_mesh(*axes, device="cpu")
     assert sharding.batch_axes(mesh, cfg, 4) is not None
@@ -130,8 +161,16 @@ def test_uncompressed_dp_step_is_the_one_device_step_bitwise(arch, axes):
     batch = _data(cfg).device_batch(0)
     got, loss, err = steps.make_grad_step(cfg, mesh, SHAPE, MB)(state,
                                                                 batch)
-    want, wloss, _ = steps.make_grad_step(cfg, None, SHAPE, MB)(state,
-                                                                batch)
+    if cfg.family == "moe":
+        alone, aloss, _ = steps.make_grad_step(cfg, None, SHAPE, MB)(
+            state, batch)
+        assert not torch.equal(loss, aloss)
+        want, wloss = steps._local_grads(
+            state.params, {k: v for k, v in batch.items()}, {}, cfg, MB,
+            dp=axes[0])
+    else:
+        want, wloss, _ = steps.make_grad_step(cfg, None, SHAPE, MB)(state,
+                                                                    batch)
     assert err is None and torch.equal(loss, wloss)
     for a, b in zip(adamw.tree_leaves(got), adamw.tree_leaves(want),
                     strict=True):

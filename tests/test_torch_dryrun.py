@@ -14,8 +14,12 @@ and ``models/steps.input_specs``, against the JAX package's
   pointed at ``smoke_config``) at both meshes: ``ok``, with the record's
   keys; the ssm and hybrid families' prefill at 32768 positions is a
   4096-chunk loop at the smoke chunk of 8 (~7 s a cell) and is left to
-  the CLI. A train cell is n_mb / tp times one microbatch's count plus
-  AdamW on the device's shard plus the dp ring.
+  the CLI. A train cell whose weights split over 'model' is n_mb times
+  rank 0's microbatch count in the port's tensor-parallel step (its
+  slices, the replicated work whole, the metered ``reduce_sum`` /
+  ``gather_cat`` collectives) plus AdamW on the device's share plus the
+  dp ring; the ssm family's, whose split is not ported, is n_mb / tp
+  times one microbatch's count.
 * The production mesh runs no step: ``make_train_step`` refuses it
   naming A11.9; ``make_mesh(devices=["meta"])`` still refuses meta.
 """
@@ -38,6 +42,7 @@ from repro_torch.configs import (ARCH_NAMES, SHAPES,  # noqa: E402
                                  smoke_config)
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.distributed import tensor_parallel as TP  # noqa: E402
 from repro_torch.launch import analysis, dryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
@@ -50,7 +55,8 @@ FAMILIES = {"dense": "deepseek-7b", "audio": "musicgen-medium",
             "vlm": "qwen2-vl-72b"}
 KEYS = {"arch", "shape", "mesh", "chips", "kind", "params", "roofline",
         "ok", "count_s", "bytes_per_device", "step_stats",
-        "tensor_parallel", "rows_per_device", "model_division"}
+        "tensor_parallel", "rows_per_device", "model_division",
+        "model_ranks"}
 
 
 def _same(port, ref, where):
@@ -157,37 +163,63 @@ def test_run_cell_on_every_family_smoke_config(family, mesh_name,
 
 
 def test_a_train_cell_is_its_microbatch_times_n_mb_over_tp():
+    """A weight-splitting train cell is rank 0 of the tensor-parallel
+    step (no longer the whole step over tp): n_mb times rank 0's
+    microbatch, whose count lies between the whole step's / tp (the
+    replicated work stands whole) and the whole step's; AdamW on rank
+    0's slices scaled to the device's share; the dp ring plus n_mb times
+    the metered TP collectives. The ssm family's cell, whose split is
+    not ported, still is n_mb / tp times one microbatch."""
     cfg = smoke_config("deepseek-7b")
     shape = SHAPES["train_4k"]
     mesh = tmesh.make_production_mesh()
     cell = dryrun.count_cell(cfg, shape, mesh)
-    n_mb, rows, tp = (cell["n_microbatches"], cell["rows_per_device"],
-                      cell["model_division"])
-    assert (n_mb, rows, tp) == (8, 2, 16)
-    state = dryrun.meta_state(cfg)
+    n_mb, rows, div, tp = (cell["n_microbatches"], cell["rows_per_device"],
+                           cell["model_division"], cell["model_ranks"])
+    assert (n_mb, rows, div, tp) == (8, 2, 1, 16)
+    assert cell["tensor_parallel"] == dryrun.TENSOR_PARALLEL
+    plan = TP.counting_plan(cfg, mesh)
+    state = dryrun.meta_state(cfg, plan)
+    assert len(state.params["layers"]["wi"]) == 1    # rank 0's slice only
     grad_step = steps.make_grad_step(
         cfg, None, ShapeConfig("t", shape.seq_len, rows, "train"), 1)
     batch = {k: torch.empty((1, rows, shape.seq_len), dtype=torch.int32,
                             device="meta")
              for k in ("tokens", "positions", "labels")}
-    mb, (grads, _, _) = analysis.count_step(grad_step, state, batch)
+    with TP.metering() as rec:
+        mb, (grads, _, _) = analysis.count_step(grad_step, state, batch)
+    whole, _ = analysis.count_step(grad_step, dryrun.meta_state(cfg), batch)
+    assert whole.flops / tp < mb.flops < whole.flops
     adam, _ = analysis.count_step(steps.apply_grads, cfg, state, grads,
                                   torch.empty((), device="meta"))
     st = cell["stats"]
-    assert st.flops == mb.flops * n_mb / tp
+    assert st.flops == mb.flops * n_mb
     structs, params = dryrun.state_structs(cfg, mesh)
-    share = dryrun.bytes_per_device(params, mesh) / \
-        dryrun.bytes_per_device(params)
+    share = dryrun.bytes_per_device(params, mesh) / dryrun.tree_bytes(
+        state.params)
     assert st.traffic_bytes == pytest.approx(
-        mb.traffic_bytes * n_mb / tp + adam.traffic_bytes * share,
-        rel=1e-12)
+        mb.traffic_bytes * n_mb + adam.traffic_bytes * share, rel=1e-12)
+    # deepseek's smoke heads (4) do not divide 16: attention runs
+    # replicated; per microbatch the embedding's and each layer's MLP
+    # all-reduce forward, each MLP input's and the head input's backward,
+    # and the logits' all-gather, each chunk's forward and recomputation
+    act = rows * shape.seq_len * cfg.d_model * 4
+    layers = cfg.num_layers
+    assert rec["all-reduce"] == pytest.approx(
+        (1 + 2 * layers + 1) * act * 2 * 15 / 16, rel=1e-12)
+    assert rec["all-gather"] == pytest.approx(
+        2 * rows * shape.seq_len * cfg.vocab_size * 4 * 15 / 16, rel=1e-12)
     # the ring over 'data' (16 ranks) of the device's float32 gradient
     # (its parameters less the 'model' splits)
     grad_bytes = sum(x.tensor.numel() * 4 / dryrun.shards(
         tuple(p for p in x.spec if p != "data"), mesh)
         for x in dryrun._leaves(params))
-    assert st.collective_bytes == pytest.approx(2 * 15 / 16 * grad_bytes,
-                                                rel=1e-12)
+    assert st.collective_bytes == pytest.approx(
+        2 * 15 / 16 * grad_bytes + n_mb * (rec["all-reduce"]
+                                           + rec["all-gather"]), rel=1e-12)
+    ssm = dryrun.count_cell(smoke_config("mamba2-1.3b"), shape, mesh)
+    assert (ssm["model_division"], ssm["model_ranks"]) == (16, 16)
+    assert ssm["tensor_parallel"] == dryrun.SSM_DIVIDED
     nbytes = cell["bytes_per_device"]
     assert nbytes["params"] == dryrun.bytes_per_device(params, mesh)
     assert nbytes["opt"] == 2 * nbytes["params"] + 4      # m, v, step

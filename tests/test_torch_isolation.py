@@ -1,6 +1,6 @@
 """The port stands alone: src/repro_torch, chip_smoke.py and the A/B
 tools (tools/flash_f32_ab.py, flash_bwd_ab.py, mc_eval_ab.py,
-adc_bank_ab.py, lookup_backward_ab.py, dp_cards.py) import
+adc_bank_ab.py, lookup_backward_ab.py, dp_cards.py, tp_cards.py) import
 neither JAX nor the JAX package, entry points do not drift to the CPU when
 no card is present, and chip_smoke.py refuses to report without a card or
 outside a checkout (the A/B tools without a card)."""
@@ -28,7 +28,7 @@ def _port_files():
         REPO / "tools" / "flash_bwd_ab.py", REPO / "tools" / "mc_eval_ab.py",
         REPO / "tools" / "adc_bank_ab.py",
         REPO / "tools" / "lookup_backward_ab.py",
-        REPO / "tools" / "dp_cards.py"]
+        REPO / "tools" / "dp_cards.py", REPO / "tools" / "tp_cards.py"]
 
 
 def _modules():
@@ -66,7 +66,8 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.distributed", "repro_torch.distributed.fault"
             } <= set(mods)
     assert {"repro_torch.launch.mesh", "repro_torch.distributed.sharding",
-            "repro_torch.distributed.elastic"} <= set(mods)
+            "repro_torch.distributed.elastic",
+            "repro_torch.distributed.tensor_parallel"} <= set(mods)
     assert {"repro_torch.perf", "repro_torch.perf.workload",
             "repro_torch.perf.cost_model", "repro_torch.perf.autotune"
             } <= set(mods)
@@ -204,6 +205,20 @@ def test_dp_cards_tool_without_two_cards_fails():
                          env=dict(os.environ))
     assert out.returncode == 3
     assert "needs at least two CUDA cards" in out.stderr
+    assert "{" not in out.stdout
+
+
+def test_tp_cards_tool_without_four_cards_fails():
+    """tools/tp_cards.py serves over four distinct cards: with fewer it
+    exits 3 before printing a number."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= 4:
+        pytest.skip("four CUDA cards are present")
+    out = subprocess.run([sys.executable, str(REPO / "tools" /
+                                              "tp_cards.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ))
+    assert out.returncode == 3
+    assert "needs 4 CUDA cards" in out.stderr
     assert "{" not in out.stdout
 
 

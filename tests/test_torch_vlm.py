@@ -395,11 +395,13 @@ def test_launcher_trains_the_smoke_config_as_the_reference(tmp_path, capsys,
 @pytest.mark.parametrize("what", ["weight-sharding model axis",
                                   "make_production_mesh"])
 def test_what_stays_refused_names_the_roadmap_item(what):
-    """The train step refuses what later slices of ROADMAP A11 port: a
-    'model' axis that the parameter rules would shard weights over
-    (tensor parallelism, A11.9; the dp half of A11.9 runs) and the
+    """The train step refuses what later slices of ROADMAP A11 port: the
     production mesh the dry run counts against (abstract since A11.7: a
-    step over it is A11.9's)."""
+    step over it is A11.9's) and a 'model' axis that would split the ssm
+    family's weights (A11.9). A 'model' axis splitting the vlm's weights
+    (tensor parallelism) runs since A11.9's TP slice: its step on a
+    (1, 2) mesh, uncompressed and int8, holds its weights split and
+    gives the unsplit step's loss within float32 sum order."""
     cfg = smoke_config(ARCH)
     shape = ShapeConfig("t", 32, 4, "train")
     if what == "make_production_mesh":
@@ -408,10 +410,22 @@ def test_what_stays_refused_names_the_roadmap_item(what):
                                   microbatches=2)
         return
     tp = tmesh.make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="ssm family.*A11.9"):
+        steps.make_train_step(smoke_config("mamba2-1.3b"), tp, shape,
+                              microbatches=2)
+    data = lm.SyntheticLM(lm.LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+        microbatches=2), cfg)
     for c in (cfg, cfg.replace(grad_compression="int8")):
-        with pytest.raises(NotImplementedError,
-                           match="tensor parallelism.*A11.9"):
-            steps.make_train_step(c, tp, shape, microbatches=2)
+        losses = []
+        for mesh in (tp, tmesh.make_host_mesh(1, 1, device="cpu")):
+            state = steps.init_state(c, seed=0, device="cpu", mesh=mesh)
+            assert isinstance(state.params["layers"]["q"], list) == (
+                mesh is tp)
+            step = steps.make_train_step(c, mesh, shape, microbatches=2)
+            losses.append(float(step(state, data.device_batch(0), 0)[1][
+                "loss"]))
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     # the same mesh's 'data' axis alone is data parallelism, which runs
     two = tmesh.make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])
     assert callable(steps.make_train_step(cfg, two, shape, microbatches=2))

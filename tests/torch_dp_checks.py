@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import lm
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import steps, transformer
 from repro_torch.optim import adamw, compression
 
@@ -47,12 +48,12 @@ FLIP_SHARE = 0.02
 ERR_EQUAL_SHARE = 0.90
 
 
-def reference(tmp_dir, *parts) -> dict:
-    """tests/torch_dp_reference.py's ``parts`` in one subprocess."""
+def reference(tmp_dir, *parts, script="torch_dp_reference.py") -> dict:
+    """tests/torch_dp_reference.py's ``parts`` (or another reference
+    script's, tests/torch_tp_reference.py) in one subprocess."""
     path = Path(tmp_dir) / "ref.npz"
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable,
-                        str(REPO / "tests" / "torch_dp_reference.py"),
+    r = subprocess.run([sys.executable, str(REPO / "tests" / script),
                         str(path), *parts],
                        env=env, capture_output=True, text=True, timeout=400)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -84,12 +85,16 @@ def tree(ref: dict, prefix: str) -> dict:
 
 
 def flat(t, prefix="") -> dict:
-    """{"['a']['b']": float32 numpy leaf} of a port tree."""
+    """{"['a']['b']": float32 numpy leaf} of a port tree (a split leaf
+    gathered whole)."""
     out = {}
     for k in sorted(t):
         v = t[k]
         if isinstance(v, dict):
             out.update(flat(v, f"{prefix}['{k}']"))
+        elif isinstance(v, TP.Shards):
+            out[f"{prefix}['{k}']"] = TP.gather_params(
+                v).detach().float().numpy()
         else:
             out[f"{prefix}['{k}']"] = v.detach().float().numpy()
     return out
@@ -97,8 +102,10 @@ def flat(t, prefix="") -> dict:
 
 def port_state(ref, name, cfg, mesh):
     """The reference's initial parameters of part ``name`` as a port
-    state, AdamW zero, error rows zero (one per dp rank) under int8."""
-    params = transformer.params_from_numpy(tree(ref, f"{name}/init/"), cfg)
+    state, placed as ``tp_plan(cfg, mesh)`` places them, AdamW zero,
+    error rows zero (one per dp rank) under int8."""
+    params = transformer.params_from_numpy(tree(ref, f"{name}/init/"), cfg,
+                                           plan=TP.tp_plan(cfg, mesh))
     state = steps.TrainState(params, adamw.init_tree(params,
                                                      cfg.opt_state_dtype))
     if cfg.grad_compression == "int8":
@@ -110,7 +117,8 @@ def port_state(ref, name, cfg, mesh):
 
 def run_port(ref, name, cfg, mesh, n_steps=None):
     """The port's train step of part ``name`` from its initial state:
-    (state, [metrics], [synced grads before each step])."""
+    (state, [metrics], [synced grads before each step]); the grads are
+    taken under int8 only, whose rounding checks read them."""
     seq, batch, mb, n_ref, total = (int(x) for x in ref["shape"])
     shape = ShapeConfig("t", seq, batch, "train")
     state = port_state(ref, name, cfg, mesh)
@@ -123,7 +131,8 @@ def run_port(ref, name, cfg, mesh, n_steps=None):
     metrics, grads = [], []
     for i in range(n_steps or n_ref):
         b = data.device_batch(i)
-        grads.append(flat(grad_step(state, b)[0]))
+        if cfg.grad_compression == "int8":
+            grads.append(flat(grad_step(state, b)[0]))
         state, m = step(state, b, i)
         metrics.append(m)
     return state, metrics, grads

@@ -22,6 +22,10 @@ host devices and writes every named part's results into one ``.npz``
   ``pinned``), so its pieces are the reference there.
 * ``int8_dp1``, ``none_dp2``, ``musicgen_extra_dp``: the reference's own
   jitted ``make_train_step`` on a (1, 1), (2, 1) and (2, 2) host mesh.
+* ``moe_none_dp2``: the same on a (2, 1) mesh for kimi-k2's smoke config
+  uncompressed (2 steps), whose moe layers route each dp shard apart;
+  plus ``transformer.loss_fn``'s ce and aux on the first microbatch of
+  batch 0 at the initial parameters, on the (2, 1) and the (1, 1) mesh.
 * ``pinned``: the ValueError the reference's int8 step raises on a
   (2, 1) mesh.
 
@@ -182,17 +186,30 @@ def composed(out, name, cfg, dp, n_steps=STEPS):
     out[f"{name}/err"] = _np(err)
 
 
-def stepped(out, name, cfg, mesh_shape):
+def stepped(out, name, cfg, mesh_shape, n_steps=STEPS, loss_fn=False):
     mesh = make_host_mesh(*mesh_shape)
     shape = ShapeConfig("t", SEQ, BATCH, "train")
     with compat.set_mesh(mesh):
         st = steps.init_state(jax.random.PRNGKey(0), cfg, mesh)
         _keyed(out, f"{name}/init/", st.params)
+        if loss_fn:
+            host = jax.tree_util.tree_map(np.asarray, st.params)
+            mb = {k: v[0] for k, v in _data(cfg).batch_at(0).items()}
+            for m_shape in ((1, 1), mesh_shape):
+                m = make_host_mesh(*m_shape)
+                with compat.set_mesh(m):
+                    _, metrics = jax.jit(lambda p, b: transformer.loss_fn(
+                        p, b, cfg, m))(
+                        jax.tree_util.tree_map(jnp.asarray, host),
+                        {k: jnp.asarray(v) for k, v in mb.items()})
+                tag = f"{name}/loss_fn{m_shape[0]}x{m_shape[1]}"
+                out[f"{tag}/ce"] = np.asarray(metrics["ce"])
+                out[f"{tag}/aux"] = np.asarray(metrics["aux"])
         step = jax.jit(steps.make_train_step(cfg, mesh, shape,
                                              microbatches=MB,
                                              total_steps=TOTAL))
         data = _data(cfg)
-        for i in range(STEPS):
+        for i in range(n_steps):
             st, m = step(st, data.device_batch(i), jnp.asarray(i, jnp.int32))
             out[f"{name}/loss{i}"] = np.asarray(m["loss"])
             out[f"{name}/grad_norm{i}"] = np.asarray(m["grad_norm"])
@@ -219,6 +236,9 @@ def main(path, parts):
         "musicgen_extra_dp": lambda: stepped(
             out, "musicgen_extra_dp", smoke_config("musicgen-medium"),
             (2, 2)),
+        "moe_none_dp2": lambda: stepped(
+            out, "moe_none_dp2", smoke_config("kimi-k2-1t-a32b"), (2, 1),
+            n_steps=2, loss_fn=True),
     }
     for part in parts:
         if part == "pinned":
