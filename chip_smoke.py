@@ -789,6 +789,22 @@ TP_GEMMA = dict(arch="gemma2-2b", cut=dict(pad_heads_to=0), batch=1,
 # the repaired moe dp step: kimi-k2's smoke config at (2, 1)
 TP_SMOKE = dict(arch="kimi-k2-1t-a32b", batch=8, seq=32, microbatches=2,
                 steps=2)
+# the ssm family's split (its SSD over 32 heads a rank): mamba2-1.3b at
+# its published config, uncut (PUBLISHED), on a (1, 2) mesh against one
+# card on the same weights; served at phase ssm's SSM shape (the gates'
+# logits over its first ``teacher`` decode steps), trained at
+# SSM_TRAIN's 8 x 2048 in 2 microbatches, 2 steps. ``cut``: none (a
+# rehearsal on the CPU cuts it)
+TP_SSM = dict(arch="mamba2-1.3b", cut={}, requests=SSM["requests"],
+              prompt_len=SSM["prompt_len"], gen=SSM["gen"],
+              teacher=SSM["teacher"], batch=SSM_TRAIN["batch"],
+              seq=SSM_TRAIN["seq"], microbatches=SSM_TRAIN["microbatches"],
+              steps=2)
+# its float32 split against one card: prefill-last and decode logits. The
+# split changes only the order of float32 sums (the gated norm's squares
+# a rank, the output projection's partials); a control, rank 1's SSD
+# state zeroed after prefill, must exceed it TRAIN_CONTROL_FACTOR-fold
+TP_SSM_F32_TOL = 1e-4
 # tensor parallel against one card on the same bf16 weights: the split
 # rounds each rank's partial to bf16 before the sum. Served logits are
 # held to LM_TEACHER_BF16_ATOL, the bf16 serving bound ("twice the
@@ -4361,12 +4377,24 @@ def phase_flash_kernels(np, torch, dev, card, clock):
     return max_err, timings
 
 
+TRACE_TRIES = 3
+
+
 def timed_prefill(torch, fn):
     """Two warm runs of ``fn`` (a prefill), the host clock around a
     synchronised call, then one traced with torch.profiler: (walls,
     traced wall, flash device us, flash launches, other device us, other
-    device operations)."""
+    device operations).
+
+    The profiler's device records can come back short of what ran (one
+    flash kernel of two went missing from a llama4-scout trace on the
+    H100 while the wrapper counted both), which would leave the busy share
+    over part of the work. So each traced call's forward flash launches
+    are also counted by the wrappers, and a trace that holds fewer flash
+    records than that is taken again, up to ``TRACE_TRIES`` times; the
+    last trace is returned, and the caller's check of its count stands."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -4374,27 +4402,35 @@ def timed_prefill(torch, fn):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    flash_us = other_us = 0.0
-    flash_n = other_n = 0
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) is None or not ev.count:
-            continue
-        if "DeviceType.CUDA" not in str(ev.device_type):
-            continue
-        total = getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-        if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
-            flash_us += total
-            flash_n += ev.count
-        else:
-            other_us += total
-            other_n += ev.count
+    for attempt in range(1, TRACE_TRIES + 1):
+        before = fa.total_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        launched = fa.total_launches() - before
+        flash_us = other_us = 0.0
+        flash_n = other_n = 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) is None or not ev.count:
+                continue
+            if "DeviceType.CUDA" not in str(ev.device_type):
+                continue
+            total = getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+            if any(n in ev.key for n in FLASH_DEVICE_NAMES.values()):
+                flash_us += total
+                flash_n += ev.count
+            else:
+                other_us += total
+                other_n += ev.count
+        if flash_n == launched:
+            break
+        print(f"  trace {attempt}/{TRACE_TRIES} holds {flash_n} flash "
+              f"records of the {launched} launches the wrappers counted"
+              + ("; tracing again" if attempt < TRACE_TRIES else ""))
     return walls, traced_wall, flash_us, flash_n, other_us, other_n
 
 
@@ -6817,15 +6853,47 @@ def lg_attention_kernels(np, torch, dev, card, clock):
                                                       **kw), 10)
     b_ms = timed_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, do, pos,
                                                           pos, **kw), 10)
+    # the bounds and the library at the grid's positions: SDPA with the
+    # grid's explicit causal mask over positions (the image's patches
+    # see each other), forward and autograd backward
+    f_bound, f_by, _, _, f_floors = flash_bound(
+        torch, q, k, pos, pos, causal=True, window=0, clock=clock)
+    bw_bound, bw_by, _, _, _, bw_floors = bwd_bound(
+        torch, q, k, pos, pos, window=0, route=fa.BWD_TC_ENTRY)
+    mask = pos[:, None] >= pos[None, :]
+    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((l_fn().transpose(1, 2).float()
+                     - ref.flash_attention_ref(q, k, v, pos, pos, **kw)
+                     .float()).abs().max())
+    check(lib_err < 5e-2, f"{label}: scaled_dot_product_attention with the "
+                          f"grid's mask is not the same function "
+                          f"({lib_err})")
+    f_lib = min(timed_ms(torch, l_fn, 10), timed_ms(torch, l_fn, 10))
+    qg, kg, vg = (t_.detach().requires_grad_(True) for t_ in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=True)
+    b_lib = timed_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dot, retain_graph=True), 10)
+    del qt, kt, vt, qg, kg, vg, dot, lib_out, mask
     rows[f"row 11 {label}"] = {
         "kernel": fa.TC_ENTRY, "ms": f_ms, "max_share": share,
-        "max_abs_err": errs[fa.TC_ENTRY], "controls": ctrl[fa.TC_ENTRY]}
+        "max_abs_err": errs[fa.TC_ENTRY], "controls": ctrl[fa.TC_ENTRY],
+        "bound_ms": f_bound, "bound_by": f_by, "floors_ms": f_floors,
+        "library_ms": f_lib, "library_max_abs_err": lib_err}
     rows[f"row 11b {label}"] = {
         "kernel": fa.BWD_TC_ENTRY, "ms": b_ms, "shares": shares,
         "max_abs_err": errs[fa.BWD_TC_ENTRY],
-        "controls": ctrl[fa.BWD_TC_ENTRY]}
-    print(f"  time at {label}: forward {f_ms:.4f} ms, backward {b_ms:.4f} "
-          f"ms a call on {card}")
+        "controls": ctrl[fa.BWD_TC_ENTRY], "bound_ms": bw_bound,
+        "bound_by": bw_by, "floors_ms": bw_floors, "library_ms": b_lib}
+    print(f"  time at {label}: forward {f_ms:.4f} ms (bound {f_bound:.4f} "
+          f"ms, {f_floors['binding']}; SDPA with the grid's mask "
+          f"{f_lib:.4f} ms), backward {b_ms:.4f} ms (bound {bw_bound:.4f} "
+          f"ms, {bw_by}; SDPA's autograd backward with the mask "
+          f"{b_lib:.4f} ms) a call on {card}")
     del q, k, v, do
     torch.cuda.empty_cache()
     return max_err, rows
@@ -7875,7 +7943,7 @@ def tp_qwen_serve(np, torch, dev, card, meshes, total):
     torch.cuda.reset_peak_memory_stats()
     params = transformer.init_params(cfg, seed=0, device=dev)
     n_params = tree_numel(params)
-    print(f"phase tp (1/4): {cfg.name} at its published widths ({cfg.d_model}"
+    print(f"phase tp (1/6): {cfg.name} at its published widths ({cfg.d_model}"
           f", {cfg.num_heads} heads over {cfg.num_kv_heads}, dh "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})"
           f", cut in depth {full.num_layers} -> {cfg.num_layers} layers, "
@@ -7993,7 +8061,7 @@ def tp_moe(np, torch, dev, card, meshes, total):
     cfg = get_config(c["arch"]).replace(**c["cut"])
     mesh = meshes["repeated"]
     b, s = c["requests"], c["prompt_len"]
-    print(f"phase tp (2/4): {cfg.name} at full width cut {c['cut']}: a "
+    print(f"phase tp (2/6): {cfg.name} at full width cut {c['cut']}: a "
           f"{b} x {s} prefill on one card and over [cuda:0, cuda:0], "
           f"{cfg.moe.num_experts // 2} experts, {cfg.num_heads // 2} heads "
           f"and {cfg.num_kv_heads // 2} kv heads a rank ({card})")
@@ -8139,7 +8207,7 @@ def tp_gemma_train(np, torch, dev, card, meshes, total):
     data = SyntheticLM(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
         microbatches=c["microbatches"]), cfg)
-    print(f"phase tp (3/4): {cfg.name} uncut ({cfg.num_layers} layers, "
+    print(f"phase tp (3/6): {cfg.name} uncut ({cfg.num_layers} layers, "
           f"heads unpadded), trained {c['steps']} steps at {c['batch']} x "
           f"{c['seq']} on one card and twice over [cuda:0, cuda:0]: "
           f"{cfg.num_heads // 2} heads and {cfg.num_kv_heads // 2} kv heads "
@@ -8207,7 +8275,8 @@ def tp_gemma_train(np, torch, dev, card, meshes, total):
     check(bitwise, f"{cfg.name}: two tp runs differ")
     del snaps
     grads = tp_grad_gate(torch, cfg, mesh, shape, c["microbatches"],
-                         data.device_batch(0, dev), dev, runs["one"][0])
+                         data.device_batch(0, dev), dev, runs["one"][0],
+                         tp_train_faults(torch))
     return {"losses": runs, "step_s": times, "worst_rel": worst,
             "bitwise": bitwise, "reduce_sum_s": timer["s"],
             "reduce_sum_calls": timer["n"], "reduce_sum_share": share,
@@ -8280,29 +8349,51 @@ def tp_train_faults(torch):
             "rank 1's attention input gradient dropped": detach_rank1}
 
 
-def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
-    """Step 0's gradients (``steps.make_grad_step``) on one card and over
-    ``mesh`` on the same init and batch: the loss and global grad norm
-    (the train step's metrics) within TP_TRAIN_RTOL of one card's, and
-    every gradient leaf's distance from one card's, over one card's norm,
-    within TP_GRAD_REL. Each of ``tp_train_faults`` must be rejected by
-    them (beyond either bound). ``one_step0``: the one-card train step's
-    step-0 (loss, grad norm), which the one-card grad step repeats."""
-    import numpy as np
+def step0_grads(torch, cfg, mesh, shape, n_mb, batch, state, fault=None):
+    """(loss, global grad norm, leaf names, gradient leaves gathered
+    whole) of ``steps.make_grad_step`` on ``state`` over ``mesh``, under
+    the context manager ``fault(state)`` where one is given."""
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import steps
     from repro_torch.optim import adamw
+    grad_step = steps.make_grad_step(cfg, mesh, shape, n_mb)
+    with fault(state) if fault else contextlib.nullcontext():
+        grads, loss, _ = grad_step(state, batch)
+    gnorm = float(adamw.global_norm(grads))
+    whole = TP.gather_params(grads)
+    del grads
+    return float(loss), gnorm, leaf_paths(whole), adamw.tree_leaves(whole)
+
+
+def leaf_dists(torch, leaves, ref):
+    """Each leaf's distance from ``ref``'s (host copies), over ``ref``'s
+    norm."""
+    out = []
+    for g, r in zip(leaves, ref, strict=True):
+        r = r.to(g.device).float()
+        d = float(torch.linalg.vector_norm(g.float() - r))
+        n = float(torch.linalg.vector_norm(r))
+        out.append(d / n if n > 0 else (0.0 if d == 0 else float("inf")))
+    return out
+
+
+def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0,
+                 faults, keep=None):
+    """Step 0's gradients (``step0_grads``) on one card and over ``mesh``
+    on the same init and batch: the loss and global grad norm (the train
+    step's metrics) within TP_TRAIN_RTOL of one card's, and every
+    gradient leaf's distance from one card's, over one card's norm,
+    within TP_GRAD_REL. Each of ``faults`` ({name: context manager over
+    the split state}, ``tp_train_faults``) must be rejected by them
+    (beyond either bound). ``one_step0``: the one-card train step's
+    step-0 (loss, grad norm), which the one-card grad step repeats, or
+    None. ``keep``: a list that receives one card's leaves (host
+    copies)."""
+    import numpy as np
+    from repro_torch.models import steps
 
     def read(m, state, fault=None):
-        grad_step = steps.make_grad_step(cfg, m, shape, n_mb)
-        with fault(state) if fault else contextlib.nullcontext():
-            grads, loss, _ = grad_step(state, batch)
-        gnorm = float(adamw.global_norm(grads))
-        whole = TP.gather_params(grads)
-        del grads
-        names = leaf_paths(whole)
-        leaves = adamw.tree_leaves(whole)
-        return float(loss), gnorm, names, leaves
+        return step0_grads(torch, cfg, m, shape, n_mb, batch, state, fault)
 
     state = steps.init_state(cfg, seed=0, device=dev)
     l1, g1, names, leaves = read(None, state)
@@ -8312,12 +8403,7 @@ def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
 
     def compare(loss, gnorm, leaves):
         rel = max(abs(loss - l1) / abs(l1), abs(gnorm - g1) / abs(g1))
-        dists = []
-        for g, r in zip(leaves, ref, strict=True):
-            r = r.to(g.device).float()
-            d = float(torch.linalg.vector_norm(g.float() - r))
-            n = float(torch.linalg.vector_norm(r))
-            dists.append(d / n if n > 0 else (0.0 if d == 0 else np.inf))
+        dists = leaf_dists(torch, leaves, ref)
         i = int(np.argmax(dists))
         return rel, dists[i], names[i]
 
@@ -8327,11 +8413,14 @@ def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
     del leaves
     out = {"one_card": [l1, g1], "tp": [loss, gnorm], "scalar_rel": rel,
            "leaf_rel": leaf_worst, "leaf": leaf_name, "controls": {}}
-    print(f"  step 0's gradients ({len(ref)} leaves): one card loss {l1:.6f}"
-          f", grad norm {g1:.6f} (its train step's {one_step0}); tp {loss:.6f}"
-          f", {gnorm:.6f}: relative {rel:.2e} [{TP_TRAIN_RTOL:g}]; worst "
-          f"leaf {leaf_name} {leaf_worst:.3e} [{TP_GRAD_REL:g}]", flush=True)
-    for name, fault in tp_train_faults(torch).items():
+    print(f"  step 0's gradients ({len(ref)} leaves, {cfg.dtype} "
+          f"activations): one card loss {l1:.6f}, grad norm {g1:.6f}"
+          + ("" if one_step0 is None
+             else f" (its train step's {one_step0})")
+          + f"; tp {loss:.6f}, {gnorm:.6f}: relative {rel:.2e} "
+          f"[{TP_TRAIN_RTOL:g}]; worst leaf {leaf_name} {leaf_worst:.3e} "
+          f"[{TP_GRAD_REL:g}]", flush=True)
+    for name, fault in faults.items():
         c_loss, c_gnorm, _, leaves = read(mesh, state, fault)
         c_rel, c_leaf, c_name = compare(c_loss, c_gnorm, leaves)
         del leaves
@@ -8343,6 +8432,8 @@ def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
               f"({c_rel / TP_TRAIN_RTOL:.2f} x TP_TRAIN_RTOL), worst leaf "
               f"{c_name} {c_leaf:.3e} ({c_leaf / TP_GRAD_REL:.1f} x "
               f"TP_GRAD_REL): rejected {seen}", flush=True)
+    if keep is not None:
+        keep.extend(ref)
     del state, ref
     torch.cuda.empty_cache()
     check(rel <= TP_TRAIN_RTOL and leaf_worst <= TP_GRAD_REL,
@@ -8352,6 +8443,291 @@ def tp_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
           f"{cfg.name}: a planted fault passes the tp gates: "
           f"{out['controls']}")
     return out
+
+
+def tp_ssm_grad_gate(torch, cfg, mesh, shape, n_mb, batch, dev, one_step0):
+    """mamba2's step-0 gradients split against one card. A float32 copy
+    (``cfg`` with float32 activations) takes ``tp_grad_gate``: every leaf
+    within TP_GRAD_REL of one card's, ``tp_ssm_faults`` rejected. In
+    ``cfg``'s bf16 the split's own roundings (each rank's bf16 output
+    partial, a rank's narrower products) move a leaf as one card's bf16
+    rounding moves it, and the SSD's bf16 dt makes some leaves (dt_bias)
+    far from float32 on one card already (PERF.md): so, the ssm rule of
+    PERF.md section 2, every bf16 leaf of the split no further from the
+    float32 one-card leaf than SSM_BF16_FACTOR times one card's bf16 leaf
+    is; the loss and grad norm within TP_TRAIN_RTOL of one card's bf16
+    ones; the split's distance from one card's bf16 leaves printed."""
+    import numpy as np
+    from repro_torch.models import steps
+    ref32 = []
+    out = {"float32": tp_grad_gate(torch, cfg.replace(dtype="float32"), mesh,
+                                   shape, n_mb, batch, dev, None,
+                                   tp_ssm_faults(torch), keep=ref32)}
+    runs = {}
+    for tag, m in (("one", None), ("tp", mesh)):
+        state = steps.init_state(cfg, seed=0, device=dev, mesh=m)
+        loss, gnorm, names, leaves = step0_grads(torch, cfg, m, shape, n_mb,
+                                                 batch, state)
+        runs[tag] = (loss, gnorm, [t.cpu() for t in leaves])
+        del state, leaves
+        torch.cuda.empty_cache()
+    (l1, g1, one), (l2, g2, tp) = runs["one"], runs["tp"]
+    rel = max(abs(l2 - l1) / abs(l1), abs(g2 - g1) / abs(g1))
+    d_one = leaf_dists(torch, one, ref32)
+    d_tp = leaf_dists(torch, tp, ref32)
+    d_pair = leaf_dists(torch, tp, one)
+    ratio = [a / b if b > 0 else (1.0 if a == 0 else float("inf"))
+             for a, b in zip(d_tp, d_one)]
+    i, j = int(np.argmax(ratio)), int(np.argmax(d_pair))
+    out[cfg.dtype] = {"one_card": [l1, g1], "tp": [l2, g2],
+                      "scalar_rel": rel, "worst_ratio": ratio[i],
+                      "worst_ratio_leaf": names[i],
+                      "leaf_vs_f32_tp": d_tp[i], "leaf_vs_f32_one": d_one[i],
+                      "pair_worst": d_pair[j], "pair_worst_leaf": names[j]}
+    print(f"  step 0 in {cfg.dtype} (the train step's {one_step0}): loss / "
+          f"grad norm tp vs one card relative {rel:.2e} [{TP_TRAIN_RTOL:g}]; "
+          f"every leaf's distance from the float32 one-card leaf, split "
+          f"over one card: worst {names[i]} {d_tp[i]:.3e} / {d_one[i]:.3e} "
+          f"= {ratio[i]:.3f} [{SSM_BF16_FACTOR:g}]; split vs one card "
+          f"{cfg.dtype}: worst leaf {names[j]} {d_pair[j]:.3e}", flush=True)
+    del ref32, one, tp
+    check(rel <= TP_TRAIN_RTOL and ratio[i] <= SSM_BF16_FACTOR,
+          f"{cfg.name} tp step-0 {cfg.dtype} gradients: {rel:.2e}, "
+          f"{names[i]} at {ratio[i]:.3f} x one card's distance from float32")
+    return out
+
+
+def tp_ssm_logits(np, torch, params, cfg, mesh, c, dev):
+    """Prefill-last and ``c['teacher']`` decode steps' float32 logits (on
+    the CPU) of ``cfg`` over ``mesh`` (None: one card), the prompt and
+    tokens from seeded numpy streams; and the prefill's cache."""
+    from repro_torch.launch import serve
+    from repro_torch.models import serving
+    b, s, n = c["requests"], c["prompt_len"], c["teacher"]
+    rng = np.random.default_rng(0)
+    batch = serve.make_batch(cfg, b, s, rng=rng, device=dev)
+    toks = rng.integers(0, cfg.vocab_size, (n, b))
+    with torch.no_grad():
+        lg, cache = serving.prefill(params, batch, cfg, extra_slots=n,
+                                    mesh=mesh)
+        first = {k: (t.like([p.clone() for p in t])
+                     if isinstance(t, list) else t.clone())
+                 for k, t in cache.items()}
+        out = [lg.float().cpu()]
+        for i in range(n):
+            step = serve.token_to_batch(cfg, torch.from_numpy(toks[i]).to(
+                dev), s + i, b, rng, device=dev)
+            lg, cache = serving.decode_step(params, step, cache, cfg,
+                                            mesh=mesh)
+            out.append(lg.float().cpu())
+    return out, first, toks
+
+
+def tp_ssm_serve(np, torch, dev, card, meshes, total):
+    """mamba2-1.3b at its published config (TP_SSM): launch.serve.serve
+    on one card, then over the repeated (1, 2) mesh on the same weights
+    (the one-card tree freed, drawn again already split), each twice, the
+    second call timed; the gates on the prefill-last and TP_SSM['teacher']
+    decode steps' logits (``tp_ssm_logits``): a float32 copy split within
+    TP_SSM_F32_TOL of one card's, the control (rank 1's SSD state zeroed
+    after prefill) beyond TRAIN_CONTROL_FACTOR times it; the served bf16
+    split no further from the float32 one-card logits than SSM_BF16_FACTOR
+    times the bf16 one card is."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    c = TP_SSM
+    full = get_config(c["arch"])
+    check_published(full)
+    cfg = full.replace(**c["cut"])
+    c32 = cfg.replace(dtype="float32")
+    mesh = meshes["repeated"]
+    plan = serving.serving_plan(cfg, mesh)
+    b, s, n_gen = c["requests"], c["prompt_len"], c["gen"]
+    hr = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim // 2
+    print(f"phase tp (4/6): {cfg.name} at its published config "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_counts()['total']:,} parameters, {cfg.param_dtype} "
+          f"weights, {cfg.dtype} activations), a {b} x {s} prompt and "
+          f"{n_gen} decode steps: one card, then over [cuda:0, cuda:0], "
+          f"{hr} SSD heads a rank ({card})")
+    torch.cuda.empty_cache()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+
+    def run(p, m):
+        reset_all_launches()
+        outs = [serve.serve(cfg, p, requests=b, prompt_len=s, gen=n_gen,
+                            device=dev, seed=0, mesh=m)[1]
+                for _ in range(2)]
+        return outs[1], all_launches()
+
+    one, one_launches = run(params, None)
+    one32, _, _ = tp_ssm_logits(np, torch, params, c32, None, c, dev)
+    one16, _, _ = tp_ssm_logits(np, torch, params, cfg, None, c, dev)
+    del params
+    torch.cuda.empty_cache()
+    params = transformer.init_params(cfg, seed=0, device=dev, plan=plan)
+    per_rank = TP.weight_bytes(params)
+    got, launches = run(params, mesh)
+    tp_counts(launches, total)
+    check(sum(launches.values()) == 0 == sum(one_launches.values()),
+          f"{cfg.name}: kernel launches {launches} / {one_launches}; the "
+          f"attention-free model launches none")
+    check(isinstance(params["layers"]["ssm"]["z_proj"], TP.Shards)
+          and all(np.isfinite(lg).all() for lg in got["logits"]),
+          f"{cfg.name} tp: the SSD is not split, or non-finite logits")
+    tp32, cache, toks = tp_ssm_logits(np, torch, params, c32, mesh, c, dev)
+    tp16, _, _ = tp_ssm_logits(np, torch, params, cfg, mesh, c, dev)
+    # the control: rank 1's state zeroed after prefill, one decode step
+    rng = np.random.default_rng(0)
+    serve.make_batch(c32, b, s, rng=rng, device=dev)
+    rng.integers(0, cfg.vocab_size, toks.shape)
+    with torch.no_grad():
+        cache["state"][1].zero_()
+        step = serve.token_to_batch(c32, torch.from_numpy(toks[0]).to(dev),
+                                    s, b, rng, device=dev)
+        bad, _ = serving.decode_step(params, step, cache, c32, mesh=mesh)
+    ctrl = dist(bad.float().cpu(), one32[1])
+    del cache, bad
+    err32 = max(dist(a_, w) for a_, w in zip(tp32, one32, strict=True))
+    fwd16 = max(dist(a_, w) for a_, w in zip(one16, one32, strict=True))
+    err16 = max(dist(a_, w) for a_, w in zip(tp16, one32, strict=True))
+    print(f"  logits (prefill-last and {c['teacher']} decode steps): float32"
+          f" split vs one card {err32:.3e} [{TP_SSM_F32_TOL:g}]; control "
+          f"(rank 1's state zeroed) {ctrl:.3e} ({ctrl / TP_SSM_F32_TOL:.0f}x"
+          f" the gate) [> {TRAIN_CONTROL_FACTOR:g}x]; {cfg.dtype} split vs "
+          f"float32 one card {err16:.3e} <= {SSM_BF16_FACTOR:g} x one card's "
+          f"{cfg.dtype} {fwd16:.3e}; weights a rank "
+          f"{[round(x / 1e9, 3) for x in per_rank]} GB")
+    print(f"  served ({cfg.dtype}): prefill {got['prefill_s']:.4f} s (one "
+          f"card {one['prefill_s']:.4f}), decode "
+          f"{got['decode_ms_per_token']:.2f} ms/token (one card "
+          f"{one['decode_ms_per_token']:.2f}) on {card}")
+    check(err32 <= TP_SSM_F32_TOL, f"{cfg.name} tp float32 logits "
+                                   f"{err32:.3e}")
+    check(ctrl > TRAIN_CONTROL_FACTOR * TP_SSM_F32_TOL,
+          f"{cfg.name}: zeroing rank 1's state moves the logits by only "
+          f"{ctrl:.3e}")
+    check(err16 <= SSM_BF16_FACTOR * fwd16,
+          f"{cfg.name} tp {cfg.dtype} logits {err16:.3e} from float32, "
+          f"over {SSM_BF16_FACTOR:g} x {fwd16:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "weight_bytes_per_rank": per_rank,
+            "f32_logits_err": err32, "control": ctrl,
+            "served_vs_f32": err16, "one_card_served_vs_f32": fwd16,
+            "prefill_s": got["prefill_s"],
+            "prefill_s_one_card": one["prefill_s"],
+            "decode_ms_per_token": got["decode_ms_per_token"],
+            "decode_ms_per_token_one_card": one["decode_ms_per_token"]}
+
+
+def tp_ssm_faults(torch):
+    """Planted faults of mamba2's split step over (1, 2), each a context
+    manager over the split state that leaves it as it found it: rank 1
+    reading rank 0's slices of ``A_log`` and ``dt_bias`` (their second
+    halves overwritten with their first), and the gated norm's variance
+    taken from rank 0's partial sum of squares alone (the (..., 1)
+    float32 ``reduce_sum``)."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    @contextlib.contextmanager
+    def rank0_vectors(state):
+        p = state.params["layers"]["ssm"]
+        saved = {k: p[k].clone() for k in ("A_log", "dt_bias")}
+        with torch.no_grad():
+            for k in saved:
+                h = p[k].shape[-1] // 2
+                p[k][:, h:].copy_(p[k][:, :h])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, v in saved.items():
+                    p[k].copy_(v)
+
+    @contextlib.contextmanager
+    def rank0_variance(state):
+        real = TP.reduce_sum
+
+        def partial(parts, dev_, tp):
+            if parts[0].shape[-1] == 1 and parts[0].dtype == torch.float32:
+                return parts[0].to(dev_) * tp
+            return real(parts, dev_, tp)
+        TP.reduce_sum = partial
+        try:
+            yield
+        finally:
+            TP.reduce_sum = real
+    return {"rank 1 reading rank 0's A_log and dt_bias": rank0_vectors,
+            "the norm's variance from rank 0's partial": rank0_variance}
+
+
+def tp_ssm_train(np, torch, dev, card, meshes, total):
+    """mamba2-1.3b at its published config (TP_SSM) trained 2 steps at 8 x
+    2048 in 2 microbatches on one card and twice over [cuda:0, cuda:0]:
+    s/step; step 0's loss and grad norm within TP_TRAIN_RTOL of one
+    card's, the two split runs' slices bitwise; then step 0's gradients
+    leaf by leaf (``tp_ssm_grad_gate``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    c = TP_SSM
+    cfg = get_config(c["arch"]).replace(**c["cut"])
+    mesh = meshes["repeated"]
+    shape = ShapeConfig("tp", c["seq"], c["batch"], "train")
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=c["microbatches"]), cfg)
+    print(f"phase tp (5/6): {cfg.name} at its published config trained "
+          f"{c['steps']} steps at {c['batch']} x {c['seq']} in "
+          f"{c['microbatches']} microbatches on one card and twice over "
+          f"[cuda:0, cuda:0] ({card})")
+    runs, snaps, times = {}, [], {}
+    for tag, m in (("one", None), ("tp", mesh), ("tp again", mesh)):
+        state = steps.init_state(cfg, seed=0, device=dev, mesh=m)
+        step = steps.make_train_step(cfg, m, shape, c["microbatches"],
+                                     total_steps=100)
+        reset_all_launches()
+        out, walls = [], []
+        for i in range(c["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mt = step(state, data.device_batch(i, dev), i)
+            out.append((float(mt["loss"]), float(mt["grad_norm"])))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = all_launches()
+        check(sum(launches.values()) == 0, f"{cfg.name}: launches "
+                                           f"{launches}")
+        tp_counts(launches, total)
+        runs[tag], times[tag] = out, walls
+        if tag != "one":
+            check(isinstance(state.params["layers"]["ssm"]["x_proj"],
+                             TP.Shards), f"{cfg.name}: x_proj is not split")
+            snaps.append([t.cpu() for t in adamw.tree_leaves(state.params)])
+        del state, step
+        torch.cuda.empty_cache()
+    bitwise = all(torch.equal(a, b_) for a, b_ in zip(*snaps, strict=True))
+    (l1, g1), (l2, g2) = runs["one"][0], runs["tp"][0]
+    rel = max(abs(l2 - l1) / abs(l1), abs(g2 - g1) / abs(g1))
+    print(f"  loss / grad norm a step: tp {runs['tp']}, one card "
+          f"{runs['one']}: step 0 relative {rel:.2e} [{TP_TRAIN_RTOL:g}]; "
+          f"the two tp runs' {len(snaps[0])} slices and leaves bitwise: "
+          f"{bitwise}; s/step tp {times['tp']} (again {times['tp again']}; "
+          f"one card {times['one']}) on {card}")
+    check(rel <= TP_TRAIN_RTOL, f"{cfg.name} tp step 0 vs one card "
+                                f"{rel:.2e}")
+    check(bitwise, f"{cfg.name}: two tp runs differ")
+    del snaps
+    grads = tp_ssm_grad_gate(torch, cfg, mesh, shape, c["microbatches"],
+                             data.device_batch(0, dev), dev, runs["one"][0])
+    return {"losses": runs, "step_s": times, "step0_rel": rel,
+            "bitwise": bitwise, "step0_grads": grads}
 
 
 def leaf_paths(tree, path=""):
@@ -8397,7 +8773,7 @@ def tp_moe_dp_smoke(np, torch, dev, card):
                 for a, w in zip(mc, mh))
     perr = max(float((a - w).abs().max()) for a, w in zip(out["cuda:0"][1],
                                                           out["cpu"][1]))
-    print(f"phase tp (4/4): {cfg.name} uncompressed at (2, 1), each dp "
+    print(f"phase tp (6/6): {cfg.name} uncompressed at (2, 1), each dp "
           f"shard routed apart: card {out['cuda:0'][0]} vs CPU "
           f"{out['cpu'][0]} (worst relative {worst:.2e} [{tol['metrics']:g}])"
           f", params max_abs_err {perr:.2e} [{tol['params']:g}]")
@@ -8411,11 +8787,12 @@ def phase_tp(np, torch, dev, card):
     """Tensor parallelism over 'model' (ROADMAP A11.9) on the card: rows
     11 and 11b per rank at full width (qwen2-vl-72b served, llama4-scout
     prefill and a step, gemma2-2b trained, its step-0 gradients leaf by
-    leaf with planted faults as controls) over [cuda:0, cuda:0] (and two
-    cards where the machine has them), each against one card on the same
-    weights; the repaired moe dp step card == CPU. Returns the main
-    path's launch counts (the tensor-parallel calls, each counted from
-    0) and the numbers."""
+    leaf with planted faults as controls) and the ssm family's split SSD
+    (mamba2-1.3b at its published config served and trained, no kernel)
+    over [cuda:0, cuda:0] (and two cards where the machine has them),
+    each against one card on the same weights; the repaired moe dp step
+    card == CPU. Returns the main path's launch counts (the
+    tensor-parallel calls, each counted from 0) and the numbers."""
     t_phase = time.perf_counter()
     meshes = tp_meshes(torch)
     launches = {}
@@ -8424,6 +8801,10 @@ def phase_tp(np, torch, dev, card):
     out["llama4_moe"] = tp_moe(np, torch, dev, card, meshes, launches)
     out["gemma2_train"] = tp_gemma_train(np, torch, dev, card, meshes,
                                          launches)
+    out["mamba2_serve"] = tp_ssm_serve(np, torch, dev, card, meshes,
+                                       launches)
+    out["mamba2_train"] = tp_ssm_train(np, torch, dev, card, meshes,
+                                       launches)
     out["moe_dp_smoke"] = tp_moe_dp_smoke(np, torch, dev, card)
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase

@@ -32,11 +32,18 @@ weights runs per rank. A tensor that every rank reads reaches them
 through ``broadcast``, whose backward adds the copies' gradients in rank
 order: the backward all-reduce, in a fixed order on distinct cards too.
 
-Refused, naming ROADMAP A11.9: the ssm family's 'model' split (mamba2's
-``ssm_inner`` / ``ssm_heads``: its gated norm needs a cross-rank
-reduction), a mesh mixing device types and the abstract production
-mesh, which has no device to run on (the dry run counts rank 0 on meta
-tensors through ``counting_plan``).
+The SSD (the ssm and hybrid families, ``models/ssm.py``) splits over its
+heads: ``z_proj``, ``x_proj``, ``dt_proj``, ``conv_w_x`` by columns and
+``out_proj`` by rows, as the reference's ``ssm_inner`` / ``ssm_heads``
+rules give; its gated norm's sum of squares is a ``reduce_sum``. Where
+its heads do not divide tp but d_inner does (hymba's 50 heads at 4),
+the rules would split its d_inner leaves off its heads' boundaries: the
+port keeps every SSD leaf of that layer stack whole there, and the SSD
+runs replicated, as heads that do not divide tp do.
+
+Refused, naming ROADMAP A11.9: a mesh mixing device types and the
+abstract production mesh, which has no device to run on (the dry run
+counts rank 0 on meta tensors through ``counting_plan``).
 
 ``metering()`` records, while it is open, the bytes a device of a real
 TP group would move for each collective: an all-reduce of each
@@ -134,21 +141,16 @@ def split_dims(cfg, mesh, inference: bool = False
     """{parameter path: the dimension its spec splits over 'model', or
     None}: ``sharding.param_specs`` of ``transformer.param_shapes``, the
     'model' entries only (the port holds each 'data' slice's weights
-    whole: no FSDP)."""
+    whole: no FSDP), an SSD whose heads do not split kept whole (see the
+    module docstring)."""
     from repro_torch.models import transformer
     specs = sharding.param_specs(transformer.param_shapes(cfg), mesh, cfg,
                                  inference)
-    return {path: _model_dim(spec) for path, spec in _flat(specs)}
-
-
-def _refuse_split(cfg, dims) -> None:
-    ssm = sorted("/".join(p) for p, d in dims.items()
-                 if d is not None and "ssm" in p)
-    if ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the 'model' axis would split the SSD's "
-            f"{len(ssm)} weights ({ssm[0]}, ...): the ssm family over "
-            f"'model' is not ported (ROADMAP A11.9)")
+    dims = {path: _model_dim(spec) for path, spec in _flat(specs)}
+    for path in dims:
+        if "ssm" in path and dims.get(path[:-1] + ("dt_proj",)) is None:
+            dims[path] = None
+    return dims
 
 
 def check_mesh(cfg, mesh) -> None:
@@ -189,7 +191,6 @@ def tp_groups(mesh) -> List[List[torch.device]]:
 def _plan(cfg, dims, tp, ranks, devices) -> Optional[TPPlan]:
     if tp == 1 or all(d is None for d in dims.values()):
         return None
-    _refuse_split(cfg, dims)
     return TPPlan(tp, tuple(ranks), tuple(torch.device(d) for d in devices),
                   dims, cfg.num_heads, cfg.num_kv_heads)
 

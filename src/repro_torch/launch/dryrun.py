@@ -27,12 +27,13 @@ device's step run on meta tensors (shapes and dtypes, no storage) under
   attention-out, MLP-out, moe-out and embedding activation a layer
   forward (and in the rematerialised forward) and of its input's
   gradient backward, 2 (tp - 1) / tp of it, and an all-gather of the
-  logits, (tp - 1) / tp. The ssm family's 'model' split is not ported
-  (ROADMAP A11.9): its count is divided by the 'model' size, an even
-  split assumed, with no collective (``SSM_DIVIDED``). Where no weight
-  is split over 'model' (the extra_dp configs, whose heads do not divide
-  it), a batch not split over it is replicated there, and the count
-  stands whole;
+  logits, (tp - 1) / tp; the SSD's (the ssm family) adds the gated
+  norm's (B, S, 1) float32 sum of squares a layer, and its broadcast
+  inputs' gradients backward. Where no weight is split over 'model' (the
+  extra_dp configs, whose heads do not divide it), a batch not split
+  over it is replicated there, and the count stands whole. No cell is
+  divided by the 'model' size any more: ``model_division`` is 1, kept
+  so that records compare with earlier ones;
 * train: one microbatch's ``grad_step`` (its gradient-sum set-up and
   scale included) times ``n_microbatches``, then AdamW once on the
   device's parameters (``steps.apply_grads`` on rank 0's slices and the
@@ -86,8 +87,6 @@ from repro_torch.optim import adamw
 TENSOR_PARALLEL = ("rank 0 of the port's tensor-parallel step: split work "
                    "1/tp, replicated work whole, reduce_sum / gather_cat "
                    "and their backward as ring collectives")
-SSM_DIVIDED = ("the ssm family's 'model' split is not ported (ROADMAP "
-               "A11.9): count divided by the 'model' size, no collective")
 PADDED = "pad_heads_to=0 (ROADMAP C)"
 
 
@@ -252,18 +251,13 @@ def count_cell(cfg, shape: ShapeConfig, mesh, microbatches=None,
     tp = mesh.shape.get("model", 1) if "model" not in baxes and any(
         "model" in _axes(part) for x in _leaves(params)
         for part in x.spec) else 1
-    plan = None
-    if tp > 1:
-        try:
-            plan = TP.counting_plan(cfg, mesh, inference=inference)
-        except NotImplementedError:          # the ssm family (A11.9)
-            plan = None
-    div = tp if plan is None else 1
+    plan = (TP.counting_plan(cfg, mesh, inference=inference) if tp > 1
+            else None)
     n_mb = specs.get("n_microbatches", 1)
     out = {"n_microbatches": n_mb, "rows_per_device": rows,
-           "model_division": div, "model_ranks": tp,
-           "tensor_parallel": (SSM_DIVIDED if div > 1 else TENSOR_PARALLEL
-                               if plan is not None else "none")}
+           "model_division": 1, "model_ranks": tp,
+           "tensor_parallel": (TENSOR_PARALLEL if plan is not None
+                               else "none")}
     key = (cfg.name, shape.name, rows)
 
     def counted(fn, *args):
@@ -292,7 +286,7 @@ def count_cell(cfg, shape: ShapeConfig, mesh, microbatches=None,
             memo[key] = (mb, adam, tree_bytes(live.params))
         mb, adam, held = memo[key]
         share = bytes_per_device(state.params, mesh) / held
-        stats = (mb.scaled(n_mb / div, n_mb) + adam.scaled(share)
+        stats = (mb.scaled(n_mb, n_mb) + adam.scaled(share)
                  + _sync_stats(cfg, state, baxes, mesh))
         nbytes = {"params": bytes_per_device(state.params, mesh),
                   "opt": bytes_per_device(state.opt, mesh),
@@ -308,7 +302,7 @@ def count_cell(cfg, shape: ShapeConfig, mesh, microbatches=None,
                                            device="meta", plan=plan)
                 memo[key], _ = counted(serving.decode_step, p, local, cache,
                                        cfg)
-        stats = memo[key].scaled(1.0 / div)
+        stats = memo[key]
         nbytes = {"params": bytes_per_device(params, mesh),
                   "inputs": bytes_per_device(specs, mesh)}
     nbytes["total"] = sum(nbytes.values())

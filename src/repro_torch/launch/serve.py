@@ -8,10 +8,11 @@
   # ssm or hybrid prompt needs at least conv_width - 1 tokens, ROADMAP C;
   # gemma2-2b's published config pads its heads and is refused, ROADMAP C:
   # --smoke runs)
-  # tensor parallel over 'model' (the dense, local_global, vlm and moe
-  # families): --model 2 serves over a (1, 2) mesh of the first two
-  # visible cards (fewer raise); --device cuda:0 runs both ranks on that
-  # card, and on the CPU the device repeats
+  # tensor parallel over 'model' (every family but the extra_dp
+  # configs; mamba2's SSD over its heads): --model 2 serves over a
+  # (1, 2) mesh of the first two visible cards (fewer raise); --device
+  # cuda:0 runs both ranks on that card, and on the CPU the device
+  # repeats
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
       --smoke --device cpu --model 2 --requests 2 --prompt-len 32 --gen 4
 

@@ -14,7 +14,7 @@ synthetic corpus and checkpoint/restart loop:
   # a moe smoke config: --arch kimi-k2-1t-a32b --smoke ...
   # the ssm and hybrid families: --arch mamba2-1.3b / hymba-1.5b ...
   # local_global and M-RoPE: --arch gemma2-2b / qwen2-vl-72b ...
-  # tensor parallel over 'model' (dense, local_global, vlm, moe):
+  # tensor parallel over 'model' (every family but the extra_dp configs):
   # --model-ax 2, a (1, 2) mesh of the first two visible cards (fewer
   # raise); --device cuda:0 runs both ranks on that card, and on the
   # CPU the device repeats

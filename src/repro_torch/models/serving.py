@@ -37,8 +37,12 @@ from the reference's ``cache_specs``, which puts the cache's sequence
 over 'model' where the kv heads do not divide it (``sharding.py:203``).
 Cache placement changes no value: each rank's decode attention reads
 exactly the keys and values its heads read on one device. ``kpos``,
-``kpos2`` and ``pos`` stay on the first device, as do the SSD's buffers
-(the ssm family's 'model' split is refused). On a mesh whose ('pod',
+``kpos2`` and ``pos`` stay on the first device. Where the SSD's heads
+split (``models/ssm.py``), its buffers split as the reference's
+``cache_specs`` splits them: ``conv_x`` ``Shards`` on dim 3 of (L, B,
+W - 1, d_inner), ``state`` on dim 2 of (L, B, H, N, P), each rank's
+columns and heads on its device; ``conv_bc`` whole on the first device.
+On a mesh whose ('pod',
 'data') size n exceeds 1 the first 'data' slice's 'model' ranks serve
 the whole batch, as the uncompressed train step does: the reference's
 global (GSPMD) serving, whose only dp-dependent value is moe's prefill
@@ -137,9 +141,19 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
         cache.update(k_pre=kvbuf(npre, seq_len), v_pre=kvbuf(npre, seq_len))
     if cfg.family in ("ssm", "hybrid"):
         one = ssm.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype=dt,
-                                 device=device)
-        cache.update({k: t.new_zeros((n,) + tuple(t.shape))
-                      for k, t in one.items()})
+                                 device="meta")
+        split = plan is not None and plan.split(("layers", "ssm", "z_proj"))
+        for k, t in one.items():
+            dim = ssm.CACHE_SPLIT_DIMS[k] if split else None
+            if dim is None:
+                cache[k] = torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                       device=device)
+                continue
+            shape = [n] + list(t.shape)
+            shape[dim + 1] //= plan.tp
+            cache[k] = TP.Shards([torch.zeros(shape, dtype=t.dtype, device=d)
+                                  for d in plan.devices], dim + 1,
+                                 plan.ranks, plan.tp)
     return cache
 
 
@@ -177,13 +191,23 @@ def _attend_decode(p, x, kc, vc, kpos, slot, cfg: ArchConfig, positions, *,
     return TP.reduce_sum(parts, x.device, q.tp)
 
 
+def _write_ssm(cache: Cache, i: int, new: Cache) -> None:
+    """Layer i's SSD buffers overwritten in place with ``new`` (each
+    rank's part into its own where split)."""
+    for k in SSM_KEYS:
+        dst = _at(cache[k], i)
+        for d, t in (zip(dst, new[k]) if isinstance(dst, TP.Shards)
+                     else ((dst, new[k]),)):
+            d.copy_(t)
+
+
 def _ssd_decode(p, h, cache: Cache, i: int, cfg: ArchConfig):
     """Layer i's SSD step of its normed input h (B, 1, d); its conv tails
     and state are updated in place."""
-    y, new = ssm.ssd_decode(p["ssm"], h, {k: cache[k][i] for k in SSM_KEYS},
+    y, new = ssm.ssd_decode(p["ssm"], h, {k: _at(cache[k], i)
+                                          for k in SSM_KEYS},
                             cfg.d_model, cfg.ssm)
-    for k in SSM_KEYS:
-        cache[k][i].copy_(new[k])
+    _write_ssm(cache, i, new)
     return y
 
 
@@ -303,8 +327,7 @@ def prefill(params, batch, cfg: ArchConfig, extra_slots: int = 0,
 
     def ssd(p, h, i):
         y, st = ssm.ssd_prefill(p["ssm"], h, cfg.d_model, cfg.ssm)
-        for k in SSM_KEYS:
-            cache[k][i].copy_(st[k])
+        _write_ssm(cache, i, st)
         return y
 
     for i in range(T.scan_len(cfg)):

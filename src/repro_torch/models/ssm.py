@@ -22,6 +22,23 @@ float32. Prefill's conv accumulates its ``conv_width`` products in float32
 and rounds once to the activation dtype; decode's conv step is float32
 throughout, so decode and prefill round differently, as in the reference.
 
+Tensor parallelism over 'model' (``distributed/tensor_parallel.py``;
+the reference's ``sharding.py`` sends ``ssm_inner`` and ``ssm_heads``
+over 'model' and keeps ``ssm_bc`` replicated): where ``z_proj`` is
+``Shards``, rank r holds the columns of its H / tp heads of ``z_proj``,
+``x_proj``, ``dt_proj`` and ``conv_w_x`` and their rows of
+``out_proj``. B and C are projected and convolved once, on the first
+device, and broadcast; each rank reads its slices of the replicated
+vectors (``conv_b_x``, ``A_log``, ``D``, ``dt_bias``, ``norm_w``) as a
+``narrow`` of the broadcast vector, and runs the chunked SSD (or the
+decode step) over its heads (``_ssd_heads`` / ``_step_heads``, the
+one-device path's own arithmetic). The gated norm's mean over d_inner
+is a float32 sum of squares a rank, ``reduce_sum``'d in rank order and
+divided by d_inner; the output projection's partials are rounded to
+the activation dtype and ``reduce_sum``'d onto the first device. The
+decode cache splits as the reference's ``cache_specs``: ``conv_x`` over
+d_inner and ``state`` over heads, ``conv_bc`` whole.
+
 Nothing here is a kernel: the reference computes the SSD with XLA ops
 outside any Pallas kernel. Every operation is deterministic on the card
 (no float atomics: the conv is written as shifted products, not a
@@ -30,12 +47,13 @@ cuDNN convolution, whose weight gradient may accumulate by atomics).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import tensor_parallel as TP
 
 Cache = Dict[str, torch.Tensor]
 
@@ -121,15 +139,34 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
-def _to_heads(t: torch.Tensor, heads: int, axis: int) -> torch.Tensor:
-    """B or C (..., G, N) at axis ``axis`` to (..., H, N): broadcast for
-    G = 1, each group repeated H / G times otherwise."""
+def _to_heads(t: torch.Tensor, heads: int, axis: int, first: int = 0,
+              total: Optional[int] = None) -> torch.Tensor:
+    """B or C (..., G, N) at axis ``axis`` to (..., heads, N) for the
+    heads ``[first, first + heads)`` of ``total`` (default: ``heads``, all
+    of them): broadcast for G = 1; else head h reads group
+    h // (total / G), each whole group repeated, or one group a head
+    where a rank's heads cut a group."""
     g = t.shape[axis]
     if g == 1:
         shape = list(t.shape)
         shape[axis] = heads
         return t.expand(shape)
-    return torch.repeat_interleave(t, heads // g, dim=axis)
+    per = (heads if total is None else total) // g
+    if first % per == 0 and heads % per == 0:
+        if heads // per != g:
+            t = t.narrow(axis, first // per, heads // per)
+        return torch.repeat_interleave(t, per, dim=axis)
+    return torch.stack([t.select(axis, h // per)
+                        for h in range(first, first + heads)], axis)
+
+
+def _rank_slices(v: torch.Tensor, like: "TP.Shards") -> List[torch.Tensor]:
+    """Each of ``like``'s ranks' slice of the replicated vector ``v``
+    (split as ``like``'s leaf is): a ``narrow`` of ``v`` broadcast to the
+    rank's device."""
+    n = v.shape[-1] // like.tp
+    return [t.narrow(-1, r * n, n) for t, r in zip(TP.broadcast(v, like),
+                                                   like.ranks)]
 
 
 # ------------------------------------------------------------------- SSD
@@ -162,14 +199,32 @@ def ssd_prefill(p, x: torch.Tensor, d_model: int, s: SSMConfig
 
 def _ssd_core(p, x: torch.Tensor, d_model: int, s: SSMConfig,
               want_state: bool):
-    b, s_in, _ = x.shape
-    dm = dims(d_model, s)
-    h, pd, n, g = dm["nheads"], s.head_dim, s.state_dim, s.ngroups
-    dt_ = x.dtype
-
+    if isinstance(p["z_proj"], TP.Shards):
+        return _ssd_split(p, x, d_model, s, want_state)
     z, xs_raw, bc_raw, dt = _project(p, x)
     xs = _causal_conv(xs_raw, p["conv_w_x"], p["conv_b_x"])
     bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"])
+    y, hs = _ssd_heads(xs, bc, dt, p["A_log"], p["D"], p["dt_bias"], s)
+    y = _gated_norm(y, z, p["norm_w"])
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    if not want_state:
+        return out, None
+    w, s_in = s.conv_width - 1, x.shape[1]
+    return out, {"conv_x": xs_raw[:, s_in - w:], "conv_bc": bc_raw[:, s_in - w:],
+                 "state": hs}
+
+
+def _ssd_heads(xs: torch.Tensor, bc: torch.Tensor, dt: torch.Tensor,
+               a_log, d_skip, dt_bias, s: SSMConfig, first: int = 0,
+               total: Optional[int] = None):
+    """The chunked SSD over the heads ``[first, first + H_r)`` of
+    ``total`` (default: all): xs (B, S, H_r P) and dt (B, S, H_r), their
+    conv output and raw projection; bc (B, S, 2 G N) after its conv;
+    a_log, d_skip, dt_bias (H_r,). Returns (y (B, S, H_r P) in xs' dtype,
+    before the gated norm; the final state (B, H_r, N, P) float32)."""
+    b, s_in, _ = xs.shape
+    h, pd, n, g = dt.shape[-1], s.head_dim, s.state_dim, s.ngroups
+    dt_, dev = xs.dtype, xs.device
 
     # pad S to a chunk multiple; padded steps get dt = 0 (identity decay,
     # zero input), so outputs and the final state are unaffected
@@ -185,28 +240,27 @@ def _ssd_core(p, x: torch.Tensor, d_model: int, s: SSMConfig,
     bm = bc[..., :g * n].reshape(b, seq, g, n)
     cm = bc[..., g * n:].reshape(b, seq, g, n)
 
-    dt = _softplus(dt.float() + p["dt_bias"].float())                # (B,S,H)
+    dt = _softplus(dt.float() + dt_bias.float())                      # (B,S,H)
     if pad:
-        valid = (torch.arange(seq, device=x.device) < s_in)[None, :, None]
-        dt = torch.where(valid, dt, torch.zeros((), device=x.device))
-    a_neg = -torch.exp(p["A_log"].float())                            # (H,)
+        valid = (torch.arange(seq, device=dev) < s_in)[None, :, None]
+        dt = torch.where(valid, dt, torch.zeros((), device=dev))
+    a_neg = -torch.exp(a_log.float())                                 # (H,)
     a = dt * a_neg[None, None, :]                                     # <= 0
 
     def ch(t):
         return t.reshape(b, nc, cl, *t.shape[2:])
     xc, bcb, ccb, ac, dtc = map(ch, (xs, bm, cm, a, dt))
     acs = torch.cumsum(ac, dim=2)                               # inclusive
-    bch = _to_heads(bcb.float(), h, 3)                                # (B,nc,cl,H,N)
-    cch = _to_heads(ccb.float(), h, 3)
+    bch = _to_heads(bcb.float(), h, 3, first, total)                  # (B,nc,cl,H,N)
+    cch = _to_heads(ccb.float(), h, 3, first, total)
 
     cb = torch.einsum("bcihn,bcjhn->bchij", cch, bch)                 # (B,nc,H,cl,cl)
     diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]              # (B,nc,i,j,H)
     diff = diff.permute(0, 1, 4, 2, 3)                                # (B,nc,H,i,j)
-    tril = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
-                                 device=x.device))
+    tril = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=dev))
     # mask BEFORE exp: exp of +large in the dead branch would poison grads
     ldec = torch.exp(torch.where(tril, diff, torch.full(
-        (), float("-inf"), device=x.device)))
+        (), float("-inf"), device=dev)))
     m = cb * ldec * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]         # * dt_j
     y = torch.einsum("bchij,bcjhp->bcihp", m.to(dt_), xc)
 
@@ -216,7 +270,7 @@ def _ssd_core(p, x: torch.Tensor, d_model: int, s: SSMConfig,
                       xc.float())                                     # (B,nc,H,N,P)
     chunk_decay = torch.exp(acs[:, :, -1, :])                         # (B,nc,H)
 
-    hs = torch.zeros((b, h, n, pd), dtype=torch.float32, device=x.device)
+    hs = torch.zeros((b, h, n, pd), dtype=torch.float32, device=dev)
     h_prev = []
     for c in range(nc):
         h_prev.append(hs)
@@ -226,15 +280,76 @@ def _ssd_core(p, x: torch.Tensor, d_model: int, s: SSMConfig,
     inter = torch.einsum("bcihn,bchnp->bcihp",
                          cch * torch.exp(acs)[..., None], h_prev)
     y = y + inter.to(dt_)
-    y = y + (p["D"].float()[None, None, :, None] * xc.float()).to(dt_)
-    y = y.reshape(b, seq, dm["d_in"])[:, :s_in]
-    y = _gated_norm(y, z, p["norm_w"])
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(dt_))
+    y = y + (d_skip.float()[None, None, :, None] * xc.float()).to(dt_)
+    return y.reshape(b, seq, h * pd)[:, :s_in], hs
+
+
+def _gated_norm_split(ys, zs, ws, like: "TP.Shards", d_inner: int, dev,
+                      eps: float = 1e-6) -> List[torch.Tensor]:
+    """``_gated_norm`` over d_inner split across ``like``'s ranks (ys, zs,
+    ws: a rank's columns): each rank's float32 sum of squares,
+    ``reduce_sum``'d in rank order onto ``dev``, divided by d_inner and
+    broadcast back. Returns each rank's normed y."""
+    yf = [y.float() * F.silu(z.float()) for y, z in zip(ys, zs)]
+    sq = TP.reduce_sum([torch.sum(t * t, dim=-1, keepdim=True) for t in yf],
+                       dev, like.tp)
+    var = TP.broadcast(sq / d_inner, like)
+    return [(t * torch.rsqrt(v + eps) * (1.0 + w.float())).to(y.dtype)
+            for t, v, w, y in zip(yf, var, ws, ys)]
+
+
+def _rank_inputs(p, x: torch.Tensor, bc: torch.Tensor):
+    """(the split leaves' ``Shards``, x and bc on each rank's device,
+    {vector name: each rank's slice}) of a split layer ``p``."""
+    like = p["z_proj"]
+    vec = {k: _rank_slices(p[k], like)
+           for k in ("conv_b_x", "A_log", "D", "dt_bias", "norm_w")}
+    return like, TP.broadcast(x, like), TP.broadcast(bc, like), vec
+
+
+def _rank_project(p, x: torch.Tensor, j: int):
+    """Rank j's z, raw x and dt projections of x (on its device)."""
+    dt_ = x.dtype
+    return tuple(torch.einsum("bsd,de->bse", x, p[k][j].to(dt_))
+                 for k in ("z_proj", "x_proj", "dt_proj"))
+
+
+def _out_split(ys, p, x: torch.Tensor, like) -> torch.Tensor:
+    """The row-split output projection: each rank's partial in x's dtype,
+    ``reduce_sum``'d onto x's device."""
+    return TP.reduce_sum([torch.einsum("bse,ed->bsd", y, w.to(x.dtype))
+                          for y, w in zip(ys, p["out_proj"])], x.device,
+                         like.tp)
+
+
+def _ssd_split(p, x: torch.Tensor, d_model: int, s: SSMConfig,
+               want_state: bool):
+    """``_ssd_core`` with the split leaves of ``p`` (see the module
+    docstring)."""
+    dt_ = x.dtype
+    d_in, h = dims(d_model, s)["d_in"], dims(d_model, s)["nheads"]
+    bc_raw = torch.einsum("bsd,de->bse", x, p["bc_proj"].to(dt_))
+    bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"])
+    like, xr, bcr, vec = _rank_inputs(p, x, bc)
+    hr = h // like.tp
+    ys, zs, tails, states = [], [], [], []
+    for j, r in enumerate(like.ranks):
+        z, xs_raw, dt = _rank_project(p, xr[j], j)
+        xs = _causal_conv(xs_raw, p["conv_w_x"][j], vec["conv_b_x"][j])
+        y, hs = _ssd_heads(xs, bcr[j], dt, vec["A_log"][j], vec["D"][j],
+                           vec["dt_bias"][j], s, r * hr, h)
+        ys.append(y)
+        zs.append(z)
+        tails.append(xs_raw)
+        states.append(hs)
+    ys = _gated_norm_split(ys, zs, vec["norm_w"], like, d_in, x.device)
+    out = _out_split(ys, p, x, like)
     if not want_state:
         return out, None
-    w = s.conv_width - 1
-    return out, {"conv_x": xs_raw[:, s_in - w:], "conv_bc": bc_raw[:, s_in - w:],
-                 "state": hs}
+    w, s_in = s.conv_width - 1, x.shape[1]
+    return out, {"conv_x": like.like([t[:, s_in - w:] for t in tails], 2),
+                 "conv_bc": bc_raw[:, s_in - w:],
+                 "state": like.like(states, 1)}
 
 
 def init_ssm_cache(batch: int, d_model: int, s: SSMConfig,
@@ -250,6 +365,10 @@ def init_ssm_cache(batch: int, d_model: int, s: SSMConfig,
                                  device=device)}
 
 
+# the dimension of each decode-cache buffer (B, ...) split over 'model'
+CACHE_SPLIT_DIMS = {"conv_x": 2, "conv_bc": None, "state": 1}
+
+
 def _conv_step(hist, new, w, b):
     """One causal conv step in float32: (SiLU output (B, C), the new tail
     (B, W - 1, C))."""
@@ -258,32 +377,71 @@ def _conv_step(hist, new, w, b):
     return F.silu(out + b.float()), hist[:, 1:]
 
 
+def _step_heads(xconv, bconv, dt, state, a_log, d_skip, dt_bias,
+                s: SSMConfig, dtype, first: int = 0,
+                total: Optional[int] = None):
+    """One decode step of the heads ``[first, first + H_r)`` of ``total``
+    (default: all): xconv (B, H_r P) and bconv (B, 2 G N) after their
+    conv steps, dt (B, 1, H_r), state (B, H_r, N, P). Returns (y (B, 1,
+    H_r P) in ``dtype``, before the gated norm; the new state)."""
+    b, h = dt.shape[0], dt.shape[-1]
+    pd, n, g = s.head_dim, s.state_dim, s.ngroups
+    xs = xconv.reshape(b, h, pd)
+    bm = bconv[:, :g * n].reshape(b, g, n)
+    cm = bconv[:, g * n:].reshape(b, g, n)
+    dtv = _softplus(dt[:, 0].float() + dt_bias.float())               # (B,H)
+    a_neg = -torch.exp(a_log.float())
+    dec = torch.exp(dtv * a_neg[None])
+    bh = _to_heads(bm.float(), h, 1, first, total)
+    chh = _to_heads(cm.float(), h, 1, first, total)
+    state = state * dec[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", dtv[..., None] * bh, xs.float())
+    y = torch.einsum("bhn,bhnp->bhp", chh, state)
+    y = y + d_skip.float()[None, :, None] * xs.float()
+    return y.reshape(b, 1, h * pd).to(dtype), state
+
+
 def ssd_decode(p, x: torch.Tensor, cache: Cache, d_model: int,
                s: SSMConfig) -> Tuple[torch.Tensor, Cache]:
     """One-token step. x (B, 1, d). Returns (y (B, 1, d), the new cache:
-    new tensors, the given cache untouched)."""
-    b = x.shape[0]
-    dm = dims(d_model, s)
-    h, pd, n, g = dm["nheads"], s.head_dim, s.state_dim, s.ngroups
-
+    new tensors, the given cache untouched). With split leaves the cache's
+    ``conv_x`` and ``state`` are ``Shards`` (``CACHE_SPLIT_DIMS``)."""
+    if isinstance(p["z_proj"], TP.Shards):
+        return _decode_split(p, x, cache, d_model, s)
     z, xs_raw, bc_raw, dt = _project(p, x)
     xconv, new_cx = _conv_step(cache["conv_x"], xs_raw, p["conv_w_x"],
                                p["conv_b_x"])
     bconv, new_cbc = _conv_step(cache["conv_bc"], bc_raw, p["conv_w_bc"],
                                 p["conv_b_bc"])
-    xs = xconv.reshape(b, h, pd)
-    bm = bconv[:, :g * n].reshape(b, g, n)
-    cm = bconv[:, g * n:].reshape(b, g, n)
-    dtv = _softplus(dt[:, 0].float() + p["dt_bias"].float())          # (B,H)
-    a_neg = -torch.exp(p["A_log"].float())
-    dec = torch.exp(dtv * a_neg[None])
-    bh = _to_heads(bm.float(), h, 1)
-    chh = _to_heads(cm.float(), h, 1)
-    state = cache["state"] * dec[..., None, None] + torch.einsum(
-        "bhn,bhp->bhnp", dtv[..., None] * bh, xs.float())
-    y = torch.einsum("bhn,bhnp->bhp", chh, state)
-    y = y + p["D"].float()[None, :, None] * xs.float()
-    y = y.reshape(b, 1, dm["d_in"]).to(x.dtype)
+    y, state = _step_heads(xconv, bconv, dt, cache["state"], p["A_log"],
+                           p["D"], p["dt_bias"], s, x.dtype)
     y = _gated_norm(y, z, p["norm_w"])
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
     return out, {"conv_x": new_cx, "conv_bc": new_cbc, "state": state}
+
+
+def _decode_split(p, x: torch.Tensor, cache: Cache, d_model: int,
+                  s: SSMConfig) -> Tuple[torch.Tensor, Cache]:
+    dt_ = x.dtype
+    d_in, h = dims(d_model, s)["d_in"], dims(d_model, s)["nheads"]
+    bc_raw = torch.einsum("bsd,de->bse", x, p["bc_proj"].to(dt_))
+    bconv, new_cbc = _conv_step(cache["conv_bc"], bc_raw, p["conv_w_bc"],
+                                p["conv_b_bc"])
+    like, xr, bcr, vec = _rank_inputs(p, x, bconv)
+    hr = h // like.tp
+    ys, zs, tails, states = [], [], [], []
+    for j, r in enumerate(like.ranks):
+        z, xs_raw, dt = _rank_project(p, xr[j], j)
+        xconv, tail = _conv_step(cache["conv_x"][j], xs_raw,
+                                 p["conv_w_x"][j], vec["conv_b_x"][j])
+        y, st = _step_heads(xconv, bcr[j], dt, cache["state"][j],
+                            vec["A_log"][j], vec["D"][j], vec["dt_bias"][j],
+                            s, dt_, r * hr, h)
+        ys.append(y)
+        zs.append(z)
+        tails.append(tail)
+        states.append(st)
+    ys = _gated_norm_split(ys, zs, vec["norm_w"], like, d_in, x.device)
+    return _out_split(ys, p, x, like), {
+        "conv_x": like.like(tails, 2), "conv_bc": new_cbc,
+        "state": like.like(states, 1)}

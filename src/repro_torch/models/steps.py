@@ -49,8 +49,9 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
   not divide it, as the ``shard_map`` does.
 
 Tensor parallelism over 'model' (``distributed/tensor_parallel.py``):
-where the parameter rules split weights over 'model' (the dense,
-local_global, vlm and moe families), ``init_state`` places the
+where the parameter rules split weights over 'model' (every family but
+the extra_dp configs; the ssm family's SSD over its heads),
+``init_state`` places the
 parameters and the AdamW moments as ``tp_plan(cfg, mesh)`` gives them,
 each rank's slices on its device. Uncompressed, the step runs that group
 on the whole microbatch. Under int8 (``RULES_TP_ONLY``) each dp rank runs
@@ -59,9 +60,8 @@ start of the step, as the replicas above); its gradients are gathered
 whole on its first device and go through the ring unchanged; the synced
 gradients are split again for AdamW, which steps each slice elementwise.
 
-Refused, naming ROADMAP A11.9 (``tensor_parallel.check_mesh``,
-``tp_plan``): the ssm family's 'model' split, a mesh mixing device
-types and the abstract production mesh
+Refused, naming ROADMAP A11.9 (``tensor_parallel.check_mesh``): a mesh
+mixing device types and the abstract production mesh
 (``launch/mesh.make_production_mesh``, meta entries).
 ``input_specs`` gives a cell's inputs on such a mesh as
 ``sharding.Sharded`` meta stand-ins, as the reference's does, for the
@@ -210,7 +210,6 @@ def _rank_plan(cfg: ArchConfig, mesh, b: int) -> list:
     if mesh is None or mesh.size == 1:
         return [(None, slice(0, b))]
     TP.check_mesh(cfg, mesh)
-    TP.tp_plan(cfg, mesh)                  # raises for the ssm split
     groups = TP.tp_groups(mesh)
     if cfg.grad_compression != "int8":
         n = len(groups)

@@ -51,9 +51,10 @@ split over 'model' is ``Shards``, one slice a rank on its device, and
 the functions here dispatch on it. Split q heads: each rank projects its
 heads (``project_qkv``; replicated k/v read per rank by
 ``kv_weights``), runs the attention kernel on them and its rows of
-``o`` (``attend_qkv``); split ``wi``/``wg``/``wo``: ``mlp`` per rank; a
-vocab split: ``embed_input``'s masked lookup and ``head_logits``'s
-gathered logits. Each rank's partial output is ``reduce_sum``'d onto
+``o`` (``attend_qkv``); split ``wi``/``wg``/``wo``: ``mlp`` per rank;
+split SSD leaves (the ssm and hybrid layers): ``ssm.ssd_forward`` over
+each rank's heads; a vocab split: ``embed_input``'s masked lookup and
+``head_logits``'s gathered logits. Each rank's partial output is ``reduce_sum``'d onto
 the first device, where the replicated work runs once.
 
 Training: ``forward`` rematerialises each layer under

@@ -18,11 +18,11 @@ and ``models/steps.input_specs``, against the JAX package's
   rank 0's microbatch count in the port's tensor-parallel step (its
   slices, the replicated work whole, the metered ``reduce_sum`` /
   ``gather_cat`` collectives) plus AdamW on the device's share plus the
-  dp ring; the ssm family's, whose split is not ported, is n_mb / tp
-  times one microbatch's count.
+  dp ring, the ssm family's too (its SSD split over 'model').
 * The production mesh runs no step: ``make_train_step`` refuses it
   naming A11.9; ``make_mesh(devices=["meta"])`` still refuses meta.
 """
+import dataclasses
 import json
 
 import pytest
@@ -168,8 +168,8 @@ def test_a_train_cell_is_its_microbatch_times_n_mb_over_tp():
     microbatch, whose count lies between the whole step's / tp (the
     replicated work stands whole) and the whole step's; AdamW on rank
     0's slices scaled to the device's share; the dp ring plus n_mb times
-    the metered TP collectives. The ssm family's cell, whose split is
-    not ported, still is n_mb / tp times one microbatch."""
+    the metered TP collectives. The ssm family's cell is rank 0 of its
+    split step too: no cell is divided by tp any more."""
     cfg = smoke_config("deepseek-7b")
     shape = SHAPES["train_4k"]
     mesh = tmesh.make_production_mesh()
@@ -217,9 +217,14 @@ def test_a_train_cell_is_its_microbatch_times_n_mb_over_tp():
     assert st.collective_bytes == pytest.approx(
         2 * 15 / 16 * grad_bytes + n_mb * (rec["all-reduce"]
                                            + rec["all-gather"]), rel=1e-12)
-    ssm = dryrun.count_cell(smoke_config("mamba2-1.3b"), shape, mesh)
-    assert (ssm["model_division"], ssm["model_ranks"]) == (16, 16)
-    assert ssm["tensor_parallel"] == dryrun.SSM_DIVIDED
+    # mamba2's smoke SSD widened to 16 heads, which split over 16 ranks
+    mamba = smoke_config("mamba2-1.3b")
+    mamba = mamba.replace(ssm=dataclasses.replace(mamba.ssm, expand=4))
+    ssm = dryrun.count_cell(mamba, shape, mesh)
+    assert (ssm["model_division"], ssm["model_ranks"]) == (1, 16)
+    assert ssm["tensor_parallel"] == dryrun.TENSOR_PARALLEL
+    assert TP.counting_plan(mamba, mesh).split(("layers", "ssm", "z_proj"))
+    assert ssm["stats"].collectives["all-reduce"] > 0
     nbytes = cell["bytes_per_device"]
     assert nbytes["params"] == dryrun.bytes_per_device(params, mesh)
     assert nbytes["opt"] == 2 * nbytes["params"] + 4      # m, v, step

@@ -314,14 +314,16 @@ def test_no_float_atomics_in_the_new_module():
 
 
 def test_what_stays_refused_names_a11_9():
-    """The ssm family over 'model', a mesh mixing device types and the
-    abstract mesh."""
+    """A mesh mixing device types and the abstract mesh. The ssm family
+    over 'model' is no longer refused: its plan splits the SSD, its
+    steps build and the launcher serves it."""
     mamba = smoke_config("mamba2-1.3b")
     shape = ShapeConfig("t", 32, 4, "train")
-    with pytest.raises(NotImplementedError, match="ssm family.*A11.9"):
-        steps.make_train_step(mamba, _mesh(1, 2), shape, microbatches=2)
-    with pytest.raises(NotImplementedError, match="ssm family.*A11.9"):
-        steps.make_prefill_step(mamba, _mesh(1, 2))
+    plan = TP.tp_plan(mamba, _mesh(1, 2))
+    assert plan.split(("layers", "ssm", "z_proj"))
+    assert callable(steps.make_train_step(mamba, _mesh(1, 2), shape,
+                                          microbatches=2))
+    assert callable(steps.make_prefill_step(mamba, _mesh(1, 2)))
     ds = smoke_config("deepseek-7b")
     mixed = SimpleNamespace(
         axis_names=("data", "model"), shape={"data": 1, "model": 2},
@@ -335,9 +337,11 @@ def test_what_stays_refused_names_a11_9():
         steps.make_train_step(ds, tmesh.make_production_mesh(), shape)
     with pytest.raises(NotImplementedError, match="abstract mesh.*A11.9"):
         steps.make_decode_step(ds, tmesh.make_production_mesh())
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
-                     "--model", "2"])
+    gen, info = tserve.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+                             "cpu", "--model", "2", "--requests", "2",
+                             "--prompt-len", "8", "--gen", "2"])
+    assert gen.shape == (2, 2) and all(np.isfinite(lg).all()
+                                       for lg in info["logits"])
     # a placement that is not the mesh's plan
     params = transformer.init_params(ds, seed=0)
     batch = tserve.make_batch(ds, 1, 8, device="cpu")

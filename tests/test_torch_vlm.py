@@ -36,6 +36,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import lm  # noqa: E402
+from repro_torch.distributed import tensor_parallel as TP  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -397,11 +398,12 @@ def test_launcher_trains_the_smoke_config_as_the_reference(tmp_path, capsys,
 def test_what_stays_refused_names_the_roadmap_item(what):
     """The train step refuses what later slices of ROADMAP A11 port: the
     production mesh the dry run counts against (abstract since A11.7: a
-    step over it is A11.9's) and a 'model' axis that would split the ssm
-    family's weights (A11.9). A 'model' axis splitting the vlm's weights
+    step over it is A11.9's). A 'model' axis splitting the vlm's weights
     (tensor parallelism) runs since A11.9's TP slice: its step on a
     (1, 2) mesh, uncompressed and int8, holds its weights split and
-    gives the unsplit step's loss within float32 sum order."""
+    gives the unsplit step's loss within float32 sum order; one that
+    splits the ssm family's SSD builds its step since A11.9's last
+    split."""
     cfg = smoke_config(ARCH)
     shape = ShapeConfig("t", 32, 4, "train")
     if what == "make_production_mesh":
@@ -410,9 +412,9 @@ def test_what_stays_refused_names_the_roadmap_item(what):
                                   microbatches=2)
         return
     tp = tmesh.make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ssm family.*A11.9"):
-        steps.make_train_step(smoke_config("mamba2-1.3b"), tp, shape,
-                              microbatches=2)
+    mamba = smoke_config("mamba2-1.3b")
+    assert TP.tp_plan(mamba, tp).split(("layers", "ssm", "z_proj"))
+    assert callable(steps.make_train_step(mamba, tp, shape, microbatches=2))
     data = lm.SyntheticLM(lm.LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
         microbatches=2), cfg)

@@ -24,6 +24,10 @@ GSPMD really splits them. Parts:
   8 x 32 in 2 microbatches on ``SyntheticLM``'s batches (total_steps
   30): loss and grad norm per step, the final parameters and AdamW
   moments (and the int8 error row).
+
+ARCH is a config name, or a variant of ``VARIANTS``: ``hymba-1.5b-tp``
+is hymba-1.5b's smoke config with ``extra_dp=False``, so the rules
+split both its attention and its SSD over 'model'.
 """
 import os
 import sys
@@ -44,6 +48,13 @@ from repro.models import serving, steps, transformer  # noqa: E402
 
 B, S, GEN, EXTRA = 4, 32, 2, 2
 SEQ, BATCH, MB, STEPS, TOTAL = 32, 8, 2, 2, 30
+VARIANTS = {"hymba-1.5b-tp": ("hymba-1.5b", {"extra_dp": False})}
+
+
+def config(arch):
+    """``arch``'s smoke config, or a variant's (``VARIANTS``)."""
+    name, change = VARIANTS.get(arch, (arch, {}))
+    return smoke_config(name).replace(**change)
 
 
 def _np(a):
@@ -72,7 +83,7 @@ def _inputs(cfg, rng, b, s, start):
 
 
 def serve(out, arch):
-    cfg = smoke_config(arch)
+    cfg = config(arch)
     params = transformer.init_params(jax.random.PRNGKey(0), cfg)
     _keyed(out, f"serve:{arch}/init/", params)
     rng = np.random.default_rng(0)
@@ -104,7 +115,7 @@ def serve(out, arch):
 
 
 def train(out, name, arch, compression, shape):
-    cfg = smoke_config(arch).replace(grad_compression=compression)
+    cfg = config(arch).replace(grad_compression=compression)
     mesh = make_host_mesh(*(int(n) for n in shape.split("x")))
     shape = ShapeConfig("t", SEQ, BATCH, "train")
     data = lm.SyntheticLM(lm.LMDataConfig(

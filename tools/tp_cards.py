@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Tensor parallelism over four distinct cards: qwen2-vl-72b uncut served,
-then training steps whose slices live on four cards.
+then training steps whose slices live on four cards, then mamba2-1.3b's
+split SSD served and trained on three layouts.
 
-  python3 tools/tp_cards.py [--gen 8]
+  python3 tools/tp_cards.py [--gen 8] [--cases qwen,train,mamba2]
 
 Needs four CUDA cards.
 
@@ -43,8 +44,23 @@ split again all cross cards here):
   four cards, the loss finite and near log V.
 
 Each case reports s/step, the cards holding slices and each card's
-peak memory. The card's nvidia-smi name and power limit are printed
-first; the last line is one JSON object with every number.
+peak memory.
+
+mamba2 (``--cases mamba2``; the ssm family's split, 16 SSD heads a rank
+at (1, 4)): its published config, uncut, served (4 x 2048 prompts,
+``--gen`` decode steps through ``launch.serve.serve``, twice, the second
+call timed) and trained 2 steps at 8 x 2048 in 2 microbatches at
+(1, 4); and cut to 16 layers at (2, 2) with int8 compression. Each on
+``[cuda:0..3]``, on the rotated layout and on ``cuda:0`` repeated: the
+logits, losses, grad norms and every slice bitwise across all three.
+Every tensor that all ranks read (the normed input, B and C, the gated
+norm's summed squares, the replicated vectors) reaches them through
+``tensor_parallel.broadcast``, whose gradient copies are added in rank
+order: one left out would be added in the order the cards' threads
+finish, and only distinct cards show it.
+
+The card's nvidia-smi name and power limit are printed first; the last
+line is one JSON object with every number.
 """
 from __future__ import annotations
 
@@ -68,6 +84,12 @@ GEMMA = (("gemma2-2b (1, 4)", "gemma2-2b", dict(pad_heads_to=0), (1, 4), 1,
           dict(pad_heads_to=0, num_layers=8), (2, 2), 2, 4096, 1, True))
 BIG = ("qwen2-vl-72b 8 layers (1, 4)", "qwen2-vl-72b", dict(num_layers=8),
        (1, TP), 1, 2048, 1, False)
+MAMBA = (("mamba2-1.3b (1, 4)", "mamba2-1.3b", {}, (1, TP), 8, 2048, 2,
+          False),
+         ("mamba2-1.3b 16 layers int8 (2, 2)", "mamba2-1.3b",
+          dict(num_layers=16), (2, 2), 8, 2048, 2, True))
+MAMBA_SERVE = dict(requests=4, prompt_len=2048)
+CASES = ("qwen", "train", "mamba2")
 
 
 def layerwise_params(torch, cfg, plan):
@@ -174,8 +196,8 @@ def train_case(torch, case, devices):
 
 
 def train_pair(torch, np, case, layouts):
-    """``case`` on each of two device layouts: their records, and whether
-    the losses, grad norms and slices are bitwise the same."""
+    """``case`` on each of the device layouts: their records, and whether
+    the losses, grad norms and slices are bitwise the same on all."""
     recs, snaps = {}, []
     for name, devices in layouts.items():
         rec, snap = train_case(torch, case, devices)
@@ -186,9 +208,10 @@ def train_pair(torch, np, case, layouts):
               f"{rec['homes']}, state {rec['state_gb']:.2f} GB, peak GB a "
               f"card {[round(p, 2) for p in rec['peak_gb_per_card']]}",
               flush=True)
-    a, b = list(recs.values())
-    same = a["metrics"] == b["metrics"] and all(
-        torch.equal(x, y) for x, y in zip(*snaps, strict=True))
+    first, *rest = list(recs.values())
+    same = all(r["metrics"] == first["metrics"] for r in rest) and all(
+        torch.equal(x, y) for snap in snaps[1:]
+        for x, y in zip(snaps[0], snap, strict=True))
     finite = all(np.isfinite(v) for r in recs.values()
                  for step in r["metrics"] for v in step)
     print(f"{case[0]}: bitwise across {list(layouts)}: {same}; "
@@ -223,26 +246,72 @@ def train_runs(torch, np):
     return out, ok
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--gen", type=int, default=8)
-    args = ap.parse_args()
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available() or torch.cuda.device_count() < TP:
-        print(f"tp_cards: FAIL: needs {TP} CUDA cards", file=sys.stderr)
-        return 3
+def mamba2_runs(torch, np, gen):
+    """The mamba2 cases (see the module docstring): ({name: record}, ok)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import serving, transformer
+    cards = [torch.device("cuda", i) for i in range(TP)]
+    layouts = {"cuda:0..3": cards,
+               "rotated": [cards[i] for i in ROTATED],
+               "cuda:0 repeated": [cards[0]] * TP}
+    cfg = get_config("mamba2-1.3b")
+    logits, serve_recs = {}, {}
+    for name, devices in layouts.items():
+        mesh = mesh_lib.make_mesh((1, TP), ("data", "model"),
+                                  devices=devices)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        params = transformer.init_params(
+            cfg, seed=0, plan=serving.serving_plan(cfg, mesh))
+        runs = [serve.serve(cfg, params, requests=MAMBA_SERVE["requests"],
+                            prompt_len=MAMBA_SERVE["prompt_len"], gen=gen,
+                            device=devices[0], seed=0, mesh=mesh)[1]
+                for _ in range(2)]
+        info = runs[1]
+        logits[name] = info["logits"]
+        rec = {"prefill_s": info["prefill_s"],
+               "decode_ms_per_token": info["decode_ms_per_token"],
+               "weight_gb_per_rank": [round(x / 1e9, 3) for x in
+                                      tensor_parallel.weight_bytes(params)],
+               "peak_gb_per_card": [torch.cuda.max_memory_allocated(d) / 1e9
+                                    for d in cards],
+               "finite": all(bool(np.isfinite(lg).all())
+                             for lg in info["logits"])}
+        serve_recs[name] = rec
+        print(f"{cfg.name} (1, {TP}) served on {name}: prefill "
+              f"{rec['prefill_s']:.4f} s, decode "
+              f"{rec['decode_ms_per_token']:.2f} ms/token, weights a rank "
+              f"{rec['weight_gb_per_rank']} GB, peak GB a card "
+              f"{[round(p, 2) for p in rec['peak_gb_per_card']]}",
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+    first = logits["cuda:0..3"]
+    same = all(np.array_equal(a, b) for other in logits.values()
+               for a, b in zip(first, other, strict=True))
+    print(f"{cfg.name} served logits bitwise across {list(layouts)}: "
+          f"{same}", flush=True)
+    out = {"serve": {"layouts": serve_recs, "bitwise": same}}
+    ok = same and all(r["finite"] for r in serve_recs.values())
+    for case in MAMBA:
+        out[case[0]] = rec = train_pair(torch, np, case, layouts)
+        ok = ok and rec["bitwise"] and rec["finite"]
+    return out, ok
+
+
+def qwen_serve(torch, np, gen):
+    """qwen2-vl-72b uncut served on two layouts (see the module
+    docstring): (record, ok)."""
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.distributed import tensor_parallel
-    from repro_torch.kernels import _build, flash_attention
+    from repro_torch.kernels import flash_attention
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve
     from repro_torch.models import serving
-
-    card = chip_smoke.card_line()
-    print(f"nvidia-smi: {card}", flush=True)
-    _build.build_all(["flash_attention_tc", "flash_attention_bwd_tc"])
     cfg = get_config("qwen2-vl-72b").replace(param_dtype="bfloat16")
     chip_smoke.check_published(get_config("qwen2-vl-72b"))
     devs = [torch.device("cuda", i) for i in range(TP)]
@@ -260,7 +329,7 @@ def main() -> int:
           f"{init_s:.1f} s; {cfg.num_heads // TP} heads and "
           f"{len(plan.kv_heads(0))} kv heads a rank", flush=True)
     layouts = {"cuda:0..3": list(range(TP)), "rotated": list(ROTATED)}
-    out = {"card": card, "layers": cfg.num_layers, "init_s": init_s,
+    out = {"layers": cfg.num_layers, "init_s": init_s,
            "weight_bytes_per_rank": per_rank, "layouts": {}}
     logits = {}
     for name, order in layouts.items():
@@ -274,7 +343,7 @@ def main() -> int:
         for _ in range(2):
             flash_attention.reset_launches()
             runs.append(serve.serve(cfg, params, requests=2,
-                                    prompt_len=2048, gen=args.gen,
+                                    prompt_len=2048, gen=gen,
                                     device=ds[0], seed=0, mesh=m)[1])
         info = runs[1]
         logits[name] = info["logits"]
@@ -302,8 +371,44 @@ def main() -> int:
     print(f"logits bitwise across the layouts: {same}", flush=True)
     del params
     torch.cuda.empty_cache()
-    out["train"], train_ok = train_runs(torch, np)
-    out["ok"] = ok = ok and train_ok
+    return out, ok
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help=f"comma-separated, of {CASES}")
+    args = ap.parse_args()
+    cases = args.cases.split(",")
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases: {cases} not all of {CASES}")
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < TP:
+        print(f"tp_cards: FAIL: needs {TP} CUDA cards", file=sys.stderr)
+        return 3
+    import chip_smoke
+    from repro_torch.kernels import _build
+
+    card = chip_smoke.card_line()
+    print(f"nvidia-smi: {card}", flush=True)
+    for i in range(TP):        # each card's allocator, before its stats
+        torch.zeros(1, device=torch.device("cuda", i))
+    out = {"card": card, "cases": cases}
+    ok = True
+    if "mamba2" in cases:                     # attention-free: no build
+        out["mamba2"], m_ok = mamba2_runs(torch, np, args.gen)
+        ok = ok and m_ok
+    if {"qwen", "train"} & set(cases):
+        _build.build_all(["flash_attention_tc", "flash_attention_bwd_tc"])
+    if "qwen" in cases:
+        out["qwen"], q_ok = qwen_serve(torch, np, args.gen)
+        ok = ok and q_ok
+    if "train" in cases:
+        out["train"], train_ok = train_runs(torch, np)
+        ok = ok and train_ok
+    out["ok"] = ok
     print(json.dumps(out))
     return 0 if ok else 1
 
