@@ -421,10 +421,13 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    config with grad_compression="int8" at data 2 on [cuda:0, cuda:0],
    8 x 2048 in 2 microbatches: the memory reckoning printed first; a
    gradient step (synced gradients, loss, new error rows) replayed
-   bitwise through host copies; the int8 gradients within 1.25 int8
-   steps of the ranks' largest gradient from the float32 mean of each
-   rank's rows through the one-device step (their distance from the
-   uncompressed step's printed); 4 steps (s/step, tokens/s, peak
+   bitwise through host copies, the host's issue time of the replay
+   beside its wall (each rank's microbatch loop is its unit of
+   tensor_parallel.map_ranks, every rank issued from one thread); the
+   int8 gradients within 1.25 int8 steps of the ranks' largest
+   gradient from the float32 mean of each rank's rows through the
+   one-device step (their distance from the uncompressed step's
+   printed); 4 steps (s/step, tokens/s, peak
    memory, err absmax, 384 tensor-core forwards and 192 backward calls
    a step), then one step with the sync timed (host clock, synchronized
    around each call). The uncompressed data-2 step against the
@@ -447,13 +450,20 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    production mesh for musicgen-medium's train_4k, prefill_32k and
    decode_32k and kimi-k2-1t-a32b's train_4k, each ok (data-sheet
    estimates, no measurement).
+20. tp (tensor parallelism over 'model', ROADMAP A11.9; the path "tp"
+   counts each tensor-parallel call from 0): qwen2-vl-72b (20 layers,
+   bf16 weights), llama4-scout, gemma2-2b and mamba2-1.3b split over
+   [cuda:0, cuda:0] (and two distinct cards where visible) against one
+   card on the same weights (see phase_tp); every rank's work between
+   two collectives goes through tensor_parallel.map_ranks, in rank
+   order on one host thread.
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
 sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm,
-ssm_smoke, local_global_vlm, local_global_vlm_smoke, dp_train and
-dryrun paths, each counted from 0),
+ssm_smoke, local_global_vlm, local_global_vlm_smoke, dp_train, dryrun
+and tp paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -7544,19 +7554,26 @@ def dp_musicgen(np, torch, dev, card):
     batch = data.device_batch(0, dev)
     leaves = adamw.tree_leaves
 
-    def timed(fn, *a):
+    def timed(fn, *a, host=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn(*a)
+        if host is not None:            # the host's issue time alone
+            host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
     (g8, l8, e8), t_g8 = timed(gs8, state, batch)
     host_g, host_e = [t.cpu() for t in leaves(g8)], [e.cpu() for e in e8]
     del g8, e8
-    (g8b, l8b, e8b), _ = timed(gs8, state, batch)
+    g8_host = []
+    (g8b, l8b, e8b), g8_wall = timed(gs8, state, batch, host=g8_host)
     same = torch.equal(l8, l8b) and all(
         torch.equal(a.cpu(), b) for a, b in zip(leaves(g8b) + e8b,
                                                 host_g + host_e))
+    print(f"  int8 gradient step replayed bitwise {same}: the host issued "
+          f"it in {g8_host[0]:.3f} s of its {g8_wall:.3f} s wall (every "
+          f"rank's work from one thread, tensor_parallel.map_ranks) "
+          f"({card})", flush=True)
     check(same, "a replayed int8 gradient step is not bitwise the first")
     del g8b, e8b
 
@@ -7656,6 +7673,7 @@ def dp_musicgen(np, torch, dev, card):
            "sync_step_s": t_sync_step, "sync_share": sync_ms / 1e3 / t_sync_step,
            "grad_step_s": {"int8": t_g8, "uncompressed": t_gu,
                            "one_device": t_g1},
+           "int8_replay_host_s": g8_host[0], "int8_replay_wall_s": g8_wall,
            "int8_vs_rank_mean_steps": worst / step,
            "int8_vs_uncompressed_steps": vs_uncompressed,
            "rank_grad_amax": amax,

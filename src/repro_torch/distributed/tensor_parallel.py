@@ -4,10 +4,13 @@ and of the reference's ``shard_map`` over 'model' (moe's ``_local_moe``
 and ``_gathered_moe``).
 
 Like the rest of the port's mesh (``launch/mesh.py``) it is
-single-process and runs on one host thread: no ``torch.distributed`` and
-no NCCL. A hop is a ``.to()``, which autograd differentiates, and a
-device may repeat, so ``[cuda:0, cuda:0]`` and ``[cpu, cpu]`` are
-two-rank meshes.
+single-process: no ``torch.distributed`` and no NCCL. A hop is a
+``.to()``, which autograd differentiates, and a device may repeat, so
+``[cuda:0, cuda:0]`` and ``[cpu, cpu]`` are two-rank meshes. One host
+thread issues every rank's work, in rank order, through ``map_ranks``;
+a thread a card was tried and was slower on every path measured on the
+H100 host (PERF.md section 6), so the ranks of distinct cards still run
+one after another on the host (ROADMAP A item 2).
 
 * ``tp_plan(cfg, mesh)``: the 'model' ranks of the mesh's first 'data'
   slice and their devices (``sharding.shard_plan(mesh, ("model",),
@@ -25,6 +28,11 @@ two-rank meshes.
   ``gather_cat``: the vocab-split head's logits concatenated in rank
   order. ``run_ranks``: a column-then-row-parallel block (the SwiGLU
   MLPs), each rank on its own shards, the partials reduced.
+* ``map_ranks(fn, *per_rank)``: ``fn(r, ...)`` for every rank r with
+  its own arguments, in rank order on the caller's thread; the one loop
+  over ranks of the split layers here and in ``models/`` and of the
+  int8 dp step's ranks, so that where the ranks' work is issued is
+  decided in one place.
 
 Replicated work (norms, residual adds, the moe router, the loss on the
 gathered logits) runs once, on the first device; only the work on split
@@ -484,8 +492,20 @@ def run_ranks(fn, x: torch.Tensor, *weights: Shards) -> torch.Tensor:
     ``weights`` (a column-split product then a row-split one), the
     partial outputs ``reduce_sum``'d onto x's device."""
     like = weights[0]
-    parts = [fn(xr, *ws) for xr, *ws in zip(broadcast(x, like), *weights)]
+    parts = map_ranks(lambda r, xr, *ws: fn(xr, *ws), broadcast(x, like),
+                      *weights)
     return reduce_sum(parts, x.device, like.tp)
+
+
+def map_ranks(fn, *per_rank: Sequence) -> list:
+    """``[fn(r, *(a[r] for a in per_rank)) for r in ranks]``: each rank's
+    work between two collectives, run in rank order on the caller's
+    thread, the results in rank order."""
+    n = len(per_rank[0])
+    if any(len(a) != n for a in per_rank):
+        raise ValueError(f"map_ranks: per-rank arguments of lengths "
+                         f"{[len(a) for a in per_rank]}")
+    return [fn(r, *args) for r, args in enumerate(zip(*per_rank))]
 
 
 def weight_bytes(params) -> List[int]:

@@ -9,6 +9,13 @@ raises; nothing falls back. No fast-math: the kernels' ``floorf`` code math
 must round exactly as the plain versions do, and the attention kernels'
 ``expf``/``tanhf`` stay the accurate ones. ``-Xptxas -v`` writes each
 kernel's register and shared-memory use into a ``.log`` beside the library.
+
+The wrappers may launch from several threads at once: autograd runs a
+backward's nodes on a thread of each CUDA device, so a backward split
+over distinct cards (``distributed/tensor_parallel.py``) calls the
+attention kernels' backward wrappers from two threads. ``load`` builds
+and opens a library under one lock, and ``count_launch`` adds to a
+launch counter under another.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -98,8 +106,26 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``name``, building it first if needed."""
+    """The built library ``name``, building it first if needed (one
+    thread at a time: two builds of one source would write one
+    temporary file)."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def count_launch(counts: Dict[str, int], key: str) -> None:
+    """``counts[key] += 1`` under a lock: a read then a write, which two
+    threads launching at once could otherwise interleave and lose."""
+    with _COUNT_LOCK:
+        counts[key] += 1

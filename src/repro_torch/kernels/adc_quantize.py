@@ -144,7 +144,7 @@ def _run(entry: str, x: torch.Tensor, tables: torch.Tensor, spec: AdcSpec,
             msg = _lib().adcq_error_string(err).decode()
             raise RuntimeError(f"{entry} launch failed: error {err} "
                                f"({msg})")
-        launches[entry] += 1
+        _build.count_launch(launches, entry)
         return out
 
 

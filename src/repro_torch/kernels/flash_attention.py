@@ -272,7 +272,7 @@ def _launch(route, q, k, v, q_positions, k_positions, *, causal, window,
     if err != 0:
         raise RuntimeError(f"{key} launch failed: error {err} "
                            f"({name(err).decode()})")
-    launches[key] += 1
+    _build.count_launch(launches, key)
     return out
 
 
@@ -340,7 +340,7 @@ def _launch_bwd(route, q, k, v, dout, q_positions, k_positions, *, causal,
     if err != 0:
         raise RuntimeError(f"{key} launch failed: error {err} "
                            f"({name(err).decode()})")
-    launches[key] += 1
+    _build.count_launch(launches, key)
     return dq, dk, dv
 
 

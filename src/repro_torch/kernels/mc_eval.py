@@ -142,7 +142,7 @@ def _run(entry: str, x: torch.Tensor, lb, ub, values, lo, scale,
             msg = _lib().mc_eval_error_string(err).decode()
             raise RuntimeError(f"{entry} launch failed: error {err} "
                                f"({msg})")
-        launches[entry] += 1
+        _build.count_launch(launches, entry)
         return out
 
 

@@ -124,7 +124,7 @@ def _launch(entry: str, fn, x: torch.Tensor, operands: Sequence,
     if err != 0:
         msg = _lib().qmlp_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: error {err} ({msg})")
-    launches[entry] += 1
+    _build.count_launch(launches, entry)
     return out
 
 

@@ -3,8 +3,11 @@
 
 The port's mesh is single-process, as the reference's is: one Python
 process sees every device of the mesh, places each shard's operands on
-its device, launches the shards in mesh order and gathers the results
-(``kernels/ops.*_sharded``, ``core/search.evaluate_population_sharded``).
+its device, launches the shards in mesh order from one host thread and
+gathers the results (``kernels/ops.*_sharded``,
+``core/search.evaluate_population_sharded``; the LM's ranks through
+``distributed/tensor_parallel.map_ranks``), so shards on distinct cards
+are issued one after another (ROADMAP A item 2).
 A ``Mesh`` is only the device grid and its axis names; no process group
 stands behind it. Devices may repeat: ``[cuda:0, cuda:0]`` is a two-shard
 mesh on one card, and ``[cpu, cpu]`` the tests' two-shard mesh, so the

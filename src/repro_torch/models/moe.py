@@ -265,10 +265,10 @@ def _experts(xf: torch.Tensor, gate: torch.Tensor, r: Routing, params,
     wi, wg, wo = params["wi"], params["wg"], params["wo"]
     if not isinstance(wi, TP.Shards):
         return _expert_block(xf, g_rank, r, wi, wg, wo, m.top_k, 0)
-    parts = [_expert_block(xr, gr, r, a, b, c, m.top_k, rank * a.shape[0])
-             for xr, gr, rank, a, b, c in zip(
-                 TP.broadcast(xf, wi), TP.broadcast(g_rank, wi), wi.ranks,
-                 wi, wg, wo)]
+    parts = TP.map_ranks(
+        lambda j, xr, gr, rank, a, b, c: _expert_block(
+            xr, gr, r, a, b, c, m.top_k, rank * a.shape[0]),
+        TP.broadcast(xf, wi), TP.broadcast(g_rank, wi), wi.ranks, wi, wg, wo)
     return TP.reduce_sum(parts, xf.device, wi.tp)
 
 

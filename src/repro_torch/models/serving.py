@@ -185,9 +185,10 @@ def _attend_decode(p, x, kc, vc, kpos, slot, cfg: ArchConfig, positions, *,
     if not isinstance(q, TP.Shards):
         return _decode_one(p["o"], q, k, v, kc, vc, kpos, slot, qpos, cfg,
                            window=window)
-    parts = [_decode_one(*args, cfg, window=window) for args in zip(
+    parts = TP.map_ranks(
+        lambda r, *args: _decode_one(*args, cfg, window=window),
         p["o"], q, k, v, kc, vc, TP.broadcast(kpos, q),
-        TP.broadcast(slot, q), TP.broadcast(qpos, q))]
+        TP.broadcast(slot, q), TP.broadcast(qpos, q))
     return TP.reduce_sum(parts, x.device, q.tp)
 
 

@@ -290,12 +290,15 @@ def _gated_norm_split(ys, zs, ws, like: "TP.Shards", d_inner: int, dev,
     ws: a rank's columns): each rank's float32 sum of squares,
     ``reduce_sum``'d in rank order onto ``dev``, divided by d_inner and
     broadcast back. Returns each rank's normed y."""
-    yf = [y.float() * F.silu(z.float()) for y, z in zip(ys, zs)]
-    sq = TP.reduce_sum([torch.sum(t * t, dim=-1, keepdim=True) for t in yf],
-                       dev, like.tp)
-    var = TP.broadcast(sq / d_inner, like)
-    return [(t * torch.rsqrt(v + eps) * (1.0 + w.float())).to(y.dtype)
-            for t, v, w, y in zip(yf, var, ws, ys)]
+    def squares(r, y, z):
+        t = y.float() * F.silu(z.float())
+        return t, torch.sum(t * t, dim=-1, keepdim=True)
+    yf, sq = zip(*TP.map_ranks(squares, ys, zs))
+    var = TP.broadcast(TP.reduce_sum(sq, dev, like.tp) / d_inner, like)
+    return TP.map_ranks(
+        lambda r, t, v, w, y: (t * torch.rsqrt(v + eps)
+                               * (1.0 + w.float())).to(y.dtype),
+        yf, var, ws, ys)
 
 
 def _rank_inputs(p, x: torch.Tensor, bc: torch.Tensor):
@@ -317,9 +320,9 @@ def _rank_project(p, x: torch.Tensor, j: int):
 def _out_split(ys, p, x: torch.Tensor, like) -> torch.Tensor:
     """The row-split output projection: each rank's partial in x's dtype,
     ``reduce_sum``'d onto x's device."""
-    return TP.reduce_sum([torch.einsum("bse,ed->bsd", y, w.to(x.dtype))
-                          for y, w in zip(ys, p["out_proj"])], x.device,
-                         like.tp)
+    return TP.reduce_sum(TP.map_ranks(
+        lambda r, y, w: torch.einsum("bse,ed->bsd", y, w.to(x.dtype)), ys,
+        p["out_proj"]), x.device, like.tp)
 
 
 def _ssd_split(p, x: torch.Tensor, d_model: int, s: SSMConfig,
@@ -332,16 +335,14 @@ def _ssd_split(p, x: torch.Tensor, d_model: int, s: SSMConfig,
     bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"])
     like, xr, bcr, vec = _rank_inputs(p, x, bc)
     hr = h // like.tp
-    ys, zs, tails, states = [], [], [], []
-    for j, r in enumerate(like.ranks):
+
+    def heads(j, r):
         z, xs_raw, dt = _rank_project(p, xr[j], j)
         xs = _causal_conv(xs_raw, p["conv_w_x"][j], vec["conv_b_x"][j])
         y, hs = _ssd_heads(xs, bcr[j], dt, vec["A_log"][j], vec["D"][j],
                            vec["dt_bias"][j], s, r * hr, h)
-        ys.append(y)
-        zs.append(z)
-        tails.append(xs_raw)
-        states.append(hs)
+        return y, z, xs_raw, hs
+    ys, zs, tails, states = zip(*TP.map_ranks(heads, like.ranks))
     ys = _gated_norm_split(ys, zs, vec["norm_w"], like, d_in, x.device)
     out = _out_split(ys, p, x, like)
     if not want_state:
@@ -429,18 +430,16 @@ def _decode_split(p, x: torch.Tensor, cache: Cache, d_model: int,
                                 p["conv_b_bc"])
     like, xr, bcr, vec = _rank_inputs(p, x, bconv)
     hr = h // like.tp
-    ys, zs, tails, states = [], [], [], []
-    for j, r in enumerate(like.ranks):
+
+    def heads(j, r):
         z, xs_raw, dt = _rank_project(p, xr[j], j)
         xconv, tail = _conv_step(cache["conv_x"][j], xs_raw,
                                  p["conv_w_x"][j], vec["conv_b_x"][j])
         y, st = _step_heads(xconv, bcr[j], dt, cache["state"][j],
                             vec["A_log"][j], vec["D"][j], vec["dt_bias"][j],
                             s, dt_, r * hr, h)
-        ys.append(y)
-        zs.append(z)
-        tails.append(tail)
-        states.append(st)
+        return y, z, tail, st
+    ys, zs, tails, states = zip(*TP.map_ranks(heads, like.ranks))
     ys = _gated_norm_split(ys, zs, vec["norm_w"], like, d_in, x.device)
     return _out_split(ys, p, x, like), {
         "conv_x": like.like(tails, 2), "conv_bc": new_cbc,

@@ -29,6 +29,8 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
   go through ``compression.sync_grads`` with its error row
   (``TrainState.err``, one bf16 row per rank on its device), and the
   loss is the ranks' mean. The moe family routes per rank, as there.
+  A rank's microbatch loop and its ``local_quantize`` are its unit of
+  ``tensor_parallel.map_ranks``; the ring runs after every rank's.
   The parameters and the AdamW state live on the mesh's first device;
   every other distinct device of the ranks gets a copy of the
   parameters at the start of each step, so AdamW runs once, on rank 0's
@@ -39,10 +41,11 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
 * uncompressed: the reference's step is one global (GSPMD) step over
   the whole microbatch, which is what the one-device loop computes, so
   the step runs that loop on the mesh's first device (its first 'data'
-  slice's 'model' ranks under tensor parallelism). The port issues a
-  rank's work from one host thread, so splitting it over the ranks
-  would only serialise them (ROADMAP: concurrent per-device shard
-  dispatch). One exception: the reference's moe FFN runs in a
+  slice's 'model' ranks under tensor parallelism). The port issues
+  every rank's work from one host thread (``map_ranks``; a thread a
+  card was slower on the H100 host, PERF.md section 6), so splitting it
+  over the ranks would only serialise them (ROADMAP A item 2). One
+  exception: the reference's moe FFN runs in a
   ``shard_map`` whose tokens enter ``P(('pod', 'data'))``, so its dp
   shards route apart; the step passes their number to ``loss_fn``
   (``moe.moe_ffn``'s ``dp``) and raises where a microbatch's rows do
@@ -324,23 +327,23 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
                 replicas[tuple(group)] = _on_group(params, group)
         total = sum(p.numel() for p in adamw.tree_leaves(params))
         length = ndata * -(-total // ndata)
-        losses, flats, new_err = [], [], []
-        for r, (group, rows) in enumerate(plan):
+
+        def rank(r, group_rows, err):
+            group, rows = group_rows
             group = first if group is None else tuple(group)
             rdev = group[0]
             gsum, loss = _local_grads(replicas[group], *rank_batch(
                 batch, rows, rdev), cfg, n_mb)
-            losses.append(loss.to(dev))
+            loss = loss.to(dev)
             # quantized as each rank finishes, so only one rank's
             # gradient sums are alive at a time; split sums gathered
             # whole on the rank's first device
             with torch.no_grad():
                 flat, row = compression.local_quantize(
-                    TP.gather_params(gsum, rdev), state.err[r],
-                    length=length)
-            flats.append(flat)
-            new_err.append(row)
-            del gsum
+                    TP.gather_params(gsum, rdev), err, length=length)
+            return flat, row, loss
+        flats, new_err, losses = map(list, zip(*TP.map_ranks(
+            rank, plan, state.err)))
         with torch.no_grad():
             # padded to the ring's length, so the ring's results overwrite
             # the flat vectors (no second full-size buffer a rank)

@@ -402,8 +402,10 @@ def project_qkv(p, x, cfg: ArchConfig, positions):
         return _project(x, p["q"], p["k"], p["v"], cfg, positions)
     wq = p["q"]
     wk, wv = kv_weights(p, cfg)
-    out = [_project(xr, a, b, c, cfg, pr) for xr, pr, a, b, c in zip(
-        TP.broadcast(x, wq), TP.broadcast(positions, wq), wq, wk, wv)]
+    out = TP.map_ranks(lambda r, xr, pr, a, b, c: _project(xr, a, b, c, cfg,
+                                                           pr),
+                       TP.broadcast(x, wq), TP.broadcast(positions, wq), wq,
+                       wk, wv)
     return tuple(wq.like(list(t), 2) for t in zip(*out))
 
 
@@ -414,9 +416,10 @@ def attend_qkv(p, q, k, v, cfg: ArchConfig, kpos, *, window):
     heads and its rows of ``o``, the partials ``reduce_sum``'d onto
     kpos's device."""
     if isinstance(q, TP.Shards):
-        parts = [attend_qkv({"o": o}, qr, kr, vr, cfg, kp, window=window)
-                 for o, qr, kr, vr, kp in zip(p["o"], q, k, v,
-                                              TP.broadcast(kpos, q))]
+        parts = TP.map_ranks(
+            lambda r, o, qr, kr, vr, kp: attend_qkv(
+                {"o": o}, qr, kr, vr, cfg, kp, window=window),
+            p["o"], q, k, v, TP.broadcast(kpos, q))
         return TP.reduce_sum(parts, kpos.device, q.tp)
     out = L.attention(q, k, v, q_positions=kpos, k_positions=kpos,
                       causal=True, window=window,
@@ -535,14 +538,13 @@ def embed_input(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _embed_split(table: "TP.Shards", tokens: torch.Tensor) -> torch.Tensor:
-    parts = []
-    for r, shard, tok in zip(table.ranks, table, TP.broadcast(tokens,
-                                                              table)):
+    def lookup(j, r, shard, tok):
         n = shard.shape[0]
         t = tok.long() - r * n
         mine = (t >= 0) & (t < n)
-        parts.append(shard[t.clamp(0, n - 1)].masked_fill(~mine[..., None],
-                                                          0))
+        return shard[t.clamp(0, n - 1)].masked_fill(~mine[..., None], 0)
+    parts = TP.map_ranks(lookup, table.ranks, table,
+                         TP.broadcast(tokens, table))
     return TP.reduce_sum(parts, tokens.device, table.tp)
 
 
@@ -610,10 +612,10 @@ def head_logits(x: torch.Tensor, head_w: torch.Tensor, cap: float
     the (d, V) head. A vocab split (``Shards``): each rank's logits of
     its columns, ``gather_cat``'d onto x's device before the softcap."""
     if isinstance(head_w, TP.Shards):
-        lg = TP.gather_cat(
-            [torch.einsum("...d,dv->...v", xr, w.to(x.dtype))
-             for xr, w in zip(TP.broadcast(x, head_w), head_w)], -1,
-            x.device, head_w.tp)
+        lg = TP.gather_cat(TP.map_ranks(
+            lambda r, xr, w: torch.einsum("...d,dv->...v", xr,
+                                          w.to(x.dtype)),
+            TP.broadcast(x, head_w), head_w), -1, x.device, head_w.tp)
     else:
         lg = torch.einsum("...d,dv->...v", x, head_w.to(x.dtype))
     return L.softcap(lg.float(), cap)
