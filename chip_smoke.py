@@ -430,12 +430,11 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    printed); 4 steps (s/step, tokens/s, peak
    memory, err absmax, 384 tensor-core forwards and 192 backward calls
    a step), then one step with the sync timed (host clock, synchronized
-   around each call). The uncompressed data-2 step against the
-   one-device step on the same state and batch (bitwise: uncompressed,
-   the step is the reference's global step on the mesh's first device),
-   each timed, and one traced step of the int8 and of the one-device
-   step (device ms, kernels, and the busy share: device time over the
-   untraced warm step's wall, beside the traced wall).
+   around each call). The one-device step timed, and one traced step
+   of the int8 and of the one-device step (device ms, kernels, and the
+   busy share: device time over the untraced warm step's wall, beside
+   the traced wall). The uncompressed data-2 step is FSDP's (phase
+   fsdp).
 19. dryrun (the LM dry run and its roofline analysis, ROADMAP A11.7-
    A11.8; the path "dryrun" counts its musicgen steps from 0):
    musicgen-medium's training step at phase train's shape (8 x 2048 in
@@ -457,13 +456,25 @@ It imports neither JAX nor the JAX package ``repro``. Phases:
    card on the same weights (see phase_tp); every rank's work between
    two collectives goes through tensor_parallel.map_ranks, in rank
    order on one host thread.
+21. fsdp (FSDP over the dp axes, the reference's default and extra_dp
+   parameter rules; the path "fsdp" counts each case's first two-step
+   run from 0): musicgen-medium at its published config, 8 x 2048 in 2
+   microbatches, at (2, 1) and (2, 2) (extra_dp: four (data, model)
+   batch ranks reading two owners' pieces), and gemma2-2b uncut (heads
+   unpadded), 2 x 8192, at (2, 2) (FSDP with the 'model' split), each
+   on cuda:0 repeated: each position's held bytes of parameters and
+   AdamW state (rank 0's equal to the dry run's per-device bytes, no
+   position more), step 0's loss and grad norm within 2^-7 and every
+   gradient leaf within 2^-4 of one card's on the same init and batch,
+   two runs of two steps bitwise, rows 11 and 11b launched by every
+   rank of every slice, s/step and peak memory beside one card's.
 
 It prints one JSON line of kernel results, one entry per kernel (row 11
 has two, one per route, and so has its backward, 11b; launches summed over the
 serve, search, robust, baseline, resume, gradient, cosearch, async,
 sharded, lm, lm_f32, train, train_smoke, train_cli, moe, moe_smoke, ssm,
-ssm_smoke, local_global_vlm, local_global_vlm_smoke, dp_train, dryrun
-and tp paths, each counted from 0),
+ssm_smoke, local_global_vlm, local_global_vlm_smoke, dp_train, dryrun,
+tp and fsdp paths, each counted from 0),
 then the card's name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. Any failed check, build or launch
 exits non-zero before that line; so does a missing card or a directory
@@ -7494,10 +7505,9 @@ def dp_musicgen(np, torch, dev, card):
     """Parts 2 and 3 of phase dp_train: musicgen-medium at its published
     config trained with int8 compression at data 2 on [cuda:0, cuda:0]
     (memory reckoning, a replayed gradient step bitwise, the synced
-    gradients within DP_INT8_STEPS of the ranks' float32 mean, the
-    uncompressed data-2 step bitwise the one-device step, 4 steps timed,
-    one with the sync timed), every launch counter at 0 around the 4
-    steps."""
+    gradients within DP_INT8_STEPS of the ranks' float32 mean and their
+    distance from the one-device step's, 4 steps timed, one with the
+    sync timed), every launch counter at 0 around the 4 steps."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.lm import LMDataConfig, SyntheticLM
@@ -7593,19 +7603,14 @@ def dp_musicgen(np, torch, dev, card):
           f"gradient ({step:.4g})")
     del mean
 
-    # part 3: the uncompressed data-2 step against the one-device step
-    gsu = steps.make_grad_step(base, mesh, shape, mb)
-    (gu, lu, _), t_gu = timed(gsu, state, batch)
-    vs_uncompressed = max(float((a.to(dev) - u).abs().max())
-                          for a, u in zip(host_g, leaves(gu))) / step
-    del host_g, host_e
+    # the one-device gradient step on the same state and batch: the
+    # int8 step's distance from it (the uncompressed data-2 step is FSDP's
+    # since PR 35: phase fsdp holds it against one card)
     gs1 = steps.make_grad_step(base, None, shape, mb)
     (g1, l1, _), t_g1 = timed(gs1, state, batch)
-    same1 = torch.equal(lu, l1) and all(
-        torch.equal(a, b) for a, b in zip(leaves(gu), leaves(g1)))
-    del gu, g1
-    check(same1, f"the uncompressed data-{dp} gradient step is not bitwise "
-                 f"the one-device step")
+    vs_uncompressed = max(float((a.to(dev) - u).abs().max())
+                          for a, u in zip(host_g, leaves(g1))) / step
+    del host_g, host_e, g1
 
     # 4 int8 steps from the same state, every launch counter at 0
     step8 = steps.make_train_step(cfg8, mesh, shape, mb, total_steps=100)
@@ -7645,15 +7650,11 @@ def dp_musicgen(np, torch, dev, card):
                                         data.device_batch(c["steps"], dev),
                                         c["steps"])
     sync_ms = sum(times) * 1e3
-    # s/step of the uncompressed data-2 step and the one-device step
-    # (each timed on its second call; they update the same state)
-    stepu = steps.make_train_step(base, mesh, shape, mb, total_steps=100)
+    # s/step of the one-device step (timed on its second call)
     step1 = steps.make_train_step(base, None, shape, mb, total_steps=100)
     st = state._replace(err=None)
-    t_u, t_1 = [], []
+    t_1 = []
     for i in range(2):
-        (st, _), t = timed(stepu, st, data.device_batch(10 + i, dev), 10 + i)
-        t_u.append(t)
         (st, _), t = timed(step1, st, data.device_batch(20 + i, dev), 20 + i)
         t_1.append(t)
     # one traced int8 data-2 step and one traced one-device step (the
@@ -7671,13 +7672,12 @@ def dp_musicgen(np, torch, dev, card):
            "peak_gb": peak_gb, "reckoning_gb": total, "err_absmax": err_max,
            "sync_ms": sync_ms, "sync_calls": len(times),
            "sync_step_s": t_sync_step, "sync_share": sync_ms / 1e3 / t_sync_step,
-           "grad_step_s": {"int8": t_g8, "uncompressed": t_gu,
-                           "one_device": t_g1},
+           "grad_step_s": {"int8": t_g8, "one_device": t_g1},
            "int8_replay_host_s": g8_host[0], "int8_replay_wall_s": g8_wall,
            "int8_vs_rank_mean_steps": worst / step,
            "int8_vs_uncompressed_steps": vs_uncompressed,
            "rank_grad_amax": amax,
-           "uncompressed_dp_step_s": t_u[-1], "one_device_step_s": t_1[-1],
+           "one_device_step_s": t_1[-1],
            "traced": traces}
     print(f"  int8 data {dp}: warm {warm:.3f} s/step ({tokens / warm:.0f} "
           f"tokens/s), peak memory {peak_gb:.2f} GB (reckoned {total:.1f}); "
@@ -7688,12 +7688,9 @@ def dp_musicgen(np, torch, dev, card):
           f"float32 mean {worst / step:.3f} int8 steps of the largest "
           f"gradient {big:.4g} (bound {DP_INT8_STEPS}), against the "
           f"uncompressed step {vs_uncompressed:.3f} ({card})")
-    print(f"phase dp_train (3/3): uncompressed data {dp} against one "
-          f"device, same state and batch: gradients and loss bitwise; "
-          f"s/step "
-          f"uncompressed data {dp} {t_u[-1]:.3f}, one device {t_1[-1]:.3f}, "
+    print(f"phase dp_train (3/3): s/step one device {t_1[-1]:.3f}, "
           f"int8 data {dp} {warm:.3f}; gradient steps int8 {t_g8:.3f} s, "
-          f"uncompressed {t_gu:.3f} s, one device {t_g1:.3f} s; traced "
+          f"one device {t_g1:.3f} s; traced "
           + "; ".join(f"{k}: device {v['device_ms']:.1f} ms in "
                       f"{v['kernels']} kernels, busy {v['busy'] * 100:.1f} "
                       f"% of the untraced {v['untraced_wall_s']:.3f} s "
@@ -7730,9 +7727,8 @@ def traced_step(torch, step, state, batch, i, untraced_wall) -> dict:
 def phase_dp_train(np, torch, dev, card):
     """The data-parallel path (ROADMAP A11.6 and A11.9's dp half): the
     int8 ring on the card against the CPU; musicgen-medium trained with
-    int8 at data 2 on [cuda:0, cuda:0]; the uncompressed data-2 step
-    against the one-device step. Returns the numbers and the 4 int8
-    steps' launch counts."""
+    int8 at data 2 on [cuda:0, cuda:0]. Returns the numbers and the 4
+    int8 steps' launch counts."""
     t_phase = time.perf_counter()
     out = {"ring": dp_ring_checks(np, torch, dev, card)}
     out.update(dp_musicgen(np, torch, dev, card))
@@ -8757,12 +8753,15 @@ def leaf_paths(tree, path=""):
 
 
 def tp_moe_dp_smoke(np, torch, dev, card):
-    """The repaired uncompressed moe dp step (each dp shard routed apart):
+    """The repaired uncompressed moe dp step (each dp shard routed apart;
+    since PR 35 each slice on its own rows, the state FSDP's pieces):
     kimi-k2's smoke config on (2, 1) [cuda:0, cuda:0] against [cpu, cpu],
     float32, from one init, TRAIN_SMOKE_TOL's bounds."""
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import steps, transformer
     from repro_torch.optim import adamw
@@ -8776,7 +8775,9 @@ def tp_moe_dp_smoke(np, torch, dev, card):
     out = {}
     for d in ("cpu", "cuda:0"):
         mesh = mesh_lib.make_mesh((2, 1), ("data", "model"), devices=[d, d])
-        params = adamw.tree_map(lambda t: t.clone().to(d), host)
+        # placed by the mesh's plan: FSDP's pieces over the two slices
+        params = fsdp.shard_params(adamw.tree_map(lambda t: t.to(d), host),
+                                   fsdp.param_plan(cfg, mesh))
         state = steps.TrainState(params, adamw.init_tree(params))
         step = steps.make_train_step(cfg, mesh, shape, c["microbatches"],
                                      total_steps=10)
@@ -8784,7 +8785,8 @@ def tp_moe_dp_smoke(np, torch, dev, card):
         for i in range(c["steps"]):
             state, m = step(state, data.device_batch(i, torch.device(d)), i)
             ms.append((float(m["loss"]), float(m["grad_norm"])))
-        out[d] = (ms, [t.cpu() for t in adamw.tree_leaves(state.params)])
+        out[d] = (ms, [t.cpu() for t in adamw.tree_leaves(
+            TP.gather_params(state.params))])
     tol = TRAIN_SMOKE_TOL
     worst = max(abs(a - w) / abs(w) for mc, mh in zip(out["cuda:0"][0],
                                                       out["cpu"][0])
@@ -8828,6 +8830,189 @@ def phase_tp(np, torch, dev, card):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase tp: {out['phase_s']:.2f} s on {card}; launches on the tp "
           f"path: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------- fsdp
+# FSDP over the dp axes (PR 35): the uncompressed step over a mesh with
+# dp > 1, each data slice holding its pieces of every parameter and
+# AdamW moment; (mesh shapes, batch, seq, microbatches, steps) a config
+FSDP_CASES = (
+    dict(arch="musicgen-medium", cut={}, meshes=((2, 1), (2, 2)), batch=8,
+         seq=2048, microbatches=2, steps=2),
+    dict(arch="gemma2-2b", cut=dict(pad_heads_to=0), meshes=((2, 2),),
+         batch=2, seq=8192, microbatches=1, steps=2),
+)
+
+
+def fsdp_one_card(torch, cfg, shape, c, data, dev):
+    """One card's step 0 on seed 0 (loss, grad norm, leaf names, host
+    copies of the gradient leaves) and the s/step and peak GB of its
+    ``c["steps"]`` train steps."""
+    from repro_torch.models import steps
+    state = steps.init_state(cfg, seed=0, device=dev)
+    l1, g1, names, leaves = step0_grads(torch, cfg, None, shape,
+                                        c["microbatches"],
+                                        data.device_batch(0, dev), state)
+    ref = [t.cpu() for t in leaves]
+    del leaves
+    torch.cuda.empty_cache()
+    step = steps.make_train_step(cfg, None, shape, c["microbatches"],
+                                 total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.device_batch(i, dev), i)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    return (l1, g1, names, ref), walls, peak
+
+
+def fsdp_case(np, torch, dev, card, cfg, c, axes, one, launches):
+    """``cfg`` at ``c``'s shape over an ``axes`` mesh of ``dev`` repeated
+    (see the module docstring's phase 21), against ``one``
+    (``fsdp_one_card``'s)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    mesh = mesh_lib.make_mesh(axes, ("data", "model"),
+                              devices=[dev] * (axes[0] * axes[1]))
+    shape = ShapeConfig("fsdp", c["seq"], c["batch"], "train")
+    n_mb = c["microbatches"]
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq"], global_batch=c["batch"],
+        microbatches=n_mb), cfg)
+    plan = fsdp.plan(cfg, mesh)
+    check(plan is not None, f"{cfg.name} at {axes}: no leaf over dp")
+    ranks = len(steps._rank_plan(cfg, mesh, c["batch"] // n_mb))
+    tp = 1 if plan.tp is None else plan.tp.tp
+    (l1, g1, names, ref), walls1, peak1 = one
+    torch.cuda.empty_cache()
+    state = steps.init_state(cfg, seed=0, mesh=mesh)
+    held = fsdp.held_bytes((state.params, state.opt), mesh).reshape(-1)
+    want = dryrun.bytes_per_device(dryrun.state_structs(cfg, mesh)[0], mesh)
+    whole = sum(t.numel() * t.element_size() for tree in (
+        state.params, state.opt.m, state.opt.v)
+        for t in adamw.tree_leaves(tree))
+    print(f"phase fsdp: {cfg.name} at {axes} on "
+          f"{[str(d) for d in mesh.devices.reshape(-1)]}: "
+          f"{ranks} batch ranks of {c['batch'] // n_mb // ranks} rows a "
+          f"microbatch, {len(next(iter(plan.slices.values())))} owners, "
+          f"'model' {tp}; held state a position (parameters, AdamW "
+          f"step and moments) {[round(float(h) / 1e9, 3) for h in held]} GB, "
+          f"the dry run's a device "
+          f"{want / 1e9:.3f} GB, the whole state {whole / 1e9:.3f} GB "
+          f"({card})", flush=True)
+    check(held[0] == want and held.max() == held[0],
+          f"{cfg.name} at {axes}: held {held} against the dry run's {want}")
+    loss, gnorm, _, leaves = step0_grads(torch, cfg, mesh, shape, n_mb,
+                                         data.device_batch(0, dev), state)
+    rel = max(abs(loss - l1) / abs(l1), abs(gnorm - g1) / abs(g1))
+    dists = leaf_dists(torch, leaves, ref)
+    worst = int(np.argmax(dists))
+    del leaves, state
+    torch.cuda.empty_cache()
+    print(f"  step 0: one card loss {l1:.6f} grad norm {g1:.6f}; fsdp "
+          f"{loss:.6f} {gnorm:.6f}: relative {rel:.2e} [{TP_TRAIN_RTOL:g}];"
+          f" worst leaf {names[worst]} {dists[worst]:.3e} "
+          f"[{TP_GRAD_REL:g}]", flush=True)
+    check(rel <= TP_TRAIN_RTOL and dists[worst] <= TP_GRAD_REL,
+          f"{cfg.name} at {axes} against one card: {rel:.2e}, "
+          f"{names[worst]} {dists[worst]:.3e}")
+    runs, snaps = [], []
+    for run in range(2):
+        state = steps.init_state(cfg, seed=0, mesh=mesh)
+        step = steps.make_train_step(cfg, mesh, shape, n_mb,
+                                     total_steps=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if run == 0:
+            reset_all_launches()
+        out, walls = [], []
+        for i in range(c["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, data.device_batch(i, dev), i)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+            walls.append(time.perf_counter() - t0)
+        if run == 0:
+            got = all_launches()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        runs.append((out, walls))
+        snaps.append([t.cpu() for t in adamw.tree_leaves(state.params)
+                      + adamw.tree_leaves(state.opt.m)])
+        check(isinstance(state.params["layers"]["wo"], fsdp.Pieces),
+              f"{cfg.name} at {axes}: the state is not FSDP's")
+        del state, step
+        torch.cuda.empty_cache()
+    bitwise = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(*snaps, strict=True))
+    del snaps
+    # a layer's forward, its remat and its backward on every rank of
+    # every batch rank, each microbatch
+    per_step = cfg.num_layers * n_mb * ranks * tp
+    fwd = (2 if cfg.remat == "full" else 1) * per_step * c["steps"]
+    ok = (got["flash_attention_tc"] == fwd
+          and got["flash_attention_bwd_tc"] == per_step * c["steps"]
+          and sum(got.values()) == fwd + per_step * c["steps"])
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  two runs of {c['steps']} steps: losses / grad norms "
+          f"{runs[0][0]}, bitwise {bitwise}; s/step {runs[0][1]} / "
+          f"{runs[1][1]} (one card {walls1}); peak {peak:.2f} GB (one card "
+          f"{peak1:.2f}); launches {got} (expected {fwd} forwards and "
+          f"{per_step * c['steps']} backwards) ({card})", flush=True)
+    check(bitwise, f"{cfg.name} at {axes}: two fsdp runs differ")
+    check(ok, f"{cfg.name} at {axes}: launched {got}")
+    return {"ranks": ranks, "tp": tp, "held_bytes": [int(h) for h in held],
+            "dryrun_bytes": want, "state_bytes": whole,
+            "step0": {"one_card": [l1, g1], "fsdp": [loss, gnorm],
+                      "scalar_rel": rel, "leaf_rel": dists[worst],
+                      "leaf": names[worst]},
+            "metrics": runs[0][0], "step_s": [r[1] for r in runs],
+            "one_card_step_s": walls1, "peak_gb": peak,
+            "one_card_peak_gb": peak1, "bitwise": bitwise,
+            "launches": got}
+
+
+def phase_fsdp(np, torch, dev, card):
+    """FSDP over the dp axes (PR 35) on cuda:0 repeated: FSDP_CASES, each
+    against one card on the same init and batch. Returns the numbers
+    and the launch counts of each case's first run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    for c in FSDP_CASES:
+        cfg = get_config(c["arch"]).replace(**c["cut"])
+        if c["arch"] == "musicgen-medium":
+            check_musicgen(cfg)
+        else:
+            check_published(get_config(c["arch"]))
+        shape = ShapeConfig("fsdp", c["seq"], c["batch"], "train")
+        data = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=c["seq"],
+            global_batch=c["batch"], microbatches=c["microbatches"]), cfg)
+        one = fsdp_one_card(torch, cfg, shape, c, data, dev)
+        for axes in c["meshes"]:
+            out[f"{cfg.name} {axes}"] = fsdp_case(np, torch, dev, card, cfg,
+                                                  c, axes, one, launches)
+        del one
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase fsdp: {out['phase_s']:.2f} s on {card}; launches on the "
+          f"fsdp path: {launches}")
     return out
 
 
@@ -8993,6 +9178,7 @@ def main() -> int:
         dp_out = phase_dp_train(np, torch, dev, card)
         dryrun_out = phase_dryrun(np, torch, dev, card)
         tp_out = phase_tp(np, torch, dev, card)
+        fsdp_out = phase_fsdp(np, torch, dev, card)
 
         mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -9026,7 +9212,8 @@ def main() -> int:
                    "local_global_vlm_smoke": lg_out["smoke_launches"],
                    "dp_train": dp_out["launches"],
                    "dryrun": dryrun_out["launches"],
-                   "tp": tp_out["launches"]}
+                   "tp": tp_out["launches"],
+                   "fsdp": fsdp_out["launches"]}
         main_timing = {
             "adc_quantize": q_timings["P=1"],
             "adc_quantize_population": q_timings["search train P=16"],
@@ -9111,6 +9298,8 @@ def main() -> int:
                               if k != "launches"},
                    "tp": {k: v for k, v in tp_out.items()
                           if k != "launches"},
+                   "fsdp": {k: v for k, v in fsdp_out.items()
+                            if k != "launches"},
                    "wall_s": time.perf_counter() - t_start}
         print(f"summary: {json.dumps(summary)}")
         print(json.dumps({"kernels": rows}))

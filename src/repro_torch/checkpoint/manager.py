@@ -23,9 +23,12 @@ its device) save as the reference's one (dp, n) leaf. numpy has no
 bfloat16, so a bfloat16 leaf is saved as its raw 2-byte patterns (dtype
 ``V2``, the bytes the reference's ``ml_dtypes`` array writes) and
 restored as bfloat16 where ``like``'s leaf is. A leaf split over 'model'
-(``tensor_parallel.Shards``) saves whole, its slices concatenated in rank
-order: the reference's global array. It restores into ``like``'s split,
-each slice on its rank's device, so a checkpoint restores onto any mesh.
+(``tensor_parallel.Shards``) or over the dp slices (``fsdp.Pieces``,
+each piece perhaps split over 'model' too) saves whole, its slices and
+pieces concatenated in rank and slice order: the reference's global
+array. It restores into ``like``'s placement, each slice and piece on
+its device (``fsdp.place_like``), so a checkpoint restores onto any
+mesh.
 
 Saves are synchronous: the leaves are copied to the host and written
 before ``save`` returns, so ``wait`` (the reference's join of its
@@ -48,6 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.arrays import tensor_from_numpy
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.tensor_parallel import Shards
 
 
@@ -89,18 +94,19 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 def _rows(leaf) -> bool:
     """A list of tensors: the rows of one leaf (``TrainState.err``)."""
-    return (isinstance(leaf, list) and not isinstance(leaf, Shards)
-            and bool(leaf)
+    return (isinstance(leaf, list)
+            and not isinstance(leaf, (Shards, fsdp.Pieces)) and bool(leaf)
             and all(isinstance(r, torch.Tensor) for r in leaf))
 
 
 def _host(leaf) -> np.ndarray:
     """A leaf as a host numpy array (a tensor is copied off its device;
-    rows are stacked; bfloat16 as its raw bytes, dtype V2)."""
+    rows are stacked; split leaves gathered whole; bfloat16 as its raw
+    bytes, dtype V2)."""
     if _rows(leaf):
         leaf = torch.stack([r.detach().cpu() for r in leaf])
-    if isinstance(leaf, Shards):
-        leaf = torch.cat([p.detach().cpu() for p in leaf], leaf.dim)
+    if isinstance(leaf, (Shards, fsdp.Pieces)):
+        leaf = TP.gather_params(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -192,10 +198,11 @@ class CheckpointManager:
 
     def restore(self, step: int, like, device=None):
         """The tree saved at ``step`` in the structure of ``like``: each
-        leaf of ``like`` (a tensor, rows, split ``Shards`` or a numpy
-        array) is replaced by the saved leaf of its path, a tensor on
-        ``device`` (default: that leaf's own device, each row's for rows,
-        each slice's for a split leaf, sliced as ``like``'s; numpy leaves
+        leaf of ``like`` (a tensor, rows, split ``Shards``, ``fsdp.Pieces``
+        or a numpy array) is replaced by the saved leaf of its path, a
+        tensor on ``device`` (default: that leaf's own device, each row's
+        for rows, each slice's and piece's for a split leaf, placed as
+        ``like``'s; numpy leaves
         stay numpy), in the saved dtype.
         ``fault.run_with_recovery`` passes its ``shardings`` here, None on
         the port's one-device step. Raises FileNotFoundError for a leaf
@@ -213,13 +220,9 @@ class CheckpointManager:
                 flat[key] = [tensor_from_numpy(a).to(
                     r.device if device is None else device)
                     for a, r in zip(arr, leaf)]
-            elif isinstance(leaf, Shards):
-                whole = tensor_from_numpy(arr)
-                n = whole.shape[leaf.dim] // leaf.tp
-                flat[key] = leaf.like([whole.narrow(
-                    leaf.dim, r * n, n).to(p.device if device is None
-                                           else device, copy=True)
-                    for r, p in zip(leaf.ranks, leaf)])
+            elif isinstance(leaf, (Shards, fsdp.Pieces)):
+                flat[key] = fsdp.place_like(tensor_from_numpy(arr), leaf,
+                                            device)
             elif isinstance(leaf, torch.Tensor):
                 flat[key] = tensor_from_numpy(arr).to(
                     leaf.device if device is None else device)

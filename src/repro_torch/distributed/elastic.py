@@ -14,7 +14,7 @@ either: they cannot repeat a device and they shrink 'model' below the
 asked size when fewer devices are visible, where the launchers'
 ``make_host_mesh`` keeps it (raising, or repeating one named device).
 ``reshard_state`` restores an
-LM train state from a checkpoint onto a new mesh (the data- and
+LM train state from a checkpoint onto a new mesh (the data-, FSDP- and
 tensor-parallel train step of ``models/steps.py``).
 """
 from __future__ import annotations
@@ -74,30 +74,38 @@ def make_elastic_mesh(devices: Optional[Sequence] = None, *,
 
 def reshard_state(ckpt, step: int, state_like, new_mesh, cfg):
     """The ``TrainState`` saved at ``step`` restored onto ``new_mesh``: the
-    parameters and the AdamW state placed as ``tensor_parallel.tp_plan``
-    places them on ``new_mesh`` (split leaves' slices on its first data
-    slice's 'model' ranks, the rest whole on its first device; a
-    checkpoint holds whole leaves, so any 'model' size restores), and
-    under ``grad_compression="int8"`` one error row per dp rank of
-    ``new_mesh`` on the rank's first device. ``state_like`` gives the
-    tree (its tensors' devices and splits are not read).
+    parameters and the AdamW state placed as ``fsdp.param_plan`` places
+    them on ``new_mesh``, as the reference's ``reshard_state`` places
+    them with ``param_shardings``: uncompressed over dp > 1, each dp
+    slice's pieces on its devices (split over 'model' too where the
+    'model' plan splits the leaf); else the 'model' plan's slices on the
+    first dp slice's ranks and the rest whole on the first device. A
+    checkpoint holds whole leaves, so any dp and 'model' size restores,
+    a leaf at a time. Under ``grad_compression="int8"`` one error row
+    per dp rank of ``new_mesh`` on the rank's first device.
+    ``state_like`` gives the tree (its tensors' devices and splits are
+    not read).
 
     The reference restores the saved (dp, n) buffer as it is and leaves
     its step to shard it; it cannot load a bfloat16 leaf at all (ROADMAP
     C). Each error row is one rank's unsent residual, so a checkpoint
     whose row count is not the new mesh's dp size is refused (ROADMAP
     C), as is a compressed state without rows."""
+    from repro_torch.distributed import fsdp
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import steps
 
     dev = new_mesh.first_device
-    plan = TP.tp_plan(cfg, new_mesh)
+    plan = fsdp.param_plan(cfg, new_mesh)
 
     def placed(t, path=()):
-        dtype = (t[0] if isinstance(t, TP.Shards) else t).dtype
+        while isinstance(t, list):          # a split leaf's first part
+            t = t[0]
+        if isinstance(plan, fsdp.Plan):
+            return plan.stand_in(path, t.dtype)
         if plan is None or not plan.split(path):
-            return torch.empty(0, dtype=dtype, device=dev)
-        return TP.Shards([torch.empty(0, dtype=dtype, device=d)
+            return torch.empty(0, dtype=t.dtype, device=dev)
+        return TP.Shards([torch.empty(0, dtype=t.dtype, device=d)
                           for d in plan.devices], plan.dims[path],
                          plan.ranks, plan.tp)
 

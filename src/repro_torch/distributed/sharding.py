@@ -11,10 +11,11 @@ The LM's rule sets are the reference's: FSDP by default ('embed' over
 ('pod', 'data')); TP-only under ``grad_compression="int8"`` (parameters
 replicated over the dp axes, so per-rank gradients exist for the int8
 ring); extra_dp for archs whose heads do not split over 'model', where
-'model' becomes data parallelism. The port reads the specs' 'model'
-entries only (``distributed/tensor_parallel.py``: each leaf's dimension
-split over the 'model' ranks); each 'data' slice holds its weights whole
-(no FSDP over 'data').
+'model' becomes data parallelism. The port reads both kinds of entry:
+the 'model' ones in ``distributed/tensor_parallel.py`` (each leaf's
+dimension split over the 'model' ranks), the dp ones ('pod' and 'data',
+``dp_dims``) in ``distributed/fsdp.py`` (each dp slice holds its piece of
+every leaf the spec splits over them, and of both AdamW moments).
 
 ``shard_plan`` says where each shard runs: shard k of a leading axis
 split over ``axes`` runs on the first device of the k-th slice of the
@@ -198,6 +199,32 @@ def param_specs(params_shape, mesh, cfg, inference: bool = False):
                         mesh, rules)
 
     return walk(params_shape, ())
+
+
+def dp_dims(params_shape, mesh, cfg
+            ) -> Dict[Tuple[str, ...], Optional[Tuple[int, Tuple[str, ...]]]]:
+    """{parameter path: (the dimension its training spec puts over the dp
+    axes, those axes: ('pod', 'data') or ('data',)), or None} for
+    ``params_shape`` (as ``param_specs`` takes it) under
+    ``rules_for(cfg)``: None everywhere under ``grad_compression="int8"``
+    (``RULES_TP_ONLY`` replicates over dp), and where a leaf's 'embed'
+    dimension does not divide the dp axes."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+            return
+        out[path] = None
+        for i, part in enumerate(node):
+            axes = part if isinstance(part, tuple) else (part,)
+            if any(a in ("pod", "data") for a in axes):
+                out[path] = (i, tuple(axes))
+                break
+
+    walk(param_specs(params_shape, mesh, cfg), ())
+    return out
 
 
 def cache_specs(cache_shape, mesh, cfg) -> Dict[str, Spec]:

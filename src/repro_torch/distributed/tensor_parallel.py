@@ -19,7 +19,10 @@ one after another on the host (ROADMAP A item 2).
   heads that do not divide tp run replicated; k and v whose kv heads do
   not divide tp are replicated, and each rank reads the kv heads its q
   heads read (``rank_kv_heads``). ``None`` where the mesh splits no
-  weight (tp = 1, or the extra_dp configs).
+  weight (tp = 1, or the extra_dp configs). Over a mesh with dp > 1
+  the uncompressed step's state is FSDP's (``distributed/fsdp.py``):
+  each dp slice's group holds its pieces of this plan's slices, and the
+  step gathers them onto each slice's group a layer at a time.
 * ``shard_params``: a split leaf becomes ``Shards``, one slice a rank on
   the rank's device; a replicated leaf stays whole on the first device.
   ``gather_params`` is the inverse.
@@ -127,6 +130,10 @@ class TPPlan(NamedTuple):
         """Rank r's kv heads, in its cache's order (``rank_kv_heads``)."""
         return rank_kv_heads(self.num_heads, self.num_kv_heads, self.tp, r)
 
+    def place(self, path: Path, leaf: torch.Tensor):
+        """The parameter at ``path`` placed by the plan (``place``)."""
+        return place(leaf, self.dims.get(tuple(path)), self)
+
 
 def _flat(tree, prefix: Path = ()):
     for k, v in tree.items():
@@ -148,9 +155,9 @@ def split_dims(cfg, mesh, inference: bool = False
                ) -> Dict[Path, Optional[int]]:
     """{parameter path: the dimension its spec splits over 'model', or
     None}: ``sharding.param_specs`` of ``transformer.param_shapes``, the
-    'model' entries only (the port holds each 'data' slice's weights
-    whole: no FSDP), an SSD whose heads do not split kept whole (see the
-    module docstring)."""
+    'model' entries (the dp entries are ``distributed/fsdp.py``'s), an
+    SSD whose heads do not split kept whole (see the module
+    docstring)."""
     from repro_torch.models import transformer
     specs = sharding.param_specs(transformer.param_shapes(cfg), mesh, cfg,
                                  inference)
@@ -205,8 +212,10 @@ def _plan(cfg, dims, tp, ranks, devices) -> Optional[TPPlan]:
 
 def tp_plan(cfg, mesh, *, inference: bool = False) -> Optional[TPPlan]:
     """The plan of ``cfg`` over ``mesh``'s 'model' axis (see the module
-    docstring): the first 'data' slice's ranks. None without a mesh or
-    where the mesh splits no weight. Raises for what is refused."""
+    docstring): the first dp slice's ranks (the other slices' groups
+    take their pieces by ``distributed/fsdp.py``'s plan, which reads this
+    one's dims). None without a mesh or where the mesh splits no weight.
+    Raises for what is refused."""
     if mesh is None:
         return None
     check_mesh(cfg, mesh)
@@ -286,10 +295,15 @@ def shard_params(params, plan: Optional[TPPlan]):
 def gather_params(params, device=None):
     """The inverse of ``shard_params``: every ``Shards`` leaf
     concatenated whole in rank order on ``device`` (default: its first
-    rank's device); replicated leaves moved to ``device`` when given. On
+    rank's device), every ``fsdp.Pieces`` leaf whole (``Pieces.gather``);
+    replicated leaves moved to ``device`` when given. On
     meta, a leaf of which fewer ranks are held (the dry run's count) is
     a whole meta tensor."""
+    from repro_torch.distributed import fsdp
+
     def one(leaf):
+        if isinstance(leaf, fsdp.Pieces):
+            return leaf.gather(device)
         if isinstance(leaf, Shards):
             dev = leaf[0].device if device is None else torch.device(device)
             if len(leaf) != leaf.tp:
@@ -311,11 +325,14 @@ def gather_params(params, device=None):
 
 
 def is_split(tree) -> bool:
-    """Whether any leaf of ``tree`` is ``Shards``."""
+    """Whether any leaf of ``tree`` is ``Shards`` (a piece of
+    ``fsdp.Pieces`` included)."""
     if isinstance(tree, Shards):
         return True
     if isinstance(tree, dict):
         return any(is_split(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(is_split(v) for v in tree)
     return False
 
 

@@ -204,10 +204,10 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int,
     first visible cards, raising where fewer are visible; ``cuda:N`` or
     the CPU: that one device repeated), the microbatched train step
     over ``steps_total`` steps of the schedule (data parallel over the
-    mesh's dp ranks when ``cfg.grad_compression`` is int8, else the
-    global step on the mesh's first data slice; tensor parallel over
-    'model' where the parameter rules split weights over it, the state
-    then placed by ``steps.init_state(cfg, mesh=mesh)``:
+    mesh's dp ranks: with ``cfg.grad_compression`` int8 the ring, else
+    FSDP, each data slice holding its pieces of the state; tensor
+    parallel over 'model' where the parameter rules split weights over
+    it; the state placed by ``steps.init_state(cfg, mesh=mesh)``:
     ``models/steps.py``), and the synthetic corpus at (batch, seq) split
     into ``microbatches``."""
     from repro_torch.configs.base import ShapeConfig

@@ -38,27 +38,39 @@ device may repeat, so ``[cuda:0, cuda:0]`` is two ranks on one card):
   equal on every rank, but with two pods only inside each pod
   (``optim/compression.py``); the reference's ``shard_map`` declares
   them replicated, so its pods' copies would drift apart (ROADMAP C).
-* uncompressed: the reference's step is one global (GSPMD) step over
-  the whole microbatch, which is what the one-device loop computes, so
-  the step runs that loop on the mesh's first device (its first 'data'
-  slice's 'model' ranks under tensor parallelism). The port issues
-  every rank's work from one host thread (``map_ranks``; a thread a
-  card was slower on the H100 host, PERF.md section 6), so splitting it
-  over the ranks would only serialise them (ROADMAP A item 2). One
-  exception: the reference's moe FFN runs in a
-  ``shard_map`` whose tokens enter ``P(('pod', 'data'))``, so its dp
-  shards route apart; the step passes their number to ``loss_fn``
-  (``moe.moe_ffn``'s ``dp``) and raises where a microbatch's rows do
-  not divide it, as the ``shard_map`` does.
+* uncompressed: FSDP over the dp axes (``distributed/fsdp.py``), the
+  reference's default parameter rules (extra_dp: over 'data').
+  ``init_state`` places each parameter and both AdamW moments as
+  ``fsdp.plan(cfg, mesh)`` gives them: each dp slice holds its piece of
+  every leaf whose spec puts a dimension over the dp axes, the rest as
+  the 'model' plan places them on the first slice. The step's ranks are
+  the slices of the batch's axes (``sharding.batch_axes``: the dp
+  slices, each its 'model' group; under extra_dp each (data, model)
+  device), or the first slice alone where no rule divides a
+  microbatch's rows. Rank r takes the r-th contiguous block of every
+  microbatch's rows and runs the microbatch loop on them, the state
+  bound to its devices (``fsdp.bind``: each layer's pieces gathered as
+  the layer runs, inside its remat frame); the ranks are issued through
+  ``tensor_parallel.map_ranks`` in order on one thread (a thread a card
+  was slower on the H100 host, PERF.md section 6). Each gradient lands
+  on its piece's owner and is added onto the owner's sum in one fixed
+  order, rank then microbatch (no atomics, no scatter-add: two runs are
+  bitwise equal); sums and loss are scaled by 1 / (n_mb ranks), so the
+  loss is the ranks' mean (the chunked cross-entropy's ``tot / (b s)``
+  over equal blocks; moe's aux is the dp shards' mean as the
+  reference's ``shard_map`` gives it, each rank routing its own rows
+  with ``dp = 1``, and the step raises where a microbatch's rows do not
+  divide the dp shards). AdamW steps each piece on its owner. One rank
+  on whole leaves (no mesh, dp = 1) is the one-device loop itself.
 
 Tensor parallelism over 'model' (``distributed/tensor_parallel.py``):
 where the parameter rules split weights over 'model' (every family but
 the extra_dp configs; the ssm family's SSD over its heads),
-``init_state`` places the
-parameters and the AdamW moments as ``tp_plan(cfg, mesh)`` gives them,
-each rank's slices on its device. Uncompressed, the step runs that group
-on the whole microbatch. Under int8 (``RULES_TP_ONLY``) each dp rank runs
-its own group (the state's slices copied to its group's devices at the
+``init_state`` places the parameters and the AdamW moments as
+``tp_plan(cfg, mesh)`` gives them, each rank's slices on its device
+(over dp > 1, uncompressed, each slice's pieces of them on its group's
+devices). Under int8 (``RULES_TP_ONLY``) each dp rank runs its own
+group (the state's slices copied to its group's devices at the
 start of the step, as the replicas above); its gradients are gathered
 whole on its first device and go through the ring unchanged; the synced
 gradients are split again for AdamW, which steps each slice elementwise.
@@ -77,7 +89,8 @@ the stacked parameters (the leaves of ``layers``, ``layers2`` and
 become lists, which ``transformer.layer`` indexes as it indexes the
 stacks), so a layer's gradient is written into its slice of the stacked
 sum and no stack-sized gradient is made per layer (a split leaf's
-layer is ``Shards`` of its ranks' layer views).
+layer is ``Shards`` of its ranks' layer views, an FSDP leaf's
+``fsdp.Pieces`` of its slices' layer views, each an autograd leaf).
 ``make_grad_step`` is the step before AdamW: the synced gradients, the
 loss and the new error rows, the state untouched.
 """
@@ -90,7 +103,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed import sharding
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import serving, transformer
 from repro_torch.optim import adamw, compression, schedule
@@ -116,11 +129,13 @@ def init_state(cfg: ArchConfig, *, seed: int = 0, device=None,
     """Random parameters (``transformer.init_params``, the port's stream)
     and zero AdamW state in ``cfg.opt_state_dtype``, on ``mesh``'s first
     device when a mesh is given, else on ``device`` (default: the card),
-    split as ``tensor_parallel.tp_plan(cfg, mesh)`` places them; under
+    placed as ``fsdp.param_plan(cfg, mesh)`` places them (each leaf drawn
+    whole on the first device, then its pieces and slices copied to
+    their devices; the moments beside them); under
     ``grad_compression="int8"`` a zero error row per dp rank of the mesh
     (one without a mesh), on the rank's first device."""
     dev = mesh.first_device if mesh is not None else resolve_device(device)
-    plan = TP.tp_plan(cfg, mesh)
+    plan = fsdp.param_plan(cfg, mesh)
     # each leaf placed as it is drawn: no card holds the whole tree
     params = transformer.init_params(cfg, seed=seed, device=dev, **(
         {} if plan is None else {"plan": plan}))
@@ -153,81 +168,104 @@ def default_microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
 _STACKED = ("layers", "layers2", "prelayers")
 
 
+def _at(leaf, i: int):
+    """Layer i of a stacked leaf: a view, or the ``Shards`` / ``Pieces``
+    of its ranks' and slices' layer views."""
+    return leaf.at(i) if isinstance(leaf, (TP.Shards, fsdp.Pieces)) \
+        else leaf[i]
+
+
+def _n_layers(leaf) -> int:
+    while isinstance(leaf, list):
+        leaf = leaf[0]
+    return leaf.shape[0]
+
+
+def _fresh(t, leaves: list):
+    """``t`` (a tensor, ``Shards`` or ``Pieces``) as fresh autograd leaves
+    sharing its storage, appended to ``leaves``."""
+    out = adamw.tree_map(lambda p: p.detach().requires_grad_(True), t)
+    leaves.extend(adamw.tree_leaves(out))
+    return out
+
+
+def _layer_views(node, leaves: list):
+    """A stacked subtree with each leaf a list of fresh per-layer leaves
+    (module-level recursion: a nested function calling itself is a
+    reference cycle, which would keep ``leaves``, and with them the
+    parameters, alive until a collection)."""
+    if isinstance(node, dict):
+        return {k: _layer_views(v, leaves) for k, v in node.items()}
+    return [_fresh(_at(node, i), leaves) for i in range(_n_layers(node))]
+
+
 def _autograd_leaves(params):
     """(tree, leaves): ``params`` with every top-level tensor and every
     layer of every stacked leaf (``layers``, ``layers2`` and
     ``prelayers``, nested subtrees such as ``moe``, ``shared`` and ``ssm``
-    included) as a fresh autograd leaf sharing the parameter's storage;
-    the flat leaf list in a fixed order, the trees' insertion order."""
-    leaves = []
-
-    def leaf(t):
-        if isinstance(t, TP.Shards):
-            out = t.like([p.detach().requires_grad_(True) for p in t])
-            leaves.extend(out)
-            return out
-        out = t.detach().requires_grad_(True)
-        leaves.append(out)
-        return out
-
-    def views(node):
-        if isinstance(node, dict):
-            return {k: views(v) for k, v in node.items()}
-        if isinstance(node, TP.Shards):
-            return [leaf(node.at(i)) for i in range(node[0].shape[0])]
-        return [leaf(node[i]) for i in range(node.shape[0])]
-
-    tree = {key: (views(value) if key in _STACKED else leaf(value))
+    included) as a fresh autograd leaf sharing the parameter's storage (a
+    split leaf's every slice, an FSDP leaf's every piece); the flat leaf
+    list in a fixed order, the trees' insertion order."""
+    leaves: list = []
+    tree = {key: (_layer_views(value, leaves) if key in _STACKED
+                  else _fresh(value, leaves))
             for key, value in params.items()}
     return tree, leaves
 
 
+def _layer_slots(node, slots: list) -> None:
+    if isinstance(node, dict):
+        for v in node.values():
+            _layer_slots(v, slots)
+    else:
+        for i in range(_n_layers(node)):
+            slots.extend(adamw.tree_leaves(_at(node, i)))
+
+
 def _grad_slots(gsum):
     """The gradient sums' destinations in ``_autograd_leaves`` order."""
-    slots = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for v in node.values():
-                walk(v)
-        elif isinstance(node, TP.Shards):
-            for i in range(node[0].shape[0]):
-                slots.extend(node.at(i))
-        else:
-            slots.extend(node[i] for i in range(node.shape[0]))
-
+    slots: list = []
     for key, value in gsum.items():
         if key in _STACKED:
-            walk(value)
-        elif isinstance(value, TP.Shards):
-            slots.extend(value)
+            _layer_slots(value, slots)
         else:
-            slots.append(value)
+            slots.extend(adamw.tree_leaves(value))
     return slots
 
 
-def _rank_plan(cfg: ArchConfig, mesh, b: int) -> list:
-    """``[(devices, rows), ...]``: each rank's 'model' group's devices
-    (None: the state's device) and its block of a microbatch's ``b`` rows
-    (see the module docstring); raises for what the step refuses."""
+class _Unit(NamedTuple):
+    """One rank of the step: its devices (a 'model' group; None: the
+    state's device) and its block of each microbatch's rows."""
+    devices: Optional[tuple]
+    rows: slice
+
+
+def _rank_plan(cfg: ArchConfig, mesh, b: int) -> List[_Unit]:
+    """The step's ranks for a microbatch of ``b`` rows (see the module
+    docstring); raises for what the step refuses. Uncompressed: one a
+    slice of the batch's axes (``sharding.batch_axes``: the dp slices,
+    each with its 'model' group; the (data, model) batch ranks under
+    extra_dp), or the first slice alone where no rule divides ``b``.
+    int8: one a dp rank."""
     if mesh is None or mesh.size == 1:
-        return [(None, slice(0, b))]
+        return [_Unit(None, slice(0, b))]
     TP.check_mesh(cfg, mesh)
-    groups = TP.tp_groups(mesh)
+    axes = sharding.dp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in axes)
     if cfg.grad_compression != "int8":
-        n = len(groups)
         if cfg.family == "moe" and b % n:
             raise ValueError(f"a microbatch of {b} rows does not split over "
                              f"the {n} dp shards of {mesh.shape} that the "
                              f"moe layers route apart")
-        return [(groups[0], slice(0, b))]
-    axes = sharding.dp_axes(mesh)
-    n = math.prod(mesh.shape[a] for a in axes)
-    if b % n:
+        axes = sharding.batch_axes(mesh, cfg, b)
+    elif b % n:
         raise ValueError(f"a microbatch of {b} rows does not split over "
                          f"the {n} dp ranks of {mesh.shape}")
-    return [(g, rows) for g, (_, rows) in zip(
-        groups, sharding.shard_plan(mesh, axes, b))]
+    if not axes:
+        return [_Unit(tuple(fsdp.slice_groups(mesh, None)[0]),
+                      slice(0, b))]
+    return [_Unit(tuple(g), rows) for g, (_, rows) in zip(
+        fsdp.slice_groups(mesh, axes), sharding.shard_plan(mesh, axes, b))]
 
 
 def _on_group(params, devices):
@@ -246,6 +284,49 @@ def _on_group(params, devices):
     return walk(params)
 
 
+def _zero_sums(params):
+    """Zero gradient sums beside ``params``' leaves (their pieces and
+    slices), in ``promote_types(param, bf16)``."""
+    return adamw.tree_map(
+        lambda p: torch.zeros_like(
+            p, dtype=torch.promote_types(p.dtype, torch.bfloat16)),
+        params)
+
+
+def _microbatches(params, batch, const, cfg: ArchConfig, n_mb: int, slots,
+                  lsum, dp: int = 1, unit=None):
+    """The microbatch loop of one rank on its rows: each microbatch's
+    gradients added onto ``slots`` (``_grad_slots`` of the sums) in
+    microbatch order, its loss onto ``lsum``; returns ``lsum``. ``unit``:
+    the devices an FSDP step's rank gathers the state onto
+    (``fsdp.bind``), None where ``params`` are already the rank's.
+    ``dp``: the dp shards a moe layer routes apart
+    (``transformer.loss_fn``)."""
+    for j in range(n_mb):
+        mb = {k: v[j] for k, v in batch.items()}
+        live, leaves = _autograd_leaves(params)
+        if unit is not None:
+            live = fsdp.bind(live, unit)
+        with torch.enable_grad():
+            loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg, dp=dp)
+            grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for slot, g in zip(slots, grads):
+                slot.add_(g)
+        lsum = lsum + loss.detach().to(lsum.device)
+        del live, leaves, grads, loss
+    return lsum
+
+
+def _scaled(gsum, lsum, n: int):
+    """The sums and the loss scaled by ``1 / n``."""
+    scale = 1.0 / n
+    with torch.no_grad():
+        for g in adamw.tree_leaves(gsum):
+            g.mul_(scale)
+    return gsum, lsum * scale
+
+
 def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int,
                  dp: int = 1):
     """One rank's microbatch loop: (the gradient sums over its n_mb
@@ -253,28 +334,11 @@ def _local_grads(params, batch, const, cfg: ArchConfig, n_mb: int,
     the microbatches' mean loss), on ``params``' devices. ``dp``: the dp
     shards a moe layer routes apart (``transformer.loss_fn``)."""
     dev = params["final_norm"].device
-    gsum = adamw.tree_map(
-        lambda p: torch.zeros_like(
-            p, dtype=torch.promote_types(p.dtype, torch.bfloat16)),
-        params)
-    slots = _grad_slots(gsum)
-    lsum = torch.zeros((), dtype=torch.float32, device=dev)
-    for j in range(n_mb):
-        mb = {k: v[j] for k, v in batch.items()}
-        live, leaves = _autograd_leaves(params)
-        with torch.enable_grad():
-            loss, _ = transformer.loss_fn(live, {**mb, **const}, cfg, dp=dp)
-            grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            for slot, g in zip(slots, grads):
-                slot.add_(g)
-        lsum = lsum + loss.detach()
-        del live, leaves, grads, loss
-    scale = 1.0 / n_mb
-    with torch.no_grad():
-        for g in adamw.tree_leaves(gsum):
-            g.mul_(scale)
-    return gsum, lsum * scale
+    gsum = _zero_sums(params)
+    lsum = _microbatches(params, batch, const, cfg, n_mb, _grad_slots(gsum),
+                         torch.zeros((), dtype=torch.float32, device=dev),
+                         dp=dp)
+    return _scaled(gsum, lsum, n_mb)
 
 
 def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
@@ -292,8 +356,10 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
     dp_sizes = tuple(mesh.shape[a] for a in dp)
     ndata = dict(zip(dp, dp_sizes)).get("data", 1)
     tp = TP.tp_plan(cfg, mesh)
-    # the dp shards the moe layers route apart (uncompressed)
-    n_shards = 1 if mesh is None else len(TP.tp_groups(mesh))
+    placed_by = None if int8 else fsdp.plan(cfg, mesh)
+    # uncompressed with more than one rank, or an FSDP state: each rank
+    # gathers the state onto its devices (fsdp.bind)
+    gathers = not int8 and (placed_by is not None or n > 1)
 
     def rank_batch(batch, rows, rdev):
         """(the rank's rows of every microbatch, the shared constants),
@@ -302,19 +368,40 @@ def make_grad_step(cfg: ArchConfig, mesh, shape: ShapeConfig,
                  if k != "adc_mask"},
                 {k: v.to(rdev) for k, v in batch.items() if k == "adc_mask"})
 
+    def fsdp_grads(params, batch, dev):
+        """Each rank's microbatch loop on its rows, in rank order, every
+        gradient added onto its owner's sum (rank, then microbatch); the
+        sums and the loss scaled by 1 / (n_mb n): the ranks' mean."""
+        gsum = _zero_sums(params)
+        slots = _grad_slots(gsum)
+        lsum = [torch.zeros((), dtype=torch.float32, device=dev)]
+
+        def rank(r, unit):
+            lsum[0] = _microbatches(params, *rank_batch(
+                batch, unit.rows, unit.devices[0]), cfg, n_mb, slots,
+                lsum[0], unit=unit.devices)
+        TP.map_ranks(rank, plan)
+        return _scaled(gsum, lsum[0], n_mb * n)
+
     def grad_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         dev = params["final_norm"].device
         if batch["labels"].shape[0] != n_mb:
             raise ValueError(f"the batch leads with {batch['labels'].shape[0]}"
                              f" microbatches; the step takes {n_mb}")
-        if plan[0][0] is not None and plan[0][0][0] != dev:
+        if plan[0].devices is not None and plan[0].devices[0] != dev:
             raise ValueError(f"the state lives on {dev}, not on the mesh's "
-                             f"first device {plan[0][0][0]}")
-        TP.check_placed(params, tp)
+                             f"first device {plan[0].devices[0]}")
+        if placed_by is not None:
+            fsdp.check_placed(params, placed_by)
+        else:
+            TP.check_placed(params, tp)
+        if gathers:
+            gsum, loss = fsdp_grads(params, batch, dev)
+            return gsum, loss, None
         if not int8:                    # one rank (see _rank_plan)
             gsum, loss = _local_grads(params, *rank_batch(
-                batch, plan[0][1], dev), cfg, n_mb, dp=n_shards)
+                batch, plan[0].rows, dev), cfg, n_mb)
             return gsum, loss, None
         if state.err is None or len(state.err) != n:
             raise ValueError(f"grad_compression='int8' over {n} dp ranks "

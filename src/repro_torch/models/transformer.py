@@ -78,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.arrays import tensor_from_numpy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe, ssm
@@ -257,9 +258,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     scaled, then cast, except the stacked experts' ``wi``/``wg``/``wo``,
     drawn one (layer, expert) matrix at a time into the stored dtype, so
     no float32 copy of a whole expert stack is ever held. With a
-    ``plan`` (``tensor_parallel.tp_plan``) each leaf is drawn whole on
-    its first device, then placed as ``shard_params`` places it: the
-    same values, split."""
+    ``plan`` (``tensor_parallel.tp_plan`` or ``fsdp.plan``) each leaf is
+    drawn whole on its first device, then placed as ``shard_params``
+    places it: the same values, split."""
     dev = (plan.first if plan is not None
            else torch.device("cpu" if device is None else device))
     gen = torch.Generator(device=dev)
@@ -287,7 +288,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 
     def placed(path, shape):
         t = leaf(path, shape)
-        return t if plan is None else TP.place(t, plan.dims.get(path), plan)
+        return t if plan is None else plan.place(path, t)
 
     def build(tree, path):
         return {k: (build(v, path + (k,)) if isinstance(v, dict)
@@ -300,9 +301,10 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None,
                       plan=None) -> Params:
     """The reference's parameter tree, as numpy arrays, to the port's
     parameters on ``device``: same keys, shapes, layouts and dtypes,
-    bitwise. With a ``plan`` (``tensor_parallel.tp_plan``) each array is
-    placed directly as the plan places it (a split leaf's slices on its
-    ranks' devices, a replicated one on the first device). Raises
+    bitwise. With a ``plan`` (``tensor_parallel.tp_plan`` or
+    ``fsdp.plan``) each array is placed directly as the plan places it (a
+    split leaf's slices on its ranks' devices, its pieces on its dp
+    slices, a replicated one on the first device). Raises
     ValueError on a missing, extra or misshapen leaf."""
     dev = torch.device("cpu" if device is None else device)
     shapes = param_shapes(cfg)
@@ -322,7 +324,7 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None,
                 raise ValueError(f"{where}.{k}: shape {tuple(t.shape)} != "
                                  f"{tuple(shape)}")
             out[k] = (t.to(dev) if plan is None
-                      else TP.place(t, plan.dims.get(path + (k,)), plan))
+                      else plan.place(path + (k,), t))
         return out
 
     return carry(dict(tree), shapes, ())
@@ -555,18 +557,26 @@ def forward_aux(params: Params, batch, cfg: ArchConfig, *, dp: int = 1
     ``dense_config``. Each layer is rematerialised in the backward when
     ``cfg.remat == "full"`` and autograd is recording. ``dp``: the dp
     shards a moe layer routes apart (``moe.moe_ffn``); the other
-    families ignore it."""
+    families ignore it. ``params`` may be a train step's view of an FSDP
+    state (``fsdp.bind``): a layer's leaves are gathered as it runs, the
+    rest first."""
     check_supported(cfg)
+    params = fsdp.gathered(params)
     x = embed_input(params, batch, cfg)
     positions = batch["positions"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
+    placed = fsdp.placement(params)
 
-    def run(fn, *args, **kw):
+    def run(fn, p, *args, **kw):
+        # a layer's FSDP leaves gathered inside its remat frame, so the
+        # recomputation gathers them again (distributed/fsdp.py)
+        def gathering(q, *a, **k):
+            return fn(fsdp.gathered(q), *a, **k)
         if remat:
-            return checkpoint(TP.remat_fn(fn, params), *args,
+            return checkpoint(TP.remat_fn(gathering, placed), p, *args,
                               use_reentrant=False, **kw)
-        return fn(*args, **kw)
+        return gathering(p, *args, **kw)
 
     pre_cfg = dense_config(cfg)
     for i in range(first_k_dense(cfg)):
@@ -665,6 +675,7 @@ def loss_fn(params: Params, batch, cfg: ArchConfig, *, dp: int = 1):
     """(total loss, {"ce", "aux"}): the chunked cross-entropy of the
     batch's labels, plus ``router_aux_weight * aux`` for the moe family;
     aux is 0 for the others. ``dp``: as ``forward_aux``'s."""
+    params = fsdp.gathered(params)          # the embedding and head once
     x, aux = forward_aux(params, batch, cfg, dp=dp)
     ce = chunked_ce_loss(x, lm_head(params, cfg), batch["labels"], cfg)
     total = ce + cfg.moe.router_aux_weight * aux if cfg.moe else ce

@@ -21,10 +21,14 @@ Under tensor parallelism (``distributed/tensor_parallel.py``) a split
 leaf is ``Shards``, one slice a rank on the rank's device: it flattens to
 its slices in rank order, ``tree_map`` maps each slice and keeps the
 split, and AdamW steps each slice elementwise on its device, so the
-update is the whole leaf's. The global norm sums the slices' float32
-square sums in a fixed order, tree order then rank order, on the first
+update is the whole leaf's. Under FSDP (``distributed/fsdp.py``) a leaf
+split over the dp slices is ``Pieces``, each piece a tensor or
+``Shards``: it flattens to its pieces in slice order (each piece's
+slices in rank order), and AdamW steps each owner's piece elementwise.
+The global norm sums the pieces' and slices' float32 square sums in a
+fixed order, tree order then slice order then rank order, on the first
 leaf's device; that order, not the whole leaf's, is the only difference
-from one device.
+from one device (the clip scale may move by an ulp).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from repro_torch.distributed.fsdp import Pieces
 from repro_torch.distributed.tensor_parallel import Shards
 
 
@@ -55,9 +60,12 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 def tree_map(fn, tree):
     """``fn`` applied to every leaf of nested dicts (to each rank's slice
-    of a ``Shards`` leaf), keeping the tree."""
+    of a ``Shards`` leaf, to each piece of a ``Pieces`` leaf), keeping the
+    tree."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, Pieces):
+        return tree.like([tree_map(fn, p) for p in tree])
     if isinstance(tree, Shards):
         return tree.like([fn(p) for p in tree])
     return fn(tree)
@@ -85,8 +93,8 @@ def init_tree(params, state_dtype: str = "float32") -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of the leaves' float32 square sums, leaf by leaf in
-    the reference's order (a split leaf's slices in rank order), on the
-    first leaf's device."""
+    the reference's order (a split leaf's pieces in slice order, each
+    one's slices in rank order), on the first leaf's device."""
     leaves = tree_leaves(tree)
     dev = leaves[0].device
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())).to(dev)

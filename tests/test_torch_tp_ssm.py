@@ -23,7 +23,9 @@ order). Training: tests/torch_dp_checks.py's bounds (loss and grad norm
 rtol 1e-4, params atol 2e-5, moments m rtol 1e-3 atol 3e-7, v rtol 1e-3
 atol 1e-12); against the port's own unsplit step, loss and grad norm
 rtol 1e-5 and params atol 2e-5 (tests/test_torch_tp_train.py's).
-Placement, checkpoints and resharding are bitwise."""
+Placement, checkpoints and resharding are bitwise. At (2, 2) the
+uncompressed state is FSDP's (``distributed/fsdp.py``): each leaf's
+'model' slices split again over the 'data' slices."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,7 +40,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import lm  # noqa: E402
-from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.distributed import elastic, fsdp  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TP  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -155,7 +157,10 @@ def test_train_step_matches_the_reference(ref, part):
     cfg = _config(arch)
     mesh = _mesh(*(int(n) for n in shape.split("x")))
     state, metrics, _ = run_port(ref, part, cfg, mesh)
-    assert isinstance(state.params["layers"]["ssm"]["out_proj"], TP.Shards)
+    # split over 'model'; at (2, 2) also FSDP's pieces over 'data'
+    out_proj = state.params["layers"]["ssm"]["out_proj"]
+    assert TP.is_split(out_proj) and isinstance(
+        out_proj, TP.Shards if shape == "1x2" else fsdp.Pieces)
     assert TP.is_split(state.opt.m) and TP.is_split(state.opt.v)
     assert_metrics(ref, part, metrics)
     want = dict(ref)
@@ -366,8 +371,9 @@ def test_checkpoints_hold_whole_leaves_and_restore_onto_any_mesh(tmp_path):
                               leaf.numpy())
     for target in ((1, 1), (1, 2), (2, 2)):
         got = elastic.reshard_state(ckpt, 1, state, _mesh(*target), cfg)
-        assert isinstance(got.params["layers"]["ssm"]["z_proj"],
-                          TP.Shards) == (target[1] > 1)
+        z_proj = got.params["layers"]["ssm"]["z_proj"]
+        assert TP.is_split(z_proj) == (target[1] > 1)
+        assert isinstance(z_proj, fsdp.Pieces) == (target[0] > 1)
         for a, b in zip(adamw.tree_leaves(TP.gather_params(got.params))
                         + adamw.tree_leaves(TP.gather_params(got.opt.m)),
                         adamw.tree_leaves(whole)

@@ -32,7 +32,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import lm  # noqa: E402
-from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.distributed import elastic, fsdp  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TP  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -131,21 +131,34 @@ def test_the_split_step_is_the_unsplit_step(arch, comp):
 def test_each_rank_holds_its_slices(comp):
     """Each split leaf of the parameters and of both moments is one slice
     a rank, on the rank's device, with 1/tp of the leaf's elements; the
-    replicated leaves and the step counter sit on the first device."""
+    replicated leaves and the step counter sit on the first device.
+    Uncompressed, the (2, 2) state is FSDP's (``distributed/fsdp.py``):
+    each leaf the rules put over 'data' is ``Pieces`` of the two data
+    slices, piece k of a split leaf ``Shards`` on slice k's group, each
+    part 1/(2 tp) of the leaf."""
     cfg = smoke_config("gemma2-2b").replace(grad_compression=comp)
     mesh = _mesh(2, 2)
     plan = TP.tp_plan(cfg, mesh)
+    over_dp = fsdp.plan(cfg, mesh)
+    assert (over_dp is None) == (comp == "int8")
+    groups = TP.tp_groups(mesh)
     state, _ = _run(cfg, mesh, n=1)
     shapes = dict(transformer._flat(transformer.param_shapes(cfg)))
     for tree in (state.params, state.opt.m, state.opt.v):
         for path, leaf in transformer._flat(tree):
-            if plan.split(path):
-                assert isinstance(leaf, TP.Shards) and len(leaf) == 2
-                assert leaf.devices == list(plan.devices)
-                for part in leaf:
-                    assert part.numel() * 2 == int(np.prod(shapes[path]))
-            else:
-                assert leaf.device == mesh.first_device
+            size = int(np.prod(shapes[path]))
+            pieces = over_dp is not None and over_dp.split(path)
+            assert isinstance(leaf, fsdp.Pieces) == pieces
+            for k, part in enumerate(leaf if pieces else [leaf]):
+                n = size // (2 if pieces else 1)
+                if plan.split(path):
+                    assert isinstance(part, TP.Shards) and len(part) == 2
+                    assert part.devices == (list(groups[k]) if pieces
+                                            else list(plan.devices))
+                    for p in part:
+                        assert p.numel() * 2 == n
+                else:
+                    assert part.device == groups[k][0] and part.numel() == n
     if comp == "int8":
         assert [r.device for r in state.err] == [g[0] for g in
                                                  TP.tp_groups(mesh)]

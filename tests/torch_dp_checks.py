@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import lm
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import steps, transformer
 from repro_torch.optim import adamw, compression
@@ -85,14 +86,14 @@ def tree(ref: dict, prefix: str) -> dict:
 
 
 def flat(t, prefix="") -> dict:
-    """{"['a']['b']": float32 numpy leaf} of a port tree (a split leaf
-    gathered whole)."""
+    """{"['a']['b']": float32 numpy leaf} of a port tree (a leaf split
+    over 'model' or over the dp slices gathered whole)."""
     out = {}
     for k in sorted(t):
         v = t[k]
         if isinstance(v, dict):
             out.update(flat(v, f"{prefix}['{k}']"))
-        elif isinstance(v, TP.Shards):
+        elif isinstance(v, (TP.Shards, fsdp.Pieces)):
             out[f"{prefix}['{k}']"] = TP.gather_params(
                 v).detach().float().numpy()
         else:
@@ -102,10 +103,11 @@ def flat(t, prefix="") -> dict:
 
 def port_state(ref, name, cfg, mesh):
     """The reference's initial parameters of part ``name`` as a port
-    state, placed as ``tp_plan(cfg, mesh)`` places them, AdamW zero,
+    state, placed as ``fsdp.param_plan(cfg, mesh)`` places them (FSDP
+    pieces over the dp slices uncompressed, 'model' slices), AdamW zero,
     error rows zero (one per dp rank) under int8."""
     params = transformer.params_from_numpy(tree(ref, f"{name}/init/"), cfg,
-                                           plan=TP.tp_plan(cfg, mesh))
+                                           plan=fsdp.param_plan(cfg, mesh))
     state = steps.TrainState(params, adamw.init_tree(params,
                                                      cfg.opt_state_dtype))
     if cfg.grad_compression == "int8":

@@ -20,8 +20,9 @@ host devices and writes every named part's results into one ``.npz``
   its scale, ``sync_grads`` under ``shard_map``, the mean loss,
   ``adamw.update``. The reference's own step raises at dp > 1 (part
   ``pinned``), so its pieces are the reference there.
-* ``int8_dp1``, ``none_dp2``, ``musicgen_extra_dp``: the reference's own
-  jitted ``make_train_step`` on a (1, 1), (2, 1) and (2, 2) host mesh.
+* ``int8_dp1``, ``none_dp2``, ``musicgen_extra_dp``,
+  ``hymba_extra_dp``: the reference's own jitted ``make_train_step`` on
+  a (1, 1), (2, 1), (2, 2) and (2, 2) host mesh.
 * ``moe_none_dp2``: the same on a (2, 1) mesh for kimi-k2's smoke config
   uncompressed (2 steps), whose moe layers route each dp shard apart;
   plus ``transformer.loss_fn``'s ce and aux on the first microbatch of
@@ -236,6 +237,8 @@ def main(path, parts):
         "musicgen_extra_dp": lambda: stepped(
             out, "musicgen_extra_dp", smoke_config("musicgen-medium"),
             (2, 2)),
+        "hymba_extra_dp": lambda: stepped(
+            out, "hymba_extra_dp", smoke_config("hymba-1.5b"), (2, 2)),
         "moe_none_dp2": lambda: stepped(
             out, "moe_none_dp2", smoke_config("kimi-k2-1t-a32b"), (2, 1),
             n_steps=2, loss_fn=True),

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Tensor parallelism over four distinct cards: qwen2-vl-72b uncut served,
 then training steps whose slices live on four cards, then mamba2-1.3b's
-split SSD served and trained on three layouts.
+split SSD served and trained on three layouts, then FSDP over 'data'.
 
-  python3 tools/tp_cards.py [--gen 8] [--cases qwen,train,mamba2]
+  python3 tools/tp_cards.py [--gen 8] [--cases qwen,train,mamba2,fsdp]
 
 Needs four CUDA cards.
 
@@ -59,6 +59,19 @@ norm's summed squares, the replicated vectors) reaches them through
 order: one left out would be added in the order the cards' threads
 finish, and only distinct cards show it.
 
+FSDP (``--cases fsdp``; ``distributed/fsdp.py``, the reference's
+default parameter rules): deepseek-7b at its published config, uncut,
+uncompressed: 6.91 B float32 parameters and AdamW moments, 83 GB, which
+no card holds with a step's gradients. Trained 2 steps at 4 x 2048 in
+one microbatch at (4, 1) (four data slices, each holding a quarter of
+every 'embed'-split leaf and of both moments, each running its row on
+the layers gathered onto its card) and at (2, 2) (two slices of two
+'model' ranks, each rank a quarter), each on ``[cuda:0..3]`` and on the
+rotated layout: losses, grad norms and every piece bitwise across the
+two. Then the (1, 4) tensor-parallel layout of the same step, whose
+per-card peak memory and first loss stand beside them (the loss within
+2^-7 of the (4, 1) step's).
+
 The card's nvidia-smi name and power limit are printed first; the last
 line is one JSON object with every number.
 """
@@ -89,7 +102,16 @@ MAMBA = (("mamba2-1.3b (1, 4)", "mamba2-1.3b", {}, (1, TP), 8, 2048, 2,
          ("mamba2-1.3b 16 layers int8 (2, 2)", "mamba2-1.3b",
           dict(num_layers=16), (2, 2), 8, 2048, 2, True))
 MAMBA_SERVE = dict(requests=4, prompt_len=2048)
-CASES = ("qwen", "train", "mamba2")
+FSDP = (("deepseek-7b (4, 1)", "deepseek-7b", {}, (4, 1), 4, 2048, 1,
+         False),
+        ("deepseek-7b (2, 2)", "deepseek-7b", {}, (2, 2), 4, 2048, 1,
+         False))
+FSDP_TP = ("deepseek-7b (1, 4)", "deepseek-7b", {}, (1, TP), 4, 2048, 1,
+           False)
+# the (1, 4) step's first loss against the (4, 1) step's: chip_smoke's
+# TP_TRAIN_RTOL (2^-7)
+FSDP_RTOL = 2.0 ** -7
+CASES = ("qwen", "train", "mamba2", "fsdp")
 
 
 def layerwise_params(torch, cfg, plan):
@@ -302,6 +324,30 @@ def mamba2_runs(torch, np, gen):
     return out, ok
 
 
+def fsdp_runs(torch, np):
+    """The FSDP cases (see the module docstring): ({name: record}, ok)."""
+    cards = [torch.device("cuda", i) for i in range(TP)]
+    out = {}
+    for case in FSDP:
+        out[case[0]] = train_pair(torch, np, case, {
+            "cuda:0..3": cards, "rotated": [cards[i] for i in ROTATED]})
+    rec, _ = train_case(torch, FSDP_TP, cards)
+    out[FSDP_TP[0]] = rec
+    first = out[FSDP[0][0]]["layouts"]["cuda:0..3"]["metrics"][0][0]
+    rel = abs(rec["metrics"][0][0] - first) / abs(first)
+    print(f"{FSDP_TP[0]}: losses / grad norms {rec['metrics']}, s/step "
+          f"{[round(w, 3) for w in rec['step_s']]}, state "
+          f"{rec['state_gb']:.2f} GB, peak GB a card "
+          f"{[round(p, 2) for p in rec['peak_gb_per_card']]}; its first "
+          f"loss against the (4, 1) step's: relative {rel:.2e} "
+          f"[{FSDP_RTOL:g}]", flush=True)
+    ok = rel <= FSDP_RTOL and np.isfinite(rec["metrics"]).all() and all(
+        r["bitwise"] and r["finite"] and all(
+            len(x["homes"]) == TP for x in r["layouts"].values())
+        for r in (out[c[0]] for c in FSDP))
+    return out, ok
+
+
 def qwen_serve(torch, np, gen):
     """qwen2-vl-72b uncut served on two layouts (see the module
     docstring): (record, ok)."""
@@ -400,7 +446,7 @@ def main() -> int:
     if "mamba2" in cases:                     # attention-free: no build
         out["mamba2"], m_ok = mamba2_runs(torch, np, args.gen)
         ok = ok and m_ok
-    if {"qwen", "train"} & set(cases):
+    if {"qwen", "train", "fsdp"} & set(cases):
         _build.build_all(["flash_attention_tc", "flash_attention_bwd_tc"])
     if "qwen" in cases:
         out["qwen"], q_ok = qwen_serve(torch, np, args.gen)
@@ -408,6 +454,9 @@ def main() -> int:
     if "train" in cases:
         out["train"], train_ok = train_runs(torch, np)
         ok = ok and train_ok
+    if "fsdp" in cases:
+        out["fsdp"], fsdp_ok = fsdp_runs(torch, np)
+        ok = ok and fsdp_ok
     out["ok"] = ok
     print(json.dumps(out))
     return 0 if ok else 1
